@@ -1,0 +1,520 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each; any failure raises and the script exits
+non-zero, printing no result:
+
+1. device - a CUDA card is present; its name and power limit.
+2. build - the Hopper kernels built from csrc/ with nvcc (seconds,
+   registers and spills per kernel).
+3. kernel_check - K1 (forward), K2 (dK/dV), K3 (dQ) against their plain
+   PyTorch versions in bf16 on the card, with and without the
+   key-padding mask, causal and not, at (b=4, s=512, h=12, d=64) and
+   (b=4, s=512, h=6, d=128).
+4. kernel_times - at one BERT-base layer's shape, each kernel against
+   its plain version once more, then the median ms of each kernel, its
+   plain version and F.scaled_dot_product_attention, with the bound
+   computed from those inputs.
+5. train - BERT-base MLM at full width (12 x 768, 12 x 64 heads, vocab
+   30522, seq 512, batch 32, AdamW wd 0.01, --flash --packed) through
+   the CLI's run(); launch counters must equal 12 per forward (K1) and
+   per backward (K2, K3) pass. train_plain: the same run on the plain
+   attention path.
+6. profile - device time of two flash training steps by kernel.
+7. plain_parity - one Trainer.step from the same seed through the flash
+   kernels, the plain bf16 path and an f32 plain path, packed and
+   unpacked (the unpacked one runs the in-kernel mask path inside the
+   model): losses and gradients within the stated tolerances.
+Then the kernel summary line, the nvidia-smi line, and the result line.
+Imports nothing of JAX and nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+import torch.nn.functional as F
+
+# H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, HBM3
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+# bf16 outputs of a kernel and its plain version both round an f32
+# result once: allow 2 bf16 ulps (2 * 2^-8) of the largest magnitude
+KERNEL_RTOL = 2 * 2.0**-8
+# flash vs plain attention inside BERT-base in bf16: the plain path runs
+# both products in bf16, the kernels in f32, so logits differ by bf16
+# roundings; the f32 loss (about ln 30522 = 10.3) may differ by this
+LOSS_ATOL = 2e-2
+# gradients: relative L2 distance to the f32 step, flash route over
+# plain bf16 route, for each parameter (distances below GRAD_FLOOR
+# count as GRAD_FLOOR)
+GRAD_RATIO = 1.5
+GRAD_FLOOR = 1e-2
+MAIN_SHAPE = (32, 512, 12, 64)  # one BERT-base layer at the bench's batch
+CHECK_SHAPES = ((4, 512, 12, 64), (4, 512, 6, 128))
+LAYERS = 12
+SOURCE = "tf_operator_tpu_torch/csrc/flash_attention.cu"
+REPLACES = {
+    "flash_fwd": "tf_operator_tpu/ops/pallas/flash_attention.py:88",
+    "flash_bwd_dkv": "tf_operator_tpu/ops/pallas/flash_attention.py:250",
+    "flash_bwd_dq": "tf_operator_tpu/ops/pallas/flash_attention.py:324",
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def make_inputs(b, s, h, d, seed, with_mask, causal):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, g = (
+        torch.randn((b, s, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+        for _ in range(4)
+    )
+    mask = None
+    if with_mask:
+        mask = torch.ones((b, s), device="cuda")
+        for row in range(b):
+            mask[row, s - 37 * (row + 1):] = 0.0
+        if not causal:
+            # a batch row whose keys are all padding: uniform weights and
+            # a finite lse in kernel and plain version alike
+            mask[0] = 0.0
+    return q, k, v, g, mask
+
+
+def ptxas_summary(log: str) -> dict:
+    """{"flash_fwd_kernel<64>": "0 bytes spilled; 80 registers", ...}
+    from nvcc's -Xptxas -v output."""
+    import re
+
+    summary, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"(flash_(?:fwd|bwd_dkv|bwd_dq)_kernel)ILi(\d+)E", line)
+        if entry:
+            name = f"{entry.group(1)}<{entry.group(2)}>"
+            summary[name] = ""
+            continue
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if name and spill:
+            summary[name] += f"{spill.group(1)} bytes spilled; "
+        if name and regs:
+            summary[name] += f"{regs.group(1)} registers"
+    return summary
+
+
+def model_flop_per_token(cfg, seq: int) -> int:
+    """Training FLOP per token of BertForMLM: 3x the forward's matmuls
+    (2 per weight for the projections, MLP and head; 4 * seq * hidden
+    per layer for q.k and p.v), recomputation not counted."""
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    weights = cfg.num_layers * (4 * h * h + 2 * h * inter) + h * cfg.vocab_size
+    return 3 * (2 * weights + 4 * cfg.num_layers * seq * h)
+
+
+def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def check_case(kernels, fa, inputs, causal, case, worst) -> None:
+    """K1-K3 against their plain versions on one set of inputs; records
+    each kernel's (error, tolerance) in `case`, keeps the worst (error /
+    tolerance) per kernel in `worst`, and raises on one out of
+    tolerance."""
+    q, k, v, g, mask = inputs
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    out, lse, out_f32 = kernels.flash_fwd(q, k, v, mask, causal, scale)
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, mask, causal, scale)
+    delta = fa._delta(out_f32, g)
+    args = (q, k, v, mask, g, lse, delta, causal, scale)
+    dk, dv = kernels.flash_bwd_dkv(*args)
+    dq = kernels.flash_bwd_dq(*args)
+    ref_dk, ref_dv = fa.flash_backward_dkv_reference(*args)
+    ref_dq = fa.flash_backward_dq_reference(*args)
+    torch.cuda.synchronize()
+    pairs = {
+        "flash_fwd": [(out, ref_out)],
+        "flash_bwd_dkv": [(dk, ref_dk), (dv, ref_dv)],
+        "flash_bwd_dq": [(dq, ref_dq)],
+    }
+    for name, items in pairs.items():
+        for got, want in items:
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"{name} {case}: bad shape or non-finite")
+            err = max_err(got, want)
+            tol = KERNEL_RTOL * max(1.0, want.float().abs().max().item())
+            case[name] = [err, tol]
+            if err > tol:
+                raise AssertionError(f"{name} {case}: error {err} > {tol}")
+            if name not in worst or err / tol > worst[name][0] / worst[name][1]:
+                worst[name] = (err, tol)
+    lse_err = (lse - ref_lse).abs().max().item()
+    case["lse"] = lse_err
+    if lse_err > 1e-3:
+        raise AssertionError(f"lse {case}: error {lse_err}")
+    # K1's f32 output (what delta is taken from) against the plain
+    # version's before rounding: f32 sums in another order
+    ref_f32, _ = fa._forward_f32(q, k, v, mask, causal, scale)
+    f32_err = max_err(out_f32, ref_f32)
+    case["out_f32"] = f32_err
+    if f32_err > 1e-5 * max(1.0, ref_f32.abs().max().item()):
+        raise AssertionError(f"out_f32 {case}: error {f32_err}")
+
+
+def check_kernels(kernels, fa) -> dict:
+    """Each kernel against its plain version at CHECK_SHAPES, with and
+    without the mask, causal and not; returns per kernel the worst
+    (error / tolerance) case as (error, tolerance)."""
+    worst = {}
+    for b, s, h, d in CHECK_SHAPES:
+        for causal in (False, True):
+            for with_mask in (False, True):
+                inputs = make_inputs(b, s, h, d, 1, with_mask, causal)
+                case = {"shape": [b, s, h, d], "causal": causal, "mask": with_mask}
+                check_case(kernels, fa, inputs, causal, case, worst)
+                emit({"phase": "kernel_check", **case})
+    return worst
+
+
+def time_kernels(kernels, fa, worst) -> dict:
+    """At the main-path shape: each kernel against its plain version
+    (into `worst`), then the median ms of each kernel, its plain version
+    and the library call, plus the bound from these inputs."""
+    b, s, h, d = MAIN_SHAPE
+    inputs = make_inputs(b, s, h, d, 2, False, False)
+    case = {"shape": list(MAIN_SHAPE), "causal": False, "mask": False}
+    check_case(kernels, fa, inputs, False, case, worst)
+    emit({"phase": "kernel_check", **case})
+    q, k, v, g, _ = inputs
+    scale = 1.0 / math.sqrt(d)
+    out, lse, out_f32 = kernels.flash_fwd(q, k, v, None, False, scale)
+    delta = fa._delta(out_f32, g)
+    args = (q, k, v, None, g, lse, delta, False, scale)
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt)
+    gt = g.transpose(1, 2)
+
+    def sdpa_backward():
+        torch.autograd.grad(sdpa_out, (qt, kt, vt), gt, retain_graph=True)
+
+    with torch.no_grad():
+        sdpa_fwd_ms = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    sdpa_bwd_ms = median_ms(sdpa_backward)
+
+    n = b * s * h * d  # elements of one [b, s, h, d] tensor
+    pairs = b * h * s * s
+    stats_bytes = 4 * b * h * s  # one f32 row statistic
+    work = {
+        # name: (FLOP, bytes: each input read once, each output written
+        # once). K1's outputs are O in bf16 and lse, as the TPU kernel's;
+        # its extra f32 copy of O is reported beside the bound.
+        "flash_fwd": (4 * pairs * d, 2 * 3 * n + 2 * n + stats_bytes),
+        "flash_bwd_dkv": (8 * pairs * d, 2 * 4 * n + 2 * stats_bytes + 2 * 2 * n),
+        "flash_bwd_dq": (6 * pairs * d, 2 * 4 * n + 2 * stats_bytes + 2 * n),
+    }
+    timed = {
+        "flash_fwd": (
+            lambda: kernels.flash_fwd(q, k, v, None, False, scale),
+            lambda: fa.flash_forward_reference(q, k, v, None, False, scale),
+            sdpa_fwd_ms,
+        ),
+        "flash_bwd_dkv": (
+            lambda: kernels.flash_bwd_dkv(*args),
+            lambda: fa.flash_backward_dkv_reference(*args),
+            sdpa_bwd_ms,
+        ),
+        "flash_bwd_dq": (
+            lambda: kernels.flash_bwd_dq(*args),
+            lambda: fa.flash_backward_dq_reference(*args),
+            sdpa_bwd_ms,
+        ),
+    }
+    result = {}
+    for name, (kernel_fn, plain_fn, library_ms) in timed.items():
+        flops, nbytes = work[name]
+        op_ms = flops / PEAK_BF16_FLOPS * 1e3
+        byte_ms = nbytes / PEAK_BYTES * 1e3
+        result[name] = {
+            "ms": median_ms(kernel_fn),
+            "plain_ms": median_ms(plain_fn, iters=5, warmup=1),
+            "bound_ms": max(op_ms, byte_ms),
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+            "library_ms": library_ms,
+            "flop": flops,
+            "bytes": nbytes,
+        }
+    f32_out_bytes = 4 * n
+    emit({"phase": "kernel_times", "shape": list(MAIN_SHAPE), "dtype": "bfloat16",
+          "flash_fwd_f32_out_bytes": f32_out_bytes,
+          "flash_fwd_f32_out_ms_at_peak": f32_out_bytes / PEAK_BYTES * 1e3,
+          "library": "F.scaled_dot_product_attention (K2, K3: its backward, "
+                     "dq+dk+dv together)", **result})
+    return result
+
+
+def profile_step(bert_lib, trainer_lib, flash_attention) -> None:
+    """Device time of two BERT-base flash training steps by kernel
+    (torch.profiler), the flash kernels' share of it, and the device's
+    busy share of the window's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = bert_lib.BERT_BASE
+    model = bert_lib.BertForMLM(
+        cfg, attention_fn=flash_attention, generator=torch.Generator().manual_seed(5)
+    )
+    trainer = trainer_lib.Trainer(
+        model, trainer_lib.mlm_task(model), learning_rate=1e-4,
+        weight_decay=0.01, packed=True, device="cuda",
+    )
+    state = trainer.init()
+    batch = trainer.place_batch(bert_lib.synthetic_batch(
+        torch.Generator().manual_seed(6), MAIN_SHAPE[0], MAIN_SHAPE[1], cfg
+    ))
+    state, _ = trainer.step(state, batch)
+    torch.cuda.synchronize()
+    steps = 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.monotonic()
+        for _ in range(steps):
+            state, _ = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - start) * 1e3
+    kernels = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    total_us = sum(e.self_device_time_total for e in kernels)
+    ours = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+    flash_us = sum(
+        e.self_device_time_total for e in kernels if any(n in e.key for n in ours)
+    )
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    emit({
+        "phase": "profile", "steps": steps, "wall_ms_per_step": wall_ms / steps,
+        "device_ms_per_step": total_us / 1e3 / steps,
+        "device_busy_share": total_us / 1e3 / wall_ms if wall_ms else None,
+        "flash_kernels_ms_per_step": flash_us / 1e3 / steps,
+        "flash_share_of_device": flash_us / total_us if total_us else None,
+        "top": [
+            {"kernel": e.key[:90], "ms_per_step": e.self_device_time_total / 1e3 / steps,
+             "calls_per_step": e.count / steps}
+            for e in top
+        ],
+    })
+
+
+def padded_batch(bert_lib, cfg, batch_size, seq_len, seed):
+    gen = torch.Generator().manual_seed(seed)
+    batch = bert_lib.synthetic_batch(gen, batch_size, seq_len, cfg)
+    for row in range(batch_size):
+        length = seq_len - 13 * row
+        batch["attention_mask"][row, length:] = 0
+        batch["mlm_weights"][row, length:] = 0.0
+    return batch
+
+
+def plain_parity(kernels, bert_lib, trainer_lib, flash_attention) -> dict:
+    """One step from the same weights and batch through the flash
+    kernels and through the plain attention path, both in bf16, packed
+    and unpacked; the unpacked flash step must launch each kernel once
+    per layer. Gradients are held against the same step in f32 (plain
+    attention, full-f32 matmuls): the flash route may be no further
+    from it than the plain bf16 route, parameter by parameter."""
+    import dataclasses
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = bert_lib.BERT_BASE
+    routes = (
+        ("flash", flash_attention, base),
+        ("plain", None, base),
+        ("f32", None, dataclasses.replace(base, dtype=torch.float32)),
+    )
+    batch_size, seq_len = MAIN_SHAPE[0], MAIN_SHAPE[1]
+    report = {}
+    for packed in (True, False):
+        if packed:
+            batch = bert_lib.synthetic_batch(
+                torch.Generator().manual_seed(7), batch_size, seq_len, base
+            )
+        else:
+            batch = padded_batch(bert_lib, base, batch_size, seq_len, seed=7)
+        losses, grads = {}, {}
+        for route, attention_fn, cfg in routes:
+            model = bert_lib.BertForMLM(
+                cfg, attention_fn=attention_fn,
+                generator=torch.Generator().manual_seed(3),
+            )
+            trainer = trainer_lib.Trainer(
+                model, trainer_lib.mlm_task(model), learning_rate=1e-4,
+                weight_decay=0.01, packed=packed, device="cuda",
+            )
+            state = trainer.init()
+            kernels.reset_launches()
+            state, metrics = trainer.step(state, trainer.place_batch(batch))
+            losses[route] = float(metrics["loss"])
+            counts = dict(kernels.LAUNCHES)
+            want = LAYERS if route == "flash" else 0
+            if any(c != want for c in counts.values()):
+                raise AssertionError(f"{route} packed={packed}: launches {counts}, want {want} each")
+            grads[route] = {n: p.grad for n, p in model.named_parameters()}
+            del model, trainer, state
+        errors = {"flash": {}, "plain": {}}
+        for name, truth in grads["f32"].items():
+            if name.endswith("attention.key.bias"):
+                # zero in exact arithmetic (a key bias shifts every score
+                # of a row by q.b, which the softmax ignores), so every
+                # route holds only rounding noise there
+                continue
+            for route in errors:
+                diff = (grads[route][name] - truth).norm() / truth.norm().clamp_min(1e-30)
+                errors[route][name] = diff.item()
+        worst = {r: max(e.items(), key=lambda kv: kv[1]) for r, e in errors.items()}
+        ratios = sorted(
+            ((errors["flash"][n] / max(errors["plain"][n], GRAD_FLOOR), n,
+              errors["flash"][n], errors["plain"][n]) for n in errors["flash"]),
+            reverse=True,
+        )
+        ratio, ratio_name = ratios[0][0], ratios[0][1]
+        key = "packed" if packed else "unpacked"
+        report[key] = {
+            "loss_flash": losses["flash"], "loss_plain": losses["plain"],
+            "loss_f32": losses["f32"],
+            "loss_diff": abs(losses["flash"] - losses["plain"]), "loss_atol": LOSS_ATOL,
+            "worst_grad_err_flash": worst["flash"], "worst_grad_err_plain": worst["plain"],
+            "worst_flash_over_plain": [ratio_name, ratio, GRAD_RATIO],
+            "top_ratios": ratios[:6],
+        }
+        emit({"phase": "plain_parity", "batch": key, **report[key]})
+        if not all(math.isfinite(x) for x in losses.values()):
+            raise AssertionError(f"non-finite loss {losses}")
+        if report[key]["loss_diff"] > LOSS_ATOL:
+            raise AssertionError(f"{key}: loss diff {report[key]['loss_diff']} > {LOSS_ATOL}")
+        if ratio > GRAD_RATIO:
+            raise AssertionError(
+                f"{key}: gradient of {ratio_name} is {ratio}x further from f32 "
+                f"than the plain path's (> {GRAD_RATIO})"
+            )
+        del grads
+        torch.cuda.empty_cache()
+    return report
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs one CUDA card")
+    from tf_operator_tpu_torch.models import bert as bert_lib
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops import kernels
+    from tf_operator_tpu_torch.train import bert as bert_cli
+    from tf_operator_tpu_torch.train import trainer as trainer_lib
+
+    smi = nvidia_smi()
+    card = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "kind": card, "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    start = time.monotonic()
+    kernels.library()
+    build_s = time.monotonic() - start
+    ptxas = ptxas_summary(str(kernels.build_info.get("ptxas", "")))
+    emit({"phase": "build", "seconds": build_s, "nvcc_seconds": kernels.build_info["seconds"],
+          "library": kernels.build_info["path"], "ptxas": ptxas})
+
+    worst = check_kernels(kernels, fa)
+    times = time_kernels(kernels, fa, worst)
+
+    args = bert_cli.parse_args([
+        "--preset", "base", "--steps", "5", "--batch-size", str(MAIN_SHAPE[0]),
+        "--seq-len", str(MAIN_SHAPE[1]), "--flash", "--packed",
+        "--weight-decay", "0.01", "--learning-rate", "1e-4", "--log-every", "1",
+    ])
+    kernels.reset_launches()
+    summary = bert_cli.run(args)
+    launches = dict(kernels.LAUNCHES)
+    want = {
+        "flash_fwd": LAYERS * summary["forward_passes"],
+        "flash_bwd_dkv": LAYERS * summary["backward_passes"],
+        "flash_bwd_dq": LAYERS * summary["backward_passes"],
+    }
+    flop_per_token = model_flop_per_token(bert_lib.BERT_BASE, MAIN_SHAPE[1])
+    emit({"phase": "train", "model": "BERT-base MLM", "batch": MAIN_SHAPE[0],
+          "seq": MAIN_SHAPE[1], "card": smi, **summary,
+          "model_flop_per_token": flop_per_token,
+          "mfu": summary["tokens_per_sec"] * flop_per_token / PEAK_BF16_FLOPS,
+          "launches": launches, "launches_expected": want})
+    if launches != want:
+        raise AssertionError(f"launches {launches} != expected {want}")
+    for key in ("loss", "eval_loss", "tokens_per_sec"):
+        if not math.isfinite(summary[key]) or summary[key] <= 0:
+            raise AssertionError(f"train {key} = {summary[key]}")
+    torch.cuda.empty_cache()
+
+    # the same run through the plain attention path, for comparison
+    plain = bert_cli.run(bert_cli.parse_args([
+        "--preset", "base", "--steps", "5", "--batch-size", str(MAIN_SHAPE[0]),
+        "--seq-len", str(MAIN_SHAPE[1]), "--packed", "--weight-decay", "0.01",
+        "--learning-rate", "1e-4", "--log-every", "1",
+    ]))
+    emit({"phase": "train_plain", "card": smi, **plain,
+          "mfu": plain["tokens_per_sec"] * flop_per_token / PEAK_BF16_FLOPS})
+    torch.cuda.empty_cache()
+
+    profile_step(bert_lib, trainer_lib, fa.flash_attention)
+    torch.cuda.empty_cache()
+
+    plain_parity(kernels, bert_lib, trainer_lib, fa.flash_attention)
+
+    emit({"kernels": [
+        {
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": worst[name][0], "tolerance": worst[name][1],
+            "ms": times[name]["ms"],
+            "plain_ms": times[name]["plain_ms"], "bound_ms": times[name]["bound_ms"],
+            "bound_by": times[name]["bound_by"], "library_ms": times[name]["library_ms"],
+        }
+        for name in REPLACES
+    ]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": card,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -49,6 +49,11 @@ def pytest_configure(config):
     )
     config.addinivalue_line(
         "markers",
+        "cuda: needs an NVIDIA card with CUDA; skips where "
+        "torch.cuda.is_available() is false",
+    )
+    config.addinivalue_line(
+        "markers",
         "dispatch_budget(compiles, per_quantum): override the "
         "--dispatch-guard budgets for one test (e.g. a test that "
         "deliberately provokes a recompile)",
