@@ -1,0 +1,212 @@
+"""The port's 3x3 conv (tf_operator_tpu_torch/ops/conv_bn.py) held against
+the JAX package's, on the same numpy inputs.
+
+On the CPU the port's conv3x3_s1 runs the kernels' plain f32 versions
+and the JAX side runs its Pallas kernels in interpret mode, as
+tests/test_attention.py::TestPallasConv does, at that test's shapes.
+The tolerances are the reference's own: 1e-4 on the forward, 2e-3 on
+the gradients. The test of the CUDA kernels against their plain
+versions needs a card and skips without one; on a machine with a card
+and no JAX run it with
+`python -m pytest --noconftest tests/test_torch_conv.py -m cuda`.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from tf_operator_tpu.ops.pallas.conv_bn import conv3x3_s1 as jax_conv
+except ImportError:  # a card machine without JAX runs only the cuda tests
+    jax = None
+
+from tf_operator_tpu_torch.ops import conv_bn
+from tf_operator_tpu_torch.ops import kernels
+
+FWD_ATOL = 1e-4
+GRAD_ATOL = 2e-3
+
+
+@pytest.fixture
+def needs_jax():
+    if jax is None:
+        pytest.skip("JAX is not installed")
+
+
+def _inputs(shape, cout, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    k = (rng.standard_normal((3, 3, shape[3], cout)) / np.sqrt(shape[3])).astype(np.float32)
+    return x, k
+
+
+@pytest.mark.parametrize(
+    "shape,cout",
+    [((2, 8, 8, 64), 64), ((4, 4, 4, 128), 64), ((1, 16, 8, 64), 128)],
+)
+def test_forward_matches_jax(needs_jax, shape, cout):
+    x, k = _inputs(shape, cout, 0)
+    assert conv_bn.supports(shape, k.shape, (1, 1), torch.float32, "cpu")
+    want = np.asarray(jax_conv(jnp.asarray(x), jnp.asarray(k), True))
+    got = conv_bn.conv3x3_s1(torch.tensor(x), torch.tensor(k))
+    np.testing.assert_allclose(got.numpy(), want, atol=FWD_ATOL, rtol=FWD_ATOL)
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 8, 8, 64), 64),
+    ((16, 8, 8, 64), 64),
+    ((2, 4, 4, 256), 512),
+], ids=["single-block", "multi-image-block", "cout-blocked"])
+def test_gradients_match_jax(needs_jax, shape, cout):
+    """dx (the forward on the cotangent with the flipped, transposed
+    kernel) and dW (the nine x_shift^T g taps) of sum(y^2)."""
+    x, k = _inputs(shape, cout, 2)
+
+    def loss(x, k):
+        return (jax_conv(x, k, True).astype(jnp.float32) ** 2).sum()
+
+    val, (gx, gk) = jax.value_and_grad(loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(k))
+    xt = torch.tensor(x, requires_grad=True)
+    kt = torch.tensor(k, requires_grad=True)
+    out = (conv_bn.conv3x3_s1(xt, kt) ** 2).sum()
+    out.backward()
+    np.testing.assert_allclose(out.item(), float(val), rtol=1e-4)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), atol=GRAD_ATOL, rtol=GRAD_ATOL)
+    np.testing.assert_allclose(kt.grad.numpy(), np.asarray(gk), atol=GRAD_ATOL, rtol=GRAD_ATOL)
+
+
+def test_plain_versions_match_torch_conv():
+    """The plain versions against torch's own conv and its gradients, in
+    f64 so that only the algorithm is compared: a wrong tap order, flip
+    or transpose cannot hide inside a tolerance."""
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.standard_normal((2, 5, 7, 64)))
+    k = torch.tensor(rng.standard_normal((3, 3, 64, 128)))
+    g = torch.tensor(rng.standard_normal((2, 5, 7, 128)))
+    x_nchw = x.permute(0, 3, 1, 2)
+    w_oihw = k.permute(3, 2, 0, 1)
+    want = torch.nn.functional.conv2d(x_nchw, w_oihw, padding=1).permute(0, 2, 3, 1)
+    torch.testing.assert_close(conv_bn.conv3x3_fwd_plain(x, k).double(), want)
+    want_dw = torch.nn.grad.conv2d_weight(
+        x_nchw, w_oihw.shape, g.permute(0, 3, 1, 2), padding=1
+    ).permute(2, 3, 1, 0)
+    torch.testing.assert_close(conv_bn.conv3x3_dw_plain(x, g).double(), want_dw)
+    dx = conv_bn.conv3x3_fwd_plain(g, k.flip(0, 1).transpose(2, 3))
+    want_dx = torch.nn.grad.conv2d_input(
+        x_nchw.shape, w_oihw, g.permute(0, 3, 1, 2), padding=1
+    ).permute(0, 2, 3, 1)
+    torch.testing.assert_close(dx.double(), want_dx)
+
+
+@pytest.mark.parametrize("x_shape,w_shape,strides,dtype,device,ok", [
+    ((2, 8, 8, 64), (3, 3, 64, 64), (1, 1), torch.bfloat16, "cuda", True),
+    ((256, 7, 7, 512), (3, 3, 512, 512), (1, 1), torch.bfloat16, "cuda", True),
+    ((3, 8, 8, 64), (3, 3, 64, 128), (1, 1), torch.float32, "cpu", True),
+    ((2, 8, 8, 64), (3, 3, 64, 64), (2, 2), torch.bfloat16, "cuda", False),
+    ((2, 8, 8, 63), (3, 3, 63, 64), (1, 1), torch.bfloat16, "cuda", False),
+    ((2, 8, 8, 64), (3, 3, 64, 96), (1, 1), torch.bfloat16, "cuda", False),
+    ((2, 8, 8, 64), (1, 1, 64, 64), (1, 1), torch.bfloat16, "cuda", False),
+    ((2, 8, 8, 64), (3, 3, 64, 64), (1, 1), torch.float32, "cuda", False),
+    ((2, 8, 8, 64), (3, 3, 64, 64), (1, 1), torch.float16, "cuda", False),
+], ids=["bf16", "stage3-n256", "cpu-f32", "stride2", "channels", "cout",
+        "1x1", "cuda-f32", "cuda-f16"])
+def test_supports_gates(x_shape, w_shape, strides, dtype, device, ok):
+    assert conv_bn.supports(x_shape, w_shape, strides, dtype, device) is ok
+
+
+def test_supports_takes_resnet50_stride1_convs():
+    """Every stride-1 3x3 conv of ResNet-50 at batch 256, as the
+    reference's supports() takes them, and any N (no n % tn rule)."""
+    stages = ((56, 64), (28, 128), (14, 256), (7, 512))
+    counts = (3, 3, 5, 2)  # stride-1 Conv_1s per stage at sizes 3, 4, 6, 3
+    taken = 0
+    for (size, c), count in zip(stages, counts):
+        for n in (256, 1, 3, 255):
+            assert conv_bn.supports((n, size, size, c), (3, 3, c, c), (1, 1))
+        taken += count
+    assert taken == 13
+
+
+def test_launchers_refuse_cpu_tensors():
+    x = torch.zeros((1, 4, 4, 64), dtype=torch.bfloat16)
+    k = torch.zeros((3, 3, 64, 64), dtype=torch.bfloat16)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.conv3x3_fwd(x, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.conv3x3_dw(x, x)
+    assert kernels.LAUNCHES == before
+
+
+def test_cpu_route_never_launches():
+    x, k = _inputs((1, 4, 4, 64), 64, 3)
+    before = dict(kernels.LAUNCHES)
+    xt = torch.tensor(x, requires_grad=True)
+    conv_bn.conv3x3_s1(xt, torch.tensor(k)).sum().backward()
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("m,c,cout", [
+    (802816, 64, 64), (200704, 128, 128), (50176, 256, 256), (12544, 512, 512),
+    (392, 64, 64), (33, 512, 64),
+])
+def test_dw_splits_cover_the_reduction(m, c, cout):
+    """K5's split-K chunks cover every pixel once: splits * chunk >= m
+    and the last chunk is not empty."""
+    splits, chunk = kernels.dw_splits(m, c, cout)
+    assert chunk % kernels.DW_CHUNK_ALIGN == 0
+    assert (splits - 1) * chunk < m <= splits * chunk
+    assert splits >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout", [
+    ((8, 56, 56, 64), 64), ((8, 28, 28, 128), 128), ((8, 14, 14, 256), 256),
+    ((8, 7, 7, 512), 512), ((2, 8, 8, 128), 64), ((2, 4, 4, 256), 512),
+    ((3, 5, 9, 64), 128),
+])
+def test_cuda_kernels_match_plain_versions(shape, cout):
+    """K4 forward, K4 as dx and K5 on the card against their plain
+    versions in bf16: 2 bf16 ulps of the largest magnitude for the bf16
+    outputs; K5's f32 dW, summed in another order, within 1e-4 of its
+    largest magnitude, and bit-equal to itself on a rerun."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, h, w, c = shape
+    x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    k = (torch.randn((3, 3, c, cout), generator=gen, device="cuda") / c**0.5).bfloat16()
+    g = torch.randn((n, h, w, cout), generator=gen, device="cuda").bfloat16()
+    k_flip = k.flip(0, 1).transpose(2, 3).contiguous()
+    pairs = [
+        (kernels.conv3x3_fwd(x, k), conv_bn.conv3x3_fwd_plain(x, k), 2 * 2.0**-8),
+        (kernels.conv3x3_fwd(g, k_flip), conv_bn.conv3x3_fwd_plain(g, k_flip), 2 * 2.0**-8),
+        (kernels.conv3x3_dw(x, g), conv_bn.conv3x3_dw_plain(x, g), 1e-4),
+    ]
+    again = kernels.conv3x3_dw(x, g)
+    torch.cuda.synchronize()
+    assert torch.equal(again, pairs[2][0])  # split-K summed in a fixed order
+    for got, want, rtol in pairs:
+        assert got.shape == want.shape and got.dtype == want.dtype
+        tol = rtol * max(1.0, want.float().abs().max().item())
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0.0)
+
+
+@pytest.mark.cuda
+def test_cuda_float32_takes_the_torch_conv():
+    """The kernels take bf16 only: PallasConv3x3 routes an f32 tensor on
+    the card to the torch conv and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tf_operator_tpu_torch.models.resnet import PallasConv3x3
+
+    conv = PallasConv3x3(64, 64, dtype=torch.float32).cuda()
+    x = torch.randn((2, 64, 8, 8), device="cuda").to(memory_format=torch.channels_last)
+    before = dict(kernels.LAUNCHES)
+    out = conv(x)
+    assert kernels.LAUNCHES == before
+    want = torch.nn.functional.conv2d(x, conv.kernel.permute(3, 2, 0, 1), padding=1)
+    torch.testing.assert_close(out, want, atol=0.0, rtol=0.0)

@@ -15,6 +15,13 @@ JAX package's, plus the port's isolation from JAX.
   most 1e-5 (a LayerNorm scale of 1), within that tolerance, so the step
   is also taken at wd 0.5, where the decay moves weights by up to 5e-4
   and a dropped or mis-scaled decay cannot pass.
+- Two SGD-momentum steps of a small f32 ResNet (the xla route, width
+  8, one stage) from the same weights and numpy batch against the JAX Trainer with
+  optax.sgd(lr, momentum=0.9), the reference's ResNet optimizer: the
+  momentum only shows from the second step. Losses 1e-5, parameters
+  1e-5 (the gradients agree to 1e-4 and lr is 0.1), BatchNorm running
+  statistics 1e-5; then `evaluate` in eval mode (running statistics)
+  against the JAX Trainer's.
 - The port imports with jax, flax, optax, orbax and tf_operator_tpu
   blocked, and no module of it or chip_smoke.py imports them.
 """
@@ -34,13 +41,20 @@ import pytest
 import torch
 
 from tf_operator_tpu.models import bert as jax_bert
+from tf_operator_tpu.models import resnet as jax_resnet
 from tf_operator_tpu.parallel.mesh import single_device_mesh
+from tf_operator_tpu.parallel.sharding import CONV_RULES
 from tf_operator_tpu.train import trainer as jax_trainer
 from tf_operator_tpu_torch._device import resolve_device
 from tf_operator_tpu_torch.models import bert as torch_bert
-from tf_operator_tpu_torch.models.convert import bert_state_dict_from_flax
+from tf_operator_tpu_torch.models import resnet as torch_resnet
+from tf_operator_tpu_torch.models.convert import (
+    bert_state_dict_from_flax,
+    resnet_state_dict_from_flax,
+)
 from tf_operator_tpu_torch.ops import kernels
 from tf_operator_tpu_torch.train import bert as torch_bert_cli
+from tf_operator_tpu_torch.train import resnet as torch_resnet_cli
 from tf_operator_tpu_torch.train import trainer as torch_trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -203,6 +217,120 @@ def test_cli_run_summary():
     assert summary["forward_passes"] == 3 and summary["backward_passes"] == 2
 
 
+SGD_LR = 0.1
+SGD_STEPS = 2
+RESNET_SMALL = dict(stage_sizes=(1,), num_classes=10, width=8)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_sgd_run():
+    """Weights before, after each of two JAX Trainer.steps with
+    optax.sgd(lr, momentum=0.9), the step losses, and an evaluate after."""
+    model = jax_resnet.ResNet(**RESNET_SMALL, dtype=jnp.float32)
+    trainer = jax_trainer.Trainer(
+        model, jax_trainer.classification_task(model),
+        optax.sgd(SGD_LR, momentum=0.9), mesh=single_device_mesh(), rules=CONV_RULES,
+    )
+    rng = np.random.default_rng(4)
+    batch = {"image": rng.standard_normal((4, 32, 32, 3)).astype(np.float32),
+             "label": rng.integers(0, 10, (4,)).astype(np.int32)}
+    jbatch = trainer.place_batch({k: jnp.asarray(v) for k, v in batch.items()})
+    state = trainer.init(jax.random.PRNGKey(0), jbatch)
+    run = {"batch": batch, "params": [_np_tree(state.params)],
+           "stats": [_np_tree(state.batch_stats)], "loss": []}
+    for _ in range(SGD_STEPS):
+        state, metrics = trainer.step(state, jbatch)
+        run["loss"].append(float(metrics["loss"]))
+        run["params"].append(_np_tree(state.params))
+        run["stats"].append(_np_tree(state.batch_stats))
+    ev = trainer.evaluate(state, jbatch)
+    run["eval"] = {k: float(v) for k, v in ev.items()}
+    return run
+
+
+@pytest.fixture(scope="module")
+def sgd_run():
+    return _jax_sgd_run()
+
+
+def _port_resnet_trainer(run):
+    model = torch_resnet.ResNet(**RESNET_SMALL, dtype=torch.float32)
+    model.load_state_dict(resnet_state_dict_from_flax(run["params"][0], run["stats"][0]))
+    trainer = torch_trainer.Trainer(
+        model, torch_trainer.classification_task(model), learning_rate=SGD_LR,
+        device="cpu", optimizer="sgd",
+    )
+    batch = trainer.place_batch({
+        "image": torch.tensor(run["batch"]["image"]),
+        "label": torch.tensor(run["batch"]["label"]).long(),
+    })
+    return trainer, trainer.init(), batch
+
+
+def test_sgd_momentum_steps_match_optax(sgd_run):
+    trainer, state, batch = _port_resnet_trainer(sgd_run)
+    for i in range(SGD_STEPS):
+        state, metrics = trainer.step(state, batch)
+        np.testing.assert_allclose(float(metrics["loss"]), sgd_run["loss"][i], atol=ATOL)
+        want = resnet_state_dict_from_flax(sgd_run["params"][i + 1], sgd_run["stats"][i + 1])
+        got = state.model.state_dict()
+        assert set(got) == set(want)
+        for name, w in want.items():
+            np.testing.assert_allclose(got[name].numpy(), w.numpy(), atol=ATOL,
+                                       err_msg=f"step {i + 1} {name}")
+    assert state.step == SGD_STEPS
+    # the second step is not plain SGD: without momentum it would land elsewhere
+    moved = [
+        (sgd_run["params"][2]["Dense_0"]["kernel"] - sgd_run["params"][1]["Dense_0"]["kernel"]),
+        (sgd_run["params"][1]["Dense_0"]["kernel"] - sgd_run["params"][0]["Dense_0"]["kernel"]),
+    ]
+    assert np.abs(moved[0] - moved[1]).max() > 1e-3
+
+
+def test_classification_evaluate_matches_jax(sgd_run):
+    trainer, state, batch = _port_resnet_trainer(sgd_run)
+    for _ in range(SGD_STEPS):
+        state, _ = trainer.step(state, batch)
+    stats = {k: v.clone() for k, v in state.model.named_buffers()}
+    metrics = trainer.evaluate(state, batch)
+    assert not state.model.training
+    np.testing.assert_allclose(float(metrics["loss"]), sgd_run["eval"]["loss"], atol=ATOL)
+    np.testing.assert_allclose(
+        float(metrics["accuracy"]), sgd_run["eval"]["accuracy"], atol=1e-6
+    )
+    for name, value in state.model.named_buffers():
+        assert torch.equal(value, stats[name]), name  # eval reads, never updates
+
+
+def test_trainer_rejects_unknown_optimizer():
+    with pytest.raises(ValueError, match="optimizer"):
+        torch_trainer.Trainer(torch.nn.Linear(2, 2), None, device="cpu", optimizer="lamb")
+
+
+@pytest.mark.parametrize("conv3_impl", ["xla", "pallas"])
+def test_resnet_cli_runs_on_cpu(conv3_impl):
+    before = dict(kernels.LAUNCHES)
+    rc = torch_resnet_cli.main([
+        "--small", "--steps", "2", "--per-chip-batch", "4", "--image-size", "32",
+        "--device", "cpu", "--conv3-impl", conv3_impl, "--warmup-steps", "1",
+    ])
+    assert rc == 0
+    assert kernels.LAUNCHES == before  # CPU tensors never reach a kernel
+
+
+def test_resnet_cli_run_summary():
+    args = torch_resnet_cli.parse_args([
+        "--small", "--steps", "1", "--per-chip-batch", "2", "--image-size", "32",
+        "--device", "cpu", "--conv3-impl", "pallas",
+    ])
+    summary = torch_resnet_cli.run(args)
+    assert np.isfinite(summary["loss"]) and summary["images_per_sec"] > 0
+    assert summary["forward_passes"] == 2 and summary["backward_passes"] == 2
+    model, classes = torch_resnet_cli.build_model(args, torch.Generator().manual_seed(0))
+    assert classes == 10
+    assert isinstance(model.BottleneckBlock_0.Conv_1, torch_resnet.PallasConv3x3)
+
+
 def test_device_defaults_to_cuda_and_raises_without_it():
     assert resolve_device("cpu") == torch.device("cpu")
     if torch.cuda.is_available():
@@ -226,6 +354,8 @@ def _port_modules():
 def test_port_imports_with_jax_blocked():
     modules = _port_modules()
     assert "tf_operator_tpu_torch.ops.flash_attention" in modules
+    assert "tf_operator_tpu_torch.ops.conv_bn" in modules
+    assert "tf_operator_tpu_torch.models.resnet" in modules
     code = (
         "import sys\n"
         f"for name in {BLOCKED!r}:\n"

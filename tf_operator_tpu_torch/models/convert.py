@@ -1,4 +1,5 @@
-"""Carry a flax BERT param tree across to the port's state_dict.
+"""Carry a flax param tree across to the port's state_dict: BERT and
+ResNet.
 
 The input is the tree as nested dicts of numpy arrays (a caller holding
 a JAX tree maps `np.asarray` over it first), so this module never sees
@@ -45,8 +46,8 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return flat
 
 
-def _port_name(path: str):
-    for pattern, name, transpose in _COMPILED:
+def _port_name(path: str, rules=_COMPILED):
+    for pattern, name, transpose in rules:
         match = pattern.fullmatch(path)
         if match:
             return match.expand(name).replace("/", "."), transpose
@@ -62,4 +63,51 @@ def bert_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tens
         name, transpose = _port_name(path)
         array = value.T if transpose else value
         state[name] = torch.tensor(array, dtype=torch.float32)
+    return state
+
+
+# ResNet: (reference path, port name pattern, layout). Conv kernels are
+# HWIO in flax and OIHW for F.conv2d ("oihw"); PallasConv3x3 keeps its
+# HWIO kernel ("keep"); the Dense kernel is [in, out] in flax and
+# [out, in] in nn.Linear ("t"). BatchNorm scale/bias are parameters,
+# mean/var (from batch_stats) buffers of the same module.
+_BLOCK = r"BottleneckBlock_\d+"
+_BN = rf"(?:stem_bn|{_BLOCK}/(?:TpuBatchNorm_[012]|proj_bn))"
+_RESNET_PARAMS = (
+    (r"(stem|stem_s2d)/kernel", r"\1.weight", "oihw"),
+    (rf"({_BN})/(scale|bias)", r"\1.\2", "keep"),
+    (rf"({_BLOCK})/(Conv_0|Conv_2|proj)/kernel", r"\1.\2.weight", "oihw"),
+    (r"(Dense_0)/kernel", r"\1.weight", "t"),
+    (r"(Dense_0)/bias", r"\1.bias", "keep"),
+)
+_RESNET_STATS = ((rf"({_BN})/(mean|var)", r"\1.\2", "keep"),)
+
+
+def _compile(rules):
+    return tuple((re.compile(p), name, layout) for p, name, layout in rules)
+
+
+def resnet_state_dict_from_flax(
+    params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+    conv3_impl: str = "xla",
+) -> Dict[str, torch.Tensor]:
+    """flax ResNet params and batch_stats (nested dicts of numpy arrays)
+    -> a state_dict for models.resnet.ResNet built with the same
+    `conv3_impl`: its Conv_1 is an F.conv2d Conv (OIHW `weight`) under
+    "xla" and a PallasConv3x3 (HWIO `kernel`) under "pallas". Raises
+    KeyError on a path it does not map."""
+    conv1 = (rf"({_BLOCK})/(Conv_1)/kernel",) + (
+        (r"\1.\2.kernel", "keep") if conv3_impl == "pallas" else (r"\1.\2.weight", "oihw")
+    )
+    param_rules = _compile(_RESNET_PARAMS + (conv1,))
+    stat_rules = _compile(_RESNET_STATS)
+    state: Dict[str, torch.Tensor] = {}
+    for tree, rules in ((params, param_rules), (batch_stats, stat_rules)):
+        for path, value in _flatten(tree).items():
+            name, layout = _port_name(path, rules)
+            if layout == "oihw":
+                value = value.transpose(3, 2, 0, 1)
+            elif layout == "t":
+                value = value.T
+            state[name] = torch.tensor(np.ascontiguousarray(value), dtype=torch.float32)
     return state

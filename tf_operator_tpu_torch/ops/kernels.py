@@ -1,11 +1,12 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-The sources under `tf_operator_tpu_torch/csrc/` are compiled with nvcc
-for `sm_90a` into a shared library with a plain C interface, at first
-use, into `build/kernels/` at the root of the checkout (named by the
-source's hash, so an edited source is rebuilt), and loaded with ctypes.
-Nothing here runs at import: the CPU tests import this module on
-machines with no compiler and no card.
+Every source under `tf_operator_tpu_torch/csrc/` is compiled with nvcc
+for `sm_90a` at first use, one nvcc per source and all started
+together, and the objects are linked into one shared library with a
+plain C interface, in `build/kernels/` at the root of the checkout
+(named by a hash of all the sources, so an edited source is rebuilt),
+and loaded with ctypes. Nothing here runs at import: the CPU tests
+import this module on machines with no compiler and no card.
 
 Each launcher below checks device, dtype, shape and contiguity, raises
 on what the kernel does not take, allocates the outputs, launches on
@@ -28,7 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 _PACKAGE = Path(__file__).resolve().parent.parent
-SOURCE = _PACKAGE / "csrc" / "flash_attention.cu"
+SOURCES = tuple(sorted((_PACKAGE / "csrc").glob("*.cu")))
 BUILD_DIR = _PACKAGE.parent / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # what the kernels are instantiated for; ops/flash_attention.py routes
@@ -39,7 +40,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+# conv3x3_fwd counts K4's forward and dx launches alike; conv3x3_dw
+# counts one per weight gradient (its two passes are one launch here)
+LAUNCHES: Dict[str, int] = {
+    "flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+    "conv3x3_fwd": 0, "conv3x3_dw": 0,
+}
+# K5 splits the N*H*W reduction to fill the card: about this many
+# blocks, each chunk a multiple of DW_CHUNK_ALIGN pixels and at least
+# DW_MIN_CHUNK of them
+DW_TARGET_BLOCKS = 4 * 132
+DW_CHUNK_ALIGN = 32
+DW_MIN_CHUNK = 256
 
 _lib: Optional[ctypes.CDLL] = None
 build_info: Dict[str, object] = {}
@@ -62,32 +74,56 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the kernels' source into build/kernels/ unless a library
-    built from the same source is already there; returns its path."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libflash_attention-{digest}.so"
+    """Compile the kernels' sources into build/kernels/ unless a library
+    built from the same sources is already there; returns its path."""
+    digest = hashlib.sha256()
+    for source in SOURCES:
+        digest.update(source.name.encode() + b"\0" + source.read_bytes())
+    tag = digest.hexdigest()[:16]
+    lib_path = BUILD_DIR / f"libkernels-{tag}.so"
     if lib_path.exists():
         build_info.update(path=str(lib_path), seconds=0.0, cached=True)
         return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(SOURCE),
-    ]
+    work = BUILD_DIR / f"objs-{tag}.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     start = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.monotonic() - start
-    (BUILD_DIR / f"build-{digest}.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    procs = []
+    for source in SOURCES:
+        obj = work / f"{source.stem}.o"
+        cmd = [
+            nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-o", str(obj), str(source),
+        ]
+        procs.append((source, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )))
+    logs, failed = [], []
+    for source, _, proc in procs:
+        out, err = proc.communicate()
+        logs.append(f"== {source.name}\n{out}{err}")
+        if proc.returncode != 0:
+            failed.append(f"{source.name} ({proc.returncode}):\n{err[-4000:]}")
+    compile_seconds = time.monotonic() - start
+    log = "\n".join(logs)
+    (BUILD_DIR / f"build-{tag}.log").write_text(log)
+    if failed:
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run(
+        [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in procs)],
+        capture_output=True, text=True,
+    )
+    shutil.rmtree(work, ignore_errors=True)
+    if link.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-4000:]}")
     os.replace(tmp, lib_path)
     build_info.update(
-        path=str(lib_path), seconds=seconds, cached=False,
-        ptxas=proc.stderr,
+        path=str(lib_path), seconds=time.monotonic() - start,
+        compile_seconds=compile_seconds, cached=False, ptxas=log,
+        sources=[str(source.relative_to(_PACKAGE.parent)) for source in SOURCES],
     )
     return lib_path
 
@@ -110,7 +146,12 @@ def library() -> ctypes.CDLL:
         lib.flash_bwd_dq.argtypes = common + [
             _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
         ]
-        for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq):
+        lib.conv3x3_fwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+        lib.conv3x3_dw.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+        for fn in (
+            lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq,
+            lib.conv3x3_fwd, lib.conv3x3_dw,
+        ):
             fn.restype = _I
         lib.flash_error_string.argtypes = [_I]
         lib.flash_error_string.restype = ctypes.c_char_p
@@ -225,3 +266,82 @@ def flash_bwd_dq(q, k, v, kv_mask, dout, lse, delta, causal: bool, scale: float)
         )
     _check("flash_bwd_dq", rc)
     return dq
+
+
+def _check_conv_inputs(x: torch.Tensor, other: torch.Tensor, other_name: str) -> None:
+    """What K4 and K5 take: bf16 NHWC tensors, contiguous, 16-byte
+    aligned, on one CUDA device, with channels in multiples of 64."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be [N, H, W, C], got {tuple(x.shape)}")
+    for name, t in (("x", x), (other_name, other)):
+        if t.device.type != "cuda":
+            raise ValueError(f"expected CUDA tensors, got {name} on {t.device}")
+        if t.device != x.device:
+            raise ValueError("all tensors must be on one device")
+        if t.dtype != DTYPE:
+            raise ValueError(f"{name}: dtype {t.dtype} not supported ({DTYPE} only)")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous ({'NHWC' if t.dim() == 4 else 'HWIO'})")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if x.shape[3] % 64:
+        raise ValueError(f"channels {x.shape[3]} not a multiple of 64")
+    n, h, w, _ = x.shape
+    if n * h * w >= 2**31:
+        raise ValueError(f"N*H*W = {n * h * w} exceeds the kernels' int range")
+
+
+def conv3x3_fwd(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """K4. x [N, H, W, C] bf16 NHWC, kernel [3, 3, C, Cout] bf16 HWIO ->
+    the SAME 3x3 stride-1 convolution [N, H, W, Cout] in bf16, summed
+    in f32."""
+    _check_conv_inputs(x, kernel, "kernel")
+    n, h, w, c = x.shape
+    if kernel.dim() != 4 or tuple(kernel.shape[:3]) != (3, 3, c) or kernel.shape[3] % 64:
+        raise ValueError(
+            f"kernel must be [3, 3, {c}, Cout] with Cout a multiple of 64, "
+            f"got {tuple(kernel.shape)}"
+        )
+    cout = kernel.shape[3]
+    y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
+    lib = library()
+    with torch.cuda.device(x.device):
+        rc = lib.conv3x3_fwd(
+            x.data_ptr(), kernel.data_ptr(), y.data_ptr(), n, h, w, c, cout,
+            _stream(x.device),
+        )
+    _check("conv3x3_fwd", rc)
+    return y
+
+
+def dw_splits(m: int, c: int, cout: int) -> Tuple[int, int]:
+    """(splits, chunk): K5 sums the m = N*H*W pixels in `splits`
+    contiguous chunks of `chunk` pixels (the last may be shorter), enough
+    blocks to fill the card without chunks below DW_MIN_CHUNK."""
+    tiles = 9 * (c // 64) * (cout // 64)
+    want = max(1, min(-(-DW_TARGET_BLOCKS // tiles), -(-m // DW_MIN_CHUNK)))
+    chunk = -(-m // want)
+    chunk = -(-chunk // DW_CHUNK_ALIGN) * DW_CHUNK_ALIGN
+    return -(-m // chunk), chunk
+
+
+def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K5. x [N, H, W, C] and g [N, H, W, Cout], bf16 NHWC -> the weight
+    gradient [3, 3, C, Cout] in f32: split-K partials in a scratch
+    buffer, then their sum in a fixed order."""
+    _check_conv_inputs(x, g, "g")
+    n, h, w, c = x.shape
+    if g.dim() != 4 or tuple(g.shape[:3]) != (n, h, w) or g.shape[3] % 64:
+        raise ValueError(f"g must be [{n}, {h}, {w}, Cout], Cout % 64 == 0, got {tuple(g.shape)}")
+    cout = g.shape[3]
+    splits, chunk = dw_splits(n * h * w, c, cout)
+    partial = torch.empty((splits, 3, 3, c, cout), dtype=torch.float32, device=x.device)
+    dw = torch.empty((3, 3, c, cout), dtype=torch.float32, device=x.device)
+    lib = library()
+    with torch.cuda.device(x.device):
+        rc = lib.conv3x3_dw(
+            x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+            n, h, w, c, cout, splits, chunk, _stream(x.device),
+        )
+    _check("conv3x3_dw", rc)
+    return dw

@@ -1,7 +1,7 @@
 """The training engine's core. Counterpart of
-tf_operator_tpu/train/trainer.py: the state object, `Task`, `mlm_task`,
-`warmup_cosine_lr`, `held_out_eval` and `Trainer` (init, step,
-evaluate, place_batch).
+tf_operator_tpu/train/trainer.py: the state object, `Task`,
+`classification_task`, `mlm_task`, `warmup_cosine_lr`, `held_out_eval`
+and `Trainer` (init, step, evaluate, place_batch).
 
 JAX's train state is immutable and each step returns a new one; here
 the state holds the model and its optimizer, and `Trainer.step` updates
@@ -14,6 +14,19 @@ group, p <- p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p), which is
 what torch.optim.AdamW computes. optax.adamw defaults to weight decay
 1e-4 and torch to 1e-2: the port defaults to optax's and callers pass
 it explicitly.
+
+The reference's Trainer takes any optax transformation; the port takes
+`optimizer="adamw"` (the default, as above) or `"sgd"`, optax.sgd(lr,
+momentum=0.9) as train/resnet.py builds it: trace = g + 0.9 * trace
+from a zero trace, p <- p - lr * trace. That is torch.optim.SGD with
+momentum 0.9, dampening 0, no Nesterov and no weight decay, whose first
+step's buf = g agrees with the zero start. Both read the learning rate
+(or schedule) per step.
+
+BatchNorm running statistics are module buffers: `step` runs the model
+in train mode, which updates them in the forward, and `evaluate` in
+eval mode, which reads them, as the reference threads `batch_stats`
+through its loss function.
 """
 
 from __future__ import annotations
@@ -23,6 +36,7 @@ import math
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
@@ -66,6 +80,20 @@ def warmup_cosine_lr(peak: float, steps: int, warmup_steps: int) -> LearningRate
     return schedule
 
 
+def classification_task(model: nn.Module) -> Task:
+    """Softmax cross-entropy of f32 logits against integer labels, mean
+    over the batch, plus accuracy; the model reads `training` itself."""
+
+    def loss_fn(batch: Batch, train: bool = True):
+        logits = model(batch["image"]).float()
+        labels = batch["label"].long()
+        loss = F.cross_entropy(logits, labels)
+        accuracy = (logits.argmax(-1) == labels).float().mean()
+        return loss, {"accuracy": accuracy}
+
+    return Task(loss_fn=loss_fn)
+
+
 def mlm_task(model: nn.Module) -> Task:
     from ..models.bert import mlm_loss
 
@@ -77,6 +105,8 @@ def mlm_task(model: nn.Module) -> Task:
 
 
 HELD_OUT_FOLD = 2**31 - 1
+OPTIMIZERS = ("adamw", "sgd")
+SGD_MOMENTUM = 0.9
 
 
 def held_out_eval(
@@ -102,7 +132,11 @@ class Trainer:
         weight_decay: float = 1e-4,
         packed: bool = False,
         device: Optional[Union[str, torch.device]] = None,
+        optimizer: str = "adamw",
     ) -> None:
+        if optimizer not in OPTIMIZERS:
+            raise ValueError(f"optimizer {optimizer!r} not in {OPTIMIZERS}")
+        self.optimizer = optimizer
         self.model = model
         self.task = task
         self.learning_rate = learning_rate
@@ -123,12 +157,18 @@ class Trainer:
         return lr(count) if callable(lr) else lr
 
     def init(self) -> TrainState:
-        """Move the model to the trainer's device and build its AdamW."""
+        """Move the model to the trainer's device and build its optimizer."""
         self.model.to(self.device)
-        optimizer = torch.optim.AdamW(
-            self.model.parameters(), lr=self._lr(0), betas=(0.9, 0.999),
-            eps=1e-8, weight_decay=self.weight_decay,
-        )
+        if self.optimizer == "sgd":
+            optimizer = torch.optim.SGD(
+                self.model.parameters(), lr=self._lr(0), momentum=SGD_MOMENTUM,
+                dampening=0.0, nesterov=False, weight_decay=0.0,
+            )
+        else:
+            optimizer = torch.optim.AdamW(
+                self.model.parameters(), lr=self._lr(0), betas=(0.9, 0.999),
+                eps=1e-8, weight_decay=self.weight_decay,
+            )
         return TrainState(step=0, model=self.model, optimizer=optimizer)
 
     def place_batch(self, batch: Batch) -> Batch:
