@@ -208,6 +208,72 @@ def test_bf16_gradients_take_delta_from_the_f32_output(monkeypatch):
     assert min(dq_err, dk_err) > 5e-2 and dv_err < 1e-2
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.bfloat16().float()
+
+
+def _emulated_kernel_grads(q, k, v, g, key_tile, split_p):
+    """dq, dk, dv as the Hopper kernels compute them, in f32 on the CPU.
+    q, k, v, g hold bf16 values. The products take bf16 operands with f32
+    sums (exact products, as on the tensor cores). K1 runs the online
+    softmax over `key_tile`-key tiles and feeds P to P.V as bf16 hi + lo
+    (`split_p`) or as bf16 alone; l sums the f32 p; O stays f32. delta
+    comes from that O. K2 rounds P to bf16 for P^T dO and dS to bf16 for
+    dS^T Q; K3 takes dS in f32."""
+    b, s, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, d))
+    for k0 in range(0, s, key_tile):
+        tile = scores[..., k0:k0 + key_tile]
+        m_new = torch.maximum(m, tile.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(tile - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        hi = _bf16(p)
+        weights = hi + _bf16(p - hi) if split_p else hi
+        acc = acc * alpha + torch.einsum("bhqk,bkhd->bhqd", weights, v[:, k0:k0 + key_tile])
+        m = m_new
+    out = (acc / l).transpose(1, 2)  # [b, s, h, d] in f32
+    lse = (m + torch.log(l))[..., 0]
+    delta = fa._delta(out, g)
+    p = torch.exp(scores - lse[..., None])
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", g, v) - delta[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", _bf16(p), g)
+    dk = torch.einsum("bhqk,bqhd->bkhd", _bf16(ds), q) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_kernel_numerics_keep_common_part_gradients_within_one_percent(head_dim):
+    """The redesigned K1/K2 round their probability operands to bf16
+    before the second products. On values with a large common part (the
+    case above), emulating that holds dq, dk and dv within 1% of the f32
+    gradients when K1 carries P as bf16 hi + lo, as it does; with P
+    rounded to bf16 alone in K1, O's weights no longer sum to l, delta
+    drifts from sum_k p dp, and dq moves past 1%. K1's key tile is 128
+    at head_dim 64 and 64 at 128."""
+    rng = np.random.default_rng(0)
+    b, s, h = 2, 128, 2
+    q, k, g = (rng.standard_normal((b, s, h, head_dim)) for _ in range(3))
+    v = 4.0 + 0.05 * rng.standard_normal((b, s, h, head_dim))
+    q, k, v, g = (_bf16(torch.tensor(x, dtype=torch.float32)) for x in (q, k, v, g))
+    tq, tk, tv = (x.clone().requires_grad_() for x in (q, k, v))
+    fa.flash_attention(tq, tk, tv).backward(g)
+    f32 = [t.grad for t in (tq, tk, tv)]
+    key_tile = 128 if head_dim == 64 else 64
+
+    def rel_errors(split_p):
+        got = _emulated_kernel_grads(q, k, v, g, key_tile, split_p)
+        return [((a - w).norm() / w.norm()).item() for a, w in zip(got, f32)]
+
+    assert max(rel_errors(split_p=True)) < 1e-2
+    assert rel_errors(split_p=False)[0] > 1e-2
+
+
 def test_kernel_launchers_refuse_cpu_tensors():
     """The launchers never run a plain version: a tensor off the card is
     refused before anything is built."""

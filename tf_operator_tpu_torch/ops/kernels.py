@@ -198,6 +198,14 @@ def _check_inputs(q, k, v, kv_mask, *more) -> Tuple[int, int, int, int]:
     return b, h, sq, sk
 
 
+def _check_tma(**tensors: torch.Tensor) -> None:
+    """K1 and K2 read these through TMA tensor maps, which need 16-byte
+    aligned base addresses."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for TMA")
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -211,6 +219,7 @@ def flash_fwd(q, k, v, kv_mask, causal: bool, scale: float):
     None, all bf16 -> (out [b, sq, h, d] bf16, lse [b, h, sq] f32,
     out_f32: out before its rounding to bf16)."""
     b, h, sq, sk = _check_inputs(q, k, v, kv_mask)
+    _check_tma(q=q, k=k, v=v)
     out = torch.empty_like(q)
     out_f32 = torch.empty_like(q, dtype=torch.float32)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -238,6 +247,7 @@ def flash_bwd_dkv(q, k, v, kv_mask, dout, lse, delta, causal: bool, scale: float
     """K2 -> (dk, dv) in bf16; lse and delta are f32 [b, h, sq]."""
     b, h, sq, sk = _check_inputs(q, k, v, kv_mask, dout, lse, delta)
     _check_bwd_stats(q, lse, delta, dout)
+    _check_tma(q=q, k=k, v=v, dout=dout)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = library()
