@@ -11,9 +11,10 @@ non-zero, printing no result:
    registers and spills per kernel).
 3. kernel_check - K1 (forward), K2 (dK/dV), K3 (dQ) against their plain
    PyTorch versions in bf16 on the card, with and without the
-   key-padding mask, causal and not, at (b=4, s=512, h=12, d=64) and
-   (b=4, s=512, h=6, d=128); at both shapes also the common-part case
-   (v = 4 + 0.05 noise): dq, dk, dv within 1% of the f32 gradients.
+   key-padding mask, causal and not, at (b=4, h=12, d=64) and (b=4,
+   h=6, d=128), each at seq 512 and at the ragged seq 333 (a last tile
+   that TMA zero-fills); at every shape also the common-part case (v =
+   4 + 0.05 noise): dq, dk, dv within 1% of the f32 gradients.
 4. kernel_times - at one BERT-base layer's shape, each kernel against
    its plain version once more, then the median ms (and TFLOP/s) of each
    kernel, its plain version and F.scaled_dot_product_attention, with
@@ -30,7 +31,8 @@ non-zero, printing no result:
    model): losses and gradients within the stated tolerances.
 8. conv_check - K4 (forward), K4 as dx (flipped, transposed kernel) and
    K5 (dW) against their plain versions in bf16 on the card, at the
-   four ResNet-50 stage shapes with N=8 and at two C != Cout shapes.
+   four ResNet-50 stage shapes with N=8, at two C != Cout shapes and at
+   a ragged one (H*W = 81, not a multiple of 16).
 9. conv_times - at each stage shape at N=256 (the bench's batch), each
    kernel against its plain version once more, then the median ms of
    each kernel, its plain version and the cuDNN call (F.conv2d,
@@ -91,7 +93,8 @@ LOSS_ATOL = 2e-2
 GRAD_RATIO = 1.5
 GRAD_FLOOR = 1e-2
 MAIN_SHAPE = (32, 512, 12, 64)  # one BERT-base layer at the bench's batch
-CHECK_SHAPES = ((4, 512, 12, 64), (4, 512, 6, 128))
+# seq 333 is not a multiple of the kernels' 64- or 128-row tiles
+CHECK_SHAPES = ((4, 512, 12, 64), (4, 512, 6, 128), (4, 333, 12, 64), (4, 333, 6, 128))
 LAYERS = 12
 FLASH_SOURCE = "tf_operator_tpu_torch/csrc/flash_attention.cu"
 CONV_SOURCE = "tf_operator_tpu_torch/csrc/conv_bn.cu"
@@ -112,8 +115,9 @@ CONVS_PER_PASS = sum(count for _, _, count in CONV_STAGES)
 RESNET_BATCH = 256  # the bench's per-chip batch (model_benches.py:97)
 RESNET_IMAGE = 224
 CONV_CHECK_N = 8
-# C != Cout cases, from tests/test_attention.py TestPallasConv
-CONV_EXTRA_CASES = (((2, 8, 8, 128), 64), ((2, 4, 4, 256), 512))
+# C != Cout cases, from tests/test_attention.py TestPallasConv, and a
+# ragged one: 9x9 images that K5's 112-pixel patches cover with padding
+CONV_EXTRA_CASES = (((2, 8, 8, 128), 64), ((2, 4, 4, 256), 512), ((3, 9, 9, 64), 128))
 # K5's f32 dW sums N*H*W products in another order than the plain
 # version's f32 matmul: allow 1e-4 of the largest magnitude
 DW_RTOL = 1e-4
@@ -180,13 +184,17 @@ def make_inputs(b, s, h, d, seed, with_mask, causal):
 
 def ptxas_summary(log: str) -> dict:
     """{"flash_fwd_kernel<64>": "0 bytes spilled; 80 registers", ...}
-    from nvcc's -Xptxas -v output."""
+    from nvcc's -Xptxas -v output, with any C75xx warning (wgmmas
+    serialized) under "warnings"."""
     import re
 
     summary, name = {}, None
     for line in log.splitlines():
-        entry = re.search(r"(flash_(?:fwd|bwd_dkv|bwd_dq)_kernel)ILi(\d+)E", line)
-        conv = re.search(r"(conv3x3_(?:fwd|dw|dw_reduce)_kernel)", line)
+        if re.search(r"C75\d\d", line):
+            summary.setdefault("warnings", []).append(line.strip()[:200])
+            continue
+        entry = re.search(r"((?:flash_(?:fwd|bwd_dkv|bwd_dq)|conv3x3_dw)_kernel)ILi(\d+)E", line)
+        conv = re.search(r"(conv3x3_(?:fwd|dw_reduce)_kernel)", line)
         if entry or conv:
             name = f"{entry.group(1)}<{entry.group(2)}>" if entry else conv.group(1)
             summary[name] = ""

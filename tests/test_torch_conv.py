@@ -149,24 +149,39 @@ def test_cpu_route_never_launches():
     assert kernels.LAUNCHES == before
 
 
-@pytest.mark.parametrize("m,c,cout", [
-    (802816, 64, 64), (200704, 128, 128), (50176, 256, 256), (12544, 512, 512),
-    (392, 64, 64), (33, 512, 64),
+@pytest.mark.parametrize("n,h,w,c,cout", [
+    (256, 56, 56, 64, 64), (256, 28, 28, 128, 128), (256, 14, 14, 256, 256),
+    (256, 7, 7, 512, 512), (8, 7, 7, 64, 64), (1, 3, 11, 512, 64), (3, 9, 9, 64, 128),
 ])
-def test_dw_splits_cover_the_reduction(m, c, cout):
-    """K5's split-K chunks cover every pixel once: splits * chunk >= m
-    and the last chunk is not empty."""
-    splits, chunk = kernels.dw_splits(m, c, cout)
-    assert chunk % kernels.DW_CHUNK_ALIGN == 0
-    assert (splits - 1) * chunk < m <= splits * chunk
-    assert splits >= 1
+def test_dw_plan_covers_every_pixel_once(n, h, w, c, cout):
+    """K5's patches, walked W first, then H, then N, and cut into runs
+    of consecutive patches, one run per split: every run holds at least
+    one patch, and the patches cover each of the N*H*W pixels exactly
+    once (the kernel zero-fills what lies outside). Each box holds
+    DW_PATCH pixels and fits a TMA box (at most 256 a side)."""
+    plan = kernels.dw_plan(n, h, w, c, cout)
+    assert plan.wb * plan.hb * plan.nb == kernels.DW_PATCH
+    assert max(plan.wb, plan.hb, plan.nb) <= 256
+    n_w, n_h = -(-w // plan.wb), -(-h // plan.hb)
+    assert plan.patches == n_w * n_h * -(-n // plan.nb)
+    runs = [range(s * plan.per_split, min((s + 1) * plan.per_split, plan.patches))
+            for s in range(plan.splits)]
+    assert all(len(run) > 0 for run in runs)
+    assert [p for run in runs for p in run] == list(range(plan.patches))
+    count = np.zeros((n, h, w), np.int32)
+    for p in range(plan.patches):
+        w0 = p % n_w * plan.wb
+        h0 = p // n_w % n_h * plan.hb
+        n0 = p // (n_w * n_h) * plan.nb
+        count[n0:n0 + plan.nb, h0:h0 + plan.hb, w0:w0 + plan.wb] += 1
+    assert (count == 1).all()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,cout", [
     ((8, 56, 56, 64), 64), ((8, 28, 28, 128), 128), ((8, 14, 14, 256), 256),
     ((8, 7, 7, 512), 512), ((2, 8, 8, 128), 64), ((2, 4, 4, 256), 512),
-    ((3, 5, 9, 64), 128),
+    ((3, 5, 9, 64), 128), ((3, 9, 9, 64), 128),
 ])
 def test_cuda_kernels_match_plain_versions(shape, cout):
     """K4 forward, K4 as dx and K5 on the card against their plain

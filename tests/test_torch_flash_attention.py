@@ -219,7 +219,7 @@ def _emulated_kernel_grads(q, k, v, g, key_tile, split_p):
     softmax over `key_tile`-key tiles and feeds P to P.V as bf16 hi + lo
     (`split_p`) or as bf16 alone; l sums the f32 p; O stays f32. delta
     comes from that O. K2 rounds P to bf16 for P^T dO and dS to bf16 for
-    dS^T Q; K3 takes dS in f32."""
+    dS^T Q; K3 rounds dS to bf16 for dS K."""
     b, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
@@ -243,15 +243,15 @@ def _emulated_kernel_grads(q, k, v, g, key_tile, split_p):
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", g, v) - delta[..., None])
     dv = torch.einsum("bhqk,bqhd->bkhd", _bf16(p), g)
     dk = torch.einsum("bhqk,bqhd->bkhd", _bf16(ds), q) * scale
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", _bf16(ds), k) * scale
     return dq, dk, dv
 
 
 @pytest.mark.parametrize("head_dim", [64, 128])
 def test_kernel_numerics_keep_common_part_gradients_within_one_percent(head_dim):
-    """The redesigned K1/K2 round their probability operands to bf16
-    before the second products. On values with a large common part (the
-    case above), emulating that holds dq, dk and dv within 1% of the f32
+    """K1-K3 round their probability operands (P, dS) to bf16 before
+    the second products. On values with a large common part (the case
+    above), emulating that holds dq, dk and dv within 1% of the f32
     gradients when K1 carries P as bf16 hi + lo, as it does; with P
     rounded to bf16 alone in K1, O's weights no longer sum to l, delta
     drifts from sum_k p dp, and dq moves past 1%. K1's key tile is 128
@@ -274,6 +274,35 @@ def test_kernel_numerics_keep_common_part_gradients_within_one_percent(head_dim)
     assert rel_errors(split_p=False)[0] > 1e-2
 
 
+@pytest.mark.parametrize("shape", [(4, 512, 12, 64), (4, 333, 6, 128)])
+@pytest.mark.parametrize("kind", ["none", "padding", "causal"])
+def test_bf16_ds_keeps_dq_within_two_ulps(shape, kind):
+    """K3 rounds dS to bf16 before dQ += dS K; the plain version keeps
+    dS in f32. At chip_smoke.py's check shapes (seq 333: a ragged last
+    tile) the emulated kernel dq stays within chip_smoke.py's tolerance
+    of the plain version's: 2 bf16 ulps of the largest magnitude."""
+    b, s, h, d = shape
+    rng = np.random.default_rng(s + d)
+    q, k, v, g = (
+        _bf16(torch.tensor(rng.standard_normal(shape), dtype=torch.float32))
+        for _ in range(4)
+    )
+    mask = None
+    if kind == "padding":
+        lengths = np.array([0, s - 37, s - 74, s])  # one row all padding
+        mask = torch.tensor(np.arange(s)[None, :] < lengths[:, None], dtype=torch.float32)
+    causal = kind == "causal"
+    scale = 1.0 / math.sqrt(d)
+    out, lse = fa._forward_f32(q, k, v, mask, causal, scale)
+    delta = fa._delta(out, g)
+    _, ds = fa._backward_probs(q, k, v, mask, g, lse, delta, causal, scale)
+    want = fa.flash_backward_dq_reference(q, k, v, mask, g, lse, delta, causal, scale)
+    got = torch.einsum("bhqk,bkhd->bqhd", _bf16(ds), k) * scale
+    want, got = _bf16(want), _bf16(got)  # both leave the kernel in bf16
+    tol = 2 * 2.0**-8 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+
+
 def test_kernel_launchers_refuse_cpu_tensors():
     """The launchers never run a plain version: a tensor off the card is
     refused before anything is built."""
@@ -290,12 +319,14 @@ def test_kernel_launchers_refuse_cpu_tensors():
 @pytest.mark.cuda
 @pytest.mark.parametrize("head_dim", [64, 128])
 @pytest.mark.parametrize("causal", [False, True])
-def test_cuda_kernels_match_plain_versions(head_dim, causal):
+@pytest.mark.parametrize("s", [200, 333])
+def test_cuda_kernels_match_plain_versions(head_dim, causal, s):
     """K1-K3 on the card against their plain versions in bf16, with a
-    ragged padding mask: 2 bf16 ulps of the largest magnitude."""
+    ragged padding mask, at sequence lengths whose last K/V and Q tiles
+    TMA zero-fills: 2 bf16 ulps of the largest magnitude."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    b, s, h = 2, 200, 3
+    b, h = 2, 3
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v, g = (
         torch.randn((b, s, h, head_dim), generator=gen, device="cuda",

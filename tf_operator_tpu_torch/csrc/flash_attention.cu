@@ -4,7 +4,8 @@
 // loaded with ctypes (tf_operator_tpu_torch/ops/kernels.py). Every
 // kernel launches on the caller's stream, allocates nothing, and each
 // entry point returns cudaGetLastError() after its launch, or one of
-// the kErr codes below when a TMA tensor map cannot be made.
+// hopper.cuh's kErr codes when a TMA tensor map cannot be made
+// (flash_error_string below names both kinds).
 //
 // Layouts (all row-major, contiguous):
 //   q, out, dout, dq   [B, Sq, H, D] bf16 (the model's [b, s, h, d]; read
@@ -41,19 +42,21 @@
 // sequence length.
 //
 // ---------------------------------------------------------------------
-// Design of K1 and K2: tensor cores fed by TMA.
+// Design of K1-K3: tensor cores fed by TMA (hopper.cuh has the
+// primitives).
 // - A block is two warpgroups (256 threads), each owning 64 rows of the
-//   block's tile: 128 query rows in K1, 128 key rows in K2. The rows the
-//   block owns stay resident in shared memory (K1: Q; K2: K and V); the
-//   other operand streams through a 3-stage ring of shared-memory tiles
-//   (K1: 128 K and V rows at d=64, 64 at d=128; K2: 64 Q and dO rows),
-//   each stage with a "full" and an "empty" mbarrier.
+//   block's tile: 128 query rows in K1 and K3, 128 key rows in K2. The
+//   rows the block owns stay resident in shared memory (K1: Q; K2: K and
+//   V; K3: Q and dO); the other operands stream through a 3-stage ring
+//   of shared-memory tiles (K1 and K3: 128 K and V rows at d=64, 64 at
+//   d=128; K2: 64 Q and dO rows), each stage with a "full" and an
+//   "empty" mbarrier.
 // - Warp 0 loads: it fills the ring at the start, then refills a stage
 //   one iteration after both warpgroups have released it (one lane of
 //   each warp arrives on "empty" once its wgmmas have read the stage).
 //   Its lane 0 issues the TMA copies and arrives on "full" with their
-//   byte count; all 32 lanes write the stage's per-row side data (K1:
-//   key validity; K2: lse and delta) and arrive. There is no separate
+//   byte count; all 32 lanes write the stage's per-row side data (K1 and
+//   K3: key validity; K2: lse and delta) and arrive. There is no separate
 //   producer warp: a block of more than 256 threads is compiled for at
 //   most 168 registers a thread (65,536 / 384), and setmaxnreg did not
 //   raise what ptxas allots the consumers, so they spilled and their
@@ -66,46 +69,39 @@
 // - Products are wgmma m64nNk16 bf16 with f32 accumulators: q.k and dO.v
 //   read both operands K-major from shared memory (N = 128 or 64); the
 //   second product of each pair takes its probability matrix as the
-//   register A operand and its B (v, dO or q) MN-major with the
+//   register A operand and its B (v, dO, q or k) MN-major with the
 //   transpose flag, 64 columns per instruction.
 // - No wgmma group stays in flight across a loop's back edge, a spin on
 //   an mbarrier or a warp-divergent path: ptxas serializes wgmmas around
 //   those (C7520). K1 therefore issues P.V of tile t and S of tile t+1
-//   together and waits for both within one iteration.
+//   together and waits for both within one iteration; K2 and K3 wait
+//   within each tile.
 // - Registers a thread (ptxas, sm_90a): K1 188 (d=64) / 155 (d=128),
 //   holding S (64 / 32 f32), O (32 / 64) and P as bf16 hi and lo
 //   fragments (32 + 32 / 16 + 16); K2 173 / 239, holding dK and dV
 //   (32 + 32 / 64 + 64), one 64x64 score tile (32) and its bf16 fragment
-//   (16). No spills.
+//   (16); K3 229 / 158, holding dQ (32 / 64), S and dP (64 + 64 / 32 + 32)
+//   and dS as bf16 fragments (32 / 16). No spills.
 //
-// K1 and K2's two departures from the reference's arithmetic:
+// The kernels' two departures from the reference's arithmetic:
 // - q.k and dO.v take bf16 operands with f32 sums on the tensor cores:
 //   the reference's f32 upcast products (:125-132, :152-156, :276-285)
 //   up to the order of summation. The scale multiplies the f32 scores
 //   rather than q in f32 (:125): exact for d=64 (1/8), one f32 rounding
 //   apart for d=128.
 // - The second products take their probability operand in bf16. K2
-//   rounds P (for dV) and dS (for dK) to bf16, as FA2/FA3 do: on the
-//   inputs that stress it most (a large part common to all values) dV
-//   and dK stay well within 1% of f32. K1 must not round P so: delta =
-//   rowsum(dO * O) from an O built on rounded weights no longer equals
-//   sum_k p dp as K2/K3 compute it from exact p, the rows of dS stop
-//   summing to zero, and on those inputs dQ moves past 1% from f32. So
-//   K1 splits P into hi = bf16(p) and lo = bf16(p - hi) and runs P.V
-//   twice, keeping 16 bits of each weight: one more product, and dQ, dK
-//   and dV within 1% (tests/test_torch_flash_attention.py emulates both
-//   on the CPU; chip_smoke.py's common-part check measures the kernels).
-//
-// ---------------------------------------------------------------------
-// Design of K3 (unchanged from the first port): SIMT on the CUDA cores.
-// One thread block of 256 threads owns one 64-row Q tile and loops over
-// 64-row K/V tiles. Tiles are staged in shared memory as f32 with a row
-// pitch of D+1 so that 16 threads reading 16 rows at one column hit 16
-// banks. Each thread holds a 4x4 piece of the 64x64 score tile (rows
-// 4*tr+i, columns tc+16*j) and 4 x D/16 accumulators. Its products run
-// in f32 on f32 copies of q, k, v, as the reference's do; each FMA is fed
-// from shared memory, and that operand traffic, not device memory, is
-// what bounds it as written (PERF.md).
+//   rounds P (for dV) and dS (for dK) to bf16, and K3 rounds dS (for dQ),
+//   as FA2/FA3 do: on the inputs that stress it most (a large part common
+//   to all values) dQ, dK and dV stay well within 1% of f32, and dQ stays
+//   within one bf16 rounding of the f32-dS result elsewhere. K1 must not
+//   round P so: delta = rowsum(dO * O) from an O built on rounded weights
+//   no longer equals sum_k p dp as K2/K3 compute it from exact p, the
+//   rows of dS stop summing to zero, and on those inputs dQ moves past 1%
+//   from f32. So K1 splits P into hi = bf16(p) and lo = bf16(p - hi) and
+//   runs P.V twice, keeping 16 bits of each weight: one more product,
+//   and dQ, dK and dV within 1% (tests/test_torch_flash_attention.py
+//   emulates all three on the CPU; chip_smoke.py's common-part check
+//   measures the kernels).
 //
 // One deliberate departure shared by the port: the reference takes
 // delta = rowsum(dO * O) from O rounded to the input dtype (:399-402).
@@ -116,105 +112,22 @@
 // bf16 path's (PERF.md). K1 therefore also writes O in f32 (out_f32) and
 // the wrapper takes delta from that.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-
-// entry-point codes beside cudaError_t's (see flash_error_string)
-constexpr int kErrNoEncode = 10001;
-constexpr int kErrEncode = 10002;
+constexpr int kStages = 3;  // TMA ring depth
 
 __device__ __forceinline__ size_t elem(int b, int s, int h, int S, int H, int D) {
   return ((static_cast<size_t>(b) * S + s) * H + h) * static_cast<size_t>(D);
 }
 
-// Score of (query row qr, key column kc) after causal and padding
-// masking, the reference's order: causal, then padding, both -1e30.
-__device__ __forceinline__ float masked(float s, int qr, int kc, bool causal,
-                                        float key_valid) {
-  if (causal && qr < kc) s = kNegInf;
-  if (!(key_valid > 0.f)) s = kNegInf;
-  return s;
-}
-
-// ---------------------------------------------------------------------------
-// Hopper primitives: mbarriers, TMA, wgmma.
-
-constexpr int kWarpgroup = 128;
-constexpr int kBlockThreads = 2 * kWarpgroup;  // two warpgroups; warp 0 also loads
-constexpr int kBlockWarps = kBlockThreads / 32;
-constexpr int kStages = 3;                     // TMA ring depth
-constexpr int kSlab = 64;                      // bf16 columns per 128-byte row
-constexpr int kRowBytes = 128;
-constexpr int kGroupBytes = 8 * kRowBytes;     // one 8-row swizzle atom
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits for the completion of the barrier's phase of the given parity.
-// A phase that never completes is a bug in the ring: trap after about
-// ten seconds rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long start = 0;
-  for (int spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins == 1024) start = clock64();
-    if (spins > 1024 && clock64() - start > (1ll << 34)) __trap();
-  }
-}
-
-// TMA: one box of the 4-D map (D, H, S, B) into shared memory, counted
-// on `bar` in bytes.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int d0, int h, int s0, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(h), "r"(s0), "r"(b)
-      : "memory");
-}
-
-// `rows` rows of head (b, h) from row s0, as D/64 slabs of [rows][64].
+// `rows` rows of head (b, h) from row s0 of a (D, H, S, B) map, as D/64
+// slabs of [rows][64].
 template <int D>
 __device__ __forceinline__ void tma_load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                               int h, int s0, int b, int rows) {
@@ -222,115 +135,6 @@ __device__ __forceinline__ void tma_load_rows(uint32_t dst, const CUtensorMap* m
   for (int slab = 0; slab < D / kSlab; ++slab)
     tma_load(dst + slab * rows * kRowBytes, map, bar, slab * kSlab, h, s0, b);
 }
-
-// Shared-memory matrix descriptors for 128-byte-swizzled tiles whose
-// 8-row atoms are 1024 bytes apart (start address, LBO and SBO in
-// 16-byte units, layout type 1 = 128B swizzle). K-major: rows are the
-// M/N dimension, the 16-element K step lies inside a row (LBO unused).
-// MN-major: rows are the K dimension; with 64 columns per instruction
-// only the K-direction atom stride is read, so both offsets carry it.
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(kGroupBytes >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(kGroupBytes >> 4) << 16) |
-         (static_cast<uint64_t>(kGroupBytes >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pin registers that an asynchronous wgmma reads or writes: the compiler
-// sees the wgmma only where it is issued, so reads of its accumulators
-// must not move above the wait, and its A fragments must stay live and
-// untouched until then.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N, int M>
-__device__ __forceinline__ void pin(float (&r)[N][M]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) pin(r[i]);
-}
-template <int N, int M>
-__device__ __forceinline__ void pin(uint32_t (&r)[N][M]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-#define ACC8(d, i)                                                                   \
-  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// D[64x64] (+)= A[64x16] B[16x64], A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D[64x128] (+)= A[64x16] B[16x128], A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32), ACC8(d, 40),
-        ACC8(d, 48), ACC8(d, 56)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D[64x64] += A[64x16] B[16x64], A a bf16 fragment in registers, B
-// MN-major in shared memory (transpose flag set).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-#undef ACC8
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Accumulator fragment of wgmma m64nN (f32): thread t of the warpgroup
-// holds, for each 8-column chunk j, d[4j + 2i + c] at row
-// 16*(t/32) + (t%32)/4 + 8i and column 8j + 2*(t%4) + c. The bf16 A
-// fragment of a k16 step kk is the same layout over chunks 2kk and
-// 2kk+1: register 2*(j%2) + i holds the pair (c = 0, 1) of chunk j.
 
 // ---------------------------------------------------------------------------
 // K1: forward. Replaces tf_operator_tpu/ops/pallas/flash_attention.py
@@ -854,193 +658,237 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ---------------------------------------------------------------------------
 // K3: dQ. Replaces flash_attention.py _bwd_dq_kernel (second call in
-// _flash_backward). Grid (q tiles, B*H): each block owns one Q/dO tile
-// and streams the K/V tiles: dQ += ds k * scale. No atomics.
+// _flash_backward). Grid (ceil(Sq/128), B*H): each block owns 128 query
+// rows (64 per warpgroup), Q and dO resident in shared memory with lse
+// and delta of each thread's two rows in registers, and streams the K/V
+// tiles (128 keys at d=64, 64 at d=128, as K1) through the TMA ring:
+//   S = Q K^T, P = exp(S * scale - lse), dP = dO V^T,
+//   dS = P (dP - delta), dQ += dS K.
+// S and dP are SS wgmma issued together (all operands K-major); dS
+// becomes bf16 register fragments, the A operand of dQ += dS K, an RS
+// wgmma with K MN-major (K2's dV += P^T dO with queries and keys
+// swapped). dQ is scaled once at the end. No atomics: each block writes
+// only its own rows.
 // Bound at the main-path shape: operations (3 products per tile pair:
-// S and dP are rebuilt, then dQ). The design keeps lse and delta of its
-// rows in registers and stops a causal block at its diagonal.
-constexpr int kTile = 64;       // rows of Q and of K/V per tile
-constexpr int kThreads = 256;   // 16 row groups x 16 column groups
-constexpr int kScorePitch = kTile + 1;
-
-// Stage rows r0..r0+63 of one (b, h) slice into shared memory as f32,
-// times `mul`; rows at or past S are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const bf16* __restrict__ src,
-                                          int b, int h, int r0, int S, int H,
-                                          float mul) {
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
-    const int r = idx / D, d = idx % D, s = r0 + r;
-    float x = 0.f;
-    if (s < S) x = __bfloat162float(src[elem(b, s, h, S, H, D) + d]) * mul;
-    dst[r * (D + 1) + d] = x;
-  }
-}
+// S and dP are rebuilt, then dQ). P and dS never leave registers; each
+// K/V tile is read once per 128 query rows; a causal block stops at its
+// diagonal.
+constexpr int kDqRowsQ = 128;
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const float* __restrict__ kv_mask,
-                    const bf16* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq, int H,
-                    int Sq, int Sk, int causal, float scale) {
-  constexpr int P = D + 1, DC = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kTile * P;
-  float* Ks = dOs + kTile * P;
-  float* Vs = Ks + kTile * P;
-  float* dS = Vs + kTile * P;  // [query][key], kScorePitch
+struct DqSmem {
+  static constexpr int kRowsK = FwdSmem<D>::kRowsK;
+  static constexpr int kQ = kDqRowsQ * D * 2;
+  static constexpr int kKV = kRowsK * D * 2;
+  static constexpr int q = 0;
+  static constexpr int dout = q + kQ;
+  static constexpr int k = dout + kQ;               // + stage * kKV
+  static constexpr int v = k + kStages * kKV;       // + stage * kKV
+  static constexpr int valid = v + kStages * kKV;   // f32 [kStages][kRowsK]
+  static constexpr int bars = valid + kStages * kRowsK * 4;
+  static constexpr int bytes = bars + (1 + 2 * kStages) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ kv_mask, const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq, int H, int Sq,
+                    int Sk, int causal, float scale) {
+  using L = DqSmem<D>;
+  constexpr int kN = L::kRowsK;
+  constexpr int kSlabs = D / kSlab;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  float* valid_s = reinterpret_cast<float*>(smem + L::valid);
+  const uint32_t bar_q = base + L::bars;
+  const uint32_t bar_full = bar_q + 8;                // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 * stage
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kTile;
-  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+  const int q0 = blockIdx.x * kDqRowsQ;
+  int n_tiles = (Sk + kN - 1) / kN;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + kDqRowsQ, Sq) - 1) / kN + 1);
 
-  load_tile<D>(Qs, q, b, h, q0, Sq, H, 1.f);
-  load_tile<D>(dOs, dout, b, h, q0, Sq, H, 1.f);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 32);
+      mbar_init(bar_empty + 8 * s, kBlockWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  float row_lse[4], row_delta[4], dq_acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + tr * 4 + i;
-    row_lse[i] = qr < Sq ? lse[static_cast<size_t>(bh) * Sq + qr] : 0.f;
-    row_delta[i] = qr < Sq ? delta[static_cast<size_t>(bh) * Sq + qr] : 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dq_acc[i][c] = 0.f;
+  // Run by warp 0: K/V tile t into its stage once both warpgroups have
+  // released the tile before it there, with its key validity (1 attend,
+  // 0 padding, -1 past Sk) written by the warp's lanes, as in K1.
+  auto load_tile_kv = [&](int t) {
+    const int s = t % kStages;
+    if (t >= kStages) mbar_wait(bar_empty + 8 * s, ((t / kStages) - 1) & 1);
+    const int k0 = t * kN;
+    for (int c = lane; c < kN; c += 32) {
+      const int kc = k0 + c;
+      float state = -1.f;
+      if (kc < Sk)
+        state = (kv_mask == nullptr || kv_mask[static_cast<size_t>(b) * Sk + kc] > 0.f) ? 1.f : 0.f;
+      valid_s[s * kN + c] = state;
+    }
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_full + 8 * s, 2 * L::kKV);
+      tma_load_rows<D>(base + L::k + s * L::kKV, &tm_k, bar_full + 8 * s, h, k0, b, kN);
+      tma_load_rows<D>(base + L::v + s * L::kKV, &tm_v, bar_full + 8 * s, h, k0, b, kN);
+    } else {
+      mbar_arrive(bar_full + 8 * s);
+    }
+  };
+  if (warp == 0) {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_q, 2 * L::kQ);
+      tma_load_rows<D>(base + L::q, &tm_q, bar_q, h, q0, b, kDqRowsQ);
+      tma_load_rows<D>(base + L::dout, &tm_do, bar_q, h, q0, b, kDqRowsQ);
+    }
+    for (int t = 0; t < min(kStages, n_tiles); ++t) load_tile_kv(t);
   }
 
-  int n_tiles = (Sk + kTile - 1) / kTile;
-  if (causal) n_tiles = min(n_tiles, (min(q0 + kTile, Sq) - 1) / kTile + 1);
+  // warpgroup wg: query rows q0 + 64*wg + [0, 64)
+  const int wg = threadIdx.x / kWarpgroup;
+  const int row = 64 * wg + 16 * (warp % 4) + lane / 4;  // and row + 8
+  const int col0 = 2 * (lane % 4);
+  const int qr0 = q0 + row;
+  const uint32_t q_rows = base + L::q + 64 * wg * kRowBytes;
+  const uint32_t do_rows = base + L::dout + 64 * wg * kRowBytes;
 
+  // lse and delta of this thread's rows: +inf and 0 past Sq, so that p = 0
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qr = qr0 + 8 * i;
+    const size_t at = static_cast<size_t>(bh) * Sq + qr;
+    row_lse[i] = qr < Sq ? lse[at] : INFINITY;
+    row_delta[i] = qr < Sq ? delta[at] : 0.f;
+  }
+
+  float dq_acc[kSlabs][32];
+#pragma unroll
+  for (int ns = 0; ns < kSlabs; ++ns)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) dq_acc[ns][r] = 0.f;
+
+  mbar_wait(bar_q, 0);
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();
-    load_tile<D>(Ks, k, b, h, k0, Sk, H, 1.f);
-    load_tile<D>(Vs, v, b, h, k0, Sk, H, 1.f);
-    __syncthreads();
+    const int s = t % kStages;
+    const int k0 = t * kN;
+    mbar_wait(bar_full + 8 * s, (t / kStages) & 1);
+    const uint32_t k_tile = base + L::k + s * L::kKV;
+    const uint32_t v_tile = base + L::v + s * L::kKV;
 
-    float s[4][4], dp[4][4];
+    // S = Q K^T and dP = dO V^T: [64 queries x kN keys] each
+    float sacc[kN / 2], dpacc[kN / 2];
+    wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < D / 16; ++kk) {
+      // k step kk: slab kk / 4, 32 bytes per step inside the 128-byte row
+      const int qoff = (kk / 4) * kDqRowsQ * kRowBytes + (kk % 4) * 32;
+      const int koff = (kk / 4) * kN * kRowBytes + (kk % 4) * 32;
+      if constexpr (kN == 128)
+        wgmma_ss_n128(sacc, desc_kmajor(q_rows + qoff), desc_kmajor(k_tile + koff), kk > 0);
+      else
+        wgmma_ss_n64(sacc, desc_kmajor(q_rows + qoff), desc_kmajor(k_tile + koff), kk > 0);
+    }
+    wgmma_commit();
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qa[4], oa[4], kb[4], vb[4];
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int qoff = (kk / 4) * kDqRowsQ * kRowBytes + (kk % 4) * 32;
+      const int koff = (kk / 4) * kN * kRowBytes + (kk % 4) * 32;
+      if constexpr (kN == 128)
+        wgmma_ss_n128(dpacc, desc_kmajor(do_rows + qoff), desc_kmajor(v_tile + koff), kk > 0);
+      else
+        wgmma_ss_n64(dpacc, desc_kmajor(do_rows + qoff), desc_kmajor(v_tile + koff), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(sacc);
+    pin(dpacc);
+
+    // dS = P (dP - delta) as bf16 fragments, P = exp(masked(S * scale) -
+    // lse) in exp2, as K2: causal, then padding, -1e30; keys past Sk
+    // absent (p = 0). A tile with nothing to mask skips the tests.
+    const float* valid = valid_s + s * kN;
+    const bool plain = kv_mask == nullptr && k0 + kN <= Sk &&
+                       !(causal && k0 + kN - 1 > q0 + 64 * wg);
+    uint32_t ds_frag[kN / 16][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qa[i] = Qs[(tr * 4 + i) * P + d];
-        oa[i] = dOs[(tr * 4 + i) * P + d];
-      }
+    for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kb[j] = Ks[(tc + 16 * j) * P + d];
-        vb[j] = Vs[(tc + 16 * j) * P + d];
-      }
+      for (int i = 0; i < 2; ++i) {
+        float ds[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-          dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * j + col0 + c;
+          float x = sacc[4 * j + 2 * i + c] * scale;
+          if (!plain) {
+            const float state = valid[col];
+            if ((causal && qr0 + 8 * i < k0 + col) || state == 0.f) x = kNegInf;
+            if (state < 0.f) x = -INFINITY;
+          }
+          const float p = exp2f((x - row_lse[i]) * kLog2e);
+          ds[c] = p * (dpacc[4 * j + 2 * i + c] - row_delta[i]);
         }
-    }
-
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kc = k0 + tc + 16 * j;
-      const bool present = kc < Sk;
-      const float valid = (kv_mask != nullptr && present) ? kv_mask[b * Sk + kc] : 1.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qr = q0 + tr * 4 + i;
-        float p = 0.f;
-        if (present && qr < Sq)
-          p = expf(masked(s[i][j] * scale, qr, kc, causal, valid) - row_lse[i]);
-        dS[(tr * 4 + i) * kScorePitch + tc + 16 * j] = p * (dp[i][j] - row_delta[i]);
+        ds_frag[j / 2][2 * (j % 2) + i] = pack_bf16(ds[0], ds[1]);
       }
-    }
-    __syncthreads();
 
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float da[4], kb[DC];
+    // dQ += dS K
+    pin(dq_acc);
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) da[i] = dS[(tr * 4 + i) * kScorePitch + kk];
+    for (int kk = 0; kk < kN / 16; ++kk)
 #pragma unroll
-      for (int c = 0; c < DC; ++c) kb[c] = Ks[kk * P + tc + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) dq_acc[i][c] = fmaf(da[i], kb[c], dq_acc[i][c]);
-    }
+      for (int ns = 0; ns < kSlabs; ++ns)
+        wgmma_rs_n64(dq_acc[ns], ds_frag[kk],
+                     desc_mnmajor(k_tile + ns * kN * kRowBytes + kk * 2 * kGroupBytes));
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(dq_acc);
+    pin(ds_frag);
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+    // refill the stage of the tile before this one, which the other
+    // warpgroup has most likely released by now
+    if (warp == 0 && t >= 1 && t - 1 + kStages < n_tiles) load_tile_kv(t - 1 + kStages);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + tr * 4 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int qr = qr0 + 8 * i;
     if (qr >= Sq) continue;
-    const size_t base = elem(b, qr, h, Sq, H, D);
+    const size_t at = elem(b, qr, h, Sq, H, D);
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
-      dq[base + tc + 16 * c] = __float2bfloat16(dq_acc[i][c] * scale);
+    for (int ns = 0; ns < kSlabs; ++ns)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = kSlab * ns + 8 * j + col0;
+        *reinterpret_cast<__nv_bfloat162*>(dq + at + col) = __floats2bfloat162_rn(
+            dq_acc[ns][4 * j + 2 * i] * scale, dq_acc[ns][4 * j + 2 * i + 1] * scale);
+      }
   }
-}
-
-template <int D> constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * kTile * (D + 1) + kTile * kScorePitch);
 }
 
 // ---------------------------------------------------------------------------
 // Host side.
 
-// cuTensorMapEncodeTiled is a driver API; the library links only the
-// runtime, so it is looked up once through the runtime's entry point.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* entry = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &entry, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &entry, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(entry);
-  }
-  return fn;
-}
-
 // The 4-D map (D, H, S, B) of a [B, S, H, D] bf16 tensor, box (64, 1,
 // rows, 1), 128-byte swizzle, rows past S zero-filled.
 int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return kErrNoEncode;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(D) * sizeof(bf16);
-  const cuuint64_t strides[3] = {row, row * H, row * H * S};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kSlab), 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t steps[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                            strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrEncode;
-}
-
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+  const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(S), static_cast<uint64_t>(B)};
+  const uint32_t box[3] = {1, static_cast<uint32_t>(rows), 1};
+  return make_map_4d(map, ptr, dims, box);
 }
 
 template <int D>
@@ -1087,15 +935,18 @@ int launch_dq(const void* q, const void* k, const void* v, const float* mask,
               const void* dout, const float* lse, const float* delta, void* dq,
               int B, int H, int Sq, int Sk, int causal, float scale,
               cudaStream_t stream) {
-  const size_t smem = dq_smem<D>();
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = make_map(&tq, q, B, Sq, H, D, kDqRowsQ);
+  if (rc == 0) rc = make_map(&tdo, dout, B, Sq, H, D, kDqRowsQ);
+  if (rc == 0) rc = make_map(&tk, k, B, Sk, H, D, DqSmem<D>::kRowsK);
+  if (rc == 0) rc = make_map(&tv, v, B, Sk, H, D, DqSmem<D>::kRowsK);
+  if (rc != 0) return rc;
+  const size_t smem = DqSmem<D>::bytes;
   cudaError_t err = prepare(flash_bwd_dq_kernel<D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kTile - 1) / kTile, B * H);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v),
-      mask, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), H, Sq,
-      Sk, causal, scale);
+  const dim3 grid((Sq + kDqRowsQ - 1) / kDqRowsQ, B * H);
+  flash_bwd_dq_kernel<D><<<grid, kBlockThreads, smem, stream>>>(
+      tq, tk, tv, tdo, mask, lse, delta, static_cast<bf16*>(dq), H, Sq, Sk, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,7 +4,8 @@ Every source under `tf_operator_tpu_torch/csrc/` is compiled with nvcc
 for `sm_90a` at first use, one nvcc per source and all started
 together, and the objects are linked into one shared library with a
 plain C interface, in `build/kernels/` at the root of the checkout
-(named by a hash of all the sources, so an edited source is rebuilt),
+(named by a hash of all the sources and headers, so an edited one is
+rebuilt),
 and loaded with ctypes. Nothing here runs at import: the CPU tests
 import this module on machines with no compiler and no card.
 
@@ -23,13 +24,15 @@ import os
 import shutil
 import subprocess
 import time
+from functools import lru_cache
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PACKAGE / "csrc").glob("*.cu")))
+HEADERS = tuple(sorted((_PACKAGE / "csrc").glob("*.cuh")))
 BUILD_DIR = _PACKAGE.parent / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # what the kernels are instantiated for; ops/flash_attention.py routes
@@ -46,12 +49,15 @@ LAUNCHES: Dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
     "conv3x3_fwd": 0, "conv3x3_dw": 0,
 }
-# K5 splits the N*H*W reduction to fill the card: about this many
-# blocks, each chunk a multiple of DW_CHUNK_ALIGN pixels and at least
-# DW_MIN_CHUNK of them
-DW_TARGET_BLOCKS = 4 * 132
-DW_CHUNK_ALIGN = 32
-DW_MIN_CHUNK = 256
+# K5 sums the N*H*W pixels in patches of DW_PATCH (csrc/conv_bn.cu
+# kDwPatch), split into runs of patches to fill the card's SMS in whole
+# waves. The split count weighs waves against the partials' traffic:
+# one block sustains about DW_BLOCK_FLOPS, and each split's f32 partial
+# is written once and read once at about DW_BYTES_PER_S.
+DW_PATCH = 112
+SMS = 132
+DW_BLOCK_FLOPS = 3.0e12
+DW_BYTES_PER_S = 3.0e12
 
 _lib: Optional[ctypes.CDLL] = None
 build_info: Dict[str, object] = {}
@@ -77,7 +83,7 @@ def build() -> Path:
     """Compile the kernels' sources into build/kernels/ unless a library
     built from the same sources is already there; returns its path."""
     digest = hashlib.sha256()
-    for source in SOURCES:
+    for source in SOURCES + HEADERS:
         digest.update(source.name.encode() + b"\0" + source.read_bytes())
     tag = digest.hexdigest()[:16]
     lib_path = BUILD_DIR / f"libkernels-{tag}.so"
@@ -147,7 +153,7 @@ def library() -> ctypes.CDLL:
             _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
         ]
         lib.conv3x3_fwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
-        lib.conv3x3_dw.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+        lib.conv3x3_dw.argtypes = [_P, _P, _P, _P] + [_I] * 10 + [_P]
         for fn in (
             lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq,
             lib.conv3x3_fwd, lib.conv3x3_dw,
@@ -199,7 +205,7 @@ def _check_inputs(q, k, v, kv_mask, *more) -> Tuple[int, int, int, int]:
 
 
 def _check_tma(**tensors: torch.Tensor) -> None:
-    """K1 and K2 read these through TMA tensor maps, which need 16-byte
+    """K1-K3 read these through TMA tensor maps, which need 16-byte
     aligned base addresses."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
@@ -266,6 +272,7 @@ def flash_bwd_dq(q, k, v, kv_mask, dout, lse, delta, causal: bool, scale: float)
     """K3 -> dq in bf16."""
     b, h, sq, sk = _check_inputs(q, k, v, kv_mask, dout, lse, delta)
     _check_bwd_stats(q, lse, delta, dout)
+    _check_tma(q=q, k=k, v=v, dout=dout)
     dq = torch.empty_like(q)
     lib = library()
     with torch.cuda.device(q.device):
@@ -324,15 +331,49 @@ def conv3x3_fwd(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def dw_splits(m: int, c: int, cout: int) -> Tuple[int, int]:
-    """(splits, chunk): K5 sums the m = N*H*W pixels in `splits`
-    contiguous chunks of `chunk` pixels (the last may be shorter), enough
-    blocks to fill the card without chunks below DW_MIN_CHUNK."""
-    tiles = 9 * (c // 64) * (cout // 64)
-    want = max(1, min(-(-DW_TARGET_BLOCKS // tiles), -(-m // DW_MIN_CHUNK)))
-    chunk = -(-m // want)
-    chunk = -(-chunk // DW_CHUNK_ALIGN) * DW_CHUNK_ALIGN
-    return -(-m // chunk), chunk
+class DwPlan(NamedTuple):
+    """K5's walk over the pixels: patches of wb x hb pixels in each of nb
+    images (wb * hb * nb == DW_PATCH), `patches` of them over [N, H, W]
+    (W fastest, then H, then N), summed in `splits` runs of `per_split`
+    consecutive patches (the last run may be shorter)."""
+
+    wb: int
+    hb: int
+    nb: int
+    patches: int
+    splits: int
+    per_split: int
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@lru_cache(maxsize=None)
+def dw_plan(n: int, h: int, w: int, c: int, cout: int) -> DwPlan:
+    """The patch box that covers [n, h, w] with the fewest padded pixels
+    (ties: the widest rows, as TMA copies them), and the split count
+    that minimises waves x patches per run plus the partials' traffic."""
+    sizes = [d for d in range(1, DW_PATCH + 1) if DW_PATCH % d == 0]
+    boxes = [(wb, hb, DW_PATCH // (wb * hb)) for wb in sizes for hb in sizes
+             if (DW_PATCH // wb) % hb == 0]
+    wb, hb, nb = min(boxes, key=lambda box: (
+        _ceil(w, box[0]) * _ceil(h, box[1]) * _ceil(n, box[2]), -box[0], -box[1]))
+    patches = _ceil(w, wb) * _ceil(h, hb) * _ceil(n, nb)
+    bn = 128 if cout % 128 == 0 else 64
+    tiles = _ceil(9 * (c // 64), 2) * (cout // bn)
+    patch_s = 2 * DW_PATCH * 128 * bn / DW_BLOCK_FLOPS
+    partial_s = 2 * 9 * c * cout * 4 / DW_BYTES_PER_S
+
+    def cost(splits: int) -> float:
+        per_split = _ceil(patches, splits)
+        waves = _ceil(tiles * _ceil(patches, per_split), SMS)
+        return waves * per_split * patch_s + splits * partial_s
+
+    limit = min(patches, max(1, 8 * SMS // tiles))
+    splits = min(range(1, limit + 1), key=lambda s: (cost(s), s))
+    per_split = _ceil(patches, splits)
+    return DwPlan(wb, hb, nb, patches, _ceil(patches, per_split), per_split)
 
 
 def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -344,14 +385,14 @@ def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if g.dim() != 4 or tuple(g.shape[:3]) != (n, h, w) or g.shape[3] % 64:
         raise ValueError(f"g must be [{n}, {h}, {w}, Cout], Cout % 64 == 0, got {tuple(g.shape)}")
     cout = g.shape[3]
-    splits, chunk = dw_splits(n * h * w, c, cout)
-    partial = torch.empty((splits, 3, 3, c, cout), dtype=torch.float32, device=x.device)
+    plan = dw_plan(n, h, w, c, cout)
+    partial = torch.empty((plan.splits, 3, 3, c, cout), dtype=torch.float32, device=x.device)
     dw = torch.empty((3, 3, c, cout), dtype=torch.float32, device=x.device)
     lib = library()
     with torch.cuda.device(x.device):
         rc = lib.conv3x3_dw(
-            x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-            n, h, w, c, cout, splits, chunk, _stream(x.device),
+            x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(), n, h, w, c, cout,
+            plan.wb, plan.hb, plan.nb, plan.splits, plan.per_split, _stream(x.device),
         )
     _check("conv3x3_dw", rc)
     return dw
