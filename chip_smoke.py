@@ -32,12 +32,16 @@ non-zero, printing no result:
 8. conv_check - K4 (forward), K4 as dx (flipped, transposed kernel) and
    K5 (dW) against their plain versions in bf16 on the card, at the
    four ResNet-50 stage shapes with N=8, at two C != Cout shapes and at
-   a ragged one (H*W = 81, not a multiple of 16).
+   three ragged ones (H*W = 81, not a multiple of 16; K4 boxes that pad
+   N and W).
 9. conv_times - at each stage shape at N=256 (the bench's batch), each
    kernel against its plain version once more, then the median ms of
-   each kernel, its plain version and the cuDNN call (F.conv2d,
-   torch.nn.grad.conv2d_input, torch.nn.grad.conv2d_weight), with the
-   bound computed from those inputs.
+   each kernel, its plain version and the cuDNN call that computes the
+   same function (F.conv2d for the forward and for dx on the flipped,
+   transposed kernel, torch.nn.grad.conv2d_weight for dW; dx's
+   torch.nn.grad.conv2d_input beside it), with the bound computed from
+   those inputs; K4's plan (pixel box, tile width) and the L2 request
+   rate its plan implies (modelled bytes over measured time).
 10. resnet_train - ResNet-50 (stage sizes 3, 4, 6, 3, width 64, 1000
    classes, 224x224, bf16, batch 256, SGD 0.1 momentum 0.9,
    --conv3-impl pallas) through the CLI's run(); launch counters must
@@ -115,9 +119,14 @@ CONVS_PER_PASS = sum(count for _, _, count in CONV_STAGES)
 RESNET_BATCH = 256  # the bench's per-chip batch (model_benches.py:97)
 RESNET_IMAGE = 224
 CONV_CHECK_N = 8
-# C != Cout cases, from tests/test_attention.py TestPallasConv, and a
-# ragged one: 9x9 images that K5's 112-pixel patches cover with padding
-CONV_EXTRA_CASES = (((2, 8, 8, 128), 64), ((2, 4, 4, 256), 512), ((3, 9, 9, 64), 128))
+# C != Cout cases, from tests/test_attention.py TestPallasConv, and
+# ragged ones: 9x9 images that K5's 112-pixel patches cover with
+# padding, and two whose K4 boxes pad N and W (8x8x2 boxes over 3 7x7
+# images; a 32x4 box over one 3x11 image)
+CONV_EXTRA_CASES = (
+    ((2, 8, 8, 128), 64), ((2, 4, 4, 256), 512), ((3, 9, 9, 64), 128),
+    ((3, 7, 7, 512), 256), ((1, 3, 11, 512), 64),
+)
 # K5's f32 dW sums N*H*W products in another order than the plain
 # version's f32 matmul: allow 1e-4 of the largest magnitude
 DW_RTOL = 1e-4
@@ -193,10 +202,12 @@ def ptxas_summary(log: str) -> dict:
         if re.search(r"C75\d\d", line):
             summary.setdefault("warnings", []).append(line.strip()[:200])
             continue
-        entry = re.search(r"((?:flash_(?:fwd|bwd_dkv|bwd_dq)|conv3x3_dw)_kernel)ILi(\d+)E", line)
-        conv = re.search(r"(conv3x3_(?:fwd|dw_reduce)_kernel)", line)
-        if entry or conv:
-            name = f"{entry.group(1)}<{entry.group(2)}>" if entry else conv.group(1)
+        entry = re.search(
+            r"((?:flash_(?:fwd|bwd_dkv|bwd_dq)|conv3x3_(?:fwd|dw))_kernel)ILi(\d+)E", line
+        )
+        reduce = re.search(r"(conv3x3_dw_reduce_kernel)", line)
+        if entry or reduce:
+            name = f"{entry.group(1)}<{entry.group(2)}>" if entry else reduce.group(1)
             summary[name] = ""
             continue
         spill = re.search(r"(\d+) bytes spill stores", line)
@@ -584,7 +595,8 @@ def check_conv_case(kernels, conv_bn, shape, cout, seed, worst) -> dict:
     # K5 sums its split-K partials in a fixed order: bit-equal on a rerun
     again = kernels.conv3x3_dw(x, g)
     torch.cuda.synchronize()
-    case = {"shape": list(shape), "cout": cout}
+    case = {"shape": list(shape), "cout": cout,
+            "fwd_plan": kernels.fwd_plan(*shape, cout)._asdict()}
     if not torch.equal(again, pairs["dw"][1]):
         raise AssertionError(f"conv3x3_dw {case}: two runs on the same inputs differ")
     for part, (name, got, want, rtol) in pairs.items():
@@ -622,6 +634,17 @@ def conv_work(m: int, c: int, cout: int) -> dict:
     }
 
 
+def k4_l2_request_bytes(kernels, shape, cout: int) -> int:
+    """Bytes K4's TMA loads request at one shape, modelled from its plan
+    (no counter measures them): each block requests, for each of its
+    9 * C/64 steps, one x box (FWD_PIXELS rows of 128 bytes) and BN/64
+    weight slabs of 64 rows of 128 bytes, served from L2 or HBM."""
+    n, h, w, c = shape
+    plan = kernels.fwd_plan(n, h, w, c, cout)
+    step = (kernels.FWD_PIXELS + plan.bn) * 128
+    return plan.boxes * (cout // plan.bn) * 9 * (c // 64) * step
+
+
 def time_conv_kernels(kernels, conv_bn, worst) -> dict:
     """At each stage shape at N=256: the kernels against their plain
     versions once more (into `worst`), then the median ms of each kernel,
@@ -637,19 +660,21 @@ def time_conv_kernels(kernels, conv_bn, worst) -> dict:
         x, k, g, k_flip = conv_inputs(shape, c, 20 + i)
         x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)  # channels_last views
         w_oihw = k.permute(3, 2, 0, 1).contiguous()
+        w_flip_oihw = k_flip.permute(3, 2, 0, 1).contiguous()
         timed = {
             "fwd": (lambda: kernels.conv3x3_fwd(x, k),
                     lambda: conv_bn.conv3x3_fwd_plain(x, k),
                     lambda: F.conv2d(x_nchw, w_oihw, padding=1)),
             "dx": (lambda: kernels.conv3x3_fwd(g, k_flip),
                    lambda: conv_bn.conv3x3_fwd_plain(g, k_flip),
-                   lambda: grad.conv2d_input(x_nchw.shape, w_oihw, g_nchw, padding=1)),
+                   lambda: F.conv2d(g_nchw, w_flip_oihw, padding=1)),
             "dw": (lambda: kernels.conv3x3_dw(x, g),
                    lambda: conv_bn.conv3x3_dw_plain(x, g),
                    lambda: grad.conv2d_weight(x_nchw, w_oihw.shape, g_nchw, padding=1)),
         }
         work = conv_work(RESNET_BATCH * size * size, c, c)
-        entry = {"shape": list(shape), "cout": c, "launches_per_pass": count}
+        entry = {"shape": list(shape), "cout": c, "launches_per_pass": count,
+                 "fwd_plan": kernels.fwd_plan(*shape, c)._asdict()}
         for part, (kernel_fn, plain_fn, library_fn) in timed.items():
             flops, nbytes = work[part]
             op_ms = flops / PEAK_BF16_FLOPS * 1e3
@@ -663,10 +688,17 @@ def time_conv_kernels(kernels, conv_bn, worst) -> dict:
                 "flop": flops, "bytes": nbytes,
             }
             entry[part]["tflops"] = flops / entry[part]["ms"] / 1e9
+        # cuDNN's dgrad on the same inputs, beside the forward call on k_flip
+        entry["dx"]["dgrad_ms"] = median_ms(
+            lambda: grad.conv2d_input(x_nchw.shape, w_oihw, g_nchw, padding=1))
+        # the L2 request rate K4's plan implies: modelled bytes over measured time
+        entry["fwd"]["l2_request_bytes_modelled"] = k4_l2_request_bytes(kernels, shape, c)
+        entry["fwd"]["l2_request_tb_per_s_modelled"] = (
+            entry["fwd"]["l2_request_bytes_modelled"] / entry["fwd"]["ms"] / 1e9)
         emit({"phase": "conv_times", "dtype": "bfloat16",
-              "library": "cuDNN via F.conv2d / torch.nn.grad.conv2d_input / "
-                         "conv2d_weight, bf16 channels_last", **entry})
-        del x, k, g, k_flip, x_nchw, g_nchw, w_oihw, timed
+              "library": "cuDNN via F.conv2d (fwd; dx on the flipped, transposed kernel) / "
+                         "torch.nn.grad.conv2d_weight, bf16 channels_last", **entry})
+        del x, k, g, k_flip, x_nchw, g_nchw, w_oihw, w_flip_oihw, timed
         torch.cuda.empty_cache()
         stages.append(entry)
     # per training step: K4 runs the forward and dx of each conv, K5 its dW

@@ -149,10 +149,15 @@ def test_cpu_route_never_launches():
     assert kernels.LAUNCHES == before
 
 
-@pytest.mark.parametrize("n,h,w,c,cout", [
+# shapes whose K4 and K5 plans are checked: ResNet-50's stages at the
+# bench's batch, and ragged ones
+PLAN_CASES = [
     (256, 56, 56, 64, 64), (256, 28, 28, 128, 128), (256, 14, 14, 256, 256),
     (256, 7, 7, 512, 512), (8, 7, 7, 64, 64), (1, 3, 11, 512, 64), (3, 9, 9, 64, 128),
-])
+]
+
+
+@pytest.mark.parametrize("n,h,w,c,cout", PLAN_CASES)
 def test_dw_plan_covers_every_pixel_once(n, h, w, c, cout):
     """K5's patches, walked W first, then H, then N, and cut into runs
     of consecutive patches, one run per split: every run holds at least
@@ -177,11 +182,83 @@ def test_dw_plan_covers_every_pixel_once(n, h, w, c, cout):
     assert (count == 1).all()
 
 
+@pytest.mark.parametrize("n,h,w,c,cout", PLAN_CASES + [(3, 7, 7, 512, 256)])
+def test_fwd_plan_covers_every_pixel_once(n, h, w, c, cout):
+    """K4's boxes, walked W first, then H, then N, cover each of the
+    N*H*W output pixels exactly once (the kernel's TMA store drops what
+    lies outside). Each box holds FWD_PIXELS pixels and fits a TMA box
+    (at most 256 a side); the tile width, 64 or 128 output channels,
+    divides Cout."""
+    plan = kernels.fwd_plan(n, h, w, c, cout)
+    assert plan.wb * plan.hb * plan.nb == kernels.FWD_PIXELS
+    assert max(plan.wb, plan.hb, plan.nb) <= 256
+    assert plan.bn in (64, 128) and cout % plan.bn == 0
+    n_w, n_h = -(-w // plan.wb), -(-h // plan.hb)
+    assert plan.boxes == n_w * n_h * -(-n // plan.nb)
+    count = np.zeros((n, h, w), np.int32)
+    for box in range(plan.boxes):
+        w0, h0, n0 = _box_origin(box, plan, n_w, n_h)
+        count[n0:n0 + plan.nb, h0:h0 + plan.hb, w0:w0 + plan.wb] += 1
+    assert (count == 1).all()
+
+
+def _box_origin(box, plan, n_w, n_h):
+    """(w0, h0, n0) of K4's box number `box` (conv_bn.cu, K4's prologue)."""
+    return box % n_w * plan.wb, box // n_w % n_h * plan.hb, box // (n_w * n_h) * plan.nb
+
+
+def _emulated_fwd(x, k, plan):
+    """K4's walk in numpy: for each box and tile of bn output channels,
+    for each (tap, 64 input channels) step, the box of x at the tap's
+    shifted coordinates with zeros outside the tensor (TMA's zero fill),
+    as 128 rows [pixel][64 channels], times the [64, bn] slab of w,
+    summed in f32; then only the box's pixels inside the tensor are
+    stored."""
+    n, h, w, c = x.shape
+    cout = k.shape[3]
+    n_w, n_h = -(-w // plan.wb), -(-h // plan.hb)
+    n_n = -(-n // plan.nb)
+    # x inside a zero frame wide enough for every shifted box
+    xp = np.zeros((n_n * plan.nb, n_h * plan.hb + 2, n_w * plan.wb + 2, c), np.float32)
+    xp[:n, 1:h + 1, 1:w + 1] = x
+    y = np.full((n, h, w, cout), np.nan, np.float32)
+    for box in range(plan.boxes):
+        w0, h0, n0 = _box_origin(box, plan, n_w, n_h)
+        for co0 in range(0, cout, plan.bn):
+            acc = np.zeros((kernels.FWD_PIXELS, plan.bn), np.float32)
+            for step in range(9 * (c // 64)):
+                tap, slab = divmod(step, c // 64)
+                dy, dx, c0 = tap // 3, tap % 3, slab * 64
+                # output (h0 + j, w0 + i) reads x at (h0 + j + dy - 1, w0 + i + dx - 1),
+                # which is xp at (h0 + j + dy, w0 + i + dx)
+                a = xp[n0:n0 + plan.nb, h0 + dy:h0 + dy + plan.hb, w0 + dx:w0 + dx + plan.wb,
+                       c0:c0 + 64].reshape(kernels.FWD_PIXELS, 64)
+                acc += a @ k[dy, dx, c0:c0 + 64, co0:co0 + plan.bn]
+            tile = acc.reshape(plan.nb, plan.hb, plan.wb, plan.bn)
+            vn, vh, vw = min(plan.nb, n - n0), min(plan.hb, h - h0), min(plan.wb, w - w0)
+            y[n0:n0 + vn, h0:h0 + vh, w0:w0 + vw, co0:co0 + plan.bn] = tile[:vn, :vh, :vw]
+    return y
+
+
+@pytest.mark.parametrize("shape,cout", [((3, 9, 9, 64), 128), ((2, 8, 8, 128), 64)])
+def test_emulated_fwd_walk_matches_plain_version(shape, cout):
+    """The kernel's walk (boxes, shifted zero-filled reads, per-step
+    slabs, clipped store), emulated at the plan's box and tile width
+    (128 and 64 output channels at these two shapes), equals the plain
+    version within 1e-5 of its largest magnitude (the two sum in
+    another order)."""
+    x, k = _inputs(shape, cout, 7)
+    want = conv_bn.conv3x3_fwd_plain(torch.tensor(x), torch.tensor(k)).numpy()
+    got = _emulated_fwd(x, k, kernels.fwd_plan(*shape, cout))
+    assert np.isfinite(got).all()  # every pixel stored
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,cout", [
     ((8, 56, 56, 64), 64), ((8, 28, 28, 128), 128), ((8, 14, 14, 256), 256),
     ((8, 7, 7, 512), 512), ((2, 8, 8, 128), 64), ((2, 4, 4, 256), 512),
-    ((3, 5, 9, 64), 128), ((3, 9, 9, 64), 128),
+    ((3, 5, 9, 64), 128), ((3, 9, 9, 64), 128), ((3, 7, 7, 512), 256), ((1, 3, 11, 512), 64),
 ])
 def test_cuda_kernels_match_plain_versions(shape, cout):
     """K4 forward, K4 as dx and K5 on the card against their plain

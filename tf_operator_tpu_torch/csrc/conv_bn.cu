@@ -5,8 +5,10 @@
 // with a plain C interface loaded by ctypes (tf_operator_tpu_torch/ops/
 // kernels.py). Every kernel launches on the caller's stream, allocates
 // nothing (the wrapper passes the split-K scratch), and each entry
-// point returns cudaGetLastError() after its launches, or one of
-// hopper.cuh's kErr codes when K5's TMA tensor maps cannot be made.
+// point returns cudaGetLastError() after its launches,
+// cudaErrorInvalidValue without launching when the wrapper's plan is
+// wrong, or one of hopper.cuh's kErr codes when a TMA tensor map cannot
+// be made.
 //
 // Layouts (row-major, contiguous; the reference's own, conv_bn.py):
 //   x, y       [N, H, W, C] / [N, H, W, Cout] bf16 (NHWC)
@@ -15,197 +17,226 @@
 //   dw         [3, 3, C, Cout] f32
 //   partial    [S, 3, 3, C, Cout] f32 scratch, S = split count
 // C and Cout are multiples of 64 (ops/conv_bn.py supports()); N, H, W
-// are free: the kernels mask the ragged last tile themselves.
+// are free: both kernels walk the pixels in boxes of wb x hb pixels in
+// each of nb images, read through 4-D TMA maps (C, W, H, N) whose zero
+// fill is the SAME halo and the ragged edge alike.
 //
-// Both are GEMMs with a reduction of at least 576 and bf16 products on
-// the tensor cores with f32 accumulators: K4 through WMMA 16x16x16 fed
-// from shared memory that cp.async fills three stages ahead, K5 through
-// wgmma fed by TMA (hopper.cuh has the primitives). The products of
-// bf16 inputs are exact in f32, so the results differ from an f32
-// reference only by the order of summation.
+// Both are GEMMs with a reduction of at least 576, run as bf16 wgmma
+// (m64nNk16, f32 accumulators) on operands that TMA brings into a ring
+// of shared-memory stages (hopper.cuh has the primitives). The products
+// of bf16 inputs are exact in f32, so the results differ from an f32
+// reference only by the order of summation; neither uses atomics, so
+// each result is the same from run to run.
 //
 // What bounds them on the H100. Every stride-1 3x3 conv of ResNet-50 at
 // batch 256 does 5.92e10 FLOP (59.9 us at 989 TFLOP/s); at stage 0
 // (56x56x64) its 2.06e8 bytes of x and y take 61.4 us at 3.35 TB/s, so
 // the bound is bytes there and operations at the three deeper stages.
-// K4 is bounded by neither: WMMA through mma.sync reaches a fraction of
-// the wgmma rate, and its 128x64 tile re-reads its operands from L2 more
-// often than a wgmma kernel with 128x256 tiles would (PERF.md has the
-// times). K5's design note is at the kernel.
-
-#include <mma.h>
+// Each kernel's note says what its design does about it.
 
 #include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int kStages = 3;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  // src-size 0 makes the copy write 16 zero bytes: the halo and the
-  // ragged tail come out as zeros without a branch on the shared side
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_size = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_size));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // ---------------------------------------------------------------------------
 // K4: forward. Replaces tf_operator_tpu/ops/pallas/conv_bn.py _conv_kernel
 // (launched by _conv3x3_fwd), and as there serves dx in the backward on
-// the cotangent with the flipped, transposed weights (conv_bn.py:212-220).
+// the cotangent with the flipped, transposed weights (conv_bn.py:212-220):
+//   y[n, h, w, co] = sum over (dy, dx, ci) of
+//                    x[n, h+dy-1, w+dx-1, ci] * w[dy, dx, ci, co].
+// Implicit GEMM: M = N*H*W output pixels, N_gemm = Cout, K = 9 taps x C,
+// walked as 9 * C/64 steps of one (tap, 64 input channels). No split-K.
 //
-// Implicit GEMM: M = N*H*W output pixels, N_gemm = Cout, K = 9 taps x C.
-// A block owns a 128-pixel x 64-channel output tile and walks K in
-// 32-channel chunks, tap by tap. For each chunk it copies the 128
-// shifted input rows into shared memory, computing the halo's addresses
-// itself: a row whose (h+dy-1, w+dx-1) falls outside the image, or past
-// the last pixel, is written as zeros. So the reference's jnp.pad copy
-// of x (conv_bn.py:113) does not exist here. 8 warps, each a 32x32 piece
-// of the tile as 2x2 WMMA accumulators; the f32 tile goes through shared
-// memory once more to leave as bf16 in 16-byte stores.
-// The linear block index puts the Cout tiles of one pixel tile next to
-// each other, so the blocks running together share their input rows in
-// L2.
-constexpr int kFwdBM = 128, kFwdBN = 64, kFwdBK = 32, kFwdThreads = 256;
-constexpr int kFwdAPitch = kFwdBK + 8;  // bf16; 80-byte rows: no bank conflicts
-constexpr int kFwdBPitch = kFwdBN + 8;  // bf16; 144-byte rows
-constexpr int kFwdCPitch = kFwdBN + 4;  // f32
-constexpr int kFwdPipeBytes =
-    kStages * (kFwdBM * kFwdAPitch + kFwdBK * kFwdBPitch) * int(sizeof(bf16));
-constexpr int kFwdEpiBytes = kFwdBM * kFwdCPitch * int(sizeof(float));
-constexpr int kFwdSmemBytes = kFwdPipeBytes > kFwdEpiBytes ? kFwdPipeBytes : kFwdEpiBytes;
-static_assert(kFwdSmemBytes <= 48 * 1024, "static shared memory");
+// A block owns a box of 128 output pixels (wb x hb pixels in each of nb
+// images: 8x8x2, 4x4x8, 2x2x32 and 1x1x128 at ResNet-50's four stages,
+// each an exact cover; the wrapper's plan covers any N, H, W) and BN =
+// 128 output channels where Cout allows, else 64; its two warpgroups
+// take 64 pixels each.
+// For each step, warp 0's lane 0 loads one TMA box of x at the tap's
+// shifted coordinates (c0, w0+dx-1, h0+dy-1, n0), whose zero fill is the
+// halo (no padded copy of x, no per-pixel address arithmetic, no
+// division), and BN/64 slabs of w [64 ci][64 co] through a map of w seen
+// as (Cout, C, 9, 1). x lands as 128 pixel rows of 128 bytes, the A
+// operand K-major; w lands MN-major (Cout contiguous) and is read with
+// the transpose flag, its slabs 8 KB apart by the descriptor's LBO, as
+// K5 reads g. A ring of 4 stages (BN = 64) or 3 (BN = 128), so that two
+// blocks share an SM, is refilled by warp 0 once both warpgroups have
+// released a stage; each warpgroup waits for its wgmmas within the
+// stage, so no group is in flight across the back edge or an mbarrier
+// spin. The epilogue rounds the f32 tile to bf16 into the freed ring
+// (128-byte swizzle, no bank conflicts) and TMA stores it through a map
+// of y with the unshifted box, which drops the pixels of a ragged box
+// that lie outside the tensor. The linear block index keeps the Cout
+// tiles of one pixel box adjacent, so the blocks in flight together
+// read each x box through L2.
+// A 128 x 256 tile (one block to an SM, 128 accumulators a thread) was
+// slower than two 128 x 128 blocks at every stage where Cout allows it
+// (PERF.md), so BN stops at 128.
+// What bounds it: operations at stages 1-3, bytes at stage 0 (file
+// note). Neither is reached: each block requests (128 + BN) x 64 bf16
+// per step by TMA for 2 x 128 x BN x 64 FLOP, 64 FLOP a byte at BN =
+// 128 and 43 at BN = 64, so the tensor cores' peak would need 15-23
+// TB/s of requests served from L2, above the rate that K4's measured
+// times imply for its modelled requests (chip_smoke.py's conv_times;
+// PERF.md). At stage 0 every x pixel is requested nine times (once per
+// tap) and each block requests all nine weight slabs: 1.39 GB of
+// requests against the 206 MB of HBM traffic the bound counts. That L2,
+// not HBM, limits stage 0 is a hypothesis: no counter of L2 or HBM
+// traffic was read, so it is not measured.
+constexpr int kFwdPixels = 128;                        // output pixels per block
+constexpr int kFwdXBytes = kFwdPixels * kRowBytes;     // one x box: [128 pixels][64 ci]
+constexpr int kFwdWSlabBytes = kSlab * kRowBytes;      // one w slab: [64 ci][64 co]
 
-__global__ void __launch_bounds__(kFwdThreads)
-conv3x3_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                   bf16* __restrict__ y, int N, int H, int W, int C, int Cout) {
-  __shared__ __align__(128) unsigned char smem[kFwdSmemBytes];
-  bf16* a_smem = reinterpret_cast<bf16*>(smem);
-  bf16* b_smem = a_smem + kStages * kFwdBM * kFwdAPitch;
-  float* c_smem = reinterpret_cast<float*>(smem);
+struct FwdPlan {
+  int wb, hb, nb;  // the pixel box: wb x hb pixels in each of nb images
+  int n_w, n_h;    // boxes across W and H; then across N
+};
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int warp_m = warp >> 1, warp_n = warp & 1;  // 4 x 2 warps
-  const int n_tiles = Cout / kFwdBN;
-  const int m_tile = blockIdx.x / n_tiles;
-  const int n0 = (blockIdx.x - m_tile * n_tiles) * kFwdBN;
-  const long long M = static_cast<long long>(N) * H * W;
-  const long long m0 = static_cast<long long>(m_tile) * kFwdBM;
-  const int hw = H * W;
+template <int BN>
+struct FwdSmem {
+  // two blocks to an SM: 2 x (4 x 24 KB) at BN = 64, 2 x (3 x 32 KB) at 128
+  static constexpr int kStages = BN == 64 ? 4 : 3;
+  static constexpr int kStage = kFwdXBytes + (BN / 64) * kFwdWSlabBytes;  // x box, then w
+  static constexpr int bars = kStages * kStage;
+  static constexpr int bytes = bars + 2 * kStages * 8 + 1024;
+  // the epilogue's bf16 tile, BN/64 slabs of [128 pixels][64 co], reuses the ring
+  static_assert((BN / 64) * kFwdXBytes <= bars, "epilogue tile fits in the ring");
+};
 
-  // A: 128 rows x 4 chunks of 8 channels; this thread copies chunk
-  // tid % 4 of rows tid / 4 and tid / 4 + 64, whose pixels it decodes once
-  const int a_chunk = tid & 3;
-  int a_n[2], a_h[2], a_w[2];
-  bool a_in[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const long long m = m0 + (tid >> 2) + 64 * i;
-    a_in[i] = m < M;
-    const long long mm = a_in[i] ? m : 0;
-    a_n[i] = static_cast<int>(mm / hw);
-    const int rem = static_cast<int>(mm - static_cast<long long>(a_n[i]) * hw);
-    a_h[i] = rem / W;
-    a_w[i] = rem - a_h[i] * W;
-  }
-  // B: 32 rows x 8 chunks, one chunk per thread
-  const int b_row = tid >> 3, b_chunk = tid & 7;
+template <int BN>
+__global__ void __launch_bounds__(kBlockThreads, 2)
+conv3x3_fwd_kernel(const __grid_constant__ CUtensorMap tm_x,
+                   const __grid_constant__ CUtensorMap tm_w,
+                   const __grid_constant__ CUtensorMap tm_y, int C, int Cout, FwdPlan plan) {
+  using L = FwdSmem<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t bar_full = base + L::bars;               // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * L::kStages;   // + 8 * stage
 
-  const int c_chunks = C / kFwdBK;
-  const int k_tiles = 9 * c_chunks;
+  const int co_tiles = Cout / BN;
+  const int box = blockIdx.x / co_tiles;
+  const int co0 = (blockIdx.x - box * co_tiles) * BN;
+  const int w0 = (box % plan.n_w) * plan.wb;
+  const int h0 = (box / plan.n_w % plan.n_h) * plan.hb;
+  const int n0 = box / (plan.n_w * plan.n_h) * plan.nb;
+  const int slabs = C / 64;
+  const int steps = 9 * slabs;                    // step = tap * slabs + input slab
 
-  auto load = [&](int stage, int kt) {
-    const int tap = kt / c_chunks;
-    const int c0 = (kt - tap * c_chunks) * kFwdBK;
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    bf16* as = a_smem + stage * kFwdBM * kFwdAPitch;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = (tid >> 2) + 64 * i;
-      const int hi = a_h[i] + dy, wi = a_w[i] + dx;
-      const bool ok = a_in[i] && hi >= 0 && hi < H && wi >= 0 && wi < W;
-      const bf16* src =
-          ok ? x + ((static_cast<size_t>(a_n[i]) * H + hi) * W + wi) * C + c0 + a_chunk * 8
-             : x;
-      cp_async16(as + r * kFwdAPitch + a_chunk * 8, src, ok);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kBlockWarps);
     }
-    bf16* bs = b_smem + stage * kFwdBK * kFwdBPitch;
-    const bf16* src = w + (static_cast<size_t>(tap) * C + c0 + b_row) * Cout + n0 + b_chunk * 8;
-    cp_async16(bs + b_row * kFwdBPitch + b_chunk * 8, src, true);
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < k_tiles) load(s, s);
-    cp_async_commit();
+    mbar_fence_init();
   }
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // chunk kt has landed; chunk kt-1's stage is free
-    const int next = kt + kStages - 1;
-    if (next < k_tiles) load(next % kStages, next);
-    cp_async_commit();
-    const bf16* as = a_smem + (kt % kStages) * kFwdBM * kFwdAPitch;
-    const bf16* bs = b_smem + (kt % kStages) * kFwdBK * kFwdBPitch;
-#pragma unroll
-    for (int kk = 0; kk < kFwdBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], as + (warp_m * 32 + i * 16) * kFwdAPitch + kk,
-                               kFwdAPitch);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], bs + kk * kFwdBPitch + warp_n * 32 + j * 16,
-                               kFwdBPitch);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the pipeline's shared memory becomes the f32 tile
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(c_smem + (warp_m * 32 + i * 16) * kFwdCPitch + warp_n * 32 + j * 16,
-                              acc[i][j], kFwdCPitch, wmma::mem_row_major);
   __syncthreads();
 
-  for (int v = tid; v < kFwdBM * (kFwdBN / 8); v += kFwdThreads) {
-    const int r = v >> 3, ch = v & 7;
-    const long long m = m0 + r;
-    if (m >= M) continue;
-    const float* src = c_smem + r * kFwdCPitch + ch * 8;
-    uint4 packed;
-    __nv_bfloat162* out2 = reinterpret_cast<__nv_bfloat162*>(&packed);
+  // Run by warp 0: step it into its stage once both warpgroups have
+  // released the step before it there; lane 0 issues the copies.
+  auto load_step = [&](int it) {
+    const int s = it % L::kStages;
+    if (it >= L::kStages) mbar_wait(bar_empty + 8 * s, ((it / L::kStages) - 1) & 1);
+    if (lane == 0) {
+      const int tap = it / slabs;
+      const int c0 = (it - tap * slabs) * 64;
+      const uint32_t stage = base + s * L::kStage;
+      const uint32_t bar = bar_full + 8 * s;
+      mbar_arrive_expect_tx(bar, L::kStage);
+      tma_load(stage, &tm_x, bar, c0, w0 + tap % 3 - 1, h0 + tap / 3 - 1, n0);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) out2[k] = __floats2bfloat162_rn(src[2 * k], src[2 * k + 1]);
-    *reinterpret_cast<uint4*>(y + m * Cout + n0 + ch * 8) = packed;
+      for (int j = 0; j < BN / 64; ++j)
+        tma_load(stage + kFwdXBytes + j * kFwdWSlabBytes, &tm_w, bar, co0 + 64 * j, c0, tap, 0);
+    }
+    __syncwarp();
+  };
+  if (warp == 0)
+    for (int it = 0; it < min(L::kStages, steps); ++it) load_step(it);
+
+  // warpgroup wg: pixel rows 64 * wg + [0, 64) of the box
+  const int wg = threadIdx.x / kWarpgroup;
+  float acc[BN / 2];
+#pragma unroll
+  for (int r = 0; r < BN / 2; ++r) acc[r] = 0.f;
+
+  for (int it = 0; it < steps; ++it) {
+    const int s = it % L::kStages;
+    mbar_wait(bar_full + 8 * s, (it / L::kStages) & 1);
+    const uint32_t x_rows = base + s * L::kStage + wg * 64 * kRowBytes;
+    const uint32_t w_tile = base + s * L::kStage + kFwdXBytes;
+    pin(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // k step kk: 16 input channels, 32 bytes into each x row; rows
+      // 16 kk .. 16 kk + 15 (two 8-row atoms) of the w slabs
+      const uint64_t a = desc_kmajor(x_rows + kk * 32);
+      const uint64_t b = desc_mnmajor(w_tile + kk * 2 * kGroupBytes, kFwdWSlabBytes);
+      if constexpr (BN == 128)
+        wgmma_ss_n128<0, 1>(acc, a, b, 1);
+      else
+        wgmma_ss_n64<0, 1>(acc, a, b, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(acc);
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+    // refill the stage of the step before this one, which the other
+    // warpgroup has most likely released by now
+    if (warp == 0 && it >= 1 && it - 1 + L::kStages < steps) load_step(it - 1 + L::kStages);
   }
+
+  // Epilogue: every wgmma of both warpgroups has read its last stage, so
+  // the ring takes the bf16 tile as BN/64 slabs of [128 pixels][64 co],
+  // 16-byte chunk c of row r at chunk c ^ (r % 8) (the 128-byte swizzle
+  // that the y map's store reads).
+  __syncthreads();
+  const int row = 64 * wg + 16 * (warp % 4) + lane / 4;  // and row + 8; row % 8 == lane / 4
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row + 8 * i;
+      const int off = (j / 8) * kFwdXBytes + r * kRowBytes + (((j % 8) ^ (lane / 4)) * 16) +
+                      (lane % 4) * 4;
+      *reinterpret_cast<uint32_t*>(smem + off) =
+          pack_bf16(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    }
+  fence_async_smem();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < BN / 64; ++j)
+      tma_store(&tm_y, base + j * kFwdXBytes, co0 + 64 * j, w0, h0, n0);
+    tma_store_wait();
+  }
+}
+
+template <int BN>
+int launch_fwd(const void* x, const void* w, void* y, int N, int H, int W, int C, int Cout,
+               const FwdPlan& plan, long long boxes, cudaStream_t stream) {
+  CUtensorMap tx, tw, ty;
+  const uint32_t box[3] = {static_cast<uint32_t>(plan.wb), static_cast<uint32_t>(plan.hb),
+                           static_cast<uint32_t>(plan.nb)};
+  const uint32_t w_box[3] = {static_cast<uint32_t>(kSlab), 1, 1};
+  const uint64_t x_dims[4] = {static_cast<uint64_t>(C), static_cast<uint64_t>(W),
+                              static_cast<uint64_t>(H), static_cast<uint64_t>(N)};
+  const uint64_t w_dims[4] = {static_cast<uint64_t>(Cout), static_cast<uint64_t>(C), 9, 1};
+  const uint64_t y_dims[4] = {static_cast<uint64_t>(Cout), static_cast<uint64_t>(W),
+                              static_cast<uint64_t>(H), static_cast<uint64_t>(N)};
+  int rc = make_map_4d(&tx, x, x_dims, box);
+  if (rc == 0) rc = make_map_4d(&tw, w, w_dims, w_box);
+  if (rc == 0) rc = make_map_4d(&ty, y, y_dims, box);
+  if (rc != 0) return rc;
+  const size_t smem = FwdSmem<BN>::bytes;
+  const cudaError_t err = prepare(conv3x3_fwd_kernel<BN>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv3x3_fwd_kernel<BN><<<static_cast<unsigned>(boxes * (Cout / BN)), kBlockThreads, smem,
+                           stream>>>(tx, tw, ty, C, Cout, plan);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -425,15 +456,22 @@ int launch_dw(const void* x, const void* g, float* partial, float* dw, int N, in
 
 extern "C" {
 
+// The pixel box (wb, hb, nb) must hold kFwdPixels pixels, each side at
+// most 256 (a TMA box's limit), and bn, the output channels per block,
+// must be 64 or 128 and divide Cout (ops/kernels.py fwd_plan); else
+// cudaErrorInvalidValue without launching.
 int conv3x3_fwd(const void* x, const void* w, void* y, int N, int H, int W, int C, int Cout,
-                void* stream) {
-  const long long M = static_cast<long long>(N) * H * W;
-  const long long blocks = (M + kFwdBM - 1) / kFwdBM * (Cout / kFwdBN);
-  conv3x3_fwd_kernel<<<static_cast<unsigned>(blocks), kFwdThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(y), N, H, W,
-      C, Cout);
-  return static_cast<int>(cudaGetLastError());
+                int wb, int hb, int nb, int bn, void* stream) {
+  if (wb < 1 || hb < 1 || nb < 1 || wb * hb * nb != kFwdPixels || wb > 256 || hb > 256 ||
+      nb > 256 || (bn != 64 && bn != 128) || Cout % bn != 0 ||
+      C < 64 || C % 64 != 0 || N < 1 || H < 1 || W < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FwdPlan plan{wb, hb, nb, (W + wb - 1) / wb, (H + hb - 1) / hb};
+  const long long boxes = static_cast<long long>(plan.n_w) * plan.n_h * ((N + nb - 1) / nb);
+  if (boxes * (Cout / bn) > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bn == 128) return launch_fwd<128>(x, w, y, N, H, W, C, Cout, plan, boxes, s);
+  return launch_fwd<64>(x, w, y, N, H, W, C, Cout, plan, boxes, s);
 }
 
 // The patch box (wb, hb, nb) must hold kDwPatch pixels, and `splits`

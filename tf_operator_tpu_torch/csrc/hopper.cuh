@@ -1,5 +1,6 @@
 // Hopper (sm_90a) primitives shared by flash_attention.cu and conv_bn.cu:
-// mbarriers, TMA tensor maps and loads, wgmma descriptors and products.
+// mbarriers, TMA tensor maps, loads and stores, wgmma descriptors and
+// products.
 // Included by each source; everything here is internal to its unit.
 
 #pragma once
@@ -80,6 +81,30 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// TMA store: one box of a 4-D map from shared memory at the given
+// coordinates; elements outside the tensor are not written. Before it,
+// the threads that wrote the box fence their writes to the async proxy
+// (fence_async_smem) and synchronise; after it, the issuing thread
+// commits and waits until the box has been read (tma_store_wait) before
+// the shared memory is reused or the block exits.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // Shared-memory matrix descriptors for 128-byte-swizzled tiles whose

@@ -49,6 +49,9 @@ LAUNCHES: Dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
     "conv3x3_fwd": 0, "conv3x3_dw": 0,
 }
+# K4 computes a box of FWD_PIXELS output pixels (csrc/conv_bn.cu
+# kFwdPixels) by 64 or 128 output channels per block
+FWD_PIXELS = 128
 # K5 sums the N*H*W pixels in patches of DW_PATCH (csrc/conv_bn.cu
 # kDwPatch), split into runs of patches to fill the card's SMS in whole
 # waves. The split count weighs waves against the partials' traffic:
@@ -152,7 +155,7 @@ def library() -> ctypes.CDLL:
         lib.flash_bwd_dq.argtypes = common + [
             _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
         ]
-        lib.conv3x3_fwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+        lib.conv3x3_fwd.argtypes = [_P, _P, _P] + [_I] * 9 + [_P]
         lib.conv3x3_dw.argtypes = [_P, _P, _P, _P] + [_I] * 10 + [_P]
         for fn in (
             lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq,
@@ -308,6 +311,43 @@ def _check_conv_inputs(x: torch.Tensor, other: torch.Tensor, other_name: str) ->
         raise ValueError(f"N*H*W = {n * h * w} exceeds the kernels' int range")
 
 
+class FwdPlan(NamedTuple):
+    """K4's walk over the output: boxes of wb x hb pixels in each of nb
+    images (wb * hb * nb == FWD_PIXELS), `boxes` of them over [N, H, W]
+    (W fastest, then H, then N), each by Cout / bn blocks of bn output
+    channels."""
+
+    wb: int
+    hb: int
+    nb: int
+    boxes: int
+    bn: int
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _pixel_box(n: int, h: int, w: int, pixels: int) -> Tuple[int, int, int]:
+    """The box of wb x hb pixels in each of nb images, wb * hb * nb ==
+    `pixels`, that covers [n, h, w] with the fewest padded pixels (ties:
+    the widest rows, as TMA copies them)."""
+    sizes = [d for d in range(1, pixels + 1) if pixels % d == 0]
+    boxes = [(wb, hb, pixels // (wb * hb)) for wb in sizes for hb in sizes
+             if (pixels // wb) % hb == 0]
+    return min(boxes, key=lambda box: (
+        _ceil(w, box[0]) * _ceil(h, box[1]) * _ceil(n, box[2]), -box[0], -box[1]))
+
+
+@lru_cache(maxsize=None)
+def fwd_plan(n: int, h: int, w: int, c: int, cout: int) -> FwdPlan:
+    """The pixel box with the fewest padded pixels (_pixel_box), and 128
+    output channels per block where Cout allows it, else 64."""
+    wb, hb, nb = _pixel_box(n, h, w, FWD_PIXELS)
+    boxes = _ceil(w, wb) * _ceil(h, hb) * _ceil(n, nb)
+    return FwdPlan(wb, hb, nb, boxes, 128 if cout % 128 == 0 else 64)
+
+
 def conv3x3_fwd(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """K4. x [N, H, W, C] bf16 NHWC, kernel [3, 3, C, Cout] bf16 HWIO ->
     the SAME 3x3 stride-1 convolution [N, H, W, Cout] in bf16, summed
@@ -320,12 +360,13 @@ def conv3x3_fwd(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
             f"got {tuple(kernel.shape)}"
         )
     cout = kernel.shape[3]
+    plan = fwd_plan(n, h, w, c, cout)
     y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
     lib = library()
     with torch.cuda.device(x.device):
         rc = lib.conv3x3_fwd(
             x.data_ptr(), kernel.data_ptr(), y.data_ptr(), n, h, w, c, cout,
-            _stream(x.device),
+            plan.wb, plan.hb, plan.nb, plan.bn, _stream(x.device),
         )
     _check("conv3x3_fwd", rc)
     return y
@@ -345,20 +386,12 @@ class DwPlan(NamedTuple):
     per_split: int
 
 
-def _ceil(a: int, b: int) -> int:
-    return -(-a // b)
-
-
 @lru_cache(maxsize=None)
 def dw_plan(n: int, h: int, w: int, c: int, cout: int) -> DwPlan:
     """The patch box that covers [n, h, w] with the fewest padded pixels
-    (ties: the widest rows, as TMA copies them), and the split count
-    that minimises waves x patches per run plus the partials' traffic."""
-    sizes = [d for d in range(1, DW_PATCH + 1) if DW_PATCH % d == 0]
-    boxes = [(wb, hb, DW_PATCH // (wb * hb)) for wb in sizes for hb in sizes
-             if (DW_PATCH // wb) % hb == 0]
-    wb, hb, nb = min(boxes, key=lambda box: (
-        _ceil(w, box[0]) * _ceil(h, box[1]) * _ceil(n, box[2]), -box[0], -box[1]))
+    (_pixel_box), and the split count that minimises waves x patches per
+    run plus the partials' traffic."""
+    wb, hb, nb = _pixel_box(n, h, w, DW_PATCH)
     patches = _ceil(w, wb) * _ceil(h, hb) * _ceil(n, nb)
     bn = 128 if cout % 128 == 0 else 64
     tiles = _ceil(9 * (c // 64), 2) * (cout // bn)
