@@ -24,17 +24,40 @@ non-zero, printing no result:
    the CLI's run(); launch counters must equal 12 per forward (K1) and
    per backward (K2, K3) pass. train_plain: the same run on the plain
    attention path.
-6. profile - device time of two flash training steps by kernel.
+6. profile - device time of two flash training steps by kernel and by
+   kind of kernel.
 7. plain_parity - one Trainer.step from the same seed through the flash
    kernels, the plain bf16 path and an f32 plain path, packed and
    unpacked (the unpacked one runs the in-kernel mask path inside the
    model): losses and gradients within the stated tolerances.
-8. conv_check - K4 (forward), K4 as dx (flipped, transposed kernel) and
+8. gpt_kernel_check, gpt_kernel_times - kernel_check's and
+   kernel_times' work for K1-K3 with the causal mask at one GPT-small
+   layer's shape (4, 4096, 6, 128), each output's worst error with its
+   position, then each output held against the f32 plain version one
+   (batch, row, head) slice at a time (relative L2 within 2^-5) and as a
+   whole (within 1%); SDPA with is_causal=True beside them; the work
+   counts the s(s+1)/2 pairs a causal row set keeps.
+9. gpt_train - GPT-small (12 x 768, 6 x 128 heads, vocab 32000, seq
+   4096, batch 4, AdamW 3e-4 wd 0.01, causal flash) through train/gpt.py,
+   then greedy generate of 56 tokens from each row's first 8; launch
+   counters must equal 12 per forward (K1) and per backward (K2, K3)
+   pass, and the loss must fall.
+10. gpt_generate - on that model: teacher-forced GPTDecodeStep logits
+   against the training forward's (f32 views, atol/rtol 1e-3), and the
+   prefill chain equal to the all-stepwise chain (f32); both reported in
+   bf16 too; a profile of 8 decode steps (kernels launched per token,
+   device busy share). gpt_train_plain: gpt_train on plain causal
+   attention. gpt_profile: as profile, for GPT-small. gpt_host_batch:
+   the host's ms to draw one 4 x 4096 batch and to place it on the idle
+   card, beside the time gpt_train's loop spent drawing.
+11. gpt_parity - plain_parity's criterion for one GPT-small step at
+   batch 1, seq 4096.
+12. conv_check - K4 (forward), K4 as dx (flipped, transposed kernel) and
    K5 (dW) against their plain versions in bf16 on the card, at the
    four ResNet-50 stage shapes with N=8, at two C != Cout shapes and at
    three ragged ones (H*W = 81, not a multiple of 16; K4 boxes that pad
    N and W).
-9. conv_times - at each stage shape at N=256 (the bench's batch), each
+13. conv_times - at each stage shape at N=256 (the bench's batch), each
    kernel against its plain version once more, then the median ms of
    each kernel, its plain version and the cuDNN call that computes the
    same function (F.conv2d for the forward and for dx on the flipped,
@@ -42,15 +65,15 @@ non-zero, printing no result:
    torch.nn.grad.conv2d_input beside it), with the bound computed from
    those inputs; K4's plan (pixel box, tile width) and the L2 request
    rate its plan implies (modelled bytes over measured time).
-10. resnet_train - ResNet-50 (stage sizes 3, 4, 6, 3, width 64, 1000
+14. resnet_train - ResNet-50 (stage sizes 3, 4, 6, 3, width 64, 1000
    classes, 224x224, bf16, batch 256, SGD 0.1 momentum 0.9,
    --conv3-impl pallas) through the CLI's run(); launch counters must
    equal 13 K4 launches per forward and per backward pass and 13 K5
    launches per backward pass. resnet_train_xla: the same run with
    --conv3-impl xla (cuDNN for every conv).
-11. resnet_profile - device time of two ResNet-50 steps by kernel and by
+15. resnet_profile - device time of two ResNet-50 steps by kernel and by
    kind of kernel, pallas and xla.
-12. resnet_parity - one Trainer.step from the same weights and batch
+16. resnet_parity - one Trainer.step from the same weights and batch
    (N=32, 224x224) through K4/K5, the torch conv in bf16, and the torch
    conv in f32 with TF32 off: losses, gradients and BN running
    statistics within the stated tolerances, then one evaluate.
@@ -60,6 +83,7 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -87,6 +111,16 @@ OUT_F32_RTOL = 1e-5
 # v_k - O): K1 -> delta -> K2, K3 in bf16, each of dq, dk, dv within this
 # relative L2 distance of the f32 plain gradients
 COMMON_GRAD_RTOL = 1e-2
+# K1-K3 at GPT_SHAPE against the f32 plain outputs and gradients, one
+# (batch, row, head) slice of head_dim values at a time: relative L2
+# distance within ROW_RTOL. A correct kernel is off by bf16 roundings
+# (each about 2^-9 of a value); a causal tile bound that drops or repeats
+# one 64-key tile of a row that sees n keys moves it by about sqrt(64/n),
+# 12% at n = 4096. Slices smaller than ROW_FLOOR of the tensor's median
+# slice norm (the dK/dV rows of the last keys, which few queries reach)
+# are measured against that floor instead.
+ROW_RTOL = 2.0**-5
+ROW_FLOOR = 1.0 / 8
 # flash vs plain attention inside BERT-base in bf16: the plain path runs
 # both products in bf16, the kernels in f32, so logits differ by bf16
 # roundings; the f32 loss (about ln 30522 = 10.3) may differ by this
@@ -110,7 +144,11 @@ REPLACES = {
     "conv3x3_dw": "tf_operator_tpu/ops/pallas/conv_bn.py:144",
 }
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+ROW_OUTPUTS = {"flash_fwd": ("out",), "flash_bwd_dkv": ("dk", "dv"), "flash_bwd_dq": ("dq",)}
 CONV_KERNELS = ("conv3x3_fwd", "conv3x3_dw")
+# the kernels' names in a profile
+FLASH_KERNEL_SYMBOLS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+CONV_KERNEL_SYMBOLS = ("conv3x3_fwd_kernel", "conv3x3_dw_kernel", "conv3x3_dw_reduce_kernel")
 # ResNet-50's stride-1 3x3 convs: (spatial size, channels, how many per
 # pass) at stage sizes 3, 4, 6, 3 (the first block of stages 1-3 is
 # stride 2 and takes the torch conv)
@@ -131,9 +169,10 @@ CONV_EXTRA_CASES = (
 # version's f32 matmul: allow 1e-4 of the largest magnitude
 DW_RTOL = 1e-4
 RESNET_PARITY_BATCH = 32
-# device time by kind of kernel in resnet_profile, first match wins
+# device time by kind of kernel in the profiles, first match wins
 # (substrings of the lower-cased kernel name)
 PROFILE_CATEGORIES = (
+    ("flash (K1-K3)", ("flash_",)),
     ("conv3x3 (K4/K5)", ("conv3x3_",)),
     ("cuDNN/cuBLAS conv and GEMM", ("cudnn", "xmma", "conv", "gemm", "nvjet", "cutlass", "wgrad", "dgrad")),
     ("reductions", ("reduce_kernel",)),
@@ -143,6 +182,14 @@ PROFILE_CATEGORIES = (
 )
 # the bench's ResNet-50 training FLOP per image (model_benches.py:41-45)
 BENCH_FLOP_PER_IMAGE = 3.0 * 7.7e9
+# GPT-small (12 x 768, 6 heads of 128) at the reference bench's batch
+# and seq (model_benches.py:319-326): one layer's attention, causal
+GPT_SHAPE = (4, 4096, 6, 128)
+GPT_STEPS = 5
+GPT_NEW_TOKENS = 56  # after train/gpt.py's 8-token prompt: 64 positions
+# teacher-forced decode logits against the training forward's, as the
+# reference's own decode test holds them (tests/test_gpt.py:150-154)
+DECODE_ATOL = DECODE_RTOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -232,11 +279,18 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+def worst_position(got: torch.Tensor, want: torch.Tensor) -> list:
+    """[b, s, h, d] of the largest |got - want|: a wrong causal tile bound
+    shows as a query row s far from the diagonal."""
+    diff = (got.float() - want.float()).abs()
+    return [int(i) for i in torch.unravel_index(diff.argmax(), diff.shape)]
+
+
 def check_case(kernels, fa, inputs, causal, case, worst) -> None:
     """K1-K3 against their plain versions on one set of inputs; records
-    each kernel's (error, tolerance) in `case`, keeps the worst (error /
-    tolerance) per kernel in `worst`, and raises on one out of
-    tolerance."""
+    each kernel's (error, tolerance) in `case` and each output's worst
+    position under "worst_at", keeps the worst (error / tolerance) per
+    kernel in `worst`, and raises on one out of tolerance."""
     q, k, v, g, mask = inputs
     scale = 1.0 / math.sqrt(q.shape[-1])
     out, lse, out_f32 = kernels.flash_fwd(q, k, v, mask, causal, scale)
@@ -249,19 +303,21 @@ def check_case(kernels, fa, inputs, causal, case, worst) -> None:
     ref_dq = fa.flash_backward_dq_reference(*args)
     torch.cuda.synchronize()
     pairs = {
-        "flash_fwd": [(out, ref_out)],
-        "flash_bwd_dkv": [(dk, ref_dk), (dv, ref_dv)],
-        "flash_bwd_dq": [(dq, ref_dq)],
+        "flash_fwd": [("out", out, ref_out)],
+        "flash_bwd_dkv": [("dk", dk, ref_dk), ("dv", dv, ref_dv)],
+        "flash_bwd_dq": [("dq", dq, ref_dq)],
     }
+    case["worst_at"] = {}
     for name, items in pairs.items():
-        for got, want in items:
+        for output, got, want in items:
             if got.shape != want.shape or not torch.isfinite(got).all():
                 raise AssertionError(f"{name} {case}: bad shape or non-finite")
             err = max_err(got, want)
             tol = KERNEL_RTOL * max(1.0, want.float().abs().max().item())
             case[name] = [err, tol]
+            case["worst_at"][output] = worst_position(got, want)
             if err > tol:
-                raise AssertionError(f"{name} {case}: error {err} > {tol}")
+                raise AssertionError(f"{name} ({output}) {case}: error {err} > {tol}")
             if name not in worst or err / tol > worst[name][0] / worst[name][1]:
                 worst[name] = (err, tol)
     lse_err = (lse - ref_lse).abs().max().item()
@@ -275,8 +331,45 @@ def check_case(kernels, fa, inputs, causal, case, worst) -> None:
     f32_tol = (OUT_F32_P_RTOL * v.float().abs().max().item()
                + OUT_F32_RTOL * max(1.0, ref_f32.abs().max().item()))
     case["out_f32"] = [f32_err, f32_tol]
+    case["worst_at"]["out_f32"] = worst_position(out_f32, ref_f32)
     if f32_err > f32_tol:
         raise AssertionError(f"out_f32 {case}: error {f32_err} > {f32_tol}")
+
+
+def f32_pair(kernels, fa, inputs, causal) -> tuple:
+    """K1, then `_delta`, K2 and K3 on bf16 inputs; and the plain
+    version's output and gradients in f32 from the same bf16 values.
+    Returns ({"out", "dq", "dk", "dv"} from the kernels, the same f32)."""
+    q, k, v, g, mask = inputs
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    out, lse, out_f32 = kernels.flash_fwd(q, k, v, mask, causal, scale)
+    args = (q, k, v, mask, g, lse, fa._delta(out_f32, g), causal, scale)
+    dk, dv = kernels.flash_bwd_dkv(*args)
+    dq = kernels.flash_bwd_dq(*args)
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    ref_out, ref_lse = fa._forward_f32(qf, kf, vf, mask, causal, scale)
+    ref_dq, ref_dk, ref_dv = fa.flash_backward_reference(
+        qf, kf, vf, mask, gf, ref_lse, fa._delta(ref_out, gf), causal, scale
+    )
+    torch.cuda.synchronize()
+    return ({"out": out, "dq": dq, "dk": dk, "dv": dv},
+            {"out": ref_out, "dq": ref_dq, "dk": ref_dk, "dv": ref_dv})
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float() - want).norm() / want.norm()).item()
+
+
+def row_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """[b, s, h, d] against its f32 truth: the relative L2 distance of
+    each (b, s, h) slice (its norm floored at ROW_FLOOR of the median
+    slice norm), the worst with its position and the median, and the
+    whole tensor's."""
+    norm = want.norm(dim=-1)
+    rel = (got.float() - want).norm(dim=-1) / norm.clamp_min(ROW_FLOOR * norm.median())
+    return {"worst_row_rel": rel.max().item(),
+            "worst_at_b_s_h": [int(i) for i in torch.unravel_index(rel.argmax(), rel.shape)],
+            "median_row_rel": rel.median().item(), "whole_rel": rel_l2(got, want)}
 
 
 def check_common_part(kernels, fa, shape, seed) -> dict:
@@ -290,25 +383,38 @@ def check_common_part(kernels, fa, shape, seed) -> dict:
     q, k, g = (torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16()
                for _ in range(3))
     v = (4.0 + 0.05 * torch.randn((b, s, h, d), generator=gen, device="cuda")).bfloat16()
-    scale = 1.0 / math.sqrt(d)
-    out, lse, out_f32 = kernels.flash_fwd(q, k, v, None, False, scale)
-    args = (q, k, v, None, g, lse, fa._delta(out_f32, g), False, scale)
-    dk, dv = kernels.flash_bwd_dkv(*args)
-    dq = kernels.flash_bwd_dq(*args)
-    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
-    ref_out, ref_lse = fa._forward_f32(qf, kf, vf, None, False, scale)
-    ref = fa.flash_backward_reference(
-        qf, kf, vf, None, gf, ref_lse, fa._delta(ref_out, gf), False, scale
-    )
-    torch.cuda.synchronize()
+    got, ref = f32_pair(kernels, fa, (q, k, v, g, None), False)
     case = {"shape": list(shape), "case": "common part (v = 4 + 0.05 noise)",
             "grad_rtol": COMMON_GRAD_RTOL}
-    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
-        case[name] = ((got.float() - want).norm() / want.norm()).item()
+    for name in ("dq", "dk", "dv"):
+        case[name] = rel_l2(got[name], ref[name])
     emit({"phase": "kernel_check", **case})
     worst = max(case["dq"], case["dk"], case["dv"])
     if not math.isfinite(worst) or worst > COMMON_GRAD_RTOL:
         raise AssertionError(f"common-part gradients {case}")
+    return case
+
+
+def check_rows(kernels, fa, shape, causal, seed, phase) -> dict:
+    """K1-K3 on make_inputs' N(0, 1) inputs against the f32 plain output
+    and gradients, on a scale that follows the rows: for each of out,
+    dq, dk, dv, the worst (batch, row, head) slice's relative L2 distance
+    (ROW_RTOL, ROW_FLOOR) with its position, and the whole tensor's
+    (COMMON_GRAD_RTOL). Raises on either out of tolerance."""
+    got, ref = f32_pair(kernels, fa, make_inputs(*shape, seed, False, causal), causal)
+    case = {"shape": list(shape), "causal": causal, "case": "rows against f32",
+            "row_rtol": ROW_RTOL, "row_floor": ROW_FLOOR, "whole_rtol": COMMON_GRAD_RTOL}
+    failed = []
+    for name in ("out", "dq", "dk", "dv"):
+        case[name] = row_errors(got[name], ref[name])
+        if not case[name]["worst_row_rel"] <= ROW_RTOL or not (
+                case[name]["whole_rel"] <= COMMON_GRAD_RTOL):
+            failed.append(name)
+    emit({"phase": phase, **case})
+    if failed:
+        raise AssertionError(f"{failed} out of tolerance against f32: {case}")
+    del got, ref
+    torch.cuda.empty_cache()
     return case
 
 
@@ -328,34 +434,38 @@ def check_kernels(kernels, fa) -> dict:
     return worst
 
 
-def time_kernels(kernels, fa, worst) -> dict:
-    """At the main-path shape: each kernel against its plain version
-    (into `worst`), then the median ms of each kernel, its plain version
-    and the library call, plus the bound from these inputs."""
-    b, s, h, d = MAIN_SHAPE
-    inputs = make_inputs(b, s, h, d, 2, False, False)
-    case = {"shape": list(MAIN_SHAPE), "causal": False, "mask": False}
-    check_case(kernels, fa, inputs, False, case, worst)
-    emit({"phase": "kernel_check", **case})
+def time_kernels(kernels, fa, worst, shape=MAIN_SHAPE, causal=False,
+                 phase="kernel_times", check_phase="kernel_check") -> dict:
+    """At one shape: each kernel against its plain version (into
+    `worst`), then the median ms of each kernel, its plain version and
+    the library call (SDPA, causal as the kernels), plus the bound from
+    these inputs. Under a causal mask the work counts the s(s+1)/2 query
+    and key pairs each (batch, head) keeps."""
+    b, s, h, d = shape
+    inputs = make_inputs(b, s, h, d, 2, False, causal)
+    case = {"shape": list(shape), "causal": causal, "mask": False}
+    check_case(kernels, fa, inputs, causal, case, worst)
+    emit({"phase": check_phase, **case})
     q, k, v, g, _ = inputs
     scale = 1.0 / math.sqrt(d)
-    out, lse, out_f32 = kernels.flash_fwd(q, k, v, None, False, scale)
+    out, lse, out_f32 = kernels.flash_fwd(q, k, v, None, causal, scale)
     delta = fa._delta(out_f32, g)
-    args = (q, k, v, None, g, lse, delta, False, scale)
+    args = (q, k, v, None, g, lse, delta, causal, scale)
 
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt)
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     gt = g.transpose(1, 2)
 
     def sdpa_backward():
         torch.autograd.grad(sdpa_out, (qt, kt, vt), gt, retain_graph=True)
 
     with torch.no_grad():
-        sdpa_fwd_ms = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        sdpa_fwd_ms = median_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
     sdpa_bwd_ms = median_ms(sdpa_backward)
 
     n = b * s * h * d  # elements of one [b, s, h, d] tensor
-    pairs = b * h * s * s
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
     stats_bytes = 4 * b * h * s  # one f32 row statistic
     work = {
         # name: (FLOP, bytes: each input read once, each output written
@@ -367,8 +477,8 @@ def time_kernels(kernels, fa, worst) -> dict:
     }
     timed = {
         "flash_fwd": (
-            lambda: kernels.flash_fwd(q, k, v, None, False, scale),
-            lambda: fa.flash_forward_reference(q, k, v, None, False, scale),
+            lambda: kernels.flash_fwd(q, k, v, None, causal, scale),
+            lambda: fa.flash_forward_reference(q, k, v, None, causal, scale),
             sdpa_fwd_ms,
         ),
         "flash_bwd_dkv": (
@@ -398,20 +508,19 @@ def time_kernels(kernels, fa, worst) -> dict:
         }
         result[name]["tflops"] = flops / result[name]["ms"] / 1e9
     f32_out_bytes = 4 * n
-    emit({"phase": "kernel_times", "shape": list(MAIN_SHAPE), "dtype": "bfloat16",
+    emit({"phase": phase, "shape": list(shape), "causal": causal, "dtype": "bfloat16",
           "flash_fwd_f32_out_bytes": f32_out_bytes,
           "flash_fwd_f32_out_ms_at_peak": f32_out_bytes / PEAK_BYTES * 1e3,
-          "library": "F.scaled_dot_product_attention (K2, K3: its backward, "
-                     "dq+dk+dv together)", **result})
+          "library": f"F.scaled_dot_product_attention(is_causal={causal}) (K2, K3: its "
+                     "backward, dq+dk+dv together)", **result})
+    del inputs, q, k, v, g, out, lse, out_f32, delta, args, qt, kt, vt, sdpa_out, gt, timed
+    torch.cuda.empty_cache()
     return result
 
 
 def profile_step(bert_lib, trainer_lib, flash_attention) -> None:
-    """Device time of two BERT-base flash training steps by kernel
-    (torch.profiler), the flash kernels' share of it, and the device's
-    busy share of the window's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device time of two BERT-base flash training steps by kernel and
+    by kind of kernel."""
     cfg = bert_lib.BERT_BASE
     model = bert_lib.BertForMLM(
         cfg, attention_fn=flash_attention, generator=torch.Generator().manual_seed(5)
@@ -420,10 +529,21 @@ def profile_step(bert_lib, trainer_lib, flash_attention) -> None:
         model, trainer_lib.mlm_task(model), learning_rate=1e-4,
         weight_decay=0.01, packed=True, device="cuda",
     )
-    state = trainer.init()
-    batch = trainer.place_batch(bert_lib.synthetic_batch(
+    batch = bert_lib.synthetic_batch(
         torch.Generator().manual_seed(6), MAIN_SHAPE[0], MAIN_SHAPE[1], cfg
-    ))
+    )
+    profile_training("profile", trainer, batch, "flash", FLASH_KERNEL_SYMBOLS)
+
+
+def profile_training(phase: str, trainer, batch, label: str, ours, extra=None) -> None:
+    """Device time of two training steps by kernel and by kind of kernel
+    (torch.profiler), the share of the kernels named in `ours` (reported
+    under `label`), and the device's busy share of the window's wall
+    time; one warm-up step first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state = trainer.init()
+    batch = trainer.place_batch(batch)
     state, _ = trainer.step(state, batch)
     torch.cuda.synchronize()
     steps = 2
@@ -435,17 +555,32 @@ def profile_step(bert_lib, trainer_lib, flash_attention) -> None:
         wall_ms = (time.monotonic() - start) * 1e3
     kernels = device_kernels(prof)
     total_us = sum(e.self_device_time_total for e in kernels)
-    ours = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
-    flash_us = sum(
-        e.self_device_time_total for e in kernels if any(n in e.key for n in ours)
-    )
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    by_ours = {
+        n: sum(e.self_device_time_total for e in kernels if n in e.key) / 1e3 / steps
+        for n in ours
+    }
+    ours_us = sum(e.self_device_time_total for e in kernels if any(n in e.key for n in ours))
+    by_category, members = {}, {}
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
+        category = next(
+            (name for name, keys in PROFILE_CATEGORIES if any(k in e.key.lower() for k in keys)),
+            "other",
+        )
+        by_category[category] = by_category.get(category, 0.0) + e.self_device_time_total / 1e3 / steps
+        members.setdefault(category, [])
+        if len(members[category]) < 3:  # the largest few, to check the sorting
+            members[category].append(e.key[:70])
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
     emit({
-        "phase": "profile", "steps": steps, "wall_ms_per_step": wall_ms / steps,
+        "phase": phase, **(extra or {}), "steps": steps,
+        "wall_ms_per_step": wall_ms / steps,
         "device_ms_per_step": total_us / 1e3 / steps,
         "device_busy_share": total_us / 1e3 / wall_ms if wall_ms else None,
-        "flash_kernels_ms_per_step": flash_us / 1e3 / steps,
-        "flash_share_of_device": flash_us / total_us if total_us else None,
+        f"{label}_kernels_ms_per_step": ours_us / 1e3 / steps,
+        f"{label}_kernels_by_name_ms_per_step": by_ours,
+        f"{label}_share_of_device": ours_us / total_us if total_us else None,
+        "ms_per_step_by_category": by_category,
+        "largest_by_category": members,
         "top": [
             {"kernel": e.key[:90], "ms_per_step": e.self_device_time_total / 1e3 / steps,
              "calls_per_step": e.count / steps}
@@ -476,6 +611,30 @@ def padded_batch(bert_lib, cfg, batch_size, seq_len, seed):
     return batch
 
 
+def flash_over_plain(grads) -> tuple:
+    """Each parameter's relative L2 distance from the f32 step's gradient
+    on the flash and the plain route: (the worst (name, distance) per
+    route, [(flash / max(plain, GRAD_FLOOR), name, flash, plain), ...]
+    largest ratio first)."""
+    errors = {"flash": {}, "plain": {}}
+    for name, truth in grads["f32"].items():
+        if name.endswith("attention.key.bias"):
+            # zero in exact arithmetic (a key bias shifts every score
+            # of a row by q.b, which the softmax ignores), so every
+            # route holds only rounding noise there
+            continue
+        for route in errors:
+            diff = (grads[route][name] - truth).norm() / truth.norm().clamp_min(1e-30)
+            errors[route][name] = diff.item()
+    worst = {r: max(e.items(), key=lambda kv: kv[1]) for r, e in errors.items()}
+    ratios = sorted(
+        ((errors["flash"][n] / max(errors["plain"][n], GRAD_FLOOR), n,
+          errors["flash"][n], errors["plain"][n]) for n in errors["flash"]),
+        reverse=True,
+    )
+    return worst, ratios
+
+
 def plain_parity(kernels, bert_lib, trainer_lib, flash_attention) -> dict:
     """One step from the same weights and batch through the flash
     kernels and through the plain attention path, both in bf16, packed
@@ -483,8 +642,6 @@ def plain_parity(kernels, bert_lib, trainer_lib, flash_attention) -> dict:
     per layer. Gradients are held against the same step in f32 (plain
     attention, full-f32 matmuls): the flash route may be no further
     from it than the plain bf16 route, parameter by parameter."""
-    import dataclasses
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     base = bert_lib.BERT_BASE
@@ -527,22 +684,7 @@ def plain_parity(kernels, bert_lib, trainer_lib, flash_attention) -> dict:
                 )
             grads[route] = {n: p.grad for n, p in model.named_parameters()}
             del model, trainer, state
-        errors = {"flash": {}, "plain": {}}
-        for name, truth in grads["f32"].items():
-            if name.endswith("attention.key.bias"):
-                # zero in exact arithmetic (a key bias shifts every score
-                # of a row by q.b, which the softmax ignores), so every
-                # route holds only rounding noise there
-                continue
-            for route in errors:
-                diff = (grads[route][name] - truth).norm() / truth.norm().clamp_min(1e-30)
-                errors[route][name] = diff.item()
-        worst = {r: max(e.items(), key=lambda kv: kv[1]) for r, e in errors.items()}
-        ratios = sorted(
-            ((errors["flash"][n] / max(errors["plain"][n], GRAD_FLOOR), n,
-              errors["flash"][n], errors["plain"][n]) for n in errors["flash"]),
-            reverse=True,
-        )
+        worst, ratios = flash_over_plain(grads)
         ratio, ratio_name = ratios[0][0], ratios[0][1]
         key = "packed" if packed else "unpacked"
         report[key] = {
@@ -719,6 +861,299 @@ def time_conv_kernels(kernels, conv_bn, worst) -> dict:
     return {"stages": stages, "totals": totals}
 
 
+def gpt_args(gpt_cli, steps: int, generate: int = 0):
+    b, s, _, _ = GPT_SHAPE
+    return gpt_cli.parse_args([
+        "--preset", "small", "--steps", str(steps), "--batch-size", str(b),
+        "--seq-len", str(s), "--learning-rate", "3e-4", "--log-every", "1",
+        "--generate", str(generate),
+    ])
+
+
+def gpt_flop_per_token(model, seq: int) -> int:
+    """The reference bench's causal count (model_benches.py:48-62):
+    6 * P for the parameters' forward and backward, plus 6 * L * s * h for
+    the attention products (causal: half of the dense 12)."""
+    cfg = model.cfg
+    params = sum(p.numel() for p in model.parameters())
+    return 6 * params + 6 * cfg.num_layers * seq * cfg.hidden_size
+
+
+def run_gpt(kernels, gpt_lib, gpt_cli, smi):
+    """gpt_train: GPT-small through train/gpt.py at GPT_SHAPE, greedy
+    generate after it; launch counts checked, loss must fall. Returns the
+    launches, the summary and the trained model."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    summary, model = gpt_cli.train(gpt_args(gpt_cli, GPT_STEPS, GPT_NEW_TOKENS))
+    launches = dict(kernels.LAUNCHES)
+    want = {k: 0 for k in launches}
+    want["flash_fwd"] = LAYERS * summary["forward_passes"]
+    want["flash_bwd_dkv"] = want["flash_bwd_dq"] = LAYERS * summary["backward_passes"]
+    flop_per_token = gpt_flop_per_token(model, GPT_SHAPE[1])
+    emit({"phase": "gpt_train", "model": "GPT-small", "shape": list(GPT_SHAPE),
+          "card": smi, **{k: v for k, v in summary.items() if k != "generated"},
+          "params": sum(p.numel() for p in model.parameters()),
+          "model_flop_per_token": flop_per_token,
+          "mfu": summary["tokens_per_sec"] * flop_per_token / PEAK_BF16_FLOPS,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches, "launches_expected": want})
+    if launches != want:
+        raise AssertionError(f"gpt launches {launches} != expected {want}")
+    for key in ("loss", "eval_loss", "tokens_per_sec"):
+        if not math.isfinite(summary[key]) or summary[key] <= 0:
+            raise AssertionError(f"gpt_train {key} = {summary[key]}")
+    if not summary["loss"] < summary["first_loss"]:
+        raise AssertionError(
+            f"gpt_train loss did not fall: {summary['first_loss']} -> {summary['loss']}"
+        )
+    return launches, summary, model
+
+
+def teacher_forced(gpt_lib, model, chain) -> torch.Tensor:
+    """GPTDecodeStep's logits [b, n, vocab] in f32 along `chain` [b, n]:
+    position i's after consuming chain[:, i]."""
+    b, n = chain.shape
+    cache = gpt_lib.KVCache.zeros(model.cfg, b, n, chain.device)
+    step = gpt_lib.GPTDecodeStep(model)
+    return torch.stack([step(chain[:, i], i, cache).float() for i in range(n)], dim=1)
+
+
+def first_difference(a: torch.Tensor, b: torch.Tensor):
+    """(row, position) of the first token where two chains differ, or None."""
+    diff = (a != b).nonzero()
+    if not len(diff):
+        return None
+    return [int(x) for x in diff[diff[:, 1].argmin()]]
+
+
+def gpt_generate(gpt_lib, model, summary) -> dict:
+    """From gpt_train's model and its greedy chain (train/gpt.py
+    --generate): (a) teacher-forced GPTDecodeStep logits against the
+    training forward's at every position, atol/rtol DECODE_ATOL on f32
+    views of the same weights (TF32 off), and reported in bf16; (b) the
+    uniform path's chain (GPTPrefill, then one step per token) equal to
+    the all-stepwise chain on the same prompt, in f32, and reported in
+    bf16. No kernel runs in decode, as in the reference."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = next(model.parameters()).device
+    chain = torch.tensor(summary["generated"], device=device)
+    b, total = chain.shape
+    prompt = chain[:, :total - GPT_NEW_TOKENS]
+    lens = torch.full((b,), prompt.shape[1], device=device)
+    greedy = gpt_lib._sampler(0.0, 0, 1.0, None)
+    model32 = gpt_lib.GPT(dataclasses.replace(model.cfg, dtype=torch.float32), device=device)
+    model32.load_state_dict(model.state_dict())
+    report = {"batch": b, "prompt": prompt.shape[1], "new_tokens": GPT_NEW_TOKENS,
+              "ms_per_token_bf16": summary["generate_ms_per_token"]}
+    chains = {}
+    for name, m in (("f32", model32), ("bf16", model)):
+        with torch.no_grad():
+            prefill = gpt_lib.generate(m, prompt, GPT_NEW_TOKENS)
+            stepwise = torch.cat([prompt[:, :1], gpt_lib._decode(
+                m, prompt, lens, total, greedy, ragged=True)], dim=1)
+        chains[name] = prefill
+        report[f"chains_equal_{name}"] = bool(torch.equal(prefill, stepwise))
+        report[f"first_difference_{name}"] = first_difference(prefill, stepwise)
+    report["bf16_chain_equals_train_cli"] = bool(torch.equal(chains["bf16"], chain))
+    # (a) along the f32 chain
+    seq = chains["f32"]
+    with torch.no_grad():
+        train32 = model32(seq).float()
+        step32 = teacher_forced(gpt_lib, model32, seq)
+        train16 = model(seq).float()
+        step16 = teacher_forced(gpt_lib, model, seq)
+    err = (step32 - train32).abs()
+    allowed = DECODE_ATOL + DECODE_RTOL * train32.abs()
+    top2 = torch.topk(step32[:, prompt.shape[1] - 1:-1], 2, dim=-1).values
+    report.update({
+        "f32_decode_vs_train_max_abs": err.max().item(),
+        "f32_decode_vs_train_worst_over_allowed": (err / allowed).max().item(),
+        "atol": DECODE_ATOL, "rtol": DECODE_RTOL,
+        "f32_min_top2_margin": (top2[..., 0] - top2[..., 1]).min().item(),
+        "bf16_decode_vs_train_max_abs": (step16 - train16).abs().max().item(),
+        "bf16_train_vs_f32_rel_l2": ((train16 - train32).norm() / train32.norm()).item(),
+        "bf16_decode_vs_f32_rel_l2": ((step16 - train32).norm() / train32.norm()).item(),
+        "bf16_decode_argmax_agrees": (step16.argmax(-1) == train16.argmax(-1)).float().mean().item(),
+    })
+    with torch.no_grad():
+        report["decode_profile_bf16"] = profile_decode(gpt_lib, model, prompt)
+    emit({"phase": "gpt_generate", **report})
+    if not bool((err <= allowed).all()):
+        raise AssertionError(f"teacher-forced decode logits differ from the training forward's: {report}")
+    if not report["chains_equal_f32"]:
+        raise AssertionError(f"the prefill and stepwise chains differ: {report}")
+    del model32
+    return report
+
+
+def host_batch_ms(gpt_lib, trainer, cfg, reps: int = 5) -> dict:
+    """What a training step's batch costs the host at GPT_SHAPE, apart
+    from the step: median ms of drawing it (synthetic_batch) and of
+    placing it on the idle card (place_batch, then a synchronize)."""
+    gen = torch.Generator().manual_seed(11)
+    draw, place = [], []
+    for _ in range(reps):
+        start = time.monotonic()
+        batch = gpt_lib.synthetic_batch(gen, GPT_SHAPE[0], GPT_SHAPE[1], cfg)
+        draw.append((time.monotonic() - start) * 1e3)
+        torch.cuda.synchronize()
+        start = time.monotonic()
+        trainer.place_batch(batch)
+        torch.cuda.synchronize()
+        place.append((time.monotonic() - start) * 1e3)
+    return {"synthetic_batch_ms": statistics.median(draw),
+            "place_batch_ms": statistics.median(place)}
+
+
+def profile_decode(gpt_lib, model, prompt, steps: int = 8) -> dict:
+    """GPTDecodeStep plus the greedy argmax, as generate runs them, after
+    a GPTPrefill of `prompt` and one warm-up step: the wall ms per token
+    without the profiler, then, under torch.profiler, the device kernels
+    launched per token, the device ms per token and the device's busy
+    share of the window's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, p = prompt.shape
+    cache = gpt_lib.KVCache.zeros(model.cfg, b, p + 2 * steps + 1, prompt.device)
+    step = gpt_lib.GPTDecodeStep(model)
+    tok = gpt_lib.GPTPrefill(model)(prompt, cache).argmax(-1)
+    tok = step(tok, p, cache).argmax(-1)
+    torch.cuda.synchronize()
+    start = time.monotonic()
+    for i in range(steps):
+        tok = step(tok, p + 1 + i, cache).argmax(-1)
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - start) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.monotonic()
+        for i in range(steps):
+            tok = step(tok, p + 1 + steps + i, cache).argmax(-1)
+        torch.cuda.synchronize()
+        profiled_ms = (time.monotonic() - start) * 1e3
+    kernels = device_kernels(prof)
+    device_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return {
+        "decode_steps": steps,
+        "wall_ms_per_token": wall_ms / steps,
+        "profiled_wall_ms_per_token": profiled_ms / steps,
+        "kernels_per_token": sum(e.count for e in kernels) / steps,
+        "device_ms_per_token": device_us / 1e3 / steps,
+        "device_busy_share": device_us / 1e3 / profiled_ms,
+        "top": [{"kernel": e.key[:90], "calls_per_token": e.count / steps,
+                 "ms_per_token": e.self_device_time_total / 1e3 / steps} for e in top],
+    }
+
+
+def gpt_parity(kernels, gpt_lib, trainer_lib) -> dict:
+    """One GPT-small step at batch 1, seq GPT_SHAPE[1], from one set of
+    weights through K1-K3, the plain bf16 route and an f32 plain step
+    (TF32 off): losses within LOSS_ATOL, and each gradient no more than
+    GRAD_RATIO times further from the f32 step than the plain bf16
+    route's (plain_parity's criterion); the flash step launches each
+    kernel once per layer."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seq = GPT_SHAPE[1]
+    base = dataclasses.replace(gpt_lib.GPT_SMALL, max_seq_len=seq)
+    plain = gpt_lib.plain_causal_attention
+    routes = (
+        ("flash", None, base),
+        ("plain", plain, base),
+        ("f32", plain, dataclasses.replace(base, dtype=torch.float32)),
+    )
+    batch = gpt_lib.synthetic_batch(torch.Generator().manual_seed(7), 1, seq, base)
+    losses, grads = {}, {}
+    for route, attention_fn, cfg in routes:
+        model = gpt_lib.GPT(cfg, attention_fn, generator=torch.Generator().manual_seed(3))
+        trainer = trainer_lib.Trainer(
+            model, trainer_lib.causal_lm_task(model), learning_rate=3e-4,
+            weight_decay=0.01, device="cuda",
+        )
+        state = trainer.init()
+        kernels.reset_launches()
+        state, metrics = trainer.step(state, trainer.place_batch(batch))
+        losses[route] = float(metrics["loss"])
+        counts = dict(kernels.LAUNCHES)
+        want = {k: 0 for k in counts}
+        if route == "flash":
+            want.update({k: LAYERS for k in FLASH_KERNELS})
+        if counts != want:
+            raise AssertionError(f"gpt_parity {route}: launches {counts} != {want}")
+        grads[route] = {n: p.grad for n, p in model.named_parameters()}
+        del model, trainer, state
+        torch.cuda.empty_cache()
+    worst, ratios = flash_over_plain(grads)
+    report = {
+        "batch": 1, "seq": seq, "losses": losses,
+        "loss_diff": abs(losses["flash"] - losses["plain"]), "loss_atol": LOSS_ATOL,
+        "worst_grad_err_flash": worst["flash"], "worst_grad_err_plain": worst["plain"],
+        "worst_flash_over_plain": [ratios[0][1], ratios[0][0], GRAD_RATIO],
+        "top_ratios": ratios[:6],
+    }
+    emit({"phase": "gpt_parity", **report})
+    if not all(math.isfinite(x) for x in losses.values()):
+        raise AssertionError(f"non-finite loss {losses}")
+    if report["loss_diff"] > LOSS_ATOL:
+        raise AssertionError(f"gpt loss diff {report['loss_diff']} > {LOSS_ATOL}")
+    if ratios[0][0] > GRAD_RATIO:
+        raise AssertionError(
+            f"gradient of {ratios[0][1]} is {ratios[0][0]}x further from f32 "
+            f"than the plain path's (> {GRAD_RATIO})"
+        )
+    del grads
+    torch.cuda.empty_cache()
+    return report
+
+
+def run_gpt_phases(kernels, fa, gpt_lib, gpt_cli, trainer_lib, smi) -> dict:
+    """Every GPT phase in order; returns what the kernels line needs."""
+    gpt_worst = {}
+    times = time_kernels(kernels, fa, gpt_worst, GPT_SHAPE, True,
+                         "gpt_kernel_times", "gpt_kernel_check")
+    rows = check_rows(kernels, fa, GPT_SHAPE, True, 2, "gpt_kernel_check")
+    launches, summary, model = run_gpt(kernels, gpt_lib, gpt_cli, smi)
+    gpt_generate(gpt_lib, model, summary)
+    flop_per_token = gpt_flop_per_token(model, GPT_SHAPE[1])
+    del model
+    torch.cuda.empty_cache()
+
+    # the reference bench's attention="xla" twin: plain causal attention
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    plain, _ = gpt_cli.train(gpt_args(gpt_cli, GPT_STEPS),
+                             attention_fn=gpt_lib.plain_causal_attention)
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError(f"the plain GPT route launched a kernel: {kernels.LAUNCHES}")
+    emit({"phase": "gpt_train_plain", "card": smi, **plain,
+          "mfu": plain["tokens_per_sec"] * flop_per_token / PEAK_BF16_FLOPS,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if not math.isfinite(plain["loss"]):
+        raise AssertionError(f"gpt_train_plain loss {plain['loss']}")
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(gpt_lib.GPT_SMALL, max_seq_len=GPT_SHAPE[1])
+    model = gpt_lib.GPT(cfg, generator=torch.Generator().manual_seed(5))
+    trainer = trainer_lib.Trainer(
+        model, trainer_lib.causal_lm_task(model), learning_rate=3e-4,
+        weight_decay=0.01, device="cuda",
+    )
+    batch = gpt_lib.synthetic_batch(
+        torch.Generator().manual_seed(6), GPT_SHAPE[0], GPT_SHAPE[1], cfg
+    )
+    profile_training("gpt_profile", trainer, batch, "flash", FLASH_KERNEL_SYMBOLS,
+                     {"model": "GPT-small", "shape": list(GPT_SHAPE)})
+    emit({"phase": "gpt_host_batch", **host_batch_ms(gpt_lib, trainer, cfg),
+          "train_batch_ms_per_step": summary["batch_seconds"] * 1e3 / GPT_STEPS,
+          "train_ms_per_step": summary["seconds"] * 1e3 / GPT_STEPS})
+    del model, trainer, batch
+    torch.cuda.empty_cache()
+
+    gpt_parity(kernels, gpt_lib, trainer_lib)
+    return {"times": times, "worst": gpt_worst, "rows": rows, "launches": launches}
+
+
 def resnet_flop_per_image(resnet_lib) -> int:
     """Training FLOP per 224x224 image of ResNet-50, counted from its
     layer shapes: 2 per multiply-add of every conv and the Dense in the
@@ -754,64 +1189,15 @@ def resnet_args(resnet_cli, conv3_impl: str):
 
 def profile_resnet(resnet_lib, trainer_lib, conv3_impl: str) -> None:
     """Device time of two ResNet-50 training steps by kernel and by kind
-    of kernel (torch.profiler), K4/K5's share of it, and the device's
-    busy share of the window's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
+    of kernel, and K4/K5's share of it."""
     model = resnet_lib.ResNet50(conv3_impl=conv3_impl, generator=torch.Generator().manual_seed(5))
     trainer = trainer_lib.Trainer(
         model, trainer_lib.classification_task(model), learning_rate=0.1,
         device="cuda", optimizer="sgd",
     )
-    state = trainer.init()
-    batch = trainer.place_batch(resnet_lib.synthetic_batch(
-        torch.Generator().manual_seed(6), RESNET_BATCH, RESNET_IMAGE
-    ))
-    state, _ = trainer.step(state, batch)
-    torch.cuda.synchronize()
-    steps = 2
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.monotonic()
-        for _ in range(steps):
-            state, _ = trainer.step(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - start) * 1e3
-    kernels = device_kernels(prof)
-    total_us = sum(e.self_device_time_total for e in kernels)
-    ours = ("conv3x3_fwd_kernel", "conv3x3_dw_kernel", "conv3x3_dw_reduce_kernel")
-    by_ours = {
-        n: sum(e.self_device_time_total for e in kernels if n in e.key) / 1e3 / steps
-        for n in ours
-    }
-    conv_us = sum(e.self_device_time_total for e in kernels if any(n in e.key for n in ours))
-    by_category, members = {}, {}
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
-        category = next(
-            (name for name, keys in PROFILE_CATEGORIES if any(k in e.key.lower() for k in keys)),
-            "other",
-        )
-        by_category[category] = by_category.get(category, 0.0) + e.self_device_time_total / 1e3 / steps
-        members.setdefault(category, [])
-        if len(members[category]) < 3:  # the largest few, to check the sorting
-            members[category].append(e.key[:70])
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
-    emit({
-        "phase": "resnet_profile", "conv3_impl": conv3_impl, "steps": steps,
-        "batch": RESNET_BATCH,
-        "wall_ms_per_step": wall_ms / steps,
-        "device_ms_per_step": total_us / 1e3 / steps,
-        "device_busy_share": total_us / 1e3 / wall_ms if wall_ms else None,
-        "conv3x3_kernels_ms_per_step": conv_us / 1e3 / steps,
-        "conv3x3_kernels_by_name_ms_per_step": by_ours,
-        "conv3x3_share_of_device": conv_us / total_us if total_us else None,
-        "ms_per_step_by_category": by_category,
-        "largest_by_category": members,
-        "top": [
-            {"kernel": e.key[:90], "ms_per_step": e.self_device_time_total / 1e3 / steps,
-             "calls_per_step": e.count / steps}
-            for e in top
-        ],
-    })
+    batch = resnet_lib.synthetic_batch(torch.Generator().manual_seed(6), RESNET_BATCH, RESNET_IMAGE)
+    profile_training("resnet_profile", trainer, batch, "conv3x3", CONV_KERNEL_SYMBOLS,
+                     {"conv3_impl": conv3_impl, "batch": RESNET_BATCH})
 
 
 def resnet_parity(kernels, resnet_lib, trainer_lib) -> dict:
@@ -958,11 +1344,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs one CUDA card")
     from tf_operator_tpu_torch.models import bert as bert_lib
+    from tf_operator_tpu_torch.models import gpt as gpt_lib
     from tf_operator_tpu_torch.models import resnet as resnet_lib
     from tf_operator_tpu_torch.ops import conv_bn
     from tf_operator_tpu_torch.ops import flash_attention as fa
     from tf_operator_tpu_torch.ops import kernels
     from tf_operator_tpu_torch.train import bert as bert_cli
+    from tf_operator_tpu_torch.train import gpt as gpt_cli
     from tf_operator_tpu_torch.train import resnet as resnet_cli
     from tf_operator_tpu_torch.train import trainer as trainer_lib
 
@@ -1026,6 +1414,9 @@ def main() -> int:
     plain_parity(kernels, bert_lib, trainer_lib, fa.flash_attention)
     torch.cuda.empty_cache()
 
+    gpt = run_gpt_phases(kernels, fa, gpt_lib, gpt_cli, trainer_lib, smi)
+    torch.cuda.empty_cache()
+
     conv_worst = check_conv_kernels(kernels, conv_bn)
     conv_times = time_conv_kernels(kernels, conv_bn, conv_worst)
     resnet_launches = run_resnet(kernels, resnet_lib, resnet_cli, smi)
@@ -1043,6 +1434,18 @@ def main() -> int:
             "plain_ms": times[name]["plain_ms"], "bound_ms": times[name]["bound_ms"],
             "bound_by": times[name]["bound_by"], "library_ms": times[name]["library_ms"],
             "basis": "per launch at one BERT-base layer; launches over the train phase",
+            "gpt": {
+                "shape": list(GPT_SHAPE), "causal": True,
+                "launches": gpt["launches"][name],
+                "max_abs_err": gpt["worst"][name][0], "tolerance": gpt["worst"][name][1],
+                "worst_row_rel_f32": {
+                    out: gpt["rows"][out]["worst_row_rel"] for out in ROW_OUTPUTS[name]},
+                "row_rtol": ROW_RTOL,
+                **{k: gpt["times"][name][k] for k in (
+                    "ms", "tflops", "bound_ms", "bound_by", "plain_ms", "library_ms")},
+                "basis": "per launch at one GPT-small layer (causal); launches over "
+                         "the gpt_train phase",
+            },
         }
         for name in FLASH_KERNELS
     ]

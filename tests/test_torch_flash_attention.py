@@ -212,17 +212,20 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.bfloat16().float()
 
 
-def _emulated_kernel_grads(q, k, v, g, key_tile, split_p):
+def _emulated_kernel_grads(q, k, v, g, key_tile, split_p, keep=None):
     """dq, dk, dv as the Hopper kernels compute them, in f32 on the CPU.
     q, k, v, g hold bf16 values. The products take bf16 operands with f32
     sums (exact products, as on the tensor cores). K1 runs the online
     softmax over `key_tile`-key tiles and feeds P to P.V as bf16 hi + lo
     (`split_p`) or as bf16 alone; l sums the f32 p; O stays f32. delta
     comes from that O. K2 rounds P to bf16 for P^T dO and dS to bf16 for
-    dS^T Q; K3 rounds dS to bf16 for dS K."""
+    dS^T Q; K3 rounds dS to bf16 for dS K. keep ([s, s] bool, True =
+    attend), where given, masks the scores as a causal mask does."""
     b, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if keep is not None:
+        scores = torch.where(keep, scores, fa.NEG_INF)
     m = torch.full((b, h, s, 1), -1e30)
     l = torch.zeros((b, h, s, 1))
     acc = torch.zeros((b, h, s, d))
@@ -272,6 +275,37 @@ def test_kernel_numerics_keep_common_part_gradients_within_one_percent(head_dim)
 
     assert max(rel_errors(split_p=True)) < 1e-2
     assert rel_errors(split_p=False)[0] > 1e-2
+
+
+@pytest.mark.parametrize("drop_tile", [False, True], ids=["kernel", "tile-dropped"])
+def test_row_check_tells_a_dropped_causal_tile_from_rounding(drop_tile):
+    """chip_smoke.py holds K1-K3 at GPT-small's causal shape against the
+    f32 plain gradients one (batch, row, head) slice at a time. The
+    kernels' roundings, emulated here under a causal mask at seq 1024 and
+    head_dim 128, stay within that check's ROW_RTOL; the same numerics
+    with one 64-key tile hidden from the late rows (a wrong causal skip
+    bound) exceed it."""
+    import chip_smoke
+
+    b, s, h, d = 1, 1024, 2, 128
+    rng = np.random.default_rng(9)
+    q, k, v, g = (
+        _bf16(torch.tensor(rng.standard_normal((b, s, h, d)), dtype=torch.float32))
+        for _ in range(4)
+    )
+    causal = torch.ones(s, s, dtype=torch.bool).tril()
+    tq, tk, tv = (x.clone().requires_grad_() for x in (q, k, v))
+    fa.flash_attention(tq, tk, tv, causal=True).backward(g)
+    f32 = [t.grad for t in (tq, tk, tv)]
+    keep = causal.clone()
+    if drop_tile:
+        keep[700:, 256:320] = False
+    got = _emulated_kernel_grads(q, k, v, g, 64, split_p=True, keep=keep)
+    worst = max(chip_smoke.row_errors(_bf16(a), w)["worst_row_rel"] for a, w in zip(got, f32))
+    if drop_tile:
+        assert worst > 4 * chip_smoke.ROW_RTOL
+    else:
+        assert worst < chip_smoke.ROW_RTOL / 4
 
 
 @pytest.mark.parametrize("shape", [(4, 512, 12, 64), (4, 333, 6, 128)])

@@ -82,7 +82,31 @@ def transformer_mlp(
     return dense(mlp_out, y, cfg.dtype)
 
 
+def init_like_flax_(model: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """flax's initializers over every submodule of `model`: lecun-normal
+    Dense kernels with zero biases, Embed tables normal with variance
+    1/features, LayerNorm scale 1 and bias 0."""
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, nn.Linear):
+                lecun_normal_(module.weight, module.in_features, generator)
+                module.bias.zero_()
+            elif isinstance(module, DenseGeneral):
+                module.reset_parameters(generator)
+            elif isinstance(module, nn.Embedding):
+                module.weight.normal_(
+                    0.0, 1.0 / math.sqrt(module.embedding_dim), generator=generator,
+                )
+            elif isinstance(module, nn.LayerNorm):
+                module.reset_parameters()
+
+
 class TransformerBlock(nn.Module):
+    """Pre-LN block: attention and MLP, each added to the residual
+    stream. GPT (models/gpt.py) builds it from its own config, which has
+    every field read here (hidden_size, num_heads, head_dim,
+    intermediate_size, dtype)."""
+
     def __init__(self, cfg: BertConfig, attention_fn: Optional[Callable] = None) -> None:
         super().__init__()
         self.cfg = cfg
@@ -95,10 +119,14 @@ class TransformerBlock(nn.Module):
         self.mlp_in = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.mlp_out = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+        attention_fn: Optional[Callable] = None,
+    ) -> torch.Tensor:
+        """attention_fn: as MultiHeadAttention.forward's, for this call."""
         cfg = self.cfg
         y = self.ln_attn(x)
-        y = self.attention(y.to(cfg.dtype), mask)
+        y = self.attention(y.to(cfg.dtype), mask, attention_fn)
         x = x + y
         y = self.ln_mlp(x)
         return x + transformer_mlp(cfg, y, self.mlp_in, self.mlp_out)
@@ -161,23 +189,7 @@ class BertForMLM(nn.Module):
             self.to(device)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        """flax's initializers: lecun-normal Dense kernels with zero
-        biases, Embed tables normal with variance 1/features, LayerNorm
-        scale 1 and bias 0."""
-        with torch.no_grad():
-            for module in self.modules():
-                if isinstance(module, nn.Linear):
-                    lecun_normal_(module.weight, module.in_features, generator)
-                    module.bias.zero_()
-                elif isinstance(module, DenseGeneral):
-                    module.reset_parameters(generator)
-                elif isinstance(module, nn.Embedding):
-                    module.weight.normal_(
-                        0.0, 1.0 / math.sqrt(module.embedding_dim),
-                        generator=generator,
-                    )
-                elif isinstance(module, nn.LayerNorm):
-                    module.reset_parameters()
+        init_like_flax_(self, generator)
 
     def forward(
         self, input_ids: torch.Tensor, mask: Optional[torch.Tensor] = None

@@ -1,5 +1,5 @@
-"""Carry a flax param tree across to the port's state_dict: BERT and
-ResNet.
+"""Carry a flax param tree across to the port's state_dict: BERT, GPT
+and ResNet.
 
 The input is the tree as nested dicts of numpy arrays (a caller holding
 a JAX tree maps `np.asarray` over it first), so this module never sees
@@ -14,25 +14,34 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-# (reference path, port name pattern, transpose): Dense kernels are
-# [in, out] in flax and [out, in] in nn.Linear; DenseGeneral kernels
-# (query/key/value/attn_out) keep their layouts as the port's own
-# parameters; Embed tables and LayerNorm scale/bias map one to one.
-_LAYER = r"encoder/layer_\d+"
-_RULES = (
-    (rf"(encoder)/(token_embed|position_embed)/embedding", r"\1.\2.weight", False),
-    (rf"({_LAYER})/(ln_attn|ln_mlp)/scale", r"\1.\2.weight", False),
-    (rf"({_LAYER})/(ln_attn|ln_mlp)/bias", r"\1.\2.bias", False),
-    (r"(encoder)/(ln_final)/scale", r"\1.\2.weight", False),
-    (r"(encoder)/(ln_final)/bias", r"\1.\2.bias", False),
-    (rf"({_LAYER})/attention/(query|key|value|attn_out)/(kernel|bias)",
-     r"\1.attention.\2.\3", False),
-    (rf"({_LAYER})/(mlp_in|mlp_out)/kernel", r"\1.\2.weight", True),
-    (rf"({_LAYER})/(mlp_in|mlp_out)/bias", r"\1.\2.bias", False),
-    (r"(mlm_head)/kernel", r"\1.weight", True),
-    (r"(mlm_head)/bias", r"\1.bias", False),
-)
-_COMPILED = tuple((re.compile(p), name, t) for p, name, t in _RULES)
+
+def _compile(rules):
+    return tuple((re.compile(p), name, layout) for p, name, layout in rules)
+
+
+def _transformer_rules(prefix: str, head: str):
+    """(reference path, port name pattern, transpose) for a transformer
+    whose embeddings, layer_{i} blocks and ln_final sit under `prefix`
+    ("encoder/" in BERT, "" in GPT) beside its `head` Dense. Dense
+    kernels are [in, out] in flax and [out, in] in nn.Linear; DenseGeneral
+    kernels (query/key/value/attn_out) keep their layouts as the port's
+    own parameters; Embed tables and LayerNorm scale/bias map one to
+    one."""
+    layer = rf"{prefix}layer_\d+"
+    norms = rf"{layer}/(?:ln_attn|ln_mlp)|{prefix}ln_final"
+    denses = rf"{layer}/(?:mlp_in|mlp_out)|{head}"
+    return _compile((
+        (rf"({prefix}(?:token_embed|position_embed))/embedding", r"\1.weight", False),
+        (rf"({norms})/scale", r"\1.weight", False),
+        (rf"({norms})/bias", r"\1.bias", False),
+        (rf"({layer}/attention/(?:query|key|value|attn_out))/(kernel|bias)", r"\1.\2", False),
+        (rf"({denses})/kernel", r"\1.weight", True),
+        (rf"({denses})/bias", r"\1.bias", False),
+    ))
+
+
+_BERT_RULES = _transformer_rules("encoder/", "mlm_head")
+_GPT_RULES = _transformer_rules("", "lm_head")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -46,7 +55,7 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return flat
 
 
-def _port_name(path: str, rules=_COMPILED):
+def _port_name(path: str, rules):
     for pattern, name, transpose in rules:
         match = pattern.fullmatch(path)
         if match:
@@ -54,16 +63,26 @@ def _port_name(path: str, rules=_COMPILED):
     raise KeyError(f"no mapping for flax param {path!r}")
 
 
+def _transformer_state_dict(params: Mapping[str, Any], rules) -> Dict[str, torch.Tensor]:
+    state: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params).items():
+        name, transpose = _port_name(path, rules)
+        array = value.T if transpose else value
+        state[name] = torch.tensor(array, dtype=torch.float32)
+    return state
+
+
 def bert_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax BertForMLM params (nested dicts of numpy arrays) -> a
     state_dict for models.bert.BertForMLM. Raises KeyError on a path it
     does not map."""
-    state: Dict[str, torch.Tensor] = {}
-    for path, value in _flatten(params).items():
-        name, transpose = _port_name(path)
-        array = value.T if transpose else value
-        state[name] = torch.tensor(array, dtype=torch.float32)
-    return state
+    return _transformer_state_dict(params, _BERT_RULES)
+
+
+def gpt_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax GPT params (nested dicts of numpy arrays) -> a state_dict for
+    models.gpt.GPT. Raises KeyError on a path it does not map."""
+    return _transformer_state_dict(params, _GPT_RULES)
 
 
 # ResNet: (reference path, port name pattern, layout). Conv kernels are
@@ -81,10 +100,6 @@ _RESNET_PARAMS = (
     (r"(Dense_0)/bias", r"\1.bias", "keep"),
 )
 _RESNET_STATS = ((rf"({_BN})/(mean|var)", r"\1.\2", "keep"),)
-
-
-def _compile(rules):
-    return tuple((re.compile(p), name, layout) for p, name, layout in rules)
 
 
 def resnet_state_dict_from_flax(

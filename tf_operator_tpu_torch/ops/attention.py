@@ -106,8 +106,11 @@ class MultiHeadAttention(nn.Module):
         self.attention_fn = attention_fn
 
     def forward(
-        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+        attention_fn: Optional[Callable] = None,
     ) -> torch.Tensor:
-        attend = self.attention_fn or dot_product_attention
+        """attention_fn, where given, attends in place of the module's
+        own for this call (the KV-cached decode path of models/gpt.py)."""
+        attend = attention_fn or self.attention_fn or dot_product_attention
         out = attend(self.query(x), self.key(x), self.value(x), mask)
         return self.attn_out(out)

@@ -17,7 +17,6 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
-import time
 from typing import Dict, List, Optional
 
 import torch
@@ -58,12 +57,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def run(args: argparse.Namespace) -> Dict[str, float]:
-    """Train as the flags say; returns the run's summary: final train
-    loss, tokens/sec over the timed steps, held-out eval loss and
-    perplexity, and the number of forward and backward passes."""
+    """Train as the flags say; returns the run's summary
+    (trainer.timed_run's)."""
     from .._device import resolve_device
     from ..models import bert as bert_lib
-    from .trainer import Trainer, held_out_eval, mlm_task, warmup_cosine_lr
+    from .trainer import Trainer, mlm_task, timed_run, warmup_cosine_lr
 
     device = resolve_device(args.device)
     cfg = {
@@ -83,44 +81,14 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
         learning_rate=warmup_cosine_lr(args.learning_rate, args.steps, args.warmup_steps),
         weight_decay=args.weight_decay, packed=args.packed, device=device,
     )
-    state = trainer.init()
 
     def make_batch(gen: torch.Generator):
         return bert_lib.synthetic_batch(gen, args.batch_size, args.seq_len, cfg)
 
-    def sync() -> None:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    # warmup: first launches, allocator growth, kernel build
-    state, metrics = trainer.step(state, trainer.place_batch(make_batch(generator)))
-    float(metrics["loss"])
-    sync()
-    start = time.monotonic()
-    for i in range(args.steps):
-        state, metrics = trainer.step(state, trainer.place_batch(make_batch(generator)))
-        if (i + 1) % args.log_every == 0:
-            logger.info("step %d loss=%.4f", state.step, float(metrics["loss"]))
-    loss = float(metrics["loss"])
-    sync()
-    elapsed = time.monotonic() - start
-    tokens_per_sec = args.batch_size * args.seq_len * args.steps / elapsed if args.steps else 0.0
-    logger.info(
-        "tokens/sec on %s: %.1f (loss %.4f)",
-        torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-        tokens_per_sec, loss,
+    _, summary, _ = timed_run(
+        trainer, trainer.init(), make_batch, generator, args.steps, args.log_every, SEED
     )
-    ev = held_out_eval(trainer, state, make_batch, SEED)
-    logger.info("eval loss %.4f (ppl %.1f)", ev["loss"], ev["perplexity"])
-    return {
-        "loss": loss,
-        "tokens_per_sec": tokens_per_sec,
-        "seconds": elapsed,
-        "eval_loss": ev["loss"],
-        "eval_perplexity": ev["perplexity"],
-        "forward_passes": args.steps + 2,  # warmup + steps + eval
-        "backward_passes": args.steps + 1,
-    }
+    return summary
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -1,0 +1,120 @@
+"""GPT causal-LM pretraining entrypoint. Counterpart of
+tf_operator_tpu/train/gpt.py.
+
+    python -m tf_operator_tpu_torch.train.gpt --preset tiny --steps 20 --device cpu
+    python -m tf_operator_tpu_torch.train.gpt --preset small --batch-size 4 \\
+        --seq-len 4096 --generate 56
+
+Runs on one CUDA device unless --device names another. Attention is the
+causal flash route (the Hopper kernels), with no flag, as in the
+reference; the optimizer is AdamW with weight decay 0.01. Fresh
+synthetic Markov batches come from a plain host loop; the first step is
+a warmup outside the timed window (trainer.timed_run). Logs tokens/sec,
+then a held-out eval; --generate N then decodes N tokens greedily
+(models/gpt.py generate) from the first 8 tokens of each row of the
+first training batch. Not ported: the mesh and sequence-parallel flags, --weights-int8,
+--kv-int8, --checkpoint-dir, --accum-steps and --monitoring-bind-addr
+(ROADMAP queue 1); argparse refuses them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import sys
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+logger = logging.getLogger("tf_operator_tpu_torch.train.gpt")
+
+# seeds the weights, the batch stream and the held-out batch
+SEED = 0
+WEIGHT_DECAY = 0.01
+PROMPT_LEN = 8
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--preset", choices=["tiny", "small"], default="small")
+    parser.add_argument("--steps", type=int, default=100)
+    parser.add_argument("--batch-size", type=int, default=32)
+    parser.add_argument(
+        "--seq-len", type=int, default=2048,
+        help="raises the preset's max_seq_len when longer",
+    )
+    parser.add_argument("--learning-rate", type=float, default=3e-4)
+    parser.add_argument(
+        "--warmup-steps", type=int, default=0,
+        help="linear warmup to --learning-rate, then cosine decay to 10%% "
+        "over --steps (0 = constant lr)",
+    )
+    parser.add_argument(
+        "--remat", action="store_true",
+        help="per-block rematerialization (torch.utils.checkpoint)",
+    )
+    parser.add_argument("--log-every", type=int, default=20)
+    parser.add_argument(
+        "--generate", type=int, default=0, metavar="N",
+        help="after training, greedily decode N tokens from a prompt",
+    )
+    parser.add_argument("--device", default=None, help="default: cuda")
+    return parser.parse_args(argv)
+
+
+def train(
+    args: argparse.Namespace, attention_fn: Optional[Callable] = None,
+) -> Tuple[Dict[str, Any], torch.nn.Module]:
+    """Train (and decode) as the flags say; returns the run's summary and
+    the trained model. attention_fn replaces the causal flash route (the
+    reference bench's attention="xla" twin passes plain causal attention;
+    it has no flag). The summary is trainer.timed_run's, with
+    --generate the decoded tokens (prompt included) and the wall ms per
+    new token (all rows together, prefill included)."""
+    from .._device import resolve_device
+    from ..models import gpt as gpt_lib
+    from .trainer import Trainer, causal_lm_task, timed_run, warmup_cosine_lr
+
+    device = resolve_device(args.device)
+    cfg = {"small": gpt_lib.GPT_SMALL, "tiny": gpt_lib.GPT_TINY}[args.preset]
+    cfg = dataclasses.replace(
+        cfg, max_seq_len=max(cfg.max_seq_len, args.seq_len), remat=args.remat
+    )
+    generator = torch.Generator().manual_seed(SEED)
+    model = gpt_lib.GPT(cfg, attention_fn=attention_fn, generator=generator)
+    trainer = Trainer(
+        model, causal_lm_task(model),
+        learning_rate=warmup_cosine_lr(args.learning_rate, args.steps, args.warmup_steps),
+        weight_decay=WEIGHT_DECAY, device=device,
+    )
+    _, summary, first_batch = timed_run(
+        trainer, trainer.init(),
+        lambda gen: gpt_lib.synthetic_batch(gen, args.batch_size, args.seq_len, cfg),
+        generator, args.steps, args.log_every, SEED,
+    )
+    if args.generate > 0:
+        prompt = first_batch["input_ids"][:, :PROMPT_LEN]
+        start = time.monotonic()  # the held-out eval has waited for the device
+        out = gpt_lib.generate(model, prompt, max_new_tokens=args.generate)
+        summary["generated"] = out.tolist()  # waits for the device
+        summary["generate_ms_per_token"] = (time.monotonic() - start) * 1e3 / args.generate
+        logger.info("generated: %s", summary["generated"][0])
+    return summary, model
+
+
+def run(args: argparse.Namespace) -> Dict[str, Any]:
+    """train(), returning only the summary."""
+    return train(args)[0]
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    run(args)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,8 @@
 """The training engine's core. Counterpart of
 tf_operator_tpu/train/trainer.py: the state object, `Task`,
-`classification_task`, `mlm_task`, `warmup_cosine_lr`, `held_out_eval`
-and `Trainer` (init, step, evaluate, place_batch).
+`classification_task`, `mlm_task`, `causal_lm_task`, `warmup_cosine_lr`,
+`held_out_eval`, `timed_run` (the entry points' timed loop) and
+`Trainer` (init, step, evaluate, place_batch).
 
 JAX's train state is immutable and each step returns a new one; here
 the state holds the model and its optimizer, and `Trainer.step` updates
@@ -32,7 +33,9 @@ through its loss function.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
+import time
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
@@ -40,6 +43,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
+
+logger = logging.getLogger(__name__)
 
 Batch = Dict[str, torch.Tensor]
 LearningRate = Union[float, Callable[[int], float]]
@@ -104,6 +109,16 @@ def mlm_task(model: nn.Module) -> Task:
     return Task(loss_fn=loss_fn)
 
 
+def causal_lm_task(model: nn.Module) -> Task:
+    """Next-token prediction on mask-free token batches (GPT)."""
+    from ..models.gpt import causal_lm_loss
+
+    def loss_fn(batch: Batch, train: bool = True):
+        return causal_lm_loss(model(batch["input_ids"]), batch["input_ids"]), {}
+
+    return Task(loss_fn=loss_fn)
+
+
 HELD_OUT_FOLD = 2**31 - 1
 OPTIMIZERS = ("adamw", "sgd")
 SGD_MOMENTUM = 0.9
@@ -121,6 +136,66 @@ def held_out_eval(
     metrics = {k: float(v) for k, v in trainer.evaluate(state, batch).items()}
     metrics["perplexity"] = math.exp(min(metrics["loss"], 20.0))
     return metrics
+
+
+def timed_run(
+    trainer: "Trainer", state: TrainState,
+    make_batch: Callable[[torch.Generator], Batch], generator: torch.Generator,
+    steps: int, log_every: int, seed: int,
+) -> Tuple[TrainState, Dict[str, Any], Batch]:
+    """The token-model entry points' loop (train/bert.py, train/gpt.py):
+    one warm-up step (first launches, allocator growth, kernel build)
+    outside the timed window, `steps` timed steps on fresh batches drawn
+    from `generator` by a plain host loop, then held_out_eval. Returns
+    the state, the summary (the warm-up step's and the final train loss,
+    tokens/sec over the timed steps counted as elements of input_ids,
+    their seconds and the host seconds spent drawing their batches
+    inside them, held-out eval loss and perplexity, and the number of
+    forward and backward passes) and the warm-up step's batch."""
+    device = trainer.device
+
+    def sync() -> None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    first_batch = make_batch(generator)
+    state, metrics = trainer.step(state, trainer.place_batch(first_batch))
+    first_loss = float(metrics["loss"])
+    sync()
+    tokens, batch_seconds = 0, 0.0
+    start = time.monotonic()
+    for i in range(steps):
+        drawn = time.monotonic()
+        batch = make_batch(generator)
+        batch_seconds += time.monotonic() - drawn
+        batch = trainer.place_batch(batch)
+        tokens += batch["input_ids"].numel()
+        state, metrics = trainer.step(state, batch)
+        if (i + 1) % log_every == 0:
+            logger.info("step %d loss=%.4f", state.step, float(metrics["loss"]))
+    loss = float(metrics["loss"])
+    sync()
+    elapsed = time.monotonic() - start
+    tokens_per_sec = tokens / elapsed if steps else 0.0
+    logger.info(
+        "tokens/sec on %s: %.1f (loss %.4f)",
+        torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        tokens_per_sec, loss,
+    )
+    ev = held_out_eval(trainer, state, make_batch, seed)
+    logger.info("eval loss %.4f (ppl %.1f)", ev["loss"], ev["perplexity"])
+    summary = {
+        "loss": loss,
+        "first_loss": first_loss,
+        "tokens_per_sec": tokens_per_sec,
+        "seconds": elapsed,
+        "batch_seconds": batch_seconds,
+        "eval_loss": ev["loss"],
+        "eval_perplexity": ev["perplexity"],
+        "forward_passes": steps + 2,  # warmup + steps + eval
+        "backward_passes": steps + 1,
+    }
+    return state, summary, first_batch
 
 
 class Trainer:
