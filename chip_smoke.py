@@ -22,7 +22,8 @@ non-zero, printing no result:
 5. train - BERT-base MLM at full width (12 x 768, 12 x 64 heads, vocab
    30522, seq 512, batch 32, AdamW wd 0.01, --flash --packed) through
    the CLI's run(); launch counters must equal 12 per forward (K1) and
-   per backward (K2, K3) pass. train_plain: the same run on the plain
+   per backward (K2, K3) pass. 5 timed steps after the warm-up: the CLIs'
+   --steps is the total budget, the warm-up included. train_plain: the same run on the plain
    attention path.
 6. profile - device time of two flash training steps by kernel and by
    kind of kernel.
@@ -77,7 +78,34 @@ non-zero, printing no result:
    (N=32, 224x224) through K4/K5, the torch conv in bf16, and the torch
    conv in f32 with TF32 off: losses, gradients and BN running
    statistics within the stated tolerances, then one evaluate.
-Then the kernel summary line, the nvidia-smi line, and the result line.
+17. lifecycle - GPT-small at GPT_SHAPE through train/gpt.py with
+   --checkpoint-dir, --accum-steps 2 and a 6-step budget: a real SIGTERM
+   after step 3 gives exit code 143 and a checkpoint at step 3; the
+   restored tensors are bit-equal to the in-memory ones, and one step
+   from each on one batch agrees (relative L2 within 1e-6; bit-equal
+   reported); the rerun resumes at 3 and exits 0 at step 6. K1 launches
+   12 per microbatch forward, K2 and K3 12 per microbatch backward.
+   Reported: save (blocking and async) and restore ms, checkpoint bytes,
+   one step's peak memory at k = 1 and k = 2, the k = 2 gradient against
+   k = 1's (worst relative L2 within 1e-2), and tokens/s and ms per step
+   through InputPipeline beside gpt_train's and PR 6's 85.60 ms.
+18. run_steps - BERT-base (--flash --packed, 32 x 512) and ResNet-50
+   (pallas, batch 256) with a warm-up-cosine schedule: run_steps(n=5)
+   (a CUDA graph of the step, replayed) against 5 eager steps from the
+   same seed on the same batch; per-step losses (5 run_steps(n=1) calls)
+   within 1e-3 relative, each parameter (and BN statistic) within 1e-4
+   relative L2, bit-equality reported; kernel launches per replay K1-K3
+   12/12/12 and K4/K5 26/13; ms per step, rate and device busy share,
+   eager and graph.
+19. mnist - train/mnist.py, 1000 steps at batch 512, --target-accuracy
+   0.99, --checkpoint-dir: exit code 0, held-out accuracy >= 0.99.
+20. eval_loop - the Evaluator replica in its own process over those
+   checkpoints while they are written, --until-step 1000: one JSON line
+   per step evaluated, the last at step 1000.
+21. profile_dir - train/bert.py --profile-dir writes a Chrome trace that
+   names K1-K3.
+Then the kernel summary line (with each kernel's launches per run_steps
+replay), the nvidia-smi line, and the result line.
 Imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -190,6 +218,33 @@ GPT_NEW_TOKENS = 56  # after train/gpt.py's 8-token prompt: 64 positions
 # teacher-forced decode logits against the training forward's, as the
 # reference's own decode test holds them (tests/test_gpt.py:150-154)
 DECODE_ATOL = DECODE_RTOL = 1e-3
+# lifecycle: GPT-small through train/gpt.py at GPT_SHAPE, a SIGTERM after
+# step 3 of a 6-step budget, gradient accumulation over 2 microbatches
+LIFECYCLE_STEPS = 6
+LIFECYCLE_PREEMPT_AT = 3
+LIFECYCLE_ACCUM = 2
+# one step from the restored state against one from the in-memory state:
+# the same arithmetic on the same bits (no kernel uses atomics), so
+# bit-equal is expected; this bounds any parameter's relative L2 distance
+RESUME_STEP_RTOL = 1e-6
+# the gradient over 2 microbatches against the full batch's, bf16 model:
+# the weighted sum of two halves rounds differently from one pass
+ACCUM_GRAD_RTOL = 1e-2
+# PR 6's GPT-small flash step with the batch drawn on the host between
+# steps (PERF.md section 5, gpt_train, run 3)
+PR6_GPT_STEP_MS = 85.60
+# run_steps: n steps in a CUDA graph against n eager steps. Both run the
+# same optimizer (AdamW or SGD, fused, the rate a device
+# scalar), so bit-equal is expected (and reported); the checks hold
+# losses within 1e-3 relative at every step and each parameter within
+# 1e-4 relative L2
+RUN_STEPS = 5
+RUN_STEPS_LOSS_RTOL = 1e-3
+RUN_STEPS_PARAM_RTOL = 1e-4
+# mnist: the reference's recorded run (MNIST_ACC.json)
+MNIST_STEPS = 1000
+MNIST_BATCH = 512
+EVALUATOR_TIMEOUT_S = 180
 
 
 def emit(obj) -> None:
@@ -862,9 +917,11 @@ def time_conv_kernels(kernels, conv_bn, worst) -> dict:
 
 
 def gpt_args(gpt_cli, steps: int, generate: int = 0):
+    """train/gpt.py's flags for `steps` timed steps after its warm-up step
+    (its --steps is the total budget, the warm-up included)."""
     b, s, _, _ = GPT_SHAPE
     return gpt_cli.parse_args([
-        "--preset", "small", "--steps", str(steps), "--batch-size", str(b),
+        "--preset", "small", "--steps", str(steps + 1), "--batch-size", str(b),
         "--seq-len", str(s), "--learning-rate", "3e-4", "--log-every", "1",
         "--generate", str(generate),
     ])
@@ -886,7 +943,8 @@ def run_gpt(kernels, gpt_lib, gpt_cli, smi):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    summary, model = gpt_cli.train(gpt_args(gpt_cli, GPT_STEPS, GPT_NEW_TOKENS))
+    summary, state = gpt_cli.train(gpt_args(gpt_cli, GPT_STEPS, GPT_NEW_TOKENS))
+    model = state.model
     launches = dict(kernels.LAUNCHES)
     want = {k: 0 for k in launches}
     want["flash_fwd"] = LAYERS * summary["forward_passes"]
@@ -1151,7 +1209,8 @@ def run_gpt_phases(kernels, fa, gpt_lib, gpt_cli, trainer_lib, smi) -> dict:
     torch.cuda.empty_cache()
 
     gpt_parity(kernels, gpt_lib, trainer_lib)
-    return {"times": times, "worst": gpt_worst, "rows": rows, "launches": launches}
+    return {"times": times, "worst": gpt_worst, "rows": rows, "launches": launches,
+            "summary": summary}
 
 
 def resnet_flop_per_image(resnet_lib) -> int:
@@ -1181,7 +1240,7 @@ def resnet_flop_per_image(resnet_lib) -> int:
 
 def resnet_args(resnet_cli, conv3_impl: str):
     return resnet_cli.parse_args([
-        "--steps", "5", "--per-chip-batch", str(RESNET_BATCH),
+        "--steps", "6", "--per-chip-batch", str(RESNET_BATCH),
         "--image-size", str(RESNET_IMAGE), "--learning-rate", "0.1",
         "--conv3-impl", conv3_impl, "--log-every", "1",
     ])
@@ -1340,6 +1399,449 @@ def run_resnet(kernels, resnet_lib, resnet_cli, smi) -> dict:
     return launches
 
 
+def rel_l2_worst(got: dict, want: dict) -> tuple:
+    """(worst relative L2 distance over the tensors of two name -> tensor
+    maps, its name); a tensor whose reference is zero counts its norm."""
+    worst, where = 0.0, None
+    for name, ref in want.items():
+        norm = ref.float().norm().item()
+        diff = (got[name].float() - ref.float()).norm().item()
+        err = diff / norm if norm > 0 else diff
+        if err > worst or where is None:
+            worst, where = err, name
+    return worst, where
+
+
+def optimizer_tensors(optimizer) -> dict:
+    """The optimizer's state tensors by (parameter index, key)."""
+    sd = optimizer.state_dict()["state"]
+    return {f"{index}.{key}": value for index, entry in sd.items()
+            for key, value in entry.items() if torch.is_tensor(value)}
+
+
+def lifecycle_args(gpt_cli, ckpt: str):
+    b, s, _, _ = GPT_SHAPE
+    return gpt_cli.parse_args([
+        "--preset", "small", "--steps", str(LIFECYCLE_STEPS), "--batch-size", str(b),
+        "--seq-len", str(s), "--learning-rate", "3e-4", "--log-every", "1",
+        "--checkpoint-dir", ckpt, "--accum-steps", str(LIFECYCLE_ACCUM),
+    ])
+
+
+def check_lifecycle_launches(kernels, summary, phase: str) -> dict:
+    launches = dict(kernels.LAUNCHES)
+    want = {k: 0 for k in launches}
+    want["flash_fwd"] = LAYERS * summary["forward_passes"]
+    want["flash_bwd_dkv"] = want["flash_bwd_dq"] = LAYERS * summary["backward_passes"]
+    if launches != want:
+        raise AssertionError(f"{phase} launches {launches} != expected {want}")
+    return launches
+
+
+def run_lifecycle(kernels, gpt_lib, gpt_cli, trainer_lib, smi, gpt_summary) -> dict:
+    """lifecycle: GPT-small through train/gpt.py with --checkpoint-dir,
+    --accum-steps 2 and --steps 6. A real SIGTERM after step 3 must give
+    exit code 143 and a checkpoint at step 3; the restored tensors must be
+    bit-equal to the ones in memory, and one step from each on one batch
+    must agree (bit-equal expected: no kernel uses atomics); the rerun
+    must resume at 3 and end at 6 with exit code 0. K1 launches 12 per
+    microbatch forward and K2/K3 12 per microbatch backward (24 each per
+    step at k = 2). Also: save (blocking, async) and restore ms and bytes,
+    peak memory of one step at k = 1 and k = 2, and the k = 2 gradient
+    against the k = 1 gradient from the same weights."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="lifecycle-")
+    try:
+        ckpt = os.path.join(tmp, "ckpt")
+
+        def preempt(state):
+            if state.step == LIFECYCLE_PREEMPT_AT:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        first, mem_state = gpt_cli.train(lifecycle_args(gpt_cli, ckpt), on_step=preempt)
+        peak_cli_k2 = torch.cuda.max_memory_allocated() / 1e9
+        launches_first = check_lifecycle_launches(kernels, first, "lifecycle (preempted run)")
+        saved = trainer_lib.Checkpointer(ckpt).latest_step()
+        if first["exit_code"] != 143 or first["step"] != LIFECYCLE_PREEMPT_AT or saved != LIFECYCLE_PREEMPT_AT:
+            raise AssertionError(
+                f"preempted run: exit code {first['exit_code']}, step {first['step']}, "
+                f"checkpoint {saved}; want 143, {LIFECYCLE_PREEMPT_AT}, {LIFECYCLE_PREEMPT_AT}"
+            )
+        per_step = {k: v / first["step"] for k, v in launches_first.items() if v}
+        if per_step != {k: LAYERS * LIFECYCLE_ACCUM for k in FLASH_KERNELS}:
+            raise AssertionError(f"lifecycle launches per step {per_step}")
+
+        # restore into a model built from another seed: every tensor must
+        # come back bit-equal to the in-memory state the checkpoint was saved from
+        cfg = mem_state.model.cfg
+        model = gpt_lib.GPT(cfg, generator=torch.Generator().manual_seed(7))
+        restorer = trainer_lib.Trainer(
+            model, trainer_lib.causal_lm_task(model), learning_rate=3e-4, weight_decay=0.01,
+            device="cuda", checkpoint_dir=ckpt, accum_steps=LIFECYCLE_ACCUM,
+        )
+        fresh = restorer.init()
+        torch.cuda.synchronize()
+        start = time.monotonic()
+        restored = restorer.restore(fresh)
+        torch.cuda.synchronize()
+        restore_ms = (time.monotonic() - start) * 1e3
+        if restored is None or restored.step != LIFECYCLE_PREEMPT_AT:
+            raise AssertionError(f"restore gave {restored and restored.step}")
+        mismatched = [
+            name for name, value in mem_state.model.state_dict().items()
+            if not torch.equal(value, restored.model.state_dict()[name])
+        ]
+        mem_opt, res_opt = optimizer_tensors(mem_state.optimizer), optimizer_tensors(restored.optimizer)
+        mismatched += [
+            name for name, value in mem_opt.items()
+            if not torch.equal(value.cpu(), res_opt[name].cpu())
+        ]
+        if mismatched or set(mem_opt) != set(res_opt):
+            raise AssertionError(f"restored tensors differ from the saved ones: {mismatched[:5]}")
+
+        # one step from each on one batch
+        stepper = trainer_lib.Trainer(
+            mem_state.model, trainer_lib.causal_lm_task(mem_state.model), learning_rate=3e-4,
+            weight_decay=0.01, device="cuda", accum_steps=LIFECYCLE_ACCUM,
+        )
+        batch = stepper.place_batch(gpt_lib.synthetic_batch(
+            torch.Generator().manual_seed(11), GPT_SHAPE[0], GPT_SHAPE[1], cfg))
+        mem_state, mem_metrics = stepper.step(mem_state, batch)
+        restored, res_metrics = restorer.step(restored, batch)
+        mem_params = dict(mem_state.model.named_parameters())
+        res_params = dict(restored.model.named_parameters())
+        step_worst, step_where = rel_l2_worst(res_params, mem_params)
+        step_bit_equal = all(torch.equal(mem_params[n], res_params[n]) for n in mem_params)
+        if step_worst > RESUME_STEP_RTOL:
+            raise AssertionError(f"step after restore differs: {step_worst} at {step_where}")
+
+        # save and restore costs, into a directory of their own
+        timing = trainer_lib.Checkpointer(os.path.join(tmp, "timing"))
+        torch.cuda.synchronize()
+        start = time.monotonic()
+        timing.save(restored.step, restored, block=True)
+        save_ms = (time.monotonic() - start) * 1e3
+        write = dict(timing.last_write)
+        start = time.monotonic()
+        timing.save(restored.step + 1, restored, block=False)
+        async_return_ms = (time.monotonic() - start) * 1e3
+        start = time.monotonic()
+        timing.wait()
+        async_wait_ms = (time.monotonic() - start) * 1e3
+        async_write_ms = timing.last_write["seconds"] * 1e3
+        del mem_state, stepper, mem_params, res_params, mem_opt, res_opt
+        torch.cuda.empty_cache()
+
+        # the gradient at k = 2 against k = 1 from the same weights, and one
+        # step's peak memory at each (learning rate 0: the weights stay put)
+        grads, peaks = {}, {}
+        for k in (1, LIFECYCLE_ACCUM):
+            trainer = trainer_lib.Trainer(
+                model, trainer_lib.causal_lm_task(model), learning_rate=0.0,
+                weight_decay=0.01, device="cuda", accum_steps=k,
+            )
+            state = trainer.init()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            trainer.step(state, batch)
+            torch.cuda.synchronize()
+            peaks[k] = {"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "above_resident_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+            grads[k] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+            del trainer, state
+        grad_worst, grad_where = rel_l2_worst(grads[LIFECYCLE_ACCUM], grads[1])
+        del grads, restored, restorer, model
+        torch.cuda.empty_cache()
+        if grad_worst > ACCUM_GRAD_RTOL:
+            raise AssertionError(f"k=2 gradient {grad_worst} from k=1 at {grad_where}")
+
+        # the rerun resumes at step 3 and ends at 6
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        second, _ = gpt_cli.train(lifecycle_args(gpt_cli, ckpt))
+        launches_second = check_lifecycle_launches(kernels, second, "lifecycle (resumed run)")
+        final = trainer_lib.Checkpointer(ckpt).latest_step()
+        if (second["exit_code"], second["start_step"], second["step"], final) != (
+                0, LIFECYCLE_PREEMPT_AT, LIFECYCLE_STEPS, LIFECYCLE_STEPS):
+            raise AssertionError(
+                f"resumed run: exit code {second['exit_code']}, from {second['start_step']} "
+                f"to {second['step']}, checkpoint {final}"
+            )
+        step_ms = second["seconds"] * 1e3 / second["steps"]
+        train_step_ms = gpt_summary["seconds"] * 1e3 / gpt_summary["steps"]
+        report = {
+            "phase": "lifecycle", "model": "GPT-small", "shape": list(GPT_SHAPE), "card": smi,
+            "accum_steps": LIFECYCLE_ACCUM, "preempted_exit_code": first["exit_code"],
+            "checkpoint_after_sigterm": saved, "resumed_from": second["start_step"],
+            "resumed_exit_code": second["exit_code"], "final_step": second["step"],
+            "restored_bit_equal": True,
+            "step_after_restore_bit_equal": step_bit_equal,
+            "step_after_restore_worst_rel_l2": step_worst, "step_after_restore_worst_at": step_where,
+            "loss_after_restore": [float(mem_metrics["loss"]), float(res_metrics["loss"])],
+            "checkpoint_bytes": write["bytes"], "save_blocking_ms": save_ms,
+            "save_blocking_write_ms": write["seconds"] * 1e3,
+            "save_async_return_ms": async_return_ms, "save_async_wait_ms": async_wait_ms,
+            "save_async_write_ms": async_write_ms, "restore_ms": restore_ms,
+            "step_peak_memory_k1": peaks[1], "step_peak_memory_k2": peaks[LIFECYCLE_ACCUM],
+            "cli_peak_memory_gb_k2": peak_cli_k2,
+            "grad_k2_vs_k1_worst_rel_l2": grad_worst, "grad_k2_vs_k1_worst_at": grad_where,
+            "launches_preempted_run": launches_first, "launches_resumed_run": launches_second,
+            "launches_per_step": per_step,
+            "tokens_per_sec_k2_pipeline": {"preempted_run": first["tokens_per_sec"],
+                                           "resumed_run": second["tokens_per_sec"]},
+            "ms_per_step_k2_pipeline": step_ms,
+            "gpt_train_tokens_per_sec_k1_pipeline": gpt_summary["tokens_per_sec"],
+            "gpt_train_ms_per_step_k1_pipeline": train_step_ms,
+            "pr6_ms_per_step_host_loop": PR6_GPT_STEP_MS,
+            "gpt_train_pipeline_producer_ms_per_step": gpt_summary["batch_seconds"] * 1e3 / gpt_summary["steps"],
+            "gpt_train_pipeline_wait_ms_per_step": gpt_summary["wait_seconds"] * 1e3 / gpt_summary["steps"],
+        }
+        emit(report)
+        return report
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def free_device_memory() -> None:
+    """Collect what the phase dropped (a trainer and its captured graphs
+    hold each other) and hand the cached blocks back."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def profiled(fn, steps: int) -> dict:
+    """Device ms per step, wall ms per step and the device's busy share
+    of a window that runs fn() once (`steps` steps), from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - start) * 1e3
+    device_ms = sum(e.self_device_time_total for e in device_kernels(prof)) / 1e3
+    return {"wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": device_ms / steps if device_ms else None,
+            "device_busy_share": device_ms / wall_ms if device_ms else None}
+
+
+def timed_ms(fn, steps: int) -> float:
+    torch.cuda.synchronize()
+    start = time.monotonic()
+    fn()
+    torch.cuda.synchronize()
+    return (time.monotonic() - start) * 1e3 / steps
+
+
+def graph_vs_eager(name, kernels, make_trainer, host_batch, want, items, unit, smi) -> dict:
+    """RUN_STEPS steps of one model three ways from one seed on one batch:
+    RUN_STEPS eager `step` calls, one run_steps(n=RUN_STEPS) (an eager
+    warm-up step, the capture, RUN_STEPS - 1 replays), and RUN_STEPS
+    run_steps(n=1) calls (the same graph, one replay each after the
+    first), whose per-step losses are held against the eager ones. The
+    graph's kernel launches per replay must be `want`. Then each path's
+    ms per step, rate and device busy share at steady state."""
+    eager = make_trainer()
+    state = eager.init()
+    batch = eager.place_batch(host_batch)
+    eager_losses = []
+    for _ in range(RUN_STEPS):
+        state, metrics = eager.step(state, batch)
+        eager_losses.append(float(metrics["loss"]))
+    eager_params = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    eager_buffers = {n: b.detach().clone() for n, b in state.model.named_buffers()}
+    eager_ms = timed_ms(lambda: [eager.step(state, batch) for _ in range(RUN_STEPS)], RUN_STEPS)
+    eager_profile = profiled(lambda: [eager.step(state, batch) for _ in range(2)], 2)
+    del eager, state, metrics
+    free_device_memory()
+
+    graph = make_trainer()
+    gstate = graph.init()
+    kernels.reset_launches()
+    gstate, gmetrics = graph.run_steps(gstate, batch, RUN_STEPS)
+    captured = graph.last_graph
+    if gstate.step != RUN_STEPS or captured is None or captured.replays != RUN_STEPS - 1:
+        raise AssertionError(f"{name}: run_steps ran {gstate.step} steps, "
+                             f"{captured and captured.replays} replays")
+    per_replay = {k: v for k, v in captured.launches.items() if v}
+    if per_replay != want:
+        raise AssertionError(f"{name}: launches per replay {per_replay} != {want}")
+    params = dict(gstate.model.named_parameters())
+    worst, where = rel_l2_worst(params, eager_params)
+    buffers = dict(gstate.model.named_buffers())
+    stats_worst = rel_l2_worst(buffers, eager_buffers)[0] if buffers else 0.0
+    bit_equal = all(torch.equal(params[n], eager_params[n]) for n in params)
+    last_loss = float(gmetrics["loss"])
+    graph_ms = timed_ms(lambda: graph.run_steps(gstate, batch, RUN_STEPS), RUN_STEPS)
+    graph_profile = profiled(lambda: graph.run_steps(gstate, batch, 2), 2)
+    # a captured launch counts once at capture: launches = count x replays
+    replays = captured.replays
+    graph_launches = {k: v * replays for k, v in per_replay.items()}
+    del graph, gstate, gmetrics, captured, params, buffers
+    free_device_memory()
+
+    single = make_trainer()
+    sstate = single.init()
+    graph_losses = []
+    for _ in range(RUN_STEPS):
+        sstate, smetrics = single.run_steps(sstate, batch, 1)
+        graph_losses.append(float(smetrics["loss"]))
+    del single, sstate, smetrics
+    free_device_memory()
+    loss_rel = max(abs(g - e) / abs(e) for g, e in zip(graph_losses, eager_losses))
+    report = {
+        "phase": "run_steps", "model": name, "card": smi, "steps": RUN_STEPS,
+        "launches_per_replay": per_replay, "replays": replays,
+        "graph_launches": graph_launches, "eager_losses": eager_losses,
+        "graph_losses": graph_losses, "run_steps_last_loss": last_loss,
+        "loss_worst_rel": loss_rel, "params_worst_rel_l2": worst, "params_worst_at": where,
+        "bn_stats_worst_rel_l2": stats_worst, "params_bit_equal": bit_equal,
+        "losses_bit_equal": graph_losses == eager_losses,
+        "eager": {"ms_per_step": eager_ms, "steps_per_sec": 1e3 / eager_ms,
+                  f"{unit}_per_sec": items * 1e3 / eager_ms, **eager_profile},
+        "graph": {"ms_per_step": graph_ms, "steps_per_sec": 1e3 / graph_ms,
+                  f"{unit}_per_sec": items * 1e3 / graph_ms, **graph_profile},
+    }
+    emit(report)
+    if loss_rel > RUN_STEPS_LOSS_RTOL or abs(last_loss - eager_losses[-1]) > RUN_STEPS_LOSS_RTOL * abs(eager_losses[-1]):
+        raise AssertionError(f"{name}: graph losses {graph_losses} vs eager {eager_losses}")
+    if worst > RUN_STEPS_PARAM_RTOL or stats_worst > RUN_STEPS_PARAM_RTOL:
+        raise AssertionError(f"{name}: parameters {worst} at {where}, BN statistics {stats_worst}")
+    return report
+
+
+def run_steps_phases(kernels, bert_lib, resnet_lib, trainer_lib, flash_attention, smi) -> dict:
+    """run_steps: BERT-base (--flash --packed, 32 x 512) and ResNet-50
+    (--conv3-impl pallas, batch 256), each with a warm-up-cosine schedule,
+    through Trainer.run_steps' CUDA graph against eager steps."""
+
+    def bert_trainer():
+        model = bert_lib.BertForMLM(bert_lib.BERT_BASE, attention_fn=flash_attention,
+                                    generator=torch.Generator().manual_seed(5))
+        return trainer_lib.Trainer(
+            model, trainer_lib.mlm_task(model), weight_decay=0.01, packed=True, device="cuda",
+            learning_rate=trainer_lib.warmup_cosine_lr(1e-4, 2 * RUN_STEPS, 2),
+        )
+
+    def resnet_trainer():
+        model = resnet_lib.ResNet50(conv3_impl="pallas", generator=torch.Generator().manual_seed(5))
+        return trainer_lib.Trainer(
+            model, trainer_lib.classification_task(model), optimizer="sgd", device="cuda",
+            learning_rate=trainer_lib.warmup_cosine_lr(0.1, 2 * RUN_STEPS, 2),
+        )
+
+    bert_batch = bert_lib.synthetic_batch(
+        torch.Generator().manual_seed(6), MAIN_SHAPE[0], MAIN_SHAPE[1], bert_lib.BERT_BASE)
+    bert = graph_vs_eager(
+        "BERT-base flash packed", kernels, bert_trainer, bert_batch,
+        {name: LAYERS for name in FLASH_KERNELS}, MAIN_SHAPE[0] * MAIN_SHAPE[1], "tokens", smi)
+    resnet_batch = resnet_lib.synthetic_batch(
+        torch.Generator().manual_seed(6), RESNET_BATCH, RESNET_IMAGE)
+    resnet = graph_vs_eager(
+        "ResNet-50 pallas", kernels, resnet_trainer, resnet_batch,
+        {"conv3x3_fwd": 2 * CONVS_PER_PASS, "conv3x3_dw": CONVS_PER_PASS},
+        RESNET_BATCH, "images", smi)
+    return {**bert["launches_per_replay"], **resnet["launches_per_replay"]}
+
+
+def run_mnist_and_evaluator(mnist_cli, smi) -> dict:
+    """mnist: train/mnist.py at the reference's recorded step count and
+    global batch (MNIST_ACC.json: 1000 steps, 512) with
+    --target-accuracy 0.99 and --checkpoint-dir; exit code 0 and held-out
+    accuracy >= 0.99. eval_loop: the Evaluator replica watching that
+    directory from its own process while the run trains, with
+    --until-step 1000: one JSON line per step it evaluated, the last at
+    step 1000."""
+    import os
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="mnist-")
+    evaluator = None
+    try:
+        ckpt, out = os.path.join(tmp, "ckpt"), os.path.join(tmp, "eval.jsonl")
+        acc = os.path.join(tmp, "acc.json")
+        os.makedirs(ckpt)
+        with open(os.path.join(tmp, "evaluator.log"), "w") as log:
+            evaluator = subprocess.Popen(
+                [sys.executable, "-m", "tf_operator_tpu_torch.train.eval_loop", "--task", "mnist",
+                 "--checkpoint-dir", ckpt, "--out", out, "--until-step", str(MNIST_STEPS),
+                 "--poll-seconds", "0.2", "--batch-size", str(MNIST_BATCH)],
+                stdout=log, stderr=subprocess.STDOUT,
+            )
+        start = time.monotonic()
+        rc = mnist_cli.main([
+            "--steps", str(MNIST_STEPS), "--batch-size", str(MNIST_BATCH),
+            "--target-accuracy", "0.99", "--checkpoint-dir", ckpt, "--acc-json", acc,
+            "--log-every", "250",
+        ])
+        wall = time.monotonic() - start
+        with open(acc) as fh:
+            artifact = json.load(fh)
+        emit({"phase": "mnist", "card": smi, "exit_code": rc, "wall_seconds": wall, **artifact})
+        if rc != 0 or artifact["eval_accuracy"] < 0.99:
+            raise AssertionError(f"mnist: exit code {rc}, accuracy {artifact['eval_accuracy']}")
+        evaluator_rc = evaluator.wait(timeout=EVALUATOR_TIMEOUT_S)
+        with open(out) as fh:
+            lines = [json.loads(line) for line in fh if line.strip()]
+        steps = [line["step"] for line in lines]
+        emit({"phase": "eval_loop", "card": smi, "exit_code": evaluator_rc,
+              "evaluated_steps": steps, "lines": lines})
+        if evaluator_rc != 0 or not steps or steps[-1] != MNIST_STEPS or steps != sorted(set(steps)):
+            with open(os.path.join(tmp, "evaluator.log")) as fh:
+                tail = fh.read()[-3000:]
+            raise AssertionError(f"eval_loop: exit code {evaluator_rc}, steps {steps}\n{tail}")
+        if not all(math.isfinite(line["loss"]) and 0 <= line["accuracy"] <= 1 for line in lines):
+            raise AssertionError(f"eval_loop: bad lines {lines}")
+        return {"mnist": artifact, "eval_steps": steps}
+    finally:
+        if evaluator is not None and evaluator.poll() is None:
+            evaluator.kill()
+            evaluator.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_profile_dir(bert_cli, smi) -> dict:
+    """profile_dir: train/bert.py --flash --packed --profile-dir writes a
+    Chrome trace of its first timed steps that names K1-K3."""
+    import os
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="profile-")
+    try:
+        summary = bert_cli.run(bert_cli.parse_args([
+            "--preset", "base", "--steps", "4", "--batch-size", str(MAIN_SHAPE[0]),
+            "--seq-len", str(MAIN_SHAPE[1]), "--flash", "--packed", "--weight-decay", "0.01",
+            "--profile-dir", tmp,
+        ]))
+        path = summary.get("trace_path")
+        if not path or not os.path.isfile(path):
+            raise AssertionError(f"no trace under {tmp}: {os.listdir(tmp)}")
+        with open(path) as fh:
+            text = fh.read()
+        named = {symbol: text.count(symbol) for symbol in FLASH_KERNEL_SYMBOLS}
+        emit({"phase": "profile_dir", "card": smi, "trace": os.path.basename(path),
+              "trace_bytes": len(text), "kernel_name_mentions": named,
+              "tokens_per_sec": summary["tokens_per_sec"]})
+        if not all(named.values()):
+            raise AssertionError(f"the trace does not name every flash kernel: {named}")
+        return named
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs one CUDA card")
@@ -1351,6 +1853,7 @@ def main() -> int:
     from tf_operator_tpu_torch.ops import kernels
     from tf_operator_tpu_torch.train import bert as bert_cli
     from tf_operator_tpu_torch.train import gpt as gpt_cli
+    from tf_operator_tpu_torch.train import mnist as mnist_cli
     from tf_operator_tpu_torch.train import resnet as resnet_cli
     from tf_operator_tpu_torch.train import trainer as trainer_lib
 
@@ -1372,7 +1875,7 @@ def main() -> int:
     times = time_kernels(kernels, fa, worst)
 
     args = bert_cli.parse_args([
-        "--preset", "base", "--steps", "5", "--batch-size", str(MAIN_SHAPE[0]),
+        "--preset", "base", "--steps", "6", "--batch-size", str(MAIN_SHAPE[0]),
         "--seq-len", str(MAIN_SHAPE[1]), "--flash", "--packed",
         "--weight-decay", "0.01", "--learning-rate", "1e-4", "--log-every", "1",
     ])
@@ -1400,7 +1903,7 @@ def main() -> int:
 
     # the same run through the plain attention path, for comparison
     plain = bert_cli.run(bert_cli.parse_args([
-        "--preset", "base", "--steps", "5", "--batch-size", str(MAIN_SHAPE[0]),
+        "--preset", "base", "--steps", "6", "--batch-size", str(MAIN_SHAPE[0]),
         "--seq-len", str(MAIN_SHAPE[1]), "--packed", "--weight-decay", "0.01",
         "--learning-rate", "1e-4", "--log-every", "1",
     ]))
@@ -1415,7 +1918,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     gpt = run_gpt_phases(kernels, fa, gpt_lib, gpt_cli, trainer_lib, smi)
-    torch.cuda.empty_cache()
+    free_device_memory()
+    run_lifecycle(kernels, gpt_lib, gpt_cli, trainer_lib, smi, gpt["summary"])
+    free_device_memory()
 
     conv_worst = check_conv_kernels(kernels, conv_bn)
     conv_times = time_conv_kernels(kernels, conv_bn, conv_worst)
@@ -1424,6 +1929,11 @@ def main() -> int:
         profile_resnet(resnet_lib, trainer_lib, conv3_impl)
         torch.cuda.empty_cache()
     resnet_parity(kernels, resnet_lib, trainer_lib)
+    free_device_memory()
+    per_replay = run_steps_phases(kernels, bert_lib, resnet_lib, trainer_lib,
+                                  fa.flash_attention, smi)
+    run_mnist_and_evaluator(mnist_cli, smi)
+    run_profile_dir(bert_cli, smi)
 
     lines = [
         {
@@ -1434,6 +1944,8 @@ def main() -> int:
             "plain_ms": times[name]["plain_ms"], "bound_ms": times[name]["bound_ms"],
             "bound_by": times[name]["bound_by"], "library_ms": times[name]["library_ms"],
             "basis": "per launch at one BERT-base layer; launches over the train phase",
+            "launches_per_replay": per_replay[name],
+            "replay_basis": "run_steps' CUDA graph of one BERT-base step (32 x 512)",
             "gpt": {
                 "shape": list(GPT_SHAPE), "causal": True,
                 "launches": gpt["launches"][name],
@@ -1461,6 +1973,8 @@ def main() -> int:
             "library_ms": total["library_ms"],
             "basis": "per ResNet-50 training step at batch 256 (stage launches "
                      "3/3/5/2 per pass); launches over the resnet_train phase",
+            "launches_per_replay": per_replay[name],
+            "replay_basis": "run_steps' CUDA graph of one ResNet-50 step (batch 256)",
             "per_stage": [
                 {"shape": st["shape"], **{
                     part: {k: st[part][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",

@@ -509,7 +509,7 @@ def test_cli_main_runs_on_cpu():
 
 def test_cli_run_summary():
     summary = torch_gpt_cli.run(torch_gpt_cli.parse_args([
-        "--preset", "tiny", "--steps", "4", "--batch-size", "4", "--seq-len", "64",
+        "--preset", "tiny", "--steps", "5", "--batch-size", "4", "--seq-len", "64",
         "--learning-rate", "3e-3", "--generate", "5", "--device", "cpu",
     ]))
     assert math.isfinite(summary["loss"]) and math.isfinite(summary["eval_loss"])
@@ -524,7 +524,7 @@ def test_cli_wants_cuda_and_refuses_unported_flags():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             torch_gpt_cli.main(CLI_ARGS)
-    for flag in (["--kv-int8"], ["--weights-int8"], ["--tp", "2"], ["--checkpoint-dir", "x"]):
+    for flag in (["--kv-int8"], ["--weights-int8"], ["--tp", "2"], ["--monitoring-bind-addr", "x"]):
         with pytest.raises(SystemExit):
             torch_gpt_cli.parse_args(CLI_ARGS + flag)
     args = torch_gpt_cli.parse_args(CLI_ARGS[:2] + ["--seq-len", "4096"])

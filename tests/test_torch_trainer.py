@@ -210,7 +210,7 @@ def test_cli_main_runs_on_cpu(extra):
 
 def test_cli_run_summary():
     summary = torch_bert_cli.run(torch_bert_cli.parse_args([
-        "--preset", "tiny", "--steps", "1", "--batch-size", "2",
+        "--preset", "tiny", "--steps", "2", "--batch-size", "2",
         "--seq-len", "16", "--device", "cpu", "--flash",
     ]))
     assert np.isfinite(summary["loss"]) and np.isfinite(summary["eval_loss"])
@@ -320,7 +320,7 @@ def test_resnet_cli_runs_on_cpu(conv3_impl):
 
 def test_resnet_cli_run_summary():
     args = torch_resnet_cli.parse_args([
-        "--small", "--steps", "1", "--per-chip-batch", "2", "--image-size", "32",
+        "--small", "--steps", "2", "--per-chip-batch", "2", "--image-size", "32",
         "--device", "cpu", "--conv3-impl", "pallas",
     ])
     summary = torch_resnet_cli.run(args)

@@ -1,5 +1,5 @@
-"""Carry a flax param tree across to the port's state_dict: BERT, GPT
-and ResNet.
+"""Carry a flax param tree across to the port's state_dict: BERT, GPT,
+ResNet and the MNIST CNN.
 
 The input is the tree as nested dicts of numpy arrays (a caller holding
 a JAX tree maps `np.asarray` over it first), so this module never sees
@@ -125,4 +125,28 @@ def resnet_state_dict_from_flax(
             elif layout == "t":
                 value = value.T
             state[name] = torch.tensor(np.ascontiguousarray(value), dtype=torch.float32)
+    return state
+
+
+_MNIST_PARAMS = _compile((
+    (r"(Conv_[01])/kernel", r"\1.weight", "oihw"),
+    (r"(Dense_[01])/kernel", r"\1.weight", "t"),
+    (r"(Conv_[01]|Dense_[01])/bias", r"\1.bias", "keep"),
+))
+
+
+def mnist_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax MnistCNN params (nested dicts of numpy arrays) -> a state_dict
+    for models.mnist.MnistCNN: conv kernels HWIO -> OIHW, Dense kernels
+    [in, out] -> [out, in]. Dense_0's rows stay in the reference's NHWC
+    flatten order, which the port's forward reproduces. Raises KeyError on
+    a path it does not map."""
+    state: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params).items():
+        name, layout = _port_name(path, _MNIST_PARAMS)
+        if layout == "oihw":
+            value = value.transpose(3, 2, 0, 1)
+        elif layout == "t":
+            value = value.T
+        state[name] = torch.tensor(np.ascontiguousarray(value), dtype=torch.float32)
     return state

@@ -171,7 +171,7 @@ def normalize_uint8(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """uint8 wire-format pixels [0, 255] -> about [-1, 1] in `dtype`,
     each step rounded to `dtype` as the reference's (x - 127.5) *
     (1 / 127.5) on weakly typed scalars (models/resnet.py:142-149)."""
-    return (x.to(dtype) - 127.5) * torch.tensor(1.0 / 127.5, dtype=dtype, device=x.device)
+    return (x.to(dtype) - 127.5) * torch.full((), 1.0 / 127.5, dtype=dtype, device=x.device)
 
 
 class ResNet(nn.Module):

@@ -45,8 +45,10 @@ def dot_product_attention(
     """Reference attention: [batch, len, heads, head_dim] inputs; a mask
     broadcasts against [batch, heads, q_len, k_len], truthy = attend."""
     depth = query.shape[-1]
-    scale = torch.tensor(1.0 / math.sqrt(depth), dtype=query.dtype)
-    scores = torch.einsum("bqhd,bkhd->bhqk", query * scale.to(query.device), key)
+    # the scale rounded to the query's dtype, made on its device (a fill,
+    # not a copy from the host, so a CUDA graph can capture it)
+    scale = torch.full((), 1.0 / math.sqrt(depth), dtype=query.dtype, device=query.device)
+    scores = torch.einsum("bqhd,bkhd->bhqk", query * scale, key)
     scores = scores.float()
     if mask is not None:
         scores = torch.where(

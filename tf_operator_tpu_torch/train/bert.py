@@ -7,9 +7,15 @@ tf_operator_tpu/train/bert.py.
 
 Runs on one CUDA device unless --device names another. --flash routes
 attention through the Hopper kernels (ops/flash_attention.py); --packed
-drops the all-ones attention mask (Trainer._prepare_batch). Fresh
-synthetic batches come from a plain host loop; the first step is a
-warmup outside the timed window. Logs tokens/sec, then a held-out eval.
+drops the all-ones attention mask (Trainer._prepare_batch). The loop is
+trainer.timed_run, as in train/gpt.py: restore from --checkpoint-dir,
+one warm-up step outside the timed window, fresh synthetic batches
+through InputPipeline under a PreemptionGuard (SIGTERM: checkpoint, exit
+143), --steps as the total budget, a final checkpoint. --accum-steps
+splits each batch into microbatches, re-weighted by their mlm weight
+mass; --profile-dir traces the first timed steps (torch.profiler).
+Logs tokens/sec, then a held-out eval. --monitoring-bind-addr is not
+ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -53,15 +59,27 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     )
     parser.add_argument("--device", default=None, help="default: cuda")
     parser.add_argument("--log-every", type=int, default=20)
+    parser.add_argument(
+        "--checkpoint-dir", default=None,
+        help="resume from the newest checkpoint here; save on SIGTERM and at the end",
+    )
+    parser.add_argument(
+        "--accum-steps", type=int, default=1,
+        help="gradient-accumulation microbatches per optimizer step",
+    )
+    parser.add_argument(
+        "--profile-dir", default=None,
+        help="write a torch.profiler Chrome trace of the first timed steps here",
+    )
     return parser.parse_args(argv)
 
 
 def run(args: argparse.Namespace) -> Dict[str, float]:
     """Train as the flags say; returns the run's summary
-    (trainer.timed_run's)."""
+    (trainer.timed_run's; "exit_code" 143 after a SIGTERM)."""
     from .._device import resolve_device
     from ..models import bert as bert_lib
-    from .trainer import Trainer, mlm_task, timed_run, warmup_cosine_lr
+    from .trainer import Trainer, mlm_task, restore_if_any, timed_run, warmup_cosine_lr
 
     device = resolve_device(args.device)
     cfg = {
@@ -80,22 +98,27 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
         model, mlm_task(model),
         learning_rate=warmup_cosine_lr(args.learning_rate, args.steps, args.warmup_steps),
         weight_decay=args.weight_decay, packed=args.packed, device=device,
+        checkpoint_dir=args.checkpoint_dir, accum_steps=args.accum_steps,
     )
 
     def make_batch(gen: torch.Generator):
         return bert_lib.synthetic_batch(gen, args.batch_size, args.seq_len, cfg)
 
-    _, summary, _ = timed_run(
-        trainer, trainer.init(), make_batch, generator, args.steps, args.log_every, SEED
+    state = restore_if_any(trainer, trainer.init())
+    state, summary, _ = timed_run(
+        trainer, state, make_batch, generator, args.steps, args.log_every, SEED,
+        profile_dir=args.profile_dir,
     )
+    if args.checkpoint_dir and not summary["exit_code"]:
+        trainer.save(state)
     return summary
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    """The CLI; returns its exit code: 0, or 143 after a SIGTERM."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
-    run(args)
-    return 0
+    return run(args)["exit_code"]
 
 
 if __name__ == "__main__":

@@ -2,19 +2,26 @@
 tf_operator_tpu/train/gpt.py.
 
     python -m tf_operator_tpu_torch.train.gpt --preset tiny --steps 20 --device cpu
+    python -m tf_operator_tpu_torch.train.gpt --preset tiny --steps 6 --batch-size 4 \\
+        --seq-len 128 --accum-steps 2 --checkpoint-dir /tmp/gpt-ckpt --device cpu
     python -m tf_operator_tpu_torch.train.gpt --preset small --batch-size 4 \\
         --seq-len 4096 --generate 56
 
 Runs on one CUDA device unless --device names another. Attention is the
 causal flash route (the Hopper kernels), with no flag, as in the
-reference; the optimizer is AdamW with weight decay 0.01. Fresh
-synthetic Markov batches come from a plain host loop; the first step is
-a warmup outside the timed window (trainer.timed_run). Logs tokens/sec,
-then a held-out eval; --generate N then decodes N tokens greedily
-(models/gpt.py generate) from the first 8 tokens of each row of the
-first training batch. Not ported: the mesh and sequence-parallel flags, --weights-int8,
---kv-int8, --checkpoint-dir, --accum-steps and --monitoring-bind-addr
-(ROADMAP queue 1); argparse refuses them.
+reference; the optimizer is AdamW with weight decay 0.01. The loop is
+trainer.timed_run: restore from --checkpoint-dir when it holds a
+checkpoint, one warm-up step outside the timed window, then fresh
+synthetic Markov batches drawn and placed in the background
+(InputPipeline) under a PreemptionGuard. --steps is the total budget,
+restored steps included. A SIGTERM drains the step, writes a checkpoint
+and exits 143 (retryable); a finished run writes a final checkpoint.
+--accum-steps splits each batch into that many microbatches. Logs
+tokens/sec, then a held-out eval; --generate N then decodes N tokens
+greedily (models/gpt.py generate) from the first 8 tokens of each row of
+the warm-up batch. Not ported: the mesh and sequence-parallel flags,
+--weights-int8, --kv-int8 and --monitoring-bind-addr (ROADMAP queue 1);
+argparse refuses them.
 """
 
 from __future__ import annotations
@@ -57,6 +64,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     )
     parser.add_argument("--log-every", type=int, default=20)
     parser.add_argument(
+        "--checkpoint-dir", default=None,
+        help="resume from the newest checkpoint here; save on SIGTERM and at the end",
+    )
+    parser.add_argument(
+        "--accum-steps", type=int, default=1,
+        help="gradient-accumulation microbatches per optimizer step",
+    )
+    parser.add_argument(
         "--generate", type=int, default=0, metavar="N",
         help="after training, greedily decode N tokens from a prompt",
     )
@@ -66,16 +81,22 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def train(
     args: argparse.Namespace, attention_fn: Optional[Callable] = None,
-) -> Tuple[Dict[str, Any], torch.nn.Module]:
+    on_step: Optional[Callable] = None,
+) -> Tuple[Dict[str, Any], Any]:
     """Train (and decode) as the flags say; returns the run's summary and
-    the trained model. attention_fn replaces the causal flash route (the
-    reference bench's attention="xla" twin passes plain causal attention;
-    it has no flag). The summary is trainer.timed_run's, with
-    --generate the decoded tokens (prompt included) and the wall ms per
-    new token (all rows together, prefill included)."""
+    the final TrainState (its model is the trained GPT). attention_fn
+    replaces the causal flash route (the reference bench's
+    attention="xla" twin passes plain causal attention; it has no flag);
+    on_step(state) runs after every optimizer step. The summary is
+    trainer.timed_run's, with --generate the decoded tokens (prompt
+    included) and the wall ms per new token (all rows together, prefill
+    included). A preempted run (summary["exit_code"] 143) decodes
+    nothing."""
     from .._device import resolve_device
     from ..models import gpt as gpt_lib
-    from .trainer import Trainer, causal_lm_task, timed_run, warmup_cosine_lr
+    from .trainer import (
+        Trainer, causal_lm_task, restore_if_any, timed_run, warmup_cosine_lr,
+    )
 
     device = resolve_device(args.device)
     cfg = {"small": gpt_lib.GPT_SMALL, "tiny": gpt_lib.GPT_TINY}[args.preset]
@@ -88,12 +109,18 @@ def train(
         model, causal_lm_task(model),
         learning_rate=warmup_cosine_lr(args.learning_rate, args.steps, args.warmup_steps),
         weight_decay=WEIGHT_DECAY, device=device,
+        checkpoint_dir=args.checkpoint_dir, accum_steps=args.accum_steps,
     )
-    _, summary, first_batch = timed_run(
-        trainer, trainer.init(),
+    state = restore_if_any(trainer, trainer.init())
+    state, summary, first_batch = timed_run(
+        trainer, state,
         lambda gen: gpt_lib.synthetic_batch(gen, args.batch_size, args.seq_len, cfg),
-        generator, args.steps, args.log_every, SEED,
+        generator, args.steps, args.log_every, SEED, on_step=on_step,
     )
+    if summary["exit_code"]:
+        return summary, state
+    if args.checkpoint_dir:
+        trainer.save(state)
     if args.generate > 0:
         prompt = first_batch["input_ids"][:, :PROMPT_LEN]
         start = time.monotonic()  # the held-out eval has waited for the device
@@ -101,7 +128,7 @@ def train(
         summary["generated"] = out.tolist()  # waits for the device
         summary["generate_ms_per_token"] = (time.monotonic() - start) * 1e3 / args.generate
         logger.info("generated: %s", summary["generated"][0])
-    return summary, model
+    return summary, state
 
 
 def run(args: argparse.Namespace) -> Dict[str, Any]:
@@ -109,11 +136,11 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     return train(args)[0]
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def main(argv: Optional[List[str]] = None, on_step: Optional[Callable] = None) -> int:
+    """The CLI; returns its exit code: 0, or 143 after a SIGTERM."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
-    run(args)
-    return 0
+    return train(args, on_step=on_step)[0]["exit_code"]
 
 
 if __name__ == "__main__":

@@ -15,10 +15,16 @@ it is width 64 instead of 8 so that the 3x3 convs take the kernel
 route (C % 64 == 0), as the reference's bench smoke does
 (benchmarks/model_benches.py:97-100).
 
-As in the reference, one synthetic batch is placed once and reused by
-every step: a fresh 224x224 batch of 256 f32 images is 154 MB of host
-work per step and would set the pace. The first step is a warmup
-outside the timed window. Logs images/sec.
+The loop is trainer.timed_run, as in train/gpt.py, with one change: as
+in the reference, one synthetic batch is placed once and reused by
+every step (reuse_batch), since a fresh 224x224 batch of 256 f32 images
+is 154 MB of host work per step and would set the pace. So: restore
+from --checkpoint-dir when it holds a checkpoint, one warm-up step
+outside the timed window, then the rest of the --steps budget (restored
+steps count) under a PreemptionGuard (SIGTERM: checkpoint, exit 143)
+and a final checkpoint. --accum-steps splits the batch into
+microbatches (BatchNorm statistics update once per microbatch);
+--profile-dir traces the first timed steps. Logs images/sec.
 """
 
 from __future__ import annotations
@@ -26,12 +32,9 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
-import time
 from typing import Dict, List, Optional
 
 import torch
-
-logger = logging.getLogger("tf_operator_tpu_torch.train.resnet")
 
 # seeds the weights and the batch
 SEED = 0
@@ -54,6 +57,18 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     )
     parser.add_argument("--device", default=None, help="default: cuda")
     parser.add_argument("--log-every", type=int, default=20)
+    parser.add_argument(
+        "--checkpoint-dir", default=None,
+        help="resume from the newest checkpoint here; save on SIGTERM and at the end",
+    )
+    parser.add_argument(
+        "--accum-steps", type=int, default=1,
+        help="gradient-accumulation microbatches per optimizer step",
+    )
+    parser.add_argument(
+        "--profile-dir", default=None,
+        help="write a torch.profiler Chrome trace of the first timed steps here",
+    )
     return parser.parse_args(argv)
 
 
@@ -72,12 +87,11 @@ def build_model(args: argparse.Namespace, generator: torch.Generator):
 
 
 def run(args: argparse.Namespace) -> Dict[str, float]:
-    """Train as the flags say; returns the run's summary: final train
-    loss, images/sec over the timed steps, their seconds, and the number
-    of forward and backward passes."""
+    """Train as the flags say; returns the run's summary
+    (trainer.timed_run's, in images; "exit_code" 143 after a SIGTERM)."""
     from .._device import resolve_device
     from ..models import resnet as resnet_lib
-    from .trainer import Trainer, classification_task, warmup_cosine_lr
+    from .trainer import Trainer, classification_task, restore_if_any, timed_run, warmup_cosine_lr
 
     device = resolve_device(args.device)
     if args.small:
@@ -88,48 +102,27 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
         model, classification_task(model),
         learning_rate=warmup_cosine_lr(args.learning_rate, args.steps, args.warmup_steps),
         device=device, optimizer="sgd",
+        checkpoint_dir=args.checkpoint_dir, accum_steps=args.accum_steps,
     )
-    state = trainer.init()
-    batch = trainer.place_batch(resnet_lib.synthetic_batch(
-        generator, args.per_chip_batch, args.image_size, classes
-    ))
 
-    def sync() -> None:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    def make_batch(gen: torch.Generator):
+        return resnet_lib.synthetic_batch(gen, args.per_chip_batch, args.image_size, classes)
 
-    # warmup: first launches, allocator growth, kernel build
-    state, metrics = trainer.step(state, batch)
-    float(metrics["loss"])
-    sync()
-    start = time.monotonic()
-    for i in range(args.steps):
-        state, metrics = trainer.step(state, batch)
-        if (i + 1) % args.log_every == 0:
-            logger.info("step %d loss=%.4f", state.step, float(metrics["loss"]))
-    loss = float(metrics["loss"])
-    sync()
-    elapsed = time.monotonic() - start
-    images_per_sec = args.per_chip_batch * args.steps / elapsed if args.steps else 0.0
-    logger.info(
-        "images/sec on %s: %.1f (loss %.4f)",
-        torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-        images_per_sec, loss,
+    state = restore_if_any(trainer, trainer.init())
+    state, summary, _ = timed_run(
+        trainer, state, make_batch, generator, args.steps, args.log_every, SEED,
+        profile_dir=args.profile_dir, reuse_batch=True,
     )
-    return {
-        "loss": loss,
-        "images_per_sec": images_per_sec,
-        "seconds": elapsed,
-        "forward_passes": args.steps + 1,  # warmup + steps
-        "backward_passes": args.steps + 1,
-    }
+    if args.checkpoint_dir and not summary["exit_code"]:
+        trainer.save(state)
+    return summary
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    """The CLI; returns its exit code: 0, or 143 after a SIGTERM."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
-    run(args)
-    return 0
+    return run(args)["exit_code"]
 
 
 if __name__ == "__main__":

@@ -1,20 +1,21 @@
 """The training engine's core. Counterpart of
 tf_operator_tpu/train/trainer.py: the state object, `Task`,
 `classification_task`, `mlm_task`, `causal_lm_task`, `warmup_cosine_lr`,
-`held_out_eval`, `timed_run` (the entry points' timed loop) and
-`Trainer` (init, step, evaluate, place_batch).
+`held_out_eval`, `restore_if_any` and `timed_run` (the token CLIs' loop),
+`Trainer` (init, step with gradient accumulation, run_steps, evaluate,
+place_batch, fit, save, restore) and `Checkpointer`.
 
 JAX's train state is immutable and each step returns a new one; here
 the state holds the model and its optimizer, and `Trainer.step` updates
 both in place (no second copy of parameters or moments) and returns the
-same object.
+same object. `state.step` is a host int.
 
 AdamW has optax's semantics: b1 0.9, b2 0.999, eps 1e-8 added outside
 the square root, and decoupled weight decay on every parameter in one
 group, p <- p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p), which is
 what torch.optim.AdamW computes. optax.adamw defaults to weight decay
 1e-4 and torch to 1e-2: the port defaults to optax's and callers pass
-it explicitly.
+it explicitly. optax.adam is AdamW with weight decay 0.
 
 The reference's Trainer takes any optax transformation; the port takes
 `optimizer="adamw"` (the default, as above) or `"sgd"`, optax.sgd(lr,
@@ -25,9 +26,9 @@ step's buf = g agrees with the zero start. Both read the learning rate
 (or schedule) per step.
 
 BatchNorm running statistics are module buffers: `step` runs the model
-in train mode, which updates them in the forward, and `evaluate` in
-eval mode, which reads them, as the reference threads `batch_stats`
-through its loss function.
+in train mode, which updates them in the forward (once per microbatch
+under accumulation, as the reference threads `batch_stats` through its
+scan), and `evaluate` in eval mode, which reads them.
 """
 
 from __future__ import annotations
@@ -35,8 +36,11 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import os
+import shutil
+import threading
 import time
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -60,29 +64,49 @@ class TrainState:
 @dataclasses.dataclass
 class Task:
     """How to compute loss for a model family: loss_fn(batch, train)
-    -> (loss, aux metrics), running the model the task was made for."""
+    -> (loss, aux metrics), running the model the task was made for.
+    aux["loss_weight"], where a task reports it, is the weight mass of
+    the (micro)batch that its weighted-mean loss divides by."""
 
     loss_fn: Callable[..., Tuple[torch.Tensor, Dict[str, Any]]]
 
 
+class WarmupCosine:
+    """Linear warmup from 0 to `peak` over `warmup_steps`, then cosine
+    decay to 10% of it at `decay_steps`: optax.warmup_cosine_decay_schedule.
+    Called with a host step count it returns a float; `on_device` takes
+    the count as a float64 tensor and computes the same in tensor ops,
+    which is how `run_steps`' CUDA graph reads the rate at each replay."""
+
+    def __init__(self, peak: float, warmup_steps: int, decay_steps: int) -> None:
+        self.peak = peak
+        self.warmup_steps = warmup_steps
+        self.decay_steps = decay_steps
+        self.end = peak * 0.1
+
+    def __call__(self, count: int) -> float:
+        if count < self.warmup_steps:
+            return self.peak * count / self.warmup_steps
+        span = self.decay_steps - self.warmup_steps
+        t = min(count - self.warmup_steps, span)
+        cosine = 0.5 * (1 + math.cos(math.pi * t / span))
+        return self.end + (self.peak - self.end) * cosine
+
+    def on_device(self, count: torch.Tensor) -> torch.Tensor:
+        span = self.decay_steps - self.warmup_steps
+        warm = self.peak * count / self.warmup_steps
+        t = torch.clamp(count - self.warmup_steps, max=span)
+        cosine = 0.5 * (1 + torch.cos(math.pi * t / span))
+        decayed = self.end + (self.peak - self.end) * cosine
+        return torch.where(count < self.warmup_steps, warm, decayed)
+
+
 def warmup_cosine_lr(peak: float, steps: int, warmup_steps: int) -> LearningRate:
-    """Constant `peak` when warmup_steps == 0; otherwise linear warmup
-    from 0 to `peak`, then cosine decay to 10% of it, as
-    optax.warmup_cosine_decay_schedule with decay_steps clamped to
-    warmup_steps + 1."""
+    """Constant `peak` when warmup_steps == 0; otherwise WarmupCosine with
+    decay_steps clamped to warmup_steps + 1, as the reference clamps it."""
     if not warmup_steps:
         return peak
-    decay_steps = max(steps, warmup_steps + 1)
-    end = peak * 0.1
-
-    def schedule(count: int) -> float:
-        if count < warmup_steps:
-            return peak * count / warmup_steps
-        t = min(count - warmup_steps, decay_steps - warmup_steps)
-        cosine = 0.5 * (1 + math.cos(math.pi * t / (decay_steps - warmup_steps)))
-        return end + (peak - end) * cosine
-
-    return schedule
+    return WarmupCosine(peak, warmup_steps, max(steps, warmup_steps + 1))
 
 
 def classification_task(model: nn.Module) -> Task:
@@ -100,11 +124,15 @@ def classification_task(model: nn.Module) -> Task:
 
 
 def mlm_task(model: nn.Module) -> Task:
+    """Masked-LM loss, reporting the batch's mlm weight mass as
+    "loss_weight" so that accumulation re-weights uneven microbatches to
+    the exact full-batch weighted mean (the reference's :96-103)."""
     from ..models.bert import mlm_loss
 
     def loss_fn(batch: Batch, train: bool = True):
         logits = model(batch["input_ids"], batch.get("attention_mask"))
-        return mlm_loss(logits, batch["labels"], batch["mlm_weights"]), {}
+        loss = mlm_loss(logits, batch["labels"], batch["mlm_weights"])
+        return loss, {"loss_weight": batch["mlm_weights"].sum()}
 
     return Task(loss_fn=loss_fn)
 
@@ -122,6 +150,8 @@ def causal_lm_task(model: nn.Module) -> Task:
 HELD_OUT_FOLD = 2**31 - 1
 OPTIMIZERS = ("adamw", "sgd")
 SGD_MOMENTUM = 0.9
+# aux keys that are bookkeeping, not metrics
+_NOT_METRICS = ("loss_weight",)
 
 
 def held_out_eval(
@@ -138,63 +168,172 @@ def held_out_eval(
     return metrics
 
 
+def restore_if_any(trainer: "Trainer", state: TrainState) -> TrainState:
+    """The CLIs' resume: the newest checkpoint under the trainer's
+    checkpoint_dir if there is one, else `state` as it is."""
+    if trainer.checkpoint_dir is None:
+        return state
+    restored = trainer.restore(state)
+    if restored is None:
+        return state
+    logger.info("resumed from step %d", restored.step)
+    return restored
+
+
+def _set_lr(optimizer: torch.optim.Optimizer, lr: Union[float, torch.Tensor]) -> None:
+    """Set every group's rate: in place where it is a device scalar
+    (Trainer.init on CUDA), so that a captured graph keeps reading it."""
+    for group in optimizer.param_groups:
+        if not isinstance(group["lr"], torch.Tensor):
+            group["lr"] = lr
+        elif isinstance(lr, torch.Tensor):
+            group["lr"].copy_(lr)
+        else:
+            group["lr"].fill_(lr)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _rate_unit(batch: Batch) -> Tuple[str, Callable[[Batch], int]]:
+    """What a timed run's rate counts: tokens (the elements of input_ids)
+    in a token batch, else images."""
+    if "input_ids" in batch:
+        return "tokens", lambda b: b["input_ids"].numel()
+    return "images", lambda b: b["image"].shape[0]
+
+
 def timed_run(
     trainer: "Trainer", state: TrainState,
     make_batch: Callable[[torch.Generator], Batch], generator: torch.Generator,
     steps: int, log_every: int, seed: int,
+    profile_dir: Optional[str] = None,
+    on_step: Optional[Callable[[TrainState], object]] = None,
+    reuse_batch: bool = False,
 ) -> Tuple[TrainState, Dict[str, Any], Batch]:
-    """The token-model entry points' loop (train/bert.py, train/gpt.py):
-    one warm-up step (first launches, allocator growth, kernel build)
-    outside the timed window, `steps` timed steps on fresh batches drawn
-    from `generator` by a plain host loop, then held_out_eval. Returns
-    the state, the summary (the warm-up step's and the final train loss,
-    tokens/sec over the timed steps counted as elements of input_ids,
-    their seconds and the host seconds spent drawing their batches
-    inside them, held-out eval loss and perplexity, and the number of
-    forward and backward passes) and the warm-up step's batch."""
+    """The entry points' loop (train/bert.py, train/gpt.py,
+    train/resnet.py), the reference's CLI loop
+    (tf_operator_tpu/train/gpt.py:137-200):
+
+    - one eager warm-up step (first launches, allocator growth, kernel
+      build) on a batch drawn from `generator`, outside the timed window;
+    - `steps` is the TOTAL budget counting steps already in state.step
+      (a restored checkpoint) and the warm-up, so a resumed process runs
+      the remainder;
+    - the timed steps take fresh batches from an InputPipeline over
+      synthetic_source(make_batch, seed), drawn and placed in the
+      background (from before the warm-up on) while the previous step
+      runs; with reuse_batch every step reuses the warm-up's placed batch
+      instead (the ResNet CLI, as the reference's: a fresh 224x224 batch
+      would set the pace), and there is no held-out eval;
+    - the timed steps run under a PreemptionGuard: after a latched
+      SIGTERM the step drains, a checkpoint is written (when the trainer
+      has a checkpoint_dir) and the loop stops with exit code 143;
+    - profile_dir traces the first timed steps (telemetry/profiler.py);
+    - on_step(state), if given, runs after every optimizer step, the
+      warm-up's included.
+
+    Then held_out_eval, unless preempted or reuse_batch. Returns the
+    state, the summary and the warm-up step's batch. The summary: the
+    warm-up step's and the final train loss, `<unit>_per_sec` over the
+    timed steps (tokens or images, by the batch), their seconds, the
+    host seconds the producer spent drawing and placing their batches
+    and the seconds the loop waited for one, held-out eval loss and
+    perplexity, the number of forward and backward passes (microbatches
+    under accumulation), the first and the final step, "preempted" and
+    the "exit_code" (0 or 143)."""
+    from ..telemetry.profiler import StepProfiler
+    from .input_pipeline import InputPipeline, synthetic_source
+    from .preemption import PreemptionGuard, maybe_preempt_exit
+
     device = trainer.device
-
-    def sync() -> None:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    first_batch = make_batch(generator)
-    state, metrics = trainer.step(state, trainer.place_batch(first_batch))
-    first_loss = float(metrics["loss"])
-    sync()
-    tokens, batch_seconds = 0, 0.0
-    start = time.monotonic()
-    for i in range(steps):
-        drawn = time.monotonic()
-        batch = make_batch(generator)
-        batch_seconds += time.monotonic() - drawn
-        batch = trainer.place_batch(batch)
-        tokens += batch["input_ids"].numel()
-        state, metrics = trainer.step(state, batch)
-        if (i + 1) % log_every == 0:
-            logger.info("step %d loss=%.4f", state.step, float(metrics["loss"]))
-    loss = float(metrics["loss"])
-    sync()
-    elapsed = time.monotonic() - start
-    tokens_per_sec = tokens / elapsed if steps else 0.0
+    start_step = state.step
+    # the warm-up step below counts toward the budget; the pipeline starts
+    # first, so that its first batches are ready when the timed steps begin
+    remaining = max(0, steps - state.step - 1)
+    profiler = StepProfiler(profile_dir, remaining, window=(0, 5))
+    items = steps_run = exit_code = 0
+    wait_seconds = batch_seconds = 0.0
+    pipe = None
+    if not reuse_batch:
+        pipe = InputPipeline(
+            synthetic_source(make_batch, seed), trainer, depth=2, steps=remaining,
+        )
+    try:
+        first_batch = make_batch(generator)
+        unit, count = _rate_unit(first_batch)
+        placed = trainer.place_batch(first_batch)
+        state, metrics = trainer.step(state, placed)
+        first_loss = float(metrics["loss"])
+        _sync(device)
+        if on_step is not None:
+            on_step(state)
+        trainer.health.set("training")
+        start = time.monotonic()
+        with PreemptionGuard() as guard:
+            for i in range(remaining):
+                batch = placed
+                if pipe is not None:
+                    waited = time.monotonic()
+                    batch = next(pipe)
+                    wait_seconds += time.monotonic() - waited
+                profiler.before_step(i)
+                state, metrics = trainer.step(state, batch)
+                profiler.after_step(i, drain=lambda: float(metrics["loss"]))
+                steps_run += 1
+                items += count(batch)
+                if on_step is not None:
+                    on_step(state)
+                rc = maybe_preempt_exit(guard, trainer, state, trainer.checkpoint_dir)
+                if rc is not None:
+                    exit_code = rc
+                    break
+                if (i + 1) % log_every == 0:
+                    logger.info("step %d loss=%.4f", state.step, float(metrics["loss"]))
+        loss = float(metrics["loss"])
+        _sync(device)
+        elapsed = time.monotonic() - start
+        if pipe is not None:
+            batch_seconds = pipe.host_seconds
+    finally:
+        try:
+            profiler.close()
+        finally:
+            if pipe is not None:
+                pipe.close()
+    rate = items / elapsed if steps_run else 0.0
     logger.info(
-        "tokens/sec on %s: %.1f (loss %.4f)",
+        "%s/sec on %s: %.1f (loss %.4f)", unit,
         torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-        tokens_per_sec, loss,
+        rate, loss,
     )
-    ev = held_out_eval(trainer, state, make_batch, seed)
-    logger.info("eval loss %.4f (ppl %.1f)", ev["loss"], ev["perplexity"])
+    k = trainer.accum_steps
     summary = {
         "loss": loss,
         "first_loss": first_loss,
-        "tokens_per_sec": tokens_per_sec,
+        f"{unit}_per_sec": rate,
         "seconds": elapsed,
         "batch_seconds": batch_seconds,
-        "eval_loss": ev["loss"],
-        "eval_perplexity": ev["perplexity"],
-        "forward_passes": steps + 2,  # warmup + steps + eval
-        "backward_passes": steps + 1,
+        "wait_seconds": wait_seconds,
+        "steps": steps_run,
+        "start_step": start_step,
+        "step": state.step,
+        "accum_steps": k,
+        "forward_passes": (1 + steps_run) * k,  # warmup + steps, per microbatch
+        "backward_passes": (1 + steps_run) * k,
+        "preempted": float(exit_code != 0),
+        "exit_code": exit_code,
     }
+    if profiler.trace_path is not None:
+        summary["trace_path"] = profiler.trace_path
+    if exit_code or reuse_batch:
+        return state, summary, first_batch
+    ev = held_out_eval(trainer, state, make_batch, seed)
+    logger.info("eval loss %.4f (ppl %.1f)", ev["loss"], ev["perplexity"])
+    summary.update(eval_loss=ev["loss"], eval_perplexity=ev["perplexity"])
+    summary["forward_passes"] += 1  # the eval's
     return state, summary, first_batch
 
 
@@ -208,9 +347,15 @@ class Trainer:
         packed: bool = False,
         device: Optional[Union[str, torch.device]] = None,
         optimizer: str = "adamw",
+        checkpoint_dir: Optional[str] = None,
+        accum_steps: int = 1,
+        metrics_registry=None,
+        clock=None,
     ) -> None:
         if optimizer not in OPTIMIZERS:
             raise ValueError(f"optimizer {optimizer!r} not in {OPTIMIZERS}")
+        if accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.optimizer = optimizer
         self.model = model
         self.task = task
@@ -218,6 +363,44 @@ class Trainer:
         self.weight_decay = weight_decay
         self.packed = packed
         self.device = resolve_device(device)
+        # gradient accumulation: each step splits the batch into this many
+        # microbatches and applies ONE optimizer update (see _forward_backward)
+        self.accum_steps = accum_steps
+        self.checkpoint_dir = checkpoint_dir
+        self._ckpt = Checkpointer(checkpoint_dir) if checkpoint_dir is not None else None
+        # run_steps' captured steps, by batch signature; dropped whenever the
+        # optimizer's state tensors are replaced (init, restore)
+        self._graphs: Dict[Tuple, "_CapturedStep"] = {}
+        self.last_graph: Optional["_CapturedStep"] = None
+        # trainer-plane telemetry on the shared registry, as the reference's
+        # (trainer.py:218-264); registration is get-or-create
+        from ..controller.clock import Clock
+        from ..telemetry import STEP_BUCKETS, default_registry
+        from .observe import GoodputLedger, HealthPhase, StepPhaseTimer
+
+        registry = metrics_registry if metrics_registry is not None else default_registry()
+        self.metrics_registry = registry
+        self._h_step_seconds = registry.histogram(
+            "train_step_seconds",
+            "Wall-clock time per optimizer step (the first observation "
+            "absorbs the warm-up)",
+            buckets=STEP_BUCKETS,
+        )
+        self._g_tokens_per_sec = registry.gauge(
+            "train_tokens_per_sec",
+            "Training token throughput over the last logging interval",
+        )
+        self._c_steps = registry.counter(
+            "train_steps_total", "Optimizer steps executed by this process",
+        )
+        self.clock = clock if clock is not None else Clock()
+        self.phase_timer = StepPhaseTimer(registry, clock=self.clock)
+        self.goodput = GoodputLedger(registry)
+        self.health = HealthPhase()
+        # step of the newest durable checkpoint (what a restart resumes
+        # from): the preemption-lost tail is measured against it
+        self._last_saved_step = 0
+        self._last_save_mono: Optional[float] = None
 
     def _prepare_batch(self, batch: Batch) -> Batch:
         """Packed (unpadded) training: the all-ones mask is pure
@@ -232,23 +415,80 @@ class Trainer:
         return lr(count) if callable(lr) else lr
 
     def init(self) -> TrainState:
-        """Move the model to the trainer's device and build its optimizer."""
+        """Move the model to the trainer's device and build its optimizer.
+        On a CUDA device the learning rate is a device scalar that `step`
+        refills and run_steps' graph computes (WarmupCosine.on_device), and
+        the optimizer is the form that reads it there: fused AdamW (marked
+        capturable, which graph capture asks of it) or fused SGD, one
+        kernel over the parameters a step. Eager steps and graph replays
+        so run one implementation."""
         self.model.to(self.device)
+        self._graphs.clear()
+        cuda = self.device.type == "cuda"
+        lr = self._lr(0)
+        if cuda:
+            lr = torch.tensor(float(lr), dtype=torch.float32, device=self.device)
         if self.optimizer == "sgd":
             optimizer = torch.optim.SGD(
-                self.model.parameters(), lr=self._lr(0), momentum=SGD_MOMENTUM,
-                dampening=0.0, nesterov=False, weight_decay=0.0,
+                self.model.parameters(), lr=lr, momentum=SGD_MOMENTUM,
+                dampening=0.0, nesterov=False, weight_decay=0.0, fused=cuda or None,
             )
         else:
             optimizer = torch.optim.AdamW(
-                self.model.parameters(), lr=self._lr(0), betas=(0.9, 0.999),
+                self.model.parameters(), lr=lr, betas=(0.9, 0.999),
                 eps=1e-8, weight_decay=self.weight_decay,
+                capturable=cuda, fused=cuda or None,
             )
         return TrainState(step=0, model=self.model, optimizer=optimizer)
 
     def place_batch(self, batch: Batch) -> Batch:
         batch = self._prepare_batch(batch)
-        return {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
+        return {
+            k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()
+        }
+
+    def _forward_backward(self, batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Loss and gradients of `batch` into the parameters' .grad
+        (accumulated onto what is there); returns the detached loss and
+        the task's metrics.
+
+        With accum_steps = k > 1 the batch is split into k microbatches
+        along dim 0 (a batch not divisible by k raises). Each backpropagates
+        w_i * loss_i, w_i = aux["loss_weight"] where the task reports it
+        and 1 otherwise, and frees its graph before the next runs, so
+        activation memory is one microbatch's. The summed gradient is then
+        divided by sum(w_i) and the loss reported is sum(w_i * loss_i) /
+        sum(w_i): the full-batch weighted mean, as the reference's scan
+        accumulates it (trainer.py:332-467). Other metrics are the mean
+        over microbatches."""
+        k = self.accum_steps
+        if k == 1:
+            loss, aux = self.task.loss_fn(batch, train=True)
+            loss.backward()
+            metrics = {n: v.detach() for n, v in aux.items() if n not in _NOT_METRICS}
+            return loss.detach(), metrics
+        leading = next(iter(batch.values())).shape[0]
+        if leading % k:
+            raise ValueError(f"global batch {leading} is not divisible by accum_steps {k}")
+        parts = {name: value.chunk(k) for name, value in batch.items()}
+        loss_sum = weight_sum = None
+        metric_sums: Dict[str, torch.Tensor] = {}
+        for i in range(k):
+            loss, aux = self.task.loss_fn({name: p[i] for name, p in parts.items()}, train=True)
+            weight = aux.get("loss_weight")
+            weighted = loss if weight is None else weight.detach().float() * loss
+            weighted.backward()
+            weight = torch.ones_like(loss.detach()) if weight is None else weight.detach().float()
+            loss_sum = weighted.detach() if loss_sum is None else loss_sum + weighted.detach()
+            weight_sum = weight if weight_sum is None else weight_sum + weight
+            for name, value in aux.items():
+                if name not in _NOT_METRICS:
+                    metric_sums[name] = metric_sums.get(name, 0) + value.detach()
+        for param in self.model.parameters():
+            if param.grad is not None:
+                param.grad.div_(weight_sum)
+        metrics = {name: value / k for name, value in metric_sums.items()}
+        return loss_sum / weight_sum, metrics
 
     def step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One optimizer step on `batch` (as place_batch returns it).
@@ -256,14 +496,52 @@ class Trainer:
         metrics as device tensors; reading them waits for the device."""
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = self.task.loss_fn(batch, train=True)
-        loss.backward()
-        for group in state.optimizer.param_groups:
-            group["lr"] = self._lr(state.step)
+        loss, metrics = self._forward_backward(batch)
+        _set_lr(state.optimizer, self._lr(state.step))
         state.optimizer.step()
         state.step += 1
-        metrics = {k: v.detach() for k, v in aux.items()}
-        metrics["loss"] = loss.detach()
+        self._c_steps.inc()
+        metrics["loss"] = loss
+        return state, metrics
+
+    def run_steps(
+        self, state: TrainState, batch: Batch, n: int,
+    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """n optimizer steps on one placed batch; returns the state after n
+        steps and the last step's metrics (the reference's :480-565, which
+        fuses n steps into one dispatch).
+
+        On a CUDA device the step is a CUDA graph (_CapturedStep): zero the
+        grads in place, forward, backward and the optimizer update,
+        captured once per batch signature after an eager warm-up step on a
+        side stream, then replayed on a static copy of the batch. The first
+        call for a signature runs that warm-up as the first of its n steps.
+        The learning rate inside the graph comes from a device-side step
+        counter (WarmupCosine.on_device), so the schedule advances at every
+        replay, and the optimizer is the eager steps' own (see
+        _CapturedStep). A capture that fails raises: there is no eager
+        fallback. On the CPU,
+        where the caller asked for it, this is n `step` calls."""
+        if n < 1:
+            raise ValueError(f"n must be >= 1, got {n}")
+        if self.device.type != "cuda":
+            for _ in range(n):
+                state, metrics = self.step(state, batch)
+            return state, metrics
+        key = tuple((name, tuple(v.shape), v.dtype) for name, v in sorted(batch.items()))
+        graph = self._graphs.get(key)
+        replays = n
+        metrics = None
+        if graph is None:
+            graph = _CapturedStep(self, batch)
+            state, metrics = graph.warm_up_and_capture(self, state, batch)
+            self._graphs[key] = graph
+            replays -= 1
+        self.last_graph = graph
+        if replays:
+            metrics = graph.replay(state, batch, replays)
+            state.step += replays
+            self._c_steps.inc(replays)
         return state, metrics
 
     @torch.no_grad()
@@ -271,6 +549,454 @@ class Trainer:
         """One no-gradient pass; returns the task's metrics and loss."""
         state.model.eval()
         loss, aux = self.task.loss_fn(self._prepare_batch(batch), train=False)
-        metrics = dict(aux)
+        metrics = {n: v for n, v in aux.items() if n not in _NOT_METRICS}
         metrics["loss"] = loss
         return metrics
+
+    # -- the fit loop -------------------------------------------------------
+
+    def _account_step(self, i: int, start_step: int, state: TrainState, ckpt_seconds: float) -> None:
+        """Close the phase timer for loop iteration `i` and attribute its
+        wall to the goodput ledger: iteration 0 is warm-up (re-warm-up when
+        resumed from a checkpoint), checkpoint seconds are waste, the rest
+        useful. Every executed step lands in exactly one integer bucket
+        (useful/warmup/rewarmup), so the ledger reconciles exactly with the
+        step counter. state.step is a host int, so the device is
+        synchronised here: the device time of the step lands in its own
+        device_sync lap, not in the next step's."""
+        _sync(self.device)
+        self.phase_timer.lap("device_sync")
+        split = self.phase_timer.finish(state.step)
+        productive = max(split.get("wall", 0.0) - ckpt_seconds, 0.0)
+        if ckpt_seconds > 0:
+            self.goodput.waste("checkpoint", ckpt_seconds)
+        if i == 0:
+            self.goodput.waste("warmup" if start_step == 0 else "rewarmup", productive, steps=1)
+        else:
+            self.goodput.useful(productive, steps=1)
+
+    def fit(
+        self,
+        state: TrainState,
+        batches: Iterator[Batch],
+        steps: int,
+        log_every: int = 50,
+        checkpoint_every: Optional[int] = None,
+        metrics_callback: Optional[Callable[[int, Dict[str, float]], object]] = None,
+        profile_dir: Optional[str] = None,
+        profile_window: Tuple[int, int] = (3, 8),
+    ) -> Tuple[TrainState, Dict[str, float]]:
+        """Run up to `steps` TOTAL optimizer steps (the reference's
+        :597-785): steps already in state.step (a restored checkpoint)
+        count toward the budget, so a preempted and restarted job converges
+        on `steps` instead of running a full budget per restart.
+
+        Each step is lapped into the phase timer and the goodput ledger.
+        metrics_callback(step, metrics) fires on every logging interval and
+        at a preemption. checkpoint_every saves asynchronously every that
+        many steps; the finally block settles any save in flight, also on
+        an aborted run. profile_dir traces profile_window's [start, stop)
+        steps (telemetry/profiler.py), skipping the warm-up step.
+
+        SIGTERM is latched (train/preemption.py): the step in flight
+        drains, a blocking checkpoint is written when the trainer has a
+        checkpoint_dir, the lost tail since the newest checkpoint is
+        accounted as waste, and the returned metrics carry "preempted":
+        1.0, so the CLI exits with the retryable code 143."""
+        from ..telemetry.flight import flight_record
+        from ..telemetry.profiler import StepProfiler
+        from .preemption import PreemptionGuard, record_preemption
+
+        last_metrics: Dict[str, float] = {}
+        interval_start = self.clock.monotonic()
+        interval_steps = 0
+        start_step = state.step
+        remaining = max(0, steps - start_step)
+        if remaining < steps:
+            logger.info("step budget %d: resumed at %d, running %d more",
+                        steps, start_step, remaining)
+        profiler = StepProfiler(profile_dir, remaining, profile_window)
+        guard = PreemptionGuard()
+        timer = self.phase_timer
+        self.health.set("warming")
+        self._last_saved_step = max(self._last_saved_step, start_step)
+        try:
+            guard.__enter__()
+            for i in range(remaining):
+                ckpt_seconds = 0.0
+                timer.start()
+                profiler.before_step(i)
+                batch = next(batches)
+                timer.lap("data_wait")
+                batch = self.place_batch(batch)
+                timer.lap("host_to_device")
+                state, metrics = self.step(state, batch)
+                # dispatch time, not device time: the card runs behind the
+                # host until something waits for it
+                self._h_step_seconds.observe(timer.lap("step_dispatch"))
+                interval_steps += 1
+                profiler.after_step(i, drain=lambda: float(metrics["loss"]))
+                timer.lap("device_sync")
+                if guard.triggered.is_set():
+                    last_metrics = {k: float(v) for k, v in metrics.items()}
+                    last_metrics["preempted"] = 1.0
+                    saved = False
+                    if self._ckpt is not None:
+                        # blocking: the grace period is short and the next
+                        # thing this process does is exit
+                        self.health.set("checkpointing")
+                        self.save(state)
+                        ckpt_seconds += timer.lap("checkpoint")
+                        saved = True
+                        logger.warning("preempted at step %d: checkpoint saved, "
+                                       "resume will continue from here", state.step)
+                    else:
+                        logger.warning("preempted at step %d with NO checkpoint_dir: "
+                                       "progress will be lost on restart", state.step)
+                    self.health.set("preempted")
+                    lost = max(state.step - self._last_saved_step, 0)
+                    if lost > 0:
+                        avg = timer.wall_seconds / timer.steps if timer.steps else 0.0
+                        self.goodput.waste("preempted", lost * avg, steps=lost)
+                    record_preemption(self, state, saved=saved)
+                    if metrics_callback is not None:
+                        metrics_callback(state.step, dict(last_metrics))
+                    self._account_step(i, start_step, state, ckpt_seconds)
+                    break
+                if checkpoint_every and (i + 1) % checkpoint_every == 0:
+                    # async: the write overlaps the next steps' compute
+                    self.health.set("checkpointing")
+                    self.save(state, block=False)
+                    ckpt_seconds += timer.lap("checkpoint")
+                    self.health.set("training")
+                if (i + 1) % log_every == 0 or i + 1 == remaining:
+                    last_metrics = {k: float(v) for k, v in metrics.items()}
+                    timer.lap("device_sync")  # the float()s waited for the card
+                    now = self.clock.monotonic()
+                    last_metrics["steps_per_sec"] = interval_steps / max(now - interval_start, 1e-9)
+                    ids = batch.get("input_ids")
+                    if ids is not None:
+                        self._g_tokens_per_sec.set(last_metrics["steps_per_sec"] * ids.numel())
+                    interval_start, interval_steps = now, 0
+                    flight_record(
+                        "train", op="step-stats", step=state.step,
+                        loss=round(last_metrics.get("loss", float("nan")), 6),
+                        steps_per_sec=round(last_metrics["steps_per_sec"], 3),
+                    )
+                    logger.info("step %d loss=%.4f (%.1f steps/s)", state.step,
+                                last_metrics.get("loss", float("nan")),
+                                last_metrics["steps_per_sec"])
+                    if metrics_callback is not None:
+                        metrics_callback(state.step, dict(last_metrics))
+                    timer.lap("eval_publish")
+                self._account_step(i, start_step, state, ckpt_seconds)
+                if i == 0:
+                    self.health.set("training")
+        finally:
+            guard.__exit__()
+            try:
+                profiler.close()
+            finally:
+                if self._ckpt is not None:
+                    # settle any async save so the newest complete checkpoint
+                    # is durable even on an aborted run
+                    self._ckpt.wait()
+        return state, last_metrics
+
+    # -- checkpointing ------------------------------------------------------
+
+    def _checkpointer(self) -> "Checkpointer":
+        if self._ckpt is None:
+            raise ValueError("Trainer built without checkpoint_dir")
+        return self._ckpt
+
+    def save(self, state: TrainState, block: bool = True) -> None:
+        """Checkpoint `state` at its step. block=False returns once every
+        tensor is snapshotted and writes in the background (wait() or the
+        next save or restore settles it)."""
+        ckpt = self._checkpointer()
+        from ..telemetry.flight import flight_record
+        from ..telemetry.tracecontext import trace_scope
+
+        t0 = self.clock.monotonic()
+        # each checkpoint publish gets its own trace context
+        with trace_scope():
+            ckpt.save(state.step, state, block=block)
+            flight_record("checkpoint", op="save", step=state.step, block=block,
+                          seconds=round(self.clock.monotonic() - t0, 6))
+        self._last_saved_step = state.step
+        self._last_save_mono = self.clock.monotonic()
+
+    def restore(self, state: TrainState) -> Optional[TrainState]:
+        """Restore the newest checkpoint into `state` (its model and
+        optimizer, in place, on their device); None if there is none."""
+        ckpt = self._checkpointer()
+        t0 = self.clock.monotonic()
+        restored = ckpt.restore_latest(state)
+        if restored is not None:
+            # the optimizer's state tensors were replaced: captured graphs
+            # would write to the old ones
+            self._graphs.clear()
+            self.goodput.waste("restore", self.clock.monotonic() - t0)
+            self._last_saved_step = restored.step
+            self._last_save_mono = self.clock.monotonic()
+        return restored
+
+    def reload_checkpoints(self) -> Optional[int]:
+        """The newest step in the checkpoint directory, re-scanned (another
+        process may be writing it: the Evaluator watches the chief's)."""
+        return self._checkpointer().latest_step()
+
+
+class _CapturedStep:
+    """One optimizer step of a trainer on a batch signature, as a CUDA
+    graph.
+
+    Everything the captured kernels touch keeps its address between
+    replays, which is what the TMA tensor maps baked into K1-K5's launches
+    need: the static batch (refilled with copy_ before the replays), the
+    parameters and optimizer state (updated in place), the gradients
+    (zeroed in place and re-attached to the parameters before each replay,
+    in case an eager step set them to None), and the activations (from the
+    graph's private memory pool).
+
+    The optimizer is the one eager steps run: on CUDA, Trainer.init builds
+    fused AdamW (its step counts on the device) or fused SGD, both
+    reading the learning rate from a device scalar. The graph writes this step's rate into that scalar from a
+    float64 step counter that it advances (WarmupCosine.on_device), where
+    an eager step fills it from the host.
+
+    `launches` holds the kernel launches one replay makes (ops/kernels
+    LAUNCHES counts host calls, so a captured launch counts once, at
+    capture) and `replays` the replays so far."""
+
+    def __init__(self, trainer: Trainer, batch: Batch) -> None:
+        lr = trainer.learning_rate
+        if callable(lr) and not hasattr(lr, "on_device"):
+            raise ValueError(
+                "run_steps on CUDA needs a constant learning rate or a schedule "
+                "with an on_device form (WarmupCosine)"
+            )
+        self.batch = {name: v.clone() for name, v in batch.items()}
+        # the step count before the update
+        self.count = torch.zeros((), dtype=torch.float64, device=trainer.device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.grads: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self.launches: Dict[str, int] = {}
+        self.replays = 0
+        self.outputs: Dict[str, torch.Tensor] = {}
+
+    def _body(self, trainer: Trainer, state: TrainState) -> None:
+        """The captured step: zero the grads in place, forward and
+        backward, this step's rate from the device counter, the optimizer
+        step, the counter's increment."""
+        state.optimizer.zero_grad(set_to_none=False)
+        loss, metrics = trainer._forward_backward(self.batch)
+        lr = trainer.learning_rate
+        if callable(lr):
+            _set_lr(state.optimizer, lr.on_device(self.count))
+        state.optimizer.step()
+        self.count.add_(1)
+        metrics["loss"] = loss
+        self.outputs = metrics
+
+    def warm_up_and_capture(
+        self, trainer: Trainer, state: TrainState, batch: Batch,
+    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One eager step (the first of the caller's n) on a side stream,
+        which also builds the optimizer state and the gradients, then the
+        capture of _body."""
+        from ..ops import kernels
+
+        current = torch.cuda.current_stream(trainer.device)
+        side = torch.cuda.Stream(trainer.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            state, metrics = trainer.step(state, batch)
+        current.wait_stream(side)
+        self.grads = [(p, p.grad) for p in state.model.parameters() if p.grad is not None]
+        state.model.train()
+        before = dict(kernels.LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self._body(trainer, state)
+        self.launches = {name: kernels.LAUNCHES[name] - before[name] for name in before}
+        return state, metrics
+
+    def prepare(self, state: TrainState, batch: Batch) -> None:
+        """Before replays from state.step on `batch`."""
+        for name, value in batch.items():
+            self.batch[name].copy_(value)
+        for param, grad in self.grads:
+            param.grad = grad
+        state.model.train()
+        self.count.fill_(state.step)
+
+    def replay(self, state: TrainState, batch: Batch, n: int) -> Dict[str, torch.Tensor]:
+        """n replays from state.step on `batch`; -> the last one's metrics."""
+        self.prepare(state, batch)
+        for _ in range(n):
+            self.graph.replay()
+        self.replays += n
+        return {name: value.clone() for name, value in self.outputs.items()}
+
+
+CHECKPOINT_FILE = "state.pt"
+
+
+# what a param group holds for its device, not for the run: the rate's
+# object (on CUDA a device scalar a captured graph reads) and the
+# optimizer's form
+_OWN_GROUP_KEYS = ("lr", "capturable", "fused")
+
+
+def _load_optimizer(optimizer: torch.optim.Optimizer, saved: Dict[str, Any]) -> None:
+    """optimizer.load_state_dict(saved), keeping each group's
+    _OWN_GROUP_KEYS (the next step sets the rate from the schedule), so
+    that a checkpoint written on one device restores onto another; step
+    counts go where the kept form reads them (the device, for capturable
+    or fused)."""
+    own = [{k: g[k] for k in _OWN_GROUP_KEYS if k in g} for g in optimizer.param_groups]
+    optimizer.load_state_dict(saved)
+    for group, kept in zip(optimizer.param_groups, own):
+        group.update(kept)
+        on_device = group.get("capturable") or group.get("fused")
+        for param in group["params"]:
+            st = optimizer.state.get(param, {})
+            if on_device and isinstance(st.get("step"), torch.Tensor):
+                st["step"] = st["step"].to(param.device, torch.float32)
+
+
+def _clone_tree(obj, tensor_fn):
+    if isinstance(obj, torch.Tensor):
+        return tensor_fn(obj)
+    if isinstance(obj, dict):
+        return {k: _clone_tree(v, tensor_fn) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_clone_tree(v, tensor_fn) for v in obj)
+    return obj
+
+
+class Checkpointer:
+    """The port's checkpoint format, in place of the reference's orbax
+    manager (trainer.py:859-909): one directory per step, named by the
+    step, holding `state.pt` (torch.save of {"step", "model": the model's
+    state_dict with its BatchNorm running statistics, "optimizer": the
+    optimizer's state_dict}). The newest `keep` steps are kept.
+
+    A step is written under a temporary name in the same directory and
+    then renamed into place (os.replace), so a reader (a restart, the
+    Evaluator) never sees half a checkpoint: a name that is not a step
+    number, or a step directory without state.pt, is ignored.
+
+    save(block=False) snapshots every tensor before it returns (a device
+    clone on a card, with an event the writer waits on; a copy on the
+    CPU), since the trainer updates its state in place, and a writer
+    thread copies the snapshot to the host and writes it. One save is in
+    flight at a time; wait() settles it and raises its error, if any."""
+
+    def __init__(self, directory: str, keep: int = 3) -> None:
+        if keep < 1:
+            raise ValueError(f"keep must be >= 1, got {keep}")
+        self.directory = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        # bytes and seconds of the newest completed write
+        self.last_write: Dict[str, float] = {}
+
+    def steps(self) -> List[int]:
+        """The complete steps in the directory, ascending."""
+        try:
+            names = os.listdir(self.directory)
+        except FileNotFoundError:
+            return []
+        return sorted(
+            int(name) for name in names
+            if name.isdigit()
+            and os.path.isfile(os.path.join(self.directory, name, CHECKPOINT_FILE))
+        )
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, str(step), CHECKPOINT_FILE)
+
+    def save(self, step: int, state: TrainState, block: bool = True) -> None:
+        self.wait()
+        payload = {
+            "step": int(step),
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+        }
+        event = None
+        if block:
+            payload = _clone_tree(payload, lambda t: t.detach().to("cpu", copy=True))
+            self._write(step, payload, None)
+            return
+        payload = _clone_tree(payload, lambda t: t.detach().clone())
+        if any(t.is_cuda for t in state.model.parameters()):
+            event = torch.cuda.Event()
+            event.record()
+        self._thread = threading.Thread(
+            target=self._write_in_background, args=(step, payload, event),
+            name="checkpoint-writer", daemon=True,
+        )
+        self._thread.start()
+
+    def _write_in_background(self, step, payload, event) -> None:
+        try:
+            self._write(step, payload, event)
+        except BaseException as err:  # surfaced by wait()
+            self._error = err
+
+    def _write(self, step: int, payload, event: Optional[torch.cuda.Event]) -> None:
+        start = time.monotonic()
+        if event is not None:
+            event.synchronize()
+            payload = _clone_tree(payload, lambda t: t.cpu())
+        tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}-{threading.get_ident()}")
+        final = os.path.join(self.directory, str(step))
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(payload, os.path.join(tmp, CHECKPOINT_FILE))
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        for old in self.steps()[:-self.keep]:
+            shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
+        self.last_write = {
+            "step": step, "bytes": os.path.getsize(os.path.join(final, CHECKPOINT_FILE)),
+            "seconds": time.monotonic() - start,
+        }
+
+    def wait(self) -> None:
+        """Settle the save in flight; raise its error, if any."""
+        thread, self._thread = self._thread, None
+        if thread is not None:
+            thread.join()
+        error, self._error = self._error, None
+        if error is not None:
+            raise error
+
+    def restore(self, step: int, state: TrainState) -> Optional[TrainState]:
+        """Load `step` into `state` in place: the model's parameters and
+        buffers, the optimizer's state (onto its parameters' device, by
+        torch's rules) and the step. None if the step has vanished (a
+        writer pruned it between listing and load)."""
+        try:
+            payload = torch.load(self.path(step), map_location="cpu", weights_only=True)
+        except FileNotFoundError:
+            return None
+        state.model.load_state_dict(payload["model"])
+        _load_optimizer(state.optimizer, payload["optimizer"])
+        state.step = int(payload["step"])
+        return state
+
+    def restore_latest(self, state: TrainState) -> Optional[TrainState]:
+        self.wait()
+        step = self.latest_step()
+        return None if step is None else self.restore(step, state)

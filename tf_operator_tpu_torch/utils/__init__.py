@@ -1,0 +1,1 @@
+"""Small plumbing the port copies from tf_operator_tpu/utils/."""
