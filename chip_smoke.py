@@ -104,8 +104,38 @@ non-zero, printing no result:
    per step evaluated, the last at step 1000.
 21. profile_dir - train/bert.py --profile-dir writes a Chrome trace that
    names K1-K3.
+22. rendezvous - testing/rendezvous_worker.py, then train/smoke.py, as two
+   ranks on cuda:0 over gloo (NCCL refuses two ranks on one device), the
+   operator's env names set by hand (TPU_WORKER_ID, TPU_WORKER_HOSTNAMES,
+   JAX_NUM_PROCESSES, JAX_PROCESS_ID, TFJOB_COORDINATOR_OVERRIDE): ranks
+   and world size as injected, an all-gather on the card gives [0, 1],
+   the smoke's all-reduce gives 3.
+23. ddp_bert - BERT-base MLM (--flash --packed, 32 x 512 global) from one
+   seed: the one-process step; the same step through Trainer(mesh=...)
+   under DDP in a one-rank NCCL world, bit-equal, and its ms per step
+   beside the one process's (DDP's cost at one rank); a world of 2 ranks
+   over gloo on the card, 16 rows a rank: loss and every gradient against
+   the one process's (DIST_TOLERANCE_WHY), K1-K3 12 launches per pass
+   per rank, ms per step labelled as two ranks sharing one card.
+24. fsdp_gpt - GPT-small (4 x 4096, causal flash) under FSDP2
+   (TRANSFORMER_RULES): a world of 2 over gloo (fsdp=2, 2 rows a rank)
+   and a one-rank NCCL world, each against 2 one-process steps (losses,
+   step 1's gradient within FSDP_GRAD_RTOL at world 2, the parameters
+   after 2 steps); K1-K3 12 per pass; a checkpoint saved under FSDP2
+   restores bit-equal into a one-process trainer.
+25. syncbn_resnet - ResNet-50 (pallas, batch 256 global, 224^2, bf16)
+   under DDP with sync TpuBatchNorm at world 2 over gloo (128 a rank,
+   rank 1's images from another distribution): loss, every gradient and
+   BN running statistic against the one-process step (plain_parity's
+   ratio to f32; BN statistics directly); the same world-2 step in f32
+   against the one-process f32 step (every conv gradient and BN
+   statistic), and two f32 controls, BN not synced and sums all-reduced
+   without a gradient, that must fail those bounds; K4 26 and K5 13
+   launches per step per rank.
 Then the kernel summary line (with each kernel's launches per run_steps
-replay), the nvidia-smi line, and the result line.
+replay and per step per rank at world 2), the nvidia-smi line, and the
+result line. `chip_smoke.py --world2-rank <dir>` is one rank of phases
+23-25's world of 2, which phase 23 launches.
 Imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -245,6 +275,69 @@ RUN_STEPS_PARAM_RTOL = 1e-4
 MNIST_STEPS = 1000
 MNIST_BATCH = 512
 EVALUATOR_TIMEOUT_S = 180
+# several processes (run_distributed_phases)
+WORLD2 = 2
+DIST_STEPS = 3
+DIST_TIMEOUT_S = 420
+DIST_SEED = 3
+DIST_BATCH_SEED = 7
+# world 2 against one process, both bf16 on the same route from the same
+# weights and global batch: each rank runs half the rows, so its matmuls
+# and convs have other shapes and round otherwise, and the gradient (and
+# sync BN's sums) add two halves in another order. plain_parity's
+# criterion for a bf16 step: the loss within LOSS_ATOL, and each
+# gradient and BN statistic no more than GRAD_RATIO times further
+# (relative L2, floor GRAD_FLOOR) from the same step in f32 than the
+# one-process bf16 step's
+DIST_TOLERANCE_WHY = (
+    "same route, weights and global batch; the ranks' halves run other matmul and conv "
+    "shapes and sum in another order, so bf16 roundings differ: plain_parity's criterion, "
+    "each tensor no more than GRAD_RATIO x further from the f32 step than the one "
+    "process's (floor GRAD_FLOOR), the loss within LOSS_ATOL")
+# GPT-small's parameters after 2 AdamW steps at world 2 against one
+# process: ||p_world2 - p_one|| / ||p_one - p_0||. An early AdamW step
+# moves a weight by about lr * sign(g), and a weight whose gradient lies
+# within the bf16 roundings of zero may move the other way (2 lr apart):
+# 0.25 allows about 1.5% of the weights that; a dropped or wrongly
+# sharded update gives about 1
+DIST_UPDATE_RTOL = 0.25
+DIST_UPDATE_WHY = (
+    "an early AdamW step moves a weight by about lr * sign(g); weights whose gradient is "
+    "within bf16 roundings of zero may move the other way; a lost update gives ~1")
+# GPT-small's step-1 gradient at world 2 against the one process's bf16
+# gradient, relative L2 of the worst tensor, each rank on its shards (an
+# f32 step at 4 x 4096 on plain attention does not fit the card, so no
+# plain_parity ratio): sound runs read 2.3e-3; a reduce-scatter that sums
+# instead of averaging, or a wrong weight normalisation, reads about 1
+FSDP_GRAD_RTOL = 2e-2
+# syncbn_resnet: rank 1's half of the global batch is 3x + 1 of its draw,
+# so that per-rank BatchNorm statistics are far from the global batch's.
+# The bf16 step's BN running statistics are held directly against the
+# one-process bf16 step's (relative L2 of the worst tensor,
+# SYNCBN_STAT_RTOL). Its gradients cannot be: ResNet-50 at this init is
+# chaotic, so bf16 roundings of other shapes move some conv gradients by
+# O(1) (1.07 in the stem's block at world 2, where a BN with no gradient
+# through its sums reads 1.19). So the same world-2 step also runs in f32
+# on the torch conv (TF32 off) and is held to the one-process f32 step:
+# every conv gradient (SYNCBN_F32_GRAD_RTOL) and BN statistic
+# (SYNCBN_F32_STAT_RTOL). Two controls run that f32 step with BN that
+# does not sync (sync group unset) and with sums that a
+# non-differentiable all-reduce carries (global statistics forward, a
+# per-rank BN's gradients backward); each must fail an f32 bound. The
+# bounds sit between the readings on the card: bf16 statistics 4.6e-3
+# (unsynced 1.0); f32 conv gradients 1.9e-2 (an early block's: the
+# chaos again, at f32's roundings), the controls 1.16 and 1.73; f32
+# statistics 6.6e-7, the unsynced control 1.0
+SYNCBN_SHIFT = (3.0, 1.0)
+SYNCBN_STAT_RTOL = 5e-2
+SYNCBN_F32_GRAD_RTOL = 0.1
+SYNCBN_F32_STAT_RTOL = 1e-4
+SYNCBN_WHY = (
+    "world 2 against one process on the same weights and global batch: bf16 BN statistics "
+    "directly (bf16 roundings of other shapes and orders); conv gradients and statistics "
+    "in f32 (bf16 gradients of this deep net at init differ O(1) between summation "
+    "orders); the controls (BN not synced, sums all-reduced without a gradient) must fail "
+    "an f32 bound")
 
 
 def emit(obj) -> None:
@@ -581,7 +674,7 @@ def profile_step(bert_lib, trainer_lib, flash_attention) -> None:
         cfg, attention_fn=flash_attention, generator=torch.Generator().manual_seed(5)
     )
     trainer = trainer_lib.Trainer(
-        model, trainer_lib.mlm_task(model), learning_rate=1e-4,
+        model, trainer_lib.mlm_task(), learning_rate=1e-4,
         weight_decay=0.01, packed=True, device="cuda",
     )
     batch = bert_lib.synthetic_batch(
@@ -721,7 +814,7 @@ def plain_parity(kernels, bert_lib, trainer_lib, flash_attention) -> dict:
                 generator=torch.Generator().manual_seed(3),
             )
             trainer = trainer_lib.Trainer(
-                model, trainer_lib.mlm_task(model), learning_rate=1e-4,
+                model, trainer_lib.mlm_task(), learning_rate=1e-4,
                 weight_decay=0.01, packed=packed, device="cuda",
             )
             state = trainer.init()
@@ -1126,7 +1219,7 @@ def gpt_parity(kernels, gpt_lib, trainer_lib) -> dict:
     for route, attention_fn, cfg in routes:
         model = gpt_lib.GPT(cfg, attention_fn, generator=torch.Generator().manual_seed(3))
         trainer = trainer_lib.Trainer(
-            model, trainer_lib.causal_lm_task(model), learning_rate=3e-4,
+            model, trainer_lib.causal_lm_task(), learning_rate=3e-4,
             weight_decay=0.01, device="cuda",
         )
         state = trainer.init()
@@ -1194,7 +1287,7 @@ def run_gpt_phases(kernels, fa, gpt_lib, gpt_cli, trainer_lib, smi) -> dict:
     cfg = dataclasses.replace(gpt_lib.GPT_SMALL, max_seq_len=GPT_SHAPE[1])
     model = gpt_lib.GPT(cfg, generator=torch.Generator().manual_seed(5))
     trainer = trainer_lib.Trainer(
-        model, trainer_lib.causal_lm_task(model), learning_rate=3e-4,
+        model, trainer_lib.causal_lm_task(), learning_rate=3e-4,
         weight_decay=0.01, device="cuda",
     )
     batch = gpt_lib.synthetic_batch(
@@ -1251,12 +1344,35 @@ def profile_resnet(resnet_lib, trainer_lib, conv3_impl: str) -> None:
     of kernel, and K4/K5's share of it."""
     model = resnet_lib.ResNet50(conv3_impl=conv3_impl, generator=torch.Generator().manual_seed(5))
     trainer = trainer_lib.Trainer(
-        model, trainer_lib.classification_task(model), learning_rate=0.1,
+        model, trainer_lib.classification_task(), learning_rate=0.1,
         device="cuda", optimizer="sgd",
     )
     batch = resnet_lib.synthetic_batch(torch.Generator().manual_seed(6), RESNET_BATCH, RESNET_IMAGE)
     profile_training("resnet_profile", trainer, batch, "conv3x3", CONV_KERNEL_SYMBOLS,
                      {"conv3_impl": conv3_impl, "batch": RESNET_BATCH})
+
+
+def xla_to_pallas(state: dict) -> dict:
+    """A conv3_impl="xla" ResNet state_dict for the "pallas" model: the
+    Conv_1 weights OIHW -> PallasConv3x3's HWIO kernel."""
+    out = {}
+    for name, value in state.items():
+        if name.endswith("Conv_1.weight"):
+            out[name[: -len("weight")] + "kernel"] = value.permute(2, 3, 1, 0).contiguous()
+        else:
+            out[name] = value
+    return out
+
+
+def grads_as_xla(model) -> dict:
+    """Each parameter's gradient under its conv3_impl="xla" name and layout."""
+    out = {}
+    for name, param in model.named_parameters():
+        g = param.grad
+        if name.endswith("Conv_1.kernel"):
+            name, g = name[: -len("kernel")] + "weight", g.permute(3, 2, 0, 1)
+        out[name] = g
+    return out
 
 
 def resnet_parity(kernels, resnet_lib, trainer_lib) -> dict:
@@ -1279,22 +1395,11 @@ def resnet_parity(kernels, resnet_lib, trainer_lib) -> dict:
             if isinstance(module, resnet_lib.TpuBatchNorm):
                 module.scale.uniform_(0.5, 1.5, generator=gen)
     xla_state = base.state_dict()
-
-    def to_pallas(state):
-        # the Conv_1 weights OIHW -> PallasConv3x3's HWIO kernel
-        out = {}
-        for name, value in state.items():
-            if name.endswith("Conv_1.weight"):
-                out[name[: -len("weight")] + "kernel"] = value.permute(2, 3, 1, 0).contiguous()
-            else:
-                out[name] = value
-        return out
-
     batch = resnet_lib.synthetic_batch(
         torch.Generator().manual_seed(9), RESNET_PARITY_BATCH, RESNET_IMAGE
     )
     routes = (
-        ("pallas", dict(conv3_impl="pallas"), to_pallas(xla_state)),
+        ("pallas", dict(conv3_impl="pallas"), xla_to_pallas(xla_state)),
         ("xla", dict(conv3_impl="xla"), xla_state),
         ("f32", dict(conv3_impl="xla", dtype=torch.float32), xla_state),
     )
@@ -1304,7 +1409,7 @@ def resnet_parity(kernels, resnet_lib, trainer_lib) -> dict:
         model = resnet_lib.ResNet50(**kwargs)
         model.load_state_dict(state_dict)
         trainer = trainer_lib.Trainer(
-            model, trainer_lib.classification_task(model), learning_rate=0.1,
+            model, trainer_lib.classification_task(), learning_rate=0.1,
             device="cuda", optimizer="sgd",
         )
         state = trainer.init()
@@ -1318,12 +1423,7 @@ def resnet_parity(kernels, resnet_lib, trainer_lib) -> dict:
             want.update(conv3x3_fwd=2 * CONVS_PER_PASS, conv3x3_dw=CONVS_PER_PASS)
         if counts != want:
             raise AssertionError(f"resnet_parity {route}: launches {counts} != {want}")
-        grads[route] = {}
-        for name, param in model.named_parameters():
-            g = param.grad
-            if name.endswith("Conv_1.kernel"):
-                name, g = name[: -len("kernel")] + "weight", g.permute(3, 2, 0, 1)
-            grads[route][name] = g
+        grads[route] = grads_as_xla(model)
         stats[route] = {n: b.clone() for n, b in model.named_buffers()}
         if route == "pallas":
             pallas_eval = {k: float(v) for k, v in trainer.evaluate(state, placed).items()}
@@ -1483,7 +1583,7 @@ def run_lifecycle(kernels, gpt_lib, gpt_cli, trainer_lib, smi, gpt_summary) -> d
         cfg = mem_state.model.cfg
         model = gpt_lib.GPT(cfg, generator=torch.Generator().manual_seed(7))
         restorer = trainer_lib.Trainer(
-            model, trainer_lib.causal_lm_task(model), learning_rate=3e-4, weight_decay=0.01,
+            model, trainer_lib.causal_lm_task(), learning_rate=3e-4, weight_decay=0.01,
             device="cuda", checkpoint_dir=ckpt, accum_steps=LIFECYCLE_ACCUM,
         )
         fresh = restorer.init()
@@ -1508,7 +1608,7 @@ def run_lifecycle(kernels, gpt_lib, gpt_cli, trainer_lib, smi, gpt_summary) -> d
 
         # one step from each on one batch
         stepper = trainer_lib.Trainer(
-            mem_state.model, trainer_lib.causal_lm_task(mem_state.model), learning_rate=3e-4,
+            mem_state.model, trainer_lib.causal_lm_task(), learning_rate=3e-4,
             weight_decay=0.01, device="cuda", accum_steps=LIFECYCLE_ACCUM,
         )
         batch = stepper.place_batch(gpt_lib.synthetic_batch(
@@ -1544,7 +1644,7 @@ def run_lifecycle(kernels, gpt_lib, gpt_cli, trainer_lib, smi, gpt_summary) -> d
         grads, peaks = {}, {}
         for k in (1, LIFECYCLE_ACCUM):
             trainer = trainer_lib.Trainer(
-                model, trainer_lib.causal_lm_task(model), learning_rate=0.0,
+                model, trainer_lib.causal_lm_task(), learning_rate=0.0,
                 weight_decay=0.01, device="cuda", accum_steps=k,
             )
             state = trainer.init()
@@ -1730,14 +1830,14 @@ def run_steps_phases(kernels, bert_lib, resnet_lib, trainer_lib, flash_attention
         model = bert_lib.BertForMLM(bert_lib.BERT_BASE, attention_fn=flash_attention,
                                     generator=torch.Generator().manual_seed(5))
         return trainer_lib.Trainer(
-            model, trainer_lib.mlm_task(model), weight_decay=0.01, packed=True, device="cuda",
+            model, trainer_lib.mlm_task(), weight_decay=0.01, packed=True, device="cuda",
             learning_rate=trainer_lib.warmup_cosine_lr(1e-4, 2 * RUN_STEPS, 2),
         )
 
     def resnet_trainer():
         model = resnet_lib.ResNet50(conv3_impl="pallas", generator=torch.Generator().manual_seed(5))
         return trainer_lib.Trainer(
-            model, trainer_lib.classification_task(model), optimizer="sgd", device="cuda",
+            model, trainer_lib.classification_task(), optimizer="sgd", device="cuda",
             learning_rate=trainer_lib.warmup_cosine_lr(0.1, 2 * RUN_STEPS, 2),
         )
 
@@ -1842,6 +1942,726 @@ def run_profile_dir(bert_cli, smi) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- several processes: the bootstrap, DDP, FSDP2 and sync BN -----------------
+#
+# One card allows three kinds of world: two ranks on cuda:0 over gloo (NCCL
+# refuses two ranks on one device), whose collectives go through host memory;
+# and one rank over NCCL, which runs the NCCL path and the kernels under the
+# DDP and FSDP2 wrappers. Neither is a scaling measurement.
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def rank_env(rank: int, port: int) -> dict:
+    """This process's env plus the identity the operator injects into a
+    TPU replica's pods (controller/cluster_spec.py set_tpu_env), with the
+    coordinator mapped to 127.0.0.1 as the hermetic E2Es map it."""
+    import os
+
+    env = dict(os.environ)
+    env.update({
+        "TPU_WORKER_ID": str(rank),
+        "TPU_WORKER_HOSTNAMES": ",".join(f"worker-{i}.default.svc" for i in range(WORLD2)),
+        "JAX_NUM_PROCESSES": str(WORLD2),
+        "JAX_PROCESS_ID": str(rank),
+        "TFJOB_COORDINATOR_OVERRIDE": f"127.0.0.1:{port}",
+    })
+    return env
+
+
+def run_world(argv: list, logs_dir: str, timeout: float) -> list:
+    """WORLD2 processes of `argv` with rank_env; each one's output. A launch
+    in which a rank fails is tried once more on a fresh port (another
+    process may take the picked port before the coordinator binds it); a
+    fault of the program fails both attempts. Every process is ended."""
+    import os
+
+    tails = []
+    for attempt in range(2):
+        port = free_port()
+        procs = []
+        try:
+            for rank in range(WORLD2):
+                log = open(os.path.join(logs_dir, f"a{attempt}-rank{rank}.log"), "w")
+                procs.append((subprocess.Popen(
+                    # a crash in native code prints the Python stack of each thread
+                    [sys.executable, "-X", "faulthandler"] + argv, env=rank_env(rank, port),
+                    stdout=log, stderr=subprocess.STDOUT,
+                ), log))
+            deadline = time.monotonic() + timeout
+            codes = []
+            for proc, _ in procs:
+                try:
+                    codes.append(proc.wait(timeout=max(deadline - time.monotonic(), 1)))
+                except subprocess.TimeoutExpired:
+                    codes.append("timeout")
+        finally:
+            for proc, log in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+        texts = [open(log.name).read() for _, log in procs]
+        if codes == [0] * WORLD2:
+            return texts
+        tails.append({"codes": codes, "tails": [text[-3000:] for text in texts]})
+    raise AssertionError(f"world of {WORLD2} running {argv}: {json.dumps(tails)}")
+
+
+def run_rendezvous(smi: str, logs_dir: str) -> dict:
+    """rendezvous: the port's rendezvous worker, then train/smoke.py, as
+    two ranks on cuda:0 over gloo with the operator's env names set by
+    hand: each rank's torch.distributed rank and world size equal the
+    injected identity, an all-gather of the ranks' ids on the card gives
+    [0, 1], and the all-reduce of (rank + 1) x a bf16-matmul unit is 3."""
+    texts = run_world(["-m", "tf_operator_tpu_torch.testing.rendezvous_worker",
+                       "--device", "cuda", "--backend", "gloo"], logs_dir, 180)
+    reports = []
+    for rank, text in enumerate(texts):
+        lines = [line for line in text.splitlines() if line.startswith("RENDEZVOUS ")]
+        if not lines:
+            raise AssertionError(f"rank {rank} printed no RENDEZVOUS line: {text[-2000:]}")
+        report = json.loads(lines[-1].split(" ", 1)[1])
+        reports.append(report)
+        if not (report["ok"] and report["process_index"] == rank
+                and report["gathered_world"] == list(range(WORLD2))
+                and f"process {rank}/{WORLD2}" in text):
+            raise AssertionError(f"rank {rank}: {report}")
+    smoke = run_world(["-m", "tf_operator_tpu_torch.train.smoke", "--device", "cuda",
+                       "--backend", "gloo"], logs_dir, 180)
+    sums = [line.split("collective ", 1)[1] for text in smoke for line in text.splitlines()
+            if "collective sum=" in line]
+    emit({"phase": "rendezvous", "card": smi, "world": WORLD2, "backend": "gloo",
+          "device": "cuda:0 (both ranks)", "reports": reports, "smoke": sums})
+    if len(sums) != WORLD2 or not all(s.endswith("-> OK") for s in sums):
+        raise AssertionError(f"smoke: {sums}")
+    return {"reports": reports, "smoke": sums}
+
+
+def dist_bert(mesh=None, rules=None, f32=False):
+    """BERT-base MLM (--flash --packed, AdamW 1e-4 wd 0.01) from one seed
+    and its global batch (MAIN_SHAPE's 32 x 512); f32: the same model in
+    f32 on plain attention (plain_parity's f32 route)."""
+    from tf_operator_tpu_torch.models import bert as bert_lib
+    from tf_operator_tpu_torch.ops.flash_attention import flash_attention
+    from tf_operator_tpu_torch.train import trainer as trainer_lib
+
+    cfg = bert_lib.BERT_BASE
+    model = bert_lib.BertForMLM(
+        dataclasses.replace(cfg, dtype=torch.float32) if f32 else cfg,
+        attention_fn=None if f32 else flash_attention,
+        generator=torch.Generator().manual_seed(DIST_SEED))
+    extra = {} if rules is None else {"rules": rules}
+    trainer = trainer_lib.Trainer(model, trainer_lib.mlm_task(), learning_rate=1e-4,
+                                  weight_decay=0.01, packed=True, device="cuda", mesh=mesh, **extra)
+    batch = bert_lib.synthetic_batch(torch.Generator().manual_seed(DIST_BATCH_SEED),
+                                     MAIN_SHAPE[0], MAIN_SHAPE[1], cfg)
+    return trainer, batch
+
+
+def dist_gpt_model():
+    from tf_operator_tpu_torch.models import gpt as gpt_lib
+
+    cfg = dataclasses.replace(gpt_lib.GPT_SMALL, max_seq_len=GPT_SHAPE[1])
+    return gpt_lib.GPT(cfg, generator=torch.Generator().manual_seed(DIST_SEED))
+
+
+def dist_gpt(model, mesh=None, checkpoint_dir=None):
+    """GPT-small (causal flash, AdamW 3e-4 wd 0.01) and its global batch
+    (GPT_SHAPE's 4 x 4096)."""
+    from tf_operator_tpu_torch.models import gpt as gpt_lib
+    from tf_operator_tpu_torch.train import trainer as trainer_lib
+
+    trainer = trainer_lib.Trainer(model, trainer_lib.causal_lm_task(), learning_rate=3e-4,
+                                  weight_decay=0.01, device="cuda", mesh=mesh,
+                                  checkpoint_dir=checkpoint_dir)
+    batch = gpt_lib.synthetic_batch(torch.Generator().manual_seed(DIST_BATCH_SEED),
+                                    GPT_SHAPE[0], GPT_SHAPE[1], model.cfg)
+    return trainer, batch
+
+
+def dist_resnet(mesh=None, f32=False):
+    """ResNet-50 (--conv3-impl pallas, bf16, SGD 0.1 momentum 0.9, BN
+    scales drawn around 1 as in resnet_parity) and its global batch (256 x
+    224^2, the second half SYNCBN_SHIFT'ed: another distribution from
+    rank 0's); f32: the same weights in f32 on the torch conv
+    (resnet_parity's f32 route)."""
+    from tf_operator_tpu_torch.models import resnet as resnet_lib
+    from tf_operator_tpu_torch.parallel.sharding import CONV_RULES
+    from tf_operator_tpu_torch.train import trainer as trainer_lib
+
+    gen = torch.Generator().manual_seed(DIST_SEED)
+    base = resnet_lib.ResNet50(conv3_impl="xla", generator=gen)
+    with torch.no_grad():
+        for module in base.modules():
+            if isinstance(module, resnet_lib.TpuBatchNorm):
+                module.scale.uniform_(0.5, 1.5, generator=gen)
+    if f32:
+        model = resnet_lib.ResNet50(conv3_impl="xla", dtype=torch.float32)
+        model.load_state_dict(base.state_dict())
+    else:
+        model = resnet_lib.ResNet50(conv3_impl="pallas")
+        model.load_state_dict(xla_to_pallas(base.state_dict()))
+    trainer = trainer_lib.Trainer(model, trainer_lib.classification_task(), learning_rate=0.1,
+                                  device="cuda", optimizer="sgd", mesh=mesh, rules=CONV_RULES)
+    batch = resnet_lib.synthetic_batch(torch.Generator().manual_seed(DIST_BATCH_SEED),
+                                       RESNET_BATCH, RESNET_IMAGE)
+    scale, shift = SYNCBN_SHIFT
+    half = RESNET_BATCH // WORLD2
+    batch["image"][half:] = scale * batch["image"][half:] + shift  # rank 1's rows differ
+    return trainer, batch
+
+
+def rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+def worst_rel(got: dict, want: dict) -> list:
+    """[name, relative L2] of the tensor of `got` furthest from `want`'s;
+    the attention key bias, zero in exact arithmetic (plain_parity), is
+    left out."""
+    errors = {n: rel(got[n].to(want[n].device), want[n]) for n in want
+              if not n.endswith("attention.key.bias")}
+    return list(max(errors.items(), key=lambda kv: kv[1]))
+
+
+def errors_from(got: dict, f32: dict) -> dict:
+    """Each tensor's relative L2 distance from the f32 step's (the key
+    bias left out, as in plain_parity)."""
+    return {n: rel(got[n].to(f32[n].device), f32[n]) for n in f32
+            if not n.endswith("attention.key.bias")}
+
+
+def worst_ratio(world2: dict, one: dict) -> list:
+    """plain_parity's criterion: [name, ratio, world 2's distance from
+    f32, one process's] for the tensor whose world-2 distance from the
+    f32 step is largest over the one-process bf16 step's (floor
+    GRAD_FLOOR)."""
+    return list(max(((n, world2[n] / max(one[n], GRAD_FLOOR), world2[n], one[n]) for n in one),
+                    key=lambda row: row[1]))
+
+
+def full_f32() -> None:
+    """f32 matmuls and convs without TF32 (cuDNN's default uses it), as
+    the f32 steps the several-process phases hold others to need."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def launches_per_step(kernels, steps: int) -> dict:
+    return {name: count / steps for name, count in kernels.LAUNCHES.items()}
+
+
+def rank_bert(work: str, kernels) -> dict:
+    """ddp_bert's world-2 rank: DDP over the (dp=2) mesh, 16 rows a rank.
+    Step 1's gradient (rank 0) against the one-process step's; then
+    DIST_STEPS - 1 timed steps."""
+    import os
+
+    from tf_operator_tpu_torch.parallel import distributed
+    from tf_operator_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    trainer, batch = dist_bert(build_mesh(MeshConfig(), "cuda"))
+    state = trainer.init()
+    placed = trainer.place_batch(batch)
+    kernels.reset_launches()
+    state, metrics = trainer.step(state, placed)
+    out = {"loss": float(metrics["loss"]), "rows": int(placed["input_ids"].shape[0]),
+           "wrapper": type(trainer.module).__name__}
+    if distributed.is_coordinator():
+        ref = torch.load(os.path.join(work, "bert_ref.pt"), map_location="cuda")
+        out["worst_grad"] = worst_ratio(errors_from(
+            {n: p.grad for n, p in state.model.named_parameters()}, ref["f32_grads"]),
+            ref["one_errors"])
+        del ref
+    out["ms_per_step"] = timed_ms(
+        lambda: [trainer.step(state, placed) for _ in range(DIST_STEPS - 1)], DIST_STEPS - 1)
+    out["launches_per_step"] = launches_per_step(kernels, DIST_STEPS)
+    return out
+
+
+def sharded_rel(tensors: dict, want: dict) -> dict:
+    """{name: relative L2 distance} of FSDP2-sharded tensors (DTensor
+    shards of dim 0, as torch.chunk splits it) from full ones, each rank
+    comparing its own shard and the sums all-reduced on the host, so no
+    tensor is gathered (a DTensor gather over gloo with CUDA tensors
+    crashes torch 2.11: the functional collectives under full_tensor())."""
+    from tf_operator_tpu_torch.parallel import distributed
+    from tf_operator_tpu_torch.parallel.sharding import local_tensor
+
+    sums = {}
+    for name, tensor in tensors.items():
+        mine = local_tensor(tensor).float()
+        ref = want[name].chunk(distributed.world_size(), dim=0)[distributed.rank()].float()
+        if mine.shape != ref.shape:
+            raise AssertionError(f"{name}: shard {tuple(mine.shape)} != {tuple(ref.shape)}")
+        sums[f"{name}/diff"] = float((mine - ref).square().sum())
+        sums[f"{name}/ref"] = float(ref.square().sum())
+    sums = distributed.all_reduce_scalars(sums)
+    return {name: math.sqrt(sums[f"{name}/diff"]) / max(math.sqrt(sums[f"{name}/ref"]), 1e-30)
+            for name in tensors}
+
+
+def rank_gpt(work: str, kernels) -> dict:
+    """fsdp_gpt's world-2 rank: FSDP2 over the (fsdp=2) mesh, 2 rows a
+    rank. Step 1's gradient against the one-process step's, step 2's loss,
+    and the parameters after 2 steps against the one process's, each rank
+    on its shards (sharded_rel)."""
+    import os
+
+    from tf_operator_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    trainer, batch = dist_gpt(dist_gpt_model(), build_mesh(MeshConfig(fsdp=WORLD2), "cuda"))
+    state = trainer.init()
+    placed = trainer.place_batch(batch)
+    kernels.reset_launches()
+    state, metrics = trainer.step(state, placed)
+    out = {"rows": int(placed["input_ids"].shape[0]), "losses": [float(metrics["loss"])],
+           "sharded": type(state.model.layer_0.mlp_in.weight).__name__}
+    ref = torch.load(os.path.join(work, "gpt_ref.pt"), map_location="cuda")
+    grads = sharded_rel({n: p.grad for n, p in state.model.named_parameters()}, ref["grads"])
+    out["worst_grad"] = list(max(((n, e) for n, e in grads.items()
+                                  if not n.endswith("attention.key.bias")), key=lambda kv: kv[1]))
+    start = time.monotonic()
+    state, metrics = trainer.step(state, placed)
+    out["losses"].append(float(metrics["loss"]))
+    out["ms_step2"] = (time.monotonic() - start) * 1e3
+    out["launches_per_step"] = launches_per_step(kernels, 2)
+    params = dict(state.model.named_parameters())
+    rels = sharded_rel(params, ref["params"])
+    diff = math.sqrt(sum((rels[n] * float(ref["params"][n].float().norm())) ** 2 for n in rels))
+    out["update_rel"] = diff / ref["update_norm"]
+    return out
+
+
+def unsynced_bn(model) -> None:
+    """syncbn_resnet's first control: every TpuBatchNorm's sync group
+    unset, so each rank normalises with its own rows' statistics."""
+    from tf_operator_tpu_torch.models.norm import TpuBatchNorm
+
+    for module in model.modules():
+        if isinstance(module, TpuBatchNorm):
+            module.sync_group = None
+
+
+def sums_without_gradient(total, total_sq, count, group):
+    """syncbn_resnet's second control, in place of norm._global_sums: the
+    sums all-reduced by the non-differentiable collective, so the
+    statistics are the global batch's but the backward is a per-rank
+    BatchNorm's (the gradient of the other ranks' rows through the
+    statistics is lost)."""
+    import torch.distributed as dist
+
+    channels = total.shape[0]
+    local = torch.cat([total, total_sq, total.new_full((1,), float(count))])
+    summed = local.detach().clone()
+    dist.all_reduce(summed, group=group)
+    summed = local + (summed - local.detach())
+    return summed[:channels], summed[channels:2 * channels], summed[2 * channels]
+
+
+def f32_readings(model, ref: dict) -> dict:
+    """An f32 world-2 step against the one process's f32 step: the worst
+    conv gradient (every 4-D weight) and the worst BN statistic."""
+    convs = {n: g for n, g in grads_as_xla(model).items() if g.dim() == 4}
+    return {"worst_conv_grad_rel": worst_rel(convs, {n: ref["f32_grads"][n] for n in convs}),
+            "worst_stat_rel": worst_rel(dict(model.named_buffers()), ref["f32_stats"])}
+
+
+def rank_resnet(work: str, kernels) -> dict:
+    """syncbn_resnet's world-2 rank: DDP over the (dp=2) mesh with sync
+    TpuBatchNorm, 128 images a rank. Step 1's gradient and BN running
+    statistics (rank 0) against the one-process bf16 step's; then
+    DIST_STEPS - 1 timed steps. Then one f32 step on the torch conv (TF32
+    off) as built and under each control (unsynced_bn,
+    sums_without_gradient), read against the one-process f32 step
+    (f32_readings)."""
+    import os
+
+    from tf_operator_tpu_torch.models import norm as norm_lib
+    from tf_operator_tpu_torch.parallel import distributed
+    from tf_operator_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    ref = None
+    if distributed.is_coordinator():
+        ref = torch.load(os.path.join(work, "resnet_ref.pt"), map_location="cuda")
+    trainer, batch = dist_resnet(build_mesh(MeshConfig(), "cuda"))
+    state = trainer.init()
+    placed = trainer.place_batch(batch)
+    kernels.reset_launches()
+    state, metrics = trainer.step(state, placed)
+    out = {"loss": float(metrics["loss"]), "rows": int(placed["image"].shape[0]), "f32": {}}
+    if ref is not None:
+        grads = grads_as_xla(state.model)
+        stats = dict(state.model.named_buffers())
+        out["worst_grad"] = worst_ratio(errors_from(grads, ref["f32_grads"]),
+                                        ref["one_grad_errors"])
+        out["worst_stat"] = worst_ratio(errors_from(stats, ref["f32_stats"]),
+                                        ref["one_stat_errors"])
+        out["worst_stat_rel"] = worst_rel(stats, ref["one_stats"])
+    out["ms_per_step"] = timed_ms(
+        lambda: [trainer.step(state, placed) for _ in range(DIST_STEPS - 1)], DIST_STEPS - 1)
+    out["launches_per_step"] = launches_per_step(kernels, DIST_STEPS)
+    del trainer, state, placed
+    free_device_memory()
+
+    full_f32()
+    for side in ("synced", "unsynced_bn", "sums_without_gradient"):
+        trainer, batch = dist_resnet(build_mesh(MeshConfig(), "cuda"), f32=True)
+        state = trainer.init()
+        if side == "unsynced_bn":
+            unsynced_bn(state.model)
+        sums = norm_lib._global_sums
+        if side == "sums_without_gradient":
+            norm_lib._global_sums = sums_without_gradient
+        try:
+            state, metrics = trainer.step(state, trainer.place_batch(batch))
+        finally:
+            norm_lib._global_sums = sums
+        out["f32"][side] = {"loss": float(metrics["loss"])}
+        if ref is not None:
+            out["f32"][side].update(f32_readings(state.model, ref))
+        del trainer, state
+        free_device_memory()
+    return out
+
+
+def world2_rank(work: str) -> int:
+    """One rank of the world-2 phases (ddp_bert, fsdp_gpt, syncbn_resnet),
+    launched by run_distributed_phases as `chip_smoke.py --world2-rank
+    <dir>` with the operator's env: the world over gloo on cuda:0, the
+    one-process references read from <dir>, rank<r>.json written there."""
+    import os
+
+    from tf_operator_tpu_torch.ops import kernels
+    from tf_operator_tpu_torch.parallel import distributed
+
+    distributed.initialize("cuda", backend="gloo")
+    try:
+        out = {"rank": distributed.rank(), "world": distributed.world_size(),
+               "ddp_bert": rank_bert(work, kernels)}
+        free_device_memory()
+        out["fsdp_gpt"] = rank_gpt(work, kernels)
+        free_device_memory()
+        out["syncbn_resnet"] = rank_resnet(work, kernels)
+        with open(os.path.join(work, f"rank{out['rank']}.json"), "w") as fh:
+            json.dump(out, fh)
+        distributed.barrier()
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def nccl_world_of_one() -> None:
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.parallel.distributed import backend_for
+
+    dist.init_process_group(backend_for("cuda"), init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+
+
+def bert_world1(work: str, kernels) -> dict:
+    """The one-process BERT-base step and the same step in f32 on plain
+    attention (TF32 off): the f32 gradient and the one-process step's
+    distance from it saved for the world-2 ranks; the one-process step
+    under DDP in a one-rank NCCL world (bit-equal required: DDP's
+    all-reduce over one rank is a copy and its division by the world size
+    is by 1); DIST_STEPS timed steps of each, in turns, for DDP's cost at
+    one rank, then a profile of DIST_STEPS of each (device ms, wall ms,
+    busy share)."""
+    import os
+
+    from tf_operator_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from tf_operator_tpu_torch.parallel.sharding import REPLICATED_RULES
+
+    plain, batch = dist_bert()
+    pstate = plain.init()
+    placed = plain.place_batch(batch)
+    pstate, metrics = plain.step(pstate, placed)
+    loss = float(metrics["loss"])
+    full_f32()
+    f32, _ = dist_bert(f32=True)
+    fstate, _ = f32.step(f32.init(), f32.place_batch(batch))
+    f32_grads = {n: p.grad.detach() for n, p in fstate.model.named_parameters()}
+    one_errors = errors_from({n: p.grad for n, p in pstate.model.named_parameters()}, f32_grads)
+    torch.save({"f32_grads": {n: g.cpu() for n, g in f32_grads.items()},
+                "one_errors": one_errors}, os.path.join(work, "bert_ref.pt"))
+    del f32, fstate, f32_grads
+    free_device_memory()
+    ddp, _ = dist_bert(build_mesh(MeshConfig(), "cuda"), REPLICATED_RULES)
+    dstate = ddp.init()
+    dplaced = ddp.place_batch(batch)
+    kernels.reset_launches()
+    dstate, dmetrics = ddp.step(dstate, dplaced)
+    launches = dict(kernels.LAUNCHES)
+    pairs = list(zip(pstate.model.parameters(), dstate.model.parameters()))
+    bit_equal = float(dmetrics["loss"]) == loss and all(torch.equal(a, b) for a, b in pairs)
+    times = {"plain": [], "ddp": []}
+    for _ in range(2):
+        for name, trainer, state, b in (("plain", plain, pstate, placed),
+                                        ("ddp", ddp, dstate, dplaced)):
+            times[name].append(timed_ms(
+                lambda: [trainer.step(state, b) for _ in range(DIST_STEPS)], DIST_STEPS))
+    # where DDP's time goes: device ms (NCCL's copies, bucket copies) or host
+    profiles = {
+        name: profiled(lambda: [trainer.step(state, b) for _ in range(DIST_STEPS)], DIST_STEPS)
+        for name, trainer, state, b in (("plain", plain, pstate, placed),
+                                        ("ddp", ddp, dstate, dplaced))
+    }
+    tokens = MAIN_SHAPE[0] * MAIN_SHAPE[1]
+    ms = {name: statistics.median(v) for name, v in times.items()}
+    return {"loss_one_process": loss, "loss_ddp": float(dmetrics["loss"]), "bit_equal": bit_equal,
+            "wrapper": type(ddp.module).__name__, "launches": launches,
+            "ms_per_step": times, "tokens_per_sec": {k: tokens * 1e3 / v for k, v in ms.items()},
+            "ddp_overhead_ms": ms["ddp"] - ms["plain"], "profile": profiles}
+
+
+def gpt_world1(work: str, kernels) -> dict:
+    """The one-process GPT-small: 2 steps (step 1's gradient, step 2's
+    loss and the parameters saved for the world-2 ranks); the same 2 steps
+    under FSDP2 (`shard` with TRANSFORMER_RULES) in a one-rank NCCL world,
+    whose parameters after 2 steps must be within RESUME_STEP_RTOL of the
+    one process's (the same kernels on the same rows; bit-equality
+    reported); then a checkpoint saved under FSDP2 restored into a
+    one-process trainer, bit-equal required."""
+    import os
+
+    from tf_operator_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from tf_operator_tpu_torch.parallel.sharding import TRANSFORMER_RULES, shard
+    from tf_operator_tpu_torch.train.trainer import state_payload
+
+    start_params = {n: p.detach().clone() for n, p in dist_gpt_model().named_parameters()}
+    plain, batch = dist_gpt(dist_gpt_model())
+    pstate = plain.init()
+    placed = plain.place_batch(batch)
+    pstate, m1 = plain.step(pstate, placed)
+    grads = {n: p.grad.detach().cpu() for n, p in pstate.model.named_parameters()}
+    pstate, m2 = plain.step(pstate, placed)
+    params = {n: p.detach().cpu() for n, p in pstate.model.named_parameters()}
+    losses = [float(m1["loss"]), float(m2["loss"])]
+    update_norm = math.sqrt(sum(float((params[n].double() - start_params[n].double()).square().sum())
+                                for n in params))
+    torch.save({"losses": losses, "grads": grads, "params": params, "update_norm": update_norm},
+               os.path.join(work, "gpt_ref.pt"))
+    del plain, pstate, grads, start_params
+    free_device_memory()
+
+    mesh = build_mesh(MeshConfig(), "cuda")
+    ckpt = os.path.join(work, "gpt_ckpt")
+    trainer, _ = dist_gpt(shard(dist_gpt_model().to("cuda"), mesh, TRANSFORMER_RULES), mesh, ckpt)
+    state = trainer.init()
+    sharded = type(state.model.layer_0.mlp_in.weight).__name__
+    splaced = trainer.place_batch(batch)
+    kernels.reset_launches()
+    flosses = []
+    for _ in range(2):
+        state, metrics = trainer.step(state, splaced)
+        flosses.append(float(metrics["loss"]))
+    launches = launches_per_step(kernels, 2)
+    payload = state_payload(state)
+    worst = worst_rel(payload["model"], params)
+    bit_equal = flosses == losses and all(torch.equal(payload["model"][n], params[n]) for n in params)
+    trainer.save(state)
+    one, _ = dist_gpt(dist_gpt_model(), checkpoint_dir=ckpt)
+    restored = one.restore(one.init())
+    back = state_payload(restored)
+    flat = lambda p: {**{f"m.{k}": v for k, v in p["model"].items()},  # noqa: E731
+                      **{f"o.{i}.{k}": v for i, e in p["optimizer"]["state"].items()
+                         for k, v in e.items()}}
+    got, want = flat(back), flat(payload)
+    restore_equal = set(got) == set(want) and all(
+        torch.equal(got[k].cpu(), want[k].cpu()) for k in want)
+    return {"losses_one_process": losses, "losses_fsdp": flosses, "sharded": sharded,
+            "launches_per_step": launches, "worst_param": worst, "bit_equal": bit_equal,
+            "restored_step": restored.step, "restore_bit_equal": restore_equal}
+
+
+def resnet_reference(work: str, kernels) -> dict:
+    """The one-process ResNet-50 step (pallas, batch 256) and the same
+    step in f32 on the torch conv (TF32 off): the one-process BN running
+    statistics, the f32 gradient and statistics, and the one-process
+    step's distance from those, saved for the world-2 ranks."""
+    import os
+
+    trainer, batch = dist_resnet()
+    state = trainer.init()
+    placed = trainer.place_batch(batch)
+    kernels.reset_launches()
+    state, metrics = trainer.step(state, placed)
+    launches = dict(kernels.LAUNCHES)
+    full_f32()
+    f32, _ = dist_resnet(f32=True)
+    fstate, fmetrics = f32.step(f32.init(), f32.place_batch(batch))
+    f32_grads = grads_as_xla(fstate.model)
+    f32_stats = dict(fstate.model.named_buffers())
+    torch.save({
+        "one_stats": {n: b.cpu() for n, b in state.model.named_buffers()},
+        "f32_grads": {n: g.cpu() for n, g in f32_grads.items()},
+        "f32_stats": {n: b.cpu() for n, b in f32_stats.items()},
+        "one_grad_errors": errors_from(grads_as_xla(state.model), f32_grads),
+        "one_stat_errors": errors_from(dict(state.model.named_buffers()), f32_stats),
+    }, os.path.join(work, "resnet_ref.pt"))
+    return {"loss": float(metrics["loss"]), "loss_f32": float(fmetrics["loss"]),
+            "launches": launches}
+
+
+def run_distributed_phases(kernels, smi: str) -> dict:
+    """rendezvous, then ddp_bert, fsdp_gpt and syncbn_resnet: each
+    model's one-process step, the one-rank NCCL world (DDP for BERT-base,
+    FSDP2 for GPT-small) in this process, then one world of 2 ranks over
+    gloo on cuda:0 (run_world, `--world2-rank`) that runs the three
+    models' world-2 sides in turn, each rank on its rows of the same
+    global batch. Returns each kernel's launches per step per rank at
+    world 2."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    work = tempfile.mkdtemp(prefix="dist-")
+    try:
+        run_rendezvous(smi, work)
+        nccl_world_of_one()
+        try:
+            bert1 = bert_world1(work, kernels)
+            free_device_memory()
+            gpt1 = gpt_world1(work, kernels)
+            free_device_memory()
+        finally:
+            dist.destroy_process_group()
+        resnet1 = resnet_reference(work, kernels)
+        free_device_memory()
+        run_world([__file__, "--world2-rank", work], work, DIST_TIMEOUT_S)
+        ranks = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(WORLD2)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    world2_label = ("two ranks sharing one card, collectives over gloo through host memory: "
+                    "not a scaling number")
+    return {
+        "ddp_bert": check_ddp_bert(bert1, [r["ddp_bert"] for r in ranks], smi, world2_label),
+        "fsdp_gpt": check_fsdp_gpt(gpt1, [r["fsdp_gpt"] for r in ranks], smi, world2_label),
+        "syncbn_resnet": check_syncbn_resnet(resnet1, [r["syncbn_resnet"] for r in ranks], smi,
+                                             world2_label),
+    }
+
+
+def check_ddp_bert(one: dict, ranks: list, smi: str, label: str) -> dict:
+    flash_want = {k: float(LAYERS) for k in FLASH_KERNELS}
+    losses = [r["loss"] for r in ranks]
+    emit({"phase": "ddp_bert", "card": smi, "model": "BERT-base MLM --flash --packed",
+          "global_batch": MAIN_SHAPE[0], "seq": MAIN_SHAPE[1],
+          "world1_nccl": one,
+          "world2_gloo": {"label": label, "rows_per_rank": [r["rows"] for r in ranks],
+                          "wrapper": ranks[0]["wrapper"], "losses": losses,
+                          "loss_one_process": one["loss_one_process"],
+                          "worst_grad_vs_one_process": ranks[0]["worst_grad"],
+                          "ms_per_step": [r["ms_per_step"] for r in ranks],
+                          "launches_per_step_per_rank": [r["launches_per_step"] for r in ranks]},
+          "tolerances": {"loss_atol": LOSS_ATOL, "grad_ratio": GRAD_RATIO,
+                         "grad_floor": GRAD_FLOOR, "why": DIST_TOLERANCE_WHY}})
+    if not one["bit_equal"] or one["wrapper"] != "DistributedDataParallel":
+        raise AssertionError(f"ddp_bert world 1: {one}")
+    if any(one["launches"][k] != LAYERS for k in FLASH_KERNELS):
+        raise AssertionError(f"ddp_bert world 1 launches {one['launches']}")
+    for r in ranks:
+        if any(r["launches_per_step"][k] != flash_want[k] for k in FLASH_KERNELS):
+            raise AssertionError(f"ddp_bert world 2 launches {r['launches_per_step']}")
+    if max(abs(x - one["loss_one_process"]) for x in losses) > LOSS_ATOL or len(set(losses)) != 1:
+        raise AssertionError(f"ddp_bert world 2 losses {losses} vs {one['loss_one_process']}")
+    if ranks[0]["worst_grad"][1] > GRAD_RATIO:
+        raise AssertionError(f"ddp_bert world 2 gradient {ranks[0]['worst_grad']}")
+    return {k: ranks[0]["launches_per_step"][k] for k in FLASH_KERNELS}
+
+
+def check_fsdp_gpt(one: dict, ranks: list, smi: str, label: str) -> dict:
+    world2 = {
+        "label": label, "rows_per_rank": [r["rows"] for r in ranks],
+        "sharded": ranks[0]["sharded"], "losses": [r["losses"] for r in ranks],
+        "losses_one_process": one["losses_one_process"],
+        "worst_grad_vs_one_process": ranks[0]["worst_grad"],
+        "update_rel_vs_one_process": ranks[0]["update_rel"],
+        "ms_step2": [r["ms_step2"] for r in ranks],
+        "launches_per_step_per_rank": [r["launches_per_step"] for r in ranks]}
+    emit({"phase": "fsdp_gpt", "card": smi, "model": "GPT-small causal flash",
+          "shape": list(GPT_SHAPE), "rules": "TRANSFORMER_RULES",
+          "world1_nccl_fsdp2": one, "world2_gloo_fsdp2": world2,
+          "tolerances": {"loss_atol": LOSS_ATOL, "update_rtol": DIST_UPDATE_RTOL,
+                         "param_rtol_world1": RESUME_STEP_RTOL, "why": DIST_TOLERANCE_WHY,
+                         "why_update": DIST_UPDATE_WHY, "grad_rtol": FSDP_GRAD_RTOL,
+                         "why_grad": "against the one process's bf16 gradient: an f32 step "
+                                     "at 4 x 4096 on plain attention does not fit the card"}})
+    if one["sharded"] != "DTensor" or one["worst_param"][1] > RESUME_STEP_RTOL:
+        raise AssertionError(f"fsdp_gpt world 1: {one}")
+    if not one["restore_bit_equal"] or one["restored_step"] != 2:
+        raise AssertionError(f"fsdp_gpt checkpoint restore: {one}")
+    if any(one["launches_per_step"][k] != LAYERS for k in FLASH_KERNELS):
+        raise AssertionError(f"fsdp_gpt world 1 launches {one['launches_per_step']}")
+    for r in ranks:
+        if r["sharded"] != "DTensor" or any(
+                r["launches_per_step"][k] != LAYERS for k in FLASH_KERNELS):
+            raise AssertionError(f"fsdp_gpt world 2: {r}")
+        for got, want in zip(r["losses"], one["losses_one_process"]):
+            if abs(got - want) > LOSS_ATOL:
+                raise AssertionError(f"fsdp_gpt world 2 losses {r['losses']}")
+    if ranks[0]["worst_grad"][1] > FSDP_GRAD_RTOL:
+        raise AssertionError(f"fsdp_gpt world 2 gradient: {ranks[0]['worst_grad']}")
+    if ranks[0]["update_rel"] > DIST_UPDATE_RTOL:
+        raise AssertionError(f"fsdp_gpt world 2 parameters: {ranks[0]['update_rel']}")
+    return world2
+
+
+def check_syncbn_resnet(one: dict, ranks: list, smi: str, label: str) -> dict:
+    losses = [r["loss"] for r in ranks]
+    want = {"conv3x3_fwd": 2.0 * CONVS_PER_PASS, "conv3x3_dw": float(CONVS_PER_PASS)}
+    emit({"phase": "syncbn_resnet", "card": smi, "model": "ResNet-50 --conv3-impl pallas",
+          "global_batch": RESNET_BATCH, "image": RESNET_IMAGE, "one_process": one,
+          "world2_gloo": {"label": label, "rows_per_rank": [r["rows"] for r in ranks],
+                          "losses": losses,
+                          "halves": f"rows {RESNET_BATCH // WORLD2}-{RESNET_BATCH - 1} are "
+                                    f"{SYNCBN_SHIFT[0]} x + {SYNCBN_SHIFT[1]} of their draw",
+                          "worst_bn_stat_rel_vs_one_process": ranks[0]["worst_stat_rel"],
+                          "worst_grad_ratio_vs_one_process": ranks[0]["worst_grad"],
+                          "worst_bn_stat_ratio_vs_one_process": ranks[0]["worst_stat"],
+                          "f32_vs_one_process_f32": ranks[0]["f32"],
+                          "loss_f32_one_process": one["loss_f32"],
+                          "ms_per_step": [r["ms_per_step"] for r in ranks],
+                          "launches_per_step_per_rank": [r["launches_per_step"] for r in ranks]},
+          "tolerances": {"loss_atol": LOSS_ATOL, "grad_and_stat_ratio": GRAD_RATIO,
+                         "floor": GRAD_FLOOR, "why": DIST_TOLERANCE_WHY,
+                         "stat_rtol": SYNCBN_STAT_RTOL, "f32_conv_grad_rtol": SYNCBN_F32_GRAD_RTOL,
+                         "f32_stat_rtol": SYNCBN_F32_STAT_RTOL, "why_direct": SYNCBN_WHY}})
+    for r in ranks:
+        if any(r["launches_per_step"][k] != v for k, v in want.items()):
+            raise AssertionError(f"syncbn_resnet launches {r['launches_per_step']}")
+    if max(abs(x - one["loss"]) for x in losses) > LOSS_ATOL or len(set(losses)) != 1:
+        raise AssertionError(f"syncbn_resnet losses {losses} vs {one['loss']}")
+    for key in ("worst_grad", "worst_stat"):
+        if ranks[0][key][1] > GRAD_RATIO:
+            raise AssertionError(f"syncbn_resnet {key} {ranks[0][key]}")
+    if ranks[0]["worst_stat_rel"][1] > SYNCBN_STAT_RTOL:
+        raise AssertionError(f"syncbn_resnet BN statistics {ranks[0]['worst_stat_rel']}")
+    f32 = ranks[0]["f32"]
+    if not f32_within(f32["synced"]) or abs(f32["synced"]["loss"] - one["loss_f32"]) > LOSS_ATOL:
+        raise AssertionError(f"syncbn_resnet f32 against the one process: {f32['synced']}")
+    for name in ("unsynced_bn", "sums_without_gradient"):
+        if f32_within(f32[name]):
+            raise AssertionError(f"syncbn_resnet's f32 check passed the {name} control: {f32}")
+    return {k: ranks[0]["launches_per_step"][k] for k in want}
+
+
+def f32_within(readings: dict) -> bool:
+    return (readings["worst_conv_grad_rel"][1] <= SYNCBN_F32_GRAD_RTOL
+            and readings["worst_stat_rel"][1] <= SYNCBN_F32_STAT_RTOL)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs one CUDA card")
@@ -1934,6 +2754,8 @@ def main() -> int:
                                   fa.flash_attention, smi)
     run_mnist_and_evaluator(mnist_cli, smi)
     run_profile_dir(bert_cli, smi)
+    free_device_memory()
+    world2 = run_distributed_phases(kernels, smi)
 
     lines = [
         {
@@ -1946,6 +2768,8 @@ def main() -> int:
             "basis": "per launch at one BERT-base layer; launches over the train phase",
             "launches_per_replay": per_replay[name],
             "replay_basis": "run_steps' CUDA graph of one BERT-base step (32 x 512)",
+            "launches_per_step_per_rank_world2": world2["ddp_bert"][name],
+            "world2_basis": "ddp_bert: BERT-base under DDP, 2 ranks over gloo, 16 rows a rank",
             "gpt": {
                 "shape": list(GPT_SHAPE), "causal": True,
                 "launches": gpt["launches"][name],
@@ -1975,6 +2799,9 @@ def main() -> int:
                      "3/3/5/2 per pass); launches over the resnet_train phase",
             "launches_per_replay": per_replay[name],
             "replay_basis": "run_steps' CUDA graph of one ResNet-50 step (batch 256)",
+            "launches_per_step_per_rank_world2": world2["syncbn_resnet"][name],
+            "world2_basis": "syncbn_resnet: ResNet-50 under DDP + sync BN, 2 ranks over "
+                            "gloo, 128 images a rank",
             "per_stage": [
                 {"shape": st["shape"], **{
                     part: {k: st[part][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -1992,4 +2819,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--world2-rank":
+        sys.exit(world2_rank(sys.argv[2]))
     sys.exit(main())

@@ -185,7 +185,7 @@ def test_one_adamw_step_matches_optax(weight_decay):
     _, tcfg = _configs()
     model = _port_model(tcfg, before)
     trainer = torch_trainer.Trainer(
-        model, torch_trainer.causal_lm_task(model), learning_rate=LR,
+        model, torch_trainer.causal_lm_task(), learning_rate=LR,
         weight_decay=weight_decay, device="cpu",
     )
     state = trainer.init()
@@ -552,7 +552,7 @@ def test_cuda_flash_step_matches_plain_step():
     for route, attention_fn, rcfg in routes:
         model = torch_gpt.GPT(rcfg, attention_fn, generator=torch.Generator().manual_seed(1))
         trainer = torch_trainer.Trainer(
-            model, torch_trainer.causal_lm_task(model), learning_rate=3e-4,
+            model, torch_trainer.causal_lm_task(), learning_rate=3e-4,
             weight_decay=0.01, device="cuda",
         )
         state = trainer.init()

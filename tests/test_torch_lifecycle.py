@@ -151,7 +151,7 @@ def _port_grads(params, batch, accum_steps):
     model = torch_bert.BertForMLM(cfg)
     model.load_state_dict(bert_state_dict_from_flax(params))
     trainer = torch_trainer.Trainer(
-        model, torch_trainer.mlm_task(model), learning_rate=0.0, weight_decay=0.0,
+        model, torch_trainer.mlm_task(), learning_rate=0.0, weight_decay=0.0,
         device="cpu", accum_steps=accum_steps,
     )
     state, metrics = trainer.step(trainer.init(), trainer.place_batch(_torch_batch(batch)))
@@ -188,13 +188,13 @@ def test_accumulated_gradient_matches_full_batch(jax_accum):
 def test_accumulation_rejects_an_indivisible_batch():
     cfg = dataclasses.replace(torch_bert.BERT_TINY, dtype=torch.float32)
     model = torch_bert.BertForMLM(cfg)
-    trainer = torch_trainer.Trainer(model, torch_trainer.mlm_task(model), device="cpu",
+    trainer = torch_trainer.Trainer(model, torch_trainer.mlm_task(), device="cpu",
                                     accum_steps=2)
     batch = torch_bert.synthetic_batch(torch.Generator().manual_seed(0), 3, 16, cfg)
     with pytest.raises(ValueError, match="not divisible"):
         trainer.step(trainer.init(), trainer.place_batch(batch))
     with pytest.raises(ValueError, match="accum_steps"):
-        torch_trainer.Trainer(model, torch_trainer.mlm_task(model), device="cpu", accum_steps=0)
+        torch_trainer.Trainer(model, torch_trainer.mlm_task(), device="cpu", accum_steps=0)
 
 
 RESNET_SMALL = dict(stage_sizes=(1,), num_classes=10, width=8)
@@ -221,7 +221,7 @@ def test_accumulated_batchnorm_statistics_match_reference():
     port = torch_resnet.ResNet(**RESNET_SMALL, dtype=torch.float32)
     port.load_state_dict(resnet_state_dict_from_flax(*before))
     ptrainer = torch_trainer.Trainer(
-        port, torch_trainer.classification_task(port), learning_rate=0.1, device="cpu",
+        port, torch_trainer.classification_task(), learning_rate=0.1, device="cpu",
         optimizer="sgd", accum_steps=2,
     )
     pstate, pmetrics = ptrainer.step(ptrainer.init(), ptrainer.place_batch({
@@ -242,7 +242,7 @@ def test_accumulated_batchnorm_statistics_match_reference():
 def _tiny_gpt_trainer(tmp_path=None, seed=0, accum_steps=1, lr=1e-3):
     model = torch_gpt.GPT(torch_gpt.GPT_TINY, generator=torch.Generator().manual_seed(seed))
     return torch_trainer.Trainer(
-        model, torch_trainer.causal_lm_task(model), learning_rate=lr, weight_decay=0.01,
+        model, torch_trainer.causal_lm_task(), learning_rate=lr, weight_decay=0.01,
         device="cpu", accum_steps=accum_steps,
         checkpoint_dir=None if tmp_path is None else str(tmp_path),
         metrics_registry=MetricRegistry(), clock=FakeClock(),
@@ -575,7 +575,7 @@ def test_run_steps_on_cpu_is_bit_equal_to_step_calls():
         model = torch_resnet.ResNet(**RESNET_SMALL, dtype=torch.float32,
                                     generator=torch.Generator().manual_seed(0))
         return torch_trainer.Trainer(
-            model, torch_trainer.classification_task(model), optimizer="sgd", device="cpu",
+            model, torch_trainer.classification_task(), optimizer="sgd", device="cpu",
             learning_rate=torch_trainer.warmup_cosine_lr(0.1, 6, 2),
         )
 
@@ -600,7 +600,7 @@ def _sgd_trainer_on_a_device_rate():
     model = torch_resnet.ResNet(**RESNET_SMALL, dtype=torch.float32,
                                 generator=torch.Generator().manual_seed(0))
     trainer = torch_trainer.Trainer(
-        model, torch_trainer.classification_task(model), optimizer="sgd", device="cpu",
+        model, torch_trainer.classification_task(), optimizer="sgd", device="cpu",
         learning_rate=torch_trainer.warmup_cosine_lr(0.1, 8, 2),
     )
     state = trainer.init()
@@ -649,7 +649,7 @@ def test_restore_keeps_the_trainers_optimizer_form(tmp_path):
     ckpt.save(dstate.step, dstate)
     model = torch_resnet.ResNet(**RESNET_SMALL, dtype=torch.float32,
                                 generator=torch.Generator().manual_seed(5))
-    plain = torch_trainer.Trainer(model, torch_trainer.classification_task(model),
+    plain = torch_trainer.Trainer(model, torch_trainer.classification_task(),
                                   optimizer="sgd", device="cpu", learning_rate=0.1)
     pstate = ckpt.restore_latest(plain.init())
     group = pstate.optimizer.param_groups[0]
@@ -824,7 +824,7 @@ def test_cuda_run_steps_is_a_graph_that_matches_eager_steps():
         model = torch_bert.BertForMLM(cfg, attention_fn=flash_attention,
                                       generator=torch.Generator().manual_seed(1))
         return torch_trainer.Trainer(
-            model, torch_trainer.mlm_task(model), weight_decay=0.01, packed=True,
+            model, torch_trainer.mlm_task(), weight_decay=0.01, packed=True,
             device="cuda", learning_rate=torch_trainer.warmup_cosine_lr(1e-3, 8, 2),
         )
 

@@ -118,7 +118,7 @@ def _port_trainer(before, packed=False, attention_fn=None, weight_decay=0.01):
     model = torch_bert.BertForMLM(cfg, attention_fn=attention_fn)
     model.load_state_dict(bert_state_dict_from_flax(before))
     trainer = torch_trainer.Trainer(
-        model, torch_trainer.mlm_task(model), learning_rate=LR,
+        model, torch_trainer.mlm_task(), learning_rate=LR,
         weight_decay=weight_decay, packed=packed, device="cpu",
     )
     return trainer, trainer.init()
@@ -257,7 +257,7 @@ def _port_resnet_trainer(run):
     model = torch_resnet.ResNet(**RESNET_SMALL, dtype=torch.float32)
     model.load_state_dict(resnet_state_dict_from_flax(run["params"][0], run["stats"][0]))
     trainer = torch_trainer.Trainer(
-        model, torch_trainer.classification_task(model), learning_rate=SGD_LR,
+        model, torch_trainer.classification_task(), learning_rate=SGD_LR,
         device="cpu", optimizer="sgd",
     )
     batch = trainer.place_batch({
@@ -356,6 +356,9 @@ def test_port_imports_with_jax_blocked():
     assert "tf_operator_tpu_torch.ops.flash_attention" in modules
     assert "tf_operator_tpu_torch.ops.conv_bn" in modules
     assert "tf_operator_tpu_torch.models.resnet" in modules
+    for name in ("api.types", "parallel.distributed", "parallel.mesh", "parallel.sharding",
+                 "testing.rendezvous_worker", "train.smoke"):
+        assert f"tf_operator_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
         f"for name in {BLOCKED!r}:\n"

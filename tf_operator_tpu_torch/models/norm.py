@@ -16,6 +16,17 @@ last axis). The square is taken in f32 inside the reduction
 (vector_norm with dtype=f32), so no f32 copy of x is made. The affine
 step is one addcmul, rounded once, as the reference's fused multiply-add.
 `self.training` picks batch or running statistics.
+
+Sync BatchNorm: where `sync_group` is set (parallel/sharding.py
+parallelize sets it to the mesh's batch group when it spans more than
+one rank), the training forward all-reduces the f32 sum, the sum of
+squares and the count over that group before the mean and variance, so
+the statistics, the normalised activations and the running statistics
+are those of the global batch; under GSPMD the reference gets this for
+free. The all-reduce is torch.distributed.nn's, which is
+differentiable: its backward all-reduces the gradients of the sums,
+without which the gradients would be those of a per-rank BatchNorm.
+Unset (None), the statistics are this process's own.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ class TpuBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, dtype=torch.float32))
         self.register_buffer("mean", torch.zeros(features, dtype=torch.float32))
         self.register_buffer("var", torch.ones(features, dtype=torch.float32))
+        self.sync_group = None  # a torch.distributed process group, or None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
@@ -47,6 +59,8 @@ class TpuBatchNorm(nn.Module):
             total_sq = torch.linalg.vector_norm(
                 x, 2, dim=dims, dtype=torch.float32
             ).square()
+            if self.sync_group is not None:
+                total, total_sq, count = _global_sums(total, total_sq, count, self.sync_group)
             mean = total / count
             var = torch.clamp(total_sq / count - mean.square(), min=0.0)
             with torch.no_grad():
@@ -62,3 +76,14 @@ class TpuBatchNorm(nn.Module):
             fused_bias.to(self.dtype).view(shape), x.to(self.dtype),
             inv.to(self.dtype).view(shape),
         )
+
+
+def _global_sums(total: torch.Tensor, total_sq: torch.Tensor, count: int, group):
+    """The sums and the count over `group`, in one differentiable
+    all-reduce."""
+    from torch.distributed.nn.functional import all_reduce
+
+    channels = total.shape[0]
+    local = torch.cat([total, total_sq, total.new_full((1,), float(count))])
+    summed = all_reduce(local, group=group)
+    return summed[:channels], summed[channels:2 * channels], summed[2 * channels]

@@ -1,0 +1,176 @@
+"""Join the training world from the operator-injected environment.
+Counterpart of tf_operator_tpu/parallel/distributed.py.
+
+The operator injects every TPU replica's identity into its pods
+(controller/cluster_spec.py set_tpu_env): TPU_WORKER_ID,
+TPU_WORKER_HOSTNAMES, JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and
+JAX_PROCESS_ID. Every train CLI calls `initialize(device)` first, which
+reads them and forms one torch.distributed world with no flags: rank =
+the process id, world size = the number of processes, rendezvous over
+tcp://<coordinator>. One process per pod, on the one device it was
+given.
+
+Backends: on a `cuda` device the world is "cpu:gloo,cuda:nccl", so
+CUDA tensors go over NCCL and the small host collectives below (the
+preemption latch, the barrier, all_reduce_scalars) over gloo, without
+waiting for the card; on `cpu` it is gloo. A caller may name the
+backend: two ranks on one card need "gloo", since NCCL refuses two
+ranks on one device.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import logging
+import os
+from typing import Dict, Iterator, Mapping, Optional, Union
+
+import torch
+import torch.distributed as dist
+
+from ..api.types import (
+    ENV_COORDINATOR_ADDRESS,
+    ENV_COORDINATOR_OVERRIDE,
+    ENV_NUM_PROCESSES,
+    ENV_PROCESS_ID,
+    ENV_TPU_ACCELERATOR,
+    ENV_TPU_TOPOLOGY,
+    ENV_TPU_WORKER_HOSTNAMES,
+    ENV_TPU_WORKER_ID,
+)
+
+logger = logging.getLogger("tf_operator_tpu_torch.distributed")
+
+DEFAULT_COORDINATOR_PORT = 2222
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessEnv:
+    """The injected identity, parsed."""
+
+    process_id: int = 0
+    num_processes: int = 1
+    coordinator_address: Optional[str] = None
+    hostnames: tuple = ()
+    topology: Optional[str] = None
+    accelerator: Optional[str] = None
+
+    @property
+    def is_multi_host(self) -> bool:
+        return self.num_processes > 1
+
+    @property
+    def is_coordinator(self) -> bool:
+        return self.process_id == 0
+
+
+def read_process_env(environ: Optional[Mapping[str, str]] = None) -> ProcessEnv:
+    """The reference's rules: JAX_PROCESS_ID wins over TPU_WORKER_ID; the
+    world size defaults to the number of hostnames; the override remaps
+    only the endpoint; the default coordinator is hostnames[0]:2222."""
+    env = environ if environ is not None else os.environ
+    hostnames = tuple(h for h in env.get(ENV_TPU_WORKER_HOSTNAMES, "").split(",") if h)
+    process_id = int(env.get(ENV_PROCESS_ID, env.get(ENV_TPU_WORKER_ID, "0")))
+    num_processes = int(env.get(ENV_NUM_PROCESSES, str(len(hostnames) or 1)))
+    coordinator = env.get(ENV_COORDINATOR_OVERRIDE, env.get(ENV_COORDINATOR_ADDRESS))
+    if coordinator is None and hostnames:
+        coordinator = f"{hostnames[0]}:{DEFAULT_COORDINATOR_PORT}"
+    return ProcessEnv(
+        process_id=process_id,
+        num_processes=num_processes,
+        coordinator_address=coordinator,
+        hostnames=hostnames,
+        topology=env.get(ENV_TPU_TOPOLOGY),
+        accelerator=env.get(ENV_TPU_ACCELERATOR),
+    )
+
+
+def backend_for(device: Union[str, torch.device], backend: Optional[str] = None) -> str:
+    if backend is not None:
+        return backend
+    return "cpu:gloo,cuda:nccl" if torch.device(device).type == "cuda" else "gloo"
+
+
+def initialize(
+    device: Union[str, torch.device], backend: Optional[str] = None,
+    environ: Optional[Mapping[str, str]] = None,
+) -> ProcessEnv:
+    """init_process_group from the injected env (idempotent). A
+    single-process job skips it, as the reference's does (the operator
+    injects no cluster env for a local job)."""
+    proc = read_process_env(environ)
+    if not proc.is_multi_host or is_initialized():
+        return proc
+    if proc.coordinator_address is None:
+        raise ValueError(
+            f"{proc.num_processes} processes but no coordinator: set "
+            f"{ENV_TPU_WORKER_HOSTNAMES}, {ENV_COORDINATOR_ADDRESS} or {ENV_COORDINATOR_OVERRIDE}"
+        )
+    backend = backend_for(device, backend)
+    logger.info("init_process_group %s coordinator=%s process=%d/%d", backend,
+                proc.coordinator_address, proc.process_id, proc.num_processes)
+    dist.init_process_group(
+        backend=backend, init_method=f"tcp://{proc.coordinator_address}",
+        rank=proc.process_id, world_size=proc.num_processes,
+    )
+    return proc
+
+
+def is_initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank() -> int:
+    return dist.get_rank() if is_initialized() else 0
+
+
+def world_size() -> int:
+    return dist.get_world_size() if is_initialized() else 1
+
+
+def is_coordinator() -> bool:
+    return rank() == 0
+
+
+def all_reduce_scalars(values: Dict[str, float], op: str = "sum") -> Dict[str, float]:
+    """Each value reduced over the world ("sum" or "max"), as float64 on
+    the host; the values themselves in a single process."""
+    if world_size() == 1:
+        return dict(values)
+    names = sorted(values)
+    packed = torch.tensor([float(values[n]) for n in names], dtype=torch.float64)
+    dist.all_reduce(packed, op=_REDUCE_OPS[op])
+    return dict(zip(names, packed.tolist()))
+
+
+def barrier() -> None:
+    """Every rank waits until all have arrived (a host all-reduce)."""
+    if world_size() > 1:
+        dist.all_reduce(torch.zeros(1))
+
+
+def shutdown() -> None:
+    """destroy_process_group, where one was formed."""
+    if is_initialized():
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def world(device: Union[str, torch.device], backend: Optional[str] = None) -> Iterator[ProcessEnv]:
+    """A CLI's run inside the world: initialize, log "process i/n", and
+    on the way out destroy the process group that this formed (after a
+    barrier when the run ended normally, so that no rank tears down while
+    another still needs it; without one after an error, since a peer may
+    be gone)."""
+    owned = not is_initialized()
+    proc = initialize(device, backend)
+    logger.info("process %d/%d (coordinator=%s)", proc.process_id, proc.num_processes,
+                proc.coordinator_address)
+    try:
+        yield proc
+        barrier()
+    finally:
+        if owned:
+            shutdown()

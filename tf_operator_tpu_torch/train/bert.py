@@ -5,7 +5,12 @@ tf_operator_tpu/train/bert.py.
     python -m tf_operator_tpu_torch.train.bert --preset base --flash --packed \\
         --weight-decay 0.01
 
-Runs on one CUDA device unless --device names another. --flash routes
+Joins the TFJob's world from the operator-injected env
+(parallel/distributed.py) and lays the model over a (dp, fsdp) mesh:
+DDP, or FSDP2 with --fsdp > 1 (TRANSFORMER_RULES). --batch-size is the
+global batch, each rank training on its rows. --tp, --sp and
+--sp-strategy are refused until their ROADMAP items land. Runs on one
+CUDA device unless --device names another. --flash routes
 attention through the Hopper kernels (ops/flash_attention.py); --packed
 drops the all-ones attention mask (Trainer._prepare_batch). The loop is
 trainer.timed_run, as in train/gpt.py: restore from --checkpoint-dir,
@@ -14,8 +19,8 @@ through InputPipeline under a PreemptionGuard (SIGTERM: checkpoint, exit
 143), --steps as the total budget, a final checkpoint. --accum-steps
 splits each batch into microbatches, re-weighted by their mlm weight
 mass; --profile-dir traces the first timed steps (torch.profiler).
-Logs tokens/sec, then a held-out eval. --monitoring-bind-addr is not
-ported yet (ROADMAP queue 1).
+Logs tokens/sec (of the global batch), then a held-out eval.
+--monitoring-bind-addr is not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import sys
 from typing import Dict, List, Optional
 
 import torch
+
+from ..parallel.mesh import add_mesh_flags, mesh_config
 
 logger = logging.getLogger("tf_operator_tpu_torch.train.bert")
 
@@ -40,7 +47,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         help="base-wide: same parameters as base with 6x128 heads",
     )
     parser.add_argument("--steps", type=int, default=100)
-    parser.add_argument("--batch-size", type=int, default=32)
+    parser.add_argument("--batch-size", type=int, default=32, help="global batch")
     parser.add_argument("--seq-len", type=int, default=512)
     parser.add_argument("--learning-rate", type=float, default=1e-4)
     parser.add_argument(
@@ -71,17 +78,24 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         "--profile-dir", default=None,
         help="write a torch.profiler Chrome trace of the first timed steps here",
     )
-    return parser.parse_args(argv)
+    add_mesh_flags(parser)
+    args = parser.parse_args(argv)
+    args.mesh = mesh_config(parser, args)
+    return args
 
 
 def run(args: argparse.Namespace) -> Dict[str, float]:
-    """Train as the flags say; returns the run's summary
-    (trainer.timed_run's; "exit_code" 143 after a SIGTERM)."""
+    """Train as the flags say, in the world as it stands (main joins it);
+    returns the run's summary (trainer.timed_run's; "exit_code" 143 after
+    a SIGTERM)."""
     from .._device import resolve_device
     from ..models import bert as bert_lib
+    from ..parallel.mesh import build_mesh, mesh_summary
     from .trainer import Trainer, mlm_task, restore_if_any, timed_run, warmup_cosine_lr
 
     device = resolve_device(args.device)
+    mesh = build_mesh(args.mesh, device)
+    logger.info("mesh: %s", mesh_summary(mesh))
     cfg = {
         "base": bert_lib.BERT_BASE,
         "base-wide": bert_lib.BERT_BASE_WIDE,
@@ -95,10 +109,10 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
     generator = torch.Generator().manual_seed(SEED)
     model = bert_lib.BertForMLM(cfg, attention_fn=attention_fn, generator=generator)
     trainer = Trainer(
-        model, mlm_task(model),
+        model, mlm_task(),
         learning_rate=warmup_cosine_lr(args.learning_rate, args.steps, args.warmup_steps),
         weight_decay=args.weight_decay, packed=args.packed, device=device,
-        checkpoint_dir=args.checkpoint_dir, accum_steps=args.accum_steps,
+        checkpoint_dir=args.checkpoint_dir, accum_steps=args.accum_steps, mesh=mesh,
     )
 
     def make_batch(gen: torch.Generator):
@@ -118,7 +132,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     """The CLI; returns its exit code: 0, or 143 after a SIGTERM."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
-    return run(args)["exit_code"]
+    from .._device import resolve_device
+    from ..parallel import distributed
+
+    with distributed.world(resolve_device(args.device)):
+        return run(args)["exit_code"]
 
 
 if __name__ == "__main__":

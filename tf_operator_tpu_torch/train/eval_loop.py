@@ -12,7 +12,9 @@ evaluation to --out, and exits 0 once a step at or after --until-step has
 been evaluated (by default it runs forever, like the reference's
 evaluator). --max-polls gives up (exit 1) after that many polls in a row
 found nothing new to evaluate. Runs on CUDA unless --device names
-another.
+another. It joins the world from the operator-injected env as the train
+CLIs do; the operator injects that env into TPU replicas only, so an
+Evaluator replica runs as one process, its model unwrapped.
 """
 
 from __future__ import annotations
@@ -60,16 +62,21 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def build(args: argparse.Namespace):
     """(trainer, make_batch) for the task: the model and optimizer the
     training CLI builds, so its checkpoints restore into them."""
+    from ..parallel.mesh import build_mesh, mesh_summary
+    from ..parallel.sharding import REPLICATED_RULES, TRANSFORMER_RULES
     from ..train.trainer import Trainer
 
+    mesh = build_mesh(device=args.device)
+    logger.info("mesh: %s", mesh_summary(mesh))
     if args.task == "mnist":
         from ..models import mnist as mnist_lib
         from ..train.trainer import classification_task
 
         model = mnist_lib.MnistCNN()
         trainer = Trainer(
-            model, classification_task(model), learning_rate=1e-3, weight_decay=0.0,
+            model, classification_task(), learning_rate=1e-3, weight_decay=0.0,
             device=args.device, checkpoint_dir=args.checkpoint_dir,
+            mesh=mesh, rules=REPLICATED_RULES,
         )
 
         def make_batch(generator):
@@ -84,8 +91,9 @@ def build(args: argparse.Namespace):
         cfg = dataclasses.replace(cfg, max_seq_len=max(cfg.max_seq_len, args.seq_len))
         model = gpt_lib.GPT(cfg)
         trainer = Trainer(
-            model, causal_lm_task(model), learning_rate=1e-4,
+            model, causal_lm_task(), learning_rate=1e-4,
             device=args.device, checkpoint_dir=args.checkpoint_dir,
+            mesh=mesh, rules=TRANSFORMER_RULES,
         )
 
         def make_batch(generator):
@@ -96,7 +104,16 @@ def build(args: argparse.Namespace):
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    from .._device import resolve_device
+    from ..parallel import distributed
 
+    args.device = resolve_device(args.device)
+    with distributed.world(args.device):
+        return evaluate_checkpoints(args)
+
+
+def evaluate_checkpoints(args: argparse.Namespace) -> int:
+    """The poll loop; returns the exit code."""
     from ..telemetry.flight import flight_record
     from ..telemetry.tracecontext import trace_scope
     from ..train.trainer import held_out_eval

@@ -7,7 +7,12 @@ tf_operator_tpu/train/gpt.py.
     python -m tf_operator_tpu_torch.train.gpt --preset small --batch-size 4 \\
         --seq-len 4096 --generate 56
 
-Runs on one CUDA device unless --device names another. Attention is the
+Joins the TFJob's world from the operator-injected env
+(parallel/distributed.py) and lays the model over a (dp, fsdp) mesh:
+DDP, or FSDP2 on each block and the root with --fsdp > 1
+(TRANSFORMER_RULES). --batch-size is the global batch, each rank
+training on its rows. Runs on one CUDA device unless --device names
+another. Attention is the
 causal flash route (the Hopper kernels), with no flag, as in the
 reference; the optimizer is AdamW with weight decay 0.01. The loop is
 trainer.timed_run: restore from --checkpoint-dir when it holds a
@@ -17,11 +22,13 @@ synthetic Markov batches drawn and placed in the background
 restored steps included. A SIGTERM drains the step, writes a checkpoint
 and exits 143 (retryable); a finished run writes a final checkpoint.
 --accum-steps splits each batch into that many microbatches. Logs
-tokens/sec, then a held-out eval; --generate N then decodes N tokens
-greedily (models/gpt.py generate) from the first 8 tokens of each row of
-the warm-up batch. Not ported: the mesh and sequence-parallel flags,
---weights-int8, --kv-int8 and --monitoring-bind-addr (ROADMAP queue 1);
-argparse refuses them.
+tokens/sec (of the global batch), then a held-out eval; --generate N
+then decodes N tokens greedily (models/gpt.py generate) from the first 8
+tokens of each row of the warm-up batch, in a single process only (as
+the reference, which skips it on several hosts). Not ported: --tp, --sp
+and --sp-strategy (refused, naming their ROADMAP items), --weights-int8,
+--kv-int8 and --monitoring-bind-addr (ROADMAP queue 1; argparse refuses
+them).
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import add_mesh_flags, mesh_config
+
 logger = logging.getLogger("tf_operator_tpu_torch.train.gpt")
 
 # seeds the weights, the batch stream and the held-out batch
@@ -47,7 +56,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser()
     parser.add_argument("--preset", choices=["tiny", "small"], default="small")
     parser.add_argument("--steps", type=int, default=100)
-    parser.add_argument("--batch-size", type=int, default=32)
+    parser.add_argument("--batch-size", type=int, default=32, help="global batch")
     parser.add_argument(
         "--seq-len", type=int, default=2048,
         help="raises the preset's max_seq_len when longer",
@@ -76,7 +85,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         help="after training, greedily decode N tokens from a prompt",
     )
     parser.add_argument("--device", default=None, help="default: cuda")
-    return parser.parse_args(argv)
+    add_mesh_flags(parser)
+    args = parser.parse_args(argv)
+    args.mesh = mesh_config(parser, args)
+    return args
 
 
 def train(
@@ -91,14 +103,18 @@ def train(
     trainer.timed_run's, with --generate the decoded tokens (prompt
     included) and the wall ms per new token (all rows together, prefill
     included). A preempted run (summary["exit_code"] 143) decodes
-    nothing."""
+    nothing. Runs in the world as it stands (main joins it)."""
     from .._device import resolve_device
     from ..models import gpt as gpt_lib
+    from ..parallel import distributed
+    from ..parallel.mesh import build_mesh, mesh_summary
     from .trainer import (
         Trainer, causal_lm_task, restore_if_any, timed_run, warmup_cosine_lr,
     )
 
     device = resolve_device(args.device)
+    mesh = build_mesh(args.mesh, device)
+    logger.info("mesh: %s", mesh_summary(mesh))
     cfg = {"small": gpt_lib.GPT_SMALL, "tiny": gpt_lib.GPT_TINY}[args.preset]
     cfg = dataclasses.replace(
         cfg, max_seq_len=max(cfg.max_seq_len, args.seq_len), remat=args.remat
@@ -106,10 +122,10 @@ def train(
     generator = torch.Generator().manual_seed(SEED)
     model = gpt_lib.GPT(cfg, attention_fn=attention_fn, generator=generator)
     trainer = Trainer(
-        model, causal_lm_task(model),
+        model, causal_lm_task(),
         learning_rate=warmup_cosine_lr(args.learning_rate, args.steps, args.warmup_steps),
         weight_decay=WEIGHT_DECAY, device=device,
-        checkpoint_dir=args.checkpoint_dir, accum_steps=args.accum_steps,
+        checkpoint_dir=args.checkpoint_dir, accum_steps=args.accum_steps, mesh=mesh,
     )
     state = restore_if_any(trainer, trainer.init())
     state, summary, first_batch = timed_run(
@@ -121,7 +137,9 @@ def train(
         return summary, state
     if args.checkpoint_dir:
         trainer.save(state)
-    if args.generate > 0:
+    if args.generate > 0 and distributed.world_size() > 1:
+        logger.info("--generate skipped: it runs in a single process only")
+    elif args.generate > 0:
         prompt = first_batch["input_ids"][:, :PROMPT_LEN]
         start = time.monotonic()  # the held-out eval has waited for the device
         out = gpt_lib.generate(model, prompt, max_new_tokens=args.generate)
@@ -140,7 +158,11 @@ def main(argv: Optional[List[str]] = None, on_step: Optional[Callable] = None) -
     """The CLI; returns its exit code: 0, or 143 after a SIGTERM."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
-    return train(args, on_step=on_step)[0]["exit_code"]
+    from .._device import resolve_device
+    from ..parallel import distributed
+
+    with distributed.world(resolve_device(args.device)):
+        return train(args, on_step=on_step)[0]["exit_code"]
 
 
 if __name__ == "__main__":

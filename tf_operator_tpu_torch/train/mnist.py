@@ -5,15 +5,20 @@ TFJob's pods. Counterpart of tf_operator_tpu/train/mnist.py.
     python -m tf_operator_tpu_torch.train.mnist --steps 1000 --batch-size 512 \\
         --target-accuracy 0.99 --checkpoint-dir /ckpt/mnist --acc-json MNIST_ACC.json
 
-Runs on one CUDA device unless --device names another. Trains MnistCNN
+Joins the TFJob's world from the operator-injected env
+(parallel/distributed.py) and trains data parallel over it (DDP,
+REPLICATED_RULES); --batch-size is the global batch, each rank training
+on its rows. Runs on one CUDA device unless --device names another.
+Trains MnistCNN
 with Adam (AdamW with weight decay 0, the same update as optax.adam)
 through Trainer.fit on fresh synthetic batches: --steps is the total
 budget (restored steps count), --checkpoint-dir resumes from and saves
 every 100 steps (async) and at the end, a SIGTERM writes a checkpoint
 and exits 143, --summary-dir writes scalar summaries, --profile-dir
 traces a few steady-state steps. Then a held-out eval on 4096 fresh
-samples; --target-accuracy fails the run (exit 1) below it, and
---acc-json writes the accuracy artifact. --monitoring-bind-addr is not
+samples, over every rank's rows (every rank logs the same accuracy);
+--target-accuracy fails the run (exit 1) below it, and --acc-json (rank
+0) writes the accuracy artifact. --monitoring-bind-addr is not
 ported yet (ROADMAP queue 1).
 """
 
@@ -41,7 +46,7 @@ CHECKPOINT_EVERY = 100
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=500)
-    parser.add_argument("--batch-size", type=int, default=64)
+    parser.add_argument("--batch-size", type=int, default=64, help="global batch")
     parser.add_argument("--learning-rate", type=float, default=1e-3)
     parser.add_argument("--target-accuracy", type=float, default=None)
     parser.add_argument(
@@ -69,16 +74,28 @@ def main(argv: Optional[List[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
 
     from .._device import resolve_device
+    from ..parallel import distributed
+
+    device = resolve_device(args.device)
+    with distributed.world(device) as proc:
+        return train(args, device, proc)
+
+
+def train(args: argparse.Namespace, device: torch.device, proc) -> int:
     from ..models import mnist as mnist_lib
+    from ..parallel.mesh import build_mesh, mesh_summary
+    from ..parallel.sharding import REPLICATED_RULES
     from .preemption import PREEMPTED_EXIT_CODE
     from .summaries import maybe_writer
     from .trainer import Trainer, classification_task, restore_if_any
 
-    device = resolve_device(args.device)
+    mesh = build_mesh(device=device)
+    logger.info("mesh: %s", mesh_summary(mesh))
     model = mnist_lib.MnistCNN(generator=torch.Generator().manual_seed(SEED))
     trainer = Trainer(
-        model, classification_task(model), learning_rate=args.learning_rate,
+        model, classification_task(), learning_rate=args.learning_rate,
         weight_decay=0.0, device=device, checkpoint_dir=args.checkpoint_dir,
+        mesh=mesh, rules=REPLICATED_RULES,
     )
     state = restore_if_any(trainer, trainer.init())
 
@@ -88,7 +105,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             yield mnist_lib.synthetic_batch(generator, args.batch_size)
 
     train_start = time.monotonic()
-    with maybe_writer(args.summary_dir) as writer:
+    with maybe_writer(args.summary_dir, proc.process_id) as writer:
         state, metrics = trainer.fit(
             state, batches(), steps=args.steps, log_every=args.log_every,
             checkpoint_every=CHECKPOINT_EVERY if args.checkpoint_dir else None,
@@ -111,7 +128,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     eval_accuracy = float(trainer.evaluate(state, eval_batch)["accuracy"])
     logger.info("held-out eval accuracy: %.4f (n=%d)", eval_accuracy, EVAL_SAMPLES)
 
-    if args.acc_json:
+    if args.acc_json and proc.is_coordinator:
         with open(args.acc_json, "w") as handle:
             json.dump({
                 "metric": "dist_mnist_eval_accuracy",

@@ -8,6 +8,12 @@ write a final checkpoint and exit with 143 = 128 + SIGTERM. That code is
 in the operator's retryable set (the ExitCode restart policy retries
 130, 137, 138 and 143), so the pod restarts and resumes from the saved
 step, and a `--steps` budget counts the restored steps.
+
+Several processes: the operator's SIGTERM may reach one rank before the
+others (or only one, when one pod is deleted). A rank that stopped alone
+would leave the others hanging at their next collective, so the loops
+call `agree_on_preemption` once a step: every rank latches when any has,
+and all save collectively and exit 143 on the same step.
 """
 
 from __future__ import annotations
@@ -55,6 +61,20 @@ class PreemptionGuard:
         if self._installed:
             signal.signal(signal.SIGTERM, self._prev)
             self._installed = False
+
+
+def agree_on_preemption(guard: PreemptionGuard) -> None:
+    """Latch `guard` on every rank if any rank's is latched: one host
+    all-reduce (MAX) under a world > 1, nothing in a single process."""
+    from ..parallel import distributed
+
+    if distributed.world_size() == 1:
+        return
+    latched = distributed.all_reduce_scalars(
+        {"latched": float(guard.triggered.is_set())}, op="max")["latched"]
+    if latched and not guard.triggered.is_set():
+        logger.warning("another rank latched SIGTERM: draining this step too")
+        guard.triggered.set()
 
 
 def record_preemption(trainer, state, saved: bool) -> None:

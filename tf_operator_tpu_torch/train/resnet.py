@@ -5,7 +5,12 @@ tf_operator_tpu/train/resnet.py.
     python -m tf_operator_tpu_torch.train.resnet --small --steps 2 --device cpu \\
         --conv3-impl pallas
 
-Runs on one CUDA device unless --device names another. SGD with
+Joins the TFJob's world from the operator-injected env
+(parallel/distributed.py) and trains data parallel over it (DDP,
+CONV_RULES over a dp mesh), TpuBatchNorm's statistics all-reduced over
+the mesh's batch group (sync BN); the global batch is --per-chip-batch x the world
+size, each rank training on its rows. Runs on one CUDA device unless
+--device names another. SGD with
 momentum 0.9 at --learning-rate (optionally warmup then cosine decay),
 as the reference. --conv3-impl pallas routes the stride-1 3x3
 bottleneck convs through the Hopper kernels K4/K5 (ops/conv_bn.py).
@@ -35,6 +40,8 @@ import sys
 from typing import Dict, List, Optional
 
 import torch
+
+logger = logging.getLogger("tf_operator_tpu_torch.train.resnet")
 
 # seeds the weights and the batch
 SEED = 0
@@ -87,26 +94,34 @@ def build_model(args: argparse.Namespace, generator: torch.Generator):
 
 
 def run(args: argparse.Namespace) -> Dict[str, float]:
-    """Train as the flags say; returns the run's summary
-    (trainer.timed_run's, in images; "exit_code" 143 after a SIGTERM)."""
+    """Train as the flags say, in the world as it stands (main joins it);
+    returns the run's summary (trainer.timed_run's, in images; "exit_code"
+    143 after a SIGTERM)."""
     from .._device import resolve_device
     from ..models import resnet as resnet_lib
+    from ..parallel import distributed
+    from ..parallel.mesh import MeshConfig, build_mesh, mesh_summary
+    from ..parallel.sharding import CONV_RULES
     from .trainer import Trainer, classification_task, restore_if_any, timed_run, warmup_cosine_lr
 
     device = resolve_device(args.device)
+    mesh = build_mesh(MeshConfig(dp=-1), device)
+    logger.info("mesh: %s", mesh_summary(mesh))
+    global_batch = args.per_chip_batch * distributed.world_size()
     if args.small:
         args.image_size = min(args.image_size, 64)
     generator = torch.Generator().manual_seed(SEED)
     model, classes = build_model(args, generator)
     trainer = Trainer(
-        model, classification_task(model),
+        model, classification_task(),
         learning_rate=warmup_cosine_lr(args.learning_rate, args.steps, args.warmup_steps),
         device=device, optimizer="sgd",
         checkpoint_dir=args.checkpoint_dir, accum_steps=args.accum_steps,
+        mesh=mesh, rules=CONV_RULES,
     )
 
     def make_batch(gen: torch.Generator):
-        return resnet_lib.synthetic_batch(gen, args.per_chip_batch, args.image_size, classes)
+        return resnet_lib.synthetic_batch(gen, global_batch, args.image_size, classes)
 
     state = restore_if_any(trainer, trainer.init())
     state, summary, _ = timed_run(
@@ -122,7 +137,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     """The CLI; returns its exit code: 0, or 143 after a SIGTERM."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
-    return run(args)["exit_code"]
+    from .._device import resolve_device
+    from ..parallel import distributed
+
+    with distributed.world(resolve_device(args.device)):
+        return run(args)["exit_code"]
 
 
 if __name__ == "__main__":

@@ -29,10 +29,21 @@ BatchNorm running statistics are module buffers: `step` runs the model
 in train mode, which updates them in the forward (once per microbatch
 under accumulation, as the reference threads `batch_stats` through its
 scan), and `evaluate` in eval mode, which reads them.
+
+Several processes (`mesh`, the reference's :190-206): `init` lays the
+model over the mesh by the rule set (parallel/sharding.py: DDP, or FSDP2
+for TRANSFORMER_RULES with fsdp > 1). As in the reference, a batch is
+the GLOBAL batch, the same on every process: `place_batch` keeps this
+rank's rows, so one global batch gives the same step at any world size.
+A weighted loss (mlm) normalises by the weight mass of the global batch,
+the metrics are those of the global batch, checkpoints hold the full
+state in the port's format (rank 0 writes, every rank reads), and a
+SIGTERM on any rank stops every rank on the same step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
@@ -43,10 +54,14 @@ import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
+from ..parallel import distributed
+from ..parallel import mesh as mesh_lib
+from ..parallel import sharding as sharding_lib
 
 logger = logging.getLogger(__name__)
 
@@ -63,10 +78,11 @@ class TrainState:
 
 @dataclasses.dataclass
 class Task:
-    """How to compute loss for a model family: loss_fn(batch, train)
-    -> (loss, aux metrics), running the model the task was made for.
-    aux["loss_weight"], where a task reports it, is the weight mass of
-    the (micro)batch that its weighted-mean loss divides by."""
+    """How to compute loss for a model family: loss_fn(module, batch,
+    train) -> (loss, aux metrics), where `module` is what the trainer
+    calls: the model, or its data-parallel wrapper. aux["loss_weight"],
+    where a task reports it, is the weight mass of the (micro)batch that
+    its weighted-mean loss divides by."""
 
     loss_fn: Callable[..., Tuple[torch.Tensor, Dict[str, Any]]]
 
@@ -109,11 +125,11 @@ def warmup_cosine_lr(peak: float, steps: int, warmup_steps: int) -> LearningRate
     return WarmupCosine(peak, warmup_steps, max(steps, warmup_steps + 1))
 
 
-def classification_task(model: nn.Module) -> Task:
+def classification_task() -> Task:
     """Softmax cross-entropy of f32 logits against integer labels, mean
     over the batch, plus accuracy; the model reads `training` itself."""
 
-    def loss_fn(batch: Batch, train: bool = True):
+    def loss_fn(model: nn.Module, batch: Batch, train: bool = True):
         logits = model(batch["image"]).float()
         labels = batch["label"].long()
         loss = F.cross_entropy(logits, labels)
@@ -123,13 +139,14 @@ def classification_task(model: nn.Module) -> Task:
     return Task(loss_fn=loss_fn)
 
 
-def mlm_task(model: nn.Module) -> Task:
+def mlm_task() -> Task:
     """Masked-LM loss, reporting the batch's mlm weight mass as
-    "loss_weight" so that accumulation re-weights uneven microbatches to
-    the exact full-batch weighted mean (the reference's :96-103)."""
+    "loss_weight" so that accumulation and ranks re-weight uneven
+    microbatches and shards to the exact global weighted mean (the
+    reference's :96-103)."""
     from ..models.bert import mlm_loss
 
-    def loss_fn(batch: Batch, train: bool = True):
+    def loss_fn(model: nn.Module, batch: Batch, train: bool = True):
         logits = model(batch["input_ids"], batch.get("attention_mask"))
         loss = mlm_loss(logits, batch["labels"], batch["mlm_weights"])
         return loss, {"loss_weight": batch["mlm_weights"].sum()}
@@ -137,11 +154,11 @@ def mlm_task(model: nn.Module) -> Task:
     return Task(loss_fn=loss_fn)
 
 
-def causal_lm_task(model: nn.Module) -> Task:
+def causal_lm_task() -> Task:
     """Next-token prediction on mask-free token batches (GPT)."""
     from ..models.gpt import causal_lm_loss
 
-    def loss_fn(batch: Batch, train: bool = True):
+    def loss_fn(model: nn.Module, batch: Batch, train: bool = True):
         return causal_lm_loss(model(batch["input_ids"]), batch["input_ids"]), {}
 
     return Task(loss_fn=loss_fn)
@@ -229,8 +246,9 @@ def timed_run(
       instead (the ResNet CLI, as the reference's: a fresh 224x224 batch
       would set the pace), and there is no held-out eval;
     - the timed steps run under a PreemptionGuard: after a latched
-      SIGTERM the step drains, a checkpoint is written (when the trainer
-      has a checkpoint_dir) and the loop stops with exit code 143;
+      SIGTERM (on any rank: agree_on_preemption) the step drains, a
+      checkpoint is written (when the trainer has a checkpoint_dir) and
+      the loop stops with exit code 143;
     - profile_dir traces the first timed steps (telemetry/profiler.py);
     - on_step(state), if given, runs after every optimizer step, the
       warm-up's included.
@@ -238,7 +256,7 @@ def timed_run(
     Then held_out_eval, unless preempted or reuse_batch. Returns the
     state, the summary and the warm-up step's batch. The summary: the
     warm-up step's and the final train loss, `<unit>_per_sec` over the
-    timed steps (tokens or images, by the batch), their seconds, the
+    timed steps (tokens or images of the global batch), their seconds, the
     host seconds the producer spent drawing and placing their batches
     and the seconds the loop waited for one, held-out eval loss and
     perplexity, the number of forward and backward passes (microbatches
@@ -246,7 +264,7 @@ def timed_run(
     the "exit_code" (0 or 143)."""
     from ..telemetry.profiler import StepProfiler
     from .input_pipeline import InputPipeline, synthetic_source
-    from .preemption import PreemptionGuard, maybe_preempt_exit
+    from .preemption import PreemptionGuard, agree_on_preemption, maybe_preempt_exit
 
     device = trainer.device
     start_step = state.step
@@ -263,7 +281,7 @@ def timed_run(
         )
     try:
         first_batch = make_batch(generator)
-        unit, count = _rate_unit(first_batch)
+        unit, count = _rate_unit(first_batch)  # the global batch's items
         placed = trainer.place_batch(first_batch)
         state, metrics = trainer.step(state, placed)
         first_loss = float(metrics["loss"])
@@ -283,9 +301,10 @@ def timed_run(
                 state, metrics = trainer.step(state, batch)
                 profiler.after_step(i, drain=lambda: float(metrics["loss"]))
                 steps_run += 1
-                items += count(batch)
+                items += count(batch) * trainer.data_shards
                 if on_step is not None:
                     on_step(state)
+                agree_on_preemption(guard)
                 rc = maybe_preempt_exit(guard, trainer, state, trainer.checkpoint_dir)
                 if rc is not None:
                     exit_code = rc
@@ -321,6 +340,7 @@ def timed_run(
         "start_step": start_step,
         "step": state.step,
         "accum_steps": k,
+        "world": distributed.world_size(),
         "forward_passes": (1 + steps_run) * k,  # warmup + steps, per microbatch
         "backward_passes": (1 + steps_run) * k,
         "preempted": float(exit_code != 0),
@@ -351,13 +371,24 @@ class Trainer:
         accum_steps: int = 1,
         metrics_registry=None,
         clock=None,
+        mesh=None,
+        rules: sharding_lib.WrapPlan = sharding_lib.TRANSFORMER_RULES,
     ) -> None:
+        """mesh: parallel/mesh.py build_mesh's (dp, fsdp) DeviceMesh over
+        the world, or None for one process (the model runs unwrapped);
+        rules: the wrap plan (parallel/sharding.py), TRANSFORMER_RULES by
+        default as in the reference."""
         if optimizer not in OPTIMIZERS:
             raise ValueError(f"optimizer {optimizer!r} not in {OPTIMIZERS}")
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.optimizer = optimizer
         self.model = model
+        # what the task calls: the model, or its DDP wrapper after init
+        self.module: nn.Module = model
+        self.mesh = mesh
+        self.rules = rules
+        self.data_shards = mesh_lib.data_shards(mesh)
         self.task = task
         self.learning_rate = learning_rate
         self.weight_decay = weight_decay
@@ -415,7 +446,8 @@ class Trainer:
         return lr(count) if callable(lr) else lr
 
     def init(self) -> TrainState:
-        """Move the model to the trainer's device and build its optimizer.
+        """Move the model to the trainer's device, lay it over the mesh
+        (once; parallel/sharding.py parallelize) and build its optimizer.
         On a CUDA device the learning rate is a device scalar that `step`
         refills and run_steps' graph computes (WarmupCosine.on_device), and
         the optimizer is the form that reads it there: fused AdamW (marked
@@ -423,6 +455,8 @@ class Trainer:
         kernel over the parameters a step. Eager steps and graph replays
         so run one implementation."""
         self.model.to(self.device)
+        if self.mesh is not None and self.module is self.model:
+            self.module = sharding_lib.parallelize(self.model, self.mesh, self.rules, self.device)
         self._graphs.clear()
         cuda = self.device.type == "cuda"
         lr = self._lr(0)
@@ -442,10 +476,26 @@ class Trainer:
         return TrainState(step=0, model=self.model, optimizer=optimizer)
 
     def place_batch(self, batch: Batch) -> Batch:
+        """This rank's rows of the global `batch`, on the device. With a
+        mesh, rank r of n keeps, of each of the accum_steps microbatches,
+        its r-th of n row ranges, so that microbatch i over all ranks is
+        the reference's microbatch i (rows i*B/k to (i+1)*B/k)."""
         batch = self._prepare_batch(batch)
         return {
-            k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()
+            k: self._local_rows(torch.as_tensor(v)).to(self.device, non_blocking=True)
+            for k, v in batch.items()
         }
+
+    def _local_rows(self, value: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return value
+        k = self.accum_steps
+        if value.shape[0] % k:
+            raise ValueError(
+                f"global batch {value.shape[0]} is not divisible by accum_steps {k}")
+        micro = value.reshape(k, value.shape[0] // k, *value.shape[1:])
+        rows = mesh_lib.local_rows(self.mesh, micro.shape[1])
+        return micro[:, rows].reshape(-1, *value.shape[1:])
 
     def _forward_backward(self, batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Loss and gradients of `batch` into the parameters' .grad
@@ -460,41 +510,86 @@ class Trainer:
         divided by sum(w_i) and the loss reported is sum(w_i * loss_i) /
         sum(w_i): the full-batch weighted mean, as the reference's scan
         accumulates it (trainer.py:332-467). Other metrics are the mean
-        over microbatches."""
+        over microbatches.
+
+        With a mesh, the backward passes of all microbatches but the last
+        keep their gradients local (sharding.no_grad_sync), and the last
+        one's reduce averages them over the n ranks. A task's weight is
+        normalised over the GLOBAL batch: at k = 1 the loss backpropagated
+        is loss * w_r * n / W (W the all-reduced weight mass, detached), at
+        k > 1 the gradients are divided by W / n, so that the average over
+        the ranks is sum(w * g) / W, not a mean of per-rank means. The
+        loss and metrics returned are the global batch's (_global_metrics).
+        In a single process nothing of this runs."""
         k = self.accum_steps
         if k == 1:
-            loss, aux = self.task.loss_fn(batch, train=True)
+            loss, aux = self.task.loss_fn(self.module, batch, train=True)
+            share = self._weight_share(aux.get("loss_weight"))
+            if share is not None:
+                loss = loss * share
             loss.backward()
             metrics = {n: v.detach() for n, v in aux.items() if n not in _NOT_METRICS}
-            return loss.detach(), metrics
+            return self._global_metrics(loss.detach(), metrics)
         leading = next(iter(batch.values())).shape[0]
         if leading % k:
             raise ValueError(f"global batch {leading} is not divisible by accum_steps {k}")
         parts = {name: value.chunk(k) for name, value in batch.items()}
         loss_sum = weight_sum = None
+        weighted_task = False
         metric_sums: Dict[str, torch.Tensor] = {}
         for i in range(k):
-            loss, aux = self.task.loss_fn({name: p[i] for name, p in parts.items()}, train=True)
-            weight = aux.get("loss_weight")
-            weighted = loss if weight is None else weight.detach().float() * loss
-            weighted.backward()
+            with sharding_lib.no_grad_sync(self.module) if i < k - 1 else contextlib.nullcontext():
+                loss, aux = self.task.loss_fn(
+                    self.module, {name: p[i] for name, p in parts.items()}, train=True)
+                weight = aux.get("loss_weight")
+                weighted = loss if weight is None else weight.detach().float() * loss
+                weighted.backward()
+            weighted_task = weight is not None
             weight = torch.ones_like(loss.detach()) if weight is None else weight.detach().float()
             loss_sum = weighted.detach() if loss_sum is None else loss_sum + weighted.detach()
             weight_sum = weight if weight_sum is None else weight_sum + weight
             for name, value in aux.items():
                 if name not in _NOT_METRICS:
                     metric_sums[name] = metric_sums.get(name, 0) + value.detach()
+        if weighted_task and self.data_shards > 1:
+            # W / n: the ranks' average of sum(w * g) / (W / n) is sum(w * g) / W
+            weight_sum = self._all_reduce(weight_sum) / self.data_shards
         for param in self.model.parameters():
             if param.grad is not None:
-                param.grad.div_(weight_sum)
+                sharding_lib.local_tensor(param.grad).div_(weight_sum)
         metrics = {name: value / k for name, value in metric_sums.items()}
-        return loss_sum / weight_sum, metrics
+        return self._global_metrics(loss_sum / weight_sum, metrics)
+
+    def _all_reduce(self, tensor: torch.Tensor) -> torch.Tensor:
+        tensor = tensor.clone()
+        dist.all_reduce(tensor)
+        return tensor
+
+    def _weight_share(self, weight: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """w_r * n / W for this rank's weight mass w_r (one all-reduce), or
+        None in a single process or for a task without weights."""
+        if weight is None or self.data_shards == 1:
+            return None
+        weight = weight.detach().float()
+        return weight * self.data_shards / self._all_reduce(weight)
+
+    def _global_metrics(
+        self, loss: torch.Tensor, metrics: Dict[str, torch.Tensor],
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The loss (already weighted by _weight_share where the task has
+        weights) and metrics averaged over the ranks, in one all-reduce."""
+        if self.data_shards == 1:
+            return loss, metrics
+        names = sorted(metrics)
+        packed = torch.stack([loss.float()] + [metrics[n].float() for n in names])
+        packed = self._all_reduce(packed) / self.data_shards
+        return packed[0], dict(zip(names, packed[1:]))
 
     def step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One optimizer step on `batch` (as place_batch returns it).
         Updates the state in place and returns it with the step's
         metrics as device tensors; reading them waits for the device."""
-        state.model.train()
+        self.module.train()
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self._forward_backward(batch)
         _set_lr(state.optimizer, self._lr(state.step))
@@ -520,11 +615,12 @@ class Trainer:
         counter (WarmupCosine.on_device), so the schedule advances at every
         replay, and the optimizer is the eager steps' own (see
         _CapturedStep). A capture that fails raises: there is no eager
-        fallback. On the CPU,
-        where the caller asked for it, this is n `step` calls."""
+        fallback. On the CPU, where the caller asked for it, and with a mesh
+        (any world size: the step's collectives are not captured), this is
+        n `step` calls."""
         if n < 1:
             raise ValueError(f"n must be >= 1, got {n}")
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.mesh is not None:
             for _ in range(n):
                 state, metrics = self.step(state, batch)
             return state, metrics
@@ -546,10 +642,13 @@ class Trainer:
 
     @torch.no_grad()
     def evaluate(self, state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
-        """One no-gradient pass; returns the task's metrics and loss."""
-        state.model.eval()
-        loss, aux = self.task.loss_fn(self._prepare_batch(batch), train=False)
+        """One no-gradient pass; returns the task's metrics and loss, those
+        of the global batch under a mesh (every rank must call it)."""
+        self.module.eval()
+        loss, aux = self.task.loss_fn(self.module, self._prepare_batch(batch), train=False)
+        share = self._weight_share(aux.get("loss_weight"))
         metrics = {n: v for n, v in aux.items() if n not in _NOT_METRICS}
+        loss, metrics = self._global_metrics(loss if share is None else loss * share, metrics)
         metrics["loss"] = loss
         return metrics
 
@@ -602,10 +701,12 @@ class Trainer:
         drains, a blocking checkpoint is written when the trainer has a
         checkpoint_dir, the lost tail since the newest checkpoint is
         accounted as waste, and the returned metrics carry "preempted":
-        1.0, so the CLI exits with the retryable code 143."""
+        1.0, so the CLI exits with the retryable code 143. With a mesh a
+        SIGTERM on any rank stops every rank on the same step
+        (agree_on_preemption), and every rank calls save."""
         from ..telemetry.flight import flight_record
         from ..telemetry.profiler import StepProfiler
-        from .preemption import PreemptionGuard, record_preemption
+        from .preemption import PreemptionGuard, agree_on_preemption, record_preemption
 
         last_metrics: Dict[str, float] = {}
         interval_start = self.clock.monotonic()
@@ -637,6 +738,7 @@ class Trainer:
                 interval_steps += 1
                 profiler.after_step(i, drain=lambda: float(metrics["loss"]))
                 timer.lap("device_sync")
+                agree_on_preemption(guard)
                 if guard.triggered.is_set():
                     last_metrics = {k: float(v) for k, v in metrics.items()}
                     last_metrics["preempted"] = 1.0
@@ -713,7 +815,9 @@ class Trainer:
     def save(self, state: TrainState, block: bool = True) -> None:
         """Checkpoint `state` at its step. block=False returns once every
         tensor is snapshotted and writes in the background (wait() or the
-        next save or restore settles it)."""
+        next save or restore settles it). With a mesh every rank calls it:
+        the full state is gathered (FSDP2), rank 0 writes it and the others
+        wait at a barrier, until it is written (block) or snapshotted."""
         ckpt = self._checkpointer()
         from ..telemetry.flight import flight_record
         from ..telemetry.tracecontext import trace_scope
@@ -721,7 +825,10 @@ class Trainer:
         t0 = self.clock.monotonic()
         # each checkpoint publish gets its own trace context
         with trace_scope():
-            ckpt.save(state.step, state, block=block)
+            payload = state_payload(state)
+            if distributed.is_coordinator():
+                ckpt.write(state.step, payload, block=block)
+            distributed.barrier()
             flight_record("checkpoint", op="save", step=state.step, block=block,
                           seconds=round(self.clock.monotonic() - t0, 6))
         self._last_saved_step = state.step
@@ -729,7 +836,9 @@ class Trainer:
 
     def restore(self, state: TrainState) -> Optional[TrainState]:
         """Restore the newest checkpoint into `state` (its model and
-        optimizer, in place, on their device); None if there is none."""
+        optimizer, in place, on their device); None if there is none.
+        With a mesh every rank calls it and reads the checkpoint; a
+        checkpoint from any world size restores."""
         ckpt = self._checkpointer()
         t0 = self.clock.monotonic()
         restored = ckpt.restore_latest(state)
@@ -850,14 +959,14 @@ CHECKPOINT_FILE = "state.pt"
 _OWN_GROUP_KEYS = ("lr", "capturable", "fused")
 
 
-def _load_optimizer(optimizer: torch.optim.Optimizer, saved: Dict[str, Any]) -> None:
-    """optimizer.load_state_dict(saved), keeping each group's
-    _OWN_GROUP_KEYS (the next step sets the rate from the schedule), so
-    that a checkpoint written on one device restores onto another; step
-    counts go where the kept form reads them (the device, for capturable
-    or fused)."""
+def _load_optimizer(optimizer: torch.optim.Optimizer, load: Callable[[], object]) -> None:
+    """load() (which loads a saved state into the optimizer), keeping each
+    group's _OWN_GROUP_KEYS (the next step sets the rate from the
+    schedule), so that a checkpoint written on one device restores onto
+    another; step counts go where the kept form reads them (the device,
+    for capturable or fused)."""
     own = [{k: g[k] for k in _OWN_GROUP_KEYS if k in g} for g in optimizer.param_groups]
-    optimizer.load_state_dict(saved)
+    load()
     for group, kept in zip(optimizer.param_groups, own):
         group.update(kept)
         on_device = group.get("capturable") or group.get("fused")
@@ -865,6 +974,87 @@ def _load_optimizer(optimizer: torch.optim.Optimizer, saved: Dict[str, Any]) -> 
             st = optimizer.state.get(param, {})
             if on_device and isinstance(st.get("step"), torch.Tensor):
                 st["step"] = st["step"].to(param.device, torch.float32)
+
+
+def _param_names(state: TrainState) -> List[str]:
+    """The model's parameter names in the optimizer's order (it was built
+    from model.parameters()): what an index of optimizer.state_dict()
+    stands for."""
+    return [name for name, _ in state.model.named_parameters()]
+
+
+def state_payload(state: TrainState) -> Optional[Dict[str, Any]]:
+    """What a checkpoint holds: {"step", "model": the model's state_dict,
+    "optimizer": the optimizer's state_dict, parameters keyed by index},
+    full tensors at any world size. Under FSDP2 they are gathered (a
+    collective: every rank calls this) onto rank 0's CPU, and the other
+    ranks get None; otherwise the tensors are the live ones."""
+    if not sharding_lib.is_fully_sharded(state.model):
+        return {"step": int(state.step), "model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict()}
+    from torch.distributed.checkpoint.state_dict import (
+        StateDictOptions,
+        get_model_state_dict,
+        get_optimizer_state_dict,
+    )
+
+    options = StateDictOptions(full_state_dict=True, cpu_offload=True)
+    model = get_model_state_dict(state.model, options=options)
+    optim = get_optimizer_state_dict(state.model, state.optimizer, options=options)
+    if not distributed.is_coordinator():
+        return None
+    index = {name: i for i, name in enumerate(_param_names(state))}
+    optim = {
+        "state": {index[name]: value for name, value in optim["state"].items()},
+        "param_groups": [
+            {**group, "params": [index[name] for name in group["params"]]}
+            for group in optim["param_groups"]
+        ],
+    }
+    return {"step": int(state.step), "model": model, "optimizer": optim}
+
+
+def _apply_payload(state: TrainState, payload: Dict[str, Any]) -> TrainState:
+    """Load a checkpoint's payload into `state` in place. Under FSDP2
+    (a collective: every rank calls this with the full payload) each rank
+    keeps its shards."""
+    if not sharding_lib.is_fully_sharded(state.model):
+        state.model.load_state_dict(payload["model"])
+        _load_optimizer(state.optimizer,
+                        lambda: state.optimizer.load_state_dict(payload["optimizer"]))
+    else:
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions,
+            set_model_state_dict,
+            set_optimizer_state_dict,
+        )
+
+        options = StateDictOptions(full_state_dict=True)
+        set_model_state_dict(state.model, payload["model"], options=options)
+        names = _param_names(state)
+        saved = payload["optimizer"]
+        optim = {
+            "state": {names[i]: value for i, value in saved["state"].items()},
+            "param_groups": [
+                {**group, "params": [names[i] for i in group["params"]]}
+                for group in saved["param_groups"]
+            ],
+        }
+        _load_optimizer(state.optimizer, lambda: set_optimizer_state_dict(
+            state.model, state.optimizer, optim, options=options))
+    state.step = int(payload["step"])
+    return state
+
+
+def _tensors(obj) -> Iterator[torch.Tensor]:
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for value in obj.values():
+            yield from _tensors(value)
+    elif isinstance(obj, (list, tuple)):
+        for value in obj:
+            yield from _tensors(value)
 
 
 def _clone_tree(obj, tensor_fn):
@@ -880,9 +1070,10 @@ def _clone_tree(obj, tensor_fn):
 class Checkpointer:
     """The port's checkpoint format, in place of the reference's orbax
     manager (trainer.py:859-909): one directory per step, named by the
-    step, holding `state.pt` (torch.save of {"step", "model": the model's
-    state_dict with its BatchNorm running statistics, "optimizer": the
-    optimizer's state_dict}). The newest `keep` steps are kept.
+    step, holding `state.pt` (torch.save of state_payload's {"step",
+    "model": the model's state_dict with its BatchNorm running statistics,
+    "optimizer": the optimizer's state_dict}), the same at any world
+    size. The newest `keep` steps are kept.
 
     A step is written under a temporary name in the same directory and
     then renamed into place (os.replace), so a reader (a restart, the
@@ -926,19 +1117,19 @@ class Checkpointer:
         return os.path.join(self.directory, str(step), CHECKPOINT_FILE)
 
     def save(self, step: int, state: TrainState, block: bool = True) -> None:
+        """Write `state` (a single process's) at `step`."""
+        self.write(step, {**state_payload(state), "step": int(step)}, block=block)
+
+    def write(self, step: int, payload: Dict[str, Any], block: bool = True) -> None:
+        """Write a state_payload at `step`, snapshotting its tensors first."""
         self.wait()
-        payload = {
-            "step": int(step),
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-        }
         event = None
         if block:
             payload = _clone_tree(payload, lambda t: t.detach().to("cpu", copy=True))
             self._write(step, payload, None)
             return
         payload = _clone_tree(payload, lambda t: t.detach().clone())
-        if any(t.is_cuda for t in state.model.parameters()):
+        if any(t.is_cuda for t in _tensors(payload)):
             event = torch.cuda.Event()
             event.record()
         self._thread = threading.Thread(
@@ -991,10 +1182,7 @@ class Checkpointer:
             payload = torch.load(self.path(step), map_location="cpu", weights_only=True)
         except FileNotFoundError:
             return None
-        state.model.load_state_dict(payload["model"])
-        _load_optimizer(state.optimizer, payload["optimizer"])
-        state.step = int(payload["step"])
-        return state
+        return _apply_payload(state, payload)
 
     def restore_latest(self, state: TrainState) -> Optional[TrainState]:
         self.wait()
