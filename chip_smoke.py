@@ -132,6 +132,30 @@ non-zero, printing no result:
    statistic), and two f32 controls, BN not synced and sums all-reduced
    without a gradient, that must fail those bounds; K4 26 and K5 13
    launches per step per rank.
+26. serve - GPT-small (12 x 768, 6 heads of 128, vocab 32000, max_seq_len
+   2048, bf16, random weights from a seed) behind
+   serve.make_server(batching="continuous") at the server's defaults (8
+   slots, paged KV in 64-token blocks, the dense-equivalent pool, 64-token
+   prefill chunks), on 127.0.0.1: 32 seeded requests (prompts of 16-1024
+   tokens, half sharing a 512-token prefix, 32-128 new tokens, 4 over
+   /generate_stream) from 8 threads of the port's DecodeClient. Reported:
+   requests/s, tokens/s, TTFT and inter-token p50/p95 from the server's
+   /metrics, the engine's counters, captures, KV bytes, peak memory, and
+   the paged step at 8 active slots as its CUDA graph and eagerly (ms, and
+   device ms by kind with the busy share from torch.profiler; the weight
+   casts alone). Held: every served chain against the port's inline
+   generate (one batched ragged call), differing first only at a decision
+   whose top-2 margin is at most SERVE_MARGIN_ULPS bf16 ulps; every served
+   chain teacher-forced through the engine's captured step and prefill
+   chunk: the step's logits (an output of its graph) against
+   GPTDecodeStep's over the same keys and values at every position
+   (SERVE_STEP_LOGIT_RTOL), the chunks' keys and values against
+   GPTPrefill's (SERVE_PREFILL_KV_RTOL), every served token the step's
+   argmax but at a near-tie; a planted control (a mask one past the index
+   in the step, a causal leak of one in the chunk) that must fail both
+   bounds; the same requests through a kv_layout="dense" engine (the
+   margin rule); one capture of the step and of the prefill chunk; no
+   launch of K1-K5; the server shut down and the engine threads joined.
 Then the kernel summary line (with each kernel's launches per run_steps
 replay and per step per rank at world 2), the nvidia-smi line, and the
 result line. `chip_smoke.py --world2-rank <dir>` is one rank of phases
@@ -2662,6 +2686,601 @@ def f32_within(readings: dict) -> bool:
             and readings["worst_stat_rel"][1] <= SYNCBN_F32_STAT_RTOL)
 
 
+# the serve phase: GPT-small behind make_server(batching="continuous") at the
+# server's defaults (8 slots, paged, 64-token blocks, the dense-equivalent pool
+# of 8 x 32 blocks, 64-token prefill chunks)
+SERVE_SEED = 9
+SERVE_SLOTS = 8
+SERVE_BLOCK = 64
+SERVE_CHUNK = 64
+SERVE_REQUESTS = 32
+SERVE_CLIENTS = 8
+SERVE_STREAMS = 4
+SERVE_PREFIX = 512
+SERVE_PROMPT = (16, 1024)
+SERVE_NEW = (32, 128)
+# A chain may first differ from another path's only at a decision whose top-2
+# margin is at most SERVE_MARGIN_ULPS bf16 ulps of its top logit (the logits
+# are bf16; GPT-small's top logits with random weights sit in [2, 8), an ulp
+# of 1/64 or 1/32). Two paths that round differently through 12 layers (a
+# batch of 8 slots over a 2048-position gather against a batch of 32 over the
+# chains' length; 64-token prefill chunks against one token a step) may turn
+# such a near-tie either way: the first differences read sit at 0 to 2 ulps,
+# and 16% of all decisions within 2 (GPT-small on an H100).
+SERVE_MARGIN_ULPS = 2
+# The captured step's logits, teacher-forced along the served chains, against
+# GPTDecodeStep's over a dense cache holding the same prompt keys and values
+# and fed the same tokens (the same einsum shapes): relative L2 at each
+# position. A quarter of a bf16 ulp (2^-8 relative): the two run the same
+# operations on the same values, and read 0 at every position on an H100.
+SERVE_STEP_LOGIT_RTOL = 1e-3
+# The prompt keys and values the captured prefill chunks wrote, against
+# GPTPrefill's over the same tokens: relative L2, worst layer of k or v. The
+# chunks' GEMMs (64 rows) and attention widths differ from one prompt-long
+# pass, so the two round apart in bf16 (worst 9.8e-3 on an H100).
+SERVE_PREFILL_KV_RTOL = 2e-2
+SERVE_STEP_REPS = 20
+SERVE_PROFILE_STEPS = 10
+SERVE_CATEGORIES = (
+    ("indexing (pool gather, KV scatter, embedding)", ("index",)),
+    ("GEMM", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "splitk")),
+    ("softmax", ("softmax",)),
+    ("layer norm", ("layer_norm", "layernorm")),
+    ("copies and casts", ("copy",)),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise", ("elementwise", "functor")),
+)
+
+
+def serve_requests(cfg) -> list:
+    """SERVE_REQUESTS requests from a seeded generator: prompt lengths in
+    SERVE_PROMPT, SERVE_NEW new tokens each; half share one SERVE_PREFIX-token
+    prefix (two of them are that prefix alone, whose second admission copies
+    the cached tail block), SERVE_STREAMS of the rest go over /generate_stream.
+    Request 0 is the prefix alone, sent first, so the prefix is published."""
+    import numpy as np
+
+    rng = np.random.default_rng(SERVE_SEED)
+    prefix = rng.integers(0, cfg.vocab_size, SERVE_PREFIX).tolist()
+    reqs = []
+    for i in range(SERVE_REQUESTS):
+        new = int(rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1))
+        if i < 2:
+            prompt = list(prefix)
+        elif i < SERVE_REQUESTS // 2:
+            tail = int(rng.integers(1, SERVE_PROMPT[1] - SERVE_PREFIX + 1))
+            prompt = prefix + rng.integers(0, cfg.vocab_size, tail).tolist()
+        else:
+            p = int(rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))
+            prompt = rng.integers(0, cfg.vocab_size, p).tolist()
+        reqs.append({"prompt": prompt, "new": new, "stream": False})
+    for i in rng.choice(np.arange(1, SERVE_REQUESTS), SERVE_STREAMS, replace=False):
+        reqs[int(i)]["stream"] = True
+    return reqs
+
+
+def serve_load(client, reqs) -> dict:
+    """Request 0 alone, then the rest from SERVE_CLIENTS client threads (each
+    takes the next request in a seeded order); -> each request's chain, and
+    the wall seconds of the concurrent part."""
+    import queue as queue_mod
+    import threading
+
+    def one(i):
+        req = reqs[i]
+        if req["stream"]:
+            events = list(client.generate_stream(req["prompt"], max_new_tokens=req["new"]))
+            tokens = [e["token"] for e in events if "token" in e]
+            chain = events[-1]["tokens"][0]
+            if chain != req["prompt"] + tokens:
+                raise AssertionError(f"request {i}: streamed tokens differ from the done event")
+            return chain
+        return client.generate([req["prompt"]], max_new_tokens=req["new"])[0]
+
+    reqs[0]["chain"] = one(0)
+    todo: queue_mod.Queue = queue_mod.Queue()
+    for i in range(1, len(reqs)):
+        todo.put(i)
+    errors = []
+
+    def worker():
+        while True:
+            try:
+                i = todo.get_nowait()
+            except queue_mod.Empty:
+                return
+            try:
+                reqs[i]["chain"] = one(i)
+            except Exception as err:  # noqa: BLE001 — raised below
+                errors.append((i, err))
+
+    threads = [threading.Thread(target=worker) for _ in range(SERVE_CLIENTS)]
+    start = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.monotonic() - start
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serve load failed: {errors[:3]}")
+    return {"wall_s": wall, "requests": len(reqs) - 1,
+            "tokens": sum(r["new"] for r in reqs[1:])}
+
+
+def by_category(kernels, steps: int, categories) -> dict:
+    out = {}
+    for e in kernels:
+        name = next((n for n, keys in categories if any(k in e.key.lower() for k in keys)), "other")
+        out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / steps
+    return out
+
+
+def serve_step_timings(engine) -> dict:
+    """The paged step at SERVE_SLOTS active slots (each at position 1023 of its
+    own 32 blocks, the pool's 256 usable blocks), called from this thread once
+    the engine is stopped: median wall ms a step (inputs copied, step, next
+    tokens to the host) as the captured graph's replay and as the same step
+    launched eagerly; then a torch.profiler window of SERVE_PROFILE_STEPS of
+    each: device ms a step by kind and the busy share; and the device ms of
+    the weight casts alone (every dense weight to bf16, as each step casts
+    them), from a profiler window of SERVE_PROFILE_STEPS sets of casts."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    step = engine.step
+    n, mb = engine.n_slots, engine.max_blocks
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    args = (rng.integers(0, engine.cfg.vocab_size, n).astype(np.int32),
+            np.full(n, 1023, np.int32), np.zeros((n, engine.max_total), np.int32),
+            np.ones(n, np.int32), (1 + np.arange(n * mb, dtype=np.int32)).reshape(n, mb))
+    runs = {"graph": lambda: step(*args).cpu(), "eager": lambda: step.run_eager(*args).cpu()}
+    out = {"active_slots": n, "index": 1023}
+    def window(fn, steps):
+        """Device kernels, wall ms and device ms of `steps` calls of fn."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.monotonic()
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.monotonic() - start) * 1e3
+        kernels = device_kernels(prof)
+        return kernels, wall, sum(e.self_device_time_total for e in kernels) / 1e3
+
+    for name, fn in runs.items():
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(SERVE_STEP_REPS):
+            torch.cuda.synchronize()
+            start = time.monotonic()
+            fn()
+            times.append((time.monotonic() - start) * 1e3)
+        out[f"{name}_ms_per_step"] = statistics.median(times)
+        kernels, wall, device_ms = window(fn, SERVE_PROFILE_STEPS)
+        out[f"{name}_profile"] = {
+            "wall_ms_per_step": wall / SERVE_PROFILE_STEPS,
+            "device_ms_per_step": device_ms / SERVE_PROFILE_STEPS if device_ms else None,
+            "device_busy_share": device_ms / wall if device_ms else None,
+            "kernels_per_step": sum(e.count for e in kernels) / SERVE_PROFILE_STEPS,
+            "ms_per_step_by_kind": by_category(kernels, SERVE_PROFILE_STEPS, SERVE_CATEGORIES),
+            "top": [{"kernel": e.key[:200], "calls_per_step": e.count / SERVE_PROFILE_STEPS,
+                     "ms_per_step": e.self_device_time_total / 1e3 / SERVE_PROFILE_STEPS}
+                    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]],
+        }
+    weights = [p for name, p in engine.model.named_parameters()
+               if "embed" not in name and ".ln_" not in name and not name.startswith("ln_")]
+
+    def casts():
+        with torch.no_grad():
+            return [w.to(torch.bfloat16) for w in weights]
+
+    casts()
+    _, _, cast_ms = window(casts, SERVE_PROFILE_STEPS)
+    cast_ms /= SERVE_PROFILE_STEPS
+    cfg = engine.cfg
+    gathered = 2 * cfg.num_layers * n * mb * engine.pool.block_size * cfg.hidden_size * 2
+    out.update({
+        "weight_cast_device_ms_per_step": cast_ms,
+        "weight_casts_per_step": len(weights),
+        "weight_cast_params": sum(w.numel() for w in weights),
+        "weight_cast_share_of_eager_device": (
+            cast_ms / out["eager_profile"]["device_ms_per_step"]
+            if out["eager_profile"]["device_ms_per_step"] else None),
+        "gathered_kv_bytes_per_step": gathered,
+        "gathered_kv_bytes_note": "pool[tables] for k and v in every layer, bf16",
+    })
+    # the timings wrote into real pool blocks: their cached prompts are gone
+    engine.pool.flush()
+    return out
+
+
+def inline_chains(gpt_lib, model, reqs):
+    """The port's inline generate over every request in one batched ragged
+    call (models/gpt.py _decode, the path generate takes for ragged lengths),
+    with the greedy sampler wrapped to keep each step's bf16 logits. -> chains
+    [b, total] and logits [total - 1, b, vocab] (step i predicts position i+1)."""
+    b = len(reqs)
+    width = max(len(r["prompt"]) for r in reqs)
+    new = max(r["new"] for r in reqs)
+    prompt = torch.zeros((b, width), dtype=torch.long)
+    for i, r in enumerate(reqs):
+        prompt[i, :len(r["prompt"])] = torch.tensor(r["prompt"])
+    prompt = prompt.cuda()
+    lens = torch.tensor([len(r["prompt"]) for r in reqs], device="cuda")
+    kept = []
+
+    def greedy(logits):
+        kept.append(logits.clone())
+        return logits.argmax(dim=-1)
+
+    with torch.no_grad():
+        generated = gpt_lib._decode(model, prompt, lens, width + new, greedy, ragged=True)
+    return torch.cat([prompt[:, :1], generated], dim=1), torch.stack(kept)
+
+
+def first_diff(a: list, b: list):
+    for j, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return j
+    return None
+
+
+def decisions(logits: torch.Tensor) -> torch.Tensor:
+    """[..., vocab] bf16 logits -> [..., 3] f32: each row's argmax, top-2
+    margin, and the margin under which a near-tie may fall either way
+    (SERVE_MARGIN_ULPS bf16 ulps of the top logit)."""
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    exponent = torch.floor(torch.log2(top[..., 0].abs().clamp(min=2.0 ** -126)))
+    bound = SERVE_MARGIN_ULPS * torch.exp2(exponent - 7)
+    return torch.stack([logits.argmax(dim=-1).float(), top[..., 0] - top[..., 1], bound], -1)
+
+
+def rel_rows(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Relative L2 of each row (last dim) of got against want."""
+    got, want = got.float(), want.float()
+    return (got - want).norm(dim=-1) / want.norm(dim=-1)
+
+
+def replay_served(gpt_lib, step, model, group, chunk: int) -> list:
+    """Teacher-force the served chains of `group` (at most step.n_slots
+    requests, one a slot) through `step`'s captured programs as the engine
+    runs a request admitted without the prefix cache: the prompt's whole
+    chunks ((p - 1) // chunk of them) through the prefill chunk, then the
+    step from there to the chain's end, each row forced along its served
+    chain (prompt = the chain, lens = its length). Each slot owns its own
+    max_blocks blocks of the pool, zeroed first. Beside the step runs
+    GPTDecodeStep (the inline path's step) over a dense cache that holds
+    the same prompt keys and values (copied from the pool once the chunks
+    ran) and is fed the same tokens at the same positions.
+    -> per request: "prefill_kv_rel", the chunks' keys and values against
+    GPTPrefill's over the same tokens (worst relative L2 of a layer's k or
+    v; None without a whole chunk); "logit_rel", the step's logits against
+    GPTDecodeStep's at every position it ran (relative L2); "decisions"
+    [new, 3], `decisions` of the step's logits at positions p-1 .. L-2."""
+    import numpy as np
+
+    cfg, device = model.cfg, step.device
+    n, mb, total = step.n_slots, step.max_blocks, step.max_total
+    step.init_cache()
+    tables = (1 + np.arange(n * mb, dtype=np.int32)).reshape(n, mb)
+    chains = [r["chain"] for r in group]
+    starts = []
+    for s, r in enumerate(group):
+        k = (len(r["prompt"]) - 1) // chunk
+        for c in range(k):
+            step.prefill(np.asarray([chains[s][c * chunk:(c + 1) * chunk]], np.int32),
+                         c * chunk, tables[s])
+        starts.append(k * chunk)
+    dense = gpt_lib.KVCache.zeros(cfg, n, total, device)
+    kv_rel = []
+    for s, start in enumerate(starts):
+        if not start:
+            kv_rel.append(None)
+            continue
+        ref = gpt_lib.KVCache.zeros(cfg, 1, start, device)
+        gpt_lib.GPTPrefill(model)(torch.tensor([chains[s][:start]], device=device), ref)
+        table = torch.as_tensor(tables[s], device=device).long()
+        worst = 0.0
+        for pools, denses, refs in ((step.cache.keys, dense.keys, ref.keys),
+                                    (step.cache.values, dense.values, ref.values)):
+            for pool, layer, want in zip(pools, denses, refs):
+                got = pool[table].reshape(-1, *pool.shape[2:])[:start]
+                layer[s, :start] = got
+                worst = max(worst, rel(got, want[0]))
+        kv_rel.append(worst)
+    prompt = np.zeros((n, total), np.int32)
+    lens = np.ones(n, np.int32)
+    for s, chain in enumerate(chains):
+        prompt[s, :len(chain)] = chain
+        lens[s] = len(chain)
+    index = np.zeros(n, np.int32)
+    index[:len(starts)] = starts
+    decode = gpt_lib.GPTDecodeStep(model)
+    rows, indices = [], []
+    for _ in range(max(len(c) - 1 - st for c, st in zip(chains, starts))):
+        live = index <= lens - 2
+        idx = np.where(live, index, 0)
+        tok = prompt[np.arange(n), idx] * live
+        step(tok, idx, prompt, np.where(live, lens, 1), tables * live[:, None])
+        want = decode(torch.as_tensor(tok, device=device).long(),
+                      torch.as_tensor(idx, device=device).long(), dense)
+        rows.append(torch.cat([rel_rows(step.logits, want)[:, None],
+                               decisions(step.logits)], dim=1))
+        indices.append(np.where(live, index, -1))
+        index = index + 1
+    got = torch.stack(rows).cpu().numpy()  # [steps, n, 4]
+    indices = np.stack(indices)
+    out = []
+    for s, r in enumerate(group):
+        ran = indices[:, s] >= 0
+        decided = indices[:, s] >= len(r["prompt"]) - 1
+        out.append({"prefill_kv_rel": kv_rel[s], "logit_rel": got[ran, s, 0],
+                    "decisions": got[decided, s, 1:]})
+    return out
+
+
+class _PlantedDecodeStep:
+    """PagedDecodeStep with a planted fault: each row attends one position
+    past its own (index + 1, a zeroed pool position)."""
+
+    def __init__(self, model) -> None:
+        self.model = model
+
+    @torch.no_grad()
+    def __call__(self, token, index, tables, pool):
+        from tf_operator_tpu_torch.models import gpt as gpt_lib
+
+        model = self.model
+        x = model.embed(token[:, None], index[:, None])
+        positions = torch.arange(tables.shape[1] * pool.keys[0].shape[1], device=token.device)
+        valid = (positions[None, :] <= index[:, None] + 1)[:, None, None, :]
+        for block, keys, values in zip(model.blocks(), pool.keys, pool.values):
+            x = block(x, valid, gpt_lib._paged_attention(keys, values, index, tables))
+        return model.head(x)[:, 0]
+
+
+class _PlantedPrefillChunk:
+    """PagedPrefillChunk with a planted fault: each query of the chunk
+    also sees the next position (a causal leak of one)."""
+
+    def __init__(self, model) -> None:
+        self.model = model
+
+    @torch.no_grad()
+    def __call__(self, tokens, start, table, pool):
+        from tf_operator_tpu_torch.models import gpt as gpt_lib
+
+        model = self.model
+        positions = start + torch.arange(tokens.shape[1], device=tokens.device)
+        x = model.embed(tokens, positions[None])
+        keys_at = torch.arange(table.shape[0] * pool.keys[0].shape[1], device=tokens.device)
+        mask = (keys_at[None, :] <= positions[:, None] + 1)[None, None]
+        for block, keys, values in zip(model.blocks(), pool.keys, pool.values):
+            x = block(x, mask, gpt_lib._paged_prefill_attention(keys, values, positions, table))
+        return x
+
+
+def planted_replay(gpt_lib, engine, group, chunk: int) -> dict:
+    """The control that the replay's checks must fail: a PagedSlotDecodeStep
+    like the engine's (its own pool, its own captures) built with two planted
+    faults, each read by its own check (the step's logits against
+    GPTDecodeStep's see only the mask past the index, the chunks' keys and
+    values against GPTPrefill's only the causal leak), replayed along
+    `group`'s served chains. -> the worst reading of each check, and the
+    count of decisions where the faulty step's argmax is not the served
+    token at a margin above the bound (what the margin rule would read)."""
+    saved = gpt_lib.PagedDecodeStep, gpt_lib.PagedPrefillChunk
+    gpt_lib.PagedDecodeStep, gpt_lib.PagedPrefillChunk = _PlantedDecodeStep, _PlantedPrefillChunk
+    try:
+        step = gpt_lib.PagedSlotDecodeStep(engine.model, engine.n_slots, engine.max_total,
+                                           engine.step.block_size, engine.step.num_blocks)
+        got = replay_served(gpt_lib, step, engine.model, group, chunk)
+    finally:
+        gpt_lib.PagedDecodeStep, gpt_lib.PagedPrefillChunk = saved
+    flips = sum(int(token) != want and m > bound
+                for r, g in zip(group, got)
+                for (token, m, bound), want in zip(g["decisions"].tolist(),
+                                                   r["chain"][len(r["prompt"]):]))
+    return {"logit_rel_worst": max(float(r["logit_rel"].max()) for r in got),
+            "prefill_kv_rel_worst": max(r["prefill_kv_rel"] or 0.0 for r in got),
+            "decisions_flipped_above_margin": flips,
+            "captures": (step.compiles, step.prefill_compiles)}
+
+
+def run_serve(kernels, gpt_lib, smi) -> dict:
+    """serve: GPT-small (12 x 768, 6 heads of 128, vocab 32000, max_seq_len
+    2048, bf16 compute, random weights from SERVE_SEED) behind
+    make_server(batching="continuous") at the server's defaults, on
+    127.0.0.1, through the port's DecodeClient (serve_requests, serve_load).
+    Reports requests/s, generated tokens/s, TTFT and inter-token p50/p95 from
+    the server's /metrics histograms, the engine's counters, captures, KV pool
+    bytes, peak memory and the step's timings (serve_step_timings). Holds:
+    each served chain against the port's inline generate (one batched ragged
+    call), differing first only within SERVE_MARGIN_ULPS; every served chain
+    teacher-forced through the engine's captured programs (replay_served):
+    the step's logits against GPTDecodeStep's at every position
+    (SERVE_STEP_LOGIT_RTOL), the chunks' keys and values against GPTPrefill's
+    (SERVE_PREFILL_KV_RTOL), each served token the step's argmax or a
+    near-tie; a planted control that must fail both (planted_replay); the
+    same requests through a kv_layout="dense" engine (the margin rule); one
+    capture of the step and of the prefill chunk; a clean shutdown with the
+    engine thread joined. No kernel of K1-K5 runs on this path: their counts
+    must stay 0."""
+    import threading
+
+    import numpy as np
+
+    from tf_operator_tpu_torch.serve import DecodeClient, make_server
+    from tf_operator_tpu_torch.serve.engine import ContinuousBatchingEngine
+    from tf_operator_tpu_torch.telemetry import quantile_from_flat, validate_text
+
+    cfg = gpt_lib.GPT_SMALL
+    model = gpt_lib.GPT(cfg, generator=torch.Generator().manual_seed(SERVE_SEED), device="cuda")
+    reqs = serve_requests(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    start = time.monotonic()
+    server = make_server(model, batching="continuous", n_slots=SERVE_SLOTS, kv_layout="paged",
+                         block_size=SERVE_BLOCK, kv_blocks=0, prefill_chunk=SERVE_CHUNK,
+                         device="cuda", max_new_cap=SERVE_NEW[1])
+    startup_s = time.monotonic() - start
+    engine = server.state.engine
+    listener = threading.Thread(target=server.serve_forever, daemon=True)
+    listener.start()
+    try:
+        client = DecodeClient(f"http://127.0.0.1:{server.server_address[1]}", timeout=600)
+        load = serve_load(client, reqs)
+        text = client.metrics_text()
+        validate_text(text)
+        flat = client.metrics()
+        health = client.healthy()
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+        listener.join(timeout=30)
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prefix = "tf_operator_tpu_serve_"
+    report = {
+        "phase": "serve", "card": smi, "model": "GPT-small", "slots": SERVE_SLOTS,
+        "kv_layout": "paged", "block_size": SERVE_BLOCK, "prefill_chunk": SERVE_CHUNK,
+        "kv_blocks": engine.pool.total, "requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS,
+        "streams": SERVE_STREAMS, "startup_s": startup_s,
+        "requests_per_s": load["requests"] / load["wall_s"],
+        "generated_tokens_per_s": load["tokens"] / load["wall_s"],
+        "load_wall_s": load["wall_s"],
+        **{f"{name}_{q}_s": quantile_from_flat(flat, prefix + family, p)
+           for name, family in (("ttft", "ttft_seconds"), ("itl", "inter_token_seconds"))
+           for q, p in (("p50", 0.5), ("p95", 0.95))},
+        "steps": engine.steps,
+        "mean_active_slots": engine.row_steps / max(engine.steps, 1),
+        "prefill_chunks": engine.prefill_chunks,
+        "prefix_hits": engine.pool.hits, "cow_copies": engine.pool.cow_copies,
+        "compiles": engine.step.compiles, "prefill_compiles": engine.step.prefill_compiles,
+        "copy_compiles": engine.step.copy_compiles,
+        "kv_bytes_total": engine.step.kv_bytes_total, "peak_memory_gb": peak_gb,
+        "engine_seconds": {k: getattr(engine, k) for k in (
+            "decode_seconds", "prefill_seconds", "admit_seconds", "dispatch_seconds",
+            "sync_seconds", "fanout_seconds")},
+        "launches": launches, "healthz": health["status"],
+        "engine_thread_joined": not engine.thread.is_alive(),
+    }
+    report["step"] = serve_step_timings(engine)
+
+    # held: the port's inline generate, one batched ragged call
+    chains, logits = inline_chains(gpt_lib, model, reqs)
+    differ, inline_decisions = [], []
+    for i, r in enumerate(reqs):
+        p, served = len(r["prompt"]), r["chain"]
+        inline = chains[i, :p + r["new"]].tolist()
+        # step k decides position k + 1
+        inline_decisions.append(decisions(logits[p - 1:p + r["new"] - 1, i]).cpu())
+        j = first_diff(served, inline)
+        if j is not None:
+            _, m, bound = inline_decisions[-1][j - p].tolist()
+            differ.append({"request": i, "position": j, "inline_margin": m, "bound": bound})
+    del logits
+    free_device_memory()
+    # held: every served chain teacher-forced through the engine's captured
+    # programs, in groups of SERVE_SLOTS chains of similar length
+    order = sorted(range(len(reqs)), key=lambda i: len(reqs[i]["chain"]))
+    groups = [[reqs[i] for i in order[k:k + SERVE_SLOTS]]
+              for k in range(0, len(order), SERVE_SLOTS)]
+    start = time.monotonic()
+    for group in groups:
+        for r, got in zip(group, replay_served(gpt_lib, engine.step, model, group,
+                                               SERVE_CHUNK)):
+            r.update(got)
+    replay_s = time.monotonic() - start
+    replay_differ = []
+    for i, r in enumerate(reqs):
+        want = r["chain"][len(r["prompt"]):]
+        for k, (token, m, bound) in enumerate(r["decisions"].tolist()):
+            if int(token) != want[k]:
+                replay_differ.append({"request": i, "position": len(r["prompt"]) + k,
+                                      "margin": m, "bound": bound})
+    # the control: planted faults the replay's checks must fail (the
+    # shortest chains, where one position more or less weighs most)
+    planted = planted_replay(gpt_lib, engine, groups[0], SERVE_CHUNK)
+    # the same requests through a dense engine
+    dense = ContinuousBatchingEngine(model, n_slots=SERVE_SLOTS, kv_layout="dense", device="cuda")
+    try:
+        handles = [dense.submit(r["prompt"], r["new"]) for r in reqs]
+        dense_chains = [h.result(600) for h in handles]
+    finally:
+        dense.stop()
+    dense_differ = []
+    for i, (r, got) in enumerate(zip(reqs, dense_chains)):
+        j = first_diff(got, r["chain"])
+        if j is not None:
+            # the replay's decision at position j (step j - 1)
+            _, m, bound = r["decisions"][j - len(r["prompt"])].tolist()
+            dense_differ.append({"request": i, "position": j, "served_margin": m,
+                                 "bound": bound})
+    inline_all = torch.cat(inline_decisions).numpy()
+    served_all = np.concatenate([r["decisions"] for r in reqs])
+    served_margins = served_all[:, 1]
+    logit_rel = np.concatenate([r["logit_rel"] for r in reqs])
+    kv_rel = [r["prefill_kv_rel"] for r in reqs if r["prefill_kv_rel"] is not None]
+    report.update({
+        "margin_ulps": SERVE_MARGIN_ULPS,
+        "chains_differing_from_inline": len(differ), "inline_differences": differ,
+        "decisions": len(served_all),
+        "inline_share_of_decisions_within_margin": float(
+            (inline_all[:, 1] <= inline_all[:, 2]).mean()),
+        "served_share_of_decisions_within_margin": float(
+            (served_all[:, 1] <= served_all[:, 2]).mean()),
+        "served_margin_quantiles": {
+            q: float(np.quantile(served_margins, q)) for q in (0.01, 0.1, 0.5, 0.9)},
+        "replay_seconds": replay_s,
+        "replay_positions": len(logit_rel),
+        "replay_logit_rel_l2": {"worst": float(logit_rel.max()),
+                                "median": float(np.median(logit_rel)),
+                                "exact_share": float((logit_rel == 0).mean())},
+        "replay_logit_rtol": SERVE_STEP_LOGIT_RTOL,
+        "replay_decisions_differing_from_served": len(replay_differ),
+        "replay_differences": replay_differ[:10],
+        "prefill_kv_rel_l2_worst": max(kv_rel), "prefill_kv_rtol": SERVE_PREFILL_KV_RTOL,
+        "planted": planted,
+        "dense_chains_differing": len(dense_differ), "dense_differences": dense_differ,
+        "dense_compiles": dense.step.compiles,
+    })
+    emit(report)
+    free_device_memory()
+    problems = []
+    if any(d["inline_margin"] > d["bound"] for d in differ):
+        problems.append("a served chain differs from the inline chain at a decision above the margin")
+    if any(d["margin"] > d["bound"] for d in replay_differ):
+        problems.append("a served token is not the replayed step's argmax above the margin")
+    if any(d["served_margin"] > d["bound"] for d in dense_differ):
+        problems.append("a dense-engine chain differs at a decision above the margin")
+    if logit_rel.max() > SERVE_STEP_LOGIT_RTOL:
+        problems.append("the captured step's logits differ from GPTDecodeStep's")
+    if max(kv_rel) > SERVE_PREFILL_KV_RTOL:
+        problems.append("the captured prefill chunks' keys and values differ from GPTPrefill's")
+    if planted["logit_rel_worst"] <= SERVE_STEP_LOGIT_RTOL:
+        problems.append("the planted mask fault passed the step's logit check")
+    if planted["prefill_kv_rel_worst"] <= SERVE_PREFILL_KV_RTOL:
+        problems.append("the planted causal leak passed the prefill check")
+    if not planted["decisions_flipped_above_margin"]:
+        problems.append("the planted faults flipped no decision above the margin")
+    if (engine.step.compiles, engine.step.prefill_compiles, dense.step.compiles) != (1, 1, 1):
+        problems.append("a program was captured other than once")
+    if engine.pool.hits == 0 or engine.pool.cow_copies == 0:
+        problems.append("the shared prefix gave no prefix hit or no copy-on-write")
+    if any(launches.values()):
+        problems.append(f"a kernel of K1-K5 launched on the serving path: {launches}")
+    if not report["engine_thread_joined"] or dense.thread.is_alive():
+        problems.append("an engine thread did not join")
+    if health["status"] != "ok":
+        problems.append(f"/healthz said {health['status']}")
+    if problems:
+        raise AssertionError(f"serve: {problems}")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs one CUDA card")
@@ -2756,6 +3375,9 @@ def main() -> int:
     run_profile_dir(bert_cli, smi)
     free_device_memory()
     world2 = run_distributed_phases(kernels, smi)
+    free_device_memory()
+    run_serve(kernels, gpt_lib, smi)
+    free_device_memory()
 
     lines = [
         {

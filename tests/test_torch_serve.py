@@ -1,0 +1,601 @@
+"""The port's serving path (tf_operator_tpu_torch/models/gpt.py's slot and
+paged decode steps, serve/engine.py's BlockPool, serve/server.py and
+serve/client.py) held against the JAX package's on the CPU, in f32, on the
+same weights (the flax params carried across with models/convert.py) and
+the same numpy tokens and block tables.
+
+Tolerances: next tokens equal; KV caches and pools within 1e-5 absolute
+(the f32 differences of two frameworks summing the same products in other
+orders through 2 layers, as tests/test_torch_gpt.py's decode tests). The
+engine's chains against the reference engine's are in
+tests/test_torch_serve_engine.py. On the CPU each program of a step runs
+eagerly and its counter counts the first call; on a card it is a CUDA
+graph captured once, which chip_smoke.py's `serve` phase holds.
+"""
+
+import ast
+import dataclasses
+import json
+import os
+import signal
+import socket
+import subprocess
+import sys
+import threading
+import time
+import urllib.error
+import urllib.request
+
+import numpy as np
+import pytest
+import torch
+
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from tf_operator_tpu.models import gpt as jax_gpt
+    from tf_operator_tpu.serve import engine as jax_engine
+except ImportError:  # a card machine without JAX
+    jax = None
+
+from tf_operator_tpu_torch.models import gpt as torch_gpt
+from tf_operator_tpu_torch.models.convert import gpt_state_dict_from_flax
+from tf_operator_tpu_torch.serve import engine as torch_engine
+from tf_operator_tpu_torch.serve import server as torch_server
+from tf_operator_tpu_torch.serve.client import DecodeClient, DecodeError
+from tf_operator_tpu_torch.telemetry import validate_text
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT_ATOL = 1e-5
+BLOCKED = ("jax", "flax", "optax", "orbax", "tf_operator_tpu")
+NEW_MODULES = (
+    "tf_operator_tpu_torch.serve", "tf_operator_tpu_torch.serve.__main__",
+    "tf_operator_tpu_torch.serve.engine", "tf_operator_tpu_torch.serve.server",
+    "tf_operator_tpu_torch.serve.client", "tf_operator_tpu_torch.serve.prefix",
+    "tf_operator_tpu_torch.runtime.retry", "tf_operator_tpu_torch.telemetry.tracing",
+    "tf_operator_tpu_torch.telemetry.exposition", "tf_operator_tpu_torch.models.gpt",
+)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    """(reference f32 cfg, flax params, port f32 model) on one set of
+    weights."""
+    if jax is None:
+        pytest.skip("JAX is not installed")
+    jcfg = dataclasses.replace(jax_gpt.GPT_TINY, dtype=jnp.float32)
+    tcfg = dataclasses.replace(torch_gpt.GPT_TINY, dtype=torch.float32)
+    params = jax_gpt.GPT(jcfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
+    params = jax.tree_util.tree_map(np.array, params)
+    model = torch_gpt.GPT(tcfg)
+    model.load_state_dict(gpt_state_dict_from_flax(params))
+    return jcfg, params, model
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    """The port's GPT_TINY (bf16 compute) with random weights from a seed."""
+    return torch_gpt.GPT(torch_gpt.GPT_TINY, generator=torch.Generator().manual_seed(0))
+
+
+def _grid(seed, n, total, lens):
+    """A right-padded prompt grid [n, total] with each row's tokens."""
+    rng = np.random.default_rng(seed)
+    prompt = np.zeros((n, total), np.int32)
+    for i, length in enumerate(lens):
+        prompt[i, :length] = rng.integers(0, 512, length)
+    return prompt, np.asarray(lens, np.int32)
+
+
+def _pool_close(jcache, pool, blocks=slice(None)):
+    for layer in range(len(pool.keys)):
+        attn = jcache[f"layer_{layer}"]["attention"]
+        for name, got in (("k", pool.keys[layer]), ("v", pool.values[layer])):
+            np.testing.assert_allclose(got.numpy()[blocks], np.asarray(attn[name])[blocks],
+                                       atol=OUT_ATOL, err_msg=f"layer {layer} {name}")
+
+
+def test_slot_step_matches_jax(weights):
+    """SlotDecodeStep over a ragged 3-row grid for 12 steps (rows inside
+    their prompts forced, then greedy, one row idle at a 1-token prompt):
+    next tokens equal each step, the caches within OUT_ATOL."""
+    jcfg, params, model = weights
+    n, total = 3, 32
+    prompt, lens = _grid(0, n, total, [5, 9, 1])
+    jstep = jax_gpt.SlotDecodeStep(jcfg, n, total)
+    jcache = jstep.init_cache()
+    step = torch_gpt.SlotDecodeStep(model, n, total)
+    step.init_cache()
+    tok, index = prompt[:, 0].copy(), np.zeros(n, np.int32)
+    for i in range(12):
+        jcache, want = jstep(params, jcache, tok, index, prompt, lens)
+        got = step(tok, index, prompt, lens).numpy()
+        np.testing.assert_array_equal(got, np.asarray(want), err_msg=f"step {i}")
+        tok, index = got.astype(np.int32), index + 1
+    _pool_close(jcache, step.cache)
+    assert step.compiles == 1
+    assert step.kv_bytes_total == 2 * 2 * n * total * 128 * 4
+
+
+def _paged_case(seed=1):
+    """3 slots over 13 blocks of 8 (block 0 the sentinel), each slot's
+    4-block table a seeded draw of distinct blocks."""
+    n, total, bs, nb = 3, 32, 8, 13
+    prompt, lens = _grid(seed, n, total, [5, 9, 1])
+    perm = np.random.default_rng(seed).permutation(np.arange(1, nb))
+    tables = perm[:n * (total // bs)].reshape(n, total // bs).astype(np.int32)
+    return n, total, bs, nb, prompt, lens, tables
+
+
+def test_paged_step_matches_jax(weights):
+    """PagedSlotDecodeStep for 12 steps through block tables: next tokens
+    equal each step and equal the dense step's; the pool within OUT_ATOL
+    outside the sentinel block (whose contents are garbage by contract)."""
+    jcfg, params, model = weights
+    n, total, bs, nb, prompt, lens, tables = _paged_case()
+    jstep = jax_gpt.PagedSlotDecodeStep(jcfg, n, total, bs, nb)
+    jcache = jstep.init_cache()
+    step = torch_gpt.PagedSlotDecodeStep(model, n, total, bs, nb)
+    step.init_cache()
+    dense = torch_gpt.SlotDecodeStep(model, n, total)
+    tok, index = prompt[:, 0].copy(), np.zeros(n, np.int32)
+    for i in range(12):
+        jcache, want = jstep(params, jcache, tok, index, prompt, lens, tables)
+        got = step(tok, index, prompt, lens, tables).numpy()
+        np.testing.assert_array_equal(got, np.asarray(want), err_msg=f"step {i}")
+        np.testing.assert_array_equal(got, dense(tok, index, prompt, lens).numpy())
+        tok, index = got.astype(np.int32), index + 1
+    _pool_close(jcache, step.cache, slice(1, None))
+    assert step.compiles == 1
+    assert step.kv_bytes_total == jstep.kv_bytes_total
+
+
+def test_paged_prefill_and_copy_block_match_jax(weights):
+    """A 5-token prefill chunk at position 3 of a slot's table, then a
+    copy of one block into another: the pool within OUT_ATOL of the
+    reference's after each; one first call per program."""
+    jcfg, params, model = weights
+    n, total, bs, nb, _, _, tables = _paged_case(2)
+    jstep = jax_gpt.PagedSlotDecodeStep(jcfg, n, total, bs, nb)
+    jcache = jstep.init_cache()
+    step = torch_gpt.PagedSlotDecodeStep(model, n, total, bs, nb)
+    tokens = np.random.default_rng(3).integers(0, 512, (1, 5)).astype(np.int32)
+    jcache = jstep.prefill(params, jcache, tokens, 3, tables[0])
+    step.prefill(tokens, 3, tables[0])
+    _pool_close(jcache, step.cache, slice(1, None))
+    assert float(step.cache.keys[0][tables[0][0]].abs().sum()) > 0
+    jcache = jstep.copy_block(jcache, int(tables[0][0]), 12)
+    step.copy_block(int(tables[0][0]), 12)
+    _pool_close(jcache, step.cache, slice(1, None))
+    with pytest.raises(ValueError, match="chunk"):
+        step.prefill(tokens[:, :4], 0, tables[0])
+    assert (step.prefill_compiles, step.copy_compiles) == (1, 1)
+
+
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_step_logits_are_gpt_decode_steps(weights, layout):
+    """The logits a slot step exposes (an output of its program, which
+    chip_smoke.py's `serve` phase holds on the card) are GPTDecodeStep's
+    over a dense cache fed the same tokens, within OUT_ATOL, for 12 steps
+    of the ragged grid; outside its prompt a row's next token is their
+    argmax."""
+    _, _, model = weights
+    n, total, bs, nb, prompt, lens, tables = _paged_case()
+    if layout == "paged":
+        step = torch_gpt.PagedSlotDecodeStep(model, n, total, bs, nb)
+        run = lambda tok, index: step(tok, index, prompt, lens, tables)  # noqa: E731
+    else:
+        step = torch_gpt.SlotDecodeStep(model, n, total)
+        run = lambda tok, index: step(tok, index, prompt, lens)  # noqa: E731
+    ref = torch_gpt.GPTDecodeStep(model)
+    cache = torch_gpt.KVCache.zeros(model.cfg, n, total)
+    tok, index = prompt[:, 0].copy(), np.zeros(n, np.int32)
+    for i in range(12):
+        got = run(tok, index).numpy()
+        want = ref(torch.as_tensor(tok).long(), torch.as_tensor(index).long(), cache)
+        np.testing.assert_allclose(step.logits.numpy(), want.numpy(), atol=OUT_ATOL,
+                                   err_msg=f"step {i}")
+        free = index + 1 >= lens
+        np.testing.assert_array_equal(got[free], step.logits.numpy()[free].argmax(-1))
+        tok, index = got.astype(np.int32), index + 1
+
+
+@pytest.mark.parametrize("option, item", [
+    ({"kv_quant_int8": True}, "item 5"),
+    ({"weights_int8": True}, "item 8"),
+    ({"mesh": object()}, "item 6"),
+    ({"spec_depth": 2}, "item 6"),
+])
+def test_paged_step_refuses_unported_options(tiny, option, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
+        torch_gpt.PagedSlotDecodeStep(tiny, 2, 32, 8, 9, **option)
+
+
+@pytest.mark.parametrize("kwargs, match", [
+    (dict(max_total=36, block_size=8, num_blocks=9), "multiple of block_size"),
+    (dict(max_total=32, block_size=8, num_blocks=1), "num_blocks"),
+    (dict(max_total=256, block_size=8, num_blocks=9), "max_seq_len"),
+])
+def test_paged_step_validation(tiny, kwargs, match):
+    with pytest.raises(ValueError, match=match):
+        torch_gpt.PagedSlotDecodeStep(tiny, 2, **kwargs)
+
+
+def _pool_ops(seed, n_ops=400):
+    """A seeded table of BlockPool operations over a 12-block pool of 4
+    tokens: alloc, retain, release (of a block the test holds), lookup
+    and publish (of six token keys of one or two blocks, so they repeat),
+    flush; the pool's own rules decide which are legal."""
+    rng = np.random.default_rng(seed)
+    keys = [tuple(int(t) for t in rng.integers(0, 512, size=4 * (1 + k % 2))) for k in range(6)]
+    ops = []
+    for _ in range(n_ops):
+        kind = rng.choice(["alloc", "retain", "release", "lookup", "publish", "flush"],
+                          p=[0.25, 0.12, 0.3, 0.15, 0.15, 0.03])
+        ops.append((str(kind), keys[int(rng.integers(6))], float(rng.random())))
+    return ops
+
+
+def _run_pool(pool, ops):
+    """Apply `ops` to `pool`, keeping a list of held references; -> the
+    trace of every result and counter."""
+    held, trace = [], []
+    for kind, key, pick in ops:
+        if kind == "alloc":
+            if pool.available() < 1:
+                trace.append(("full",))
+                continue
+            block = pool.alloc()
+            held.append(block)
+            trace.append(("alloc", block))
+        elif kind in ("retain", "release", "publish") and held:
+            block = held[int(pick * len(held))]
+            if kind == "retain":
+                pool.retain(block)
+                held.append(block)
+            elif kind == "release":
+                held.remove(block)
+                pool.release(block)
+            else:
+                pool.publish(key, block)
+            trace.append((kind, block))
+        elif kind == "lookup":
+            trace.append(("lookup", pool.lookup(key)))
+        elif kind == "flush":
+            pool.flush()
+            trace.append(("flush",))
+        pool.check()
+        trace.append((pool.available(), pool.in_use(), pool.cached_idle(),
+                      pool.cached_blocks(), pool.reclaimed))
+    trace.append(pool.residency(top_n=5))
+    return trace
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_block_pool_matches_reference(seed):
+    """The port's BlockPool against the reference's on one seeded table of
+    alloc, retain, release, lookup, publish and flush operations: every
+    result, counter and the residency page equal."""
+    if jax is None:
+        pytest.skip("JAX is not installed")
+    ops = _pool_ops(seed)
+    want = _run_pool(jax_engine.BlockPool(12, 4), ops)
+    got = _run_pool(torch_engine.BlockPool(12, 4), ops)
+    assert got == want
+    assert any(t[0] == "lookup" and t[1] is not None for t in got if isinstance(t, tuple))
+
+
+@pytest.mark.parametrize("option, item", [
+    ({"speculate": "ngram"}, "item 6"),
+    ({"mesh_shape": (1, 2)}, "item 6"),
+    ({"role": "prefill"}, "item 6"),
+    ({"kv_quant_int8": True}, "item 5"),
+    ({"weights_int8": True}, "item 8"),
+])
+def test_engine_refuses_unported_options(tiny, option, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
+        torch_engine.ContinuousBatchingEngine(tiny, start=False, device="cpu", **option)
+
+
+@pytest.mark.parametrize("method, args", [
+    ("export_prefix_blocks", ([1, 2],)), ("import_prefix_blocks", ({},)),
+    ("prefix_digest", ()), ("kv_statz", ()),
+])
+def test_engine_refuses_disaggregated_methods(tiny, method, args):
+    eng = torch_engine.ContinuousBatchingEngine(tiny, start=False, device="cpu", block_size=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+        getattr(eng, method)(*args)
+    eng.stop()
+
+
+def test_engine_and_server_want_cuda(tiny):
+    """Without device="cpu" both run on `cuda`, and without a card they
+    raise instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        torch_engine.ContinuousBatchingEngine(tiny, start=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        torch_server.make_server(tiny, batching="continuous")
+
+
+@pytest.mark.parametrize("option, item", [
+    ({"batching": "window"}, "item 5"),
+    ({"batch_window_ms": 5.0}, "item 5"),
+    ({"kv_quant_int8": True}, "item 5"),
+    ({"weights_int8": True}, "item 8"),
+    ({"speculative": True}, "item 6"),
+    ({"speculate": "draft"}, "item 6"),
+    ({"mesh": object()}, "item 6"),
+    ({"mesh_shape": (1, 2)}, "item 6"),
+    ({"role": "decode"}, "item 6"),
+    ({"tenant_quotas": {}}, "item 5"),
+    ({"enable_debug_endpoints": True}, "item 5"),
+])
+def test_make_server_refuses_unported_options(tiny, option, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
+        torch_server.make_server(tiny, device="cpu", **option)
+
+
+@pytest.mark.parametrize("argv, item", [
+    (["--batching", "window"], "item 5"), (["--batch-window-ms", "5"], "item 5"),
+    (["--kv-int8"], "item 5"), (["--weights-int8"], "item 8"),
+    (["--speculative"], "item 6"), (["--speculate", "ngram"], "item 6"),
+    (["--tp", "2"], "item 6"), (["--mesh-shape", "1x2"], "item 6"),
+    (["--role", "prefill"], "item 6"), (["--preset", "moe-tiny"], "item 7"),
+    (["--tenant-quotas", "{}"], "item 5"), (["--enable-debug-endpoints"], "item 5"),
+])
+def test_cli_refuses_unported_flags(argv, item, capsys):
+    with pytest.raises(SystemExit) as err:
+        torch_server.parse_args(argv)
+    assert err.value.code == 2
+    assert f"ROADMAP queue 1 {item}" in capsys.readouterr().err
+
+
+def _post(port, path, payload):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST",
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def _get(port, path):
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read()
+
+
+@pytest.fixture(scope="module")
+def servers(tiny):
+    """A continuous-batching server (paged, a bounded 8-block pool of 8
+    tokens: over-pool prompts must come back as 400s) and an inline one,
+    on loopback, over the same model."""
+    out = {}
+    for batching in ("continuous", "none"):
+        srv = torch_server.make_server(
+            tiny, model_name="gpt-test", max_new_cap=64, batching=batching, n_slots=4,
+            block_size=8, kv_blocks=8, prefill_chunk=8, device="cpu",
+        )
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        out[batching] = srv
+    yield {name: srv.server_address[1] for name, srv in out.items()}
+    for srv in out.values():
+        srv.shutdown()
+        srv.server_close()
+        if srv.state.engine is not None:
+            srv.state.engine.stop()
+            assert not srv.state.engine.thread.is_alive()
+
+
+def _inline(model, row, new):
+    return torch_gpt.generate(model, torch.tensor([row]), new)[0].tolist()
+
+
+@pytest.mark.parametrize("batching", ["continuous", "none"])
+def test_generate_and_stream_agree(servers, tiny, batching):
+    """/generate (a ragged batch of two) and /generate_stream (one row,
+    one event per token) give the same tokens, equal to the inline
+    generate; the stream's indices count from the prompt's end."""
+    client = DecodeClient(f"http://127.0.0.1:{servers[batching]}", timeout=60)
+    chains = client.generate([[5, 6, 7], [1, 2, 3, 4]], max_new_tokens=6)
+    assert chains == [_inline(tiny, [5, 6, 7], 6), _inline(tiny, [1, 2, 3, 4], 6)]
+    events = list(client.generate_stream([5, 6, 7], max_new_tokens=6))
+    assert [e["index"] for e in events[:-1]] == list(range(3, 9))
+    assert [e["token"] for e in events[:-1]] == chains[0][3:]
+    assert events[-1]["done"] is True and events[-1]["tokens"] == [chains[0]]
+    assert events[-1]["prompt_lens"] == [3]
+
+
+def test_sampled_request_keeps_the_inline_path(servers, tiny):
+    """A sampled request bypasses the engine (its finished counter does
+    not move) and is the port's generate seeded with the request's seed."""
+    client = DecodeClient(f"http://127.0.0.1:{servers['continuous']}", timeout=60)
+    finished = "tf_operator_tpu_serve_engine_finished_total"
+    before = client.metrics()[finished]
+    got = client.generate([[3, 1, 4]], max_new_tokens=4, temperature=1.0, top_k=50, seed=3)
+    want = torch_gpt.generate(
+        tiny, torch.tensor([[3, 1, 4]]), 4, temperature=1.0, top_k=50,
+        generator=torch.Generator().manual_seed(3), prompt_lens=torch.tensor([3]),
+    )
+    assert got == want.tolist()
+    assert client.metrics()[finished] == before
+
+
+def test_client_errors(servers):
+    """An over-pool prompt is a 400 with the engine's message on both
+    routes (it passes the generic max_seq_len check: 70 + 8 tokens need
+    10 of the pool's 8 blocks); a multi-row stream, a malformed body and
+    num_beams > 1 are 400s; the client raises DecodeError."""
+    port = servers["continuous"]
+    for path in ("/generate", "/generate_stream"):
+        status, body = _post(port, path, {"input_ids": [list(range(1, 71))], "max_new_tokens": 8})
+        assert status == 400 and "KV blocks" in body["error"]
+    status, body = _post(port, "/generate_stream", {"input_ids": [[1, 2], [3, 4]]})
+    assert status == 400 and "exactly one prompt row" in body["error"]
+    status, body = _post(port, "/generate", {"input_ids": [[1, 2]], "num_beams": 2})
+    assert status == 400 and "ROADMAP queue 1 item 6" in body["error"]
+    assert _post(port, "/generate", {"input_ids": "nope"})[0] == 400
+    client = DecodeClient(f"http://127.0.0.1:{port}", timeout=60)
+    with pytest.raises(DecodeError) as err:
+        client.generate([[600]], max_new_tokens=2)
+    assert err.value.status == 400
+
+
+def test_unported_routes_name_their_items(servers):
+    port = servers["continuous"]
+    for path, item in (("/kv/digest", "item 6"), ("/debug/flightz", "item 5"),
+                       ("/debug/profilez", "item 5")):
+        status, body = _get(port, path)
+        assert status == 501 and f"ROADMAP queue 1 {item}" in json.loads(body)["error"]
+    for path in ("/prefill", "/kv/export", "/kv/import"):
+        status, body = _post(port, path, {"input_ids": [[1, 2]]})
+        assert status == 501 and "ROADMAP queue 1 item 6" in body["error"]
+    assert _get(port, "/nope")[0] == 404
+
+
+def test_metrics_health_and_trace(servers):
+    """/metrics parses with the copied exposition validator and carries
+    the engine's families (one capture of the step), /healthz and /readyz
+    say ready, /debug/trace holds finished request spans with their
+    phase marks."""
+    port = servers["continuous"]
+    client = DecodeClient(f"http://127.0.0.1:{port}", timeout=60)
+    client.generate([[9, 8, 7]], max_new_tokens=3)
+    families = validate_text(client.metrics_text())
+    flat = client.metrics()
+    assert flat["tf_operator_tpu_serve_engine_compiles_total"] == 1
+    assert flat["tf_operator_tpu_serve_ttft_seconds_count"] >= 1
+    assert "tf_operator_tpu_serve_engine_kv_pool_bytes" in families
+    assert client.healthy()["status"] == "ok" and client.ready()
+    trace = client.trace()
+    spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    marks = {e["name"] for e in trace["traceEvents"] if e.get("ph") == "i"}
+    assert spans and {"queued", "admitted", "first-token", "finished"} <= marks
+    assert all(str(e["args"].get("corr", "")).startswith("req-") for e in spans)
+
+
+def _free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def test_cli_serves_and_drains_on_sigterm(tiny):
+    """python -m tf_operator_tpu_torch.serve --preset tiny --device cpu
+    --batching continuous as a subprocess: /healthz answers, /generate
+    decodes (random weights from seed 0: the chain of the same model
+    built here), and on SIGTERM it drains and exits 0, as the reference's
+    main does."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tf_operator_tpu_torch.serve", "--preset", "tiny",
+         "--device", "cpu", "--batching", "continuous", "--host", "127.0.0.1",
+         "--port", str(port)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                status, body = _get(port, "/healthz")
+                break
+            except (urllib.error.URLError, ConnectionError):
+                assert proc.poll() is None and time.monotonic() < deadline, proc.stderr.read()
+                time.sleep(0.2)
+        assert status == 200 and json.loads(body)["status"] == "ok"
+        status, body = _post(port, "/generate", {"input_ids": [[1, 2, 3]], "max_new_tokens": 4})
+        assert status == 200
+        assert body["tokens"] == [_inline(tiny, [1, 2, 3], 4)]
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err = proc.stderr.read()
+    assert "RANDOM weights" in err and "drained; exiting 0" in err
+
+
+def test_cli_loads_the_port_checkpoint(tmp_path, tiny):
+    """--checkpoint-dir serves the newest step the port's Checkpointer
+    wrote."""
+    from tf_operator_tpu_torch.train.trainer import Checkpointer
+
+    trained = torch_gpt.GPT(torch_gpt.GPT_TINY, generator=torch.Generator().manual_seed(5))
+    Checkpointer(str(tmp_path)).write(7, {"model": trained.state_dict(), "optimizer": {}})
+    model = torch_server.load_model("tiny", str(tmp_path), torch.device("cpu"))
+    for name, tensor in model.state_dict().items():
+        assert torch.equal(tensor, trained.state_dict()[name]), name
+
+
+def test_new_modules_import_with_jax_blocked():
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for mod in {NEW_MODULES!r}:\n"
+        "    importlib.import_module(mod)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    for mod in NEW_MODULES:
+        path = os.path.join(REPO, *mod.split(".")) + ".py"
+        if not os.path.exists(path):
+            path = os.path.join(REPO, *mod.split("."), "__init__.py")
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                tops = [alias.name.split(".")[0] for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                tops = [node.module.split(".")[0]]
+            else:
+                continue
+            assert not set(tops) & set(BLOCKED), f"{path}:{node.lineno}"
+
+
+@pytest.mark.cuda
+def test_cuda_graphs_replay_the_eager_step():
+    """On the card, GPT_TINY in bf16: each program of the paged step is
+    one CUDA graph captured once, and a replay gives the eager step's next
+    tokens, logits and pool bit for bit (the same kernels on the same inputs);
+    an engine on the card captures each program once and serves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    model = torch_gpt.GPT(torch_gpt.GPT_TINY, generator=torch.Generator().manual_seed(0),
+                          device="cuda")
+    n, total, bs, nb, prompt, lens, tables = _paged_case()
+    graphed = torch_gpt.PagedSlotDecodeStep(model, n, total, bs, nb)
+    eager = torch_gpt.PagedSlotDecodeStep(model, n, total, bs, nb)
+    tok, index = prompt[:, 0].copy(), np.zeros(n, np.int32)
+    for _ in range(12):
+        got = graphed(tok, index, prompt, lens, tables).cpu().numpy()
+        want = eager.run_eager(tok, index, prompt, lens, tables).cpu().numpy()
+        np.testing.assert_array_equal(got, want)
+        assert torch.equal(graphed.logits, eager.logits)
+        tok, index = got.astype(np.int32), index + 1
+    for a, b in zip(graphed.cache.keys + graphed.cache.values,
+                    eager.cache.keys + eager.cache.values):
+        assert torch.equal(a[1:], b[1:])
+    assert graphed.compiles == 1 and graphed._step.graph is not None
+    eng = torch_engine.ContinuousBatchingEngine(model, n_slots=2, block_size=8, prefill_chunk=8)
+    try:
+        rows = [[1, 2, 3], list(range(40)), [7] * 17]
+        chains = [eng.submit(row, 5).result(120) for row in rows]
+    finally:
+        eng.stop()
+    assert (eng.step.compiles, eng.step.prefill_compiles, eng.step.copy_compiles) == (1, 1, 1)
+    for row, chain in zip(rows, chains):
+        assert chain[:len(row)] == row and len(chain) == len(row) + 5

@@ -16,17 +16,25 @@ The decode path runs the same GPT module's parameters (no second copy
 of the weights). Its cache is a `KVCache`, a plain object of
 preallocated tensors passed explicitly and written in place, where the
 reference returns an updated flax "cache" collection. The loop over
-positions is a Python loop; the reference's one compiled lax.scan has
-no counterpart yet. Left out: the int8 KV cache, int8 weights and
-mesh-sharded decode (generate raises NotImplementedError for each),
-the dynamic-offset prefill of speculative verify, and the slot and
-paged decode steps (ROADMAP queue 1, items 4-6 and 8).
+positions of `generate` is a Python loop; the reference's one compiled
+lax.scan has no counterpart.
+
+Serving (serve/engine.py) runs one step over a fixed slot grid:
+`SlotDecodeStep` over a dense [n_slots, max_total] cache and
+`PagedSlotDecodeStep` over a pool of fixed-size KV blocks addressed
+through per-slot block tables (with its prefill chunk and block copy).
+Each program holds its inputs in static buffers and, on a CUDA device,
+runs as one CUDA graph captured at its first call, where the reference
+compiles its step once with jax.jit. Left out: the int8 KV cache, int8
+weights and mesh-sharded decode (generate and the slot steps raise
+NotImplementedError for each), and the speculative verify programs
+(ROADMAP queue 1, items 4-6 and 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -428,3 +436,415 @@ def generate(
     sample = _sampler(float(temperature), int(top_k), float(top_p), generator)
     generated = _decode(model, prompt, lens, total, sample, ragged)
     return torch.cat([prompt[:, :1], generated], dim=1)
+
+
+# -- the slot grid of the continuous-batching engine (serve/engine.py) ------
+
+
+def _refuse_unported(
+    kv_quant_int8: bool = False, weights_int8: bool = False, mesh=None,
+    spec_depth: int = 0,
+) -> None:
+    """The decode options the slot steps do not port, each refused
+    naming its ROADMAP item."""
+    if kv_quant_int8:
+        raise NotImplementedError("the int8 KV cache is not ported (ROADMAP queue 1 item 5)")
+    if weights_int8:
+        raise NotImplementedError("int8 weights are not ported (ROADMAP queue 1 item 8)")
+    if mesh is not None:
+        raise NotImplementedError("sharded decode is not ported (ROADMAP queue 1 item 6)")
+    if spec_depth > 0:
+        raise NotImplementedError(
+            "the speculative verify program is not ported (ROADMAP queue 1 item 6)"
+        )
+
+
+def _kv_bytes(cache: KVCache) -> int:
+    return sum(t.numel() * t.element_size() for t in cache.keys + cache.values)
+
+
+def _forced(
+    logits: torch.Tensor, index: torch.Tensor, prompt: torch.Tensor, lens: torch.Tensor,
+) -> torch.Tensor:
+    """The ragged forcing rule of the slot grid (the reference's
+    SlotDecodeStep, gpt.py:910-916): a row still inside its prompt
+    (index + 1 < lens) emits its next prompt token, any other row the
+    argmax of its logits."""
+    nxt = logits.argmax(dim=-1)
+    ahead = (index + 1).clamp(max=prompt.shape[1] - 1)
+    forced = prompt.gather(1, ahead[:, None])[:, 0]
+    return torch.where(index + 1 < lens, forced, nxt)
+
+
+class _Program:
+    """One decode program over static input buffers: the port's
+    counterpart of a program the reference compiles once with jax.jit.
+
+    The body reads `inputs`; a call copies the caller's values into them
+    in place, so their addresses never move. On a CUDA device the first
+    call runs the body once on a side stream (warm-up) and then captures
+    it as a CUDA graph, as the trainer's _CapturedStep does, and every
+    call replays that graph; `output` is what the body returned, the
+    graph's own output tensors, overwritten by the next replay. Elsewhere every call runs the body.
+    `captures` counts the captures on CUDA and the first call elsewhere:
+    the one-compile count. `run_eager` runs the body outside the graph,
+    the same work launched op by op."""
+
+    def __init__(self, body: Callable[[], Any], inputs: Dict[str, torch.Tensor]) -> None:
+        self.body = body
+        self.inputs = inputs
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.output: Any = None
+        self.captures = 0
+
+    def _load(self, values) -> None:
+        for name, value in values.items():
+            self.inputs[name].copy_(torch.as_tensor(value))
+
+    def __call__(self, **values) -> Any:
+        self._load(values)
+        device = next(iter(self.inputs.values())).device
+        if device.type != "cuda":
+            self.captures = 1
+            return self.body()
+        if self.graph is None:
+            current = torch.cuda.current_stream(device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self.body()
+            current.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self.output = self.body()
+            self.graph = graph
+            self.captures += 1
+        self.graph.replay()
+        return self.output
+
+    def run_eager(self, **values) -> Any:
+        self._load(values)
+        return self.body()
+
+
+def _slot_inputs(n_slots: int, max_total: int, device) -> Dict[str, torch.Tensor]:
+    """The static buffers of a slot step: tok, index and lens [n_slots],
+    prompt [n_slots, max_total] (right-padded)."""
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.long, device=device)
+
+    return {"tok": zeros(n_slots), "index": zeros(n_slots),
+            "prompt": zeros(n_slots, max_total), "lens": zeros(n_slots)}
+
+
+class SlotDecodeStep:
+    """One single-token decode over a fixed [n_slots] grid of a dense
+    cache, [n_slots, max_total] per layer: the device half of the
+    engine's kv_layout="dense" (the reference's SlotDecodeStep,
+    gpt.py:846). Every row is its own stream at its own position: row i
+    writes its keys and values at index[i] of its cache row and attends
+    over positions <= index[i] (GPTDecodeStep's per-row path). Prompt
+    ingestion rides the same step through the forcing rule (`_forced`),
+    so there is no prefill program. Greedy only; sampled requests keep
+    the inline `generate`.
+
+    The cache is allocated once, at construction, and the step is one
+    `_Program`: on a CUDA device one CUDA graph, captured at the first
+    call. `compiles` counts captures (first calls off CUDA). `logits`
+    [n_slots, vocab] are the last call's, an output of the same program
+    (on a CUDA device the graph's own tensor, overwritten by the next
+    replay)."""
+
+    def __init__(
+        self, model: GPT, n_slots: int, max_total: int,
+        kv_quant_int8: bool = False, weights_int8: bool = False, mesh=None,
+    ) -> None:
+        _refuse_unported(kv_quant_int8, weights_int8, mesh)
+        cfg = model.cfg
+        if max_total > cfg.max_seq_len:
+            raise ValueError(f"max_total {max_total} exceeds max_seq_len {cfg.max_seq_len}")
+        self.model = model
+        self.cfg = cfg
+        self.n_slots = int(n_slots)
+        self.max_total = int(max_total)
+        device = model.lm_head.weight.device
+        self.cache = KVCache.zeros(cfg, self.n_slots, self.max_total, device)
+        self.kv_bytes_total = _kv_bytes(self.cache)
+        decode = GPTDecodeStep(model)
+        inputs = _slot_inputs(self.n_slots, self.max_total, device)
+
+        def step() -> Tuple[torch.Tensor, torch.Tensor]:
+            logits = decode(inputs["tok"], inputs["index"], self.cache)
+            return _forced(logits, inputs["index"], inputs["prompt"], inputs["lens"]), logits
+
+        self._step = _Program(step, inputs)
+        self.logits: Optional[torch.Tensor] = None
+
+    @property
+    def compiles(self) -> int:
+        return self._step.captures
+
+    def init_cache(self) -> KVCache:
+        """The grid's cache, zeroed in place (a captured step keeps
+        reading and writing the same tensors)."""
+        for t in self.cache.keys + self.cache.values:
+            t.zero_()
+        return self.cache
+
+    def __call__(self, tok, index, prompt, lens) -> torch.Tensor:
+        """One step for every slot. tok, index, lens: [n_slots] ints;
+        prompt: [n_slots, max_total] (right-padded). -> next_tok
+        [n_slots] on the device: row i's token at position index[i] + 1
+        (forced inside the prompt, greedy after). Overwritten by the next
+        call on a CUDA device."""
+        nxt, self.logits = self._step(tok=tok, index=index, prompt=prompt, lens=lens)
+        return nxt
+
+
+def _paged_store_kv(
+    pool: torch.Tensor, new: torch.Tensor, phys: torch.Tensor, off: torch.Tensor,
+) -> None:
+    """The paged cache write of both phases, in place (the reference's
+    _paged_store_kv, gpt.py:969, bf16 branch): `new` [n, heads,
+    head_dim] into the pool [num_blocks, block_size, heads, head_dim] at
+    the (block, offset) pairs (phys, off). Rows parked on the sentinel
+    block 0 write there with duplicate indices; which write lands is
+    unspecified, and every reader masks those positions."""
+    pool.index_put_((phys, off), new.to(pool.dtype))
+
+
+def _gather_blocks(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """pool[tables] as each table's logical sequence: [..., max_blocks *
+    block_size, heads, head_dim] in logical-position order."""
+    out = pool[tables]
+    return out.reshape(*tables.shape[:-1], -1, *pool.shape[2:])
+
+
+def _paged_attention(
+    keys: torch.Tensor, values: torch.Tensor, index: torch.Tensor, tables: torch.Tensor,
+) -> Callable:
+    """PagedSelfAttention (the reference's gpt.py:1032), as the
+    attention_fn of a decoder block: each slot's one token [s, 1, h, d]
+    written at logical position index[s] through its block table, then
+    attention over the gathered pool[tables] under the caller's mask.
+    With max_blocks * block_size equal to the dense grid's max_total the
+    einsums see the dense step's shapes, position for position."""
+
+    def attend(query, key, value, mask):
+        bs = keys.shape[1]
+        phys = tables.gather(1, (index // bs)[:, None])[:, 0]
+        off = index % bs
+        _paged_store_kv(keys, key[:, 0], phys, off)
+        _paged_store_kv(values, value[:, 0], phys, off)
+        return dot_product_attention(
+            query, _gather_blocks(keys, tables), _gather_blocks(values, tables), mask
+        )
+
+    return attend
+
+
+def _paged_prefill_attention(
+    keys: torch.Tensor, values: torch.Tensor, positions: torch.Tensor, table: torch.Tensor,
+) -> Callable:
+    """PagedPrefillSelfAttention (the reference's gpt.py:1108), as an
+    attention_fn: one slot's chunk [1, c, h, d] at logical `positions`
+    [c] written through its table [max_blocks] first, then attention over
+    the gathered pool[table], so the chunk's queries read the bytes a
+    later decode step reads."""
+
+    def attend(query, key, value, mask):
+        bs = keys.shape[1]
+        phys = table[positions // bs]
+        off = positions % bs
+        _paged_store_kv(keys, key[0], phys, off)
+        _paged_store_kv(values, value[0], phys, off)
+        return dot_product_attention(
+            query, _gather_blocks(keys, table[None]), _gather_blocks(values, table[None]), mask
+        )
+
+    return attend
+
+
+class PagedDecodeStep:
+    """One-token forward over the paged pool with a GPT's own parameters
+    (the reference's PagedDecodeStep, gpt.py:1325): token [s] at
+    index [s] through tables [s, max_blocks] -> logits [s, vocab]."""
+
+    def __init__(self, model: GPT) -> None:
+        self.model = model
+
+    @torch.no_grad()
+    def __call__(
+        self, token: torch.Tensor, index: torch.Tensor, tables: torch.Tensor, pool: KVCache,
+    ) -> torch.Tensor:
+        model = self.model
+        x = model.embed(token[:, None], index[:, None])
+        length = tables.shape[1] * pool.keys[0].shape[1]
+        positions = torch.arange(length, device=token.device)
+        valid = (positions[None, :] <= index[:, None])[:, None, None, :]
+        for block, keys, values in zip(model.blocks(), pool.keys, pool.values):
+            x = block(x, valid, _paged_attention(keys, values, index, tables))
+        return model.head(x)[:, 0]
+
+
+class PagedPrefillChunk:
+    """One prefill chunk for one slot (the reference's PagedPrefillChunk,
+    gpt.py:1363): tokens [1, c] at logical positions [start, start + c)
+    through table [max_blocks], writing every layer's keys and values.
+    No ln_final or lm_head: a chunk never emits a token (the prompt's
+    last token rides a decode step). -> the last block's output."""
+
+    def __init__(self, model: GPT) -> None:
+        self.model = model
+
+    @torch.no_grad()
+    def __call__(
+        self, tokens: torch.Tensor, start: torch.Tensor, table: torch.Tensor, pool: KVCache,
+    ) -> torch.Tensor:
+        model = self.model
+        positions = start + torch.arange(tokens.shape[1], device=tokens.device)
+        x = model.embed(tokens, positions[None])
+        length = table.shape[0] * pool.keys[0].shape[1]
+        keys_at = torch.arange(length, device=tokens.device)
+        mask = (keys_at[None, :] <= positions[:, None])[None, None]
+        for block, keys, values in zip(model.blocks(), pool.keys, pool.values):
+            x = block(x, mask, _paged_prefill_attention(keys, values, positions, table))
+        return x
+
+
+class PagedSlotDecodeStep:
+    """One single-token decode over a fixed [n_slots] grid whose keys
+    and values live in a shared pool of fixed-size blocks, [num_blocks,
+    block_size, heads, head_dim] per layer and per k/v (the reference's
+    PagedSlotDecodeStep, gpt.py:1449, without verify, the mesh branch
+    and int8): the device half of the engine's kv_layout="paged". Block
+    0 is the sentinel: idle rows and unused table entries point at it.
+
+    Three programs, each a `_Program` (on a CUDA device one CUDA graph,
+    captured at its first call) with its own counter:
+    - `__call__`: SlotDecodeStep's contract plus `tables` [n_slots,
+      max_blocks] (`compiles`);
+    - `prefill`: one chunked-prefill chunk for one slot, always the width
+      of the first chunk it was given (`prefill_compiles`);
+    - `copy_block`: one block copied into another in every layer's k and
+      v, the prefix cache's copy-on-write (`copy_compiles`).
+
+    `logits` are the last step's, as SlotDecodeStep's. max_total must
+    divide into blocks: the gathered attention width max_blocks *
+    block_size then equals the dense grid's, and the paged and dense
+    steps run the same einsum shapes."""
+
+    def __init__(
+        self, model: GPT, n_slots: int, max_total: int, block_size: int, num_blocks: int,
+        kv_quant_int8: bool = False, weights_int8: bool = False, mesh=None,
+        spec_depth: int = 0,
+    ) -> None:
+        _refuse_unported(kv_quant_int8, weights_int8, mesh, spec_depth)
+        cfg = model.cfg
+        if max_total > cfg.max_seq_len:
+            raise ValueError(f"max_total {max_total} exceeds max_seq_len {cfg.max_seq_len}")
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        if max_total % block_size:
+            raise ValueError(
+                f"max_total {max_total} must be a multiple of block_size {block_size} "
+                "(the gathered attention width must equal the dense grid's)"
+            )
+        if num_blocks < 2:
+            raise ValueError(f"num_blocks must be >= 2 (sentinel + 1), got {num_blocks}")
+        self.model = model
+        self.cfg = cfg
+        self.n_slots = int(n_slots)
+        self.max_total = int(max_total)
+        self.block_size = int(block_size)
+        self.num_blocks = int(num_blocks)
+        self.max_blocks = self.max_total // self.block_size
+        self.device = model.lm_head.weight.device
+        # the pool has a dense cache's layout with blocks for rows
+        self.cache = KVCache.zeros(cfg, self.num_blocks, self.block_size, self.device)
+        self.kv_bytes_total = _kv_bytes(self.cache)
+        decode = PagedDecodeStep(model)
+        inputs = _slot_inputs(self.n_slots, self.max_total, self.device)
+        inputs["tables"] = torch.zeros(
+            (self.n_slots, self.max_blocks), dtype=torch.long, device=self.device
+        )
+
+        def step() -> Tuple[torch.Tensor, torch.Tensor]:
+            logits = decode(inputs["tok"], inputs["index"], inputs["tables"], self.cache)
+            return _forced(logits, inputs["index"], inputs["prompt"], inputs["lens"]), logits
+
+        self._step = _Program(step, inputs)
+        self.logits: Optional[torch.Tensor] = None
+        # built at the first prefill call, at that chunk's width
+        self._prefill: Optional[_Program] = None
+        ends = {name: torch.zeros((1,), dtype=torch.long, device=self.device)
+                for name in ("src", "dst")}
+
+        def copy() -> None:
+            for pool in self.cache.keys + self.cache.values:
+                pool.index_copy_(0, ends["dst"], pool.index_select(0, ends["src"]))
+
+        self._copy = _Program(copy, ends)
+
+    @property
+    def compiles(self) -> int:
+        return self._step.captures
+
+    @property
+    def prefill_compiles(self) -> int:
+        return 0 if self._prefill is None else self._prefill.captures
+
+    @property
+    def copy_compiles(self) -> int:
+        return self._copy.captures
+
+    def init_cache(self) -> KVCache:
+        """The pool, zeroed in place (captured programs keep reading and
+        writing the same tensors)."""
+        for t in self.cache.keys + self.cache.values:
+            t.zero_()
+        return self.cache
+
+    def __call__(self, tok, index, prompt, lens, tables) -> torch.Tensor:
+        """One step for every slot: SlotDecodeStep's contract plus
+        `tables` [n_slots, max_blocks] (each row's block table; unused
+        tail entries point at the sentinel block 0)."""
+        nxt, self.logits = self._step(tok=tok, index=index, prompt=prompt, lens=lens,
+                                      tables=tables)
+        return nxt
+
+    def run_eager(self, tok, index, prompt, lens, tables) -> torch.Tensor:
+        """The same step launched op by op, outside the graph."""
+        nxt, self.logits = self._step.run_eager(tok=tok, index=index, prompt=prompt, lens=lens,
+                                                tables=tables)
+        return nxt
+
+    def prefill(self, tokens, start: int, table) -> None:
+        """Ingest one chunk for one slot: tokens [1, chunk] at logical
+        positions [start, start + chunk), mapped through `table`
+        [max_blocks]."""
+        width = int(np.shape(tokens)[1])
+        if self._prefill is None:
+            chunk = PagedPrefillChunk(self.model)
+            inputs = {
+                "tokens": torch.zeros((1, width), dtype=torch.long, device=self.device),
+                "start": torch.zeros((), dtype=torch.long, device=self.device),
+                "table": torch.zeros((self.max_blocks,), dtype=torch.long, device=self.device),
+            }
+
+            def prefill() -> None:
+                chunk(inputs["tokens"], inputs["start"], inputs["table"], self.cache)
+
+            self._prefill = _Program(prefill, inputs)
+        elif width != self._prefill.inputs["tokens"].shape[1]:
+            raise ValueError(
+                f"prefill chunk of {width} tokens; this step's chunk program takes "
+                f"{self._prefill.inputs['tokens'].shape[1]}"
+            )
+        self._prefill(tokens=tokens, start=int(start), table=table)
+
+    def copy_block(self, src: int, dst: int) -> None:
+        """Copy pool block `src` into block `dst` in every layer's k and v
+        (the copy-on-write of a tail block admitted from the prefix
+        cache)."""
+        self._copy(src=[int(src)], dst=[int(dst)])

@@ -1,0 +1,1486 @@
+"""Continuous batching: a persistent per-step decode loop over a slot
+grid (Orca-style iteration-level scheduling). Counterpart of
+tf_operator_tpu/serve/engine.py.
+
+The engine's quantum is ONE token: a single-token step runs over a fixed
+`[n_slots]` row grid (models/gpt.py SlotDecodeStep or
+PagedSlotDecodeStep), and between steps the scheduler admits queued
+requests into free slots (prompt ingestion rides the same step through
+the ragged forcing rule), evicts finished or cancelled rows at once, and
+streams each generated token back to its request as it is produced.
+
+On a CUDA device each program of the step (the decode step, the prefill
+chunk and the block copy) is one CUDA graph, captured once at
+construction and replayed every quantum, where the reference compiles
+each once with jax.jit; `step.compiles == step.prefill_compiles == 1`
+is the same contract. The engine thread owns the device: it sets it,
+captures the programs and replays them. Other threads only queue
+requests and read counters. Everything a captured program reads or
+writes keeps its address: the KV pool is zeroed in place after a device
+error, new weights are copied into the model's parameters in place, and
+a prefix-cache copy-on-write copies between pool blocks in place.
+
+GREEDY requests only (sampled requests keep the server's inline path, so
+each owns its generator stream), the gpt family only.
+
+PAGED KV (kv_layout="paged", the default): a fixed pool of fixed-size
+blocks addressed through per-slot block tables inside the same step:
+- admission reserves exactly ceil((p + new - 1) / block_size) blocks up
+  front, so a slot never starves mid-decode; when the pool is short the
+  queue head waits FIFO;
+- a prefix cache keyed on exact prompt-token chunks shares full prompt
+  blocks by refcount; when the whole prompt is cached the tail block is
+  copied on the device (copy-on-write) and decode starts at the last
+  prompt position;
+- chunked prefill: long prompts ingest prefill_chunk tokens a quantum,
+  interleaved with decode steps.
+
+kv_layout="dense" keeps the [n_slots, max_total] grid.
+
+Not ported, each refused naming its ROADMAP item: speculative decoding,
+the sharded (mesh) step, the int8 KV cache and int8 weights, the
+disaggregated roles and KV block-set export/import, the prefix digest
+and /kv/statz.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import queue
+import threading
+import time
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..telemetry.flight import current_correlation, default_flight
+from ..telemetry.tracecontext import current_trace
+from ..utils import locks
+from .prefix import prefix_hash
+
+_DONE = object()
+
+# HELP text for the flat metrics() families below, consumed by the
+# serve server's /metrics renderer (exposition-format validity needs a
+# HELP line per family)
+METRIC_HELP = {
+    "engine_steps_total": "Decode steps executed by the engine loop",
+    "engine_row_steps_total":
+        "Slot-rows advanced across all decode steps (steps x occupancy)",
+    "engine_admitted_total": "Requests admitted into a slot",
+    "engine_finished_total": "Requests that decoded to completion",
+    "engine_cancelled_total": "Requests cancelled before or during decode",
+    "engine_decode_seconds_total":
+        "Wall-clock seconds spent inside decode steps",
+    "engine_compiles_total":
+        "Captures of the slot decode step as a CUDA graph (first calls "
+        "off CUDA; expected: 1)",
+    "engine_quanta_total":
+        "Scheduler quanta executed (prefill chunks + decode steps + "
+        "speculative rounds)",
+    "engine_quantum_dispatches_total":
+        "Compiled-program dispatches attempted across all quanta "
+        "(the --dispatch-guard budget numerator)",
+    "engine_active_slots": "Slots currently occupied by a request",
+    "engine_queue_depth": "Requests waiting for a free slot",
+    "engine_peak_active_slots":
+        "High-water mark of concurrently occupied slots",
+    "engine_kv_blocks_total": "Usable KV blocks in the paged pool",
+    "engine_kv_blocks_in_use":
+        "KV blocks held by live slots (excludes idle prefix-cache "
+        "blocks)",
+    "engine_kv_cached_idle_blocks":
+        "Prefix-cache blocks no live slot shares (reclaimable; the "
+        "fleet KV observatory sums these into "
+        "fleet_kv_cached_idle_blocks)",
+    "engine_prefix_cache_blocks":
+        "Blocks currently indexed by the prefix cache",
+    "engine_prefix_cache_hits_total":
+        "Prompt blocks served from the prefix cache",
+    "engine_prefix_cache_misses_total":
+        "Prompt blocks that missed the prefix cache",
+    "engine_prefix_hit_tokens_total":
+        "Prompt tokens whose prefill was skipped via the prefix cache",
+    "engine_cow_copies_total":
+        "Tail blocks copied on admit (prefix-cache copy-on-write)",
+    "engine_kv_blocks_reclaimed_total":
+        "Idle prefix-cache blocks reclaimed (LRU) to satisfy "
+        "allocations",
+    "engine_prefill_chunks_total": "Chunked-prefill chunks executed",
+    "engine_prefill_seconds_total":
+        "Wall-clock seconds spent inside prefill chunks",
+    "engine_admit_seconds_total":
+        "Wall-clock seconds the scheduler spent admitting requests "
+        "into slots (queue drain + block planning + placement)",
+    "engine_dispatch_seconds_total":
+        "Wall-clock seconds spent dispatching the compiled decode "
+        "step (call until the device future returns)",
+    "engine_device_sync_seconds_total":
+        "Wall-clock seconds blocked materializing step outputs on "
+        "the host (device sync)",
+    "engine_fanout_seconds_total":
+        "Wall-clock seconds spent fanning step outputs out to "
+        "request streams (per-slot emit loop)",
+    "engine_mesh_devices":
+        "Devices in the engine's decode mesh (1 = single-device)",
+    "engine_mesh_model_shards":
+        "Size of the decode mesh's 'model' axis (tensor-parallel "
+        "shards)",
+    "engine_kv_pool_bytes": "Total bytes of the paged KV block pool",
+    "engine_kv_shard_bytes":
+        "Paged KV pool bytes resident per device shard "
+        "(= pool bytes / model shards)",
+    "engine_kv_blocks_exported_total":
+        "KV blocks serialized out of the pool for prefill->decode "
+        "migration",
+    "engine_kv_blocks_imported_total":
+        "KV blocks written into the pool from a migrated block set",
+    "engine_migrations_out_total":
+        "Block-set exports shipped to another replica",
+    "engine_migrations_in_total":
+        "Block-set imports admitted from another replica",
+    "engine_pool_audit_failures_total":
+        "BlockPool.check() audits (drain/stop) that found a refcount "
+        "leak or double free",
+    "spec_tokens_proposed_total":
+        "Draft tokens proposed to the speculative verify step",
+    "spec_tokens_accepted_total":
+        "Draft tokens the verify step accepted (greedy exact match)",
+    "spec_accept_rate":
+        "Lifetime accepted/proposed ratio of speculative drafts",
+    "spec_rounds_total":
+        "Speculative draft+verify rounds executed",
+    "spec_fallback_steps_total":
+        "Scheduler quanta that fell back to the single-token step "
+        "(every live slot's adaptive depth at zero)",
+    "spec_verify_seconds_total":
+        "Wall-clock seconds spent inside speculative verify rounds",
+    "engine_verify_compiles_total":
+        "XLA compilations of the speculative verify program "
+        "(expected: 1)",
+    "engine_draft_compiles_total":
+        "XLA compilations of the draft model's decode step "
+        "(expected: 1)",
+}
+
+
+class BlockPool:
+    """Refcounted allocator over the paged KV pool + the prefix cache.
+
+    Host-side bookkeeping only (the blocks themselves live in the
+    donated device pool); single-writer — only the engine thread
+    allocates/releases — with read-only counter access from observer
+    threads.
+
+    Block 0 is the SENTINEL: never allocated, permanently referenced.
+    Parked rows and unused table tail entries point at it, so the
+    compiled step always has a valid scatter/gather target; its
+    contents are garbage by design and masked out of every read.
+
+    The prefix cache maps exact prompt-token tuples (one key per FULL
+    prompt block: prompt[:block_size], prompt[:2*block_size], ...) to
+    block ids. A cached block carries one reference from the cache
+    itself plus one per slot sharing it; cache-only blocks (ref == 1)
+    are "idle" — still counted available, reclaimed LRU when the free
+    list runs dry. Token-tuple keys make collisions impossible and the
+    LRU tick is a monotonic counter, not wall time, so eviction order
+    is deterministic (the bit-identity soak replays it)."""
+
+    def __init__(self, num_blocks: int, block_size: int):
+        self.block_size = int(block_size)
+        self.num_blocks = int(num_blocks)  # includes the sentinel
+        self.total = self.num_blocks - 1   # usable
+        self._ref = [0] * self.num_blocks
+        self._ref[0] = 1  # sentinel: pinned forever
+        self._free = collections.deque(range(1, self.num_blocks))
+        self._cached: dict = {}  # token-tuple -> block id
+        self._lru: dict = {}     # token-tuple -> last-use tick
+        self._tick = 0
+        self.hits = 0
+        self.misses = 0
+        self.hit_tokens = 0
+        self.cow_copies = 0
+        self.reclaimed = 0
+        # per-block residency metadata (the fleet KV observatory's
+        # /kv/statz raw material). All times are pool ticks — the same
+        # monotonic counter the LRU uses, never wall clock — so the
+        # page is deterministic under the bit-identity soak. A block's
+        # metadata is reset when it is re-allocated, so the counts
+        # describe the CURRENT residency, not the block id's lifetime.
+        self._created = [0] * self.num_blocks      # tick at alloc
+        self._last_access = [0] * self.num_blocks  # tick at last touch
+        self._attaches = [0] * self.num_blocks     # retains + publish
+        self._block_hits = [0] * self.num_blocks   # lookup hits served
+
+    # -- accounting --------------------------------------------------------
+
+    def cached_idle(self) -> int:
+        """Cached blocks no live slot shares (ref == 1: cache only)."""
+        # list() snapshot: observer threads call this mid-mutation
+        return sum(
+            1 for b in list(self._cached.values()) if self._ref[b] == 1
+        )
+
+    def available(self) -> int:
+        """Blocks an allocation burst could obtain right now: the free
+        list plus idle cached blocks (reclaimable)."""
+        return len(self._free) + self.cached_idle()
+
+    def in_use(self) -> int:
+        return self.total - len(self._free) - self.cached_idle()
+
+    # -- refcounts ---------------------------------------------------------
+
+    def retain(self, block: int) -> None:
+        self._ref[block] += 1
+        self._attaches[block] += 1
+        self._last_access[block] = self._tick
+
+    def release(self, block: int) -> None:
+        if self._ref[block] <= 0:
+            raise RuntimeError(f"double free of KV block {block}")
+        self._ref[block] -= 1
+        if self._ref[block] == 0:
+            # a cached block always keeps the cache's own reference,
+            # so ref 0 means fully private and dead
+            self._free.append(block)
+
+    def alloc(self) -> int:
+        """One fresh private block (ref 1): free list first, then LRU
+        reclaim of an idle cached block. Callers gate admission on
+        available(), so exhaustion here is a bug, not backpressure."""
+        if self._free:
+            block = self._free.popleft()
+        else:
+            block = self._reclaim()
+            if block is None:
+                raise RuntimeError(
+                    "KV block pool exhausted despite reservation"
+                )
+        self._ref[block] = 1
+        self._tick += 1
+        self._created[block] = self._tick
+        self._last_access[block] = self._tick
+        self._attaches[block] = 1
+        self._block_hits[block] = 0
+        return block
+
+    def _reclaim(self):
+        victim_key = None
+        victim_tick = None
+        for key, tick in self._lru.items():
+            if self._ref[self._cached[key]] != 1:
+                continue  # shared with a live slot: not reclaimable
+            if victim_tick is None or tick < victim_tick:
+                victim_key, victim_tick = key, tick
+        if victim_key is None:
+            return None
+        block = self._cached.pop(victim_key)
+        self._lru.pop(victim_key)
+        self.reclaimed += 1
+        self._ref[block] = 0
+        return block
+
+    # -- prefix cache ------------------------------------------------------
+
+    def lookup(self, key):
+        """Cached block for one full-prompt-prefix key, bumping its
+        LRU tick; None on miss."""
+        block = self._cached.get(key)
+        if block is not None:
+            self._tick += 1
+            self._lru[key] = self._tick
+            self._block_hits[block] += 1
+            self._last_access[block] = self._tick
+        return block
+
+    def publish(self, key, block: int) -> None:
+        """Index a slot's prompt block under its token key (called at
+        the slot's first emit, when all prompt K/V is written). The
+        cache takes its own reference; already-cached keys are left
+        alone (their existing block stays authoritative)."""
+        if key in self._cached:
+            return
+        self._cached[key] = block
+        self._ref[block] += 1
+        self._tick += 1
+        self._lru[key] = self._tick
+        self._attaches[block] += 1
+        self._last_access[block] = self._tick
+
+    def cached_blocks(self) -> int:
+        return len(self._cached)
+
+    def residency(self, top_n: int = 10) -> dict:
+        """The /kv/statz page: per-block residency rolled up into an
+        occupancy-by-age histogram, the hot-prefix top-N by hit count,
+        the cached-idle vs shared vs private split, and fragmentation
+        (blocks that LOOK reclaimable but aren't: cached blocks shared
+        with live slots, plus the permanently pinned sentinel).
+
+        Engine-thread only (walks _cached/_ref mid-mutation-free);
+        observers go through ContinuousBatchingEngine.kv_statz(),
+        which submits here as an engine op. Ages are pool ticks, not
+        seconds — deterministic by construction."""
+        rev = {block: key for key, block in self._cached.items()}
+        split = {"free": len(self._free), "cached_idle": 0,
+                 "cached_shared": 0, "private": 0, "sentinel": 1}
+        ages: list = []
+        hot: list = []
+        for block in range(1, self.num_blocks):
+            if self._ref[block] <= 0:
+                continue
+            key = rev.get(block)
+            if key is not None:
+                if self._ref[block] == 1:
+                    split["cached_idle"] += 1
+                else:
+                    split["cached_shared"] += 1
+                hot.append({
+                    "digest": prefix_hash(key),
+                    "hits": self._block_hits[block],
+                    "attaches": self._attaches[block],
+                    "age_ticks": self._tick - self._created[block],
+                    "idle_ticks":
+                        self._tick - self._last_access[block],
+                    "idle": self._ref[block] == 1,
+                })
+            else:
+                split["private"] += 1
+            ages.append(self._tick - self._created[block])
+        # log2 occupancy-by-age buckets over resident blocks: the
+        # shape answers "is the cache full of fresh or fossil blocks"
+        # without per-block dumps
+        edges = [1, 4, 16, 64, 256, 1024, 4096]
+        age_hist = [
+            {"le": le, "count": sum(1 for a in ages if a <= le)}
+            for le in edges
+        ]
+        age_hist.append({"le": "+Inf", "count": len(ages)})
+        hot.sort(
+            key=lambda row: (-row["hits"], -row["attaches"],
+                             row["digest"])
+        )
+        unreclaimable = split["cached_shared"] + split["sentinel"]
+        return {
+            "block_size": self.block_size,
+            "num_blocks": self.num_blocks,
+            "total": self.total,
+            "tick": self._tick,
+            "split": split,
+            "age_histogram": age_hist,
+            "hot_prefixes": hot[:max(0, int(top_n))],
+            "resident_digests": sorted(
+                prefix_hash(key) for key in self._cached
+            ),
+            "fragmentation": {
+                "free": len(self._free),
+                "unreclaimable_cached": split["cached_shared"],
+                "sentinel": split["sentinel"],
+                "ratio": round(unreclaimable / self.num_blocks, 6),
+            },
+            "counters": {
+                "hits": self.hits,
+                "misses": self.misses,
+                "hit_tokens": self.hit_tokens,
+                "cow_copies": self.cow_copies,
+                "reclaimed": self.reclaimed,
+            },
+        }
+
+    def flush(self) -> None:
+        """Drop the whole prefix cache (weights swapped or the device
+        pool was rebuilt: cached K/V no longer matches)."""
+        for block in list(self._cached.values()):
+            self.release(block)
+        self._cached.clear()
+        self._lru.clear()
+
+    def check(self) -> None:
+        """Invariant audit for tests: the sentinel stays pinned, free
+        blocks have ref 0 (and vice versa), cached blocks are alive,
+        and nothing is double-listed."""
+        assert self._ref[0] == 1, "sentinel reference lost"
+        free = list(self._free)
+        assert len(set(free)) == len(free), "block double-freed"
+        for b in free:
+            assert self._ref[b] == 0, f"free block {b} has refs"
+        assert set(self._cached) == set(self._lru), "LRU out of sync"
+        for key, b in self._cached.items():
+            assert self._ref[b] >= 1, f"cached block {b} unreferenced"
+        free_set = set(free)
+        for b in range(1, self.num_blocks):
+            if self._ref[b] == 0:
+                assert b in free_set, f"block {b} leaked"
+
+
+class DecodeCancelled(RuntimeError):
+    """The request was cancelled before it finished decoding."""
+
+
+class EngineRequest:
+    """Handle for one in-flight request: streams tokens as they are
+    produced, or blocks for the full chain. Created by
+    ContinuousBatchingEngine.submit(); not constructed directly."""
+
+    __slots__ = (
+        "prompt", "new", "tokens", "error", "done", "cancelled",
+        "created", "first_token_at", "admitted_at", "last_token_at",
+        "span", "corr", "trace", "_stream",
+    )
+
+    def __init__(self, prompt, new: int, corr=None, trace=None):
+        self.prompt = [int(t) for t in prompt]
+        self.new = int(new)
+        # correlation ID (the server's request id): carried from the
+        # HTTP thread into the engine thread, so slot-side flight
+        # records join the request's server-side records and span
+        self.corr = corr
+        # fleet trace id (telemetry/tracecontext.py): captured at
+        # submit() from the HTTP thread's bound scope. The scheduler
+        # thread runs OUTSIDE any request context, so per-request
+        # records there must pass trace=req.trace explicitly — ambient
+        # lookup would silently yield nothing (the same PEP 567 edge
+        # the router's docstring documents for generators)
+        self.trace = trace
+        self.tokens: list = []  # generated tokens, appended live
+        self.error = None
+        self.done = threading.Event()
+        self.cancelled = threading.Event()
+        self.created = time.monotonic()
+        self.first_token_at = None
+        # telemetry (engine-thread-owned): when this request entered a
+        # slot, when its previous token left, and its trace span
+        self.admitted_at = None
+        self.last_token_at = None
+        self.span = None
+        self._stream: queue.Queue = queue.Queue()
+
+    # -- engine side -------------------------------------------------------
+
+    def _emit(self, token: int) -> None:
+        if self.first_token_at is None:
+            self.first_token_at = time.monotonic()
+        self.tokens.append(token)
+        self._stream.put(token)
+
+    def _finish(self, error=None) -> None:
+        self.error = error
+        self.done.set()
+        self._stream.put(_DONE if error is None else error)
+
+    # -- client side -------------------------------------------------------
+
+    def cancel(self) -> None:
+        """Stop decoding for this request; the engine frees its slot
+        before the next step. result()/stream() then raise
+        DecodeCancelled."""
+        self.cancelled.set()
+
+    def result(self, timeout: float = 600.0):
+        """Block until done; -> the full chain (prompt + generated)."""
+        if not self.done.wait(timeout):
+            self.cancel()
+            raise TimeoutError("decode timed out in the engine")
+        if self.error is not None:
+            raise self.error
+        return self.prompt + self.tokens
+
+    def stream(self, timeout: float = 600.0):
+        """Yield generated tokens as the engine produces them; raises
+        the decode error (or DecodeCancelled) in the consumer."""
+        while True:
+            item = self._stream.get(timeout=timeout)
+            if item is _DONE:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+
+    @property
+    def ttft(self):
+        """Seconds from submit to the first generated token, or None
+        before it arrives."""
+        if self.first_token_at is None:
+            return None
+        return self.first_token_at - self.created
+
+
+
+
+# the options of the reference engine that the port leaves out
+_SPECULATION = "speculative decoding is not ported (ROADMAP queue 1 item 6)"
+_SHARDED = "the sharded decode step (mesh_shape) is not ported (ROADMAP queue 1 item 6)"
+_DISAGGREGATED = (
+    "disaggregated serving (roles, KV block-set export/import, the prefix "
+    "digest, /kv/statz) is not ported (ROADMAP queue 1 item 6)"
+)
+
+
+class ContinuousBatchingEngine:
+    """Slot-based continuous-batching decode engine over one model, the
+    port's GPT module (models/gpt.py), whose parameters the steps read in
+    place (no second copy of the weights).
+
+    One background thread owns the device loop and ALL slot state;
+    submit()/cancel() only touch the queue and per-request flags, so there
+    is no lock on the hot path. Under kv_layout="paged" (the default) the
+    KV lives in a fixed pool of fixed-size blocks mapped through per-slot
+    block tables; under "dense" it is the [n_slots, max_total, ...] grid.
+    Either way it is one fixed allocation per layer.
+
+    Paged knobs: block_size (tokens per block; max_total must divide
+    evenly), kv_blocks (usable pool blocks; 0 sizes the pool to the dense
+    equivalent, n_slots * max_total / block_size), prefill_chunk
+    (chunked-prefill width; 0 disables chunking), prefix_cache.
+
+    device: where the engine runs (`cuda` unless named; raises without a
+    card); the model is moved there. The programs are captured at
+    construction: on the engine thread with start=True (the constructor
+    waits for it), in the caller's thread with start=False, where tests
+    drive _admit / _evict_cancelled / _work_once by hand."""
+
+    def __init__(
+        self,
+        model,
+        n_slots: int = 8,
+        max_total: int = 0,
+        kv_quant_int8: bool = False,
+        weights_int8: bool = False,
+        start: bool = True,
+        registry=None,
+        tracer=None,
+        kv_layout: str = "paged",
+        block_size: int = 64,
+        kv_blocks: int = 0,
+        prefill_chunk: int = 64,
+        prefix_cache: bool = True,
+        mesh_shape=None,
+        role: str = "",
+        speculate: str = "off",
+        device=None,
+    ):
+        from ..models import gpt as gpt_lib
+
+        if n_slots < 1:
+            raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        if kv_layout not in ("paged", "dense"):
+            raise ValueError(f"kv_layout must be 'paged' or 'dense', got {kv_layout!r}")
+        if speculate != "off":
+            raise NotImplementedError(_SPECULATION)
+        if mesh_shape is not None:
+            raise NotImplementedError(_SHARDED)
+        if role:
+            raise NotImplementedError(_DISAGGREGATED)
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # the engine thread sets the device itself: name it
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        model.to(self.device)
+        cfg = model.cfg
+        max_total = int(max_total) or cfg.max_seq_len
+        self.model = model
+        self.cfg = cfg
+        self.n_slots = int(n_slots)
+        self.max_total = max_total
+        self.kv_layout = kv_layout
+        self._paged = kv_layout == "paged"
+        s = self.n_slots
+        if self._paged:
+            block_size = int(block_size)
+            if block_size < 1 or max_total % block_size:
+                raise ValueError(
+                    f"block_size {block_size} must be >= 1 and divide max_total {max_total}"
+                )
+            self.max_blocks = max_total // block_size
+            usable = int(kv_blocks) or s * self.max_blocks
+            if usable < 1:
+                raise ValueError(f"kv_blocks must be >= 1, got {usable}")
+            self.step = gpt_lib.PagedSlotDecodeStep(
+                model, s, max_total, block_size, usable + 1,
+                kv_quant_int8=kv_quant_int8, weights_int8=weights_int8,
+            )
+            self.pool = BlockPool(usable + 1, block_size)
+            self.prefill_chunk = int(prefill_chunk)
+            self._prefix_cache = bool(prefix_cache)
+            self._tables = np.zeros((s, self.max_blocks), np.int32)
+            # per-slot block bookkeeping (engine-thread-owned): blocks
+            # held (table order), keys to publish at first emit, and the
+            # full numpy table row
+            self._slot_blocks: list = [[] for _ in range(s)]
+            self._slot_keys: list = [[] for _ in range(s)]
+            self._slot_table = [np.zeros((self.max_blocks,), np.int32) for _ in range(s)]
+        else:
+            self.step = gpt_lib.SlotDecodeStep(
+                model, s, max_total, kv_quant_int8=kv_quant_int8, weights_int8=weights_int8,
+            )
+            self.pool = None
+            self.prefill_chunk = 0
+            self._prefix_cache = False
+        # slot -> {"offset", "decode_start"} while chunk-prefilling;
+        # always present (empty under dense) so the loop can test it
+        self._prefilling: dict = {}
+        self._cache = self.step.init_cache()
+        self._tok = np.zeros((s,), np.int32)
+        self._index = np.zeros((s,), np.int32)
+        self._lens = np.ones((s,), np.int32)  # idle rows: 1-token dummy
+        self._prompt = np.zeros((s, max_total), np.int32)
+        self._reqs: list = [None] * s
+        self._free = list(range(s))
+        self._queue: queue.Queue = queue.Queue()
+        # scheduler-owned FIFO the queue drains into: under paged the
+        # head may be waiting for blocks, and it must not be overtaken
+        self._pending: collections.deque = collections.deque()
+        self._stop = threading.Event()
+        # engine-thread op queue: pool/cache work requested from other
+        # threads (audits) runs between scheduler quanta
+        self._ops: collections.deque = collections.deque()
+        # serializes submit's stopped-check+enqueue against stop's drain
+        self._lifecycle = locks.make_lock("ContinuousBatchingEngine._lifecycle")
+        # admission gate (rolling weight updates): cleared by
+        # pause_admission(); _drained is set BY THE ENGINE THREAD once it
+        # sees the cleared gate with zero active slots
+        self._admit_gate = threading.Event()
+        self._admit_gate.set()
+        self._drained = threading.Event()
+        # counters (engine thread writes, observers read)
+        self.steps = 0
+        self.row_steps = 0
+        self.admitted = 0
+        self.finished = 0
+        self.cancelled = 0
+        self.decode_seconds = 0.0
+        self.peak_active = 0
+        self.prefill_chunks = 0
+        self.prefill_seconds = 0.0
+        self.pool_audit_failures = 0
+        self.pool_audit_ok = True
+        self.pool_audit_error = ""
+        # where each quantum's wall time goes: admission, step dispatch
+        # (input copies and the replay's launch), the wait for the next
+        # tokens on the host, stream fan-out
+        self.admit_seconds = 0.0
+        self.dispatch_seconds = 0.0
+        self.sync_seconds = 0.0
+        self.fanout_seconds = 0.0
+        self.quanta = 0
+        self.quantum_dispatches = 0
+        self._tracer = tracer
+        self._h_ttft = self._h_itl = self._h_queue_wait = None
+        self._h_batch = self._h_prefill = None
+        if registry is not None:
+            from ..telemetry import FAST_BUCKETS, LATENCY_BUCKETS, SIZE_BUCKETS, TTFT_BUCKETS
+
+            self._h_ttft = registry.histogram(
+                "ttft_seconds", "Time from submit to a request's first generated token",
+                buckets=TTFT_BUCKETS,
+            )
+            self._h_itl = registry.histogram(
+                "inter_token_seconds", "Gap between a request's consecutive generated tokens",
+                buckets=FAST_BUCKETS,
+            )
+            self._h_queue_wait = registry.histogram(
+                "queue_wait_seconds",
+                "Time from submit until the engine admits the request into a slot",
+                buckets=LATENCY_BUCKETS,
+            )
+            self._h_batch = registry.histogram(
+                "engine_batch_size", "Occupied slots per decode step", buckets=SIZE_BUCKETS,
+            )
+            if self._paged and self.prefill_chunk > 0:
+                self._h_prefill = registry.histogram(
+                    "prefill_chunk_seconds", "Wall-clock latency of one chunked-prefill chunk",
+                    buckets=TTFT_BUCKETS,
+                )
+        # THE one capture per program, paid at construction instead of
+        # inside the first request's latency, by the thread that replays
+        self.thread = None
+        if not start:
+            self._warm_up()
+            return
+        self._warm_error = None
+        self._warmed = threading.Event()
+        self.thread = threading.Thread(target=self._run, name="decode-engine", daemon=True)
+        self.thread.start()
+        self._warmed.wait()
+        if self._warm_error is not None:
+            self.thread.join(timeout=10)
+            raise self._warm_error
+
+    def _warm_up(self) -> None:
+        """Capture every program once on its idle inputs. Paged warms the
+        prefill chunk and the copy-on-write against the sentinel block,
+        whose contents are garbage by contract."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        if not self._paged:
+            self.step(self._tok, self._index, self._prompt, self._lens)
+            return
+        self.step(self._tok, self._index, self._prompt, self._lens, self._tables)
+        if self.prefill_chunk > 0:
+            self.step.prefill(
+                np.zeros((1, self.prefill_chunk), np.int32), 0,
+                np.zeros((self.max_blocks,), np.int32),
+            )
+        self.step.copy_block(0, 0)
+
+    # -- client API --------------------------------------------------------
+
+    def submit(self, prompt, new: int, corr=None) -> EngineRequest:
+        """Queue one decode stream; -> its handle (stream()/result()).
+        prompt: one row of token ids. corr: correlation ID tying the
+        slot's flight records to the submitting request (defaults to the
+        context's correlate() binding, the server's request id)."""
+        if self._stop.is_set() or (self.thread is not None and not self.thread.is_alive()):
+            raise RuntimeError("engine is stopped")
+        row = [int(t) for t in prompt]
+        if not row:
+            raise ValueError("prompt must be non-empty")
+        if new < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {new}")
+        if len(row) + new > self.max_total:
+            raise ValueError(
+                f"prompt {len(row)} + new {new} exceeds the engine's max_total {self.max_total}"
+            )
+        if self._paged:
+            # the request reserves its worst-case blocks at admission;
+            # one that can never fit the pool is rejected HERE
+            bs = self.pool.block_size
+            blocks = (len(row) + new - 1 + bs - 1) // bs
+            if blocks > self.pool.total:
+                raise ValueError(
+                    f"prompt {len(row)} + new {new} needs {blocks} KV blocks; the pool "
+                    f"holds {self.pool.total} ({bs}-token blocks)"
+                )
+        if corr is None:
+            corr = current_correlation()
+        ctx = current_trace()
+        req = EngineRequest(
+            row, new, corr=corr, trace=ctx.trace_id if ctx is not None else None,
+        )
+        if self._tracer is not None:
+            span_args = {"prompt_tokens": len(row), "max_new_tokens": new}
+            if corr is not None:
+                span_args["corr"] = corr
+            req.span = self._tracer.begin("serve-request", **span_args)
+            req.span.annotate("queued")
+        default_flight().record("serve", corr=corr, op="submit", prompt_tokens=len(row), new=new)
+        with self._lifecycle:
+            # stop() drains the queue under the same lock, so a put here
+            # either precedes the drain (and gets failed by it) or raises
+            if self._stop.is_set():
+                raise RuntimeError("engine is stopped")
+            self._queue.put(req)
+        return req
+
+    def generate(self, prompt, lens, new: int, timeout: float = 600.0):
+        """Batcher-compatible fan-out: prompt [rows, width] right-padded
+        with per-row lens -> list of full chains (each row's prompt + new
+        tokens). Rows are independent engine streams."""
+        prompt = np.asarray(prompt, np.int32)
+        reqs: list = []
+        deadline = time.monotonic() + timeout
+        # a row rejected mid-batch cancels the rows already in flight
+        try:
+            for i in range(prompt.shape[0]):
+                reqs.append(self.submit(prompt[i, :int(lens[i])].tolist(), new))
+            return [req.result(max(deadline - time.monotonic(), 1e-3)) for req in reqs]
+        except BaseException:
+            for req in reqs:
+                req.cancel()
+            raise
+
+    def pause_admission(self) -> None:
+        """Stop placing queued requests into slots; in-flight slots
+        decode to completion, queued requests wait for
+        resume_admission()."""
+        # clear the ack BEFORE the gate: while the gate is set the engine
+        # thread never touches _drained
+        self._drained.clear()
+        self._admit_gate.clear()
+
+    def resume_admission(self) -> None:
+        self._admit_gate.set()
+
+    @property
+    def draining(self) -> bool:
+        return not self._admit_gate.is_set()
+
+    def drain(self, timeout: float = 60.0) -> bool:
+        """Pause admission and wait until every in-flight slot has
+        finished; -> True when fully drained. Until resume_admission()
+        the engine thread then runs no step, so swap_params() is safe."""
+        self.pause_admission()
+        if self.thread is None or not self.thread.is_alive():
+            if self.active_slots == 0:
+                self._drained.set()
+                self.audit_pool("drain")
+            return self.active_slots == 0
+        drained = self._drained.wait(timeout)
+        default_flight().record(
+            "serve", op="drain", ok=drained, active_slots=self.active_slots,
+            queued=self.queue_depth,
+        )
+        if drained:
+            self.audit_pool("drain")
+        return drained
+
+    def swap_params(self, params) -> None:
+        """Replace the model weights (rolling update): `params` is a
+        state dict of the same names and shapes (or a module whose state
+        dict is). Only legal on a drained engine. The values are copied
+        into the model's own tensors in place, so the captured programs
+        read them without a recapture."""
+        state = params.state_dict() if isinstance(params, torch.nn.Module) else params
+        with self._lifecycle:
+            if self._admit_gate.is_set() or not self._drained.is_set():
+                raise RuntimeError(
+                    "swap_params requires a drained engine (pause_admission + drain first)"
+                )
+            own = self.model.state_dict()
+            if set(state) != set(own):
+                raise ValueError(
+                    f"state dict names differ: missing {sorted(set(own) - set(state))}, "
+                    f"unexpected {sorted(set(state) - set(own))}"
+                )
+            with torch.no_grad():
+                for name, tensor in own.items():
+                    tensor.copy_(state[name])
+            if self._paged:
+                # cached prompt K/V was computed under the OLD weights
+                self.pool.flush()
+        default_flight().record("serve", op="swap-params")
+
+    # -- not ported (disaggregated serving) --------------------------------
+
+    def export_prefix_blocks(self, prompt, corr=None):
+        raise NotImplementedError(_DISAGGREGATED)
+
+    def import_prefix_blocks(self, payload, corr=None):
+        raise NotImplementedError(_DISAGGREGATED)
+
+    def prefix_digest(self, limit: int = 128) -> list:
+        raise NotImplementedError(_DISAGGREGATED)
+
+    def kv_statz(self, top_n: int = 10) -> dict:
+        raise NotImplementedError(_DISAGGREGATED)
+
+    def audit_pool(self, where: str = "audit") -> bool:
+        """Run BlockPool.check() on the engine thread; a failed audit is
+        surfaced as a flight record + counter. True when clean."""
+        if not self._paged:
+            return True
+
+        def op():
+            try:
+                self.pool.check()
+            except AssertionError as err:
+                self.pool_audit_failures += 1
+                self.pool_audit_ok = False
+                self.pool_audit_error = str(err)
+                default_flight().record("serve", op="pool-audit", ok=False, where=where,
+                                  error=str(err))
+                return False
+            self.pool_audit_ok = True
+            self.pool_audit_error = ""
+            default_flight().record(
+                "serve", op="pool-audit", ok=True, where=where,
+                in_use=self.pool.in_use(), cached=self.pool.cached_blocks(),
+            )
+            return True
+
+        return self._submit_op(op)
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self.thread is not None:
+            self.thread.join(timeout=10)
+        # run (inline) any op that raced the stop flag
+        self._drain_ops()
+        stopped = RuntimeError("engine is stopped")
+        drained = []
+        with self._lifecycle:
+            while True:
+                try:
+                    drained.append(self._queue.get_nowait())
+                except queue.Empty:
+                    break
+            drained.extend(self._pending)
+            self._pending.clear()
+        for req in drained:  # fail queued requests so waiters don't hang
+            req._finish(stopped)
+        for slot, req in enumerate(self._reqs):
+            if req is not None:
+                self._release(slot, error=stopped)
+        self.audit_pool("stop")
+
+    # -- observers ---------------------------------------------------------
+
+    @property
+    def active_slots(self) -> int:
+        return self.n_slots - len(self._free)
+
+    @property
+    def queue_depth(self) -> int:
+        return self._queue.qsize() + len(self._pending)
+
+    def slots(self) -> tuple:
+        """Per-slot request handles (None = free): test/debug view."""
+        return tuple(self._reqs)
+
+    def metrics(self) -> dict:
+        """(name, kind) -> value rows for the server's /metrics."""
+        out = {
+            ("engine_steps_total", "counter"): self.steps,
+            ("engine_row_steps_total", "counter"): self.row_steps,
+            ("engine_admitted_total", "counter"): self.admitted,
+            ("engine_finished_total", "counter"): self.finished,
+            ("engine_cancelled_total", "counter"): self.cancelled,
+            ("engine_decode_seconds_total", "counter"): self.decode_seconds,
+            ("engine_admit_seconds_total", "counter"): self.admit_seconds,
+            ("engine_dispatch_seconds_total", "counter"): self.dispatch_seconds,
+            ("engine_device_sync_seconds_total", "counter"): self.sync_seconds,
+            ("engine_fanout_seconds_total", "counter"): self.fanout_seconds,
+            ("engine_compiles_total", "counter"): self.step.compiles,
+            ("engine_quanta_total", "counter"): self.quanta,
+            ("engine_quantum_dispatches_total", "counter"): self.quantum_dispatches,
+            ("engine_active_slots", "gauge"): self.active_slots,
+            ("engine_queue_depth", "gauge"): self.queue_depth,
+            ("engine_peak_active_slots", "gauge"): self.peak_active,
+            ("engine_mesh_devices", "gauge"): 1,
+            ("engine_mesh_model_shards", "gauge"): 1,
+        }
+        if self._paged:
+            pool = self.pool
+            out.update({
+                ("engine_kv_blocks_total", "gauge"): pool.total,
+                ("engine_kv_blocks_in_use", "gauge"): pool.in_use(),
+                ("engine_kv_cached_idle_blocks", "gauge"): pool.cached_idle(),
+                ("engine_prefix_cache_blocks", "gauge"): pool.cached_blocks(),
+                ("engine_prefix_cache_hits_total", "counter"): pool.hits,
+                ("engine_prefix_cache_misses_total", "counter"): pool.misses,
+                ("engine_prefix_hit_tokens_total", "counter"): pool.hit_tokens,
+                ("engine_cow_copies_total", "counter"): pool.cow_copies,
+                ("engine_kv_blocks_reclaimed_total", "counter"): pool.reclaimed,
+                ("engine_prefill_chunks_total", "counter"): self.prefill_chunks,
+                ("engine_prefill_seconds_total", "counter"): self.prefill_seconds,
+                ("engine_kv_pool_bytes", "gauge"): self.step.kv_bytes_total,
+                ("engine_kv_shard_bytes", "gauge"): self.step.kv_bytes_total,
+                ("engine_pool_audit_failures_total", "counter"): self.pool_audit_failures,
+            })
+        return out
+
+    # -- engine thread -----------------------------------------------------
+
+    def _run(self) -> None:
+        try:
+            self._warm_up()
+        except BaseException as err:  # noqa: BLE001 — re-raised by __init__
+            self._warm_error = err
+            self._warmed.set()
+            return
+        self._warmed.set()
+        while not self._stop.is_set():
+            self._drain_ops()
+            if not self._admit_gate.is_set():
+                # draining: finish in-flight slots, admit nothing; the
+                # ack is set by this thread after the last slot released
+                self._evict_cancelled()
+                if self.active_slots:
+                    self._work_once()
+                else:
+                    self._drained.set()
+                    self._stop.wait(0.005)
+                continue
+            self._admit()
+            self._evict_cancelled()
+            if self.active_slots == 0:
+                # idle: park on the queue instead of spinning
+                try:
+                    self._pending.append(self._queue.get(timeout=0.05))
+                except queue.Empty:
+                    continue
+                self._admit()
+                continue
+            self._work_once()
+
+    def _drain_ops(self) -> None:
+        """Run queued cross-thread ops (engine thread only)."""
+        while self._ops:
+            fn, box, done = self._ops.popleft()
+            try:
+                box["result"] = fn()
+            except BaseException as err:  # noqa: BLE001 — relayed to caller
+                box["error"] = err
+            done.set()
+
+    def _submit_op(self, fn, timeout: float = 60.0):
+        """Run ``fn`` on the engine thread between scheduler quanta and
+        return its result (exceptions re-raise here); inline when no
+        scheduler thread runs."""
+        if self.thread is None or not self.thread.is_alive():
+            return fn()
+        box: dict = {}
+        done = threading.Event()
+        self._ops.append((fn, box, done))
+        if not done.wait(timeout):
+            raise TimeoutError("engine op timed out")
+        if box.get("error") is not None:
+            raise box["error"]
+        return box.get("result")
+
+    def _admit(self) -> None:
+        started = time.monotonic()
+        # drain the client queue into the scheduler-owned stage first,
+        # in arrival order
+        while True:
+            try:
+                self._pending.append(self._queue.get_nowait())
+            except queue.Empty:
+                break
+        while self._pending and self._free:
+            req = self._pending[0]
+            plan = None
+            if not req.cancelled.is_set() and self._paged:
+                plan = self._plan(req)
+                if plan[4] > self.pool.available():
+                    # the HEAD waits for blocks (freed as running
+                    # slots finish) — strict FIFO, no overtaking, no
+                    # mid-stream eviction of anyone else
+                    break
+            self._pending.popleft()
+            self._place(req, plan)
+        self.admit_seconds += time.monotonic() - started
+
+    def _plan(self, req: EngineRequest):
+        """Prefix-cache match + block budget for one request ->
+        (shared cached blocks, CoW source or None, first decode index,
+        fresh blocks to allocate, blocks the admission must see
+        available). `new` is exact (greedy always runs its full
+        budget) and positions 0 .. p+new-2 are the ones written, so
+        the reservation guarantees the slot can never run out of
+        blocks mid-decode.
+
+        The reserve is larger than the fresh count when shared/CoW
+        blocks are currently IDLE in the cache: retaining them removes
+        them from the reclaimable set, so admission must budget for
+        that shrinkage or the allocs below could exhaust the pool."""
+        pool = self.pool
+        bs = pool.block_size
+        p = len(req.prompt)
+        full = p // bs          # whole blocks the prompt fills
+        limit = (p - 1) // bs   # shareable without CoW: the block
+        #                         holding p-1 is rewritten at decode
+        shared: list = []
+        cow_src = None
+        if self._prefix_cache:
+            for j in range(full):
+                block = pool.lookup(tuple(req.prompt[:(j + 1) * bs]))
+                if block is None:
+                    break
+                shared.append(block)
+        if len(shared) > limit:
+            # the WHOLE prompt is cached (p % bs == 0): its last block
+            # still needs position p-1's K/V rewritten to launch the
+            # argmax chain, so it is copied (CoW), never shared
+            cow_src = shared.pop()
+        blocks = (p + req.new - 1 + bs - 1) // bs  # ceil over written
+        if cow_src is not None and blocks >= pool.total:
+            # CoW transiently holds source + copy; at a full-pool
+            # reservation that extra block could NEVER become
+            # available — degrade to plain sharing (the tail block is
+            # recomputed via the forcing rule) instead of deadlocking
+            cow_src = None
+        m = len(shared)
+        start = p - 1 if cow_src is not None else m * bs
+        held_idle = sum(
+            1 for b in shared + ([cow_src] if cow_src is not None else [])
+            if pool._ref[b] == 1
+        )
+        return shared, cow_src, start, blocks - m, blocks - m + held_idle
+
+    def _place(self, req: EngineRequest, plan=None) -> None:
+        if req.cancelled.is_set():
+            self.cancelled += 1
+            if req.span is not None:
+                req.span.finish(outcome="cancelled")
+            default_flight().record(
+                "serve", corr=req.corr, trace=req.trace, op="evict",
+                outcome="cancelled-before-admission",
+            )
+            req._finish(DecodeCancelled("cancelled before admission"))
+            return
+        req.admitted_at = time.monotonic()
+        if self._h_queue_wait is not None:
+            self._h_queue_wait.observe(req.admitted_at - req.created)
+        if req.span is not None:
+            req.span.annotate("admitted")
+        default_flight().record(
+            "serve", corr=req.corr, trace=req.trace, op="admit",
+            slot=self._free[0],
+            queue_wait=round(req.admitted_at - req.created, 6),
+        )
+        slot = self._free.pop(0)
+        self._reqs[slot] = req
+        n = len(req.prompt)
+        self._prompt[slot, :] = 0
+        self._prompt[slot, :n] = req.prompt
+        self.admitted += 1
+        self.peak_active = max(self.peak_active, self.active_slots)
+        if not self._paged:
+            self._lens[slot] = n
+            self._index[slot] = 0
+            self._tok[slot] = req.prompt[0]
+            return
+        pool = self.pool
+        shared, cow_src, start, need, _ = plan or self._plan(req)
+        bs = pool.block_size
+        # prefix-cache accounting: one hit per reused prompt block
+        # (CoW counts — its prefill is skipped), one miss per prompt
+        # block computed from scratch
+        reused = len(shared) + (1 if cow_src is not None else 0)
+        pool.hits += reused
+        pool.misses += n // bs - reused
+        pool.hit_tokens += start
+        # retain BEFORE any alloc: a retained block has ref >= 2 and
+        # can never be LRU-reclaimed out from under this request
+        for block in shared:
+            pool.retain(block)
+        if cow_src is not None:
+            pool.retain(cow_src)
+        fresh = [pool.alloc() for _ in range(need)]
+        if cow_src is not None:
+            self.step.copy_block(cow_src, fresh[0])
+            pool.release(cow_src)  # the slot keeps only the copy
+            pool.cow_copies += 1
+        blocks = shared + fresh
+        self._slot_blocks[slot] = blocks
+        # keys for the slot's FULL prompt blocks, published at first
+        # emit (all prompt K/V is in the pool by then)
+        self._slot_keys[slot] = [
+            (tuple(req.prompt[:(j + 1) * bs]), blocks[j])
+            for j in range(n // bs)
+        ]
+        table = self._slot_table[slot]
+        table[:] = 0
+        table[:len(blocks)] = blocks
+        default_flight().record(
+            "serve", corr=req.corr, trace=req.trace, op="kv-plan",
+            slot=slot, shared=len(shared), fresh=need,
+            cow=cow_src is not None, start=start,
+        )
+        chunk = self.prefill_chunk
+        n_chunks = (n - 1 - start) // chunk if chunk > 0 else 0
+        if n_chunks > 0:
+            # park the row on the sentinel while its chunks run; it
+            # joins the decode grid in _activate
+            self._prefilling[slot] = {
+                "offset": start,
+                "decode_start": start + n_chunks * chunk,
+            }
+            self._tables[slot, :] = 0
+            self._lens[slot] = 1
+            self._index[slot] = 0
+            self._tok[slot] = 0
+        else:
+            self._activate(slot, start)
+
+    def _activate(self, slot: int, start: int) -> None:
+        """Join the decode grid at index `start`: positions < start
+        came from the prefix cache and/or prefill chunks; the rest of
+        the prompt rides the forcing rule."""
+        req = self._reqs[slot]
+        self._tables[slot, :] = self._slot_table[slot]
+        self._lens[slot] = len(req.prompt)
+        self._index[slot] = start
+        self._tok[slot] = req.prompt[start]
+
+    def _evict_cancelled(self) -> None:
+        for slot, req in enumerate(self._reqs):
+            if req is not None and req.cancelled.is_set():
+                self.cancelled += 1
+                self._release(slot, error=DecodeCancelled("cancelled"))
+
+    def _release(self, slot: int, error=None) -> None:
+        req = self._reqs[slot]
+        self._reqs[slot] = None
+        self._free.append(slot)
+        # park the row as an idle 1-token dummy; its stale KV is
+        # masked (each row attends <= its own index only) and gets
+        # overwritten position-by-position by the next occupant
+        self._tok[slot] = 0
+        self._index[slot] = 0
+        self._lens[slot] = 1
+        if self._paged:
+            self._prefilling.pop(slot, None)
+            self._tables[slot, :] = 0  # back onto the sentinel
+            self._slot_table[slot][:] = 0
+            for block in self._slot_blocks[slot]:
+                self.pool.release(block)
+            self._slot_blocks[slot] = []
+            self._slot_keys[slot] = []
+        if req is not None:
+            if error is None:
+                outcome = "finished"
+            elif isinstance(error, DecodeCancelled):
+                outcome = "cancelled"
+            else:
+                outcome = "error"
+            if req.span is not None:
+                if error is None:
+                    req.span.annotate("finished")
+                    req.span.finish(outcome="finished")
+                elif isinstance(error, DecodeCancelled):
+                    req.span.finish(outcome="cancelled")
+                else:
+                    req.span.finish(
+                        outcome="error", error=type(error).__name__
+                    )
+            default_flight().record(
+                "serve", corr=req.corr, trace=req.trace, op="evict",
+                slot=slot, outcome=outcome, tokens=len(req.tokens),
+            )
+            req._finish(error)
+
+    def _work_once(self) -> None:
+        """One scheduler quantum: at most ONE prefill chunk (so a long
+        prompt's ingestion is amortized across quanta), then a decode
+        step whenever any non-prefilling slot is live — active streams
+        keep emitting while a long prompt chunks in, which is the
+        whole point of chunked prefill."""
+        if self._prefilling:
+            self._prefill_once()
+        live = [
+            slot for slot, req in enumerate(self._reqs)
+            if req is not None and slot not in self._prefilling
+        ]
+        if live:
+            self._step_once()
+
+    def _prefill_once(self) -> None:
+        slot, state = next(iter(self._prefilling.items()))
+        req = self._reqs[slot]
+        off = state["offset"]
+        chunk = self.prefill_chunk
+        tokens = np.asarray(
+            [req.prompt[off:off + chunk]], np.int32
+        )
+        self.quanta += 1
+        self.quantum_dispatches += 1
+        start = time.monotonic()
+        try:
+            self.step.prefill(tokens, off, self._slot_table[slot])
+        except Exception as err:  # noqa: BLE001 — fan out, stay alive
+            self._fail_all(err)
+            return
+        took = time.monotonic() - start
+        self.prefill_chunks += 1
+        self.prefill_seconds += took
+        if self._h_prefill is not None:
+            self._h_prefill.observe(took)
+        default_flight().record(
+            "serve", corr=req.corr, trace=req.trace, op="prefill-chunk",
+            slot=slot, offset=off, tokens=chunk,
+        )
+        state["offset"] = off + chunk
+        self._prefilling.pop(slot)
+        if state["offset"] >= state["decode_start"]:
+            self._activate(slot, state["decode_start"])
+        else:
+            # reinsert at the back: concurrent prefills round-robin
+            self._prefilling[slot] = state
+
+    def _fail_all(self, err) -> None:
+        """The cache's state is unknown after a failed device call: zero
+        it IN PLACE (the captured programs keep its addresses), fail
+        every in-flight request as JSON-able errors (a dead engine would
+        hang all later requests), and drop the prefix cache, whose
+        blocks' device contents just went."""
+        default_flight().record(
+            "serve", op="step-error", error=type(err).__name__,
+            slots=self.active_slots,
+        )
+        self._cache = self.step.init_cache()
+        for slot, req in enumerate(self._reqs):
+            if req is not None:
+                self._release(slot, error=err)
+        if self._paged:
+            self.pool.flush()
+
+    def _step_once(self) -> None:
+        self.quanta += 1
+        self.quantum_dispatches += 1
+        start = time.monotonic()
+        try:
+            if self._paged:
+                nxt = self.step(
+                    self._tok, self._index, self._prompt, self._lens,
+                    self._tables,
+                )
+            else:
+                nxt = self.step(
+                    self._tok, self._index, self._prompt, self._lens,
+                )
+            dispatched = time.monotonic()
+            # the next tokens come back to the host once a step
+            nxt = nxt.cpu().numpy()
+        except Exception as err:  # noqa: BLE001 — fan out, stay alive
+            self._fail_all(err)
+            return
+        synced = time.monotonic()
+        self.decode_seconds += synced - start
+        self.dispatch_seconds += dispatched - start
+        self.sync_seconds += synced - dispatched
+        self.steps += 1
+        slots_now = self.active_slots
+        self.row_steps += slots_now
+        if self._h_batch is not None:
+            self._h_batch.observe(slots_now)
+        now = time.monotonic()
+        for slot, req in enumerate(self._reqs):
+            if req is None or slot in self._prefilling:
+                # prefilling slots ride the batch as parked rows aimed
+                # at the sentinel block — their lane's output is noise
+                # until _activate() points the row at real blocks
+                continue
+            pos = int(self._index[slot]) + 1
+            self._tok[slot] = nxt[slot]
+            self._index[slot] = pos
+            if pos >= int(self._lens[slot]):
+                req._emit(int(nxt[slot]))
+                self._post_emit(slot, req, now)
+                if pos == int(self._lens[slot]) + req.new - 1:
+                    self.finished += 1
+                    self._release(slot)
+        fanout = time.monotonic() - synced
+        self.fanout_seconds += fanout
+        # the per-step breadcrumb: the slot grid's occupancy over time
+        # IS the engine's narrative (one ring slot per step, no
+        # allocation beyond the record tuple — SERVE_BENCH stays flat).
+        # Emitted AFTER the fan-out so the record carries the full
+        # quantum split: dispatch / device sync / stream fan-out.
+        default_flight().record(
+            "serve", op="step", step=self.steps, slots=slots_now,
+            dispatch=round(dispatched - start, 6),
+            sync=round(synced - dispatched, 6),
+            fanout=round(fanout, 6),
+        )
+
+    def _post_emit(self, slot: int, req, now: float) -> None:
+        """Per-emitted-token bookkeeping: first emit observes TTFT and
+        publishes the slot's prompt blocks to the prefix cache; later
+        emits observe inter-token latency."""
+        if req.last_token_at is None:
+            if self._h_ttft is not None:
+                self._h_ttft.observe(now - req.created)
+            if req.span is not None:
+                req.span.annotate("first-token")
+            # the TTFT endpoint is a hop boundary the trace
+            # collector decomposes on (telemetry/collector.py)
+            default_flight().record(
+                "serve", corr=req.corr, trace=req.trace,
+                op="first-token", slot=slot,
+                ttft=round(now - req.created, 6),
+            )
+            if self._paged and self._slot_keys[slot]:
+                # the prompt's full blocks now hold final K/V:
+                # publish them so later prompts sharing the
+                # prefix skip prefill (cache takes its own ref)
+                for key, block in self._slot_keys[slot]:
+                    self.pool.publish(key, block)
+                self._slot_keys[slot] = []
+        elif self._h_itl is not None:
+            self._h_itl.observe(now - req.last_token_at)
+        req.last_token_at = now
+
+
+
+def main(argv=None) -> int:
+    """Executable smoke: a tiny model with random weights from a seed,
+    concurrent mixed-length requests through the engine, every chain
+    checked equal to the inline generate() path, exactly one capture of
+    each program; printed as JSON, exit 1 on any mismatch.
+
+        python -m tf_operator_tpu_torch.serve.engine --smoke --layout paged --device cpu
+    """
+    import argparse
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--slots", type=int, default=4)
+    parser.add_argument("--requests", type=int, default=12)
+    parser.add_argument("--layout", choices=("paged", "dense"), default="dense")
+    parser.add_argument("--block-size", type=int, default=64)
+    parser.add_argument("--kv-blocks", type=int, default=0)
+    parser.add_argument("--prefill-chunk", type=int, default=64)
+    parser.add_argument("--device", default=None, help="default cuda; cpu runs the plain ops")
+    parser.add_argument("--smoke", action="store_true",
+                        help="accepted for CI-invocation clarity")
+    args = parser.parse_args(argv)
+
+    from ..models import gpt as gpt_lib
+
+    device = resolve_device(args.device)
+    cfg = gpt_lib.GPT_TINY
+    model = gpt_lib.GPT(cfg, device=device, generator=torch.Generator().manual_seed(0))
+    engine = ContinuousBatchingEngine(
+        model, n_slots=args.slots, kv_layout=args.layout, block_size=args.block_size,
+        kv_blocks=args.kv_blocks, prefill_chunk=args.prefill_chunk, device=device,
+    )
+    paged = args.layout == "paged"
+    rng = np.random.default_rng(0)
+    jobs = []
+    for _ in range(args.requests):
+        p_len = int(rng.integers(1, 12))
+        new = int(rng.integers(1, 8))
+        row = rng.integers(0, cfg.vocab_size, size=p_len).tolist()
+        jobs.append((row, new, engine.submit(row, new)))
+    if paged:
+        # shared-prefix traffic and one near-max prompt (chunked prefill)
+        sys_blocks = max(1, min(3, (engine.max_total - 16) // args.block_size))
+        system = rng.integers(0, cfg.vocab_size, size=sys_blocks * args.block_size).tolist()
+        first = engine.submit(system, 4)
+        jobs.append((system, 4, first))
+        first.result(timeout=120)  # prefix blocks published at emit
+        # repeat prompt -> whole-prompt cache hit -> copy-on-write
+        jobs.append((system, 4, engine.submit(system, 4)))
+        for i in range(3):
+            tail = rng.integers(0, cfg.vocab_size, size=2 + i).tolist()
+            jobs.append((system + tail, 4, engine.submit(system + tail, 4)))
+        long_row = rng.integers(0, cfg.vocab_size, size=engine.max_total - 5).tolist()
+        jobs.append((long_row, 4, engine.submit(long_row, 4)))
+    mismatches = 0
+    for row, new, req in jobs:
+        got = req.result(timeout=120)
+        want = gpt_lib.generate(model, torch.tensor([row]), new)[0].tolist()
+        mismatches += got != want
+    report = {
+        "layout": args.layout,
+        "device": str(device),
+        "requests": len(jobs),
+        "mismatches": mismatches,
+        "compiles": engine.step.compiles,
+        "steps": engine.steps,
+    }
+    ok = mismatches == 0 and engine.step.compiles == 1
+    if paged:
+        report["prefill_compiles"] = engine.step.prefill_compiles
+        report["prefill_chunks"] = engine.prefill_chunks
+        report["prefix_hits"] = engine.pool.hits
+        report["cow_copies"] = engine.pool.cow_copies
+        ok = ok and engine.step.prefill_compiles <= 1 and engine.pool.hits > 0
+        engine.stop()
+        engine.pool.check()
+        ok = ok and engine.pool.in_use() == 0
+    else:
+        engine.stop()
+    report["ok"] = ok
+    print(json.dumps(report, indent=1))
+    return 0 if report["ok"] else 1
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

@@ -1,0 +1,760 @@
+"""Minimal decode server over the port's GPT. Counterpart of
+tf_operator_tpu/serve/server.py: stdlib HTTP around models/gpt.py
+`generate` (inline) or the continuous-batching engine (serve/engine.py).
+
+    python -m tf_operator_tpu_torch.serve --preset tiny --port 8600 --device cpu
+    python -m tf_operator_tpu_torch.serve --preset small --batching continuous \\
+        --checkpoint-dir /ckpt/gpt
+
+    POST /generate   {"input_ids": [[1,2,3], [7,8], ...],   # ragged OK
+                      "max_new_tokens": 32, "temperature": 0.0,
+                      "top_k": 0, "top_p": 1.0, "seed": 0}
+                  -> {"tokens": [[...], ...], "prompt_lens": [3, 2, ...]}
+    POST /generate_stream  (single row) -> chunked ndjson: one
+                  {"token": t, "index": i} event per generated token,
+                  then {"done": true, "tokens": [[...]], "prompt_lens": [n]}
+    GET  /healthz -> {"status": "ok"|"warming"|"draining", ...} (200 while
+                  the process lives: liveness)
+    GET  /readyz  -> 200 {"status": "ready"} only while admitting; 503
+                  while warming and draining (readiness)
+    GET  /metrics -> Prometheus text (the registry plus the engine's
+                  counters)
+    GET  /debug/trace -> Chrome/Perfetto trace-event JSON of request spans
+
+Ragged batches are first-class: rows are right-padded server-side and
+each row's answer is its own prompt plus max_new_tokens.
+
+--batching none (the default) decodes each request inline, serialized by
+a lock; --batching continuous hands greedy requests to the engine, one
+stream per row, admitted and evicted between single-token steps, tokens
+streamed per request. Sampled requests keep the inline path, seeded
+through a torch.Generator. Everything runs on `--device` (cuda unless
+named; without a card the server refuses to start rather than carry on
+on the CPU).
+
+Checkpoints: --checkpoint-dir restores the newest step the port's
+training CLIs wrote (train/trainer.py Checkpointer); without one the
+server starts with random weights from a seed and says so.
+
+Not ported, each refused naming its ROADMAP item: window batching,
+speculative decoding, beam search, the moe presets, sharded decode (mesh,
+--tp), int8, the disaggregated routes (/prefill, /kv/*), the debug routes
+other than /debug/trace, tenant QoS, metric history and alerts.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import logging
+import sys
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+from ..telemetry.flight import correlate, default_flight
+from ..telemetry.tracecontext import TRACEPARENT_HEADER, parse_traceparent, trace_scope
+from ..utils import locks
+
+logger = logging.getLogger("tf_operator_tpu_torch.serve")
+
+# request correlation IDs: every POST gets req-N, bound for the whole
+# handler, threaded into the engine slot and its span, echoed back as
+# "request_id"
+_REQ_IDS = itertools.count(1)
+
+MAX_BATCH = 64
+# beams multiply the decode batch num_beams-fold (validated, then refused)
+MAX_BEAMS = 8
+
+# what the reference serves that the port does not, and where ROADMAP
+# places it
+_WINDOW = "window batching is not ported (ROADMAP queue 1 item 5)"
+_INT8_KV = "the int8 KV cache is not ported (ROADMAP queue 1 item 5)"
+_INT8_WEIGHTS = "int8 weights are not ported (ROADMAP queue 1 item 8)"
+_SPECULATIVE = "speculative decoding is not ported (ROADMAP queue 1 item 6)"
+_BEAMS = "beam search is not ported (ROADMAP queue 1 item 6)"
+_SHARDED = "sharded decode (mesh, mesh_shape, --tp) is not ported (ROADMAP queue 1 item 6)"
+_DISAGGREGATED = (
+    "disaggregated serving (roles, /prefill, /kv/*) is not ported (ROADMAP queue 1 item 6)"
+)
+_DEBUG = "this debug route is not ported; /debug/trace is (ROADMAP queue 1 item 5)"
+_QOS = "tenant QoS, metric history and alerts are not ported (ROADMAP queue 1 item 5)"
+_MOE = "the moe presets are not ported (ROADMAP queue 1 item 7)"
+
+# routes the reference serves, answered 501 with the item that ports them
+_UNPORTED_GET = {
+    "/kv/digest": _DISAGGREGATED, "/kv/statz": _DISAGGREGATED,
+    "/debug/clockz": _DEBUG, "/debug/flightz": _DEBUG, "/debug/historyz": _DEBUG,
+    "/debug/alertz": _DEBUG, "/debug/profilez": _DEBUG,
+}
+_UNPORTED_POST = {"/prefill": _DISAGGREGATED, "/kv/export": _DISAGGREGATED,
+                  "/kv/import": _DISAGGREGATED}
+
+
+class _State:
+    """Model + decode bookkeeping shared by request threads."""
+
+    def __init__(self, model, model_name: str, max_new_cap: int, device) -> None:
+        from ..telemetry import MetricRegistry, SpanTracer
+
+        self.model = model
+        self.cfg = model.cfg
+        self.model_name = model_name
+        self.max_new_cap = max_new_cap
+        self.device = device
+        # "warming" -> "ready" -> "draining": POSTs are admitted only
+        # while "ready"; a plain str store (atomic in CPython)
+        self.phase = "warming"
+        self.lock = locks.make_lock("_State.lock")
+        self.engine = None  # set by make_server (batching="continuous")
+        # the metric names are the reference's, so one scrape config
+        # covers both servers
+        self.registry = MetricRegistry("tf_operator_tpu_serve")
+        self.tracer = SpanTracer(process_name="tf-operator-tpu-torch-serve")
+        self.decodes = self.registry.counter(
+            "decodes_total", "Decode requests answered successfully"
+        )
+        self.decode_batches = self.registry.counter(
+            "decode_batches_total", "Device decode dispatches (inline path)",
+        )
+        self.tokens_generated = self.registry.counter(
+            "generated_tokens_total", "Tokens generated across all rows"
+        )
+        self.decode_seconds = self.registry.counter(
+            "decode_seconds_total", "Wall-clock seconds inside inline device decode calls",
+        )
+        self.request_errors = self.registry.counter(
+            "request_errors_total",
+            "Requests rejected (4xx) or failed during decode (5xx)",
+        )
+        self.decodes_inflight = self.registry.gauge(
+            "decodes_inflight", "Device decodes dispatched and not yet finished",
+        )
+
+    def render_metrics(self) -> str:
+        """Prometheus text: the registry, then the engine's flat counters
+        (plain ints owned by its thread) as their own HELP/TYPE'd
+        families."""
+        out = self.registry.render()
+        if self.engine is not None:
+            from ..telemetry import format_value
+            from .engine import METRIC_HELP
+
+            rows = []
+            for (name, kind), value in self.engine.metrics().items():
+                full = self.registry.full_name(name)
+                rows.append(f"# HELP {full} {METRIC_HELP.get(name, name)}")
+                rows.append(f"# TYPE {full} {kind}")
+                rows.append(f"{full} {format_value(value)}")
+            out += "\n".join(rows) + "\n"
+        return out
+
+
+def _bad(payload) -> tuple:
+    return 400, {"error": payload}
+
+
+def _validate(state: _State, body):
+    """-> (right-padded prompt array, per-row lens list, max_new_tokens,
+    temperature, seed, top_k, top_p) or (status, err). Every malformed
+    field is a 400, never a dropped connection."""
+    import numpy as np
+
+    if not isinstance(body, dict):
+        return _bad("request body must be a JSON object")
+    ids = body.get("input_ids")
+    if not isinstance(ids, list) or not ids:
+        return _bad("input_ids must be a non-empty list of token lists")
+    if not all(isinstance(row, list) and row for row in ids):
+        return _bad("every input_ids row must be a non-empty token list")
+    if not all(
+        isinstance(tok, int) and not isinstance(tok, bool) for row in ids for tok in row
+    ):
+        return _bad("every token must be an integer")
+    if len(ids) > MAX_BATCH:
+        return _bad(f"batch {len(ids)} exceeds cap {MAX_BATCH}")
+    if any(tok < 0 or tok >= state.cfg.vocab_size for row in ids for tok in row):
+        return _bad(f"token ids must be in [0, {state.cfg.vocab_size})")
+    # right-pad to the longest row; generate() takes the true lengths
+    lens = [len(row) for row in ids]
+    width = max(lens)
+    prompt = np.zeros((len(ids), width), dtype=np.int32)
+    for i, row in enumerate(ids):
+        prompt[i, :len(row)] = row
+    new = body.get("max_new_tokens", 16)
+    if not isinstance(new, int) or isinstance(new, bool) or not (1 <= new <= state.max_new_cap):
+        return _bad(f"max_new_tokens must be an int in [1, {state.max_new_cap}]")
+    if width + new > state.cfg.max_seq_len:
+        return _bad(
+            f"prompt_len {width} + max_new_tokens {new} "
+            f"exceeds max_seq_len {state.cfg.max_seq_len}"
+        )
+    temperature = body.get("temperature", 0.0)
+    if not isinstance(temperature, (int, float)) or isinstance(temperature, bool) \
+            or temperature < 0:
+        return _bad("temperature must be a number >= 0")
+    seed = body.get("seed", 0)
+    if not isinstance(seed, int) or isinstance(seed, bool):
+        return _bad("seed must be an integer")
+    top_k = body.get("top_k", 0)
+    if not isinstance(top_k, int) or isinstance(top_k, bool) or top_k < 0:
+        return _bad("top_k must be an integer >= 0")
+    top_p = body.get("top_p", 1.0)
+    if not isinstance(top_p, (int, float)) or isinstance(top_p, bool) or (
+        not 0.0 < float(top_p) <= 1.0
+    ):
+        return _bad("top_p must be in (0, 1]")
+    num_beams = body.get("num_beams", 1)
+    if not isinstance(num_beams, int) or isinstance(num_beams, bool) or (
+        not 1 <= num_beams <= MAX_BEAMS
+    ):
+        return _bad(f"num_beams must be an int in [1, {MAX_BEAMS}]")
+    if num_beams > 1:
+        return _bad(_BEAMS)
+    return prompt, lens, new, float(temperature), seed, top_k, float(top_p)
+
+
+def _device_decode(state: _State, prompt, lens, new, temperature=0.0, seed=0,
+                   top_k=0, top_p=1.0):
+    """The inline decode-and-account block, shared by /generate and
+    /generate_stream: -> host chains [b, width + new] (numpy)."""
+    state.decodes_inflight.inc()
+    try:
+        return _locked_decode(state, prompt, lens, new, temperature, seed, top_k, top_p)
+    finally:
+        state.decodes_inflight.dec()
+
+
+def _locked_decode(state, prompt, lens, new, temperature, seed, top_k, top_p):
+    import time
+
+    import torch
+
+    from ..models import gpt as gpt_lib
+
+    with state.lock:  # decode saturates the card; serialize
+        start = time.monotonic()
+        generator = torch.Generator(device=state.device).manual_seed(int(seed))
+        out = gpt_lib.generate(
+            state.model, torch.as_tensor(prompt, device=state.device), new,
+            temperature=temperature, generator=generator,
+            prompt_lens=torch.tensor(lens), top_k=top_k, top_p=top_p,
+        )
+        out = out.cpu().numpy()  # waits for the device
+        state.decode_seconds.inc(time.monotonic() - start)
+        state.decode_batches.inc()
+    return out
+
+
+def DecodeHandlerFactory(state: _State):
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+        # idle keep-alive connections close after this many seconds, so
+        # a persistent client cannot park a handler thread forever and
+        # hang the SIGTERM drain
+        timeout = 5
+        # a request body in flight gets a roomier budget
+        body_timeout = 60
+
+        # per-connection state: the correlation ID and fleet trace id of
+        # the POST being handled
+        _request_corr = None
+        _request_trace = None
+
+        def _reply(self, code: int, payload: dict) -> None:
+            if self._request_corr is not None:
+                payload.setdefault("request_id", self._request_corr)
+            if self._request_trace is not None:
+                payload.setdefault("trace_id", self._request_trace)
+            self._send(code, "application/json", json.dumps(payload).encode())
+
+        def _send(self, code: int, ctype: str, body: bytes) -> None:
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _error(self, code: int, message: str) -> None:
+            state.request_errors.inc()
+            self._reply(code, {"error": message})
+
+        def do_GET(self) -> None:  # noqa: N802
+            self._request_corr = None
+            self._request_trace = None
+            route = self.path.partition("?")[0]
+            if route == "/healthz":
+                # liveness stays 200 through warmup and drain; the status
+                # says the truth ("ok" only while admitting), and a failed
+                # BlockPool audit makes it "degraded"
+                engine = state.engine
+                audit_ok = bool(engine is None or engine.pool_audit_ok)
+                status = "ok" if state.phase == "ready" else state.phase
+                if not audit_ok:
+                    status = "degraded"
+                payload = {
+                    "status": status, "model": state.model_name, "device": str(state.device),
+                    "decodes": int(state.decodes.value),
+                    "pool_audit": "ok" if audit_ok else "failed",
+                }
+                if not audit_ok:
+                    payload["pool_audit_error"] = str(engine.pool_audit_error)[:200]
+                    payload["pool_audit_failures"] = int(engine.pool_audit_failures)
+                self._reply(200, payload)
+            elif route == "/readyz":
+                phase = state.phase
+                self._reply(200 if phase == "ready" else 503,
+                            {"status": phase, "model": state.model_name})
+            elif route == "/metrics":
+                self._send(200, "text/plain; version=0.0.4", state.render_metrics().encode())
+            elif route == "/debug/trace":
+                # recent request spans (queued -> admitted -> first-token
+                # -> finished); load in ui.perfetto.dev as-is
+                self._send(200, "application/json",
+                           json.dumps(state.tracer.export_chrome()).encode())
+            elif route in _UNPORTED_GET:
+                self._reply(501, {"error": _UNPORTED_GET[route]})
+            else:
+                self._reply(404, {"error": f"no route {self.path}"})
+
+        # -- chunked ndjson streaming (/generate_stream) --------------
+
+        def _start_stream(self) -> None:
+            self.send_response(200)
+            self.send_header("Content-Type", "application/x-ndjson")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+
+        def _stream_event(self, payload: dict) -> None:
+            data = json.dumps(payload).encode() + b"\n"
+            self.wfile.write(b"%X\r\n" % len(data) + data + b"\r\n")
+            self.wfile.flush()  # one chunk per event: the flush IS the streaming
+
+        def _end_stream(self) -> None:
+            self.wfile.write(b"0\r\n\r\n")
+            self.wfile.flush()
+
+        def do_POST(self) -> None:  # noqa: N802
+            # one correlation ID per request, bound for the whole handler;
+            # a traceparent header joins this hop to the caller's trace,
+            # else a fresh trace starts here
+            corr = f"req-{next(_REQ_IDS)}"
+            self._request_corr = corr
+            parent = parse_traceparent(self.headers.get(TRACEPARENT_HEADER))
+            try:
+                with correlate(corr), trace_scope(parent=parent) as ctx:
+                    self._request_trace = ctx.trace_id
+                    default_flight().record("serve", corr=corr, op="request", path=self.path)
+                    self._handle_post()
+            finally:
+                self._request_corr = None
+                self._request_trace = None
+
+        def _handle_post(self) -> None:
+            if self.path in _UNPORTED_POST:
+                return self._reply(501, {"error": _UNPORTED_POST[self.path]})
+            if self.path not in ("/generate", "/generate_stream"):
+                return self._reply(404, {"error": f"no route {self.path}"})
+            if state.phase != "ready":
+                # warming or draining: refuse new work loudly (503 is in
+                # the client's retryable class)
+                return self._error(503, f"server is {state.phase}")
+            try:
+                length = int(self.headers.get("Content-Length") or 0)
+                # widen the socket budget for the upload only
+                self.connection.settimeout(self.body_timeout)
+                try:
+                    raw = self.rfile.read(length) if length else b""
+                finally:
+                    self.connection.settimeout(self.timeout)
+                body = json.loads(raw or b"{}")
+            except (ValueError, json.JSONDecodeError) as err:
+                return self._error(400, f"bad JSON: {err}")
+            result = _validate(state, body)
+            if isinstance(result[0], int):  # (status, payload)
+                return self._error(result[0], result[1]["error"])
+            prompt, lens, new, temperature, seed, top_k, top_p = result
+            if self.path == "/generate_stream":
+                return self._do_stream(prompt, lens, new, temperature, seed, top_k, top_p)
+            greedy = temperature == 0.0 and top_k == 0 and top_p == 1.0
+            if state.engine is not None and greedy:
+                # continuous batching: each row becomes its own engine
+                # stream, admitted into a free slot between steps
+                try:
+                    chains = state.engine.generate(prompt, lens, new)
+                except ValueError as err:
+                    # the engine judged the request invalid (oversized
+                    # prompt, over-budget KV reservation): client error
+                    return self._error(400, str(err))
+                except TimeoutError as err:
+                    return self._error(503, str(err))
+                except Exception as err:  # noqa: BLE001 — a device failure
+                    # fans out to every in-flight client as JSON; the
+                    # engine zeroes its cache and stays up
+                    return self._error(500, f"decode failed: {type(err).__name__}: {err}"[:300])
+                state.decodes.inc()
+                state.tokens_generated.inc(new * len(lens))
+                return self._reply(200, {"tokens": chains, "prompt_lens": lens})
+            try:
+                chains = _device_decode(state, prompt, lens, new, temperature=temperature,
+                                        seed=seed, top_k=top_k, top_p=top_p)
+            except Exception as err:  # noqa: BLE001 — same contract
+                return self._error(500, f"decode failed: {type(err).__name__}: {err}"[:300])
+            state.decodes.inc()
+            state.tokens_generated.inc(new * len(lens))
+            # each row's answer is its own prompt plus max_new tokens
+            tokens = [chains[i, :lens[i] + new].tolist() for i in range(len(lens))]
+            self._reply(200, {"tokens": tokens, "prompt_lens": lens})
+
+        def _do_stream(self, prompt, lens, new, temperature, seed, top_k, top_p) -> None:
+            """/generate_stream: chunked ndjson, one event per generated
+            token. With the engine, events leave as the engine produces
+            them; on the inline path the decode is whole, so the tokens
+            leave in one burst at the end (same wire contract)."""
+            if len(lens) != 1:
+                return self._error(
+                    400, "/generate_stream takes exactly one prompt row (one stream per connection)"
+                )
+            greedy = temperature == 0.0 and top_k == 0 and top_p == 1.0
+            if state.engine is not None and greedy:
+                try:
+                    req = state.engine.submit(prompt[0, :lens[0]].tolist(), new)
+                except ValueError as err:
+                    # invalid request: reject before the 200 is on the wire
+                    return self._error(400, str(err))
+                except Exception as err:  # noqa: BLE001 — pre-stream
+                    return self._error(500, f"decode failed: {type(err).__name__}: {err}"[:300])
+                self._start_stream()
+                try:
+                    index = lens[0]
+                    for token in req.stream():
+                        self._stream_event({"token": token, "index": index})
+                        index += 1
+                    self._stream_event({
+                        "done": True, "tokens": [req.prompt + req.tokens], "prompt_lens": lens,
+                        "request_id": self._request_corr, "trace_id": self._request_trace,
+                    })
+                    self._end_stream()
+                except (BrokenPipeError, ConnectionError, OSError, ValueError) as err:
+                    # the client went away mid-stream: cancel so the slot
+                    # frees before the next step
+                    req.cancel()
+                    logger.info("stream client gone: %s", err)
+                    self.close_connection = True
+                    return
+                except Exception as err:  # noqa: BLE001 — the 200 is on
+                    # the wire; the error rides the stream as its own
+                    # terminal event
+                    state.request_errors.inc()
+                    try:
+                        self._stream_event(
+                            {"error": f"decode failed: {type(err).__name__}: {err}"[:300]}
+                        )
+                        self._end_stream()
+                    except (OSError, ValueError):
+                        self.close_connection = True
+                    return
+                state.decodes.inc()
+                state.tokens_generated.inc(new)
+                return
+            try:
+                chains = _device_decode(state, prompt, lens, new, temperature=temperature,
+                                        seed=seed, top_k=top_k, top_p=top_p)
+                chain = chains[0, :lens[0] + new].tolist()
+            except Exception as err:  # noqa: BLE001 — same contract
+                return self._error(500, f"decode failed: {type(err).__name__}: {err}"[:300])
+            state.decodes.inc()
+            state.tokens_generated.inc(new)
+            try:
+                self._start_stream()
+                for i, token in enumerate(chain[lens[0]:]):
+                    self._stream_event({"token": int(token), "index": lens[0] + i})
+                self._stream_event({
+                    "done": True, "tokens": [chain], "prompt_lens": lens,
+                    "request_id": self._request_corr, "trace_id": self._request_trace,
+                })
+                self._end_stream()
+            except (BrokenPipeError, ConnectionError):
+                self.close_connection = True
+
+        def log_message(self, *args) -> None:
+            pass
+
+    return Handler
+
+
+class DecodeHTTPServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer that tracks live connection sockets;
+    abort_connections() severs every in-flight connection with an RST
+    (SO_LINGER 0), the in-process analog of a replica killed with exit
+    137."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._conn_lock = locks.make_lock("DecodeHTTPServer._conn_lock")
+        self._conns: set = set()
+
+    def process_request(self, request, client_address):
+        with self._conn_lock:
+            self._conns.add(request)
+        super().process_request(request, client_address)
+
+    def shutdown_request(self, request):
+        with self._conn_lock:
+            self._conns.discard(request)
+        super().shutdown_request(request)
+
+    def abort_connections(self) -> int:
+        """Hard-close every live connection; -> how many were severed."""
+        import socket as socket_mod
+        import struct
+
+        with self._conn_lock:
+            conns = list(self._conns)
+            self._conns.clear()
+        for sock in conns:
+            try:
+                # linger(on, 0): close() sends RST instead of FIN
+                sock.setsockopt(socket_mod.SOL_SOCKET, socket_mod.SO_LINGER,
+                                struct.pack("ii", 1, 0))
+            except OSError:
+                pass
+            try:
+                sock.close()
+            except OSError:
+                pass
+        return len(conns)
+
+    def handle_error(self, request, client_address):
+        # severed sockets make handler threads die on writes; expected
+        # during abort_connections/drain
+        exc = sys.exc_info()[1]
+        if isinstance(exc, (ConnectionError, BrokenPipeError, OSError, ValueError)):
+            return
+        super().handle_error(request, client_address)
+
+
+def make_server(
+    model,
+    port: int = 0,
+    model_name: str = "gpt",
+    max_new_cap: int = 1024,
+    host: str = "127.0.0.1",
+    batching: str = "",
+    n_slots: int = 8,
+    kv_layout: str = "paged",
+    block_size: int = 64,
+    kv_blocks: int = 0,
+    prefill_chunk: int = 64,
+    device=None,
+    kv_quant_int8: bool = False,
+    weights_int8: bool = False,
+    batch_window_ms: float = 0.0,
+    speculative: bool = False,
+    speculate: str = "off",
+    mesh=None,
+    mesh_shape=None,
+    role: str = "",
+    tenant_quotas=None,
+    enable_debug_endpoints: bool = False,
+) -> DecodeHTTPServer:
+    """In-process server over the port's GPT module (tests and
+    embedders); the caller owns serve_forever/shutdown (and, with an
+    engine, `server.state.engine.stop()`). The CLI binds 0.0.0.0; the
+    in-process default stays loopback. batching: "none" (inline,
+    lock-serialized; the default "" means none) or "continuous"
+    (serve/engine.py: the slot grid, built here, its programs captured
+    before the server answers). device: `cuda` unless named; the model
+    is moved there. The reference's other options raise
+    NotImplementedError naming their ROADMAP items."""
+    from .._device import resolve_device
+
+    for refused, why in (
+        (batching == "window" or batch_window_ms > 0, _WINDOW),
+        (kv_quant_int8, _INT8_KV), (weights_int8, _INT8_WEIGHTS),
+        (speculative or speculate != "off", _SPECULATIVE),
+        (mesh is not None or mesh_shape is not None, _SHARDED),
+        (bool(role), _DISAGGREGATED),
+        (tenant_quotas is not None, _QOS), (enable_debug_endpoints, _DEBUG),
+    ):
+        if refused:
+            raise NotImplementedError(why)
+    batching = batching or "none"
+    if batching not in ("none", "continuous"):
+        raise ValueError(f"batching must be none/window/continuous, got {batching!r}")
+    device = resolve_device(device)
+    model.to(device)
+    state = _State(model, model_name, max_new_cap, device)
+    if batching == "continuous":
+        from .engine import ContinuousBatchingEngine
+
+        # the programs are captured here, on the engine's own thread,
+        # before the listener exists
+        state.engine = ContinuousBatchingEngine(
+            model, n_slots=n_slots, registry=state.registry, tracer=state.tracer,
+            kv_layout=kv_layout, block_size=block_size, kv_blocks=kv_blocks,
+            prefill_chunk=prefill_chunk, device=device,
+        )
+    server = DecodeHTTPServer((host, port), DecodeHandlerFactory(state))
+    server.state = state
+    state.phase = "ready"
+    return server
+
+
+# CLI flags of the reference's server that the port refuses, with why
+_REFUSED_FLAGS = (
+    ("--kv-int8", False, _INT8_KV), ("--weights-int8", False, _INT8_WEIGHTS),
+    ("--batch-window-ms", True, _WINDOW), ("--speculative", False, _SPECULATIVE),
+    ("--speculate", True, _SPECULATIVE), ("--spec-depth", True, _SPECULATIVE),
+    ("--draft-preset", True, _SPECULATIVE), ("--tp", True, _SHARDED),
+    ("--mesh-shape", True, _SHARDED), ("--role", True, _DISAGGREGATED),
+    ("--enable-debug-endpoints", False, _DEBUG), ("--tenant-quotas", True, _QOS),
+    ("--history-interval", True, _QOS), ("--history-capacity", True, _QOS),
+    ("--alerts", True, _QOS), ("--ttft-slo-ms", True, _QOS),
+    ("--warm", True, "--warm pre-compiles jit shapes; the port has none to compile"),
+    ("--smoke", False, "the telemetry smoke (/debug/flightz) is not ported "
+                       "(ROADMAP queue 1 item 5)"),
+)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(prog="python -m tf_operator_tpu_torch.serve")
+    parser.add_argument(
+        "--preset", choices=["tiny", "small", "moe-tiny", "moe-base"], default="small",
+        help="gpt presets (tiny/small); the moe presets are refused",
+    )
+    parser.add_argument("--port", type=int, default=None,
+                        help="default $PORT, else 8600")
+    parser.add_argument(
+        "--host", default="0.0.0.0",
+        help="bind address (default 0.0.0.0: pods must answer on the pod IP)",
+    )
+    parser.add_argument("--checkpoint-dir", default=None,
+                        help="serve the newest step the port's training CLIs wrote here")
+    parser.add_argument("--device", default=None, help="default cuda; cpu for the CPU")
+    parser.add_argument("--max-new-cap", type=int, default=1024,
+                        help="upper bound a single request may ask for")
+    parser.add_argument(
+        "--batching", choices=["none", "window", "continuous"], default="none",
+        help="greedy scheduling: none (inline, serialized) or continuous (the slot "
+        "engine: per-step admit/evict, token streaming, one capture per program); "
+        "window is refused",
+    )
+    parser.add_argument("--slots", type=int, default=8,
+                        help="slot-grid rows for --batching continuous")
+    parser.add_argument("--kv-layout", choices=["paged", "dense"], default="paged",
+                        help="KV layout for --batching continuous")
+    parser.add_argument("--block-size", type=int, default=64,
+                        help="tokens per KV block under --kv-layout paged")
+    parser.add_argument(
+        "--kv-blocks", type=int, default=0,
+        help="usable blocks in the paged pool (0 = slots x max_seq_len / block_size)",
+    )
+    parser.add_argument("--prefill-chunk", type=int, default=64,
+                        help="chunked-prefill width under --kv-layout paged (0 = off)")
+    for flag, takes_value, _ in _REFUSED_FLAGS:
+        if takes_value:
+            parser.add_argument(flag, default=None, help=argparse.SUPPRESS)
+        else:
+            parser.add_argument(flag, action="store_true", default=None, help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    for flag, _, why in _REFUSED_FLAGS:
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            parser.error(f"{flag}: {why}")
+    if args.preset.startswith("moe"):
+        parser.error(f"--preset {args.preset}: {_MOE}")
+    if args.batching == "window":
+        parser.error(f"--batching window: {_WINDOW}")
+    if args.slots < 1:
+        parser.error("--slots must be >= 1")
+    if args.batching == "continuous" and args.kv_layout == "paged":
+        from ..models.gpt import GPT_SMALL, GPT_TINY
+
+        max_seq = (GPT_TINY if args.preset == "tiny" else GPT_SMALL).max_seq_len
+        if args.block_size < 1 or max_seq % args.block_size:
+            parser.error(
+                f"--block-size {args.block_size} must be >= 1 and divide the preset's "
+                f"max_seq_len {max_seq}"
+            )
+        if args.kv_blocks < 0:
+            parser.error("--kv-blocks must be >= 0 (0 = auto)")
+        if args.prefill_chunk < 0:
+            parser.error("--prefill-chunk must be >= 0 (0 = off)")
+    return args
+
+
+def load_model(preset: str, checkpoint_dir: Optional[str], device):
+    """The preset's GPT on `device`: the newest checkpoint in
+    checkpoint_dir (the port's Checkpointer format), else random weights
+    from seed 0, said loudly."""
+    import torch
+
+    from ..models import gpt as gpt_lib
+
+    cfg = {"tiny": gpt_lib.GPT_TINY, "small": gpt_lib.GPT_SMALL}[preset]
+    model = gpt_lib.GPT(cfg, generator=torch.Generator().manual_seed(0))
+    step = None
+    if checkpoint_dir:
+        from ..train.trainer import Checkpointer
+
+        checkpointer = Checkpointer(checkpoint_dir)
+        step = checkpointer.latest_step()
+        if step is not None:
+            payload = torch.load(checkpointer.path(step), map_location="cpu", weights_only=True)
+            model.load_state_dict(payload["model"])
+            logger.info("serving the step-%d checkpoint of %s", step, checkpoint_dir)
+        else:
+            logger.warning("no checkpoint in %s; serving RANDOM weights", checkpoint_dir)
+    else:
+        logger.warning("no --checkpoint-dir; serving RANDOM weights")
+    return model.to(device)
+
+
+def main(argv=None) -> int:
+    import os
+    import signal
+
+    from .._device import resolve_device
+
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    device = resolve_device(args.device)
+    model = load_model(args.preset, args.checkpoint_dir, device)
+    port = args.port if args.port is not None else int(os.environ.get("PORT", "8600"))
+    server = make_server(
+        model, port=port, model_name=f"gpt-{args.preset}", max_new_cap=args.max_new_cap,
+        host=args.host, batching=args.batching, n_slots=args.slots,
+        kv_layout=args.kv_layout, block_size=args.block_size, kv_blocks=args.kv_blocks,
+        prefill_chunk=args.prefill_chunk, device=device,
+    )
+    logger.info("decode server on :%d (%s)", server.server_address[1], device)
+    # graceful drain: SIGTERM stops accepting, lets in-flight requests
+    # finish and exits 0. Non-daemon handler threads + block_on_close
+    # make server_close() join whatever is still decoding.
+    server.daemon_threads = False
+    server.block_on_close = True
+
+    def _drain(signum, frame):
+        logger.info("signal %d: draining in-flight requests", signum)
+        # flip the phase first: /readyz goes 503 and /healthz says
+        # "draining" before the listener begins shutting down
+        server.state.phase = "draining"
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _drain)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    server.server_close()
+    if server.state.engine is not None:
+        server.state.engine.stop()  # fail any still-queued requests
+    logger.info("drained; exiting 0")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,7 @@
-"""The port's copy of the telemetry core the trainer feeds
-(tf_operator_tpu/telemetry/): the labeled metric registry, the flight
-recorder, trace context and the step-window device profiler.
+"""The port's copy of the telemetry core the trainer and the decode
+server feed (tf_operator_tpu/telemetry/): the labeled metric registry and
+its text exposition, the span tracer, the flight recorder, trace context
+and the step-window device profiler.
 
 `default_registry()` is the process-wide registry for components without
 an obvious owner (the Trainer): registration is get-or-create, so any
@@ -11,9 +12,31 @@ from __future__ import annotations
 
 import threading
 
-from .registry import STEP_BUCKETS, MetricRegistry
+from .exposition import (
+    ExpositionError,
+    bucket_pairs,
+    parse_text,
+    quantile_from_flat,
+    validate_text,
+)
+from .registry import (
+    FAST_BUCKETS,
+    LATENCY_BUCKETS,
+    SIZE_BUCKETS,
+    STEP_BUCKETS,
+    TTFT_BUCKETS,
+    MetricRegistry,
+    format_value,
+    histogram_quantile,
+)
+from .tracing import Span, SpanTracer
 
-__all__ = ["STEP_BUCKETS", "MetricRegistry", "default_registry"]
+__all__ = [
+    "ExpositionError", "bucket_pairs", "parse_text", "quantile_from_flat",
+    "validate_text", "FAST_BUCKETS", "LATENCY_BUCKETS", "SIZE_BUCKETS",
+    "STEP_BUCKETS", "TTFT_BUCKETS", "MetricRegistry", "format_value",
+    "histogram_quantile", "Span", "SpanTracer", "default_registry",
+]
 
 _default_lock = threading.Lock()
 _default: MetricRegistry = None  # type: ignore[assignment]

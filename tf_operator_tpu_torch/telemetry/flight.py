@@ -11,6 +11,7 @@ correlation ids and /debug/flightz page are not part of this copy.
 
 from __future__ import annotations
 
+import contextvars
 import time
 from typing import Any, Dict, List, NamedTuple, Optional
 
@@ -18,9 +19,44 @@ from ..utils import locks
 from .tracecontext import current_trace
 
 __all__ = [
-    "FlightRecord", "FlightRecorder", "default_flight", "set_default_flight",
-    "flight_record",
+    "FlightRecord", "FlightRecorder", "correlate", "current_correlation",
+    "default_flight", "set_default_flight", "flight_record",
 ]
+
+_correlation: contextvars.ContextVar = contextvars.ContextVar(
+    "telemetry_correlation_id", default=None
+)
+
+
+def current_correlation() -> Optional[str]:
+    """The correlation ID bound to the current context, or None."""
+    return _correlation.get()
+
+
+class correlate:
+    """Bind a correlation ID for a block::
+
+        with correlate("req-7"):
+            ...  # spans begun here carry it
+
+    Nests: the previous binding is restored on exit. A None id binds
+    nothing new."""
+
+    __slots__ = ("corr", "_token")
+
+    def __init__(self, corr) -> None:
+        self.corr = None if corr is None else str(corr)
+
+    def __enter__(self) -> Optional[str]:
+        if self.corr is None:
+            self._token = None
+            return _correlation.get()
+        self._token = _correlation.set(self.corr)
+        return self.corr
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if self._token is not None:
+            _correlation.reset(self._token)
 
 
 class FlightRecord(NamedTuple):
