@@ -156,6 +156,47 @@ non-zero, printing no result:
    bounds; the same requests through a kv_layout="dense" engine (the
    margin rule); one capture of the step and of the prefill chunk; no
    launch of K1-K5; the server shut down and the engine threads joined.
+27. moe_train - MoE-base (12 x 768, 12 heads, every other block top-2 of
+   8 experts with bf16 expert kernels, capacity factor 1.25, vocab 32000)
+   at batch 8 x seq 1024 (moe_bench.py:81-86), AdamW 3e-4 wd 0.01,
+   through train/moe.py's train(): tokens/s over 5 timed steps, the
+   active-parameter MFU (6 P_active + 6 L s h per token over 989e12) and
+   the FLOPs the dense dispatch actually spends, peak memory, router
+   balance and routed fraction (moe_bench.py:109-143); K1-K5 launch 0
+   times (the reference gives the MoE LM plain attention); the LM loss
+   must fall.
+28. moe_profile - device ms per MoE-base step by region of the model
+   (router, dispatch/combine, expert FFN, dense MLP, projections,
+   attention, LM head, loss, layer norm, optimizer; GEMMs apart; copies
+   and casts apart) and the busy share (profile_regions).
+29. moe_parity - one moe_task step of MoE-base at batch 2 x 256: f32 on
+   the card (TF32 off) against f32 on the CPU (logits, loss, router_aux,
+   router_z, gradients; routing decisions equal but at near-ties), bf16
+   against f32 (the loss; the share of decisions that differ per MoE
+   layer); a planted router taking its losses from half the batch must
+   miss the CPU's; at capacity factor 0.5 the router's dispatch on the
+   card equals the CPU's, and a planted per-token claim order moves
+   slots (the reference's loop claims in whole rounds).
+30. moe_run_steps - run_steps(n=5) of MoE-base at 8 x 1024 as a CUDA
+   graph against 5 eager steps (run_steps' criterion; no kernel inside).
+31. moe_generate - MoE-base, 8 rows, a 128-token prompt, 512 new tokens
+   (moe_bench.py:184): tokens/s as the reference counts them, ms per
+   token, busy share; in f32 at capacity factor 2.0, teacher-forced
+   MoEDecodeStep against the training forward and the prefill chain
+   against the all-stepwise chain.
+32. moe_serve - train/moe.py --preset base --steps 2 --checkpoint-dir,
+   then the serve CLI --preset moe-base on that checkpoint as a
+   subprocess: 8 requests from the port's DecodeClient, greedy chains
+   equal to in-process moe_generate on the restored weights; a ragged,
+   a top_k and a num_beams request each a 400; SIGTERM -> exit 0.
+33. vit_train, vit_profile - ViT-B/16 through train/vit.py at 224^2,
+   batch 128, AdamW 1e-3 wd 0.05, bf16: images/s over 5 timed steps, MFU
+   by the bench's transformer_step_flops (seq 196, not causal), device
+   ms by region, peak memory; the loss must fall.
+34. vit_parity - ViT-B/16 at batch 8, gap and cls pooling, f32 and uint8
+   images: f32 on the card against the CPU, bf16 against f32, a remat
+   step against a plain one; a planted column-major patch order must
+   fail.
 Then the kernel summary line (with each kernel's launches per run_steps
 replay and per step per rank at world 2), the nvidia-smi line, and the
 result line. `chip_smoke.py --world2-rank <dir>` is one rank of phases
@@ -764,12 +805,13 @@ def profile_training(phase: str, trainer, batch, label: str, ours, extra=None) -
 def device_kernels(prof) -> list:
     """The profile's device events, without the user annotations that
     the profiler also lists on the device (`Optimizer.step#AdamW.step`,
-    `ProfilerStep#n`): those span kernels that are listed themselves,
+    `ProfilerStep#n`, profile_regions' labels): those span kernels that
+    are listed themselves,
     and counting them would count that time twice."""
     return [
         e for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA
-        and not e.key.startswith(("Optimizer.", "ProfilerStep#"))
+        and not e.key.startswith(("Optimizer.", "ProfilerStep#", REGION_PREFIX))
     ]
 
 
@@ -1768,7 +1810,8 @@ def timed_ms(fn, steps: int) -> float:
     return (time.monotonic() - start) * 1e3 / steps
 
 
-def graph_vs_eager(name, kernels, make_trainer, host_batch, want, items, unit, smi) -> dict:
+def graph_vs_eager(name, kernels, make_trainer, host_batch, want, items, unit, smi,
+                   phase: str = "run_steps") -> dict:
     """RUN_STEPS steps of one model three ways from one seed on one batch:
     RUN_STEPS eager `step` calls, one run_steps(n=RUN_STEPS) (an eager
     warm-up step, the capture, RUN_STEPS - 1 replays), and RUN_STEPS
@@ -1825,7 +1868,7 @@ def graph_vs_eager(name, kernels, make_trainer, host_batch, want, items, unit, s
     free_device_memory()
     loss_rel = max(abs(g - e) / abs(e) for g, e in zip(graph_losses, eager_losses))
     report = {
-        "phase": "run_steps", "model": name, "card": smi, "steps": RUN_STEPS,
+        "phase": phase, "model": name, "card": smi, "steps": RUN_STEPS,
         "launches_per_replay": per_replay, "replays": replays,
         "graph_launches": graph_launches, "eager_losses": eager_losses,
         "graph_losses": graph_losses, "run_steps_last_loss": last_loss,
@@ -3281,6 +3324,911 @@ def run_serve(kernels, gpt_lib, smi) -> dict:
     return report
 
 
+# -- the MoE family and ViT-B/16 -------------------------------------------------
+
+MOE_SHAPE = (8, 1024)  # MoE-base at the reference bench's batch x seq (moe_bench.py:81-86)
+MOE_TIMED_STEPS = 5
+MOE_PARITY_SHAPE = (2, 256)
+MOE_DECODE = (8, 128, 512)  # rows, prompt, new tokens (moe_bench.py:184)
+# the f32 decode checks' new tokens after the 128-token prompt
+MOE_CHECK_NEW = 64
+# a capacity factor at which training drops nothing on these shapes (the
+# reference's tests/test_moe_pipeline.py:389-394): decode equals training
+MOE_NO_DROP_CF = 2.0
+MOE_SERVE_REQUESTS = 8
+MOE_SERVE_PROMPT = 32
+MOE_SERVE_NEW = 32
+MOE_SERVE_TIMEOUT_S = 300
+# f32 on the card (TF32 off) against f32 on the CPU, MoE-base at 2 x 256:
+# two devices sum the same f32 products in other orders through 12 layers
+# and a 32000-wide head
+MOE_F32_LOGIT_ATOL = 1e-3
+MOE_F32_LOSS_RTOL = 1e-5
+MOE_F32_AUX_ATOL = 1e-6
+MOE_F32_GRAD_RTOL = 1e-3  # worst relative L2 over the parameters
+# a routing decision whose top-2 probability gap is below this is a near-tie
+MOE_TIE = 1e-5
+# bf16 against f32 on the card: the loss (about 10.9 at init) within
+MOE_BF16_LOSS_ATOL = 2e-2
+VIT_BATCH = 128  # the reference bench's per-chip batch (model_benches.py:405-406)
+VIT_TIMED_STEPS = 5
+VIT_PARITY_BATCH = 8
+VIT_SEQ = 196  # the bench's seq for its MFU: the patch count
+VIT_F32_LOGIT_ATOL = 1e-3
+VIT_F32_GRAD_RTOL = 1e-3
+VIT_BF16_LOSS_ATOL = 2e-2
+REMAT_RTOL = 1e-6
+# device time by region of the model (profile_regions): the port's
+# functions that each region runs, wrapped in a record_function for the
+# profile's window; backward kernels follow their forward op's region
+GEMM_KEYS = ("gemm", "xmma", "cutlass", "nvjet", "cublas", "splitk", "wgmma", "sm90_")
+
+
+def moe_targets(moe_lib, bert_lib, attention_lib, losses_lib) -> tuple:
+    """(label, owner, attribute) of each MoE region's function."""
+    return (
+        ("router", moe_lib.TopKRouter, "forward"),
+        ("dispatch/combine", moe_lib, "dispatch_tokens"),
+        ("dispatch/combine", moe_lib, "combine_tokens"),
+        ("expert FFN", moe_lib, "expert_ffn"),
+        ("attention", attention_lib, "dot_product_attention"),
+        ("projections", attention_lib.DenseGeneral, "forward"),
+        ("dense MLP", bert_lib, "transformer_mlp"),
+        ("LM head", moe_lib.MoELM, "head"),
+        ("layer norm", bert_lib.LayerNorm, "forward"),
+        ("loss", losses_lib, "weighted_mean_xent"),
+    )
+
+
+def vit_targets(bert_lib, attention_lib) -> tuple:
+    return (
+        ("attention", attention_lib, "dot_product_attention"),
+        ("projections", attention_lib.DenseGeneral, "forward"),
+        ("dense MLP", bert_lib, "transformer_mlp"),
+        ("layer norm", bert_lib.LayerNorm, "forward"),
+    )
+
+
+REGION_PREFIX = "region::"
+
+
+class labelled:
+    """Within the block, each target function runs inside
+    record_function(REGION_PREFIX + label); restored after."""
+
+    def __init__(self, targets) -> None:
+        self.targets = targets
+        self.saved = []
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        for label, owner, attr in self.targets:
+            fn = getattr(owner, attr)
+
+            def wrapped(*args, _fn=fn, _label=label, **kwargs):
+                with record_function(REGION_PREFIX + _label):
+                    return _fn(*args, **kwargs)
+
+            self.saved.append((owner, attr, fn))
+            setattr(owner, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for owner, attr, fn in reversed(self.saved):
+            setattr(owner, attr, fn)
+        self.saved = []
+
+
+def _region(event):
+    """The innermost labelled region around a profiler event, or None."""
+    while event is not None:
+        if event.name.startswith(REGION_PREFIX):
+            return event.name[len(REGION_PREFIX):]
+        if event.name.startswith("Optimizer.step"):
+            return "optimizer"
+        event = event.cpu_parent
+    return None
+
+
+def _backward_node(event):
+    while event is not None:
+        if event.name.startswith("autograd::engine::evaluate_function"):
+            return event
+        event = event.cpu_parent
+    return None
+
+
+def region_times(prof, steps: int) -> dict:
+    """Device ms per step by region: each kernel goes to the CPU op that
+    launched it; a forward op's region is the innermost labelled range
+    around it, a backward op's the region of the forward op whose autograd
+    node it evaluates (the last forward op recorded with that sequence
+    number created the node). Copy kernels (casts, relayouts) go to
+    "copies and casts" whatever their region; in the GEMM-bearing regions
+    GEMM kernels and the rest are split."""
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    forward_region = {}
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        if e.sequence_nr >= 0 and _backward_node(e) is None:
+            forward_region[e.sequence_nr] = _region(e)
+    out: dict = {}
+    for e in events:
+        if not e.kernels:
+            continue
+        region = _region(e)
+        if region is None:
+            node = _backward_node(e)
+            if node is not None:
+                region = forward_region.get(node.sequence_nr)
+        region = region or "other"
+        for k in e.kernels:
+            name = k.name.lower()
+            if "copy" in name:
+                kind = "copies and casts"
+            elif region in ("expert FFN", "dense MLP", "projections", "LM head", "attention"):
+                gemm = any(key in name for key in GEMM_KEYS)
+                kind = f"{region} {'GEMMs' if gemm else 'elementwise'}"
+            else:
+                kind = region
+            out[kind] = out.get(kind, 0.0) + k.duration / 1e3 / steps
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def profile_regions(phase: str, trainer, batch, targets, smi, extra=None) -> dict:
+    """Two training steps (after one warm-up) under torch.profiler with
+    the targets labelled: device ms per step by region (region_times), by
+    kernel kind, the device's busy share of the window's wall time, peak
+    memory, and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init()
+    batch = trainer.place_batch(batch)
+    state, _ = trainer.step(state, batch)
+    torch.cuda.synchronize()
+    steps = 2
+    with labelled(targets):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.monotonic()
+            for _ in range(steps):
+                state, _ = trainer.step(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - start) * 1e3
+    kernels = device_kernels(prof)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    regions = region_times(prof, steps)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    report = {
+        "phase": phase, "card": smi, **(extra or {}), "steps": steps,
+        "wall_ms_per_step": wall_ms / steps, "device_ms_per_step": device_ms,
+        "device_busy_share": device_ms * steps / wall_ms,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "ms_per_step_by_region": regions,
+        "regions_sum_ms": sum(regions.values()),
+        "ms_per_step_by_kernel_kind": by_category(kernels, steps, SERVE_CATEGORIES),
+        "top": [{"kernel": e.key[:90], "ms_per_step": e.self_device_time_total / 1e3 / steps,
+                 "calls_per_step": e.count / steps} for e in top],
+    }
+    emit(report)
+    if abs(report["regions_sum_ms"] - device_ms) > 0.02 * device_ms:
+        raise AssertionError(f"{phase}: regions sum to {report['regions_sum_ms']} of {device_ms} ms")
+    return report
+
+
+def moe_active_params(model) -> float:
+    """The reference bench's count (moe_bench.py:39-52): expert kernels at
+    experts_per_token / num_experts of their size, every other parameter
+    whole."""
+    cfg = model.cfg
+    share = cfg.experts_per_token / cfg.num_experts
+    return sum(p.numel() * (share if name.endswith(("expert_in", "expert_out")) else 1.0)
+               for name, p in model.named_parameters())
+
+
+def moe_spent_flop_per_token(cfg, batch: int, seq: int, moe_lib) -> float:
+    """What the dense one-hot formulation computes per token, forward and
+    backward (3x the forward's products): the attention projections,
+    dense MLPs and head on every token; in each MoE layer the router, the
+    two dispatch/combine products over every (token, expert, slot) and the
+    expert FFN over every slot of every expert's buffer, empty or not; the
+    attention products over all s x s pairs (the plain route masks, it
+    does not skip)."""
+    h, f, e = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    cap = moe_lib.expert_capacity(cfg, seq)
+    n_moe = sum(moe_lib.layer_is_moe(cfg, i) for i in range(cfg.num_layers))
+    n_dense = cfg.num_layers - n_moe
+    per_token = cfg.num_layers * (2 * 4 * h * h + 2 * 2 * seq * h) + 2 * h * cfg.vocab_size
+    per_token += n_dense * 2 * 2 * h * f
+    per_token += n_moe * (2 * h * e + 2 * 2 * e * cap * h + 2 * 2 * e * cap * h * f / seq)
+    return 3.0 * per_token
+
+
+def router_readings(moe_lib, model, batch) -> dict:
+    """One forward (no gradient) with each router's dispatch captured:
+    router_balance = router_aux / (weight x MoE layers), 1.0 when routing
+    is uniform, and routed_token_fraction = the (token, slot) claims that
+    landed inside capacity over all claims (moe_bench.py:109-143); per
+    MoE layer too."""
+    cfg = model.cfg
+    routed = []
+
+    def keep(module, args, out):
+        dispatch = out[0]
+        routed.append(float(dispatch.sum()) / (dispatch.shape[0] * dispatch.shape[1]
+                                               * cfg.experts_per_token))
+
+    hooks = [m.register_forward_hook(keep) for m in model.modules()
+             if isinstance(m, moe_lib.TopKRouter)]
+    try:
+        with torch.no_grad():
+            _, losses = model(batch["input_ids"], batch["attention_mask"])
+    finally:
+        for hook in hooks:
+            hook.remove()
+    n_moe = len(routed)
+    aux = float(moe_lib.sum_sown(losses, "router_aux"))
+    return {"router_balance": aux / (cfg.router_aux_weight * max(n_moe, 1)),
+            "routed_token_fraction": sum(routed) / n_moe, "routed_by_layer": routed}
+
+
+def run_moe_train(kernels, moe_lib, moe_cli, smi) -> dict:
+    """moe_train: MoE-base through train/moe.py's train() at MOE_SHAPE,
+    AdamW 3e-4 wd 0.01, bf16: tokens/s over MOE_TIMED_STEPS timed steps,
+    the active-parameter MFU and the FLOPs the dense formulation spends,
+    peak memory, router balance and routed fraction (of the trained
+    model); no launch of K1-K5; the LM loss (the training loss less its
+    router terms, which grow as the router concentrates) must fall."""
+    b, s = MOE_SHAPE
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    args = moe_cli.parse_args([
+        "--preset", "base", "--steps", str(MOE_TIMED_STEPS + 1), "--batch-size", str(b),
+        "--seq-len", str(s), "--learning-rate", "3e-4", "--log-every", "1",
+    ])
+    summary, state = moe_cli.train(args)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    model = state.model
+    cfg = model.cfg
+    active = moe_active_params(model)
+    stated = 6 * active + 6 * cfg.num_layers * s * cfg.hidden_size
+    spent = moe_spent_flop_per_token(cfg, b, s, moe_lib)
+    batch = {k: v.cuda() for k, v in moe_lib.synthetic_batch(
+        torch.Generator().manual_seed(3), b, s, cfg).items()}
+    router = router_readings(moe_lib, model, batch)
+    report = {
+        "phase": "moe_train", "model": "MoE-base", "batch": b, "seq": s, "card": smi,
+        **summary, "params": sum(p.numel() for p in model.parameters()),
+        "active_params": active,
+        "expert_param_dtype": str(model.layer_1.moe_mlp.expert_in.dtype),
+        "capacity": moe_lib.expert_capacity(cfg, s),
+        "stated_flop_per_token": stated, "spent_flop_per_token": spent,
+        "mfu_active": summary["tokens_per_sec"] * stated / PEAK_BF16_FLOPS,
+        "spent_flops_share_of_peak": summary["tokens_per_sec"] * spent / PEAK_BF16_FLOPS,
+        "peak_memory_gb": peak / 1e9, **router, "launches": launches,
+        "first_lm_loss": summary["first_loss"] - summary["first_router_aux"]
+        - summary["first_router_z"],
+        "lm_loss": summary["loss"] - summary["router_aux"] - summary["router_z"],
+    }
+    emit(report)
+    if any(launches.values()):
+        raise AssertionError(f"moe_train launched kernels of the port: {launches}")
+    for key in ("loss", "eval_loss", "tokens_per_sec", "router_aux", "eval_router_aux"):
+        if not math.isfinite(summary[key]) or summary[key] <= 0:
+            raise AssertionError(f"moe_train {key} = {summary[key]}")
+    # the LM loss (the loss less the router terms it trains with) must fall
+    if not report["lm_loss"] < report["first_lm_loss"]:
+        raise AssertionError(
+            f"moe_train LM loss did not fall: {report['first_lm_loss']} -> {report['lm_loss']}")
+    del state, model
+    free_device_memory()
+    return report
+
+
+def run_moe_profile(moe_lib, bert_lib, attention_lib, losses_lib, trainer_lib, smi) -> dict:
+    """moe_profile: device ms per MoE-base step at MOE_SHAPE by region."""
+    cfg = moe_lib.MOE_BASE
+    model = moe_lib.MoELM(cfg, generator=torch.Generator().manual_seed(5))
+    trainer = trainer_lib.Trainer(model, trainer_lib.moe_task(), learning_rate=3e-4,
+                                  weight_decay=0.01, device="cuda")
+    batch = moe_lib.synthetic_batch(torch.Generator().manual_seed(6), *MOE_SHAPE, cfg)
+    report = profile_regions(
+        "moe_profile", trainer, batch, moe_targets(moe_lib, bert_lib, attention_lib, losses_lib),
+        smi, {"model": "MoE-base", "shape": list(MOE_SHAPE)})
+    del trainer, model
+    free_device_memory()
+    return report
+
+
+def routing_decisions(moe_lib, model, batch) -> list:
+    """Per MoE layer, the router's inputs' top-k experts [g, t, k] and the
+    probability gaps that decide them [g, t, k] (choice i against the next
+    best), from one forward with a pre-hook on each router."""
+    k = model.cfg.experts_per_token
+    found = []
+
+    def keep(module, args):
+        probs = torch.softmax(F.linear(args[0].float(), module.router.weight), dim=-1)
+        top = torch.topk(probs, k + 1, dim=-1)
+        found.append((top.indices[..., :k].cpu(),
+                      (top.values[..., :k] - top.values[..., 1:]).cpu()))
+
+    hooks = [m.register_forward_pre_hook(keep) for m in model.modules()
+             if isinstance(m, moe_lib.TopKRouter)]
+    try:
+        with torch.no_grad():
+            model(batch["input_ids"], batch["attention_mask"])
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return found
+
+
+def moe_step_readings(moe_lib, trainer_lib, cfg, weights, batch, device, planted=None) -> dict:
+    """One moe_task forward and backward on `device` from `weights`: the
+    logits, loss, router_aux, router_z and every gradient, on the CPU.
+    planted: a router class to swap in (a control)."""
+    model = moe_lib.MoELM(cfg)
+    model.load_state_dict(weights)
+    model.to(device)
+    if planted is not None:
+        for m in model.modules():
+            if isinstance(m, moe_lib.TopKRouter):
+                m.__class__ = planted
+    placed = {k: v.to(device) for k, v in batch.items()}
+    loss, aux = trainer_lib.moe_task().loss_fn(model, placed, train=True)
+    loss.backward()
+    with torch.no_grad():
+        logits, _ = model(placed["input_ids"], placed["attention_mask"])
+    out = {"loss": loss.item(), "aux": aux["router_aux"].item(), "z": aux["router_z"].item(),
+           "logits": logits.float().cpu(),
+           "grads": {n: p.grad.float().cpu() for n, p in model.named_parameters()},
+           "decisions": routing_decisions(moe_lib, model, placed)}
+    del model
+    return out
+
+
+def without_key_bias(got: dict, want: dict) -> tuple:
+    """Both gradient maps without the attention key biases: zero in exact
+    arithmetic (plain_parity), so each side holds only rounding noise."""
+    keep = [n for n in want if not n.endswith("attention.key.bias")]
+    return {n: got[n] for n in keep}, {n: want[n] for n in keep}
+
+
+def decisions_differ(a: list, b: list) -> dict:
+    """Per layer: the share of (token, choice) decisions that differ, and
+    the largest top-2 gap (in a) at a differing decision."""
+    shares, gaps = [], []
+    for (ia, ga), (ib, _) in zip(a, b):
+        diff = ia != ib
+        shares.append(float(diff.float().mean()))
+        gaps.append(float(ga[diff].max()) if bool(diff.any()) else None)
+    return {"share_by_layer": shares, "largest_gap_at_a_difference": gaps}
+
+
+def half_batch_aux_router(moe_lib):
+    """A planted fault: the router's losses from the first half of the
+    groups only (its dispatch and combine stay right)."""
+
+    class HalfBatchAux(moe_lib.TopKRouter):
+        def forward(self, x):
+            dispatch, combine, _ = super().forward(x)
+            _, _, losses = super().forward(x[: max(x.shape[0] // 2, 1)])
+            return dispatch, combine, losses
+
+    return HalfBatchAux
+
+
+def per_token_claims_router(moe_lib):
+    """A planted fault in the capacity order: claims token by token, all k
+    choices of earlier tokens first (the reference comment's order, not
+    its loop's)."""
+
+    class PerTokenClaims(moe_lib.TopKRouter):
+        def forward(self, x):
+            cfg = self.cfg
+            g, t = x.shape[:2]
+            cap = moe_lib.expert_capacity(cfg, t)
+            probs = torch.softmax(F.linear(x.float(), self.router.weight), dim=-1)
+            idx = torch.topk(probs, cfg.experts_per_token, dim=-1).indices  # [g, t, k]
+            onehot = moe_lib._one_hot(idx, cfg.num_experts, probs.dtype)  # [g, t, k, e]
+            flat = onehot.reshape(g, t * cfg.experts_per_token, cfg.num_experts)
+            prior = (torch.cumsum(flat, dim=1) - flat).reshape(onehot.shape)
+            pos = (prior * onehot).sum(-1)  # [g, t, k]
+            slot = moe_lib._one_hot(pos.long(), cap, probs.dtype)
+            dispatch = (onehot[..., None] * slot[..., None, :]).sum(2)
+            return dispatch, dispatch, {}
+
+    return PerTokenClaims
+
+
+def run_moe_parity(moe_lib, trainer_lib, smi) -> dict:
+    """moe_parity: one moe_task step of MoE-base (full width, 12 layers)
+    at MOE_PARITY_SHAPE from one set of weights: f32 on the card (TF32
+    off) against f32 on the CPU (logits, loss, router_aux, router_z,
+    gradients; routing decisions equal but at near-ties, whose gaps are
+    reported); bf16 against f32 on the card (the loss, and per MoE layer
+    the share of routing decisions that differ); a planted router whose
+    losses come from half the batch must miss the CPU's aux and router
+    gradients; at capacity factor 0.5 the router on the card gives the
+    CPU's dispatch exactly, and a planted per-token claim order gives
+    another."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s = MOE_PARITY_SHAPE
+    cfg32 = dataclasses.replace(moe_lib.MOE_BASE, dtype=torch.float32)
+    weights = moe_lib.MoELM(cfg32, generator=torch.Generator().manual_seed(7)).state_dict()
+    batch = moe_lib.synthetic_batch(torch.Generator().manual_seed(8), b, s, cfg32)
+    batch["attention_mask"][1, s - 37:] = 0  # a padded row
+    start = time.monotonic()
+    cpu = moe_step_readings(moe_lib, trainer_lib, cfg32, weights, batch, "cpu")
+    cpu_s = time.monotonic() - start
+    card = moe_step_readings(moe_lib, trainer_lib, cfg32, weights, batch, "cuda")
+    bf16 = moe_step_readings(moe_lib, trainer_lib, moe_lib.MOE_BASE, weights, batch, "cuda")
+    planted = moe_step_readings(moe_lib, trainer_lib, cfg32, weights, batch, "cuda",
+                                planted=half_batch_aux_router(moe_lib))
+    grads_worst = rel_l2_worst(*without_key_bias(card["grads"], cpu["grads"]))
+    router_names = [n for n in cpu["grads"] if "router_gate" in n]
+    planted_router = max(rel(planted["grads"][n], cpu["grads"][n]) for n in router_names)
+    routing = decisions_differ(card["decisions"], cpu["decisions"])
+    bf16_routing = decisions_differ(bf16["decisions"], card["decisions"])
+
+    # the capacity order on the card, at a capacity that drops
+    small = dataclasses.replace(cfg32, capacity_factor=0.5)
+    x = torch.randn((b, s, cfg32.hidden_size), generator=torch.Generator().manual_seed(9))
+    router = moe_lib.TopKRouter(small)
+    router.router.weight.data.copy_(weights["layer_1.moe_mlp.router_gate.router.weight"])
+    with torch.no_grad():
+        d_cpu = router(x)[0]
+        d_card = router.cuda()(x.cuda())[0].cpu()
+        router.__class__ = per_token_claims_router(moe_lib)
+        d_planted = router(x.cuda())[0].cpu()
+    report = {
+        "phase": "moe_parity", "model": "MoE-base (12 layers, full width)", "card": smi,
+        "shape": [b, s], "cpu_step_s": cpu_s,
+        "f32_card_vs_cpu": {
+            "logits_max_abs": max_err(card["logits"], cpu["logits"]),
+            "loss": [card["loss"], cpu["loss"]], "aux": [card["aux"], cpu["aux"]],
+            "z": [card["z"], cpu["z"]], "grads_worst_rel_l2": grads_worst,
+            "routing": routing,
+        },
+        "tolerances": {"logits_atol": MOE_F32_LOGIT_ATOL, "loss_rtol": MOE_F32_LOSS_RTOL,
+                       "aux_atol": MOE_F32_AUX_ATOL, "grad_rel_l2": MOE_F32_GRAD_RTOL,
+                       "tie": MOE_TIE, "bf16_loss_atol": MOE_BF16_LOSS_ATOL},
+        "bf16_vs_f32_card": {"loss": [bf16["loss"], card["loss"]],
+                             "aux": [bf16["aux"], card["aux"]], "routing": bf16_routing},
+        "planted_half_batch_aux": {"aux": planted["aux"],
+                                   "router_grad_worst_rel_l2": planted_router},
+        "capacity_0.5": {"routed_share": float(d_cpu.sum()) / (b * s * cfg32.experts_per_token),
+                         "card_equals_cpu": bool(torch.equal(d_card, d_cpu)),
+                         "per_token_order_slots_moved": int((d_planted != d_card).sum())},
+    }
+    emit(report)
+    ties_only = all(g is None or g < MOE_TIE for g in routing["largest_gap_at_a_difference"])
+    if not ties_only:
+        raise AssertionError(f"moe_parity: routing differs beyond near-ties: {routing}")
+    if all(g is None for g in routing["largest_gap_at_a_difference"]):
+        if report["f32_card_vs_cpu"]["logits_max_abs"] > MOE_F32_LOGIT_ATOL:
+            raise AssertionError("moe_parity: f32 logits differ between the card and the CPU")
+        if grads_worst[0] > MOE_F32_GRAD_RTOL:
+            raise AssertionError(f"moe_parity: f32 gradients differ: {grads_worst}")
+    if abs(card["loss"] - cpu["loss"]) > MOE_F32_LOSS_RTOL * abs(cpu["loss"]):
+        raise AssertionError("moe_parity: f32 loss differs between the card and the CPU")
+    for key in ("aux", "z"):
+        if abs(card[key] - cpu[key]) > MOE_F32_AUX_ATOL:
+            raise AssertionError(f"moe_parity: f32 {key} differs between the card and the CPU")
+    if abs(bf16["loss"] - card["loss"]) > MOE_BF16_LOSS_ATOL:
+        raise AssertionError("moe_parity: the bf16 loss is off the f32 loss")
+    if abs(planted["aux"] - cpu["aux"]) <= MOE_F32_AUX_ATOL or planted_router <= MOE_F32_GRAD_RTOL:
+        raise AssertionError("moe_parity: the planted half-batch aux passed the bounds")
+    if not report["capacity_0.5"]["card_equals_cpu"]:
+        raise AssertionError("moe_parity: dispatch at capacity 0.5 differs card vs CPU")
+    if not report["capacity_0.5"]["per_token_order_slots_moved"]:
+        raise AssertionError("moe_parity: the planted claim order gave the same dispatch")
+    free_device_memory()
+    return report
+
+
+def run_moe_run_steps(kernels, moe_lib, trainer_lib, smi) -> dict:
+    """moe_run_steps: MoE-base at MOE_SHAPE, run_steps(n=5) as a CUDA graph
+    against 5 eager steps from one seed (graph_vs_eager: losses 1e-3
+    relative, parameters 1e-4 relative L2, bit-equality reported, ms per
+    step and busy share, eager and graph); no kernel of the port inside."""
+    cfg = moe_lib.MOE_BASE
+
+    def make():
+        model = moe_lib.MoELM(cfg, generator=torch.Generator().manual_seed(5))
+        return trainer_lib.Trainer(
+            model, trainer_lib.moe_task(), weight_decay=0.01, device="cuda",
+            learning_rate=trainer_lib.warmup_cosine_lr(3e-4, 2 * RUN_STEPS, 2))
+
+    batch = moe_lib.synthetic_batch(torch.Generator().manual_seed(6), *MOE_SHAPE, cfg)
+    report = graph_vs_eager("MoE-base", kernels, make, batch, {},
+                            MOE_SHAPE[0] * MOE_SHAPE[1], "tokens", smi, phase="moe_run_steps")
+    free_device_memory()
+    return report
+
+
+def stepwise_chain(moe_lib, model, prompt, new: int) -> torch.Tensor:
+    """Greedy chain with every prompt position through MoEDecodeStep (no
+    prefill): [b, p + new]."""
+    b, p = prompt.shape
+    cache = moe_lib.KVCache.zeros(model.cfg, b, p + new, prompt.device)
+    step = moe_lib.MoEDecodeStep(model)
+    out = [prompt]
+    for i in range(p + new - 1):
+        logits = step(prompt[:, i] if i < p else tok, i, cache)
+        if i >= p - 1:
+            tok = logits.argmax(-1)
+            out.append(tok[:, None])
+    return torch.cat(out, dim=1)
+
+
+def run_moe_generate(moe_lib, smi) -> dict:
+    """moe_generate: MoE-base (bf16, random weights from a seed), 8 rows,
+    a 128-token prompt, 512 new tokens: tokens/s counted as the reference
+    counts them, b (p - 1 + new) / s, ms per token, and a profile of decode
+    steps (kernels per token, busy share). Then in f32 at capacity factor
+    2.0 (TF32 off), along a greedy chain of MOE_CHECK_NEW new tokens:
+    teacher-forced MoEDecodeStep logits against the training forward's
+    (atol/rtol DECODE_ATOL), no token dropped by that forward (at
+    num_experts / experts_per_token where 2.0 drops), and the prefill
+    chain equal to the all-stepwise chain."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows, p, new = MOE_DECODE
+    cfg = moe_lib.MOE_BASE
+    model = moe_lib.MoELM(cfg, generator=torch.Generator().manual_seed(11), device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (rows, p),
+                           generator=torch.Generator().manual_seed(12)).cuda()
+    moe_lib.moe_generate(model, (prompt + 1) % cfg.vocab_size, 8)  # warm-up
+    torch.cuda.synchronize()
+    start = time.monotonic()
+    out = moe_lib.moe_generate(model, prompt, new)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - start
+    profile = profiled(lambda: moe_lib.moe_generate(model, prompt, 16), 16)
+    report = {
+        "phase": "moe_generate", "model": "MoE-base", "card": smi, "rows": rows,
+        "prompt": p, "new_tokens": new, "seconds": seconds,
+        "tokens_per_sec": rows * (p - 1 + new) / seconds,
+        "new_tokens_per_sec": rows * new / seconds, "ms_per_token": seconds * 1e3 / new,
+        "profile_16_tokens": profile, "shape": list(out.shape),
+    }
+    weights = model.state_dict()
+    del model
+    free_device_memory()
+    # the forward drops nothing at MOE_NO_DROP_CF on the reference's test
+    # data; a greedy chain of random weights repeats tokens and can
+    # overflow an expert there, and then the check moves to capacity
+    # factor num_experts / experts_per_token, where each expert's buffer
+    # holds the whole sequence (no drop is possible)
+    routed_at = {}
+    for factor in (MOE_NO_DROP_CF, cfg.num_experts / cfg.experts_per_token):
+        model32 = moe_lib.MoELM(dataclasses.replace(
+            cfg, dtype=torch.float32, capacity_factor=factor), device="cuda")
+        model32.load_state_dict(weights)
+        with torch.no_grad():
+            chain = moe_lib.moe_generate(model32, prompt, MOE_CHECK_NEW)
+            batch = {"input_ids": chain, "attention_mask": torch.ones_like(chain)}
+            routed = router_readings(moe_lib, model32, batch)["routed_token_fraction"]
+        routed_at[factor] = routed
+        if routed == 1.0:
+            break
+    with torch.no_grad():
+        stepwise = stepwise_chain(moe_lib, model32, prompt, MOE_CHECK_NEW)
+        train, _ = model32(chain)
+        n = chain.shape[1]
+        cache = moe_lib.KVCache.zeros(model32.cfg, rows, n, chain.device)
+        step = moe_lib.MoEDecodeStep(model32)
+        stepped = torch.stack([step(chain[:, i], i, cache) for i in range(n)], dim=1)
+    err = (stepped - train).abs()
+    allowed = DECODE_ATOL + DECODE_RTOL * train.abs()
+    top2 = torch.topk(stepped[:, p - 1:-1], 2, dim=-1).values
+    report.update({
+        "f32_capacity_factor": factor, "f32_routed_token_fraction_by_factor": routed_at,
+        "f32_decode_vs_train_max_abs": err.max().item(),
+        "f32_decode_vs_train_worst_over_allowed": (err / allowed).max().item(),
+        "atol": DECODE_ATOL, "rtol": DECODE_RTOL,
+        "f32_min_top2_margin": (top2[..., 0] - top2[..., 1]).min().item(),
+        "f32_prefill_chain_equals_stepwise": bool(torch.equal(chain, stepwise)),
+        "f32_first_difference": first_difference(chain, stepwise),
+    })
+    emit(report)
+    if out.shape != (rows, p + new) or not torch.equal(out[:, :p], prompt):
+        raise AssertionError("moe_generate: the chain's shape or prompt is wrong")
+    if routed != 1.0:
+        raise AssertionError(f"moe_generate: the f32 forward dropped tokens ({routed})")
+    if not bool((err <= allowed).all()):
+        raise AssertionError("moe_generate: teacher-forced decode differs from the forward")
+    if not report["f32_prefill_chain_equals_stepwise"]:
+        raise AssertionError("moe_generate: the prefill and stepwise chains differ")
+    del model32
+    free_device_memory()
+    return report
+
+
+def post_json(port: int, path: str, payload: dict) -> list:
+    """[status, the reply's error text or body] of one POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return [resp.status, json.loads(resp.read())]
+    except urllib.error.HTTPError as err:
+        return [err.code, json.loads(err.read()).get("error")]
+
+
+def wait_for_health(port: int, proc, timeout: float) -> None:
+    import urllib.error
+    import urllib.request
+
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=5) as resp:
+                if resp.status == 200:
+                    return
+        except (urllib.error.URLError, ConnectionError, OSError):
+            pass
+        if proc.poll() is not None or time.monotonic() > deadline:
+            raise AssertionError(f"the server did not come up (exit {proc.poll()})")
+        time.sleep(0.5)
+
+
+def run_moe_serve(moe_lib, server_lib, smi) -> dict:
+    """moe_serve: train/moe.py --preset base --steps 2 --checkpoint-dir D,
+    then `python -m tf_operator_tpu_torch.serve --preset moe-base
+    --checkpoint-dir D` as a subprocess: MOE_SERVE_REQUESTS uniform-length
+    requests from the port's DecodeClient, half greedy (each chain equal
+    to in-process moe_generate on the restored weights) and half sampled
+    (reported against in-process moe_generate from the same seed); a
+    ragged, a top_k and a num_beams request each a 400; SIGTERM -> exit 0.
+    Every process started here is stopped."""
+    import os
+    import signal
+    import tempfile
+
+    from tf_operator_tpu_torch.serve.client import DecodeClient
+
+    work = tempfile.mkdtemp(prefix="moe-serve-")
+    ckpt = os.path.join(work, "ckpt")
+    start = time.monotonic()
+    train = subprocess.run(
+        [sys.executable, "-m", "tf_operator_tpu_torch.train.moe", "--preset", "base",
+         "--steps", "2", "--checkpoint-dir", ckpt, "--log-every", "1"],
+        capture_output=True, text=True, timeout=MOE_SERVE_TIMEOUT_S)
+    train_s = time.monotonic() - start
+    if train.returncode != 0:
+        raise AssertionError(f"train/moe.py exited {train.returncode}: {train.stderr[-2000:]}")
+    port = free_port()
+    log = open(os.path.join(work, "server.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tf_operator_tpu_torch.serve", "--preset", "moe-base",
+         "--checkpoint-dir", ckpt, "--host", "127.0.0.1", "--port", str(port)],
+        stdout=log, stderr=subprocess.STDOUT)
+    try:
+        start = time.monotonic()
+        wait_for_health(port, proc, MOE_SERVE_TIMEOUT_S)
+        boot_s = time.monotonic() - start
+        client = DecodeClient(f"http://127.0.0.1:{port}")
+        gen = torch.Generator().manual_seed(13)
+        reqs = []
+        for i in range(MOE_SERVE_REQUESTS):
+            prompt = torch.randint(0, moe_lib.MOE_BASE.vocab_size, (1, MOE_SERVE_PROMPT),
+                                   generator=gen).tolist()
+            reqs.append({"prompt": prompt, "temperature": 0.0 if i % 2 == 0 else 0.8,
+                         "seed": 100 + i})
+        start = time.monotonic()
+        for req in reqs:
+            req["chain"] = client.generate(req["prompt"], max_new_tokens=MOE_SERVE_NEW,
+                                           temperature=req["temperature"], seed=req["seed"])
+        serve_s = time.monotonic() - start
+        refusals = {
+            name: post_json(port, "/generate", {"max_new_tokens": 4, **payload})
+            for name, payload in (
+                ("ragged", {"input_ids": [[1, 2, 3], [4, 5]]}),
+                ("top_k", {"input_ids": [[1, 2, 3]], "temperature": 0.5, "top_k": 4}),
+                ("num_beams", {"input_ids": [[1, 2, 3]], "num_beams": 2}),
+            )
+        }
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    model = server_lib.load_model("moe-base", ckpt, torch.device("cuda"))
+    greedy_equal, sampled_equal = [], []
+    for req in reqs:
+        gen = torch.Generator(device="cuda").manual_seed(req["seed"])
+        want = moe_lib.moe_generate(model, torch.tensor(req["prompt"]).cuda(), MOE_SERVE_NEW,
+                                    temperature=req["temperature"], generator=gen).tolist()
+        (greedy_equal if req["temperature"] == 0 else sampled_equal).append(req["chain"] == want)
+    report = {
+        "phase": "moe_serve", "model": "MoE-base", "card": smi, "train_s": train_s,
+        "server_boot_s": boot_s, "requests": len(reqs), "prompt": MOE_SERVE_PROMPT,
+        "new_tokens": MOE_SERVE_NEW, "serve_s": serve_s,
+        "new_tokens_per_sec": len(reqs) * MOE_SERVE_NEW / serve_s,
+        "greedy_equal_inline": greedy_equal, "sampled_equal_inline": sampled_equal,
+        "refusals": refusals, "sigterm_exit_code": code,
+        "checkpoint_bytes": sum(os.path.getsize(os.path.join(r, f))
+                                for r, _, fs in os.walk(ckpt) for f in fs),
+    }
+    emit(report)
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    if not all(greedy_equal):
+        raise AssertionError("moe_serve: a greedy served chain differs from moe_generate")
+    if any(status != 400 for status, _ in refusals.values()):
+        raise AssertionError(f"moe_serve: refusals {refusals}")
+    if code != 0:
+        raise AssertionError(f"moe_serve: the server exited {code} on SIGTERM")
+    del model
+    free_device_memory()
+    return report
+
+
+def vit_flop_per_image(model) -> float:
+    """The reference bench's transformer_step_flops per image
+    (model_benches.py:48-62): (6 P + 12 L s h) per token, s the patch
+    count, not causal."""
+    cfg = model.cfg
+    params = sum(p.numel() for p in model.parameters())
+    return (6.0 * params + 12.0 * cfg.num_layers * VIT_SEQ * cfg.hidden_size) * VIT_SEQ
+
+
+def run_vit(vit_lib, vit_cli, bert_lib, attention_lib, trainer_lib, smi) -> dict:
+    """vit_train: ViT-B/16 through train/vit.py's run() at 224^2, batch
+    VIT_BATCH, AdamW 1e-3 wd 0.05, bf16: images/s over VIT_TIMED_STEPS
+    timed steps, MFU by the bench's formula, peak memory; the loss must
+    fall. vit_profile: device ms per step by region."""
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    summary = vit_cli.run(vit_cli.parse_args([
+        "--preset", "b16", "--steps", str(VIT_TIMED_STEPS + 1),
+        "--per-chip-batch", str(VIT_BATCH), "--learning-rate", "1e-3", "--log-every", "1",
+    ]))
+    peak = torch.cuda.max_memory_allocated()
+    model = vit_lib.ViT(vit_lib.VIT_B16)
+    flop = vit_flop_per_image(model)
+    report = {
+        "phase": "vit_train", "model": "ViT-B/16", "batch": VIT_BATCH, "card": smi, **summary,
+        "params": sum(p.numel() for p in model.parameters()), "flop_per_image": flop,
+        "mfu": summary["images_per_sec"] * flop / PEAK_BF16_FLOPS,
+        "peak_memory_gb": peak / 1e9,
+    }
+    emit(report)
+    if not math.isfinite(summary["loss"]) or not summary["loss"] < summary["first_loss"]:
+        raise AssertionError(
+            f"vit_train loss did not fall: {summary['first_loss']} -> {summary['loss']}")
+    free_device_memory()
+    trainer = trainer_lib.Trainer(model, trainer_lib.classification_task(), learning_rate=1e-3,
+                                  weight_decay=0.05, device="cuda")
+    batch = vit_lib.synthetic_batch(torch.Generator().manual_seed(6), VIT_BATCH, vit_lib.VIT_B16)
+    profile = profile_regions("vit_profile", trainer, batch, vit_targets(bert_lib, attention_lib),
+                              smi, {"model": "ViT-B/16", "batch": VIT_BATCH})
+    del trainer, model
+    free_device_memory()
+    return {"train": report, "profile": profile}
+
+
+def vit_step_readings(vit_lib, cfg, weights, batch, device) -> dict:
+    model = vit_lib.ViT(cfg)
+    model.load_state_dict(weights)
+    model.to(device)
+    logits = model(batch["image"].to(device))
+    loss = F.cross_entropy(logits.float(), batch["label"].to(device))
+    loss.backward()
+    return {"loss": loss.item(), "logits": logits.detach().float().cpu(),
+            "grads": {n: p.grad.float().cpu() for n, p in model.named_parameters()}}
+
+
+def run_vit_parity(vit_lib, smi) -> dict:
+    """vit_parity: ViT-B/16 (full width) at batch VIT_PARITY_BATCH, for
+    both pools and for f32 and uint8 images: f32 on the card (TF32 off in
+    matmuls and convs) against f32 on the CPU (logits, loss, gradients),
+    bf16 against f32 on the card (the loss), and a --remat step against a
+    plain one on the card in bf16 (bit-equality reported, gradients within
+    REMAT_RTOL relative L2). A planted control: the CPU's gradients held
+    against a card step whose patch grid is flattened column-major must
+    fail the f32 bound."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {"phase": "vit_parity", "model": "ViT-B/16", "card": smi,
+              "batch": VIT_PARITY_BATCH, "cases": {}}
+    failures = []
+    for pool in ("gap", "cls"):
+        for wire in ("float", "uint8"):
+            cfg32 = dataclasses.replace(vit_lib.VIT_B16, pool=pool, dtype=torch.float32)
+            weights = vit_lib.ViT(cfg32, generator=torch.Generator().manual_seed(21)).state_dict()
+            batch = vit_lib.synthetic_batch(torch.Generator().manual_seed(22), VIT_PARITY_BATCH,
+                                            cfg32)
+            if wire == "uint8":
+                batch["image"] = torch.randint(0, 256, batch["image"].shape, dtype=torch.uint8,
+                                               generator=torch.Generator().manual_seed(23))
+            cpu = vit_step_readings(vit_lib, cfg32, weights, batch, "cpu")
+            card = vit_step_readings(vit_lib, cfg32, weights, batch, "cuda")
+            cfg16 = dataclasses.replace(cfg32, dtype=torch.bfloat16)
+            bf16 = vit_step_readings(vit_lib, cfg16, weights, batch, "cuda")
+            remat = vit_step_readings(vit_lib, dataclasses.replace(cfg16, remat=True), weights,
+                                      batch, "cuda")
+            grads = rel_l2_worst(*without_key_bias(card["grads"], cpu["grads"]))
+            remat_worst = rel_l2_worst(remat["grads"], bf16["grads"])
+            case = {
+                "logits_max_abs_f32": max_err(card["logits"], cpu["logits"]),
+                "loss_f32": [card["loss"], cpu["loss"]], "grads_worst_rel_l2_f32": grads,
+                "loss_bf16": bf16["loss"],
+                "remat_bit_equal": bool(torch.equal(remat["logits"], bf16["logits"])) and all(
+                    torch.equal(remat["grads"][n], bf16["grads"][n]) for n in bf16["grads"]),
+                "remat_grads_worst_rel_l2": remat_worst,
+            }
+            report["cases"][f"{pool}-{wire}"] = case
+            if case["logits_max_abs_f32"] > VIT_F32_LOGIT_ATOL or grads[0] > VIT_F32_GRAD_RTOL:
+                failures.append(f"{pool}-{wire} f32")
+            if abs(bf16["loss"] - card["loss"]) > VIT_BF16_LOSS_ATOL:
+                failures.append(f"{pool}-{wire} bf16 loss")
+            if remat_worst[0] > REMAT_RTOL:
+                failures.append(f"{pool}-{wire} remat")
+    # the planted control: position_embed added to a column-major patch order
+    cfg32 = dataclasses.replace(vit_lib.VIT_B16, dtype=torch.float32)
+    weights = vit_lib.ViT(cfg32, generator=torch.Generator().manual_seed(21)).state_dict()
+    batch = vit_lib.synthetic_batch(torch.Generator().manual_seed(22), VIT_PARITY_BATCH, cfg32)
+    cpu = vit_step_readings(vit_lib, cfg32, weights, batch, "cpu")
+    grid = cfg32.image_size // cfg32.patch_size
+    transposed = dict(weights)
+    pos = weights["position_embed"].reshape(1, grid, grid, -1).transpose(1, 2)
+    transposed["position_embed"] = pos.reshape(1, grid * grid, -1).contiguous()
+    planted = vit_step_readings(vit_lib, cfg32, transposed, batch, "cuda")
+    report["planted_column_major"] = {
+        "logits_max_abs": max_err(planted["logits"], cpu["logits"])}
+    report["tolerances"] = {"logits_atol": VIT_F32_LOGIT_ATOL, "grad_rel_l2": VIT_F32_GRAD_RTOL,
+                            "bf16_loss_atol": VIT_BF16_LOSS_ATOL, "remat_rel_l2": REMAT_RTOL}
+    emit(report)
+    if failures:
+        raise AssertionError(f"vit_parity: {failures}")
+    if report["planted_column_major"]["logits_max_abs"] <= VIT_F32_LOGIT_ATOL:
+        raise AssertionError("vit_parity: the planted patch order passed the bound")
+    free_device_memory()
+    return report
+
+
+def run_moe_vit_phases(kernels, smi) -> dict:
+    """The MoE family's and ViT-B/16's phases, in order; K1-K5 must not
+    launch in any of them."""
+    from tf_operator_tpu_torch.models import bert as bert_lib
+    from tf_operator_tpu_torch.models import moe as moe_lib
+    from tf_operator_tpu_torch.models import vit as vit_lib
+    from tf_operator_tpu_torch.ops import attention as attention_lib
+    from tf_operator_tpu_torch.ops import losses as losses_lib
+    from tf_operator_tpu_torch.serve import server as server_lib
+    from tf_operator_tpu_torch.train import moe as moe_cli
+    from tf_operator_tpu_torch.train import trainer as trainer_lib
+    from tf_operator_tpu_torch.train import vit as vit_cli
+
+    kernels.reset_launches()
+    out = {"moe_train": run_moe_train(kernels, moe_lib, moe_cli, smi)}
+    out["moe_profile"] = run_moe_profile(moe_lib, bert_lib, attention_lib, losses_lib,
+                                         trainer_lib, smi)
+    out["moe_parity"] = run_moe_parity(moe_lib, trainer_lib, smi)
+    out["moe_run_steps"] = run_moe_run_steps(kernels, moe_lib, trainer_lib, smi)
+    out["moe_generate"] = run_moe_generate(moe_lib, smi)
+    out["moe_serve"] = run_moe_serve(moe_lib, server_lib, smi)
+    kernels.reset_launches()
+    out["vit"] = run_vit(vit_lib, vit_cli, bert_lib, attention_lib, trainer_lib, smi)
+    out["vit_parity"] = run_vit_parity(vit_lib, smi)
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError(f"the ViT phases launched kernels of the port: {kernels.LAUNCHES}")
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs one CUDA card")
@@ -3377,6 +4325,8 @@ def main() -> int:
     world2 = run_distributed_phases(kernels, smi)
     free_device_memory()
     run_serve(kernels, gpt_lib, smi)
+    free_device_memory()
+    run_moe_vit_phases(kernels, smi)
     free_device_memory()
 
     lines = [

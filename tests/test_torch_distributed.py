@@ -23,6 +23,13 @@ TpuBatchNorm), held against the JAX reference on the CPU over gloo, f32.
     1e-5, gradients 1e-4, parameters 1e-4 where the reference's gradient
     is above 1e-6, and near-zero gradients held to a bound on how far an
     AdamW step moves a weight (tests/test_torch_trainer.py explains).
+  - MOE_TINY (padding on one row) under DDP at accum_steps 1 and 2 and
+    under FSDP2 (MOE_RULES, --fsdp 2) at accum_steps 1, one SGD-momentum
+    step each: loss 1e-5, router_aux 1e-6, gradients and parameters 1e-4
+    against the reference Trainer on the global batch. The routers'
+    per-expert means are all-reduced over the batch group; a control step
+    with that sync unset must miss the reference's router_aux and router
+    gradients.
   - Every rank draws the same initial weights from the seeded generators.
   - Checkpoints saved at world 2 (DDP and FSDP2) restore bit-equal in one
     process, and checkpoints saved in one process restore bit-equal at
@@ -50,15 +57,17 @@ import torch
 
 from tf_operator_tpu_torch.models import bert as torch_bert
 from tf_operator_tpu_torch.models import gpt as torch_gpt
+from tf_operator_tpu_torch.models import moe as torch_moe
 from tf_operator_tpu_torch.models import resnet as torch_resnet
 from tf_operator_tpu_torch.models.convert import (
     bert_state_dict_from_flax,
     gpt_state_dict_from_flax,
+    moe_state_dict_from_flax,
     resnet_state_dict_from_flax,
 )
 from tf_operator_tpu_torch.parallel import distributed
 from tf_operator_tpu_torch.parallel import mesh as torch_mesh
-from tf_operator_tpu_torch.parallel.sharding import CONV_RULES
+from tf_operator_tpu_torch.parallel.sharding import CONV_RULES, MOE_RULES
 from tf_operator_tpu_torch.train import trainer as torch_trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -68,6 +77,12 @@ GRAD_ATOL = 1e-4
 PARAM_ATOL = 1e-4
 STATS_ATOL = 1e-5
 GRAD_NOISE = 1e-6
+AUX_ATOL = 1e-6
+# the smallest miss of the reference's router_aux (relative) and router
+# gradients (absolute) that the unsynced control must show: each 10x the
+# bound the synced step is held to
+CONTROL_AUX_RTOL = 1e-3
+CONTROL_GRAD_MISS = 10 * GRAD_ATOL
 SGD_LR = 0.1
 ADAM_LR = 1e-3
 ADAM_WD = 0.01
@@ -112,6 +127,15 @@ def _image_batch(seed=5):
     return batch
 
 
+def _moe_batch(vocab, b=4, s=32, seed=9):
+    """Tokens for a causal LM with labels and a mask that pads row 1 (rank 0
+    at world 2) from position 20."""
+    ids = np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(np.int32)
+    mask = np.ones((b, s), np.int32)
+    mask[1, 20:] = 0
+    return {"input_ids": ids, "labels": ids, "attention_mask": mask}
+
+
 def _tokens(vocab, b=4, s=32, seed=7):
     return {"input_ids": np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(np.int32)}
 
@@ -149,6 +173,35 @@ def _gpt_trainer(weights, mesh=None, checkpoint_dir=None):
         model, torch_trainer.causal_lm_task(), learning_rate=ADAM_LR, weight_decay=ADAM_WD,
         device="cpu", checkpoint_dir=checkpoint_dir, mesh=mesh,
     )
+
+
+def _moe_trainer(weights, mesh=None, accum_steps=1):
+    model = torch_moe.MoELM(torch_moe.MOE_TINY)
+    model.load_state_dict(weights)
+    return torch_trainer.Trainer(
+        model, torch_trainer.moe_task(), learning_rate=SGD_LR, optimizer="sgd", device="cpu",
+        accum_steps=accum_steps, mesh=mesh, rules=MOE_RULES,
+    )
+
+
+def _moe_step(weights, batch, mesh, accum_steps=1, synced=True):
+    """One MoE step in this world: loss, router_aux, full gradients and
+    parameters; synced=False unsets the routers' sync group first."""
+    trainer = _moe_trainer(weights, mesh, accum_steps)
+    state = trainer.init()
+    routers = [m for m in state.model.modules() if isinstance(m, torch_moe.TopKRouter)]
+    groups = [r.sync_group is not None for r in routers]
+    if not synced:
+        for router in routers:
+            router.sync_group = None
+    state, metrics = trainer.step(state, trainer.place_batch(_torch_batch(batch)))
+    params = {}
+    for name, param in state.model.named_parameters():
+        full = param.full_tensor() if hasattr(param, "full_tensor") else param
+        params[name] = full.detach().clone()
+    return {"loss": float(metrics["loss"]), "aux": float(metrics["router_aux"]),
+            "grads": _full_grads(state.model), "params": params, "synced": groups,
+            "sharded": type(state.model.layer_0.attention.query.kernel).__name__}
 
 
 def _full_grads(model):
@@ -256,6 +309,11 @@ def _world_main(work: str) -> None:
                 "state": {k: v.clone() for k, v in state.model.state_dict().items()}}
 
         out["bn"] = _bn_sides(rank)
+
+        for accum in (1, 2):
+            out[f"moe_ddp{accum}"] = _moe_step(inputs["moe"], inputs["moe_batch"], dp, accum)
+        out["moe_fsdp1"] = _moe_step(inputs["moe"], inputs["moe_batch"], fsdp)
+        out["moe_unsynced"] = _moe_step(inputs["moe"], inputs["moe_batch"], dp, synced=False)
 
         trainer = _gpt_trainer(inputs["gpt"], fsdp, os.path.join(ckpt, "gpt_w2"))
         state = trainer.init()
@@ -365,7 +423,8 @@ def _reference_step(model, task, optimizer, batch, mesh, rules=None, accum_steps
     before = (to_np(state.params), to_np(state.batch_stats))
     state, metrics = trainer.step(state, jbatch)
     return {"before": before, "after": (to_np(state.params), to_np(state.batch_stats)),
-            "grads": to_np(state.opt_state[0]), "loss": float(metrics["loss"])}
+            "grads": to_np(state.opt_state[0]), "loss": float(metrics["loss"]),
+            "aux": float(metrics.get("router_aux", float("nan")))}
 
 
 @pytest.fixture(scope="module")
@@ -378,6 +437,7 @@ def reference():
 
     from tf_operator_tpu.models import bert as jax_bert
     from tf_operator_tpu.models import gpt as jax_gpt
+    from tf_operator_tpu.models import moe as jax_moe
     from tf_operator_tpu.models import resnet as jax_resnet
     from tf_operator_tpu.parallel.mesh import MeshConfig, build_mesh, single_device_mesh
     from tf_operator_tpu.parallel.sharding import CONV_RULES as JAX_CONV_RULES
@@ -388,9 +448,16 @@ def reference():
     resnet = jax_resnet.ResNet(**RESNET_SMALL, dtype=jnp.float32)
     gpt = jax_gpt.GPT(dc.replace(jax_gpt.GPT_TINY, dtype=jnp.float32))
     gpt_batch = _tokens(jax_gpt.GPT_TINY.vocab_size)
+    moe = jax_moe.MoELM(jax_moe.MOE_TINY)
+    moe_batch = _moe_batch(jax_moe.MOE_TINY.vocab_size)
     sgd = optax.sgd(SGD_LR, momentum=0.9)
     run = {
         "bert_batch": bert_batch, "resnet_batch": _image_batch(), "gpt_batch": gpt_batch,
+        "moe_batch": moe_batch,
+        "moe1": _reference_step(moe, jax_trainer.moe_task(moe), sgd, moe_batch,
+                                single_device_mesh()),
+        "moe2": _reference_step(moe, jax_trainer.moe_task(moe), sgd, moe_batch,
+                                single_device_mesh(), accum_steps=2),
         "bert1": _reference_step(bert, jax_trainer.mlm_task(bert), sgd, bert_batch,
                                  single_device_mesh()),
         "bert2": _reference_step(bert, jax_trainer.mlm_task(bert), sgd, bert_batch,
@@ -408,6 +475,7 @@ def reference():
         "bert": bert_state_dict_from_flax(run["bert1"]["before"][0]),
         "resnet": resnet_state_dict_from_flax(*run["resnet1"]["before"]),
         "gpt": gpt_state_dict_from_flax(run["gpt"]["before"][0]),
+        "moe": moe_state_dict_from_flax(run["moe1"]["before"][0]),
     }
     return run
 
@@ -431,9 +499,10 @@ def world(reference, tmp_path_factory):
                             trainer.place_batch(_torch_batch(reference["gpt_batch"])))
     trainer.save(state)
     one["gpt_w1"] = _payload_tensors(torch_trainer.state_payload(state))
-    torch.save({"bert": w["bert"], "resnet": w["resnet"], "gpt": w["gpt"],
+    torch.save({"bert": w["bert"], "resnet": w["resnet"], "gpt": w["gpt"], "moe": w["moe"],
                 "bert_batch": reference["bert_batch"], "resnet_batch": reference["resnet_batch"],
-                "gpt_batch": reference["gpt_batch"]}, os.path.join(work, "inputs.pt"))
+                "gpt_batch": reference["gpt_batch"], "moe_batch": reference["moe_batch"]},
+               os.path.join(work, "inputs.pt"))
 
     def launch(attempt):
         logs = os.path.join(work, f"logs{attempt}")
@@ -640,6 +709,42 @@ def test_fsdp2_gpt_step_matches_the_reference_fsdp_mesh(world, reference):
         assert bool((moved <= ADAM_LR * (1 + 1e-3) + ADAM_LR * ADAM_WD
                      * start[name][noise].abs()).all()), name
     assert strict >= 0.99 * nonzero
+
+
+@pytest.mark.parametrize("run, accum", [("moe_ddp1", 1), ("moe_ddp2", 2), ("moe_fsdp1", 1)])
+def test_moe_step_matches_the_reference_global_batch(world, reference, run, accum):
+    """MOE_TINY with a padded row, under DDP (accum 1 and 2) and FSDP2:
+    the loss, router_aux, every gradient and parameter of the reference's
+    step on the global batch (at accum 2 each microbatch's router means
+    are its global rows', as the reference's per-microbatch aux)."""
+    ref = reference[f"moe{accum}"]
+    want_grads = moe_state_dict_from_flax(ref["grads"])
+    want_params = moe_state_dict_from_flax(ref["after"][0])
+    for out in world["ranks"]:
+        got = out[run]
+        assert got["synced"] == [True] * torch_moe.MOE_TINY.num_layers
+        assert got["sharded"] == ("DTensor" if run == "moe_fsdp1" else "Parameter")
+        _close(got["loss"], ref["loss"], LOSS_ATOL, "loss")
+        _close(got["aux"], ref["aux"], AUX_ATOL, "router_aux")
+        assert set(got["grads"]) == set(want_grads)
+        for name, want in want_grads.items():
+            _close(got["grads"][name], want, GRAD_ATOL, f"grad {name}")
+            _close(got["params"][name], want_params[name], PARAM_ATOL, f"param {name}")
+
+
+def test_moe_router_without_the_sync_misses_the_reference(world, reference):
+    """The control: the same DDP step with each router's sync group unset
+    averages per-rank products of means, another loss; its router_aux and
+    its router gradients miss the reference by far more than the synced
+    step's bounds."""
+    ref = reference["moe1"]
+    want_grads = moe_state_dict_from_flax(ref["grads"])
+    for out in world["ranks"]:
+        got = out["moe_unsynced"]
+        assert abs(got["aux"] - ref["aux"]) > CONTROL_AUX_RTOL * abs(ref["aux"])
+        miss = max(float((got["grads"][n] - want_grads[n]).abs().max())
+                   for n in want_grads if "router_gate" in n)
+        assert miss > CONTROL_GRAD_MISS, miss
 
 
 # -- checkpoints across world sizes -------------------------------------------------

@@ -55,6 +55,7 @@ NEW_MODULES = (
     "tf_operator_tpu_torch.serve.client", "tf_operator_tpu_torch.serve.prefix",
     "tf_operator_tpu_torch.runtime.retry", "tf_operator_tpu_torch.telemetry.tracing",
     "tf_operator_tpu_torch.telemetry.exposition", "tf_operator_tpu_torch.models.gpt",
+    "tf_operator_tpu_torch.models.moe",
 )
 
 
@@ -343,14 +344,135 @@ def test_make_server_refuses_unported_options(tiny, option, item):
     (["--kv-int8"], "item 5"), (["--weights-int8"], "item 8"),
     (["--speculative"], "item 6"), (["--speculate", "ngram"], "item 6"),
     (["--tp", "2"], "item 6"), (["--mesh-shape", "1x2"], "item 6"),
-    (["--role", "prefill"], "item 6"), (["--preset", "moe-tiny"], "item 7"),
+    (["--role", "prefill"], "item 6"),
+    # the moe presets serve since the MoE slice (ROADMAP item 7); what they
+    # refuse is the gpt family's options, in the reference's words
+    pytest.param(["--preset", "moe-tiny", "--batching", "continuous"], "gpt-family features",
+                 id="argv9-item 7"),
     (["--tenant-quotas", "{}"], "item 5"), (["--enable-debug-endpoints"], "item 5"),
 ])
 def test_cli_refuses_unported_flags(argv, item, capsys):
     with pytest.raises(SystemExit) as err:
         torch_server.parse_args(argv)
     assert err.value.code == 2
-    assert f"ROADMAP queue 1 {item}" in capsys.readouterr().err
+    want = item if item.startswith("gpt-family") else f"ROADMAP queue 1 {item}"
+    assert want in capsys.readouterr().err
+
+
+# -- the moe presets ------------------------------------------------------------
+
+MOE_STARTUP = ("the moe family serves plain decode only: kv_quant_int8, weights_int8, "
+               "speculative, batching (window/continuous) and mesh are gpt-family features")
+
+
+@pytest.fixture(scope="module")
+def moe_weights():
+    """(reference MOE_TINY cfg, its flax params, the port's MoELM on them)."""
+    if jax is None:
+        pytest.skip("JAX is not installed")
+    from tf_operator_tpu.models import moe as jax_moe
+    from tf_operator_tpu_torch.models import moe as torch_moe
+    from tf_operator_tpu_torch.models.convert import moe_state_dict_from_flax
+
+    init = jax.jit(jax_moe.MoELM(jax_moe.MOE_TINY).init)
+    params = jax.tree_util.tree_map(
+        np.array, init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"])
+    model = torch_moe.MoELM(torch_moe.MOE_TINY)
+    model.load_state_dict(moe_state_dict_from_flax(params))
+    return jax_moe.MOE_TINY, params, model
+
+
+@pytest.fixture(scope="module")
+def moe_server(moe_weights):
+    server = torch_server.make_server(moe_weights[2], device="cpu", model_name="moe-tiny")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    yield server
+    server.shutdown()
+    server.server_close()
+
+
+def test_moe_preset_serves_the_reference_chains(moe_weights, moe_server):
+    """/generate and /generate_stream over MOE_TINY: greedy chains equal
+    to the reference's moe_generate on the same weights, a sampled chain
+    the port's moe_generate from the request's seed."""
+    from tf_operator_tpu.models import moe as jax_moe
+    from tf_operator_tpu_torch.models import moe as torch_moe
+
+    cfg, params, model = moe_weights
+    port = moe_server.server_address[1]
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, (3, 5)).tolist()
+    want = np.asarray(jax_moe.moe_generate(cfg, params, jnp.asarray(prompt), 6)).tolist()
+    status, body = _post(port, "/generate", {"input_ids": prompt, "max_new_tokens": 6})
+    assert status == 200, body
+    assert body["tokens"] == want and body["prompt_lens"] == [5, 5, 5]
+    client = DecodeClient(f"http://127.0.0.1:{port}")
+    events = list(client.generate_stream(prompt[0], max_new_tokens=6))
+    assert events[-1]["tokens"] == [want[0]]
+    assert [e["token"] for e in events if "token" in e] == want[0][5:]
+    status, body = _post(port, "/generate", {"input_ids": prompt[:1], "max_new_tokens": 6,
+                                            "temperature": 0.8, "seed": 4})
+    gen = torch.Generator().manual_seed(4)
+    sampled = torch_moe.moe_generate(model, torch.tensor(prompt[:1]), 6, temperature=0.8,
+                                     generator=gen)
+    assert status == 200 and body["tokens"] == sampled.tolist()
+    status, body = _get(port, "/healthz")
+    assert status == 200 and json.loads(body)["model"] == "moe-tiny"
+
+
+@pytest.mark.parametrize("payload, text", [
+    ({"input_ids": [[1, 2, 3], [4, 5]]},
+     "the moe family requires uniform-length prompts (no ragged prompt_lens machinery "
+     "in moe_generate)"),
+    ({"input_ids": [[1, 2, 3]], "temperature": 0.5, "top_k": 4},
+     "top_k/top_p are not supported for the moe family"),
+    ({"input_ids": [[1, 2, 3]], "temperature": 0.5, "top_p": 0.9},
+     "top_k/top_p are not supported for the moe family"),
+    ({"input_ids": [[1, 2, 3]], "num_beams": 2}, "beam search is not supported for the moe family"),
+    ({"input_ids": [[1, 2, 3]], "max_new_tokens": 126},
+     "prompt_len 3 + max_new_tokens 126 exceeds max_seq_len 128"),
+])
+def test_moe_preset_refuses_requests_in_the_reference_words(moe_server, payload, text):
+    status, body = _post(moe_server.server_address[1], "/generate", payload)
+    assert status == 400 and body["error"] == text
+
+
+@pytest.mark.parametrize("option", [
+    {"batching": "continuous"}, {"batching": "window"}, {"kv_quant_int8": True},
+    {"weights_int8": True}, {"speculative": True}, {"mesh": object()},
+])
+def test_moe_make_server_refuses_gpt_family_options(option):
+    from tf_operator_tpu_torch.models import moe as torch_moe
+
+    model = torch_moe.MoELM(torch_moe.MOE_TINY)
+    with pytest.raises(ValueError, match="the moe family serves plain decode only"):
+        torch_server.make_server(model, device="cpu", **option)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--kv-int8"], ["--weights-int8"], ["--speculative"], ["--speculate", "ngram"],
+    ["--batch-window-ms", "5"], ["--batching", "continuous"], ["--tp", "2"],
+])
+def test_moe_cli_refuses_gpt_family_flags(argv, capsys):
+    with pytest.raises(SystemExit) as err:
+        torch_server.parse_args(["--preset", "moe-base"] + argv)
+    assert err.value.code == 2
+    assert (f"{argv[0]} are gpt-family features; the moe presets serve plain greedy/sampled "
+            "decode only") in capsys.readouterr().err
+
+
+def test_moe_cli_loads_the_moe_checkpoint(tmp_path):
+    """--preset moe-tiny --checkpoint-dir serves what train/moe.py wrote."""
+    from tf_operator_tpu_torch.train import moe as moe_cli
+
+    moe_cli.run(moe_cli.parse_args([
+        "--preset", "tiny", "--steps", "2", "--batch-size", "2", "--seq-len", "16",
+        "--device", "cpu", "--checkpoint-dir", str(tmp_path)]))
+    payload = torch.load(os.path.join(tmp_path, "2", "state.pt"), weights_only=True)
+    model = torch_server.load_model("moe-tiny", str(tmp_path), torch.device("cpu"))
+    assert type(model).__name__ == "MoELM"
+    for name, tensor in model.state_dict().items():
+        assert torch.equal(tensor, payload["model"][name]), name
 
 
 def _post(port, path, payload):

@@ -90,7 +90,8 @@ def init_like_flax_(model: nn.Module, generator: Optional[torch.Generator] = Non
         for module in model.modules():
             if isinstance(module, nn.Linear):
                 lecun_normal_(module.weight, module.in_features, generator)
-                module.bias.zero_()
+                if module.bias is not None:
+                    module.bias.zero_()
             elif isinstance(module, DenseGeneral):
                 module.reset_parameters(generator)
             elif isinstance(module, nn.Embedding):
@@ -103,9 +104,9 @@ def init_like_flax_(model: nn.Module, generator: Optional[torch.Generator] = Non
 
 class TransformerBlock(nn.Module):
     """Pre-LN block: attention and MLP, each added to the residual
-    stream. GPT (models/gpt.py) builds it from its own config, which has
-    every field read here (hidden_size, num_heads, head_dim,
-    intermediate_size, dtype)."""
+    stream. GPT, ViT and the MoE LM (models/gpt.py, vit.py, moe.py) build
+    it from their own configs, which have every field read here
+    (hidden_size, num_heads, head_dim, intermediate_size, dtype)."""
 
     def __init__(self, cfg: BertConfig, attention_fn: Optional[Callable] = None) -> None:
         super().__init__()
@@ -119,17 +120,22 @@ class TransformerBlock(nn.Module):
         self.mlp_in = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.mlp_out = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
 
+    def attention_half(
+        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+        attention_fn: Optional[Callable] = None,
+    ) -> torch.Tensor:
+        """x plus the attention of its layer norm: the block up to its
+        MLP, which the MoE blocks (models/moe.py) share."""
+        y = self.ln_attn(x)
+        return x + self.attention(y.to(self.cfg.dtype), mask, attention_fn)
+
     def forward(
         self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
         attention_fn: Optional[Callable] = None,
     ) -> torch.Tensor:
         """attention_fn: as MultiHeadAttention.forward's, for this call."""
-        cfg = self.cfg
-        y = self.ln_attn(x)
-        y = self.attention(y.to(cfg.dtype), mask, attention_fn)
-        x = x + y
-        y = self.ln_mlp(x)
-        return x + transformer_mlp(cfg, y, self.mlp_in, self.mlp_out)
+        x = self.attention_half(x, mask, attention_fn)
+        return x + transformer_mlp(self.cfg, self.ln_mlp(x), self.mlp_in, self.mlp_out)
 
 
 class BertEncoder(nn.Module):

@@ -1,5 +1,5 @@
 """Carry a flax param tree across to the port's state_dict: BERT, GPT,
-ResNet and the MNIST CNN.
+ResNet, the MNIST CNN, the MoE LM and ViT.
 
 The input is the tree as nested dicts of numpy arrays (a caller holding
 a JAX tree maps `np.asarray` over it first), so this module never sees
@@ -20,7 +20,7 @@ def _compile(rules):
 
 
 def _transformer_rules(prefix: str, head: str):
-    """(reference path, port name pattern, transpose) for a transformer
+    """(reference path, port name pattern, layout) for a transformer
     whose embeddings, layer_{i} blocks and ln_final sit under `prefix`
     ("encoder/" in BERT, "" in GPT) beside its `head` Dense. Dense
     kernels are [in, out] in flax and [out, in] in nn.Linear; DenseGeneral
@@ -31,12 +31,12 @@ def _transformer_rules(prefix: str, head: str):
     norms = rf"{layer}/(?:ln_attn|ln_mlp)|{prefix}ln_final"
     denses = rf"{layer}/(?:mlp_in|mlp_out)|{head}"
     return _compile((
-        (rf"({prefix}(?:token_embed|position_embed))/embedding", r"\1.weight", False),
-        (rf"({norms})/scale", r"\1.weight", False),
-        (rf"({norms})/bias", r"\1.bias", False),
-        (rf"({layer}/attention/(?:query|key|value|attn_out))/(kernel|bias)", r"\1.\2", False),
-        (rf"({denses})/kernel", r"\1.weight", True),
-        (rf"({denses})/bias", r"\1.bias", False),
+        (rf"({prefix}(?:token_embed|position_embed))/embedding", r"\1.weight", "keep"),
+        (rf"({norms})/scale", r"\1.weight", "keep"),
+        (rf"({norms})/bias", r"\1.bias", "keep"),
+        (rf"({layer}/attention/(?:query|key|value|attn_out))/(kernel|bias)", r"\1.\2", "keep"),
+        (rf"({denses})/kernel", r"\1.weight", "t"),
+        (rf"({denses})/bias", r"\1.bias", "keep"),
     ))
 
 
@@ -56,33 +56,48 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
 
 
 def _port_name(path: str, rules):
-    for pattern, name, transpose in rules:
+    for pattern, name, layout in rules:
         match = pattern.fullmatch(path)
         if match:
-            return match.expand(name).replace("/", "."), transpose
+            return match.expand(name).replace("/", "."), layout
     raise KeyError(f"no mapping for flax param {path!r}")
-
-
-def _transformer_state_dict(params: Mapping[str, Any], rules) -> Dict[str, torch.Tensor]:
-    state: Dict[str, torch.Tensor] = {}
-    for path, value in _flatten(params).items():
-        name, transpose = _port_name(path, rules)
-        array = value.T if transpose else value
-        state[name] = torch.tensor(array, dtype=torch.float32)
-    return state
 
 
 def bert_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax BertForMLM params (nested dicts of numpy arrays) -> a
     state_dict for models.bert.BertForMLM. Raises KeyError on a path it
     does not map."""
-    return _transformer_state_dict(params, _BERT_RULES)
+    return _state_dict(params, _BERT_RULES)
 
 
 def gpt_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax GPT params (nested dicts of numpy arrays) -> a state_dict for
     models.gpt.GPT. Raises KeyError on a path it does not map."""
-    return _transformer_state_dict(params, _GPT_RULES)
+    return _state_dict(params, _GPT_RULES)
+
+
+def _to_tensor(value: np.ndarray, layout: str) -> torch.Tensor:
+    """"t" transposes a Dense kernel, "oihw" turns an HWIO conv kernel
+    into F.conv2d's layout, "keep" keeps it, each as f32; "native" keeps
+    the array and its dtype (bf16 arrives as ml_dtypes' bfloat16, which
+    torch does not read: widened to f32, exactly, and rounded back)."""
+    if layout == "native":
+        if value.dtype.name == "bfloat16":
+            return torch.tensor(value.astype(np.float32)).to(torch.bfloat16)
+        return torch.tensor(np.ascontiguousarray(value))
+    if layout == "oihw":
+        value = value.transpose(3, 2, 0, 1)
+    elif layout == "t":
+        value = value.T
+    return torch.tensor(np.ascontiguousarray(value), dtype=torch.float32)
+
+
+def _state_dict(params: Mapping[str, Any], rules) -> Dict[str, torch.Tensor]:
+    state: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params).items():
+        name, layout = _port_name(path, rules)
+        state[name] = _to_tensor(value, layout)
+    return state
 
 
 # ResNet: (reference path, port name pattern, layout). Conv kernels are
@@ -114,18 +129,8 @@ def resnet_state_dict_from_flax(
     conv1 = (rf"({_BLOCK})/(Conv_1)/kernel",) + (
         (r"\1.\2.kernel", "keep") if conv3_impl == "pallas" else (r"\1.\2.weight", "oihw")
     )
-    param_rules = _compile(_RESNET_PARAMS + (conv1,))
-    stat_rules = _compile(_RESNET_STATS)
-    state: Dict[str, torch.Tensor] = {}
-    for tree, rules in ((params, param_rules), (batch_stats, stat_rules)):
-        for path, value in _flatten(tree).items():
-            name, layout = _port_name(path, rules)
-            if layout == "oihw":
-                value = value.transpose(3, 2, 0, 1)
-            elif layout == "t":
-                value = value.T
-            state[name] = torch.tensor(np.ascontiguousarray(value), dtype=torch.float32)
-    return state
+    return {**_state_dict(params, _compile(_RESNET_PARAMS + (conv1,))),
+            **_state_dict(batch_stats, _compile(_RESNET_STATS))}
 
 
 _MNIST_PARAMS = _compile((
@@ -141,12 +146,38 @@ def mnist_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Ten
     [in, out] -> [out, in]. Dense_0's rows stay in the reference's NHWC
     flatten order, which the port's forward reproduces. Raises KeyError on
     a path it does not map."""
-    state: Dict[str, torch.Tensor] = {}
-    for path, value in _flatten(params).items():
-        name, layout = _port_name(path, _MNIST_PARAMS)
-        if layout == "oihw":
-            value = value.transpose(3, 2, 0, 1)
-        elif layout == "t":
-            value = value.T
-        state[name] = torch.tensor(np.ascontiguousarray(value), dtype=torch.float32)
-    return state
+    return _state_dict(params, _MNIST_PARAMS)
+
+
+# MoELM: the blocks as GPT's; embed/ and head/ are flax submodules whose
+# params sit on the port's root; the router's Dense kernel transposes,
+# the expert kernels keep their layout and their dtype (bf16 in MOE_BASE)
+_MOE_PARAMS = _transformer_rules("", "lm_head") + _compile((
+    (r"embed/(token_embed|position_embed)/embedding", r"\1.weight", "keep"),
+    (r"head/(ln_final)/scale", r"\1.weight", "keep"),
+    (r"head/(ln_final)/bias", r"\1.bias", "keep"),
+    (r"head/(lm_head)/kernel", r"\1.weight", "t"),
+    (r"(layer_\d+/moe_mlp/router_gate/router)/kernel", r"\1.weight", "t"),
+    (r"(layer_\d+/moe_mlp/(?:expert_in|expert_out))", r"\1", "native"),
+))
+# ViT: the blocks, ln_final and the Dense head as GPT's; the patch conv
+# HWIO -> OIHW, the f32 cls_token and position_embed as they are
+_VIT_PARAMS = _transformer_rules("", "head") + _compile((
+    (r"patch_embed/kernel", r"patch_embed.weight", "oihw"),
+    (r"patch_embed/bias", r"patch_embed.bias", "keep"),
+    (r"(cls_token|position_embed)", r"\1", "keep"),
+))
+
+
+def moe_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax MoELM params (nested dicts of numpy arrays) -> a state_dict
+    for models.moe.MoELM. The expert kernels keep their dtype. Raises
+    KeyError on a path it does not map."""
+    return _state_dict(params, _MOE_PARAMS)
+
+
+def vit_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ViT params (nested dicts of numpy arrays) -> a state_dict for
+    models.vit.ViT: the patch kernel HWIO -> OIHW, Dense kernels [in,
+    out] -> [out, in]. Raises KeyError on a path it does not map."""
+    return _state_dict(params, _VIT_PARAMS)

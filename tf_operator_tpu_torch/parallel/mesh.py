@@ -135,10 +135,12 @@ def add_mesh_flags(parser) -> None:
 
 def mesh_config(parser, args) -> MeshConfig:
     """The mesh the flags ask for; parser.error (exit 2) on a flag whose
-    axis is not ported, naming its ROADMAP item."""
-    for flag, axis in (("--tp", "tp"), ("--sp", "sp")):
-        if getattr(args, axis) != 1:
-            parser.error(f"{flag} {getattr(args, axis)}: {NOT_PORTED[axis]} is not ported yet")
-    if args.sp_strategy is not None:
+    axis is not ported (any of --ep, --tp and --sp that the CLI has),
+    naming its ROADMAP item."""
+    for axis in ("ep", "tp", "sp"):
+        size = getattr(args, axis, 1)
+        if size != 1:
+            parser.error(f"--{axis} {size}: {NOT_PORTED[axis]} is not ported yet")
+    if getattr(args, "sp_strategy", None) is not None:
         parser.error(f"--sp-strategy {args.sp_strategy}: {NOT_PORTED['sp']} is not ported yet")
     return MeshConfig(dp=-1, fsdp=args.fsdp)

@@ -14,13 +14,19 @@ become wrap plans, applied by `parallelize`:
   TransformerBlock and then on the root, over the (dp, fsdp) mesh, so
   dp > 1 and fsdp > 1 together give HSDP (replicated over dp, sharded
   over fsdp). The tensor-parallel half of the reference's rules (tp)
-  waits for ROADMAP item 4; the serve and MoE rule sets for their slices.
+  waits for ROADMAP item 4; the serve rule sets for theirs.
+- MOE_RULES: the MoE LM's (models/moe.py) as TRANSFORMER_RULES lays it,
+  FSDP2 on each dense and MoE block and the root with fsdp > 1. The
+  reference's rules also shard the experts over its ep axis, which
+  build_mesh refuses until expert parallelism lands (ROADMAP queue 1,
+  item 7).
 
 DDP broadcasts rank 0's parameters when it wraps; FSDP2 does not, so the
 models draw their weights from a seeded CPU generator, the same on every
-rank. Whatever the plan, `parallelize` gives each TpuBatchNorm the mesh's
-batch group (mesh.batch_group) when it spans more than one rank, so its
-statistics are the global batch's (sync BN). DDP does not broadcast
+rank. Whatever the plan, `parallelize` gives each TpuBatchNorm and each
+MoE router the mesh's batch group (mesh.batch_group) when it spans more
+than one rank, so their statistics are the global batch's (sync BN, and
+the router's load-balancing means). DDP does not broadcast
 buffers at each forward: the running statistics come from all-reduced
 batch statistics, the same on every rank.
 """
@@ -29,7 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Iterator, Optional
+from typing import Iterator, Tuple
 
 import torch
 from torch import nn
@@ -38,17 +44,18 @@ from torch import nn
 @dataclasses.dataclass(frozen=True)
 class WrapPlan:
     """name: the reference rule set's. shard: parameters are sharded over
-    the mesh's fsdp axis when it is > 1. blocks: the class name of the
+    the mesh's fsdp axis when it is > 1. blocks: the class names of the
     submodules that each get their own FSDP2 unit before the root."""
 
     name: str
     shard: bool = False
-    blocks: Optional[str] = None
+    blocks: Tuple[str, ...] = ()
 
 
 REPLICATED_RULES = WrapPlan("REPLICATED_RULES")
 CONV_RULES = WrapPlan("CONV_RULES", shard=True)
-TRANSFORMER_RULES = WrapPlan("TRANSFORMER_RULES", shard=True, blocks="TransformerBlock")
+TRANSFORMER_RULES = WrapPlan("TRANSFORMER_RULES", shard=True, blocks=("TransformerBlock",))
+MOE_RULES = WrapPlan("MOE_RULES", shard=True, blocks=("TransformerBlock", "MoEBlock"))
 
 
 def shards_parameters(mesh, rules: WrapPlan) -> bool:
@@ -60,7 +67,8 @@ def parallelize(model: nn.Module, mesh, rules: WrapPlan, device: torch.device) -
     to call: the model itself under FSDP2 (`shard`, where the rules shard
     and the mesh's fsdp axis is > 1, or where the model was sharded
     already), else its DDP wrapper, whose `.module` is the model. Its
-    TpuBatchNorms sync over the mesh's batch group (sync_batch_norm)."""
+    TpuBatchNorms and MoE routers sync over the mesh's batch group
+    (sync_batch_norm)."""
     sync_batch_norm(model, mesh)
     if is_fully_sharded(model):
         return model
@@ -75,11 +83,13 @@ def parallelize(model: nn.Module, mesh, rules: WrapPlan, device: torch.device) -
 
 
 def sync_batch_norm(model: nn.Module, mesh) -> None:
-    """Set each TpuBatchNorm's sync_group to the mesh's batch group where
-    that group holds more than one rank (over one rank the all-reduce
-    would be a copy)."""
+    """Set the sync_group of each TpuBatchNorm and each MoE router (the
+    modules whose statistics are over the batch) to the mesh's batch
+    group where that group holds more than one rank (over one rank the
+    all-reduce would be a copy)."""
     import torch.distributed as dist
 
+    from ..models.moe import TopKRouter
     from ..models.norm import TpuBatchNorm
     from .mesh import batch_group
 
@@ -87,7 +97,7 @@ def sync_batch_norm(model: nn.Module, mesh) -> None:
     if dist.get_world_size(group) == 1:
         return
     for module in model.modules():
-        if isinstance(module, TpuBatchNorm):
+        if isinstance(module, (TpuBatchNorm, TopKRouter)):
             module.sync_group = group
 
 
@@ -100,9 +110,9 @@ def shard(model: nn.Module, mesh, rules: WrapPlan) -> nn.Module:
     and replication compute the same step."""
     from torch.distributed.fsdp import fully_shard
 
-    if rules.blocks is not None:
+    if rules.blocks:
         for module in list(model.modules()):
-            if type(module).__name__ == rules.blocks:
+            if type(module).__name__ in rules.blocks:
                 fully_shard(module, mesh=mesh)
     fully_shard(model, mesh=mesh)
     return model

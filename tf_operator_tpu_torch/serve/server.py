@@ -1,10 +1,12 @@
-"""Minimal decode server over the port's GPT. Counterpart of
+"""Minimal decode server over the port's GPT and MoE LM. Counterpart of
 tf_operator_tpu/serve/server.py: stdlib HTTP around models/gpt.py
-`generate` (inline) or the continuous-batching engine (serve/engine.py).
+`generate` (inline) or the continuous-batching engine (serve/engine.py),
+and models/moe.py `moe_generate` for the moe presets.
 
     python -m tf_operator_tpu_torch.serve --preset tiny --port 8600 --device cpu
     python -m tf_operator_tpu_torch.serve --preset small --batching continuous \\
         --checkpoint-dir /ckpt/gpt
+    python -m tf_operator_tpu_torch.serve --preset moe-base --checkpoint-dir /ckpt/moe
 
     POST /generate   {"input_ids": [[1,2,3], [7,8], ...],   # ragged OK
                       "max_new_tokens": 32, "temperature": 0.0,
@@ -32,14 +34,21 @@ through a torch.Generator. Everything runs on `--device` (cuda unless
 named; without a card the server refuses to start rather than carry on
 on the CPU).
 
+The moe presets (moe-tiny, moe-base) serve plain greedy or sampled
+decode of uniform-length prompts through `moe_generate`, inline; as in
+the reference, a ragged request, top_k/top_p and beams are 400s, and
+int8, speculation, window or continuous batching, a mesh and --tp are
+refused at startup.
+
 Checkpoints: --checkpoint-dir restores the newest step the port's
-training CLIs wrote (train/trainer.py Checkpointer); without one the
+training CLIs wrote (train/trainer.py Checkpointer; train/gpt.py's for
+the gpt presets, train/moe.py's for the moe ones); without one the
 server starts with random weights from a seed and says so.
 
 Not ported, each refused naming its ROADMAP item: window batching,
-speculative decoding, beam search, the moe presets, sharded decode (mesh,
---tp), int8, the disaggregated routes (/prefill, /kv/*), the debug routes
-other than /debug/trace, tenant QoS, metric history and alerts.
+speculative decoding, beam search, sharded decode (mesh, --tp), int8,
+the disaggregated routes (/prefill, /kv/*), the debug routes other than
+/debug/trace, tenant QoS, metric history and alerts.
 """
 
 from __future__ import annotations
@@ -81,7 +90,12 @@ _DISAGGREGATED = (
 )
 _DEBUG = "this debug route is not ported; /debug/trace is (ROADMAP queue 1 item 5)"
 _QOS = "tenant QoS, metric history and alerts are not ported (ROADMAP queue 1 item 5)"
-_MOE = "the moe presets are not ported (ROADMAP queue 1 item 7)"
+# the moe family's refusals: the reference's texts
+_MOE_STARTUP = (
+    "the moe family serves plain decode only: kv_quant_int8, weights_int8, speculative, "
+    "batching (window/continuous) and mesh are gpt-family features"
+)
+_MOE_FLAGS = "are gpt-family features; the moe presets serve plain greedy/sampled decode only"
 
 # routes the reference serves, answered 501 with the item that ports them
 _UNPORTED_GET = {
@@ -93,6 +107,20 @@ _UNPORTED_POST = {"/prefill": _DISAGGREGATED, "/kv/export": _DISAGGREGATED,
                   "/kv/import": _DISAGGREGATED}
 
 
+def _family(model) -> str:
+    """"moe" for the MoE LM, else "gpt": the one point that decode routing
+    and per-family validation key on."""
+    from ..models.moe import MoELM
+
+    return "moe" if isinstance(model, MoELM) else "gpt"
+
+
+def _max_seq(cfg) -> int:
+    """The config's decode-length bound (GPTConfig.max_seq_len,
+    MoEConfig.max_position_embeddings)."""
+    return getattr(cfg, "max_seq_len", None) or cfg.max_position_embeddings
+
+
 class _State:
     """Model + decode bookkeeping shared by request threads."""
 
@@ -101,6 +129,7 @@ class _State:
 
         self.model = model
         self.cfg = model.cfg
+        self.family = _family(model)
         self.model_name = model_name
         self.max_new_cap = max_new_cap
         self.device = device
@@ -186,10 +215,10 @@ def _validate(state: _State, body):
     new = body.get("max_new_tokens", 16)
     if not isinstance(new, int) or isinstance(new, bool) or not (1 <= new <= state.max_new_cap):
         return _bad(f"max_new_tokens must be an int in [1, {state.max_new_cap}]")
-    if width + new > state.cfg.max_seq_len:
+    if width + new > _max_seq(state.cfg):
         return _bad(
             f"prompt_len {width} + max_new_tokens {new} "
-            f"exceeds max_seq_len {state.cfg.max_seq_len}"
+            f"exceeds max_seq_len {_max_seq(state.cfg)}"
         )
     temperature = body.get("temperature", 0.0)
     if not isinstance(temperature, (int, float)) or isinstance(temperature, bool) \
@@ -211,6 +240,15 @@ def _validate(state: _State, body):
         not 1 <= num_beams <= MAX_BEAMS
     ):
         return _bad(f"num_beams must be an int in [1, {MAX_BEAMS}]")
+    if state.family == "moe":
+        # moe_generate decodes uniform-length prompts, greedy or tempered
+        if any(length != width for length in lens):
+            return _bad("the moe family requires uniform-length prompts "
+                        "(no ragged prompt_lens machinery in moe_generate)")
+        if top_k != 0 or float(top_p) != 1.0:
+            return _bad("top_k/top_p are not supported for the moe family")
+        if num_beams > 1:
+            return _bad("beam search is not supported for the moe family")
     if num_beams > 1:
         return _bad(_BEAMS)
     return prompt, lens, new, float(temperature), seed, top_k, float(top_p)
@@ -233,15 +271,21 @@ def _locked_decode(state, prompt, lens, new, temperature, seed, top_k, top_p):
     import torch
 
     from ..models import gpt as gpt_lib
+    from ..models import moe as moe_lib
 
     with state.lock:  # decode saturates the card; serialize
         start = time.monotonic()
         generator = torch.Generator(device=state.device).manual_seed(int(seed))
-        out = gpt_lib.generate(
-            state.model, torch.as_tensor(prompt, device=state.device), new,
-            temperature=temperature, generator=generator,
-            prompt_lens=torch.tensor(lens), top_k=top_k, top_p=top_p,
-        )
+        tokens = torch.as_tensor(prompt, device=state.device)
+        if state.family == "moe":
+            out = moe_lib.moe_generate(
+                state.model, tokens, new, temperature=temperature, generator=generator,
+            )
+        else:
+            out = gpt_lib.generate(
+                state.model, tokens, new, temperature=temperature, generator=generator,
+                prompt_lens=torch.tensor(lens), top_k=top_k, top_p=top_p,
+            )
         out = out.cpu().numpy()  # waits for the device
         state.decode_seconds.inc(time.monotonic() - start)
         state.decode_batches.inc()
@@ -561,17 +605,24 @@ def make_server(
     tenant_quotas=None,
     enable_debug_endpoints: bool = False,
 ) -> DecodeHTTPServer:
-    """In-process server over the port's GPT module (tests and
+    """In-process server over the port's GPT or MoE LM module (tests and
     embedders); the caller owns serve_forever/shutdown (and, with an
     engine, `server.state.engine.stop()`). The CLI binds 0.0.0.0; the
     in-process default stays loopback. batching: "none" (inline,
     lock-serialized; the default "" means none) or "continuous"
     (serve/engine.py: the slot grid, built here, its programs captured
-    before the server answers). device: `cuda` unless named; the model
-    is moved there. The reference's other options raise
-    NotImplementedError naming their ROADMAP items."""
+    before the server answers; gpt only). device: `cuda` unless named;
+    the model is moved there. An MoE LM with any gpt-family option
+    raises ValueError, as the reference; the reference's other options
+    raise NotImplementedError naming their ROADMAP items."""
     from .._device import resolve_device
 
+    if _family(model) == "moe" and (
+        kv_quant_int8 or weights_int8 or speculative or speculate != "off"
+        or batch_window_ms > 0 or mesh is not None or mesh_shape is not None
+        or batching not in ("", "none")
+    ):
+        raise ValueError(_MOE_STARTUP)
     for refused, why in (
         (batching == "window" or batch_window_ms > 0, _WINDOW),
         (kv_quant_int8, _INT8_KV), (weights_int8, _INT8_WEIGHTS),
@@ -624,7 +675,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(prog="python -m tf_operator_tpu_torch.serve")
     parser.add_argument(
         "--preset", choices=["tiny", "small", "moe-tiny", "moe-base"], default="small",
-        help="gpt presets (tiny/small); the moe presets are refused",
+        help="gpt presets (tiny/small); the moe presets serve plain greedy/sampled "
+        "decode (models/moe.py moe_generate)",
     )
     parser.add_argument("--port", type=int, default=None,
                         help="default $PORT, else 8600")
@@ -661,11 +713,22 @@ def parse_args(argv=None) -> argparse.Namespace:
         else:
             parser.add_argument(flag, action="store_true", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.preset.startswith("moe"):
+        offending = [
+            flag for flag, on in (
+                ("--kv-int8", args.kv_int8), ("--weights-int8", args.weights_int8),
+                ("--speculative", args.speculative),
+                ("--speculate", args.speculate not in (None, "off")),
+                ("--batch-window-ms", _number(args.batch_window_ms) > 0),
+                ("--batching", args.batching != "none"),
+                ("--tp", _number(args.tp) > 1),
+            ) if on
+        ]
+        if offending:
+            parser.error(f"{', '.join(offending)} {_MOE_FLAGS}")
     for flag, _, why in _REFUSED_FLAGS:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             parser.error(f"{flag}: {why}")
-    if args.preset.startswith("moe"):
-        parser.error(f"--preset {args.preset}: {_MOE}")
     if args.batching == "window":
         parser.error(f"--batching window: {_WINDOW}")
     if args.slots < 1:
@@ -686,16 +749,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def _number(value) -> float:
+    """A refused flag's value as a number (absent: 0)."""
+    try:
+        return float(value) if value is not None else 0.0
+    except ValueError:
+        return 0.0
+
+
 def load_model(preset: str, checkpoint_dir: Optional[str], device):
-    """The preset's GPT on `device`: the newest checkpoint in
-    checkpoint_dir (the port's Checkpointer format), else random weights
-    from seed 0, said loudly."""
+    """The preset's model on `device` (a GPT, or an MoELM for the moe
+    presets): the newest checkpoint in checkpoint_dir (the port's
+    Checkpointer format, as train/gpt.py and train/moe.py write it), else
+    random weights from seed 0, said loudly."""
     import torch
 
     from ..models import gpt as gpt_lib
+    from ..models import moe as moe_lib
 
-    cfg = {"tiny": gpt_lib.GPT_TINY, "small": gpt_lib.GPT_SMALL}[preset]
-    model = gpt_lib.GPT(cfg, generator=torch.Generator().manual_seed(0))
+    generator = torch.Generator().manual_seed(0)
+    if preset.startswith("moe"):
+        cfg = {"moe-tiny": moe_lib.MOE_TINY, "moe-base": moe_lib.MOE_BASE}[preset]
+        model = moe_lib.MoELM(cfg, generator=generator)
+    else:
+        cfg = {"tiny": gpt_lib.GPT_TINY, "small": gpt_lib.GPT_SMALL}[preset]
+        model = gpt_lib.GPT(cfg, generator=generator)
     step = None
     if checkpoint_dir:
         from ..train.trainer import Checkpointer
@@ -725,7 +803,8 @@ def main(argv=None) -> int:
     model = load_model(args.preset, args.checkpoint_dir, device)
     port = args.port if args.port is not None else int(os.environ.get("PORT", "8600"))
     server = make_server(
-        model, port=port, model_name=f"gpt-{args.preset}", max_new_cap=args.max_new_cap,
+        model, port=port, model_name=args.preset if args.preset.startswith("moe")
+        else f"gpt-{args.preset}", max_new_cap=args.max_new_cap,
         host=args.host, batching=args.batching, n_slots=args.slots,
         kv_layout=args.kv_layout, block_size=args.block_size, kv_blocks=args.kv_blocks,
         prefill_chunk=args.prefill_chunk, device=device,

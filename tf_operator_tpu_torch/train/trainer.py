@@ -1,6 +1,6 @@
 """The training engine's core. Counterpart of
 tf_operator_tpu/train/trainer.py: the state object, `Task`,
-`classification_task`, `mlm_task`, `causal_lm_task`, `warmup_cosine_lr`,
+`classification_task`, `mlm_task`, `causal_lm_task`, `moe_task`, `warmup_cosine_lr`,
 `held_out_eval`, `restore_if_any` and `timed_run` (the token CLIs' loop),
 `Trainer` (init, step with gradient accumulation, run_steps, evaluate,
 place_batch, fit, save, restore) and `Checkpointer`.
@@ -164,7 +164,34 @@ def causal_lm_task() -> Task:
     return Task(loss_fn=loss_fn)
 
 
+def moe_task() -> Task:
+    """Causal LM with the router's losses (models/moe.py): the training
+    loss is lm + every router loss, the eval loss lm alone (perplexity
+    reads it). "router_aux" (load balancing) and "router_z" are reported
+    apart; "loss_weight" is the mask's weight mass past position 0, so
+    accumulation and ranks weight the LM loss exactly (the router terms
+    ride the same per-microbatch weighting, as in the reference)."""
+    from ..models.moe import lm_loss, sum_sown, total_aux_loss
+
+    def loss_fn(model: nn.Module, batch: Batch, train: bool = True):
+        mask = batch.get("attention_mask")
+        logits, losses = model(batch["input_ids"], mask)
+        lm = lm_loss(logits, batch["labels"], weights=mask)
+        loss = lm + total_aux_loss(losses) if train else lm
+        extras = {"router_aux": sum_sown(losses, "router_aux"),
+                  "router_z": sum_sown(losses, "router_z")}
+        if mask is not None:
+            extras["loss_weight"] = mask[:, 1:].float().sum()
+        return loss, extras
+
+    return Task(loss_fn=loss_fn)
+
+
 HELD_OUT_FOLD = 2**31 - 1
+# what the train CLIs say of --monitoring-bind-addr until it is ported
+MONITORING_NOT_PORTED = (
+    "the trainer telemetry server (TrainTelemetry) is not ported (ROADMAP queue 1, item 3)"
+)
 OPTIMIZERS = ("adamw", "sgd")
 SGD_MOMENTUM = 0.9
 # aux keys that are bookkeeping, not metrics
@@ -222,6 +249,13 @@ def _rate_unit(batch: Batch) -> Tuple[str, Callable[[Batch], int]]:
     return "images", lambda b: b["image"].shape[0]
 
 
+def _metric_text(metrics: Dict[str, Any]) -> str:
+    """The metrics but loss and perplexity, for a log line: " name=value"
+    each."""
+    return "".join(f" {name}={float(value):.5f}" for name, value in sorted(metrics.items())
+                   if name not in ("loss", "perplexity"))
+
+
 def timed_run(
     trainer: "Trainer", state: TrainState,
     make_batch: Callable[[torch.Generator], Batch], generator: torch.Generator,
@@ -255,11 +289,14 @@ def timed_run(
 
     Then held_out_eval, unless preempted or reuse_batch. Returns the
     state, the summary and the warm-up step's batch. The summary: the
-    warm-up step's and the final train loss, `<unit>_per_sec` over the
+    warm-up step's and the final train loss, the final step's other
+    metrics (router_aux, accuracy, ...) by their names and the warm-up
+    step's as first_<name>, `<unit>_per_sec` over the
     timed steps (tokens or images of the global batch), their seconds, the
     host seconds the producer spent drawing and placing their batches
     and the seconds the loop waited for one, held-out eval loss and
-    perplexity, the number of forward and backward passes (microbatches
+    perplexity (and the eval's other metrics as eval_<name>), the number
+    of forward and backward passes (microbatches
     under accumulation), the first and the final step, "preempted" and
     the "exit_code" (0 or 143)."""
     from ..telemetry.profiler import StepProfiler
@@ -285,6 +322,7 @@ def timed_run(
         placed = trainer.place_batch(first_batch)
         state, metrics = trainer.step(state, placed)
         first_loss = float(metrics["loss"])
+        first = {f"first_{name}": float(v) for name, v in metrics.items() if name != "loss"}
         _sync(device)
         if on_step is not None:
             on_step(state)
@@ -310,7 +348,8 @@ def timed_run(
                     exit_code = rc
                     break
                 if (i + 1) % log_every == 0:
-                    logger.info("step %d loss=%.4f", state.step, float(metrics["loss"]))
+                    logger.info("step %d loss=%.4f%s", state.step, float(metrics["loss"]),
+                                _metric_text(metrics))
         loss = float(metrics["loss"])
         _sync(device)
         elapsed = time.monotonic() - start
@@ -330,6 +369,8 @@ def timed_run(
     )
     k = trainer.accum_steps
     summary = {
+        **first,
+        **{name: float(value) for name, value in metrics.items() if name != "loss"},
         "loss": loss,
         "first_loss": first_loss,
         f"{unit}_per_sec": rate,
@@ -351,8 +392,8 @@ def timed_run(
     if exit_code or reuse_batch:
         return state, summary, first_batch
     ev = held_out_eval(trainer, state, make_batch, seed)
-    logger.info("eval loss %.4f (ppl %.1f)", ev["loss"], ev["perplexity"])
-    summary.update(eval_loss=ev["loss"], eval_perplexity=ev["perplexity"])
+    logger.info("eval loss %.4f (ppl %.1f)%s", ev["loss"], ev["perplexity"], _metric_text(ev))
+    summary.update({f"eval_{name}": value for name, value in ev.items()})
     summary["forward_passes"] += 1  # the eval's
     return state, summary, first_batch
 
