@@ -156,7 +156,39 @@ non-zero, printing no result:
    bounds; the same requests through a kv_layout="dense" engine (the
    margin rule); one capture of the step and of the prefill chunk; no
    launch of K1-K5; the server shut down and the engine threads joined.
-27. moe_train - MoE-base (12 x 768, 12 heads, every other block top-2 of
+27. int8_decode - GPT-small generate, 8 rows, a 128-token prompt, 256 new
+   tokens, bf16, in four modes (plain, weights_int8, kv_int8, both): ms per
+   new token, the steady state's device ms per token, kernels per token and
+   busy share, weight and KV bytes counted from the tensors; the plain chain
+   teacher-forced through each int8 mode (worst logit error over the logit
+   range, greedy agreement); f32 on the card (TF32 off) against f32 on the
+   CPU: quantized kernels and the KV quantizer bit-equal, caches within one
+   int8 step, step logits on the same cache bytes within 1e-4 of the range.
+28. int8_serve - the paged engine over the int8 twin with both int8 flags at
+   8 slots: tokens/s, inter-token p50/p95, pool bytes against bf16's, the
+   step as its CUDA graph and eagerly (and the int8 kernels' casts); every
+   served chain replayed through the captured int8 step and chunk; the dense
+   int8 cache against the paged int8 pool byte for byte.
+29. beam_search - GPT-small, 2 rows x 4 beams, prompt 64, 64 new: beam 1
+   equal to greedy generate, ms per step and the parent gather's share,
+   scores sorted and, at f32, equal to a teacher-forced recompute.
+30. spec_generate - GPT-small generate_speculative, 1 row, 256 new, draft_k
+   4, ngram 2, on a repeated-span and a random prompt: f32 chains equal to
+   generate's; bf16 tokens per round and ms per token beside generate's, the
+   share of bf16 chains that differ and the margin at each divergence.
+31. spec_serve - the paged engine at GPT-small, 8 slots, spec_depth 4, one
+   request set with speculate off and ngram: tokens/s, inter-token p50/p95,
+   accept rate, rounds, final depths, the verify program's graph ms; f32
+   chains equal off against ngram; draft mode at GPT_TINY + GPT_DRAFT equal
+   to off; near max_total a planted clamping verify must overwrite committed
+   keys and values that the sentinel rule keeps.
+32. decode_modes_serve - the serve CLI at --preset small --kv-int8
+   --weights-int8 as a subprocess with --speculate ngram (engine) and with
+   --speculative (inline): chains against in-process decode on the same
+   weights, a 4-beam request sorted, the reference's 400s, SIGTERM -> 0; the
+   draft preset at GPT-small and --batching continuous --speculative refused
+   at startup (exit 2, the reference's text).
+33. moe_train - MoE-base (12 x 768, 12 heads, every other block top-2 of
    8 experts with bf16 expert kernels, capacity factor 1.25, vocab 32000)
    at batch 8 x seq 1024 (moe_bench.py:81-86), AdamW 3e-4 wd 0.01,
    through train/moe.py's train(): tokens/s over 5 timed steps, the
@@ -165,11 +197,11 @@ non-zero, printing no result:
    balance and routed fraction (moe_bench.py:109-143); K1-K5 launch 0
    times (the reference gives the MoE LM plain attention); the LM loss
    must fall.
-28. moe_profile - device ms per MoE-base step by region of the model
+34. moe_profile - device ms per MoE-base step by region of the model
    (router, dispatch/combine, expert FFN, dense MLP, projections,
    attention, LM head, loss, layer norm, optimizer; GEMMs apart; copies
    and casts apart) and the busy share (profile_regions).
-29. moe_parity - one moe_task step of MoE-base at batch 2 x 256: f32 on
+35. moe_parity - one moe_task step of MoE-base at batch 2 x 256: f32 on
    the card (TF32 off) against f32 on the CPU (logits, loss, router_aux,
    router_z, gradients; routing decisions equal but at near-ties), bf16
    against f32 (the loss; the share of decisions that differ per MoE
@@ -177,23 +209,23 @@ non-zero, printing no result:
    miss the CPU's; at capacity factor 0.5 the router's dispatch on the
    card equals the CPU's, and a planted per-token claim order moves
    slots (the reference's loop claims in whole rounds).
-30. moe_run_steps - run_steps(n=5) of MoE-base at 8 x 1024 as a CUDA
+36. moe_run_steps - run_steps(n=5) of MoE-base at 8 x 1024 as a CUDA
    graph against 5 eager steps (run_steps' criterion; no kernel inside).
-31. moe_generate - MoE-base, 8 rows, a 128-token prompt, 512 new tokens
+37. moe_generate - MoE-base, 8 rows, a 128-token prompt, 512 new tokens
    (moe_bench.py:184): tokens/s as the reference counts them, ms per
    token, busy share; in f32 at capacity factor 2.0, teacher-forced
    MoEDecodeStep against the training forward and the prefill chain
    against the all-stepwise chain.
-32. moe_serve - train/moe.py --preset base --steps 2 --checkpoint-dir,
+38. moe_serve - train/moe.py --preset base --steps 2 --checkpoint-dir,
    then the serve CLI --preset moe-base on that checkpoint as a
    subprocess: 8 requests from the port's DecodeClient, greedy chains
    equal to in-process moe_generate on the restored weights; a ragged,
    a top_k and a num_beams request each a 400; SIGTERM -> exit 0.
-33. vit_train, vit_profile - ViT-B/16 through train/vit.py at 224^2,
+39. vit_train, vit_profile - ViT-B/16 through train/vit.py at 224^2,
    batch 128, AdamW 1e-3 wd 0.05, bf16: images/s over 5 timed steps, MFU
    by the bench's transformer_step_flops (seq 196, not causal), device
    ms by region, peak memory; the loss must fall.
-34. vit_parity - ViT-B/16 at batch 8, gap and cls pooling, f32 and uint8
+40. vit_parity - ViT-B/16 at batch 8, gap and cls pooling, f32 and uint8
    images: f32 on the card against the CPU, bf16 against f32, a remat
    step against a plain one; a planted column-major patch order must
    fail.
@@ -1224,7 +1256,7 @@ def host_batch_ms(gpt_lib, trainer, cfg, reps: int = 5) -> dict:
             "place_batch_ms": statistics.median(place)}
 
 
-def profile_decode(gpt_lib, model, prompt, steps: int = 8) -> dict:
+def profile_decode(gpt_lib, model, prompt, steps: int = 8, kv_quant_int8: bool = False) -> dict:
     """GPTDecodeStep plus the greedy argmax, as generate runs them, after
     a GPTPrefill of `prompt` and one warm-up step: the wall ms per token
     without the profiler, then, under torch.profiler, the device kernels
@@ -1233,7 +1265,7 @@ def profile_decode(gpt_lib, model, prompt, steps: int = 8) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     b, p = prompt.shape
-    cache = gpt_lib.KVCache.zeros(model.cfg, b, p + 2 * steps + 1, prompt.device)
+    cache = gpt_lib.KVCache.zeros(model.cfg, b, p + 2 * steps + 1, prompt.device, kv_quant_int8)
     step = gpt_lib.GPTDecodeStep(model)
     tok = gpt_lib.GPTPrefill(model)(prompt, cache).argmax(-1)
     tok = step(tok, p, cache).argmax(-1)
@@ -2913,6 +2945,8 @@ def serve_step_timings(engine) -> dict:
         }
     weights = [p for name, p in engine.model.named_parameters()
                if "embed" not in name and ".ln_" not in name and not name.startswith("ln_")]
+    # the int8 twin's kernels are buffers, cast to bf16 by every product
+    weights += [b for name, b in engine.model.named_buffers() if name.endswith(".kernel")]
 
     def casts():
         with torch.no_grad():
@@ -2931,14 +2965,15 @@ def serve_step_timings(engine) -> dict:
             cast_ms / out["eager_profile"]["device_ms_per_step"]
             if out["eager_profile"]["device_ms_per_step"] else None),
         "gathered_kv_bytes_per_step": gathered,
-        "gathered_kv_bytes_note": "pool[tables] for k and v in every layer, bf16",
+        "gathered_kv_bytes_note": "pool[tables] for k and v in every layer, bf16 (int8 "
+                                  "pools gather half, plus their scales)",
     })
     # the timings wrote into real pool blocks: their cached prompts are gone
     engine.pool.flush()
     return out
 
 
-def inline_chains(gpt_lib, model, reqs):
+def inline_chains(gpt_lib, model, reqs, kv_quant_int8: bool = False):
     """The port's inline generate over every request in one batched ragged
     call (models/gpt.py _decode, the path generate takes for ragged lengths),
     with the greedy sampler wrapped to keep each step's bf16 logits. -> chains
@@ -2958,7 +2993,8 @@ def inline_chains(gpt_lib, model, reqs):
         return logits.argmax(dim=-1)
 
     with torch.no_grad():
-        generated = gpt_lib._decode(model, prompt, lens, width + new, greedy, ragged=True)
+        generated = gpt_lib._decode(model, prompt, lens, width + new, greedy, ragged=True,
+                                    kv_quant_int8=kv_quant_int8)
     return torch.cat([prompt[:, :1], generated], dim=1), torch.stack(kept)
 
 
@@ -3015,22 +3051,22 @@ def replay_served(gpt_lib, step, model, group, chunk: int) -> list:
             step.prefill(np.asarray([chains[s][c * chunk:(c + 1) * chunk]], np.int32),
                          c * chunk, tables[s])
         starts.append(k * chunk)
-    dense = gpt_lib.KVCache.zeros(cfg, n, total, device)
+    quantized = step.cache.quantized
+    dense = gpt_lib.KVCache.zeros(cfg, n, total, device, quantized)
     kv_rel = []
     for s, start in enumerate(starts):
         if not start:
             kv_rel.append(None)
             continue
-        ref = gpt_lib.KVCache.zeros(cfg, 1, start, device)
+        ref = gpt_lib.KVCache.zeros(cfg, 1, start, device, quantized)
         gpt_lib.GPTPrefill(model)(torch.tensor([chains[s][:start]], device=device), ref)
         table = torch.as_tensor(tables[s], device=device).long()
         worst = 0.0
-        for pools, denses, refs in ((step.cache.keys, dense.keys, ref.keys),
-                                    (step.cache.values, dense.values, ref.values)):
-            for pool, layer, want in zip(pools, denses, refs):
-                got = pool[table].reshape(-1, *pool.shape[2:])[:start]
-                layer[s, :start] = got
-                worst = max(worst, rel(got, want[0]))
+        # keys, values (and under int8 their scales), every layer
+        for pool, layer, want in zip(step.cache.tensors(), dense.tensors(), ref.tensors()):
+            got = pool[table].reshape(-1, *pool.shape[2:])[:start]
+            layer[s, :start] = got
+            worst = max(worst, rel(got.float(), want[0].float()))
         kv_rel.append(worst)
     prompt = np.zeros((n, total), np.int32)
     lens = np.ones(n, np.int32)
@@ -3078,8 +3114,8 @@ class _PlantedDecodeStep:
         x = model.embed(token[:, None], index[:, None])
         positions = torch.arange(tables.shape[1] * pool.keys[0].shape[1], device=token.device)
         valid = (positions[None, :] <= index[:, None] + 1)[:, None, None, :]
-        for block, keys, values in zip(model.blocks(), pool.keys, pool.values):
-            x = block(x, valid, gpt_lib._paged_attention(keys, values, index, tables))
+        for block, kv in zip(model.blocks(), pool.layers()):
+            x = block(x, valid, gpt_lib._paged_attention(kv, index, tables))
         return model.head(x)[:, 0]
 
 
@@ -3099,8 +3135,8 @@ class _PlantedPrefillChunk:
         x = model.embed(tokens, positions[None])
         keys_at = torch.arange(table.shape[0] * pool.keys[0].shape[1], device=tokens.device)
         mask = (keys_at[None, :] <= positions[:, None] + 1)[None, None]
-        for block, keys, values in zip(model.blocks(), pool.keys, pool.values):
-            x = block(x, mask, gpt_lib._paged_prefill_attention(keys, values, positions, table))
+        for block, kv in zip(model.blocks(), pool.layers()):
+            x = block(x, mask, gpt_lib._paged_prefill_attention(kv, positions, table))
         return x
 
 
@@ -3117,7 +3153,8 @@ def planted_replay(gpt_lib, engine, group, chunk: int) -> dict:
     gpt_lib.PagedDecodeStep, gpt_lib.PagedPrefillChunk = _PlantedDecodeStep, _PlantedPrefillChunk
     try:
         step = gpt_lib.PagedSlotDecodeStep(engine.model, engine.n_slots, engine.max_total,
-                                           engine.step.block_size, engine.step.num_blocks)
+                                           engine.step.block_size, engine.step.num_blocks,
+                                           kv_quant_int8=engine.step.cache.quantized)
         got = replay_served(gpt_lib, step, engine.model, group, chunk)
     finally:
         gpt_lib.PagedDecodeStep, gpt_lib.PagedPrefillChunk = saved
@@ -3322,6 +3359,968 @@ def run_serve(kernels, gpt_lib, smi) -> dict:
     if problems:
         raise AssertionError(f"serve: {problems}")
     return report
+
+
+# -- GPT-small's decode modes: int8, beams, speculation --------------------------
+
+MODES_SEED = 21
+INT8_DECODE = (8, 128, 256)  # rows, prompt, new tokens
+INT8_F32_CHECK = (2, 32, 16)  # rows, prompt, new: f32 on the card against the CPU
+# f32 on the card (TF32 off) against f32 on the CPU, both with both int8
+# flags: each decode step's logits with both reading the same cache bytes
+# (the CPU's, copied to the card), max error over the logit range. The two
+# sum the same products in other orders (~1e-6 relative in f32); the bound
+# leaves two orders of magnitude of room.
+INT8_F32_LOGIT_RTOL = 1e-4
+INT8_SERVE_REQUESTS = 16
+INT8_SERVE_PROMPT = (16, 512)
+INT8_SERVE_NEW = (32, 96)
+# f32, card against CPU: the prefill's logits, each device attending over its
+# own int8 cache (a value may sit one grid step apart, as the step check
+# allows). Read 4.6e-3 in three H100 runs; the bound leaves 4x room.
+INT8_F32_PREFILL_LOGIT_ATOL = 2e-2
+# the captured int8 prefill chunks' keys, values and scales against
+# GPTPrefill's over the whole prompt (worst relative L2 of a layer's tensor):
+# the bf16 rounding apart of SERVE_PREFILL_KV_RTOL, plus the int8 grid steps
+# that vectors so far apart round across. Read 1.497e-2 in three H100 runs
+# (bf16's 9.8e-3); the bound leaves 2x room, as SERVE_PREFILL_KV_RTOL does.
+# The planted causal leak (planted_replay on the int8 pool) is the upper
+# reading the bound must stay below.
+INT8_PREFILL_KV_RTOL = 3e-2
+BYTES_STEPS = 48  # steps of the dense-against-paged int8 byte check
+BEAM = (2, 4, 64, 64)  # rows, beams, prompt, new
+# f32 (TF32 off): beam_search's scores against the teacher-forced sum of each
+# beam's 64 generated log-probabilities through GPTDecodeStep, absolute (each
+# term within ~1e-5 of the other path's)
+BEAM_SCORE_ATOL = 1e-2
+SPEC_NEW = 256
+SPEC_K = 4
+SPEC_NGRAM = 2
+SPEC_PROMPT = 128
+SPEC_SPAN = 32  # the repeated span of the repeated prompt
+SPEC_BF16_PROMPTS = 4  # more bf16 chains beside the two, for the divergence share
+SPEC_BF16_NEW = 128
+SPEC_SERVE_REQUESTS = 16
+SPEC_SERVE_PROMPT = (64, 512)
+SPEC_SERVE_NEW = (64, 128)
+SPEC_DEPTH = 4
+# f32 (TF32 off), near max_total: the committed keys and values of the
+# table's last block under ngram against speculate off's, worst relative L2
+# of a layer's tensor. The verify and the step compute them in products of
+# other widths (f32 noise, ~1e-6); a clamped overshoot writes another
+# token's vectors there (order 1).
+SPEC_COMMITTED_KV_RTOL = 1e-4
+MODES_SERVE_NEW = 32
+MODES_SERVE_TIMEOUT_S = 300
+MODES_REFUSAL_TIMEOUT_S = 120
+
+
+def f32_twin(gpt_lib, model, device):
+    """An f32 GPT of `model`'s weights on `device` (built on the meta
+    device: no random initialisation to pay before the copy)."""
+    with torch.device("meta"):
+        twin = gpt_lib.GPT(dataclasses.replace(model.cfg, dtype=torch.float32))
+    twin = twin.to_empty(device=device)
+    twin.load_state_dict(model.state_dict())
+    return twin
+
+
+def forced_logits(gpt_lib, model, chain, kv_quant_int8: bool = False) -> torch.Tensor:
+    """Teacher-forced logits [b, n, vocab] in f32 along `chain` [b, n] in
+    one forward: GPTVerifyBlock at offset 0 writes the whole chain's keys
+    and values (int8 under kv_quant_int8) and each position attends over
+    what was stored at positions <= its own, as stepwise decode does."""
+    b, n = chain.shape
+    cache = gpt_lib.KVCache.zeros(model.cfg, b, n, chain.device, kv_quant_int8)
+    return gpt_lib.GPTVerifyBlock(model)(chain, 0, cache).float()
+
+
+def timed(fn):
+    """(fn's result, its wall ms, the card synchronized before and after)."""
+    torch.cuda.synchronize()
+    start = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.monotonic() - start) * 1e3
+
+
+def spec_prompt(cfg, gen, length: int, span: int = 0) -> list:
+    """A seeded prompt: `span` tokens repeated to `length`, or drawn at
+    random with span 0."""
+    if span:
+        base = torch.randint(0, cfg.vocab_size, (span,), generator=gen)
+        return base.repeat(length // span + 1)[:length].tolist()
+    return torch.randint(0, cfg.vocab_size, (length,), generator=gen).tolist()
+
+
+def first_divergence(gpt_lib, model, got: list, want: list, prompt_len: int):
+    """Where `got` first leaves `want` (a greedy chain of `model`), with
+    the top-2 margin of `model`'s logits at that decision (forced_logits
+    along `want`), or None."""
+    j = first_diff(got, want)
+    if j is None:
+        return None
+    chain = torch.tensor([want[:j + 1]], device="cuda")
+    logits = forced_logits(gpt_lib, model, chain)[0, j - 1]
+    top = torch.topk(logits, 2).values
+    return {"position": j, "new_index": j - prompt_len, "top2_margin": float(top[0] - top[1]),
+            "top_logit": float(top[0])}
+
+
+def run_int8_decode(gpt_lib, quant, model, twin, smi) -> dict:
+    """int8_decode: GPT-small generate, INT8_DECODE rows x prompt x new
+    tokens in bf16, in four modes (plain, weights_int8, kv_int8, both; the
+    int8 twin quantized once, outside the timing): ms per new token over
+    the whole generate (prefill included), then profile_decode's steady
+    state (wall and device ms per token, kernels per token, busy share),
+    and the weight and KV bytes counted from the tensors. The plain chain
+    teacher-forced through each mode (forced_logits): each int8 mode's
+    worst logit error over the plain logits' range, and the share of the
+    plain chain's greedy tokens its argmax agrees with. Then f32 on the card (TF32 off)
+    against f32 on the CPU at INT8_F32_CHECK: the quantized kernels and
+    scales bit-equal, _absmax_quantize bit-equal on the same vectors, the
+    free-running int8 caches within one step of the int8 grid, the
+    prefill's logits within INT8_F32_PREFILL_LOGIT_ATOL, and each decode
+    step's logits on the same cache bytes within INT8_F32_LOGIT_RTOL of the
+    logit range."""
+    cfg = model.cfg
+    rows, p, new = INT8_DECODE
+    gen = torch.Generator().manual_seed(MODES_SEED)
+    prompt = torch.randint(0, cfg.vocab_size, (rows, p), generator=gen).cuda()
+    modes = {"plain": (model, False), "weights_int8": (twin, False),
+             "kv_int8": (model, True), "both": (twin, True)}
+    out, chains = {}, {}
+    for name, (m, kv) in modes.items():
+        with torch.no_grad():
+            gpt_lib.generate(m, prompt[:, :16], 4, kv_quant_int8=kv)  # warm-up
+            chain, wall = timed(lambda: gpt_lib.generate(m, prompt, new, kv_quant_int8=kv))
+            prof = profile_decode(gpt_lib, m, prompt, kv_quant_int8=kv)
+        chains[name] = chain
+        cache = gpt_lib.KVCache.zeros(cfg, rows, p + new, "cuda", kv)
+        out[name] = {
+            "ms_per_new_token": wall / new, "new_tokens_per_s": rows * new / (wall / 1e3),
+            "steady_wall_ms_per_token": prof["wall_ms_per_token"],
+            "device_ms_per_token": prof["device_ms_per_token"],
+            "device_busy_share": prof["device_busy_share"],
+            "kernels_per_token": prof["kernels_per_token"], "top_kernels": prof["top"][:3],
+            "weight_bytes": gpt_lib.weight_bytes(m), "kv_bytes": gpt_lib._kv_bytes(cache),
+        }
+        del cache
+    plain_chain = chains["plain"]
+    decided = slice(p - 1, p + new - 1)
+    with torch.no_grad():
+        ref = forced_logits(gpt_lib, model, plain_chain)
+        span = float(ref.max() - ref.min())
+        for name, (m, kv) in modes.items():
+            if name == "plain":
+                continue
+            got = forced_logits(gpt_lib, m, plain_chain, kv)
+            out[name]["teacher_forced_max_logit_err_over_range"] = float(
+                (got - ref).abs().max()) / span
+            out[name]["greedy_agreement_with_plain"] = float(
+                (got[:, decided].argmax(-1) == plain_chain[:, p:]).float().mean())
+            out[name]["free_running_rows_equal_plain"] = int(
+                (chains[name] == plain_chain).all(dim=1).sum())
+            del got
+        del ref
+    free_device_memory()
+    out["f32_card_vs_cpu"] = int8_f32_card_vs_cpu(gpt_lib, quant, model)
+    report = {"phase": "int8_decode", "card": smi, "model": "GPT-small", "dtype": "bf16",
+              "rows": rows, "prompt": p, "new_tokens": new, "modes": out}
+    emit(report)
+    check = out["f32_card_vs_cpu"]
+    problems = [k for k in ("kernels_bit_equal", "absmax_quantize_bit_equal") if not check[k]]
+    if check["kv_int8_max_step_diff"] > 1:
+        problems.append("an int8 cache value differs by more than one grid step")
+    if check["step_logit_err_over_range"] > INT8_F32_LOGIT_RTOL:
+        problems.append("the f32 decode step's logits on the same cache differ")
+    if check["prefill_logit_max_abs_diff"] > INT8_F32_PREFILL_LOGIT_ATOL:
+        problems.append("the f32 int8 prefill's logits differ")
+    for name in ("weights_int8", "both"):
+        if not out[name]["weight_bytes"] < out["plain"]["weight_bytes"] / 2:
+            problems.append(f"{name} holds more than half the f32 weight bytes")
+    if problems:
+        raise AssertionError(f"int8_decode: {problems}")
+    return report
+
+
+def int8_f32_card_vs_cpu(gpt_lib, quant, model) -> dict:
+    """int8_decode's f32 card-against-CPU check (see run_int8_decode)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows, p, new = INT8_F32_CHECK
+    cfg = dataclasses.replace(model.cfg, dtype=torch.float32)
+    twins = {dev: quant.quantize_model(f32_twin(gpt_lib, model, dev)) for dev in ("cpu", "cuda")}
+    cpu_state, gpu_state = twins["cpu"].state_dict(), twins["cuda"].state_dict()
+    kernels_equal = all(torch.equal(cpu_state[k], gpu_state[k].cpu()) for k in cpu_state
+                        if k.endswith(("kernel", "kernel_scale")))
+    gen = torch.Generator().manual_seed(MODES_SEED + 1)
+    vectors = torch.randn((rows, 64, cfg.num_heads, cfg.head_dim), generator=gen) * 3
+    q_cpu, s_cpu = gpt_lib._absmax_quantize(vectors)
+    q_gpu, s_gpu = gpt_lib._absmax_quantize(vectors.cuda())
+    absmax_equal = torch.equal(q_cpu, q_gpu.cpu()) and torch.equal(s_cpu, s_gpu.cpu())
+    prompt = torch.randint(0, cfg.vocab_size, (rows, p), generator=gen)
+    with torch.no_grad():
+        chain = gpt_lib.generate(twins["cpu"], prompt, new, kv_quant_int8=True)
+        gpu_chain = gpt_lib.generate(twins["cuda"], prompt.cuda(), new, kv_quant_int8=True)
+        caches = {dev: gpt_lib.KVCache.zeros(cfg, rows, p + new, dev, True)
+                  for dev in ("cpu", "cuda")}
+        prefill = {dev: gpt_lib.GPTPrefill(twins[dev])(prompt.to(dev), caches[dev])
+                   for dev in ("cpu", "cuda")}
+        step_diff = max(int((a.int() - b.cpu().int()).abs().max())
+                        for a, b in zip(caches["cpu"].tensors(), caches["cuda"].tensors())
+                        if a.dtype == torch.int8)
+        steps = {dev: gpt_lib.GPTDecodeStep(twins[dev]) for dev in ("cpu", "cuda")}
+        worst, span = 0.0, 0.0
+        for index in range(p, p + new - 1):
+            for a, b in zip(caches["cpu"].tensors(), caches["cuda"].tensors()):
+                b.copy_(a)  # both read the CPU's cache bytes
+            tok = chain[:, index]
+            want = steps["cpu"](tok, index, caches["cpu"])
+            got = steps["cuda"](tok.cuda(), index, caches["cuda"]).cpu()
+            span = max(span, float(want.max() - want.min()))
+            worst = max(worst, float((got - want).abs().max()))
+    return {
+        "rows": rows, "prompt": p, "new_tokens": new, "kernels_bit_equal": kernels_equal,
+        "absmax_quantize_bit_equal": absmax_equal,
+        "kv_int8_max_step_diff": step_diff,
+        "prefill_logit_max_abs_diff": float((prefill["cuda"].cpu() - prefill["cpu"]).abs().max()),
+        "prefill_logit_atol": INT8_F32_PREFILL_LOGIT_ATOL,
+        "step_logit_err_over_range": worst / span, "bound": INT8_F32_LOGIT_RTOL,
+        "chains_equal": bool(torch.equal(chain, gpu_chain.cpu())),
+    }
+
+
+def modes_requests(cfg, seed: int, count: int, prompt_range, new_range) -> list:
+    """`count` seeded requests, every other one a repeated span (where the
+    prompt lookup can hit), the rest random; prompts in prompt_range, new
+    tokens in new_range."""
+    gen = torch.Generator().manual_seed(seed)
+    reqs = []
+    for i in range(count):
+        length = int(torch.randint(prompt_range[0], prompt_range[1] + 1, (1,), generator=gen))
+        span = int(torch.randint(8, 49, (1,), generator=gen)) if i % 2 == 0 else 0
+        new = int(torch.randint(new_range[0], new_range[1] + 1, (1,), generator=gen))
+        reqs.append({"prompt": spec_prompt(cfg, gen, length, span), "new": new})
+    return reqs
+
+
+def run_engine(engine, reqs, registry=None) -> dict:
+    """Submit every request at once and wait: -> wall seconds, tokens/s and
+    inter-token p50/p95 (from `registry`'s histogram); each request's
+    chain lands in req["chain"]."""
+    from tf_operator_tpu_torch.telemetry import quantile_from_flat
+
+    start = time.monotonic()
+    handles = [engine.submit(r["prompt"], r["new"]) for r in reqs]
+    for r, h in zip(reqs, handles):
+        r["chain"] = h.result(600)
+    wall = time.monotonic() - start
+    out = {"wall_s": wall, "generated_tokens_per_s": sum(r["new"] for r in reqs) / wall}
+    if registry is not None:
+        flat = {}
+        for line in registry.render().splitlines():
+            if line and not line.startswith("#"):
+                name, value = line.split()
+                flat[name] = float(value)
+        for q, p in (("p50", 0.5), ("p95", 0.95)):
+            out[f"itl_{q}_s"] = quantile_from_flat(flat, "modes_inter_token_seconds", p)
+    return out
+
+
+def int8_bytes_check(gpt_lib, twin) -> dict:
+    """The dense int8 cache and the paged int8 pool fed the same grid:
+    SlotDecodeStep and PagedSlotDecodeStep with both int8 flags at
+    SERVE_SLOTS slots x max_seq_len, BYTES_STEPS steps of a seeded ragged
+    grid; each step's tokens equal, then every slot's positions hold the
+    same int8 values and scales byte for byte."""
+    import numpy as np
+
+    cfg = twin.cfg
+    n, total, bs = SERVE_SLOTS, cfg.max_seq_len, SERVE_BLOCK
+    mb = total // bs
+    flags = dict(kv_quant_int8=True, weights_int8=True)
+    dense = gpt_lib.SlotDecodeStep(twin, n, total, **flags)
+    paged = gpt_lib.PagedSlotDecodeStep(twin, n, total, bs, n * mb + 1, **flags)
+    rng = np.random.default_rng(MODES_SEED + 2)
+    lens = rng.integers(4, 40, n).astype(np.int32)
+    prompt = np.zeros((n, total), np.int32)
+    for i, length in enumerate(lens):
+        prompt[i, :length] = rng.integers(0, cfg.vocab_size, length)
+    tables = (1 + rng.permutation(n * mb)).reshape(n, mb).astype(np.int32)
+    tok, index = prompt[:, 0].copy(), np.zeros(n, np.int32)
+    tokens_equal = True
+    for _ in range(BYTES_STEPS):
+        got = dense(tok, index, prompt, lens).cpu().numpy()
+        tokens_equal &= bool((paged(tok, index, prompt, lens, tables).cpu().numpy() == got).all())
+        tok, index = got.astype(np.int32), index + 1
+    unequal = 0
+    for d, p in zip(dense.cache.tensors(), paged.cache.tensors()):
+        for row in range(n):
+            table = torch.as_tensor(tables[row], device="cuda").long()
+            logical = p[table].reshape(total, *p.shape[2:])
+            unequal += int((logical[:BYTES_STEPS] != d[row, :BYTES_STEPS]).sum())
+    out = {"steps": BYTES_STEPS, "slots": n, "tokens_equal": tokens_equal,
+           "unequal_bytes": unequal, "tensors": len(dense.cache.tensors())}
+    del dense, paged
+    return out
+
+
+def run_int8_serve(gpt_lib, twin, smi) -> dict:
+    """int8_serve: the paged engine over the int8 twin with both int8 flags at
+    SERVE_SLOTS slots (the server's defaults otherwise): INT8_SERVE_REQUESTS
+    seeded requests submitted at once (tokens/s, inter-token p50/p95), the
+    pool's bytes against a bf16 pool's, serve_step_timings (the captured step
+    and eager, device ms by kind, the int8 kernels' casts to bf16 alone);
+    every served chain replayed through the captured int8 step and prefill
+    chunk against GPTDecodeStep and GPTPrefill over an int8 dense cache
+    (replay_served: the step's logits within SERVE_STEP_LOGIT_RTOL, the
+    chunks' keys, values and scales within INT8_PREFILL_KV_RTOL, each served
+    token the step's argmax or a near-tie); the control: planted_replay's
+    faults on an int8 pool (the group with the most prefill chunks) must
+    fail both checks; the dense int8 cache against the paged int8 pool byte
+    for byte (int8_bytes_check); one capture each."""
+    from tf_operator_tpu_torch.serve.engine import ContinuousBatchingEngine
+    from tf_operator_tpu_torch.telemetry import MetricRegistry
+
+    cfg = twin.cfg
+    registry = MetricRegistry("modes")
+    engine = ContinuousBatchingEngine(twin, n_slots=SERVE_SLOTS, kv_quant_int8=True,
+                                      weights_int8=True, registry=registry, device="cuda",
+                                      block_size=SERVE_BLOCK, prefill_chunk=SERVE_CHUNK)
+    reqs = modes_requests(cfg, MODES_SEED + 3, INT8_SERVE_REQUESTS, INT8_SERVE_PROMPT,
+                          INT8_SERVE_NEW)
+    try:
+        load = run_engine(engine, reqs, registry)
+    finally:
+        engine.stop()
+    bf16_pool = 2 * cfg.num_layers * engine.step.num_blocks * SERVE_BLOCK * cfg.hidden_size * 2
+    timings = serve_step_timings(engine)
+    order = sorted(range(len(reqs)), key=lambda i: len(reqs[i]["chain"]))
+    groups = [[reqs[i] for i in order[k:k + SERVE_SLOTS]]
+              for k in range(0, len(order), SERVE_SLOTS)]
+    for group in groups:
+        for r, got in zip(group, replay_served(gpt_lib, engine.step, twin, group, SERVE_CHUNK)):
+            r.update(got)
+    import numpy as np
+
+    logit_rel = np.concatenate([r["logit_rel"] for r in reqs])
+    kv_rel = [r["prefill_kv_rel"] for r in reqs if r["prefill_kv_rel"] is not None]
+    replay_differ = []
+    for i, r in enumerate(reqs):
+        want = r["chain"][len(r["prompt"]):]
+        for k, (token, m, bound) in enumerate(r["decisions"].tolist()):
+            if int(token) != want[k]:
+                replay_differ.append({"request": i, "position": len(r["prompt"]) + k,
+                                      "margin": m, "bound": bound})
+    planted = planted_replay(gpt_lib, engine, max(
+        groups, key=lambda g: sum((len(r["prompt"]) - 1) // SERVE_CHUNK for r in g)), SERVE_CHUNK)
+    bytes_check = int8_bytes_check(gpt_lib, twin)
+    report = {
+        "phase": "int8_serve", "card": smi, "model": "GPT-small int8 twin",
+        "kv_int8": True, "weights_int8": True, "slots": SERVE_SLOTS,
+        "requests": len(reqs), **load,
+        "kv_pool_bytes": engine.step.kv_bytes_total, "bf16_pool_bytes": bf16_pool,
+        "pool_bytes_over_bf16": engine.step.kv_bytes_total / bf16_pool,
+        "weight_bytes": gpt_lib.weight_bytes(twin),
+        "compiles": engine.step.compiles, "prefill_compiles": engine.step.prefill_compiles,
+        "step": timings,
+        "replay_positions": len(logit_rel),
+        "replay_logit_rel_l2": {"worst": float(logit_rel.max()),
+                                "exact_share": float((logit_rel == 0).mean())},
+        "replay_logit_rtol": SERVE_STEP_LOGIT_RTOL,
+        "prefill_kv_rel_l2_worst": max(kv_rel) if kv_rel else None,
+        "prefill_kv_rtol": INT8_PREFILL_KV_RTOL,
+        "replay_decisions_differing_from_served": len(replay_differ),
+        "replay_differences": replay_differ[:10],
+        "planted": planted,
+        "dense_vs_paged": bytes_check,
+    }
+    emit(report)
+    problems = []
+    if logit_rel.max() > SERVE_STEP_LOGIT_RTOL:
+        problems.append("the captured int8 step's logits differ from GPTDecodeStep's")
+    if kv_rel and max(kv_rel) > INT8_PREFILL_KV_RTOL:
+        problems.append("the captured int8 chunks' cache differs from GPTPrefill's")
+    if planted["logit_rel_worst"] <= SERVE_STEP_LOGIT_RTOL:
+        problems.append("the planted mask fault passed the int8 step's logit check")
+    if planted["prefill_kv_rel_worst"] <= INT8_PREFILL_KV_RTOL:
+        problems.append("the planted causal leak passed the int8 prefill check")
+    if any(d["margin"] > d["bound"] for d in replay_differ):
+        problems.append("a served token is not the replayed int8 step's argmax above the margin")
+    if not bytes_check["tokens_equal"] or bytes_check["unequal_bytes"]:
+        problems.append("the paged int8 pool and the dense int8 cache differ")
+    if (engine.step.compiles, engine.step.prefill_compiles) != (1, 1):
+        problems.append("a program was captured other than once")
+    if problems:
+        raise AssertionError(f"int8_serve: {problems}")
+    del engine
+    free_device_memory()
+    return report
+
+
+def run_beam_search(gpt_lib, model, smi) -> dict:
+    """beam_search: GPT-small, BEAM rows x beams x prompt x new tokens in bf16:
+    num_beams=1 equal to greedy generate; ms per generated position; the
+    parent gather (every cache tensor's index_select by the surviving
+    beams' parents) timed alone on the search's cache shape, and its share
+    of a step; scores sorted best first. At f32 (TF32 off): the scores
+    against the teacher-forced sum of each beam's log-probabilities through
+    GPTDecodeStep within BEAM_SCORE_ATOL; the same reported in bf16."""
+    cfg = model.cfg
+    rows, beams, p, new = BEAM
+    gen = torch.Generator().manual_seed(MODES_SEED + 4)
+    prompt = torch.randint(0, cfg.vocab_size, (rows, p), generator=gen).cuda()
+
+    def recompute(m, seqs):
+        flat = seqs.reshape(rows * beams, -1)
+        logp = torch.log_softmax(teacher_forced(gpt_lib, m, flat), dim=-1)
+        picked = logp[:, p - 1:-1].gather(2, flat[:, p:, None])[..., 0]
+        return picked.sum(dim=1).reshape(rows, beams)
+
+    with torch.no_grad():
+        one, _ = gpt_lib.beam_search(model, prompt, new, num_beams=1)
+        greedy_equal = bool(torch.equal(one[:, 0], gpt_lib.generate(model, prompt, new)))
+        gpt_lib.beam_search(model, prompt[:, :8], 4, num_beams=beams)  # warm-up
+        (seqs, scores), wall = timed(lambda: gpt_lib.beam_search(model, prompt, new,
+                                                                 num_beams=beams))
+        cache = gpt_lib.KVCache.zeros(cfg, rows * beams, p + new, "cuda")
+        parents = torch.randint(0, rows * beams, (rows * beams,), device="cuda")
+        gather_ms = median_ms(lambda: [t.copy_(t.index_select(0, parents))
+                                       for t in cache.tensors()])
+        del cache
+        bf16_err = float((recompute(model, seqs) - scores).abs().max())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        model32 = f32_twin(gpt_lib, model, "cuda")
+        seqs32, scores32 = gpt_lib.beam_search(model32, prompt, new, num_beams=beams)
+        f32_err = float((recompute(model32, seqs32) - scores32).abs().max())
+    sorted_ok = all(bool((s[:, :-1] >= s[:, 1:]).all()) for s in (scores, scores32))
+    report = {
+        "phase": "beam_search", "card": smi, "model": "GPT-small", "rows": rows, "beams": beams,
+        "prompt": p, "new_tokens": new, "ms_per_step": wall / new,
+        "parent_gather_ms": gather_ms, "parent_gather_share_of_step": gather_ms / (wall / new),
+        "beam1_equals_greedy": greedy_equal, "scores_sorted": sorted_ok,
+        "f32_score_vs_teacher_forced_max_abs": f32_err, "bound": BEAM_SCORE_ATOL,
+        "bf16_score_vs_teacher_forced_max_abs": bf16_err,
+        "best_scores_bf16": scores[:, 0].tolist(), "best_scores_f32": scores32[:, 0].tolist(),
+        "f32_best_beam_equals_bf16": bool(torch.equal(seqs32[:, 0], seqs[:, 0])),
+    }
+    emit(report)
+    del model32
+    free_device_memory()
+    if not greedy_equal or not sorted_ok or f32_err > BEAM_SCORE_ATOL:
+        raise AssertionError(f"beam_search: {report}")
+    return report
+
+
+def run_spec_generate(gpt_lib, model, smi) -> dict:
+    """spec_generate: GPT-small generate_speculative, 1 row, SPEC_NEW new
+    tokens, draft_k SPEC_K, ngram SPEC_NGRAM, on two SPEC_PROMPT-token
+    prompts (a SPEC_SPAN-token span repeated, and one drawn at random):
+    at f32 (TF32 off) each chain equal to generate's (and the rounds); in
+    bf16 tokens committed per round, ms per token beside generate's, and
+    whether the chains differ, with the first divergence and generate's
+    top-2 margin there. Over the two and SPEC_BF16_PROMPTS more bf16
+    prompts of both kinds (SPEC_BF16_NEW tokens): the share of speculative
+    chains that differ from generate's, and each first divergence's
+    margin (a verify over k + 1 rows runs GEMMs of another M than the
+    one-row step, so near-ties can flip in bf16)."""
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(MODES_SEED + 5)
+    prompts = {"repeated": spec_prompt(cfg, gen, SPEC_PROMPT, SPEC_SPAN),
+               "random": spec_prompt(cfg, gen, SPEC_PROMPT)}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model32 = f32_twin(gpt_lib, model, "cuda")
+    out = {}
+    with torch.no_grad():
+        gpt_lib.generate_speculative(model, torch.tensor([prompts["random"][:16]]).cuda(), 8)
+        for name, row in prompts.items():
+            ids = torch.tensor([row]).cuda()
+            spec32, rounds32 = gpt_lib.generate_speculative(
+                model32, ids, SPEC_NEW, draft_k=SPEC_K, ngram=SPEC_NGRAM, return_rounds=True)
+            plain32 = gpt_lib.generate(model32, ids, SPEC_NEW)
+            (spec, rounds), spec_ms = timed(lambda: gpt_lib.generate_speculative(
+                model, ids, SPEC_NEW, draft_k=SPEC_K, ngram=SPEC_NGRAM, return_rounds=True))
+            plain, plain_ms = timed(lambda: gpt_lib.generate(model, ids, SPEC_NEW))
+            out[name] = {
+                "f32_equal_generate": bool(torch.equal(spec32, plain32)), "f32_rounds": rounds32,
+                "rounds": rounds, "tokens_per_round": (SPEC_NEW - 1) / rounds,
+                "ms_per_token": spec_ms / SPEC_NEW, "generate_ms_per_token": plain_ms / SPEC_NEW,
+                "speedup": plain_ms / spec_ms,
+                "bf16_divergence": first_divergence(gpt_lib, model, spec[0].tolist(),
+                                                    plain[0].tolist(), SPEC_PROMPT),
+            }
+        share = [v["bf16_divergence"] for v in out.values()]
+        for i in range(SPEC_BF16_PROMPTS):
+            row = spec_prompt(cfg, gen, SPEC_PROMPT, SPEC_SPAN if i % 2 == 0 else 0)
+            ids = torch.tensor([row]).cuda()
+            spec = gpt_lib.generate_speculative(model, ids, SPEC_BF16_NEW, draft_k=SPEC_K,
+                                                ngram=SPEC_NGRAM)[0].tolist()
+            plain = gpt_lib.generate(model, ids, SPEC_BF16_NEW)[0].tolist()
+            share.append(first_divergence(gpt_lib, model, spec, plain, SPEC_PROMPT))
+    report = {"phase": "spec_generate", "card": smi, "model": "GPT-small", "rows": 1,
+              "prompt": SPEC_PROMPT, "new_tokens": SPEC_NEW, "draft_k": SPEC_K,
+              "ngram": SPEC_NGRAM, "prompts": out,
+              "bf16_chains": len(share),
+              "bf16_share_differing": sum(d is not None for d in share) / len(share),
+              "bf16_divergences": [d for d in share if d is not None]}
+    emit(report)
+    del model32
+    free_device_memory()
+    if not all(v["f32_equal_generate"] for v in out.values()):
+        raise AssertionError(f"spec_generate: an f32 speculative chain differs: {out}")
+    return report
+
+
+def _clamping_verify_attention(kv, index, tables):
+    """A planted fault for spec_serve: the paged verify attention with the
+    positions past the table clamped into its last entry (a real block
+    holding committed keys and values) instead of sent to the sentinel."""
+    from tf_operator_tpu_torch.models import gpt as gpt_lib
+
+    def attend(query, key, value, mask):
+        slots, k1 = key.shape[:2]
+        bs = kv[0].shape[1]
+        pos = index[:, None] + torch.arange(k1, device=index.device)[None, :]
+        phys = tables.gather(1, (pos // bs).clamp(max=tables.shape[1] - 1))
+        flat = slots * k1
+        return gpt_lib._paged_kv(kv, key.reshape(flat, *key.shape[2:]),
+                                 value.reshape(flat, *value.shape[2:]), phys.reshape(flat),
+                                 (pos % bs).reshape(flat), query, tables, mask)
+
+    return attend
+
+
+def verify_step_ms(engine) -> dict:
+    """The verify program at SERVE_SLOTS active slots (each at position 1023
+    of its own blocks) as its captured graph, beside the single-token step's
+    graph: median wall ms a call, next tokens to the host."""
+    import numpy as np
+
+    n, mb, k1 = engine.n_slots, engine.max_blocks, engine.spec_depth + 1
+    rng = np.random.default_rng(MODES_SEED + 6)
+    base = (np.full(n, 1023, np.int32), np.zeros((n, engine.max_total), np.int32),
+            np.ones(n, np.int32), (1 + np.arange(n * mb, dtype=np.int32)).reshape(n, mb))
+    toks = rng.integers(0, engine.cfg.vocab_size, (n, k1)).astype(np.int32)
+    out = {}
+    for name, fn in (("verify", lambda: engine.step.verify(toks, *base).cpu()),
+                     ("step", lambda: engine.step(toks[:, 0], *base).cpu())):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(SERVE_STEP_REPS):
+            _, ms = timed(fn)
+            times.append(ms)
+        out[f"{name}_graph_ms"] = statistics.median(times)
+    out["window"] = k1
+    engine.pool.flush()
+    return out
+
+
+def draft_near_max_total(tiny, draft) -> dict:
+    """Draft mode at GPT_TINY + GPT_DRAFT (f32), driven by hand: a request
+    ending at max_total (prompt max_total - 2, 2 new) beside a fresh slot
+    whose prompt rides the forcing rule at depth 3, so the first row, at
+    depth 0 one token from its end, steps on with the draft grid past the
+    cache's last position (the engine clamps the draft's positions). ->
+    both chains against speculate off's, and the draft grid's highest
+    position before the clamp."""
+    from tf_operator_tpu_torch.serve.engine import ContinuousBatchingEngine
+
+    cfg = tiny.cfg
+    near = [(i * 11) % cfg.vocab_size for i in range(cfg.max_seq_len - 2)]
+    fresh = [(i * 5 + 3) % cfg.vocab_size for i in range(16)]
+    chains, peak = {}, []
+    for speculate in ("off", "draft"):
+        engine = ContinuousBatchingEngine(tiny, n_slots=2, start=False, device="cuda",
+                                          block_size=8, prefill_chunk=16,
+                                          speculate=speculate, spec_depth=3, draft_model=draft)
+        if speculate == "draft":
+            step = engine.draft
+
+            class Recorder:
+                def __getattr__(self, name):
+                    return getattr(step, name)
+
+                def __call__(self, *args):
+                    peak.append(int(engine._d_index.max()))
+                    return step(*args)
+
+            engine.draft = Recorder()
+        try:
+            head = engine.submit(near, 2)
+            while int(engine._index[0]) < len(near) - 6:  # prefill, then forcing
+                engine._admit()
+                engine._work_once()
+            handles = [head, engine.submit(fresh, 20)]
+            while not all(h.done.is_set() for h in handles):
+                engine._admit()
+                if engine.active_slots:
+                    engine._work_once()
+            chains[speculate] = [h.result(1) for h in handles]
+        finally:
+            engine.stop()
+    return {"chains_equal_off": chains["draft"] == chains["off"],
+            "draft_index_peak_before_clamp": max(peak), "max_total": cfg.max_seq_len}
+
+
+def run_spec_serve(gpt_lib, model, smi) -> dict:
+    """spec_serve: the paged engine over GPT-small at SERVE_SLOTS slots, one
+    request set (SPEC_SERVE_REQUESTS, half repeated spans) with speculate
+    off and then ngram (spec_depth SPEC_DEPTH) in bf16: tokens/s,
+    inter-token p50/p95, the accept rate, rounds, fallback steps, the final
+    adaptive depths, and the verify program's ms as a graph beside the
+    step's; the share of ngram chains differing from off's, with each first
+    divergence's margin. At f32 (TF32 off) the set's first SERVE_SLOTS
+    requests through both: every chain equal. Draft mode at GPT_TINY + GPT_DRAFT (f32): the
+    chains of off, also where the draft grid steps past max_total
+    (draft_near_max_total). Near max_total (a prompt of max_seq_len - 3 tokens, 3
+    new, f32) the ngram chain equals off's, and so do the committed keys and
+    values of the table's last block within SPEC_COMMITTED_KV_RTOL (the
+    clean verify sends its overshoot to the sentinel); the planted control,
+    a verify that clamps overshoot into the table's last entry, must move
+    them past that bound, and the last verify's logits against the clean one's and
+    whether the chain then differs are reported (the overwritten position
+    is one of max_seq_len a decision attends over)."""
+    from tf_operator_tpu_torch.serve.engine import ContinuousBatchingEngine
+    from tf_operator_tpu_torch.telemetry import MetricRegistry
+
+    cfg = model.cfg
+    reqs = modes_requests(cfg, MODES_SEED + 7, SPEC_SERVE_REQUESTS, SPEC_SERVE_PROMPT,
+                          SPEC_SERVE_NEW)
+
+    def serve(m, speculate, requests, registry=None, draft=None, **kw):
+        kw.setdefault("block_size", SERVE_BLOCK)
+        kw.setdefault("prefill_chunk", SERVE_CHUNK)
+        engine = ContinuousBatchingEngine(m, n_slots=SERVE_SLOTS, device="cuda",
+                                          speculate=speculate, spec_depth=SPEC_DEPTH,
+                                          registry=registry, draft_model=draft, **kw)
+        rs = [dict(r) for r in requests]
+        try:
+            load = run_engine(engine, rs, registry)
+        finally:
+            engine.stop()
+        return engine, rs, load
+
+    runs = {}
+    for speculate in ("off", "ngram"):
+        registry = MetricRegistry("modes")
+        engine, rs, load = serve(model, speculate, reqs, registry)
+        entry = {**load, "steps": engine.steps}
+        if speculate == "ngram":
+            entry.update({
+                "spec_rounds": engine.spec_rounds, "spec_proposed": engine.spec_proposed,
+                "spec_accepted": engine.spec_accepted,
+                "accept_rate": engine.spec_accepted / max(engine.spec_proposed, 1),
+                "fallback_steps": engine.spec_fallback_steps,
+                "final_depths": engine._slot_depth.tolist(),
+                "verify_compiles": engine.step.verify_compiles,
+                **verify_step_ms(engine),
+            })
+        runs[speculate] = (entry, rs)
+        del engine
+        free_device_memory()
+    divergences = [first_divergence(gpt_lib, model, a["chain"], b["chain"], len(a["prompt"]))
+                   for a, b in zip(runs["ngram"][1], runs["off"][1])]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model32 = f32_twin(gpt_lib, model, "cuda")
+    f32 = {}
+    for speculate in ("off", "ngram"):
+        engine, rs, _ = serve(model32, speculate, reqs[:SERVE_SLOTS])
+        f32[speculate] = [r["chain"] for r in rs]
+        del engine
+        free_device_memory()
+    f32_equal = f32["off"] == f32["ngram"]
+    near = [{"prompt": [(i * 11) % cfg.vocab_size for i in range(cfg.max_seq_len - 3)],
+             "new": 3}]
+    near_chains, committed, last_logits = {}, {}, {}
+    for label in ("off", "ngram", "planted"):
+        saved = gpt_lib._paged_verify_attention
+        if label == "planted":
+            gpt_lib._paged_verify_attention = _clamping_verify_attention
+        try:
+            engine, rs, _ = serve(model32, "off" if label == "off" else "ngram", near)
+        finally:
+            gpt_lib._paged_verify_attention = saved
+        near_chains[label] = rs[0]["chain"]
+        # a fresh pool hands the request blocks 1..max_blocks in order: the
+        # table's last entry is block max_blocks, whose first position a
+        # clamped overshoot (position max_total) lands on
+        committed[label] = [t[engine.max_blocks, 0].clone() for t in engine.step.cache.tensors()]
+        if engine.step.verify_logits is not None:
+            last_logits[label] = engine.step.verify_logits.float().clone()
+        del engine
+    del model32
+    free_device_memory()
+    tiny_cfg = dataclasses.replace(gpt_lib.GPT_TINY, dtype=torch.float32)
+    tiny = gpt_lib.GPT(tiny_cfg, generator=torch.Generator().manual_seed(MODES_SEED),
+                       device="cuda")
+    draft = gpt_lib.GPT(dataclasses.replace(gpt_lib.GPT_DRAFT, dtype=torch.float32),
+                        generator=torch.Generator().manual_seed(MODES_SEED + 1), device="cuda")
+    tiny_reqs = modes_requests(tiny_cfg, MODES_SEED + 8, 8, (4, 64), (8, 48))
+    tiny_chains, draft_counts = {}, None
+    for speculate in ("off", "draft"):
+        engine, rs, _ = serve(tiny, speculate, tiny_reqs, draft=draft, block_size=8,
+                              prefill_chunk=8)
+        tiny_chains[speculate] = [r["chain"] for r in rs]
+        if speculate == "draft":
+            draft_counts = {"spec_rounds": engine.spec_rounds,
+                            "spec_accepted": engine.spec_accepted,
+                            "draft_compiles": engine.draft.compiles}
+    draft_near = draft_near_max_total(tiny, draft)
+    report = {
+        "phase": "spec_serve", "card": smi, "model": "GPT-small", "slots": SERVE_SLOTS,
+        "spec_depth": SPEC_DEPTH, "requests": len(reqs),
+        "off": runs["off"][0], "ngram": runs["ngram"][0],
+        "tokens_per_s_ngram_over_off": (runs["ngram"][0]["generated_tokens_per_s"]
+                                        / runs["off"][0]["generated_tokens_per_s"]),
+        "bf16_share_differing": sum(d is not None for d in divergences) / len(divergences),
+        "bf16_divergences": [d for d in divergences if d is not None],
+        "f32_chains_equal": f32_equal,
+        "draft_tiny": {"chains_equal_off": tiny_chains["off"] == tiny_chains["draft"],
+                       **draft_counts, "near_max_total": draft_near},
+        "near_max_total": {
+            "ngram_equals_off": near_chains["ngram"] == near_chains["off"],
+            "ngram_committed_kv_rel_l2_vs_off": max(
+                rel(a, b) for a, b in zip(committed["ngram"], committed["off"])),
+            "ngram_committed_kv_bit_equal_off": all(
+                torch.equal(a, b) for a, b in zip(committed["ngram"], committed["off"])),
+            "planted_committed_kv_rel_l2_vs_off": max(
+                rel(a, b) for a, b in zip(committed["planted"], committed["off"])),
+            "committed_kv_rtol": SPEC_COMMITTED_KV_RTOL,
+            "planted_overwrites_committed_kv": any(
+                not torch.equal(a, b) for a, b in zip(committed["planted"], committed["ngram"])),
+            "planted_chain_differs": near_chains["planted"] != near_chains["off"],
+            "planted_last_verify_logits_max_abs_diff": float(
+                (last_logits["planted"] - last_logits["ngram"]).abs().max())},
+    }
+    emit(report)
+    del tiny, draft
+    free_device_memory()
+    problems = []
+    if not f32_equal:
+        problems.append("an f32 ngram chain differs from speculate off's")
+    if not report["draft_tiny"]["chains_equal_off"] or draft_counts["draft_compiles"] != 1:
+        problems.append("draft mode at GPT_TINY differs from off")
+    if (not draft_near["chains_equal_off"]
+            or draft_near["draft_index_peak_before_clamp"] < draft_near["max_total"]):
+        problems.append("draft mode near max_total differs from off or never stepped past it")
+    if not report["near_max_total"]["ngram_equals_off"]:
+        problems.append("the near-max_total chain differs under ngram")
+    near_max = report["near_max_total"]
+    if near_max["ngram_committed_kv_rel_l2_vs_off"] > SPEC_COMMITTED_KV_RTOL:
+        problems.append("the ngram verify moved the chain's committed KV off speculate off's")
+    if (not near_max["planted_overwrites_committed_kv"]
+            or near_max["planted_committed_kv_rel_l2_vs_off"] <= SPEC_COMMITTED_KV_RTOL):
+        problems.append("the planted clamping verify left the chain's committed KV intact")
+    if runs["ngram"][0]["verify_compiles"] != 1 or not runs["ngram"][0]["spec_rounds"]:
+        problems.append("the verify program was not captured once or never ran")
+    if problems:
+        raise AssertionError(f"spec_serve: {problems}")
+    return report
+
+
+def serve_cli(args: list, log_path: str):
+    """`python -m tf_operator_tpu_torch.serve` with args on 127.0.0.1 and a
+    free port, its output to log_path: -> (process, port, log file)."""
+    port = free_port()
+    log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tf_operator_tpu_torch.serve", *args, "--host", "127.0.0.1",
+         "--port", str(port)], stdout=log, stderr=subprocess.STDOUT)
+    return proc, port, log
+
+
+def stop_cli(proc, log) -> int:
+    """SIGTERM, then the exit code (killed after 120 s)."""
+    import signal
+
+    try:
+        proc.send_signal(signal.SIGTERM)
+        return proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def run_decode_modes_serve(gpt_lib, quant, server_lib, smi) -> dict:
+    """decode_modes_serve: `python -m tf_operator_tpu_torch.serve --preset small
+    --kv-int8 --weights-int8` as a subprocess, once with --batching continuous
+    --speculate ngram (paged) and once with --speculative (inline), each on
+    the seed-0 random weights; in process the same weights quantized once.
+    Engine: DecodeClient greedy chains against in-process generate of the
+    twin with the int8 cache, first differing only at a decision within
+    SERVE_MARGIN_ULPS (the verify's GEMMs are not the one-token step's in
+    bf16), the verify rounds ran. Inline: single-row chains equal to
+    in-process generate_speculative, a multi-row request falls back. Both:
+    a num_beams 4 request returns 4 beams sorted best first, its best beam
+    in "tokens"; ragged and streamed beams are 400s in the reference's
+    words; SIGTERM ends the server with exit 0. Refused at startup, exit 2
+    with the reference's text: --speculate draft at GPT-small (vocab 32000
+    against the draft presets' 512), and --batching continuous with
+    --speculative."""
+    import os
+    import tempfile
+
+    from tf_operator_tpu_torch.serve.client import DecodeClient
+
+    work = tempfile.mkdtemp(prefix="modes-serve-")
+    twin = quant.quantize_model(server_lib.load_model("small", None, torch.device("cuda")))
+    cfg = twin.cfg
+    reqs = modes_requests(cfg, MODES_SEED + 9, 4, (64, 256), (MODES_SERVE_NEW, MODES_SERVE_NEW))
+    flags = ["--preset", "small", "--kv-int8", "--weights-int8"]
+    beam_prompt = [reqs[1]["prompt"][:32]]
+    out = {}
+    for name, extra in (("engine", ["--batching", "continuous", "--speculate", "ngram"]),
+                        ("inline", ["--speculative"])):
+        proc, port, log = serve_cli(flags + extra, os.path.join(work, f"{name}.log"))
+        try:
+            start = time.monotonic()
+            wait_for_health(port, proc, MODES_SERVE_TIMEOUT_S)
+            boot_s = time.monotonic() - start
+            client = DecodeClient(f"http://127.0.0.1:{port}", timeout=600)
+            for r in reqs:
+                r[name] = client.generate([r["prompt"]], max_new_tokens=r["new"])[0]
+            multi = client.generate([r["prompt"][:32] for r in reqs[:2]], max_new_tokens=8)
+            flat = client.metrics()
+            health = client.healthy()
+            beam = post_json(port, "/generate", {"input_ids": beam_prompt, "max_new_tokens": 8,
+                                                 "num_beams": 4})
+            refusals = {
+                "ragged_beams": post_json(port, "/generate", {
+                    "input_ids": [[1, 2, 3], [4, 5]], "num_beams": 2}),
+                "stream_beams": post_json(port, "/generate_stream", {
+                    "input_ids": [[1, 2, 3]], "num_beams": 2}),
+            }
+        finally:
+            code = stop_cli(proc, log)
+        out[name] = {"boot_s": boot_s, "health": {k: health.get(k) for k in (
+                         "status", "kv_int8", "weights_int8")},
+                     "multi_row": multi, "beam": beam, "refusals": refusals,
+                     "sigterm_exit_code": code,
+                     "spec_rounds": flat.get("tf_operator_tpu_serve_spec_rounds_total"),
+                     "speculative_decodes": flat.get(
+                         "tf_operator_tpu_serve_speculative_decodes_total")}
+    # in process, on the same weights
+    chains, logits = inline_chains(gpt_lib, twin, reqs, kv_quant_int8=True)
+    engine_differ, inline_equal = [], []
+    for i, r in enumerate(reqs):
+        p = len(r["prompt"])
+        want = chains[i, :p + r["new"]].tolist()
+        j = first_diff(r["engine"], want)
+        if j is not None:
+            _, m, bound = decisions(logits[j - 1, i]).tolist()
+            engine_differ.append({"request": i, "position": j, "margin": m, "bound": bound})
+        with torch.no_grad():
+            spec = gpt_lib.generate_speculative(twin, torch.tensor([r["prompt"]]).cuda(),
+                                                r["new"], ngram=2, kv_quant_int8=True)
+        inline_equal.append(r["inline"] == spec[0].tolist())
+    del logits
+    with torch.no_grad():
+        multi_want = gpt_lib.generate(twin, torch.tensor([r["prompt"][:32] for r in reqs[:2]]
+                                                         ).cuda(), 8, kv_quant_int8=True).tolist()
+        seqs, _ = gpt_lib.beam_search(twin, torch.tensor(beam_prompt).cuda(), 8, num_beams=4,
+                                      kv_quant_int8=True)
+    refused = {}
+    for name, extra, text in (
+        ("draft_at_small", ["--batching", "continuous", "--speculate", "draft"],
+         "draft vocab 512 != target vocab 32000 (the draft must share the tokenizer)"),
+        ("continuous_and_speculative", ["--batching", "continuous", "--speculative"],
+         "--batching continuous is mutually exclusive with --speculative"),
+    ):
+        run = subprocess.run([sys.executable, "-m", "tf_operator_tpu_torch.serve", *flags, *extra],
+                             capture_output=True, text=True, timeout=MODES_REFUSAL_TIMEOUT_S)
+        refused[name] = {"exit_code": run.returncode,
+                         "text_found": text in run.stdout + run.stderr}
+    def summary(o):
+        status, body = o["beam"]
+        return {**{k: v for k, v in o.items() if k not in ("beam", "multi_row")},
+                "beam_status": status,
+                "beam_scores": body.get("beam_scores") if status == 200 else body,
+                "beams_equal_in_process": status == 200 and body["beams"] == seqs.tolist()}
+
+    report = {
+        "phase": "decode_modes_serve", "card": smi, "model": "GPT-small, random weights seed 0",
+        "flags": flags, "requests": len(reqs), "new_tokens": MODES_SERVE_NEW,
+        "engine": summary(out["engine"]), "inline": summary(out["inline"]),
+        "engine_chains_differing_from_inline": len(engine_differ),
+        "engine_differences": engine_differ, "margin_ulps": SERVE_MARGIN_ULPS,
+        "inline_chains_equal_generate_speculative": inline_equal,
+        "multi_row_fallback_equal_generate": out["inline"]["multi_row"] == multi_want,
+        "refused_at_startup": refused,
+    }
+    emit(report)
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    problems = []
+    if any(d["margin"] > d["bound"] for d in engine_differ):
+        problems.append("an engine chain differs from inline generate above the margin")
+    if not all(inline_equal) or not report["multi_row_fallback_equal_generate"]:
+        problems.append("the inline speculative path differs from in-process decode")
+    for n, o in out.items():
+        status, body = o["beam"]
+        scores = body.get("beam_scores", [[]])[0] if status == 200 else []
+        if (status != 200 or len(body["beams"][0]) != 4 or body["tokens"][0] != body["beams"][0][0]
+                or any(a < b for a, b in zip(scores, scores[1:]))):
+            problems.append(f"{n}: the beam request {status}")
+        if o["refusals"]["ragged_beams"] != [400, "num_beams > 1 requires uniform-length prompts"]:
+            problems.append(f"{n}: ragged beams {o['refusals']['ragged_beams']}")
+        if o["refusals"]["stream_beams"] != [400, "/generate_stream does not support beams"]:
+            problems.append(f"{n}: streamed beams {o['refusals']['stream_beams']}")
+        if o["sigterm_exit_code"] != 0:
+            problems.append(f"{n}: exit {o['sigterm_exit_code']} on SIGTERM")
+        if not (o["health"]["kv_int8"] and o["health"]["weights_int8"]):
+            problems.append(f"{n}: /healthz {o['health']}")
+    if not out["engine"]["spec_rounds"]:
+        problems.append("the engine server ran no verify round")
+    if out["inline"]["speculative_decodes"] != len(reqs):
+        problems.append("the inline server's speculative path count is off")
+    for name, r in refused.items():
+        if r["exit_code"] != 2 or not r["text_found"]:
+            problems.append(f"{name}: {r}")
+    if problems:
+        raise AssertionError(f"decode_modes_serve: {problems}")
+    del twin
+    free_device_memory()
+    return report
+
+
+def run_decode_modes_phases(kernels, smi) -> dict:
+    """GPT-small's decode modes, in order: int8_decode, int8_serve,
+    beam_search, spec_generate, spec_serve, decode_modes_serve, over one
+    GPT-small with random weights from MODES_SEED (bf16 compute) and its
+    int8 twin; K1-K5 must not launch (no TPU kernel lies on these paths)."""
+    from tf_operator_tpu_torch.models import gpt as gpt_lib
+    from tf_operator_tpu_torch.ops import quant
+    from tf_operator_tpu_torch.serve import server as server_lib
+
+    kernels.reset_launches()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    model = gpt_lib.GPT(gpt_lib.GPT_SMALL, generator=torch.Generator().manual_seed(MODES_SEED),
+                        device="cuda")
+    twin = quant.quantize_model(model)
+    out = {}
+    try:
+        out["int8_decode"] = run_int8_decode(gpt_lib, quant, model, twin, smi)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        out["int8_serve"] = run_int8_serve(gpt_lib, twin, smi)
+        out["beam_search"] = run_beam_search(gpt_lib, model, smi)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        out["spec_generate"] = run_spec_generate(gpt_lib, model, smi)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        out["spec_serve"] = run_spec_serve(gpt_lib, model, smi)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        del model, twin
+        free_device_memory()
+        out["decode_modes_serve"] = run_decode_modes_serve(gpt_lib, quant, server_lib, smi)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError(f"the decode-mode phases launched kernels of the port: "
+                             f"{kernels.LAUNCHES}")
+    return out
 
 
 # -- the MoE family and ViT-B/16 -------------------------------------------------
@@ -4325,6 +5324,8 @@ def main() -> int:
     world2 = run_distributed_phases(kernels, smi)
     free_device_memory()
     run_serve(kernels, gpt_lib, smi)
+    free_device_memory()
+    run_decode_modes_phases(kernels, smi)
     free_device_memory()
     run_moe_vit_phases(kernels, smi)
     free_device_memory()

@@ -460,8 +460,9 @@ def test_sampled_decode_respects_filters_and_seed():
     (dict(prompt_lens=torch.tensor([4])), ValueError, "prompt_lens"),
     (dict(prompt_lens=torch.tensor([0, 4])), ValueError, "prompt_lens"),
     (dict(prompt_lens=torch.tensor([4, 5])), ValueError, "prompt_lens"),
-    (dict(kv_quant_int8=True), NotImplementedError, "item 5"),
-    (dict(weights_int8=True), NotImplementedError, "item 8"),
+    # both int8 flags are ported: they compose with the same checks
+    (dict(kv_quant_int8=True, max_new_tokens=0), ValueError, "max_new_tokens"),
+    (dict(weights_int8=True, top_p=0.0), ValueError, "top_p"),
     (dict(mesh=object()), NotImplementedError, "item 4"),
     (dict(rules=object()), NotImplementedError, "item 4"),
 ])
@@ -524,9 +525,12 @@ def test_cli_wants_cuda_and_refuses_unported_flags():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             torch_gpt_cli.main(CLI_ARGS)
-    for flag in (["--kv-int8"], ["--weights-int8"], ["--tp", "2"], ["--monitoring-bind-addr", "x"]):
+    for flag in (["--tp", "2"], ["--monitoring-bind-addr", "x"]):
         with pytest.raises(SystemExit):
             torch_gpt_cli.parse_args(CLI_ARGS + flag)
+    # the int8 decode flags are ported (tests/test_torch_quant.py runs them)
+    args = torch_gpt_cli.parse_args(CLI_ARGS + ["--kv-int8", "--weights-int8"])
+    assert args.kv_int8 and args.weights_int8
     args = torch_gpt_cli.parse_args(CLI_ARGS[:2] + ["--seq-len", "4096"])
     assert args.seq_len == 4096 and args.preset == "tiny"
 

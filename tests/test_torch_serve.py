@@ -41,6 +41,7 @@ except ImportError:  # a card machine without JAX
 
 from tf_operator_tpu_torch.models import gpt as torch_gpt
 from tf_operator_tpu_torch.models.convert import gpt_state_dict_from_flax
+from tf_operator_tpu_torch.ops import quant as torch_quant
 from tf_operator_tpu_torch.serve import engine as torch_engine
 from tf_operator_tpu_torch.serve import server as torch_server
 from tf_operator_tpu_torch.serve.client import DecodeClient, DecodeError
@@ -55,7 +56,7 @@ NEW_MODULES = (
     "tf_operator_tpu_torch.serve.client", "tf_operator_tpu_torch.serve.prefix",
     "tf_operator_tpu_torch.runtime.retry", "tf_operator_tpu_torch.telemetry.tracing",
     "tf_operator_tpu_torch.telemetry.exposition", "tf_operator_tpu_torch.models.gpt",
-    "tf_operator_tpu_torch.models.moe",
+    "tf_operator_tpu_torch.models.moe", "tf_operator_tpu_torch.ops.quant",
 )
 
 
@@ -202,14 +203,16 @@ def test_step_logits_are_gpt_decode_steps(weights, layout):
         tok, index = got.astype(np.int32), index + 1
 
 
-@pytest.mark.parametrize("option, item", [
-    ({"kv_quant_int8": True}, "item 5"),
-    ({"weights_int8": True}, "item 8"),
-    ({"mesh": object()}, "item 6"),
-    ({"spec_depth": 2}, "item 6"),
+@pytest.mark.parametrize("option, error, match", [
+    ({"mesh": object()}, NotImplementedError, "ROADMAP queue 1 item 6"),
+    # the reference's own refusal of int8 kernels on the sharded step
+    ({"mesh": object(), "weights_int8": True}, ValueError,
+     "weights_int8 is not supported on the sharded decode step"),
 ])
-def test_paged_step_refuses_unported_options(tiny, option, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
+def test_paged_step_refuses_unported_options(tiny, option, error, match):
+    """The mesh stays refused; int8 and the verify program are ported
+    (tests/test_torch_quant.py, tests/test_torch_spec_decode.py)."""
+    with pytest.raises(error, match=match):
         torch_gpt.PagedSlotDecodeStep(tiny, 2, 32, 8, 9, **option)
 
 
@@ -288,11 +291,8 @@ def test_block_pool_matches_reference(seed):
 
 
 @pytest.mark.parametrize("option, item", [
-    ({"speculate": "ngram"}, "item 6"),
     ({"mesh_shape": (1, 2)}, "item 6"),
     ({"role": "prefill"}, "item 6"),
-    ({"kv_quant_int8": True}, "item 5"),
-    ({"weights_int8": True}, "item 8"),
 ])
 def test_engine_refuses_unported_options(tiny, option, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
@@ -324,10 +324,6 @@ def test_engine_and_server_want_cuda(tiny):
 @pytest.mark.parametrize("option, item", [
     ({"batching": "window"}, "item 5"),
     ({"batch_window_ms": 5.0}, "item 5"),
-    ({"kv_quant_int8": True}, "item 5"),
-    ({"weights_int8": True}, "item 8"),
-    ({"speculative": True}, "item 6"),
-    ({"speculate": "draft"}, "item 6"),
     ({"mesh": object()}, "item 6"),
     ({"mesh_shape": (1, 2)}, "item 6"),
     ({"role": "decode"}, "item 6"),
@@ -341,8 +337,6 @@ def test_make_server_refuses_unported_options(tiny, option, item):
 
 @pytest.mark.parametrize("argv, item", [
     (["--batching", "window"], "item 5"), (["--batch-window-ms", "5"], "item 5"),
-    (["--kv-int8"], "item 5"), (["--weights-int8"], "item 8"),
-    (["--speculative"], "item 6"), (["--speculate", "ngram"], "item 6"),
     (["--tp", "2"], "item 6"), (["--mesh-shape", "1x2"], "item 6"),
     (["--role", "prefill"], "item 6"),
     # the moe presets serve since the MoE slice (ROADMAP item 7); what they
@@ -555,15 +549,15 @@ def test_client_errors(servers):
     """An over-pool prompt is a 400 with the engine's message on both
     routes (it passes the generic max_seq_len check: 70 + 8 tokens need
     10 of the pool's 8 blocks); a multi-row stream, a malformed body and
-    num_beams > 1 are 400s; the client raises DecodeError."""
+    ragged beams are 400s; the client raises DecodeError."""
     port = servers["continuous"]
     for path in ("/generate", "/generate_stream"):
         status, body = _post(port, path, {"input_ids": [list(range(1, 71))], "max_new_tokens": 8})
         assert status == 400 and "KV blocks" in body["error"]
     status, body = _post(port, "/generate_stream", {"input_ids": [[1, 2], [3, 4]]})
     assert status == 400 and "exactly one prompt row" in body["error"]
-    status, body = _post(port, "/generate", {"input_ids": [[1, 2]], "num_beams": 2})
-    assert status == 400 and "ROADMAP queue 1 item 6" in body["error"]
+    status, body = _post(port, "/generate", {"input_ids": [[1, 2], [3]], "num_beams": 2})
+    assert status == 400 and body["error"] == "num_beams > 1 requires uniform-length prompts"
     assert _post(port, "/generate", {"input_ids": "nope"})[0] == 400
     client = DecodeClient(f"http://127.0.0.1:{port}", timeout=60)
     with pytest.raises(DecodeError) as err:
@@ -602,6 +596,196 @@ def test_metrics_health_and_trace(servers):
     marks = {e["name"] for e in trace["traceEvents"] if e.get("ph") == "i"}
     assert spans and {"queued", "admitted", "first-token", "finished"} <= marks
     assert all(str(e["args"].get("corr", "")).startswith("req-") for e in spans)
+
+
+# -- the decode modes: int8, inline speculation, beams, engine speculation -------
+
+
+def _f32_tiny():
+    """GPT_TINY in f32 from seed 0: greedy chains of the speculative paths
+    are token-exact against generate at f32."""
+    return torch_gpt.GPT(dataclasses.replace(torch_gpt.GPT_TINY, dtype=torch.float32),
+                         generator=torch.Generator().manual_seed(0))
+
+
+def _serve(model, **kw):
+    srv = torch_server.make_server(model, device="cpu", max_new_cap=64, **kw)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
+
+
+@pytest.fixture(scope="module")
+def mode_servers():
+    """(f32 model, {name: server}): the engine with both int8 flags and
+    ngram speculation, and the inline path with --speculative and an
+    int8 KV cache."""
+    model = _f32_tiny()
+    out = {
+        "engine": _serve(model, batching="continuous", n_slots=2, block_size=8,
+                         prefill_chunk=8, kv_quant_int8=True, weights_int8=True,
+                         speculate="ngram", spec_depth=3),
+        "inline": _serve(model, speculative=True, kv_quant_int8=True),
+    }
+    yield model, out
+    for srv in out.values():
+        srv.shutdown()
+        srv.server_close()
+        if srv.state.engine is not None:
+            srv.state.engine.stop()
+
+
+def test_int8_speculating_engine_serves_the_inline_chains(mode_servers):
+    """The engine behind --kv-int8 --weights-int8 --speculate ngram: the
+    server quantized the model once (the state and the engine hold the
+    same int8 twin), the chains equal the inline int8 generate's, the
+    verify rounds ran, and /metrics and /healthz say so."""
+    model, servers = mode_servers
+    srv = servers["engine"]
+    twin = srv.state.model
+    assert srv.state.engine.model is twin and twin is not model
+    assert isinstance(twin.lm_head, torch_quant.QuantDenseGeneral)
+    client = DecodeClient(f"http://127.0.0.1:{srv.server_address[1]}", timeout=60)
+    rows = [[5, 6, 7] * 4, [1, 2, 3], list(range(30, 50))]
+    chains = client.generate(rows, max_new_tokens=10)
+    for row, chain in zip(rows, chains):
+        assert chain == torch_gpt.generate(model, torch.tensor([row]), 10, kv_quant_int8=True,
+                                           weights_int8=True)[0].tolist()
+    events = list(client.generate_stream(rows[0], max_new_tokens=10))
+    assert events[-1]["tokens"] == [chains[0]]
+    flat = client.metrics()
+    assert flat["tf_operator_tpu_serve_spec_rounds_total"] > 0
+    assert flat["tf_operator_tpu_serve_engine_verify_compiles_total"] == 1
+    health = client.healthy()
+    assert health["kv_int8"] is True and health["weights_int8"] is True
+
+
+def test_speculative_inline_path_and_its_fallbacks(mode_servers):
+    """--speculative: a single uniform row takes generate_speculative
+    (its counter moves; the chain is generate's at f32), on /generate and
+    /generate_stream; multi-row, ragged and below-ngram requests fall back
+    to generate (the counter stays)."""
+    model, servers = mode_servers
+    port = servers["inline"].server_address[1]
+    client = DecodeClient(f"http://127.0.0.1:{port}", timeout=60)
+    counter = "tf_operator_tpu_serve_speculative_decodes_total"
+
+    def want(rows, new):
+        return [torch_gpt.generate(model, torch.tensor([row]), new,
+                                   kv_quant_int8=True)[0].tolist() for row in rows]
+
+    before = client.metrics()[counter]
+    row = [5, 6, 7] * 4
+    assert client.generate([row], max_new_tokens=12) == want([row], 12)
+    spec = torch_gpt.generate_speculative(model, torch.tensor([row]), 12, ngram=2,
+                                          kv_quant_int8=True)
+    assert want([row], 12) == spec.tolist()
+    events = list(client.generate_stream(row, max_new_tokens=12))
+    assert events[-1]["tokens"] == want([row], 12)
+    assert client.metrics()[counter] == before + 2
+    for rows in ([row, list(range(12))], [row, [1, 2, 3]], [[7]]):
+        assert client.generate(rows, max_new_tokens=6) == want(rows, 6)
+    assert client.metrics()[counter] == before + 2
+
+
+@pytest.mark.parametrize("batching", ["continuous", "none"])
+def test_beams_over_http(servers, tiny, batching):
+    """num_beams 3 on a uniform batch of two, with or without the engine
+    (beams always ride the inline path): "tokens" each row's best beam,
+    "beams" and "beam_scores" beam_search's, best first."""
+    port = servers[batching]
+    rows = [[1, 2, 3, 4], [9, 8, 7, 6]]
+    status, body = _post(port, "/generate", {"input_ids": rows, "max_new_tokens": 5,
+                                             "num_beams": 3})
+    assert status == 200, body
+    seqs, scores = torch_gpt.beam_search(tiny, torch.tensor(rows), 5, num_beams=3)
+    assert body["beams"] == seqs.tolist()
+    assert body["tokens"] == seqs[:, 0].tolist() and body["prompt_lens"] == [4, 4]
+    np.testing.assert_allclose(body["beam_scores"], scores.numpy(), rtol=1e-6)
+    assert all(a >= b for row in body["beam_scores"] for a, b in zip(row, row[1:]))
+
+
+@pytest.mark.parametrize("path, payload, text", [
+    ("/generate", {"input_ids": [[1, 2]], "num_beams": 2, "temperature": 0.5},
+     "num_beams > 1 requires greedy settings (temperature 0, no top_k/top_p)"),
+    ("/generate", {"input_ids": [[1, 2]], "num_beams": 2, "top_k": 3},
+     "num_beams > 1 requires greedy settings (temperature 0, no top_k/top_p)"),
+    ("/generate", {"input_ids": [[1, 2]] * 22, "num_beams": 3},
+     "batch 22 x num_beams 3 exceeds the device admission cap 64"),
+    ("/generate", {"input_ids": [[1, 2]], "num_beams": 9}, "num_beams must be an int in [1, 8]"),
+    ("/generate_stream", {"input_ids": [[1, 2]], "num_beams": 2},
+     "/generate_stream does not support beams"),
+])
+def test_beam_requests_refused_in_the_reference_words(servers, path, payload, text):
+    status, body = _post(servers["none"], path, payload)
+    assert status == 400 and body["error"] == text
+
+
+@pytest.mark.parametrize("option, text", [
+    ({"batching": "continuous", "speculative": True},
+     "batching='continuous' and speculative are mutually exclusive"),
+    ({"speculate": "ngram"}, "speculate requires batching='continuous'"),
+    ({"batching": "continuous", "kv_layout": "dense", "speculate": "ngram"},
+     "speculate requires kv_layout='paged'"),
+    ({"speculate": "medusa"}, "speculate must be 'off', 'ngram' or 'draft', got 'medusa'"),
+    ({"batching": "continuous", "speculate": "draft", "draft_preset": "huge"},
+     "unknown draft preset 'huge'"),
+])
+def test_make_server_refuses_decode_mode_combinations(tiny, option, text):
+    with pytest.raises(ValueError) as err:
+        torch_server.make_server(tiny, device="cpu", **option)
+    assert str(err.value).startswith(text)
+
+
+def test_draft_mode_needs_the_targets_vocabulary():
+    """--speculate draft over a target whose vocabulary is not the draft
+    presets' (GPT-small's 32000 against 512; here 1000) is refused with
+    the reference engine's text; over GPT_TINY it serves the chains of
+    speculate off."""
+    other = torch_gpt.GPT(dataclasses.replace(torch_gpt.GPT_TINY, vocab_size=1000))
+    with pytest.raises(ValueError, match=r"draft vocab 512 != target vocab 1000 \(the draft "
+                                         r"must share the tokenizer\)"):
+        torch_server.make_server(other, device="cpu", batching="continuous",
+                                 speculate="draft")
+    model = _f32_tiny()
+    srv = _serve(model, batching="continuous", n_slots=2, block_size=8, speculate="draft",
+                 draft_preset="draft-tiny", spec_depth=2)
+    try:
+        client = DecodeClient(f"http://127.0.0.1:{srv.server_address[1]}", timeout=60)
+        rows = [[4, 4, 4, 4], [3, 1, 4, 1, 5]]
+        assert client.generate(rows, max_new_tokens=6) == [
+            torch_gpt.generate(model, torch.tensor([r]), 6)[0].tolist() for r in rows]
+        assert srv.state.engine.draft.compiles == 1
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.state.engine.stop()
+
+
+@pytest.mark.parametrize("argv, text", [
+    (["--batching", "continuous", "--speculative"],
+     "--batching continuous is mutually exclusive with --speculative"),
+    (["--speculate", "ngram"], "--speculate requires --batching continuous"),
+    (["--batching", "continuous", "--kv-layout", "dense", "--speculate", "ngram"],
+     "--speculate requires --kv-layout paged"),
+    (["--batching", "continuous", "--speculate", "ngram", "--spec-depth", "0"],
+     "--spec-depth must be >= 1"),
+    (["--draft-preset", "tiny"], "--draft-preset requires --speculate draft"),
+    (["--batching", "continuous", "--speculate", "draft", "--draft-preset", "huge"],
+     "unknown --draft-preset 'huge' (have: draft-tiny, tiny)"),
+])
+def test_cli_refuses_decode_mode_combinations(argv, text, capsys):
+    with pytest.raises(SystemExit) as err:
+        torch_server.parse_args(argv)
+    assert err.value.code == 2 and text in capsys.readouterr().err
+
+
+def test_cli_parses_the_decode_mode_flags():
+    args = torch_server.parse_args([
+        "--preset", "small", "--kv-int8", "--weights-int8", "--batching", "continuous",
+        "--speculate", "draft", "--spec-depth", "3", "--draft-preset", "tiny"])
+    assert (args.kv_int8, args.weights_int8, args.speculate, args.spec_depth,
+            args.draft_preset) == (True, True, "draft", 3, "tiny")
+    assert torch_server.parse_args(["--speculative"]).speculative
 
 
 def _free_port():
@@ -645,6 +829,48 @@ def test_cli_serves_and_drains_on_sigterm(tiny):
             proc.wait()
     err = proc.stderr.read()
     assert "RANDOM weights" in err and "drained; exiting 0" in err
+
+
+def test_cli_serves_int8_speculative_and_drains_on_sigterm(tiny):
+    """The CLI with --kv-int8 --weights-int8 --speculative (inline) as a
+    subprocess: a single-row request is generate_speculative's chain on
+    the int8 twin of the same seeded model, a beam request answers, and
+    SIGTERM drains to exit 0."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tf_operator_tpu_torch.serve", "--preset", "tiny",
+         "--device", "cpu", "--kv-int8", "--weights-int8", "--speculative",
+         "--host", "127.0.0.1", "--port", str(port)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                status, body = _get(port, "/healthz")
+                break
+            except (urllib.error.URLError, ConnectionError):
+                assert proc.poll() is None and time.monotonic() < deadline, proc.stderr.read()
+                time.sleep(0.2)
+        assert json.loads(body)["weights_int8"] is True
+        row = [5, 6, 7, 5, 6, 7, 5]
+        status, body = _post(port, "/generate", {"input_ids": [row], "max_new_tokens": 6})
+        assert status == 200
+        want = torch_gpt.generate_speculative(torch_quant.quantize_model(tiny),
+                                              torch.tensor([row]), 6, ngram=2,
+                                              kv_quant_int8=True)
+        assert body["tokens"] == want.tolist()
+        status, body = _post(port, "/generate", {"input_ids": [row], "max_new_tokens": 3,
+                                                 "num_beams": 2})
+        assert status == 200 and len(body["beams"][0]) == 2
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert "drained; exiting 0" in proc.stderr.read()
 
 
 def test_cli_loads_the_port_checkpoint(tmp_path, tiny):

@@ -23,6 +23,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import DenseGeneral, MultiHeadAttention, lecun_normal_
+from ..ops.quant import QuantDenseGeneral
 
 LAYER_NORM_EPS = 1e-6  # flax nn.LayerNorm's default; torch's is 1e-5
 
@@ -66,9 +67,12 @@ class LayerNorm(nn.LayerNorm):
         return super().forward(x.float())
 
 
-def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def dense(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax nn.Dense(dtype=dtype): input, kernel and bias cast to dtype,
-    the bias added after the product."""
+    the bias added after the product. An int8 twin (ops/quant.py, a
+    model through quantize_model) runs its own product in `dtype`."""
+    if isinstance(layer, QuantDenseGeneral):
+        return layer(x, dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
 
 

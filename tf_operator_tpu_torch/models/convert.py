@@ -42,6 +42,14 @@ def _transformer_rules(prefix: str, head: str):
 
 _BERT_RULES = _transformer_rules("encoder/", "mlm_head")
 _GPT_RULES = _transformer_rules("", "lm_head")
+# a GPT tree through the reference's quantize_params (ops/quant.py): every
+# projection an int8 kernel plus its f32 kernel_scale, both kept as they
+# are in the int8 twin's layout (ops/quant.py QuantDenseGeneral: the
+# kernel [in..., out...], as flax's), beside the f32 bias
+_GPT_INT8_RULES = _compile((
+    (r"((?:layer_\d+/attention/(?:query|key|value|attn_out))|layer_\d+/(?:mlp_in|mlp_out)"
+     r"|lm_head)/(kernel|kernel_scale|bias)", r"\1.\2", "native"),
+)) + _GPT_RULES
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -74,6 +82,14 @@ def gpt_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
     """flax GPT params (nested dicts of numpy arrays) -> a state_dict for
     models.gpt.GPT. Raises KeyError on a path it does not map."""
     return _state_dict(params, _GPT_RULES)
+
+
+def gpt_int8_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A quantized flax GPT tree (the reference's quantize_params output:
+    int8 kernels beside f32 kernel_scale) -> a state_dict for the int8
+    twin of models.gpt.GPT (ops/quant.py quantize_model), the int8
+    bytes as they are. Raises KeyError on a path it does not map."""
+    return _state_dict(params, _GPT_INT8_RULES)
 
 
 def _to_tensor(value: np.ndarray, layout: str) -> torch.Tensor:

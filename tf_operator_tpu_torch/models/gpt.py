@@ -19,21 +19,27 @@ reference returns an updated flax "cache" collection. The loop over
 positions of `generate` is a Python loop; the reference's one compiled
 lax.scan has no counterpart.
 
+Decode modes: an int8 KV cache (kv_quant_int8: int8 keys and values
+with per-(position, head) scales) and int8 weights (weights_int8: the
+model's int8 twin, ops/quant.py), which compose with each other and with
+every entry point; `beam_search`; and `generate_speculative`, prompt-
+lookup speculative decoding through a multi-token verify forward.
+
 Serving (serve/engine.py) runs one step over a fixed slot grid:
 `SlotDecodeStep` over a dense [n_slots, max_total] cache and
 `PagedSlotDecodeStep` over a pool of fixed-size KV blocks addressed
-through per-slot block tables (with its prefill chunk and block copy).
-Each program holds its inputs in static buffers and, on a CUDA device,
-runs as one CUDA graph captured at its first call, where the reference
-compiles its step once with jax.jit. Left out: the int8 KV cache, int8
-weights and mesh-sharded decode (generate and the slot steps raise
-NotImplementedError for each), and the speculative verify programs
-(ROADMAP queue 1, items 4-6 and 8).
+through per-slot block tables (with its prefill chunk, block copy and,
+for speculation, its verify program). Each program holds its inputs in
+static buffers and, on a CUDA device, runs as one CUDA graph captured at
+its first call, where the reference compiles its step once with jax.jit.
+Left out: mesh-sharded decode (generate and the slot steps raise
+NotImplementedError; ROADMAP queue 1, items 4 and 6).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -42,6 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention
+from ..ops.quant import f32_scalar, quantize_model
 from .bert import LayerNorm, TransformerBlock, dense, init_like_flax_
 
 # a decode position: one int for every row, or a [batch] tensor of
@@ -195,31 +202,73 @@ def synthetic_batch(
 
 @dataclasses.dataclass
 class KVCache:
-    """Per layer, keys and values [batch, cache_len, heads, head_dim] in
-    the model's compute dtype, written in place by the decode path."""
+    """Per layer, keys and values [batch, cache_len, heads, head_dim],
+    written in place by the decode path: in the model's compute dtype, or
+    under kv_quant_int8 as int8 with one f32 scale per (position, head)
+    in key_scales / value_scales [batch, cache_len, heads]. A pool of
+    blocks has the same layout with blocks for rows."""
 
     keys: List[torch.Tensor]
     values: List[torch.Tensor]
+    key_scales: Optional[List[torch.Tensor]] = None
+    value_scales: Optional[List[torch.Tensor]] = None
 
     @classmethod
     def zeros(
         cls, cfg: GPTConfig, batch: int, cache_len: int,
-        device: Optional[torch.device] = None,
+        device: Optional[torch.device] = None, kv_quant_int8: bool = False,
     ) -> "KVCache":
         shape = (batch, cache_len, cfg.num_heads, cfg.head_dim)
 
-        def layers():
-            return [torch.zeros(shape, dtype=cfg.dtype, device=device)
+        def layers(shape, dtype):
+            return [torch.zeros(shape, dtype=dtype, device=device)
                     for _ in range(cfg.num_layers)]
 
-        return cls(keys=layers(), values=layers())
+        if not kv_quant_int8:
+            return cls(keys=layers(shape, cfg.dtype), values=layers(shape, cfg.dtype))
+        return cls(keys=layers(shape, torch.int8), values=layers(shape, torch.int8),
+                   key_scales=layers(shape[:-1], torch.float32),
+                   value_scales=layers(shape[:-1], torch.float32))
+
+    @property
+    def quantized(self) -> bool:
+        return self.key_scales is not None
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every tensor of the cache, the scales included."""
+        return self.keys + self.values + (self.key_scales or []) + (self.value_scales or [])
+
+    def layers(self) -> List[Tuple]:
+        """Per layer (keys, values, key_scale, value_scale); the scales
+        None unless quantized."""
+        none = [None] * len(self.keys)
+        return list(zip(self.keys, self.values, self.key_scales or none,
+                        self.value_scales or none))
+
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "KVCache":
+        """A new cache of fn(tensor) for every tensor."""
+        scaled = self.quantized
+        return KVCache(
+            keys=[fn(t) for t in self.keys], values=[fn(t) for t in self.values],
+            key_scales=[fn(t) for t in self.key_scales] if scaled else None,
+            value_scales=[fn(t) for t in self.value_scales] if scaled else None,
+        )
 
 
-def _store_kv(cache: torch.Tensor, new: torch.Tensor, index: Index) -> None:
-    """The cache write of both phases, in place: `new` [b, n, h, d] at
-    positions [index, index + n) of every row for an int index, or row
-    i's one token at index[i] for a [b] tensor."""
-    new = new.to(cache.dtype)
+def _absmax_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the last axis, in the reference's op order
+    (round(x / s * 127) with s = max(absmax, 1e-8), half to even): (int8
+    values, s / 127 of shape x.shape[:-1]). The one quantizer of every
+    cache write (dense, paged, prefill, decode, verify), so all of them
+    store the same bytes for the same vectors."""
+    x32 = x.float()
+    s = x32.abs().amax(dim=-1).clamp_min(1e-8)
+    q = torch.round(x32 / s[..., None] * 127.0).clamp(-127, 127).to(torch.int8)
+    # a tensor divisor: a true division on CUDA too (ops/quant.py f32_scalar)
+    return q, s / f32_scalar(127.0, s.device)
+
+
+def _write(cache: torch.Tensor, new: torch.Tensor, index: Index) -> None:
     if isinstance(index, int):
         cache[:, index:index + new.shape[1]] = new
     else:
@@ -227,28 +276,73 @@ def _store_kv(cache: torch.Tensor, new: torch.Tensor, index: Index) -> None:
         cache[rows, index] = new[:, 0]
 
 
-def _cache_attention(
-    keys: torch.Tensor, values: torch.Tensor, index: Optional[Index],
-) -> Callable:
+def _store_kv(
+    cache: torch.Tensor, new: torch.Tensor, index: Index,
+    scale: Optional[torch.Tensor] = None,
+) -> None:
+    """The cache write of every dense phase, in place: `new` [b, n, h, d]
+    at positions [index, index + n) of every row for an int index, or row
+    i's one token at index[i] for a [b] tensor. With `scale` (int8 KV)
+    the int8 values go to `cache` and their scales to `scale`."""
+    if scale is not None:
+        new, new_scale = _absmax_quantize(new)
+        _write(scale, new_scale, index)
+    _write(cache, new.to(cache.dtype), index)
+
+
+def _kv_attention(
+    query: torch.Tensor, keys: torch.Tensor, key_scale: Optional[torch.Tensor],
+    values: torch.Tensor, value_scale: Optional[torch.Tensor], mask: torch.Tensor,
+) -> torch.Tensor:
+    """Attention over a cache as stored: dot_product_attention when it is
+    in the compute dtype; over int8 keys and values, the reference's
+    factored form (_cache_attention): the products read the int8 values
+    converted to the query's dtype, the key scale multiplies the f32
+    scores before the mask, the value scale the softmax weights before
+    their cast, so no dequantized copy of the cache is made."""
+    if key_scale is None:
+        return dot_product_attention(query, keys, values, mask)
+    dtype = query.dtype
+    scale = torch.full((), 1.0 / math.sqrt(query.shape[-1]), dtype=dtype, device=query.device)
+    scores = torch.einsum("bqhd,bkhd->bhqk", query * scale, keys.to(dtype))
+    scores = scores.float() * key_scale.permute(0, 2, 1)[:, :, None, :]
+    scores = torch.where(mask.bool(), scores, torch.finfo(torch.float32).min)
+    weights = torch.softmax(scores, dim=-1)
+    weights = (weights * value_scale.permute(0, 2, 1)[:, :, None, :]).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, values.to(dtype))
+
+
+def _cache_attention(kv: Tuple, index: Optional[Index]) -> Callable:
     """The attention_fn a block runs in decode (the reference's
-    _CachedBlock is its TransformerBlock with this attention): with index
-    None, PrefillSelfAttention (the whole prompt's keys and values
-    written at [0, p), attending over that slice); else
-    CachedSelfAttention (one token's written at `index`, attending over
-    the whole cache). Writes first, then attends over what was stored;
-    the attention is the unquantized branch of the reference's
-    _cache_attention, dot_product_attention under the mask."""
+    _CachedBlock is its TransformerBlock with this attention) over one
+    layer's (keys, values, key_scale, value_scale): with index None,
+    PrefillSelfAttention (the whole prompt's keys and values written at
+    [0, p), attending over that slice); else one token per row at
+    `index` (CachedSelfAttention), or n tokens at the int offset `index`
+    (the speculative verify, PrefillSelfAttention's dynamic-offset
+    branch), attending over the whole cache under the caller's mask.
+    Writes first, then attends over what was stored, so under int8 every
+    phase reads the same quantized cache."""
+    keys, values, key_scale, value_scale = kv
 
     def attend(query, key, value, mask):
-        _store_kv(keys, key, 0 if index is None else index)
-        _store_kv(values, value, 0 if index is None else index)
+        at = 0 if index is None else index
+        _store_kv(keys, key, at, key_scale)
+        _store_kv(values, value, at, value_scale)
         if index is None:
-            return dot_product_attention(
-                query, keys[:, :key.shape[1]], values[:, :key.shape[1]], mask
+            p = key.shape[1]
+            return _kv_attention(
+                query, keys[:, :p], None if key_scale is None else key_scale[:, :p],
+                values[:, :p], None if value_scale is None else value_scale[:, :p], mask,
             )
-        return dot_product_attention(query, keys, values, mask)
+        return _kv_attention(query, keys, key_scale, values, value_scale, mask)
 
     return attend
+
+
+def model_device(model: nn.Module) -> torch.device:
+    """Where a GPT (or its int8 twin) lives: its token table's device."""
+    return model.token_embed.weight.device
 
 
 class GPTDecodeStep:
@@ -256,10 +350,12 @@ class GPTDecodeStep:
     `index` (an int for every row, or a [b] tensor of each row's
     position) -> logits [b, vocab], writing that position's keys and
     values into `cache`. The cache's length, not cfg.max_seq_len, sets
-    how many positions each step attends over."""
+    how many positions each step attends over; an int8 cache (see
+    KVCache) is written and read as int8. weights_int8: run the model's
+    int8 twin (quantized here unless it already is)."""
 
-    def __init__(self, model: GPT) -> None:
-        self.model = model
+    def __init__(self, model: GPT, weights_int8: bool = False) -> None:
+        self.model = quantize_model(model) if weights_int8 else model
 
     @torch.no_grad()
     def __call__(self, token: torch.Tensor, index: Index, cache: KVCache) -> torch.Tensor:
@@ -271,18 +367,19 @@ class GPTDecodeStep:
         x = model.embed(token[:, None], rows)
         positions = torch.arange(cache.keys[0].shape[1], device=token.device)
         valid = (positions[None, :] <= rows)[:, None, None, :]
-        for block, keys, values in zip(model.blocks(), cache.keys, cache.values):
-            x = block(x, valid, _cache_attention(keys, values, index))
+        for block, kv in zip(model.blocks(), cache.layers()):
+            x = block(x, valid, _cache_attention(kv, index))
         return model.head(x)[:, 0]
 
 
 class GPTPrefill:
     """Whole-prompt forward over a GPT's own parameters: tokens [b, p] ->
     the last position's logits [b, vocab], writing positions [0, p) of
-    `cache`, from which GPTDecodeStep continues."""
+    `cache`, from which GPTDecodeStep continues. weights_int8 as
+    GPTDecodeStep's."""
 
-    def __init__(self, model: GPT) -> None:
-        self.model = model
+    def __init__(self, model: GPT, weights_int8: bool = False) -> None:
+        self.model = quantize_model(model) if weights_int8 else model
 
     @torch.no_grad()
     def __call__(self, tokens: torch.Tensor, cache: KVCache) -> torch.Tensor:
@@ -290,9 +387,32 @@ class GPTPrefill:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = model.embed(tokens, positions[None])
         causal = (positions[:, None] >= positions[None, :])[None, None]
-        for block, keys, values in zip(model.blocks(), cache.keys, cache.values):
-            x = block(x, causal, _cache_attention(keys, values, None))
+        for block, kv in zip(model.blocks(), cache.layers()):
+            x = block(x, causal, _cache_attention(kv, None))
         return model.head(x[:, -1:])[:, 0]
+
+
+class GPTVerifyBlock:
+    """The speculative verify forward (the reference's GPTVerifyBlock,
+    gpt.py:1812): tokens [b, s] at positions [offset, offset + s) ->
+    logits for all s positions [b, s, vocab], writing their keys and
+    values into `cache`. Each row attends over the whole cache under the
+    causal window offset + j (positions past the model's table clamp to
+    its last entry; they sit past the commit limit)."""
+
+    def __init__(self, model: GPT) -> None:
+        self.model = model
+
+    @torch.no_grad()
+    def __call__(self, tokens: torch.Tensor, offset: int, cache: KVCache) -> torch.Tensor:
+        model = self.model
+        positions = offset + torch.arange(tokens.shape[1], device=tokens.device)
+        x = model.embed(tokens, positions.clamp(max=model.cfg.max_seq_len - 1)[None])
+        keys_at = torch.arange(cache.keys[0].shape[1], device=tokens.device)
+        mask = (keys_at[None, :] <= positions[:, None])[None, None]
+        for block, kv in zip(model.blocks(), cache.layers()):
+            x = block(x, mask, _cache_attention(kv, int(offset)))
+        return model.head(x)
 
 
 def _filter_logits(logits: torch.Tensor, top_k: int, top_p: float) -> torch.Tensor:
@@ -313,21 +433,24 @@ def _filter_logits(logits: torch.Tensor, top_k: int, top_p: float) -> torch.Tens
     return logits
 
 
+def _categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One draw per row from softmax(logits): the Gumbel-max draw
+    jax.random.categorical makes, here in f32 from `generator`."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = u.clamp_min_(torch.finfo(torch.float32).tiny)
+    return (logits - torch.log(-torch.log(u))).argmax(dim=-1)
+
+
 def _sampler(
     temperature: float, top_k: int, top_p: float, generator: torch.Generator,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """logits [b, vocab] -> tokens [b]: argmax at temperature 0, else
-    temperature first, then the filters, then a categorical draw (the
-    Gumbel-max draw jax.random.categorical makes, here in f32 from
-    `generator`)."""
+    temperature first, then the filters, then a categorical draw."""
 
     def sample(logits: torch.Tensor) -> torch.Tensor:
         if temperature > 0.0:
-            filtered = _filter_logits(logits.float() / temperature, top_k, top_p)
-            u = torch.rand(
-                filtered.shape, generator=generator, device=filtered.device
-            ).clamp_min_(torch.finfo(torch.float32).tiny)
-            return (filtered - torch.log(-torch.log(u))).argmax(dim=-1)
+            return _categorical(_filter_logits(logits.float() / temperature, top_k, top_p),
+                                generator)
         return logits.argmax(dim=-1)
 
     return sample
@@ -335,7 +458,7 @@ def _sampler(
 
 def _decode(
     model: GPT, prompt: torch.Tensor, lens: torch.Tensor, total: int,
-    sample: Callable[[torch.Tensor], torch.Tensor], ragged: bool,
+    sample: Callable[[torch.Tensor], torch.Tensor], ragged: bool, kv_quant_int8: bool = False,
 ) -> torch.Tensor:
     """Positions 1..total-1 of every row. Uniform path: the whole prompt
     in one GPTPrefill, then one GPTDecodeStep per new token. Ragged path
@@ -343,7 +466,7 @@ def _decode(
     token forced to its own next prompt token while inside its prompt
     (lens), so shorter rows start generating at their own boundary."""
     batch, prompt_len = prompt.shape
-    cache = KVCache.zeros(model.cfg, batch, total, prompt.device)
+    cache = KVCache.zeros(model.cfg, batch, total, prompt.device, kv_quant_int8)
     step = GPTDecodeStep(model)
 
     def steps(tok: torch.Tensor, indices) -> List[torch.Tensor]:
@@ -360,6 +483,23 @@ def _decode(
     first = sample(GPTPrefill(model)(prompt, cache))
     generated = [first] + steps(first, range(prompt_len, total - 1))
     return torch.cat([prompt[:, 1:], torch.stack(generated, dim=1)], dim=1)
+
+
+def _check_lengths(cfg: GPTConfig, prompt_len: int, max_new_tokens: int) -> int:
+    """The reference's length checks -> total positions."""
+    total = prompt_len + max_new_tokens
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    if total > cfg.max_seq_len:
+        raise ValueError(f"prompt+new = {total} exceeds max_seq_len {cfg.max_seq_len}")
+    return total
+
+
+def _check_filters(top_k: int, top_p: float) -> None:
+    if top_k < 0:
+        raise ValueError(f"top_k must be >= 0, got {top_k}")
+    if not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
 
 
 @torch.no_grad()
@@ -392,30 +532,26 @@ def generate(
     and 1.0 disable. generator: the sampling stream, on the model's
     device (default: seeded 0).
 
-    mesh/rules (sharded decode), kv_quant_int8 and weights_int8 are not
-    ported and raise NotImplementedError."""
+    kv_quant_int8: an int8 KV cache with per-(position, head) scales.
+    weights_int8: int8 kernels with per-feature-slice scales
+    (ops/quant.py), quantized once per call unless `model` already is
+    the int8 twin (serving quantizes once at load). The two compose.
+
+    mesh/rules (sharded decode) are not ported and raise
+    NotImplementedError."""
     if mesh is not None or rules is not None:
         raise NotImplementedError(
             "mesh-sharded decode is not ported (ROADMAP queue 1 item 4)"
         )
-    if kv_quant_int8:
-        raise NotImplementedError("the int8 KV cache is not ported (ROADMAP queue 1 item 5)")
-    if weights_int8:
-        raise NotImplementedError("int8 weights are not ported (ROADMAP queue 1 item 8)")
     cfg = model.cfg
     batch, prompt_len = prompt.shape
-    total = prompt_len + max_new_tokens
-    if max_new_tokens < 1:
-        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
-    if total > cfg.max_seq_len:
-        raise ValueError(f"prompt+new = {total} exceeds max_seq_len {cfg.max_seq_len}")
-    if top_k < 0:
-        raise ValueError(f"top_k must be >= 0, got {top_k}")
-    if not 0.0 < top_p <= 1.0:
-        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    total = _check_lengths(cfg, prompt_len, max_new_tokens)
+    _check_filters(top_k, top_p)
     if top_k >= cfg.vocab_size:
         top_k = 0  # keeps everything
-    device = model.lm_head.weight.device
+    if weights_int8:
+        model = quantize_model(model)
+    device = model_device(model)
     prompt = prompt.to(device=device, dtype=torch.long)
     ragged = False
     if prompt_lens is None:
@@ -434,33 +570,240 @@ def generate(
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     sample = _sampler(float(temperature), int(top_k), float(top_p), generator)
-    generated = _decode(model, prompt, lens, total, sample, ragged)
+    generated = _decode(model, prompt, lens, total, sample, ragged, kv_quant_int8)
     return torch.cat([prompt[:, :1], generated], dim=1)
+
+
+# -- speculative decoding (prompt-lookup drafting) ---------------------------
+
+
+def _ngram_draft(buf: torch.Tensor, index: int, k: int, ngram: int) -> torch.Tensor:
+    """Prompt-lookup drafter (the reference's _ngram_draft): the k tokens
+    that followed the most recent earlier occurrence of the ngram tokens
+    ending at `index`. buf: [b, L] whose positions [0, index] are
+    committed -> drafts [b, k]; where no earlier occurrence exists, the
+    current token repeated. A continuation may read a few provisional
+    positions past `index`; that lowers acceptance, never correctness."""
+    b, length = buf.shape
+    pos = torch.arange(length, device=buf.device)
+    tail = buf[:, index - (ngram - 1):index + 1]
+    match = torch.ones((b, length), dtype=torch.bool, device=buf.device)
+    for j in range(ngram):
+        # the token at p + j; shifted-off positions can never match
+        shifted = torch.cat([buf[:, j:], buf.new_full((b, j), -1)], dim=1)
+        match &= shifted == tail[:, j:j + 1]
+    # the continuation must start at committed positions: p + ngram <= index
+    match &= (pos <= index - ngram)[None, :]
+    p_star = torch.where(match, pos[None, :], -1).amax(dim=1)
+    start = (p_star + ngram).clamp(0, length - k)
+    cont = buf.gather(1, start[:, None] + torch.arange(k, device=buf.device)[None, :])
+    last = buf[:, index:index + 1].expand(b, k)
+    return torch.where((p_star >= 0)[:, None], cont, last)
+
+
+def _accept_or_resample(
+    p: torch.Tensor, d: torch.Tensor, u: torch.Tensor, generator: torch.Generator,
+) -> torch.Tensor:
+    """One position of deterministic-draft speculative sampling (the
+    reference's _accept_or_resample). p: [b, V] target probabilities; d:
+    [b] proposed tokens (d < 0: no draft, sample from p); u: [b] uniform
+    draws. Accept d with probability p[d]; else sample from p with d
+    zeroed and renormalized, so the returned token is distributed exactly
+    as p. The draws are `generator`'s."""
+    vocab = p.shape[1]
+    p_draft = p.gather(1, d.clamp(0, vocab - 1)[:, None])[:, 0]
+    no_draft = d < 0
+    accept = (u < p_draft) & ~no_draft
+    zero_at = torch.where(no_draft, -1, d)
+    columns = torch.arange(vocab, device=p.device)[None, :]
+    target = torch.where(columns == zero_at[:, None], 0.0, p)
+    target = target / target.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    sampled = _categorical(torch.log(target + 1e-30), generator)
+    return torch.where(accept, d, sampled)
+
+
+@torch.no_grad()
+def generate_speculative(
+    model: GPT,
+    prompt: torch.Tensor,
+    max_new_tokens: int,
+    draft_k: int = 4,
+    ngram: int = 2,
+    kv_quant_int8: bool = False,
+    weights_int8: bool = False,
+    temperature: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    return_rounds: bool = False,
+):
+    """Decode with prompt-lookup speculative decoding (the reference's
+    generate_speculative): each round an ngram match against the
+    committed context proposes draft_k tokens, one (draft_k + 1)-wide
+    GPTVerifyBlock scores them, and the longest prefix every row accepts
+    (the batch minimum) commits with the verify's own next token. ->
+    [b, p + max_new_tokens], and with return_rounds the verify rounds
+    run as well.
+
+    Greedy (temperature 0): every committed token is the verify
+    forward's argmax given the committed prefix, so the chain equals
+    generate(temperature=0)'s up to the floating-point equivalence of
+    the block and one-token forwards (exact at f32). temperature > 0:
+    speculative sampling (_accept_or_resample), distributed exactly as
+    plain sampled decode, from `generator`'s stream (not generate's).
+    The round loop is a Python loop that reads each round's commit on
+    the host, where the reference runs a lax.while_loop."""
+    cfg = model.cfg
+    batch, prompt_len = prompt.shape
+    total = _check_lengths(cfg, prompt_len, max_new_tokens)
+    if draft_k < 1:
+        raise ValueError(f"draft_k must be >= 1, got {draft_k}")
+    if ngram < 1:
+        raise ValueError(f"ngram must be >= 1, got {ngram}")
+    if prompt_len < ngram:
+        raise ValueError(f"prompt_len {prompt_len} must be >= ngram {ngram}")
+    if temperature < 0:
+        raise ValueError(f"temperature must be >= 0, got {temperature}")
+    _check_filters(top_k, top_p)
+    if top_k >= cfg.vocab_size:
+        top_k = 0
+    if weights_int8:
+        model = quantize_model(model)
+    device = model_device(model)
+    prompt = prompt.to(device=device, dtype=torch.long)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    sampled = temperature > 0.0
+    # the buffer and the cache reach draft_k past `total`: a round entered
+    # at index total - 2 writes its k + 1 candidates up to total + k - 1
+    width = total + draft_k
+    cache = KVCache.zeros(cfg, batch, width, device, kv_quant_int8)
+    logits = GPTPrefill(model)(prompt, cache)
+
+    def tempered(logits: torch.Tensor) -> torch.Tensor:
+        return _filter_logits(logits.float() / temperature, top_k, top_p)
+
+    first = _categorical(tempered(logits), generator) if sampled else logits.argmax(-1)
+    buf = torch.zeros((batch, width), dtype=torch.long, device=device)
+    buf[:, :prompt_len] = prompt
+    buf[:, prompt_len] = first
+    verify = GPTVerifyBlock(model)
+    columns = torch.arange(draft_k + 1, device=device)[None, :]
+    index, rounds = prompt_len, 0
+    while index < total - 1:
+        drafts = _ngram_draft(buf, index, draft_k, ngram)
+        block = torch.cat([buf[:, index:index + 1], drafts], dim=1)
+        logits = verify(block, index, cache)
+        if not sampled:
+            greedy = logits.argmax(dim=-1)
+            ok = (greedy[:, :draft_k] == drafts).long()
+            commit = int(torch.cumprod(ok, dim=1).sum(dim=1).min())
+            buf[:, index + 1:index + draft_k + 2] = greedy
+        else:
+            probs = torch.softmax(tempered(logits), dim=-1)  # [b, k+1, V]
+            u = torch.rand((batch, draft_k), generator=generator, device=device)
+            p_draft = probs[:, :draft_k].gather(2, drafts[..., None])[..., 0]
+            commit = int(torch.cumprod((u < p_draft).long(), dim=1).sum(dim=1).min())
+            d_pad = torch.cat([drafts, drafts.new_full((batch, 1), -1)], dim=1)
+            u_pad = torch.cat([u, u.new_ones((batch, 1))], dim=1)
+            tok = _accept_or_resample(probs[:, commit], d_pad[:, commit], u_pad[:, commit],
+                                      generator)
+            cand = torch.where(columns == commit, tok[:, None], d_pad).clamp_min(0)
+            buf[:, index + 1:index + draft_k + 2] = cand
+        index += commit + 1
+        rounds += 1
+    out = buf[:, :total]
+    return (out, rounds) if return_rounds else out
+
+
+# -- beam search --------------------------------------------------------------
+
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """jax.lax.top_k's order along the last axis: descending, ties to the
+    lower index (a stable descending sort)."""
+    values, order = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], order[..., :k]
+
+
+@torch.no_grad()
+def beam_search(
+    model: GPT,
+    prompt: torch.Tensor,
+    max_new_tokens: int,
+    num_beams: int = 4,
+    kv_quant_int8: bool = False,
+    weights_int8: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam-search decode (the reference's beam_search): -> (sequences
+    [b, num_beams, p + new], scores [b, num_beams]) best first, a score
+    being the sum of the generated tokens' log-probabilities (fixed
+    length, no normalization). The prompt is prefilled once at batch
+    width and its cache repeated num_beams-fold; beams then ride the
+    batch axis through GPTDecodeStep, and each step gathers every cache
+    tensor by the surviving beams' parents (an index_select of fixed
+    shape). num_beams=1 is greedy decode. Both int8 flags compose."""
+    cfg = model.cfg
+    batch, prompt_len = prompt.shape
+    total = _check_lengths(cfg, prompt_len, max_new_tokens)
+    if num_beams < 1:
+        raise ValueError(f"num_beams must be >= 1, got {num_beams}")
+    if num_beams > cfg.vocab_size:
+        raise ValueError(f"num_beams {num_beams} exceeds vocab {cfg.vocab_size}")
+    if weights_int8:
+        model = quantize_model(model)
+    beams = int(num_beams)
+    device = model_device(model)
+    prompt = prompt.to(device=device, dtype=torch.long)
+    cache = KVCache.zeros(cfg, batch, total, device, kv_quant_int8)
+    logits = GPTPrefill(model)(prompt, cache)
+    cache = cache.map(lambda t: t.repeat_interleave(beams, dim=0))
+    scores, last = _top_k(torch.log_softmax(logits.float(), dim=-1), beams)
+    buf = torch.zeros((batch, beams, total), dtype=torch.long, device=device)
+    buf[:, :, :prompt_len] = prompt[:, None, :]
+    buf[:, :, prompt_len] = last
+    step = GPTDecodeStep(model)
+    base = torch.arange(batch, device=device)[:, None] * beams
+    for index in range(prompt_len, total - 1):
+        logits = step(last.reshape(batch * beams), index, cache)
+        logp = torch.log_softmax(logits.float(), dim=-1).reshape(batch, beams, -1)
+        vocab = logp.shape[-1]
+        candidates = (scores[:, :, None] + logp).reshape(batch, beams * vocab)
+        scores, idx = _top_k(candidates, beams)
+        parent, last = idx // vocab, idx % vocab
+        buf = buf.gather(1, parent[:, :, None].expand(-1, -1, total))
+        buf[:, :, index + 1] = last
+        flat_parent = (base + parent).reshape(batch * beams)
+        for t in cache.tensors():
+            t.copy_(t.index_select(0, flat_parent))
+    return buf, scores
 
 
 # -- the slot grid of the continuous-batching engine (serve/engine.py) ------
 
 
-def _refuse_unported(
-    kv_quant_int8: bool = False, weights_int8: bool = False, mesh=None,
-    spec_depth: int = 0,
-) -> None:
-    """The decode options the slot steps do not port, each refused
-    naming its ROADMAP item."""
-    if kv_quant_int8:
-        raise NotImplementedError("the int8 KV cache is not ported (ROADMAP queue 1 item 5)")
-    if weights_int8:
-        raise NotImplementedError("int8 weights are not ported (ROADMAP queue 1 item 8)")
+def _refuse_unported(weights_int8: bool = False, mesh=None) -> None:
+    """The decode option the slot steps do not port: the mesh, refused
+    naming its ROADMAP item (weights_int8 on a mesh first, in the
+    reference's words)."""
     if mesh is not None:
+        if weights_int8:
+            raise ValueError(
+                "weights_int8 is not supported on the sharded decode step (the int8 "
+                "kernel/scale layout has no 'model'-axis rules yet)"
+            )
         raise NotImplementedError("sharded decode is not ported (ROADMAP queue 1 item 6)")
-    if spec_depth > 0:
-        raise NotImplementedError(
-            "the speculative verify program is not ported (ROADMAP queue 1 item 6)"
-        )
 
 
 def _kv_bytes(cache: KVCache) -> int:
-    return sum(t.numel() * t.element_size() for t in cache.keys + cache.values)
+    return sum(t.numel() * t.element_size() for t in cache.tensors())
+
+
+def weight_bytes(model: nn.Module) -> int:
+    """Bytes of every parameter and buffer a decode reads (the int8
+    twin's kernels, scales and biases; the embeddings and norms)."""
+    tensors = {id(t): t for t in list(model.parameters()) + list(model.buffers())}
+    return sum(t.numel() * t.element_size() for t in tensors.values())
 
 
 def _forced(
@@ -469,10 +812,15 @@ def _forced(
     """The ragged forcing rule of the slot grid (the reference's
     SlotDecodeStep, gpt.py:910-916): a row still inside its prompt
     (index + 1 < lens) emits its next prompt token, any other row the
-    argmax of its logits."""
+    argmax of its logits. logits [n, vocab] with index [n], or [n, k1,
+    vocab] with index [n, k1] (a verify window, row j at index + j)."""
     nxt = logits.argmax(dim=-1)
     ahead = (index + 1).clamp(max=prompt.shape[1] - 1)
-    forced = prompt.gather(1, ahead[:, None])[:, 0]
+    if ahead.dim() == 1:
+        forced = prompt.gather(1, ahead[:, None])[:, 0]
+    else:
+        forced = prompt.gather(1, ahead)
+        lens = lens[:, None]
     return torch.where(index + 1 < lens, forced, nxt)
 
 
@@ -541,12 +889,17 @@ class SlotDecodeStep:
     """One single-token decode over a fixed [n_slots] grid of a dense
     cache, [n_slots, max_total] per layer: the device half of the
     engine's kv_layout="dense" (the reference's SlotDecodeStep,
-    gpt.py:846). Every row is its own stream at its own position: row i
-    writes its keys and values at index[i] of its cache row and attends
-    over positions <= index[i] (GPTDecodeStep's per-row path). Prompt
+    gpt.py:846), and the draft model's step under speculate="draft".
+    Every row is its own stream at its own position: row i writes its
+    keys and values at index[i] of its cache row and attends over
+    positions <= index[i] (GPTDecodeStep's per-row path). Prompt
     ingestion rides the same step through the forcing rule (`_forced`),
     so there is no prefill program. Greedy only; sampled requests keep
     the inline `generate`.
+
+    kv_quant_int8: the cache is int8 with its scales; weights_int8: the
+    step runs the model's int8 twin (quantized here unless `model`
+    already is one; `self.model` is what the step reads).
 
     The cache is allocated once, at construction, and the step is one
     `_Program`: on a CUDA device one CUDA graph, captured at the first
@@ -559,18 +912,18 @@ class SlotDecodeStep:
         self, model: GPT, n_slots: int, max_total: int,
         kv_quant_int8: bool = False, weights_int8: bool = False, mesh=None,
     ) -> None:
-        _refuse_unported(kv_quant_int8, weights_int8, mesh)
+        _refuse_unported(weights_int8, mesh)
         cfg = model.cfg
         if max_total > cfg.max_seq_len:
             raise ValueError(f"max_total {max_total} exceeds max_seq_len {cfg.max_seq_len}")
-        self.model = model
+        self.model = quantize_model(model) if weights_int8 else model
         self.cfg = cfg
         self.n_slots = int(n_slots)
         self.max_total = int(max_total)
-        device = model.lm_head.weight.device
-        self.cache = KVCache.zeros(cfg, self.n_slots, self.max_total, device)
+        device = model_device(self.model)
+        self.cache = KVCache.zeros(cfg, self.n_slots, self.max_total, device, kv_quant_int8)
         self.kv_bytes_total = _kv_bytes(self.cache)
-        decode = GPTDecodeStep(model)
+        decode = GPTDecodeStep(self.model)
         inputs = _slot_inputs(self.n_slots, self.max_total, device)
 
         def step() -> Tuple[torch.Tensor, torch.Tensor]:
@@ -587,7 +940,7 @@ class SlotDecodeStep:
     def init_cache(self) -> KVCache:
         """The grid's cache, zeroed in place (a captured step keeps
         reading and writing the same tensors)."""
-        for t in self.cache.keys + self.cache.values:
+        for t in self.cache.tensors():
             t.zero_()
         return self.cache
 
@@ -603,26 +956,44 @@ class SlotDecodeStep:
 
 def _paged_store_kv(
     pool: torch.Tensor, new: torch.Tensor, phys: torch.Tensor, off: torch.Tensor,
+    scale: Optional[torch.Tensor] = None,
 ) -> None:
-    """The paged cache write of both phases, in place (the reference's
-    _paged_store_kv, gpt.py:969, bf16 branch): `new` [n, heads,
-    head_dim] into the pool [num_blocks, block_size, heads, head_dim] at
-    the (block, offset) pairs (phys, off). Rows parked on the sentinel
-    block 0 write there with duplicate indices; which write lands is
-    unspecified, and every reader masks those positions."""
+    """The paged cache write of every phase, in place (the reference's
+    _paged_store_kv, gpt.py:969): `new` [n, heads, head_dim] into the
+    pool [num_blocks, block_size, heads, head_dim] at the (block, offset)
+    pairs (phys, off), through the dense path's quantizer under int8
+    (`scale` the [num_blocks, block_size, heads] scale pool), so the two
+    layouts hold the same bytes for the same vectors. Rows parked on the
+    sentinel block 0 write there with duplicate indices; which write
+    lands is unspecified, and every reader masks those positions."""
+    if scale is not None:
+        new, new_scale = _absmax_quantize(new)
+        scale.index_put_((phys, off), new_scale)
     pool.index_put_((phys, off), new.to(pool.dtype))
 
 
 def _gather_blocks(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     """pool[tables] as each table's logical sequence: [..., max_blocks *
-    block_size, heads, head_dim] in logical-position order."""
+    block_size, *pool.shape[2:]] in logical-position order."""
     out = pool[tables]
     return out.reshape(*tables.shape[:-1], -1, *pool.shape[2:])
 
 
-def _paged_attention(
-    keys: torch.Tensor, values: torch.Tensor, index: torch.Tensor, tables: torch.Tensor,
-) -> Callable:
+def _paged_kv(kv: Tuple, key, value, phys, off, query, tables, mask) -> torch.Tensor:
+    """Write key/value [n, h, d] at (phys, off), then attend `query` over
+    the pool gathered through `tables` ([rows, max_blocks])."""
+    keys, values, key_scale, value_scale = kv
+    _paged_store_kv(keys, key, phys, off, key_scale)
+    _paged_store_kv(values, value, phys, off, value_scale)
+
+    def gather(t):
+        return None if t is None else _gather_blocks(t, tables)
+
+    return _kv_attention(query, gather(keys), gather(key_scale), gather(values),
+                         gather(value_scale), mask)
+
+
+def _paged_attention(kv: Tuple, index: torch.Tensor, tables: torch.Tensor) -> Callable:
     """PagedSelfAttention (the reference's gpt.py:1032), as the
     attention_fn of a decoder block: each slot's one token [s, 1, h, d]
     written at logical position index[s] through its block table, then
@@ -631,21 +1002,14 @@ def _paged_attention(
     einsums see the dense step's shapes, position for position."""
 
     def attend(query, key, value, mask):
-        bs = keys.shape[1]
+        bs = kv[0].shape[1]
         phys = tables.gather(1, (index // bs)[:, None])[:, 0]
-        off = index % bs
-        _paged_store_kv(keys, key[:, 0], phys, off)
-        _paged_store_kv(values, value[:, 0], phys, off)
-        return dot_product_attention(
-            query, _gather_blocks(keys, tables), _gather_blocks(values, tables), mask
-        )
+        return _paged_kv(kv, key[:, 0], value[:, 0], phys, index % bs, query, tables, mask)
 
     return attend
 
 
-def _paged_prefill_attention(
-    keys: torch.Tensor, values: torch.Tensor, positions: torch.Tensor, table: torch.Tensor,
-) -> Callable:
+def _paged_prefill_attention(kv: Tuple, positions: torch.Tensor, table: torch.Tensor) -> Callable:
     """PagedPrefillSelfAttention (the reference's gpt.py:1108), as an
     attention_fn: one slot's chunk [1, c, h, d] at logical `positions`
     [c] written through its table [max_blocks] first, then attention over
@@ -653,14 +1017,34 @@ def _paged_prefill_attention(
     later decode step reads."""
 
     def attend(query, key, value, mask):
-        bs = keys.shape[1]
-        phys = table[positions // bs]
-        off = positions % bs
-        _paged_store_kv(keys, key[0], phys, off)
-        _paged_store_kv(values, value[0], phys, off)
-        return dot_product_attention(
-            query, _gather_blocks(keys, table[None]), _gather_blocks(values, table[None]), mask
-        )
+        bs = kv[0].shape[1]
+        return _paged_kv(kv, key[0], value[0], table[positions // bs], positions % bs,
+                         query, table[None], mask)
+
+    return attend
+
+
+def _paged_verify_attention(kv: Tuple, index: torch.Tensor, tables: torch.Tensor) -> Callable:
+    """PagedVerifySelfAttention (the reference's gpt.py:1178), as an
+    attention_fn: every slot's window [s, k1, h, d] at logical positions
+    index[s] + j, written through its table first, then attention over
+    the gathered pool under the caller's per-row causal mask. A position
+    past the table's length goes to the sentinel block 0 explicitly,
+    never clamped into the table's last entry, which can be a real block
+    holding committed keys and values; positions past the slot's
+    reservation land on the table's sentinel tail entries."""
+
+    def attend(query, key, value, mask):
+        slots, k1 = key.shape[:2]
+        bs = kv[0].shape[1]
+        max_blocks = tables.shape[1]
+        pos = index[:, None] + torch.arange(k1, device=index.device)[None, :]
+        phys = tables.gather(1, (pos // bs).clamp(max=max_blocks - 1))
+        phys = torch.where(pos <= max_blocks * bs - 1, phys, torch.zeros_like(phys))
+        flat = slots * k1
+        return _paged_kv(kv, key.reshape(flat, *key.shape[2:]),
+                         value.reshape(flat, *value.shape[2:]), phys.reshape(flat),
+                         (pos % bs).reshape(flat), query, tables, mask)
 
     return attend
 
@@ -682,8 +1066,8 @@ class PagedDecodeStep:
         length = tables.shape[1] * pool.keys[0].shape[1]
         positions = torch.arange(length, device=token.device)
         valid = (positions[None, :] <= index[:, None])[:, None, None, :]
-        for block, keys, values in zip(model.blocks(), pool.keys, pool.values):
-            x = block(x, valid, _paged_attention(keys, values, index, tables))
+        for block, kv in zip(model.blocks(), pool.layers()):
+            x = block(x, valid, _paged_attention(kv, index, tables))
         return model.head(x)[:, 0]
 
 
@@ -707,39 +1091,71 @@ class PagedPrefillChunk:
         length = table.shape[0] * pool.keys[0].shape[1]
         keys_at = torch.arange(length, device=tokens.device)
         mask = (keys_at[None, :] <= positions[:, None])[None, None]
-        for block, keys, values in zip(model.blocks(), pool.keys, pool.values):
-            x = block(x, mask, _paged_prefill_attention(keys, values, positions, table))
+        for block, kv in zip(model.blocks(), pool.layers()):
+            x = block(x, mask, _paged_prefill_attention(kv, positions, table))
         return x
+
+
+class PagedVerifyStep:
+    """The speculative verify forward over the paged pool (the
+    reference's PagedVerifyStep, gpt.py:1401): tokens [s, k1] at logical
+    positions index[s] + j through tables [s, max_blocks] -> logits [s,
+    k1, vocab] for every slot in one call, row (i, j) attending over
+    positions <= index[i] + j. Row 0 is the single-token step's dataflow;
+    the embeddings of positions past the model's table clamp to its last
+    entry (those rows sit past the slot's commit limit)."""
+
+    def __init__(self, model: GPT) -> None:
+        self.model = model
+
+    @torch.no_grad()
+    def __call__(
+        self, tokens: torch.Tensor, index: torch.Tensor, tables: torch.Tensor, pool: KVCache,
+    ) -> torch.Tensor:
+        model = self.model
+        pos = index[:, None] + torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        x = model.embed(tokens, pos.clamp(max=model.cfg.max_seq_len - 1))
+        length = tables.shape[1] * pool.keys[0].shape[1]
+        keys_at = torch.arange(length, device=tokens.device)
+        valid = (keys_at[None, None, :] <= pos[:, :, None])[:, None]
+        for block, kv in zip(model.blocks(), pool.layers()):
+            x = block(x, valid, _paged_verify_attention(kv, index, tables))
+        return model.head(x)
 
 
 class PagedSlotDecodeStep:
     """One single-token decode over a fixed [n_slots] grid whose keys
     and values live in a shared pool of fixed-size blocks, [num_blocks,
-    block_size, heads, head_dim] per layer and per k/v (the reference's
-    PagedSlotDecodeStep, gpt.py:1449, without verify, the mesh branch
-    and int8): the device half of the engine's kv_layout="paged". Block
-    0 is the sentinel: idle rows and unused table entries point at it.
+    block_size, heads, head_dim] per layer and per k/v (with the
+    [num_blocks, block_size, heads] scale pools under int8), the
+    reference's PagedSlotDecodeStep (gpt.py:1449) without the mesh
+    branch: the device half of the engine's kv_layout="paged". Block 0
+    is the sentinel: idle rows and unused table entries point at it.
+    kv_quant_int8 and weights_int8 as SlotDecodeStep's.
 
-    Three programs, each a `_Program` (on a CUDA device one CUDA graph,
-    captured at its first call) with its own counter:
+    Up to four programs, each a `_Program` (on a CUDA device one CUDA
+    graph, captured at its first call) with its own counter:
     - `__call__`: SlotDecodeStep's contract plus `tables` [n_slots,
       max_blocks] (`compiles`);
     - `prefill`: one chunked-prefill chunk for one slot, always the width
       of the first chunk it was given (`prefill_compiles`);
     - `copy_block`: one block copied into another in every layer's k and
-      v, the prefix cache's copy-on-write (`copy_compiles`).
+      v and their scales, the prefix cache's copy-on-write
+      (`copy_compiles`);
+    - `verify` (spec_depth > 0): the speculative scorer of every slot's
+      window of fixed width spec_depth + 1 (`verify_compiles`).
 
-    `logits` are the last step's, as SlotDecodeStep's. max_total must
-    divide into blocks: the gathered attention width max_blocks *
-    block_size then equals the dense grid's, and the paged and dense
-    steps run the same einsum shapes."""
+    `logits` are the last step's, as SlotDecodeStep's (`verify_logits`
+    the last verify's). max_total must divide into blocks: the gathered
+    attention width max_blocks * block_size then equals the dense
+    grid's, and the paged and dense steps run the same einsum shapes."""
 
     def __init__(
         self, model: GPT, n_slots: int, max_total: int, block_size: int, num_blocks: int,
         kv_quant_int8: bool = False, weights_int8: bool = False, mesh=None,
         spec_depth: int = 0,
     ) -> None:
-        _refuse_unported(kv_quant_int8, weights_int8, mesh, spec_depth)
+        _refuse_unported(weights_int8, mesh)
         cfg = model.cfg
         if max_total > cfg.max_seq_len:
             raise ValueError(f"max_total {max_total} exceeds max_seq_len {cfg.max_seq_len}")
@@ -752,18 +1168,20 @@ class PagedSlotDecodeStep:
             )
         if num_blocks < 2:
             raise ValueError(f"num_blocks must be >= 2 (sentinel + 1), got {num_blocks}")
-        self.model = model
+        self.model = quantize_model(model) if weights_int8 else model
         self.cfg = cfg
         self.n_slots = int(n_slots)
         self.max_total = int(max_total)
         self.block_size = int(block_size)
         self.num_blocks = int(num_blocks)
         self.max_blocks = self.max_total // self.block_size
-        self.device = model.lm_head.weight.device
+        self.spec_depth = int(spec_depth)
+        self.device = model_device(self.model)
         # the pool has a dense cache's layout with blocks for rows
-        self.cache = KVCache.zeros(cfg, self.num_blocks, self.block_size, self.device)
+        self.cache = KVCache.zeros(cfg, self.num_blocks, self.block_size, self.device,
+                                   kv_quant_int8)
         self.kv_bytes_total = _kv_bytes(self.cache)
-        decode = PagedDecodeStep(model)
+        decode = PagedDecodeStep(self.model)
         inputs = _slot_inputs(self.n_slots, self.max_total, self.device)
         inputs["tables"] = torch.zeros(
             (self.n_slots, self.max_blocks), dtype=torch.long, device=self.device
@@ -781,10 +1199,27 @@ class PagedSlotDecodeStep:
                 for name in ("src", "dst")}
 
         def copy() -> None:
-            for pool in self.cache.keys + self.cache.values:
+            for pool in self.cache.tensors():
                 pool.index_copy_(0, ends["dst"], pool.index_select(0, ends["src"]))
 
         self._copy = _Program(copy, ends)
+        self._verify: Optional[_Program] = None
+        self.verify_logits: Optional[torch.Tensor] = None
+        if self.spec_depth > 0:
+            scorer = PagedVerifyStep(self.model)
+            window = _slot_inputs(self.n_slots, self.max_total, self.device)
+            window["toks"] = window.pop("tok").new_zeros((self.n_slots, self.spec_depth + 1))
+            window["tables"] = torch.zeros_like(inputs["tables"])
+
+            def verify() -> Tuple[torch.Tensor, torch.Tensor]:
+                logits = scorer(window["toks"], window["index"], window["tables"], self.cache)
+                # row j scores position index + j, predicting index + j + 1:
+                # a prediction still inside the prompt is the prompt's token
+                at = window["index"][:, None] + torch.arange(
+                    self.spec_depth + 1, device=self.device)[None, :]
+                return _forced(logits, at, window["prompt"], window["lens"]), logits
+
+            self._verify = _Program(verify, window)
 
     @property
     def compiles(self) -> int:
@@ -798,10 +1233,14 @@ class PagedSlotDecodeStep:
     def copy_compiles(self) -> int:
         return self._copy.captures
 
+    @property
+    def verify_compiles(self) -> int:
+        return 0 if self._verify is None else self._verify.captures
+
     def init_cache(self) -> KVCache:
         """The pool, zeroed in place (captured programs keep reading and
         writing the same tensors)."""
-        for t in self.cache.keys + self.cache.values:
+        for t in self.cache.tensors():
             t.zero_()
         return self.cache
 
@@ -817,6 +1256,22 @@ class PagedSlotDecodeStep:
         """The same step launched op by op, outside the graph."""
         nxt, self.logits = self._step.run_eager(tok=tok, index=index, prompt=prompt, lens=lens,
                                                 tables=tables)
+        return nxt
+
+    def verify(self, toks, index, prompt, lens, tables) -> torch.Tensor:
+        """Score every slot's speculated window: toks [n_slots, spec_depth
+        + 1], column 0 each slot's current token, columns 1.. drafts at
+        logical positions index + 1, index + 2, ... -> nxt [n_slots,
+        spec_depth + 1] on the device, the greedy (or, inside the
+        prompt, forced) next token after each window position. The
+        caller accepts the longest prefix where nxt[:, j] == toks[:, j +
+        1] and rolls the rest back by resetting the slot's cursor (the
+        next window rewrites those pool rows before anything reads
+        them)."""
+        if self._verify is None:
+            raise RuntimeError("verify() needs spec_depth > 0 at construction")
+        nxt, self.verify_logits = self._verify(toks=toks, index=index, prompt=prompt,
+                                               lens=lens, tables=tables)
         return nxt
 
     def prefill(self, tokens, start: int, table) -> None:
@@ -845,6 +1300,6 @@ class PagedSlotDecodeStep:
 
     def copy_block(self, src: int, dst: int) -> None:
         """Copy pool block `src` into block `dst` in every layer's k and v
-        (the copy-on-write of a tail block admitted from the prefix
-        cache)."""
+        and their scales (the copy-on-write of a tail block admitted from
+        the prefix cache)."""
         self._copy(src=[int(src)], dst=[int(dst)])

@@ -394,7 +394,7 @@ class MoEDecodeStep:
         x = model.embed(token[:, None], rows)
         positions = torch.arange(cache.keys[0].shape[1], device=token.device)
         valid = (positions[None, :] <= rows)[:, None, None, :]
-        attend = [_cache_attention(k, v, index) for k, v in zip(cache.keys, cache.values)]
+        attend = [_cache_attention(kv, index) for kv in cache.layers()]
         x, _ = model.run_blocks(x, valid, attend)
         return model.head(x)[:, 0]
 
@@ -412,7 +412,7 @@ class MoEPrefill:
         model = self.model
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = model.embed(tokens, positions[None])
-        attend = [_cache_attention(k, v, None) for k, v in zip(cache.keys, cache.values)]
+        attend = [_cache_attention(kv, None) for kv in cache.layers()]
         x, _ = model.run_blocks(x, causal_mask(tokens.shape[1], tokens.device), attend,
                                 token_groups=True)
         return model.head(x[:, -1:])[:, 0]

@@ -37,10 +37,22 @@ blocks addressed through per-slot block tables inside the same step:
 
 kv_layout="dense" keeps the [n_slots, max_total] grid.
 
-Not ported, each refused naming its ROADMAP item: speculative decoding,
-the sharded (mesh) step, the int8 KV cache and int8 weights, the
-disaggregated roles and KV block-set export/import, the prefix digest
-and /kv/statz.
+kv_quant_int8 / weights_int8 pass through to the step (an int8 pool with
+its scales; the model's int8 twin, quantized once here).
+
+SPECULATIVE decoding (speculate="ngram" | "draft", paged only): each
+quantum proposes up to a slot's adaptive depth of tokens per slot (a
+prompt lookup over the committed chain, numpy on the host, or a small
+draft model's captured SlotDecodeStep), scores every slot's window of
+spec_depth + 1 in the step's captured verify program, commits the longest
+accepted prefix plus the verify's own next token, and rolls the rest back
+by resetting the slot's cursor. Greedy acceptance keeps every chain the
+single-token engine's wherever the verify's rows compute what the
+one-token step computes (exact at f32).
+
+Not ported, each refused naming its ROADMAP item: the sharded (mesh)
+step, the disaggregated roles and KV block-set export/import, the prefix
+digest and /kv/statz.
 """
 
 from __future__ import annotations
@@ -55,12 +67,21 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..ops.quant import is_quantized, quantize_model, requantize_into
 from ..telemetry.flight import current_correlation, default_flight
 from ..telemetry.tracecontext import current_trace
 from ..utils import locks
 from .prefix import prefix_hash
 
 _DONE = object()
+
+# the adaptive speculation depth: each slot's trailing accept-rate window,
+# the collapse and recovery thresholds, and how many quanta a depth-0 slot
+# sits out before it probes speculation again
+_SPEC_WIN = 8
+_SPEC_LOW = 0.3
+_SPEC_HIGH = 0.7
+_SPEC_PROBE_ROUNDS = 16
 
 # HELP text for the flat metrics() families below, consumed by the
 # serve server's /metrics renderer (exposition-format validity needs a
@@ -158,11 +179,11 @@ METRIC_HELP = {
     "spec_verify_seconds_total":
         "Wall-clock seconds spent inside speculative verify rounds",
     "engine_verify_compiles_total":
-        "XLA compilations of the speculative verify program "
-        "(expected: 1)",
+        "Captures of the speculative verify program as a CUDA graph "
+        "(first calls off CUDA; expected: 1)",
     "engine_draft_compiles_total":
-        "XLA compilations of the draft model's decode step "
-        "(expected: 1)",
+        "Captures of the draft model's decode step as a CUDA graph "
+        "(first calls off CUDA; expected: 1)",
 }
 
 
@@ -511,7 +532,6 @@ class EngineRequest:
 
 
 # the options of the reference engine that the port leaves out
-_SPECULATION = "speculative decoding is not ported (ROADMAP queue 1 item 6)"
 _SHARDED = "the sharded decode step (mesh_shape) is not ported (ROADMAP queue 1 item 6)"
 _DISAGGREGATED = (
     "disaggregated serving (roles, KV block-set export/import, the prefix "
@@ -522,7 +542,8 @@ _DISAGGREGATED = (
 class ContinuousBatchingEngine:
     """Slot-based continuous-batching decode engine over one model, the
     port's GPT module (models/gpt.py), whose parameters the steps read in
-    place (no second copy of the weights).
+    place (no second copy of the weights; under weights_int8 the steps
+    read the int8 twin, which replaces the model here).
 
     One background thread owns the device loop and ALL slot state;
     submit()/cancel() only touch the queue and per-request flags, so there
@@ -540,7 +561,12 @@ class ContinuousBatchingEngine:
     card); the model is moved there. The programs are captured at
     construction: on the engine thread with start=True (the constructor
     waits for it), in the caller's thread with start=False, where tests
-    drive _admit / _evict_cancelled / _work_once by hand."""
+    drive _admit / _evict_cancelled / _work_once by hand.
+
+    speculate ("off", "ngram", "draft"), spec_depth (the verify window
+    minus one, and each slot's depth cap), spec_ngram (the host lookup's
+    n) and draft_model (a small GPT sharing the target's vocabulary, for
+    "draft") as the reference's, which validates them the same way."""
 
     def __init__(
         self,
@@ -560,6 +586,9 @@ class ContinuousBatchingEngine:
         mesh_shape=None,
         role: str = "",
         speculate: str = "off",
+        spec_depth: int = 4,
+        draft_model=None,
+        spec_ngram: int = 3,
         device=None,
     ):
         from ..models import gpt as gpt_lib
@@ -568,8 +597,31 @@ class ContinuousBatchingEngine:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"kv_layout must be 'paged' or 'dense', got {kv_layout!r}")
-        if speculate != "off":
-            raise NotImplementedError(_SPECULATION)
+        if speculate not in ("off", "ngram", "draft"):
+            raise ValueError(f"speculate must be 'off', 'ngram' or 'draft', got {speculate!r}")
+        self.speculate = speculate
+        self._spec = speculate != "off"
+        if self._spec:
+            if kv_layout != "paged":
+                raise ValueError(
+                    "speculative decoding requires kv_layout='paged' (the verify program "
+                    "scores windows against the block pool)"
+                )
+            if int(spec_depth) < 1:
+                raise ValueError(f"spec_depth must be >= 1, got {spec_depth}")
+            if speculate == "draft":
+                if draft_model is None:
+                    raise ValueError(
+                        "speculate='draft' needs draft_model (a small model sharing the "
+                        "tokenizer)"
+                    )
+                if draft_model.cfg.vocab_size != model.cfg.vocab_size:
+                    raise ValueError(
+                        f"draft vocab {draft_model.cfg.vocab_size} != target vocab "
+                        f"{model.cfg.vocab_size} (the draft must share the tokenizer)"
+                    )
+        self.spec_depth = int(spec_depth) if self._spec else 0
+        self.spec_ngram = int(spec_ngram)
         if mesh_shape is not None:
             raise NotImplementedError(_SHARDED)
         if role:
@@ -579,9 +631,13 @@ class ContinuousBatchingEngine:
             # the engine thread sets the device itself: name it
             self.device = torch.device("cuda", torch.cuda.current_device())
         model.to(self.device)
+        if weights_int8:
+            # quantize once: the steps read the twin, not the f32 model
+            model = quantize_model(model)
         cfg = model.cfg
         max_total = int(max_total) or cfg.max_seq_len
         self.model = model
+        self.weights_int8 = bool(weights_int8)
         self.cfg = cfg
         self.n_slots = int(n_slots)
         self.max_total = max_total
@@ -601,6 +657,7 @@ class ContinuousBatchingEngine:
             self.step = gpt_lib.PagedSlotDecodeStep(
                 model, s, max_total, block_size, usable + 1,
                 kv_quant_int8=kv_quant_int8, weights_int8=weights_int8,
+                spec_depth=self.spec_depth,
             )
             self.pool = BlockPool(usable + 1, block_size)
             self.prefill_chunk = int(prefill_chunk)
@@ -619,6 +676,31 @@ class ContinuousBatchingEngine:
             self.pool = None
             self.prefill_chunk = 0
             self._prefix_cache = False
+        # the draft model (speculate="draft") is a second captured
+        # single-token program over the same slot grid; "ngram" drafts on
+        # the host from each slot's committed chain (_spec_buf), so its
+        # round costs one device dispatch
+        self.draft = None
+        if self.speculate == "draft":
+            if draft_model.cfg.max_seq_len < max_total:
+                raise ValueError(
+                    f"draft max_seq_len {draft_model.cfg.max_seq_len} < engine max_total "
+                    f"{max_total} (the draft must cover every position it proposes at)"
+                )
+            draft_model.to(self.device)
+            self.draft = gpt_lib.SlotDecodeStep(draft_model, s, max_total)
+            self._d_tok = np.zeros((s,), np.int32)
+            self._d_index = np.zeros((s,), np.int32)
+        if self._spec:
+            # the committed chain (prompt + accepted tokens), the ngram
+            # drafter's corpus (+1: the last emitted token lands at
+            # lens + new - 1, which can equal max_total)
+            self._spec_buf = np.zeros((s, max_total + 1), np.int32)
+            # per-slot adaptive depth: shrinks when the trailing accept
+            # rate collapses, grows back toward spec_depth when it recovers
+            self._slot_depth = np.full((s,), self.spec_depth, np.int32)
+            self._accept_hist = [collections.deque(maxlen=_SPEC_WIN) for _ in range(s)]
+            self._depth_idle = np.zeros((s,), np.int32)
         # slot -> {"offset", "decode_start"} while chunk-prefilling;
         # always present (empty under dense) so the loop can test it
         self._prefilling: dict = {}
@@ -658,6 +740,14 @@ class ContinuousBatchingEngine:
         self.pool_audit_failures = 0
         self.pool_audit_ok = True
         self.pool_audit_error = ""
+        # speculation (engine-thread-owned): proposed / accepted drive the
+        # accept-rate gauge; fallback_steps counts quanta that ran the
+        # single-token step because every live slot's depth was zero
+        self.spec_rounds = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_fallback_steps = 0
+        self.spec_verify_seconds = 0.0
         # where each quantum's wall time goes: admission, step dispatch
         # (input copies and the replay's launch), the wait for the next
         # tokens on the host, stream fan-out
@@ -670,6 +760,7 @@ class ContinuousBatchingEngine:
         self._tracer = tracer
         self._h_ttft = self._h_itl = self._h_queue_wait = None
         self._h_batch = self._h_prefill = None
+        self._h_verify = self._g_spec_depth = None
         if registry is not None:
             from ..telemetry import FAST_BUCKETS, LATENCY_BUCKETS, SIZE_BUCKETS, TTFT_BUCKETS
 
@@ -693,6 +784,17 @@ class ContinuousBatchingEngine:
                 self._h_prefill = registry.histogram(
                     "prefill_chunk_seconds", "Wall-clock latency of one chunked-prefill chunk",
                     buckets=TTFT_BUCKETS,
+                )
+            if self._spec:
+                self._h_verify = registry.histogram(
+                    "spec_verify_seconds",
+                    "Wall-clock latency of one speculative verify round (draft proposals + "
+                    "the multi-token verify call)",
+                    buckets=FAST_BUCKETS,
+                )
+                self._g_spec_depth = registry.gauge(
+                    "spec_depth", "Current adaptive speculation depth per slot",
+                    labelnames=("slot",),
                 )
         # THE one capture per program, paid at construction instead of
         # inside the first request's latency, by the thread that replays
@@ -725,6 +827,11 @@ class ContinuousBatchingEngine:
                 np.zeros((self.max_blocks,), np.int32),
             )
         self.step.copy_block(0, 0)
+        if self._spec:
+            self.step.verify(np.zeros((self.n_slots, self.spec_depth + 1), np.int32),
+                             self._index, self._prompt, self._lens, self._tables)
+        if self.draft is not None:
+            self.draft(self._d_tok, self._d_index, self._prompt, self._lens)
 
     # -- client API --------------------------------------------------------
 
@@ -832,7 +939,8 @@ class ContinuousBatchingEngine:
         state dict of the same names and shapes (or a module whose state
         dict is). Only legal on a drained engine. The values are copied
         into the model's own tensors in place, so the captured programs
-        read them without a recapture."""
+        read them without a recapture; under weights_int8 an f32 state
+        (the unquantized model's) is re-quantized into the int8 twin."""
         state = params.state_dict() if isinstance(params, torch.nn.Module) else params
         with self._lifecycle:
             if self._admit_gate.is_set() or not self._drained.is_set():
@@ -840,14 +948,17 @@ class ContinuousBatchingEngine:
                     "swap_params requires a drained engine (pause_admission + drain first)"
                 )
             own = self.model.state_dict()
-            if set(state) != set(own):
+            if self.weights_int8 and not is_quantized(state):
+                requantize_into(self.model, state)
+            elif set(state) != set(own):
                 raise ValueError(
                     f"state dict names differ: missing {sorted(set(own) - set(state))}, "
                     f"unexpected {sorted(set(state) - set(own))}"
                 )
-            with torch.no_grad():
-                for name, tensor in own.items():
-                    tensor.copy_(state[name])
+            else:
+                with torch.no_grad():
+                    for name, tensor in own.items():
+                        tensor.copy_(state[name])
             if self._paged:
                 # cached prompt K/V was computed under the OLD weights
                 self.pool.flush()
@@ -952,6 +1063,20 @@ class ContinuousBatchingEngine:
             ("engine_mesh_devices", "gauge"): 1,
             ("engine_mesh_model_shards", "gauge"): 1,
         }
+        if self._spec:
+            out.update({
+                ("spec_tokens_proposed_total", "counter"): self.spec_proposed,
+                ("spec_tokens_accepted_total", "counter"): self.spec_accepted,
+                ("spec_accept_rate", "gauge"): (
+                    self.spec_accepted / self.spec_proposed if self.spec_proposed else 0.0
+                ),
+                ("spec_rounds_total", "counter"): self.spec_rounds,
+                ("spec_fallback_steps_total", "counter"): self.spec_fallback_steps,
+                ("spec_verify_seconds_total", "counter"): self.spec_verify_seconds,
+                ("engine_verify_compiles_total", "counter"): self.step.verify_compiles,
+            })
+            if self.draft is not None:
+                out[("engine_draft_compiles_total", "counter")] = self.draft.compiles
         if self._paged:
             pool = self.pool
             out.update({
@@ -1127,6 +1252,10 @@ class ContinuousBatchingEngine:
         n = len(req.prompt)
         self._prompt[slot, :] = 0
         self._prompt[slot, :n] = req.prompt
+        if self._spec:
+            # the ngram drafter mines the prompt before anything is generated
+            self._spec_buf[slot, :] = 0
+            self._spec_buf[slot, :n] = req.prompt
         self.admitted += 1
         self.peak_active = max(self.peak_active, self.active_slots)
         if not self._paged:
@@ -1196,6 +1325,17 @@ class ContinuousBatchingEngine:
         self._lens[slot] = len(req.prompt)
         self._index[slot] = start
         self._tok[slot] = req.prompt[start]
+        if self._spec:
+            # a fresh occupant: full depth, clean history, no probe debt
+            self._slot_depth[slot] = self.spec_depth
+            self._accept_hist[slot].clear()
+            self._depth_idle[slot] = 0
+            if self.draft is not None:
+                # the draft row joins at the same position; positions a
+                # prefix hit or prefill chunk skipped are missing from the
+                # draft's cache, which costs acceptance, never correctness
+                self._d_tok[slot] = req.prompt[start]
+                self._d_index[slot] = start
 
     def _evict_cancelled(self) -> None:
         for slot, req in enumerate(self._reqs):
@@ -1213,6 +1353,9 @@ class ContinuousBatchingEngine:
         self._tok[slot] = 0
         self._index[slot] = 0
         self._lens[slot] = 1
+        if self.draft is not None:
+            self._d_tok[slot] = 0
+            self._d_index[slot] = 0
         if self._paged:
             self._prefilling.pop(slot, None)
             self._tables[slot, :] = 0  # back onto the sentinel
@@ -1256,7 +1399,24 @@ class ContinuousBatchingEngine:
             slot for slot, req in enumerate(self._reqs)
             if req is not None and slot not in self._prefilling
         ]
-        if live:
+        if not live:
+            return
+        if not self._spec:
+            self._step_once()
+            return
+        # a slot whose depth collapsed sits out _SPEC_PROBE_ROUNDS quanta
+        # on the plain step, then probes speculation again at depth 1
+        for slot in live:
+            if self._slot_depth[slot] == 0:
+                self._depth_idle[slot] += 1
+                if self._depth_idle[slot] >= _SPEC_PROBE_ROUNDS:
+                    self._slot_depth[slot] = 1
+                    self._depth_idle[slot] = 0
+                    self._accept_hist[slot].clear()
+        if any(self._slot_depth[slot] > 0 for slot in live):
+            self._spec_once(live)
+        else:
+            self.spec_fallback_steps += 1
             self._step_once()
 
     def _prefill_once(self) -> None:
@@ -1303,6 +1463,8 @@ class ContinuousBatchingEngine:
             slots=self.active_slots,
         )
         self._cache = self.step.init_cache()
+        if self.draft is not None:
+            self.draft.init_cache()
         for slot, req in enumerate(self._reqs):
             if req is not None:
                 self._release(slot, error=err)
@@ -1348,6 +1510,9 @@ class ContinuousBatchingEngine:
             pos = int(self._index[slot]) + 1
             self._tok[slot] = nxt[slot]
             self._index[slot] = pos
+            if self._spec:
+                # fallback steps feed the chain the ngram drafter mines too
+                self._spec_buf[slot, pos] = nxt[slot]
             if pos >= int(self._lens[slot]):
                 req._emit(int(nxt[slot]))
                 self._post_emit(slot, req, now)
@@ -1395,6 +1560,176 @@ class ContinuousBatchingEngine:
             self._h_itl.observe(now - req.last_token_at)
         req.last_token_at = now
 
+    def _host_drafts(self, live, depth) -> np.ndarray:
+        """Prompt-lookup drafts on the host (speculate="ngram"): for each
+        live slot, the continuation of the most recent earlier occurrence
+        of its chain's last spec_ngram tokens (numpy, no device dispatch).
+        Unconsumed prompt tokens draft as themselves (the forcing rule
+        accepts them); without a match the current token repeats."""
+        k = self.spec_depth
+        n = self.spec_ngram
+        drafts = np.zeros((self.n_slots, k), np.int32)
+        for slot in live:
+            d = int(depth[slot])
+            if d < 1:
+                continue
+            idx = int(self._index[slot])
+            lens = int(self._lens[slot])
+            buf = self._spec_buf[slot]
+            # positions idx+1 .. idx+d want proposals; prompt positions
+            # are known
+            row = drafts[slot]
+            filled = 0
+            while filled < d and idx + 1 + filled < lens:
+                row[filled] = self._prompt[slot, idx + 1 + filled]
+                filled += 1
+            if filled >= d:
+                continue
+            fallback = int(self._tok[slot])
+            cont = None
+            if idx + 1 >= n:
+                tail = buf[idx + 1 - n:idx + 1]
+                # the committed chain is buf[:idx+1]; a match at p has its
+                # continuation at p+n, itself committed history
+                windows = np.lib.stride_tricks.sliding_window_view(buf[:idx + 1], n)
+                hits = np.nonzero(
+                    (windows[:idx + 1 - n] == tail).all(axis=1)
+                )[0] if idx + 1 - n > 0 else np.empty(0, np.int64)
+                if hits.size:
+                    # the most recent occurrence whose continuation covers
+                    # the window, else the earliest (the longest one)
+                    need = d - filled
+                    covering = hits[hits + n + need <= idx + 1]
+                    m = int(covering[-1]) if covering.size else int(hits[0])
+                    cont = buf[m + n:idx + 1]
+            j = 0
+            while filled < d:
+                row[filled] = int(cont[j]) if cont is not None and j < len(cont) else fallback
+                filled += 1
+                j += 1
+        return drafts
+
+    def _spec_once(self, live) -> None:
+        """One speculative round: propose up to each slot's depth of
+        tokens (the draft model or the host lookup), score every window
+        in ONE verify call, commit the longest accepted prefix plus the
+        verify's own next token, and roll the rejected suffix back by
+        resetting the slot's cursor alone (the next window rewrites those
+        pool rows before anything reads them; no block moves)."""
+        self.quanta += 1
+        start = time.monotonic()
+        k = self.spec_depth
+        depth = np.zeros((self.n_slots,), np.int32)
+        for slot in live:
+            req = self._reqs[slot]
+            # never past the request's budget: remaining tokens, one of
+            # which the verify's correction supplies
+            remaining = int(self._lens[slot]) + req.new - 1 - int(self._index[slot])
+            depth[slot] = max(0, min(int(self._slot_depth[slot]), remaining - 1))
+        try:
+            if self.speculate == "draft":
+                # d_max sequential draft steps, column by column; rows
+                # that need fewer ignore the tail
+                drafts = np.zeros((self.n_slots, k), np.int32)
+                for j in range(int(depth.max())):
+                    self.quantum_dispatches += 1
+                    # a row at depth 0 near max_total steps on past the
+                    # cache's end; its proposals are ignored, so its
+                    # position clamps to the last row as the reference's
+                    # dynamic_update_slice does (that row lies past the
+                    # committed index, and is rewritten before it is read)
+                    d_index = np.minimum(self._d_index, self.max_total - 1)
+                    d_nxt = self.draft(self._d_tok, d_index, self._prompt,
+                                       self._lens).cpu().numpy()
+                    drafts[:, j] = d_nxt
+                    self._d_tok[:] = d_nxt
+                    self._d_index += 1
+            else:
+                drafts = self._host_drafts(live, depth)
+            drafted = time.monotonic()
+            toks = np.concatenate([self._tok[:, None], drafts], axis=1).astype(np.int32)
+            self.quantum_dispatches += 1
+            nxt = self.step.verify(toks, self._index, self._prompt, self._lens, self._tables)
+            dispatched = time.monotonic()
+            nxt = nxt.cpu().numpy()
+        except Exception as err:  # noqa: BLE001 — fan out, stay alive
+            self._fail_all(err)
+            return
+        synced = time.monotonic()
+        self.decode_seconds += synced - start
+        self.dispatch_seconds += dispatched - start
+        self.sync_seconds += synced - dispatched
+        self.spec_verify_seconds += synced - drafted
+        if self._h_verify is not None:
+            self._h_verify.observe(synced - start)
+        self.steps += 1
+        self.spec_rounds += 1
+        slots_now = self.active_slots
+        if self._h_batch is not None:
+            self._h_batch.observe(slots_now)
+        now = time.monotonic()
+        proposed_now = accepted_now = 0
+        for slot in live:
+            req = self._reqs[slot]
+            if req is None:
+                continue
+            d = int(depth[slot])
+            # greedy acceptance: the longest prefix where the draft is the
+            # verify's own argmax, then its one corrected token (a d == 0
+            # row commits exactly the single-token step's result)
+            accepted = 0
+            while accepted < d and drafts[slot, accepted] == nxt[slot, accepted]:
+                accepted += 1
+            commit = accepted + 1
+            self.spec_proposed += d
+            self.spec_accepted += accepted
+            proposed_now += d
+            accepted_now += accepted
+            if d > 0:
+                hist = self._accept_hist[slot]
+                hist.append(accepted / d)
+                if len(hist) >= _SPEC_WIN // 2:
+                    rate = sum(hist) / len(hist)
+                    if rate < _SPEC_LOW:
+                        self._slot_depth[slot] -= 1
+                        self._depth_idle[slot] = 0
+                        hist.clear()
+                    elif rate > _SPEC_HIGH and self._slot_depth[slot] < self.spec_depth:
+                        self._slot_depth[slot] += 1
+                        hist.clear()
+            index = int(self._index[slot])
+            lens = int(self._lens[slot])
+            final = lens + req.new - 1
+            for j in range(commit):
+                pos = index + 1 + j
+                tok = int(nxt[slot, j])
+                self._spec_buf[slot, pos] = tok
+                if pos >= lens:
+                    req._emit(tok)
+                    self._post_emit(slot, req, now)
+            self._tok[slot] = nxt[slot, commit - 1]
+            self._index[slot] = index + commit
+            self.row_steps += 1
+            if index + commit >= final:
+                self.finished += 1
+                self._release(slot)
+        if self.draft is not None:
+            # resync the draft grid to the committed chains: rejected and
+            # parked rows alike snap back
+            self._d_tok[:] = self._tok
+            self._d_index[:] = self._index
+        if self._g_spec_depth is not None:
+            for slot in range(self.n_slots):
+                self._g_spec_depth.labels(slot=str(slot)).set(int(self._slot_depth[slot]))
+        fanout = time.monotonic() - synced
+        self.fanout_seconds += fanout
+        default_flight().record(
+            "serve", op="spec-step", step=self.steps, slots=slots_now,
+            proposed=proposed_now, accepted=accepted_now,
+            dispatch=round(dispatched - start, 6), sync=round(synced - dispatched, 6),
+            fanout=round(fanout, 6),
+        )
+
 
 
 def main(argv=None) -> int:
@@ -1415,18 +1750,33 @@ def main(argv=None) -> int:
     parser.add_argument("--kv-blocks", type=int, default=0)
     parser.add_argument("--prefill-chunk", type=int, default=64)
     parser.add_argument("--device", default=None, help="default cuda; cpu runs the plain ops")
+    parser.add_argument(
+        "--speculate", choices=("off", "ngram", "draft"), default="off",
+        help="speculative decoding: 'ngram' drafts from a host-side prompt lookup, "
+        "'draft' from GPT_DRAFT (random weights from a seed)",
+    )
+    parser.add_argument("--spec-depth", type=int, default=4)
     parser.add_argument("--smoke", action="store_true",
                         help="accepted for CI-invocation clarity")
     args = parser.parse_args(argv)
+    if args.speculate != "off" and args.layout != "paged":
+        parser.error("--speculate requires --layout paged")
 
     from ..models import gpt as gpt_lib
 
     device = resolve_device(args.device)
     cfg = gpt_lib.GPT_TINY
     model = gpt_lib.GPT(cfg, device=device, generator=torch.Generator().manual_seed(0))
+    draft_model = None
+    if args.speculate == "draft":
+        # random draft weights: acceptance is near zero, and the chains
+        # must equal the target's all the same
+        draft_model = gpt_lib.GPT(gpt_lib.GPT_DRAFT, device=device,
+                                  generator=torch.Generator().manual_seed(1))
     engine = ContinuousBatchingEngine(
         model, n_slots=args.slots, kv_layout=args.layout, block_size=args.block_size,
         kv_blocks=args.kv_blocks, prefill_chunk=args.prefill_chunk, device=device,
+        speculate=args.speculate, spec_depth=args.spec_depth, draft_model=draft_model,
     )
     paged = args.layout == "paged"
     rng = np.random.default_rng(0)
@@ -1470,6 +1820,15 @@ def main(argv=None) -> int:
         report["prefix_hits"] = engine.pool.hits
         report["cow_copies"] = engine.pool.cow_copies
         ok = ok and engine.step.prefill_compiles <= 1 and engine.pool.hits > 0
+        if args.speculate != "off":
+            report["verify_compiles"] = engine.step.verify_compiles
+            report["spec_rounds"] = engine.spec_rounds
+            report["spec_proposed"] = engine.spec_proposed
+            report["spec_accepted"] = engine.spec_accepted
+            ok = ok and engine.step.verify_compiles == 1 and engine.spec_rounds > 0
+            if engine.draft is not None:
+                report["draft_compiles"] = engine.draft.compiles
+                ok = ok and engine.draft.compiles == 1
         engine.stop()
         engine.pool.check()
         ok = ok and engine.pool.in_use() == 0

@@ -7,11 +7,15 @@ and models/moe.py `moe_generate` for the moe presets.
     python -m tf_operator_tpu_torch.serve --preset small --batching continuous \\
         --checkpoint-dir /ckpt/gpt
     python -m tf_operator_tpu_torch.serve --preset moe-base --checkpoint-dir /ckpt/moe
+    python -m tf_operator_tpu_torch.serve --preset small --kv-int8 --weights-int8 \
+        --batching continuous --speculate ngram --spec-depth 4
 
     POST /generate   {"input_ids": [[1,2,3], [7,8], ...],   # ragged OK
                       "max_new_tokens": 32, "temperature": 0.0,
-                      "top_k": 0, "top_p": 1.0, "seed": 0}
+                      "top_k": 0, "top_p": 1.0, "seed": 0, "num_beams": 1}
                   -> {"tokens": [[...], ...], "prompt_lens": [3, 2, ...]}
+                  (num_beams > 1, greedy and uniform-length only: "tokens"
+                  each row's best beam, plus "beams" and "beam_scores")
     POST /generate_stream  (single row) -> chunked ndjson: one
                   {"token": t, "index": i} event per generated token,
                   then {"done": true, "tokens": [[...]], "prompt_lens": [n]}
@@ -34,6 +38,15 @@ through a torch.Generator. Everything runs on `--device` (cuda unless
 named; without a card the server refuses to start rather than carry on
 on the CPU).
 
+Decode modes, as the reference's: --kv-int8 (an int8 KV cache) and
+--weights-int8 (the model quantized once at load; its f32 kernels are
+not kept); --speculative (inline prompt-lookup speculation for
+single-row uniform-length requests, the rest falling back to generate);
+--speculate ngram|draft with --spec-depth and --draft-preset (the
+engine's verify rounds; the draft presets share GPT_TINY's vocabulary,
+so at --preset small draft mode is refused as the reference refuses it);
+"num_beams" through beam_search.
+
 The moe presets (moe-tiny, moe-base) serve plain greedy or sampled
 decode of uniform-length prompts through `moe_generate`, inline; as in
 the reference, a ragged request, top_k/top_p and beams are 400s, and
@@ -46,9 +59,9 @@ the gpt presets, train/moe.py's for the moe ones); without one the
 server starts with random weights from a seed and says so.
 
 Not ported, each refused naming its ROADMAP item: window batching,
-speculative decoding, beam search, sharded decode (mesh, --tp), int8,
-the disaggregated routes (/prefill, /kv/*), the debug routes other than
-/debug/trace, tenant QoS, metric history and alerts.
+sharded decode (mesh, --tp), the disaggregated routes (/prefill,
+/kv/*), the debug routes other than /debug/trace, tenant QoS, metric
+history and alerts.
 """
 
 from __future__ import annotations
@@ -74,16 +87,15 @@ logger = logging.getLogger("tf_operator_tpu_torch.serve")
 _REQ_IDS = itertools.count(1)
 
 MAX_BATCH = 64
-# beams multiply the decode batch num_beams-fold (validated, then refused)
+# the ngram of the inline speculative path and its eligibility floor: one
+# constant, so the gate never admits a prompt the drafter rejects
+_SPEC_NGRAM = 2
+# beams multiply the decode batch (and the KV cache) num_beams-fold
 MAX_BEAMS = 8
 
 # what the reference serves that the port does not, and where ROADMAP
 # places it
 _WINDOW = "window batching is not ported (ROADMAP queue 1 item 5)"
-_INT8_KV = "the int8 KV cache is not ported (ROADMAP queue 1 item 5)"
-_INT8_WEIGHTS = "int8 weights are not ported (ROADMAP queue 1 item 8)"
-_SPECULATIVE = "speculative decoding is not ported (ROADMAP queue 1 item 6)"
-_BEAMS = "beam search is not ported (ROADMAP queue 1 item 6)"
 _SHARDED = "sharded decode (mesh, mesh_shape, --tp) is not ported (ROADMAP queue 1 item 6)"
 _DISAGGREGATED = (
     "disaggregated serving (roles, /prefill, /kv/*) is not ported (ROADMAP queue 1 item 6)"
@@ -124,10 +136,15 @@ def _max_seq(cfg) -> int:
 class _State:
     """Model + decode bookkeeping shared by request threads."""
 
-    def __init__(self, model, model_name: str, max_new_cap: int, device) -> None:
+    def __init__(self, model, model_name: str, max_new_cap: int, device,
+                 kv_quant_int8: bool = False, weights_int8: bool = False,
+                 speculative: bool = False) -> None:
         from ..telemetry import MetricRegistry, SpanTracer
 
         self.model = model
+        self.kv_quant_int8 = kv_quant_int8
+        self.weights_int8 = weights_int8
+        self.speculative = speculative
         self.cfg = model.cfg
         self.family = _family(model)
         self.model_name = model_name
@@ -161,6 +178,10 @@ class _State:
         self.decodes_inflight = self.registry.gauge(
             "decodes_inflight", "Device decodes dispatched and not yet finished",
         )
+        self.speculative_decodes = self.registry.counter(
+            "speculative_decodes_total",
+            "Decodes that took the speculative prompt-lookup path",
+        )
 
     def render_metrics(self) -> str:
         """Prometheus text: the registry, then the engine's flat counters
@@ -187,7 +208,7 @@ def _bad(payload) -> tuple:
 
 def _validate(state: _State, body):
     """-> (right-padded prompt array, per-row lens list, max_new_tokens,
-    temperature, seed, top_k, top_p) or (status, err). Every malformed
+    temperature, seed, top_k, top_p, num_beams) or (status, err). Every malformed
     field is a 400, never a dropped connection."""
     import numpy as np
 
@@ -240,6 +261,17 @@ def _validate(state: _State, body):
         not 1 <= num_beams <= MAX_BEAMS
     ):
         return _bad(f"num_beams must be an int in [1, {MAX_BEAMS}]")
+    if num_beams > 1:
+        if temperature != 0 or top_k != 0 or float(top_p) != 1.0:
+            return _bad("num_beams > 1 requires greedy settings (temperature 0, no top_k/top_p)")
+        if any(length != width for length in lens):
+            return _bad("num_beams > 1 requires uniform-length prompts")
+        if len(ids) * num_beams > MAX_BATCH:
+            # beams ride the batch axis: the product is what the card sees
+            return _bad(
+                f"batch {len(ids)} x num_beams {num_beams} exceeds the device admission "
+                f"cap {MAX_BATCH}"
+            )
     if state.family == "moe":
         # moe_generate decodes uniform-length prompts, greedy or tempered
         if any(length != width for length in lens):
@@ -249,23 +281,36 @@ def _validate(state: _State, body):
             return _bad("top_k/top_p are not supported for the moe family")
         if num_beams > 1:
             return _bad("beam search is not supported for the moe family")
-    if num_beams > 1:
-        return _bad(_BEAMS)
-    return prompt, lens, new, float(temperature), seed, top_k, float(top_p)
+    return prompt, lens, new, float(temperature), seed, top_k, float(top_p), num_beams
 
 
 def _device_decode(state: _State, prompt, lens, new, temperature=0.0, seed=0,
-                   top_k=0, top_p=1.0):
-    """The inline decode-and-account block, shared by /generate and
-    /generate_stream: -> host chains [b, width + new] (numpy)."""
+                   top_k=0, top_p=1.0, num_beams=1):
+    """The inline decode-and-account block, shared by /generate,
+    /generate_stream and beams: -> host chains [b, width + new] (numpy),
+    or for num_beams > 1 beam_search's host (sequences, scores).
+
+    The speculative path (--speculative) takes single-row uniform-length
+    requests only: its rounds commit the batch minimum of the rows'
+    accepted drafts, so one low-acceptance row would hold every row to one
+    token a round; multi-row and ragged requests fall back to generate.
+    Greedy requests are token-exact against generate (at f32); sampled
+    ones are distribution-exact from another stream of the seed's
+    generator."""
+    use_spec = (
+        num_beams == 1 and state.speculative and len(lens) == 1
+        and lens[0] == prompt.shape[1] and prompt.shape[1] >= _SPEC_NGRAM
+    )
     state.decodes_inflight.inc()
     try:
-        return _locked_decode(state, prompt, lens, new, temperature, seed, top_k, top_p)
+        return _locked_decode(state, prompt, lens, new, temperature, seed, top_k, top_p,
+                              num_beams, use_spec)
     finally:
         state.decodes_inflight.dec()
 
 
-def _locked_decode(state, prompt, lens, new, temperature, seed, top_k, top_p):
+def _locked_decode(state, prompt, lens, new, temperature, seed, top_k, top_p,
+                   num_beams=1, use_spec=False):
     import time
 
     import torch
@@ -277,16 +322,28 @@ def _locked_decode(state, prompt, lens, new, temperature, seed, top_k, top_p):
         start = time.monotonic()
         generator = torch.Generator(device=state.device).manual_seed(int(seed))
         tokens = torch.as_tensor(prompt, device=state.device)
+        flags = dict(kv_quant_int8=state.kv_quant_int8, weights_int8=state.weights_int8)
         if state.family == "moe":
             out = moe_lib.moe_generate(
                 state.model, tokens, new, temperature=temperature, generator=generator,
             )
+        elif num_beams > 1:
+            seqs, scores = gpt_lib.beam_search(state.model, tokens, new, num_beams=num_beams,
+                                               **flags)
+            out = (seqs.cpu().numpy(), scores.cpu().numpy())
+        elif use_spec:
+            out = gpt_lib.generate_speculative(
+                state.model, tokens, new, ngram=_SPEC_NGRAM, temperature=temperature,
+                generator=generator, top_k=top_k, top_p=top_p, **flags,
+            )
+            state.speculative_decodes.inc()
         else:
             out = gpt_lib.generate(
                 state.model, tokens, new, temperature=temperature, generator=generator,
-                prompt_lens=torch.tensor(lens), top_k=top_k, top_p=top_p,
+                prompt_lens=torch.tensor(lens), top_k=top_k, top_p=top_p, **flags,
             )
-        out = out.cpu().numpy()  # waits for the device
+        if not isinstance(out, tuple):
+            out = out.cpu().numpy()  # waits for the device
         state.decode_seconds.inc(time.monotonic() - start)
         state.decode_batches.inc()
     return out
@@ -343,6 +400,7 @@ def DecodeHandlerFactory(state: _State):
                     "status": status, "model": state.model_name, "device": str(state.device),
                     "decodes": int(state.decodes.value),
                     "pool_audit": "ok" if audit_ok else "failed",
+                    "kv_int8": state.kv_quant_int8, "weights_int8": state.weights_int8,
                 }
                 if not audit_ok:
                     payload["pool_audit_error"] = str(engine.pool_audit_error)[:200]
@@ -420,9 +478,28 @@ def DecodeHandlerFactory(state: _State):
             result = _validate(state, body)
             if isinstance(result[0], int):  # (status, payload)
                 return self._error(result[0], result[1]["error"])
-            prompt, lens, new, temperature, seed, top_k, top_p = result
+            prompt, lens, new, temperature, seed, top_k, top_p, num_beams = result
             if self.path == "/generate_stream":
+                if num_beams > 1 and len(lens) == 1:
+                    return self._error(400, "/generate_stream does not support beams")
                 return self._do_stream(prompt, lens, new, temperature, seed, top_k, top_p)
+            if num_beams > 1:
+                # through the shared inline block, never the engine: beams
+                # already multiply the device batch num_beams-fold
+                try:
+                    seqs, scores = _device_decode(state, prompt, lens, new,
+                                                  num_beams=num_beams)
+                except Exception as err:  # noqa: BLE001 — same contract
+                    return self._error(500, f"decode failed: {type(err).__name__}: {err}"[:300])
+                state.decodes.inc()
+                # every beam's tokens: the device work covers all of them
+                state.tokens_generated.inc(new * num_beams * len(lens))
+                return self._reply(200, {
+                    "tokens": [row[0].tolist() for row in seqs],
+                    "beams": [row.tolist() for row in seqs],
+                    "beam_scores": [row.tolist() for row in scores],
+                    "prompt_lens": lens,
+                })
             greedy = temperature == 0.0 and top_k == 0 and top_p == 1.0
             if state.engine is not None and greedy:
                 # continuous batching: each row becomes its own engine
@@ -599,6 +676,8 @@ def make_server(
     batch_window_ms: float = 0.0,
     speculative: bool = False,
     speculate: str = "off",
+    spec_depth: int = 4,
+    draft_preset: str = "",
     mesh=None,
     mesh_shape=None,
     role: str = "",
@@ -612,10 +691,15 @@ def make_server(
     lock-serialized; the default "" means none) or "continuous"
     (serve/engine.py: the slot grid, built here, its programs captured
     before the server answers; gpt only). device: `cuda` unless named;
-    the model is moved there. An MoE LM with any gpt-family option
-    raises ValueError, as the reference; the reference's other options
-    raise NotImplementedError naming their ROADMAP items."""
+    the model is moved there. kv_quant_int8, weights_int8 (the model
+    quantized once here unless it already is the int8 twin, which turns
+    the flag on by itself), speculative, speculate/spec_depth/draft_preset
+    and their combinations are the reference's, refused in its words
+    (ValueError). An MoE LM with any gpt-family option raises ValueError,
+    as the reference; the options the port leaves out raise
+    NotImplementedError naming their ROADMAP items."""
     from .._device import resolve_device
+    from ..ops.quant import is_quantized, quantize_model
 
     if _family(model) == "moe" and (
         kv_quant_int8 or weights_int8 or speculative or speculate != "off"
@@ -625,8 +709,6 @@ def make_server(
         raise ValueError(_MOE_STARTUP)
     for refused, why in (
         (batching == "window" or batch_window_ms > 0, _WINDOW),
-        (kv_quant_int8, _INT8_KV), (weights_int8, _INT8_WEIGHTS),
-        (speculative or speculate != "off", _SPECULATIVE),
         (mesh is not None or mesh_shape is not None, _SHARDED),
         (bool(role), _DISAGGREGATED),
         (tenant_quotas is not None, _QOS), (enable_debug_endpoints, _DEBUG),
@@ -636,18 +718,59 @@ def make_server(
     batching = batching or "none"
     if batching not in ("none", "continuous"):
         raise ValueError(f"batching must be none/window/continuous, got {batching!r}")
+    if batching == "continuous" and speculative:
+        raise ValueError(
+            "batching='continuous' and speculative are mutually exclusive: the engine owns "
+            "the greedy path and its quantum is one token, not a drafted run"
+        )
+    if speculate not in ("off", "ngram", "draft"):
+        raise ValueError(f"speculate must be 'off', 'ngram' or 'draft', got {speculate!r}")
+    if speculate != "off":
+        if batching != "continuous":
+            raise ValueError(
+                "speculate requires batching='continuous' (the engine owns the draft/verify "
+                "loop; the inline prompt-lookup path is the `speculative` flag)"
+            )
+        if kv_layout != "paged":
+            raise ValueError(
+                "speculate requires kv_layout='paged' (the verify program scores windows "
+                "against the block pool)"
+            )
+    draft_model = None
+    if speculate == "draft":
+        presets = _draft_presets()
+        draft_cfg = presets.get(draft_preset or "draft-tiny")
+        if draft_cfg is None:
+            raise ValueError(f"unknown draft preset {draft_preset!r} (have: {sorted(presets)})")
     device = resolve_device(device)
     model.to(device)
-    state = _State(model, model_name, max_new_cap, device)
+    if _family(model) == "gpt":
+        if is_quantized(model) and not weights_int8:
+            logger.info("the model is the int8 twin: enabling weights_int8")
+            weights_int8 = True
+        if weights_int8:
+            # one quantization at load; every decode then reads the int8
+            # twin (the caller drops the f32 model to free its kernels)
+            model = quantize_model(model)
+    state = _State(model, model_name, max_new_cap, device, kv_quant_int8=kv_quant_int8,
+                   weights_int8=weights_int8, speculative=speculative)
     if batching == "continuous":
+        import torch
+
+        from ..models import gpt as gpt_lib
         from .engine import ContinuousBatchingEngine
 
+        if speculate == "draft":
+            # random weights from seed 0: every replica drafts alike
+            draft_model = gpt_lib.GPT(draft_cfg, generator=torch.Generator().manual_seed(0))
         # the programs are captured here, on the engine's own thread,
         # before the listener exists
         state.engine = ContinuousBatchingEngine(
             model, n_slots=n_slots, registry=state.registry, tracer=state.tracer,
             kv_layout=kv_layout, block_size=block_size, kv_blocks=kv_blocks,
-            prefill_chunk=prefill_chunk, device=device,
+            prefill_chunk=prefill_chunk, device=device, kv_quant_int8=kv_quant_int8,
+            weights_int8=weights_int8, speculate=speculate, spec_depth=spec_depth,
+            draft_model=draft_model,
         )
     server = DecodeHTTPServer((host, port), DecodeHandlerFactory(state))
     server.state = state
@@ -655,12 +778,17 @@ def make_server(
     return server
 
 
+def _draft_presets():
+    """The named draft configs of --speculate draft: 'draft-tiny' (the
+    default, GPT_DRAFT) and 'tiny', both sharing GPT_TINY's vocabulary."""
+    from ..models import gpt as gpt_lib
+
+    return {"draft-tiny": gpt_lib.GPT_DRAFT, "tiny": gpt_lib.GPT_TINY}
+
+
 # CLI flags of the reference's server that the port refuses, with why
 _REFUSED_FLAGS = (
-    ("--kv-int8", False, _INT8_KV), ("--weights-int8", False, _INT8_WEIGHTS),
-    ("--batch-window-ms", True, _WINDOW), ("--speculative", False, _SPECULATIVE),
-    ("--speculate", True, _SPECULATIVE), ("--spec-depth", True, _SPECULATIVE),
-    ("--draft-preset", True, _SPECULATIVE), ("--tp", True, _SHARDED),
+    ("--batch-window-ms", True, _WINDOW), ("--tp", True, _SHARDED),
     ("--mesh-shape", True, _SHARDED), ("--role", True, _DISAGGREGATED),
     ("--enable-debug-endpoints", False, _DEBUG), ("--tenant-quotas", True, _QOS),
     ("--history-interval", True, _QOS), ("--history-capacity", True, _QOS),
@@ -707,6 +835,32 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     parser.add_argument("--prefill-chunk", type=int, default=64,
                         help="chunked-prefill width under --kv-layout paged (0 = off)")
+    parser.add_argument("--kv-int8", action="store_true",
+                        help="int8 KV cache (per-(position, head) scales)")
+    parser.add_argument(
+        "--weights-int8", action="store_true",
+        help="int8 kernels (ops/quant.py): the model quantized once at load",
+    )
+    parser.add_argument(
+        "--speculative", action="store_true",
+        help="prompt-lookup speculative decoding for single-row uniform-length inline "
+        "requests (token-exact for greedy at f32)",
+    )
+    parser.add_argument(
+        "--speculate", choices=["off", "ngram", "draft"], default="off",
+        help="speculative decoding in the continuous-batching engine (needs --batching "
+        "continuous --kv-layout paged): 'ngram' drafts from a host-side prompt lookup, "
+        "'draft' from a small draft model (--draft-preset)",
+    )
+    parser.add_argument(
+        "--draft-preset", default="",
+        help="draft config for --speculate draft (default draft-tiny, GPT_TINY's "
+        "vocabulary)",
+    )
+    parser.add_argument(
+        "--spec-depth", type=int, default=4,
+        help="most tokens drafted per speculative round; the verify scores K+1",
+    )
     for flag, takes_value, _ in _REFUSED_FLAGS:
         if takes_value:
             parser.add_argument(flag, default=None, help=argparse.SUPPRESS)
@@ -726,6 +880,19 @@ def parse_args(argv=None) -> argparse.Namespace:
         ]
         if offending:
             parser.error(f"{', '.join(offending)} {_MOE_FLAGS}")
+    if args.batching == "continuous" and args.speculative:
+        parser.error("--batching continuous is mutually exclusive with --speculative")
+    if args.speculate != "off":
+        if args.batching != "continuous":
+            parser.error("--speculate requires --batching continuous")
+        if args.kv_layout != "paged":
+            parser.error("--speculate requires --kv-layout paged")
+        if args.spec_depth < 1:
+            parser.error("--spec-depth must be >= 1")
+    if args.draft_preset and args.speculate != "draft":
+        parser.error("--draft-preset requires --speculate draft")
+    if args.draft_preset and args.draft_preset not in ("draft-tiny", "tiny"):
+        parser.error(f"unknown --draft-preset {args.draft_preset!r} (have: draft-tiny, tiny)")
     for flag, _, why in _REFUSED_FLAGS:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             parser.error(f"{flag}: {why}")
@@ -802,13 +969,23 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     model = load_model(args.preset, args.checkpoint_dir, device)
     port = args.port if args.port is not None else int(os.environ.get("PORT", "8600"))
-    server = make_server(
-        model, port=port, model_name=args.preset if args.preset.startswith("moe")
-        else f"gpt-{args.preset}", max_new_cap=args.max_new_cap,
-        host=args.host, batching=args.batching, n_slots=args.slots,
-        kv_layout=args.kv_layout, block_size=args.block_size, kv_blocks=args.kv_blocks,
-        prefill_chunk=args.prefill_chunk, device=device,
-    )
+    try:
+        server = make_server(
+            model, port=port, model_name=args.preset if args.preset.startswith("moe")
+            else f"gpt-{args.preset}", max_new_cap=args.max_new_cap,
+            host=args.host, batching=args.batching, n_slots=args.slots,
+            kv_layout=args.kv_layout, block_size=args.block_size, kv_blocks=args.kv_blocks,
+            prefill_chunk=args.prefill_chunk, device=device, kv_quant_int8=args.kv_int8,
+            weights_int8=args.weights_int8, speculative=args.speculative,
+            speculate=args.speculate, spec_depth=args.spec_depth,
+            draft_preset=args.draft_preset,
+        )
+    except ValueError as err:
+        # a combination only the model can judge (a draft whose vocabulary
+        # is not the target's): refused before the listener exists
+        logger.error("refused: %s", err)
+        return 2
+    del model
     logger.info("decode server on :%d (%s)", server.server_address[1], device)
     # graceful drain: SIGTERM stops accepting, lets in-flight requests
     # finish and exits 0. Non-daemon handler threads + block_on_close

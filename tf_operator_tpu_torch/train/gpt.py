@@ -25,10 +25,11 @@ and exits 143 (retryable); a finished run writes a final checkpoint.
 tokens/sec (of the global batch), then a held-out eval; --generate N
 then decodes N tokens greedily (models/gpt.py generate) from the first 8
 tokens of each row of the warm-up batch, in a single process only (as
-the reference, which skips it on several hosts). Not ported: --tp, --sp
-and --sp-strategy (refused, naming their ROADMAP items), --weights-int8,
---kv-int8 and --monitoring-bind-addr (ROADMAP queue 1; argparse refuses
-them).
+the reference, which skips it on several hosts); --weights-int8 and
+--kv-int8 decode with int8 kernels (ops/quant.py, quantized once) and an
+int8 KV cache. Not ported: --tp, --sp and --sp-strategy (refused, naming
+their ROADMAP items) and --monitoring-bind-addr (ROADMAP queue 1;
+argparse refuses it).
 """
 
 from __future__ import annotations
@@ -83,6 +84,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument(
         "--generate", type=int, default=0, metavar="N",
         help="after training, greedily decode N tokens from a prompt",
+    )
+    parser.add_argument(
+        "--weights-int8", action="store_true",
+        help="int8 kernels for --generate (ops/quant.py: one quantization, per-feature-"
+        "slice scales)",
+    )
+    parser.add_argument(
+        "--kv-int8", action="store_true",
+        help="int8 KV cache for --generate (per-(position, head) scales)",
     )
     parser.add_argument("--device", default=None, help="default: cuda")
     add_mesh_flags(parser)
@@ -142,7 +152,8 @@ def train(
     elif args.generate > 0:
         prompt = first_batch["input_ids"][:, :PROMPT_LEN]
         start = time.monotonic()  # the held-out eval has waited for the device
-        out = gpt_lib.generate(model, prompt, max_new_tokens=args.generate)
+        out = gpt_lib.generate(model, prompt, max_new_tokens=args.generate,
+                               kv_quant_int8=args.kv_int8, weights_int8=args.weights_int8)
         summary["generated"] = out.tolist()  # waits for the device
         summary["generate_ms_per_token"] = (time.monotonic() - start) * 1e3 / args.generate
         logger.info("generated: %s", summary["generated"][0])
