@@ -229,6 +229,33 @@ non-zero, printing no result:
    images: f32 on the card against the CPU, bf16 against f32, a remat
    step against a plain one; a planted column-major patch order must
    fail.
+41. train_observe - gpt_train's run (GPT-small, 4 x 4096, causal flash)
+   with --monitoring-bind-addr 127.0.0.1:<port>: a scraper thread reads
+   every route of the worker's telemetry server while the card trains,
+   and each step's hook reads /metrics. Held: train_steps_total moves by
+   the steps run, /metrics validates, /healthz reaches "training", every
+   route answers 200, and K1-K3 launch 12 times a step each. Tokens/s
+   beside gpt_train's.
+42. train_observe_smoke - train/observe.py run_train_observe_smoke on
+   the card: two MNIST workers in threads, a latency fault on worker-1's
+   input fires train-straggler, the fault clears and the alert
+   resolves; phase coverage >= 0.95, attribution overhead and the
+   sampling profiler's duty cycle < 2%, the goodput ledger reconciles
+   exactly. Held too: the healthy worker's step rate when the straggler
+   fired stays within OBSERVE_RATE_KEEP of its steady rate (the larger of
+   the baseline's and the one after the resolve: the slowed worker's
+   sleep is on the host, so the shared card does not couple them).
+43. serve_observe - GPT-small behind make_server with tenant quotas
+   (OBSERVE_QUOTAS), alerts on, a 0.5 s history cadence and the debug
+   endpoints, serve's 32-request mix from 8 client threads over
+   /generate_stream (request i from tenant i % 3: vip, a default tenant,
+   noisy), once with batching="continuous" and once with
+   batching="window", batch_window_ms=5. Held: every chain against the
+   inline generate under the margin rule (SERVE_MARGIN_ULPS), a 429 only
+   with Retry-After (a client retries after it), OBSERVE_NOISY_BURST
+   concurrent noisy requests over its burst draw at least one 429, every
+   debug route answers. Tokens/s, TTFT p50/p95 (first streamed token at
+   the client) for both modes and by priority class.
 Then the kernel summary line (with each kernel's launches per run_steps
 replay and per step per rank at world 2), the nvidia-smi line, and the
 result line. `chip_smoke.py --world2-rank <dir>` is one rank of phases
@@ -1107,14 +1134,14 @@ def time_conv_kernels(kernels, conv_bn, worst) -> dict:
     return {"stages": stages, "totals": totals}
 
 
-def gpt_args(gpt_cli, steps: int, generate: int = 0):
+def gpt_args(gpt_cli, steps: int, generate: int = 0, extra=()):
     """train/gpt.py's flags for `steps` timed steps after its warm-up step
-    (its --steps is the total budget, the warm-up included)."""
+    (its --steps is the total budget, the warm-up included), then `extra`."""
     b, s, _, _ = GPT_SHAPE
     return gpt_cli.parse_args([
         "--preset", "small", "--steps", str(steps + 1), "--batch-size", str(b),
         "--seq-len", str(s), "--learning-rate", "3e-4", "--log-every", "1",
-        "--generate", str(generate),
+        "--generate", str(generate), *extra,
     ])
 
 
@@ -5228,6 +5255,374 @@ def run_moe_vit_phases(kernels, smi) -> dict:
 
 
 
+# the telemetry phases: train_observe, train_observe_smoke, serve_observe
+OBSERVE_ROUTES = ("/metrics", "/healthz", "/debug/slozz", "/debug/flightz", "/debug/historyz",
+                  "/debug/alertz", "/debug/profilez")
+OBSERVE_QUOTAS = {"noisy": {"rate": 200, "burst": 400, "priority": "batch"},
+                  "vip": {"priority": "high"}, "*": {"priority": "standard"}}
+OBSERVE_TENANTS = ("vip", "default", "noisy")  # request i comes from tenant i % 3
+OBSERVE_CLASSES = {"vip": "high", "default": "standard", "noisy": "batch"}
+OBSERVE_WINDOW_MS = 5.0
+OBSERVE_HISTORY_S = 0.5
+# noisy requests of SERVE_NEW[1] tokens sent at once: 5 x 128 = 640 tokens
+# against a 400-token burst refilled at 200 tokens/s
+OBSERVE_NOISY_BURST = 5
+# the healthy smoke worker's steps/s when the straggler fired, as a share of
+# its steady rate: both workers' inputs are paced at 0.05 s a batch, and
+# only worker-1's gains the fault's host sleep
+OBSERVE_RATE_KEEP = 0.7
+OBSERVE_DEBUG_ROUTES = ("/debug/clockz", "/debug/flightz?limit=20", "/debug/historyz",
+                        "/debug/alertz", "/debug/profilez?seconds=0.2&format=json",
+                        "/debug/trace")
+
+
+def http_get(port: int, path: str, timeout: float = 30.0) -> tuple:
+    """(status, body bytes) of one GET; an HTTP error's status and body."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read()
+
+
+def run_train_observe(kernels, gpt_cli, smi, gpt_summary) -> dict:
+    """train_observe: gpt_train's run with the worker telemetry server up
+    (see the module docstring, phase 41)."""
+    import threading
+
+    from tf_operator_tpu_torch.telemetry import default_registry, validate_text
+
+    port = free_port()
+    steps_family = default_registry().get("train_steps_total")
+    base = steps_family.value if steps_family is not None else 0.0
+    stop = threading.Event()
+    scraped = {path: [] for path in OBSERVE_ROUTES}
+    phases, per_step, errors = set(), [], []
+
+    def scraper():
+        while not stop.is_set():
+            for path in OBSERVE_ROUTES:
+                try:
+                    status, body = http_get(port, path)
+                except OSError:  # the listener is not up yet, or is gone
+                    continue
+                scraped[path].append(status)
+                if path == "/healthz" and status == 200:
+                    phases.add(json.loads(body)["phase"])
+            stop.wait(0.25)
+
+    def on_step(state):
+        status, body = http_get(port, "/metrics")
+        text = body.decode()
+        try:
+            validate_text(text)
+        except Exception as err:  # noqa: BLE001 — raised below
+            errors.append(repr(err))
+        value = next(float(line.split()[1]) for line in text.splitlines()
+                     if line.startswith("tf_operator_tpu_train_steps_total "))
+        per_step.append({"step": state.step, "status": status, "steps_total": value - base})
+
+    thread = threading.Thread(target=scraper, name="observe-scraper", daemon=True)
+    thread.start()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    try:
+        summary, state = gpt_cli.train(
+            gpt_args(gpt_cli, GPT_STEPS, extra=("--monitoring-bind-addr", f"127.0.0.1:{port}")),
+            on_step=on_step)
+    finally:
+        stop.set()
+        thread.join(timeout=30)
+    launches = dict(kernels.LAUNCHES)
+    del state
+    want = {k: 0 for k in launches}
+    want["flash_fwd"] = LAYERS * summary["forward_passes"]
+    want["flash_bwd_dkv"] = want["flash_bwd_dq"] = LAYERS * summary["backward_passes"]
+    steps_run = summary["step"]
+    report = {
+        "phase": "train_observe", "card": smi, "model": "GPT-small", "shape": list(GPT_SHAPE),
+        "tokens_per_sec": summary["tokens_per_sec"],
+        "gpt_train_tokens_per_sec": gpt_summary["tokens_per_sec"],
+        "ratio_to_gpt_train": summary["tokens_per_sec"] / gpt_summary["tokens_per_sec"],
+        "steps_run": steps_run, "per_step": per_step, "healthz_phases": sorted(phases),
+        "scrapes": {path: len(codes) for path, codes in scraped.items()},
+        "launches": launches, "launches_expected": want,
+        "launches_per_pass": {
+            "flash_fwd": launches["flash_fwd"] / summary["forward_passes"],
+            "flash_bwd_dkv": launches["flash_bwd_dkv"] / summary["backward_passes"],
+            "flash_bwd_dq": launches["flash_bwd_dq"] / summary["backward_passes"]},
+        "loss": summary["loss"], "first_loss": summary["first_loss"],
+    }
+    emit(report)
+    problems = list(errors)
+    if launches != want:
+        problems.append(f"launches {launches} != expected {want}")
+    if not per_step or per_step[-1]["steps_total"] != steps_run:
+        problems.append(f"train_steps_total moved {per_step[-1:]} for {steps_run} steps")
+    if [p["steps_total"] for p in per_step] != list(range(1, steps_run + 1)):
+        problems.append(f"train_steps_total per step {[p['steps_total'] for p in per_step]}")
+    if "training" not in phases:
+        problems.append(f"/healthz never read training: {sorted(phases)}")
+    for path, codes in scraped.items():
+        if not codes or any(code != 200 for code in codes):
+            problems.append(f"{path}: statuses {sorted(set(codes))} over {len(codes)} reads")
+    if not math.isfinite(summary["tokens_per_sec"]) or summary["tokens_per_sec"] <= 0:
+        problems.append(f"tokens/s {summary['tokens_per_sec']}")
+    if problems:
+        raise AssertionError(f"train_observe: {problems}")
+    return report
+
+
+def run_train_observe_smoke(smi) -> dict:
+    """train_observe_smoke: train/observe.py's smoke on the card (phase 42)."""
+    from tf_operator_tpu_torch.train import observe
+
+    summary = observe.run_train_observe_smoke(device="cuda")  # raises on any problem
+    rates = summary["rates"]
+    healthy = {stage: rates.get(stage, {}).get("worker-0")
+               for stage in ("baseline", "fired", "resolved")}
+    emit({"phase": "train_observe_smoke", "card": smi,
+          **{k: v for k, v in summary.items() if k not in ("slow_traces", "fleet")},
+          "healthy_worker_rate": healthy})
+    # the baseline's window holds the warm-up step; the rate after the
+    # resolve is the healthy worker's steady one
+    steady = max(healthy["baseline"] or 0.0, healthy["resolved"] or 0.0)
+    if not (steady and healthy["fired"] and healthy["fired"] >= OBSERVE_RATE_KEEP * steady):
+        raise AssertionError(f"train_observe_smoke: the healthy worker's rate followed the "
+                             f"slowed one's: {rates}")
+    return summary
+
+
+def stream_with_tenant(port: int, prompt: list, new: int, tenant: str) -> dict:
+    """One /generate_stream as `tenant`; a 429 is retried after its
+    Retry-After, as a client does. -> the chain, the seconds to the first
+    streamed token of the admitted attempt and to the end, and every 429's
+    Retry-After."""
+    import urllib.error
+    import urllib.request
+
+    retries = []
+    while True:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate_stream",
+            data=json.dumps({"input_ids": [prompt], "max_new_tokens": new}).encode(),
+            headers={"Content-Type": "application/json", "X-Tenant": tenant}, method="POST")
+        start = time.monotonic()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                first, done = None, None
+                for line in resp:
+                    event = json.loads(line)
+                    if "token" in event and first is None:
+                        first = time.monotonic() - start
+                    if event.get("done"):
+                        done = event
+                    if "error" in event:
+                        raise AssertionError(f"stream error: {event['error']}")
+            return {"chain": done["tokens"][0], "ttft_s": first,
+                    "latency_s": time.monotonic() - start, "retry_after": retries}
+        except urllib.error.HTTPError as err:
+            if err.code != 429:
+                raise
+            hint = err.headers.get("Retry-After")
+            retries.append(hint)
+            if hint is None:
+                raise AssertionError("a 429 without Retry-After")
+            time.sleep(float(hint))
+
+
+def serve_observe_mode(gpt_lib, model, reqs, batching: str, smi) -> dict:
+    """One mode of serve_observe: the server, the load over streams with
+    tenants, the noisy burst and the debug routes."""
+    import queue as queue_mod
+    import threading
+
+    from tf_operator_tpu_torch.serve import make_server
+    from tf_operator_tpu_torch.telemetry import quantile_from_flat
+
+    options = ({"batching": "continuous", "n_slots": SERVE_SLOTS, "kv_layout": "paged",
+                "block_size": SERVE_BLOCK, "prefill_chunk": SERVE_CHUNK}
+               if batching == "continuous"
+               else {"batching": "window", "batch_window_ms": OBSERVE_WINDOW_MS})
+    start = time.monotonic()
+    server = make_server(model, device="cuda", max_new_cap=SERVE_NEW[1],
+                         tenant_quotas=OBSERVE_QUOTAS, alerts=True,
+                         history_interval_s=OBSERVE_HISTORY_S, enable_debug_endpoints=True,
+                         **options)
+    startup_s = time.monotonic() - start
+    port = server.server_address[1]
+    listener = threading.Thread(target=server.serve_forever, daemon=True)
+    listener.start()
+    results = [None] * len(reqs)
+    errors = []
+    try:
+        todo: queue_mod.Queue = queue_mod.Queue()
+        for i in range(len(reqs)):
+            todo.put(i)
+
+        def worker():
+            while True:
+                try:
+                    i = todo.get_nowait()
+                except queue_mod.Empty:
+                    return
+                try:
+                    results[i] = stream_with_tenant(port, reqs[i]["prompt"], reqs[i]["new"],
+                                                    OBSERVE_TENANTS[i % 3])
+                except Exception as err:  # noqa: BLE001 — raised below
+                    errors.append((i, repr(err)))
+
+        threads = [threading.Thread(target=worker) for _ in range(SERVE_CLIENTS)]
+        start = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.monotonic() - start
+        # the noisy tenant's burst over its bucket, all at once
+        burst = [None] * OBSERVE_NOISY_BURST
+
+        def noisy(k):
+            burst[k] = post_with_tenant(port, reqs[k]["prompt"][:16], SERVE_NEW[1], "noisy")
+
+        bursters = [threading.Thread(target=noisy, args=(k,)) for k in range(len(burst))]
+        for t in bursters:
+            t.start()
+        for t in bursters:
+            t.join(timeout=600)
+        time.sleep(2 * OBSERVE_HISTORY_S)  # at least one history tick after the load
+        pages = {path: http_get(port, path) for path in OBSERVE_DEBUG_ROUTES}
+        metrics = http_get(port, "/metrics")[1].decode()
+    finally:
+        server.shutdown()
+        server.server_close()
+        if server.state.engine is not None:
+            server.state.engine.stop()
+        listener.join(timeout=30)
+    if errors or any(r is None for r in results):
+        raise AssertionError(f"serve_observe {batching}: {errors[:3]}")
+    flat = {}
+    for line in metrics.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.split()
+            flat[name] = float(value)
+    ttfts = [r["ttft_s"] for r in results]
+    by_class = {}
+    for i, r in enumerate(results):
+        by_class.setdefault(OBSERVE_CLASSES[OBSERVE_TENANTS[i % 3]], []).append(r["ttft_s"])
+
+    def p(values, q):
+        return float(torch.tensor(values).quantile(q))
+
+    alertz = json.loads(pages["/debug/alertz"][1])
+    return {
+        "batching": batching, "startup_s": startup_s, "load_wall_s": wall,
+        "requests": len(reqs), "generated_tokens_per_s": sum(r["new"] for r in reqs) / wall,
+        "ttft_p50_s": p(ttfts, 0.5), "ttft_p95_s": p(ttfts, 0.95),
+        "ttft_by_class": {cls: {"n": len(v), "p50_s": p(v, 0.5), "p95_s": p(v, 0.95)}
+                          for cls, v in sorted(by_class.items())},
+        "server_ttft_p50_s": quantile_from_flat(flat, "tf_operator_tpu_serve_ttft_seconds", 0.5),
+        "server_ttft_p95_s": quantile_from_flat(flat, "tf_operator_tpu_serve_ttft_seconds",
+                                                0.95),
+        "load_429s": {t: sum(len(r["retry_after"]) for i, r in enumerate(results)
+                             if OBSERVE_TENANTS[i % 3] == t) for t in OBSERVE_TENANTS},
+        "burst": [b[0] for b in burst], "burst_retry_after": [b[1] for b in burst],
+        "tenant_rejected": {k: v for k, v in flat.items() if "tenant_rejected_total" in k},
+        "debug_routes": {path: status for path, (status, _) in pages.items()},
+        "alerts_firing": alertz["firing"], "alert_evaluations": alertz["evaluations"],
+        "history_ticks": json.loads(pages["/debug/historyz"][1])["ticks"],
+        "chains": [r["chain"] for r in results],
+    }
+
+
+def post_with_tenant(port: int, prompt: list, new: int, tenant: str) -> tuple:
+    """(status, Retry-After) of one /generate as `tenant`."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate",
+        data=json.dumps({"input_ids": [prompt], "max_new_tokens": new}).encode(),
+        headers={"Content-Type": "application/json", "X-Tenant": tenant}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            resp.read()
+            return resp.status, None
+    except urllib.error.HTTPError as err:
+        err.read()
+        return err.code, err.headers.get("Retry-After")
+
+
+def run_serve_observe(kernels, gpt_lib, smi) -> dict:
+    """serve_observe: phase 43 of the module docstring."""
+    cfg = gpt_lib.GPT_SMALL
+    model = gpt_lib.GPT(cfg, generator=torch.Generator().manual_seed(SERVE_SEED), device="cuda")
+    reqs = serve_requests(cfg)
+    chains, logits = inline_chains(gpt_lib, model, reqs)
+    inline = []
+    for i, r in enumerate(reqs):
+        p = len(r["prompt"])
+        inline.append((chains[i, :p + r["new"]].tolist(),
+                       decisions(logits[p - 1:p + r["new"] - 1, i]).cpu()))
+    del chains, logits
+    free_device_memory()
+    kernels.reset_launches()
+    modes = {}
+    problems = []
+    for batching in ("continuous", "window"):
+        mode = serve_observe_mode(gpt_lib, model, reqs, batching, smi)
+        differ = []
+        for i, (r, served) in enumerate(zip(reqs, mode.pop("chains"))):
+            want, decided = inline[i]
+            j = first_diff(served, want)
+            if j is not None:
+                _, m, bound = decided[j - len(r["prompt"])].tolist()
+                differ.append({"request": i, "position": j, "inline_margin": m,
+                               "bound": bound})
+                if m > bound:
+                    problems.append(f"{batching}: request {i} left the inline chain at {j} "
+                                    f"on a margin of {m} > {bound}")
+        mode["differ"] = differ
+        modes[batching] = mode
+        emit({"phase": "serve_observe", "card": smi, "model": "GPT-small", **mode})
+        if 429 not in mode["burst"]:
+            problems.append(f"{batching}: the noisy burst drew no 429: {mode['burst']}")
+        if any(code == 429 and not hint for code, hint in zip(mode["burst"],
+                                                             mode["burst_retry_after"])):
+            problems.append(f"{batching}: a 429 without Retry-After")
+        if mode["load_429s"]["vip"]:
+            problems.append(f"{batching}: the vip tenant drew 429s {mode['load_429s']}")
+        bad = {path: status for path, status in mode["debug_routes"].items() if status != 200}
+        if bad:
+            problems.append(f"{batching}: debug routes {bad}")
+        if mode["history_ticks"] < 1:
+            problems.append(f"{batching}: the history never ticked")
+    launches = dict(kernels.LAUNCHES)
+    if any(launches.values()):
+        problems.append(f"serve_observe launched a kernel of K1-K5: {launches}")
+    if problems:
+        raise AssertionError(f"serve_observe: {problems}")
+    return modes
+
+
+def run_observe_phases(kernels, gpt_cli, smi, gpt_summary) -> dict:
+    """train_observe, train_observe_smoke and serve_observe, in order."""
+    from tf_operator_tpu_torch.models import gpt as gpt_lib
+
+    start = time.monotonic()
+    out = {"train_observe": run_train_observe(kernels, gpt_cli, smi, gpt_summary)}
+    free_device_memory()
+    out["train_observe_smoke"] = run_train_observe_smoke(smi)
+    free_device_memory()
+    out["serve_observe"] = run_serve_observe(kernels, gpt_lib, smi)
+    free_device_memory()
+    emit({"phase": "observe_seconds", "seconds": time.monotonic() - start})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs one CUDA card")
@@ -5328,6 +5723,8 @@ def main() -> int:
     run_decode_modes_phases(kernels, smi)
     free_device_memory()
     run_moe_vit_phases(kernels, smi)
+    free_device_memory()
+    run_observe_phases(kernels, gpt_cli, smi, gpt["summary"])
     free_device_memory()
 
     lines = [

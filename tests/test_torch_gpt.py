@@ -525,9 +525,11 @@ def test_cli_wants_cuda_and_refuses_unported_flags():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             torch_gpt_cli.main(CLI_ARGS)
-    for flag in (["--tp", "2"], ["--monitoring-bind-addr", "x"]):
-        with pytest.raises(SystemExit):
-            torch_gpt_cli.parse_args(CLI_ARGS + flag)
+    with pytest.raises(SystemExit):
+        torch_gpt_cli.parse_args(CLI_ARGS + ["--tp", "2"])
+    # the telemetry server is ported (tests/test_torch_train_observe.py runs it)
+    args = torch_gpt_cli.parse_args(CLI_ARGS + ["--monitoring-bind-addr", "127.0.0.1:0"])
+    assert args.monitoring_bind_addr == "127.0.0.1:0"
     # the int8 decode flags are ported (tests/test_torch_quant.py runs them)
     args = torch_gpt_cli.parse_args(CLI_ARGS + ["--kv-int8", "--weights-int8"])
     assert args.kv_int8 and args.weights_int8

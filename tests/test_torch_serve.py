@@ -34,11 +34,15 @@ try:
     import jax
     import jax.numpy as jnp
 
+    from tf_operator_tpu.controller.clock import FakeClock as RefFakeClock
     from tf_operator_tpu.models import gpt as jax_gpt
     from tf_operator_tpu.serve import engine as jax_engine
+    from tf_operator_tpu.serve import server as jax_server
+    from tf_operator_tpu.telemetry.history import MetricHistory as RefMetricHistory
 except ImportError:  # a card machine without JAX
     jax = None
 
+from tf_operator_tpu_torch.controller.clock import FakeClock
 from tf_operator_tpu_torch.models import gpt as torch_gpt
 from tf_operator_tpu_torch.models.convert import gpt_state_dict_from_flax
 from tf_operator_tpu_torch.ops import quant as torch_quant
@@ -46,6 +50,7 @@ from tf_operator_tpu_torch.serve import engine as torch_engine
 from tf_operator_tpu_torch.serve import server as torch_server
 from tf_operator_tpu_torch.serve.client import DecodeClient, DecodeError
 from tf_operator_tpu_torch.telemetry import validate_text
+from tf_operator_tpu_torch.telemetry.history import MetricHistory
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT_ATOL = 1e-5
@@ -57,6 +62,8 @@ NEW_MODULES = (
     "tf_operator_tpu_torch.runtime.retry", "tf_operator_tpu_torch.telemetry.tracing",
     "tf_operator_tpu_torch.telemetry.exposition", "tf_operator_tpu_torch.models.gpt",
     "tf_operator_tpu_torch.models.moe", "tf_operator_tpu_torch.ops.quant",
+    "tf_operator_tpu_torch.serve.batching", "tf_operator_tpu_torch.telemetry.history",
+    "tf_operator_tpu_torch.telemetry.alerts", "tf_operator_tpu_torch.telemetry.profiler",
 )
 
 
@@ -322,35 +329,85 @@ def test_engine_and_server_want_cuda(tiny):
 
 
 @pytest.mark.parametrize("option, item", [
-    ({"batching": "window"}, "item 5"),
-    ({"batch_window_ms": 5.0}, "item 5"),
-    ({"mesh": object()}, "item 6"),
-    ({"mesh_shape": (1, 2)}, "item 6"),
-    ({"role": "decode"}, "item 6"),
-    ({"tenant_quotas": {}}, "item 5"),
-    ({"enable_debug_endpoints": True}, "item 5"),
+    pytest.param({"mesh": object()}, "item 6", id="option2-item 6"),
+    pytest.param({"mesh_shape": (1, 2)}, "item 6", id="option3-item 6"),
+    pytest.param({"role": "decode"}, "item 6", id="option4-item 6"),
 ])
 def test_make_server_refuses_unported_options(tiny, option, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         torch_server.make_server(tiny, device="cpu", **option)
 
 
+@pytest.mark.parametrize("option, wired", [
+    ({"batching": "window", "batch_window_ms": 5.0}, "batcher"),
+    ({"batch_window_ms": 5.0}, "batcher"),
+    ({"tenant_quotas": {}}, "qos"),
+    ({"enable_debug_endpoints": True}, "enable_debug"),
+])
+def test_make_server_takes_the_telemetry_options(tiny, option, wired):
+    """The options ported with the telemetry plane: each is wired into the
+    server, which then answers a greedy request with the inline chain;
+    server_close() stops the history, alert and batcher threads."""
+    srv = _serve(tiny, **option)
+    try:
+        assert getattr(srv.state, wired) not in (None, False)
+        assert srv.state.history is not None and srv.state.alerts is not None
+        status, body = _post(srv.server_address[1], "/generate",
+                             {"input_ids": [[5, 6, 7]], "max_new_tokens": 3})
+        assert status == 200 and body["tokens"] == [_inline(tiny, [5, 6, 7], 3)]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    if srv.state.batcher is not None:
+        assert not srv.state.batcher.thread.is_alive()
+    with pytest.raises(ValueError, match="needs batch_window_ms > 0"):
+        torch_server.make_server(tiny, device="cpu", batching="window")
+
+
 @pytest.mark.parametrize("argv, item", [
-    (["--batching", "window"], "item 5"), (["--batch-window-ms", "5"], "item 5"),
-    (["--tp", "2"], "item 6"), (["--mesh-shape", "1x2"], "item 6"),
-    (["--role", "prefill"], "item 6"),
+    pytest.param(["--tp", "2"], "item 6", id="argv2-item 6"),
+    pytest.param(["--mesh-shape", "1x2"], "item 6", id="argv3-item 6"),
+    pytest.param(["--role", "prefill"], "item 6", id="argv4-item 6"),
     # the moe presets serve since the MoE slice (ROADMAP item 7); what they
     # refuse is the gpt family's options, in the reference's words
     pytest.param(["--preset", "moe-tiny", "--batching", "continuous"], "gpt-family features",
                  id="argv9-item 7"),
-    (["--tenant-quotas", "{}"], "item 5"), (["--enable-debug-endpoints"], "item 5"),
+    pytest.param(["--smoke"], "ROADMAP queue 1, what waits from items 3 and 5", id="smoke"),
 ])
 def test_cli_refuses_unported_flags(argv, item, capsys):
     with pytest.raises(SystemExit) as err:
         torch_server.parse_args(argv)
     assert err.value.code == 2
-    want = item if item.startswith("gpt-family") else f"ROADMAP queue 1 {item}"
+    want = f"ROADMAP queue 1 {item}" if item.startswith("item") else item
     assert want in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv, want", [
+    (["--batching", "window", "--batch-window-ms", "5"], {"batching": "window"}),
+    (["--batch-window-ms", "5"], {"batching": "window", "batch_window_ms": 5.0}),
+    (["--tenant-quotas", '{"noisy": {"rate": 100, "priority": "batch"}}'],
+     {"tenant_quotas_parsed": {"noisy": {"rate": 100, "priority": "batch"}}}),
+    (["--enable-debug-endpoints", "--history-interval", "0.5", "--history-capacity", "64",
+      "--alerts", "off", "--ttft-slo-ms", "100"],
+     {"enable_debug_endpoints": True, "history_interval": 0.5, "history_capacity": 64,
+      "alerts": "off", "ttft_slo_ms": 100.0}),
+])
+def test_cli_takes_the_telemetry_flags(argv, want):
+    args = torch_server.parse_args(argv)
+    assert {name: getattr(args, name) for name in want} == want
+
+
+@pytest.mark.parametrize("argv, text", [
+    (["--batching", "window"], "--batching window needs --batch-window-ms > 0"),
+    (["--batching", "continuous", "--batch-window-ms", "5"], "mutually exclusive with "
+     "--batch-window-ms"),
+    (["--tenant-quotas", '{"a": {"priority": "gold"}}'], "priority must be one of"),
+    (["--tenant-quotas", "[1]"], "must be a JSON object"),
+])
+def test_cli_refuses_telemetry_flag_combinations(argv, text, capsys):
+    with pytest.raises(SystemExit) as err:
+        torch_server.parse_args(argv)
+    assert err.value.code == 2 and text in capsys.readouterr().err
 
 
 # -- the moe presets ------------------------------------------------------------
@@ -567,14 +624,190 @@ def test_client_errors(servers):
 
 def test_unported_routes_name_their_items(servers):
     port = servers["continuous"]
-    for path, item in (("/kv/digest", "item 6"), ("/debug/flightz", "item 5"),
-                       ("/debug/profilez", "item 5")):
+    for path in ("/kv/digest", "/kv/statz"):
         status, body = _get(port, path)
-        assert status == 501 and f"ROADMAP queue 1 {item}" in json.loads(body)["error"]
+        assert status == 501 and "ROADMAP queue 1 item 6" in json.loads(body)["error"]
+    # the debug routes are ported; /debug/profilez stays behind
+    # --enable-debug-endpoints, as in the reference
+    assert _get(port, "/debug/flightz")[0] == 200
+    assert _get(port, "/debug/profilez")[0] == 404
     for path in ("/prefill", "/kv/export", "/kv/import"):
         status, body = _post(port, path, {"input_ids": [[1, 2]]})
         assert status == 501 and "ROADMAP queue 1 item 6" in body["error"]
     assert _get(port, "/nope")[0] == 404
+
+
+# -- the telemetry plane: tenant QoS, engine priority, window batching and
+# -- the debug routes ---------------------------------------------------------
+
+QUOTAS = {"noisy": {"rate": 10, "burst": 20, "priority": "batch"},
+          "vip": {"priority": "high"}, "*": {"priority": "standard"}}
+
+
+def _qos_script(qos_cls, clock, history):
+    """Admissions against a scripted clock: the noisy tenant drains its
+    bucket and is refused with a refill wait, refills, then every class
+    meets queue pressure (a queue-wait p95 past its multiple of the
+    SLO)."""
+    qos = qos_cls(QUOTAS, ttft_slo_s=0.25, history=history, clock=clock)
+    verdicts = []
+    for tenant, cost, dt in (("noisy", 8, 0.0), ("noisy", 8, 0.1), ("noisy", 8, 0.1),
+                             ("vip", 1000, 0.0), ("other", 50, 0.0), ("noisy", 8, 1.5),
+                             ("noisy", 25, 0.0)):
+        clock.advance(dt)
+        verdicts.append(qos.admit(tenant, cost))
+    series = "tf_operator_tpu_serve_queue_wait_seconds"
+    history.ingest_histogram(series, [(0.25, 0.0), (0.5, 0.0), (1.0, 0.0), (float("inf"), 0)])
+    clock.advance(1.0)
+    history.ingest_histogram(series, [(0.25, 0.0), (0.5, 10.0), (1.0, 20.0),
+                                      (float("inf"), 20.0)])
+    for tenant in ("noisy", "other", "vip"):
+        verdicts.append(qos.admit(tenant, 1))
+    return verdicts, [qos.priority(t) for t in ("noisy", "vip", "other")]
+
+
+def test_tenant_qos_decides_as_the_reference():
+    if jax is None:
+        pytest.skip("JAX is not installed")
+    ref_clock, port_clock = RefFakeClock(), FakeClock()
+    ref = _qos_script(jax_server.TenantQoS, ref_clock,
+                      RefMetricHistory(capacity=16, clock=ref_clock))
+    port = _qos_script(torch_server.TenantQoS, port_clock,
+                       MetricHistory(capacity=16, clock=port_clock))
+    assert port == ref
+    verdicts, priorities = port
+    assert [v["ok"] for v in verdicts[:7]] == [True, True, False, True, True, True, False]
+    assert verdicts[2]["retry_after"] == pytest.approx(1.0)  # the floor: 0.2 s of refill
+    assert verdicts[6]["retry_after"] == pytest.approx(1.3)  # (25 - 12 left) / 10 per s
+    # queue pressure: p95 ~0.9 s sheds batch (1x 0.25) and standard (2x) but
+    # not high (4x), each 429 with the projected wait
+    assert [v["ok"] for v in verdicts[7:]] == [False, False, True]
+    assert priorities == [0, 2, 1]
+    with pytest.raises(ValueError, match="priority must be one of"):
+        torch_server.TenantQoS({"a": {"priority": "gold"}})
+
+
+def _stage_order(engine):
+    """Submit a mix of priorities in two waves, each drained into the
+    scheduler stage as the engine's admission does: -> the staged
+    prompts' first token, in order."""
+    waves = [[(1, 0), (2, 0), (3, 1), (4, 2), (5, 1)], [(6, 2), (7, 0), (8, 1), (9, 2)]]
+    for wave in waves:
+        for token, priority in wave:
+            engine.submit([token, 11, 12], 2, priority=priority)
+        while not engine._queue.empty():
+            engine._stage(engine._queue.get_nowait())
+    order = [req.prompt[0] for req in engine._pending]
+    engine.stop()
+    return order
+
+
+def test_engine_stage_orders_priorities_as_the_reference(weights):
+    jcfg, params, model = weights
+    kw = dict(n_slots=2, kv_layout="paged", block_size=8, prefill_chunk=8)
+    ref = _stage_order(jax_engine.ContinuousBatchingEngine(jcfg, params, start=False, **kw))
+    port = _stage_order(torch_engine.ContinuousBatchingEngine(model, start=False,
+                                                              device="cpu", **kw))
+    assert port == ref
+    # the head keeps its place; higher overtakes lower; equal stays FIFO
+    assert port == [1, 4, 6, 9, 3, 5, 8, 2, 7]
+
+
+def _post_many(port, rows, new, tenant=None):
+    """Every row as its own /generate from its own thread: -> the chains
+    and the statuses, in row order."""
+    out = [None] * len(rows)
+
+    def one(i):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate",
+            data=json.dumps({"input_ids": [rows[i]], "max_new_tokens": new}).encode(),
+            headers={"Content-Type": "application/json", **({"X-Tenant": tenant} if tenant
+                                                            else {})},
+        )
+        try:
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                out[i] = (resp.status, json.loads(resp.read())["tokens"][0], None)
+        except urllib.error.HTTPError as err:
+            out[i] = (err.code, json.loads(err.read()), err.headers.get("Retry-After"))
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(rows))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(180)
+    return out
+
+
+WINDOW_ROWS = [[5, 6, 7], [1, 2, 3, 4, 5, 6, 7, 8, 9], [40], [300, 301, 302, 303, 304],
+               [17, 18], [90, 91, 92, 93, 94, 95, 96, 97, 98, 99, 100, 101]]
+
+
+def test_window_batched_chains_equal_the_reference_window_server(weights):
+    """Six concurrent requests to each package's window server at f32 on
+    one set of weights: the same chains, equal to the port's inline
+    generate; the batcher formed the reference's padded group."""
+    jcfg, params, model = weights
+    port_srv = _serve(model, batching="window", batch_window_ms=200)
+    ref_srv = jax_server.make_server(jcfg, params, batching="window", batch_window_ms=200,
+                                     max_new_cap=64)
+    threading.Thread(target=ref_srv.serve_forever, daemon=True).start()
+    calls = []
+    decode = port_srv.state.batcher.decode_fn
+    port_srv.state.batcher.decode_fn = lambda p, lens, new: calls.append(p.shape) or decode(
+        p, lens, new)
+    try:
+        port = _post_many(port_srv.server_address[1], WINDOW_ROWS, 5)
+        ref = _post_many(ref_srv.server_address[1], WINDOW_ROWS, 5)
+    finally:
+        for srv in (port_srv, ref_srv):
+            srv.shutdown()
+            srv.server_close()
+        ref_srv.state.batcher.stop()
+    assert [code for code, _, _ in port] == [200] * 6
+    assert [chain for _, chain, _ in port] == [chain for _, chain, _ in ref]
+    assert [chain for _, chain, _ in port] == [_inline(model, row, 5) for row in WINDOW_ROWS]
+    assert all(shape[0] in (1, 2, 4, 8) and shape[1] % 16 == 0 for shape in calls)
+
+
+def test_qos_server_sheds_the_noisy_tenant_and_serves_the_debug_routes(tiny):
+    """A continuous server with quotas, alerts, a 0.2 s history cadence and
+    the debug endpoints: the noisy tenant's burst is refused with 429 and
+    Retry-After, vip and the default tenant are served, the engine saw
+    their priorities, and every debug route answers."""
+    srv = _serve(tiny, batching="continuous", n_slots=2, block_size=8, prefill_chunk=8,
+                 tenant_quotas=QUOTAS, history_interval_s=0.2, enable_debug_endpoints=True)
+    port = srv.server_address[1]
+    seen = []
+    submit = srv.state.engine.submit
+    srv.state.engine.submit = lambda *a, **kw: seen.append(kw.get("priority")) or submit(*a, **kw)
+    try:
+        noisy = _post_many(port, [[1, 2, 3]] * 4, 8, tenant="noisy")
+        vip = _post_many(port, [[4, 5, 6]], 4, tenant="vip")
+        default = _post_many(port, [[7, 8, 9]], 4)
+        time.sleep(0.5)  # a couple of history ticks
+        pages = {path: _get(port, path) for path in (
+            "/debug/clockz", "/debug/flightz?kind=serve&limit=5", "/debug/historyz",
+            "/debug/alertz", "/debug/profilez?seconds=0.05&format=json", "/debug/trace")}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.state.engine.stop()
+    codes = sorted(code for code, _, _ in noisy)
+    assert codes == [200, 200, 429, 429]
+    assert all(int(retry) >= 1 for code, _, retry in noisy if code == 429)
+    assert vip[0][:2] == (200, _inline(tiny, [4, 5, 6], 4)) and default[0][0] == 200
+    assert sorted(seen) == [0, 0, 1, 2]
+    assert all(status == 200 for status, _ in pages.values())
+    assert json.loads(pages["/debug/clockz"][1])["pid"] == os.getpid()
+    assert json.loads(pages["/debug/historyz"][1])["ticks"] >= 1
+    alertz = json.loads(pages["/debug/alertz"][1])
+    assert "ttft-slo[60s]" in {i["instance"] for i in alertz["instances"]}
+    assert json.loads(pages["/debug/profilez?seconds=0.05&format=json"][1])["samples"] > 0
+    flight = [json.loads(line)
+              for line in pages["/debug/flightz?kind=serve&limit=5"][1].splitlines()]
+    assert flight and all(r["kind"] == "serve" for r in flight)
+    assert not srv.state.history._ticker and not srv.state.alerts._ticker
 
 
 def test_metrics_health_and_trace(servers):

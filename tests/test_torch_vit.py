@@ -167,13 +167,31 @@ def test_cli_runs_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--tp", "2"], "item 4"), (["--monitoring-bind-addr", "0.0.0.0:9090"], "item 3"),
+    (["--tp", "2"], "item 4"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, item, capsys):
     with pytest.raises(SystemExit) as err:
         torch_vit_cli.parse_args(argv)
     assert err.value.code == 2
     assert f"ROADMAP queue 1, {item}" in capsys.readouterr().err
+
+
+def test_cli_serves_telemetry_with_monitoring_bind_addr(monkeypatch):
+    """--monitoring-bind-addr (ported with the telemetry plane) starts the
+    worker's TrainTelemetry around the run and stops it after."""
+    from tf_operator_tpu_torch.train import observe
+
+    started = []
+    real = observe.TrainTelemetry.start
+    monkeypatch.setattr(observe.TrainTelemetry, "start",
+                        lambda self, addr: started.append(self) or real(self, "127.0.0.1:0"))
+    args = torch_vit_cli.parse_args(["--preset", "tiny", "--steps", "2", "--per-chip-batch",
+                                     "4", "--device", "cpu",
+                                     "--monitoring-bind-addr", "0.0.0.0:9090"])
+    assert torch_vit_cli.run(args)["exit_code"] == 0
+    (telemetry,) = started
+    assert telemetry.worker == "worker-0" and telemetry._httpd is None
+    assert telemetry.healthz()["phase"] == "training"
 
 
 def test_cli_wants_cuda():

@@ -449,12 +449,16 @@ class EngineRequest:
     __slots__ = (
         "prompt", "new", "tokens", "error", "done", "cancelled",
         "created", "first_token_at", "admitted_at", "last_token_at",
-        "span", "corr", "trace", "_stream",
+        "span", "corr", "trace", "priority", "_stream",
     )
 
-    def __init__(self, prompt, new: int, corr=None, trace=None):
+    def __init__(self, prompt, new: int, corr=None, trace=None, priority: int = 0):
         self.prompt = [int(t) for t in prompt]
         self.new = int(new)
+        # QoS class: higher admits ahead of lower while both are staged
+        # (FIFO within a class; the staged head is never displaced, see
+        # _stage)
+        self.priority = int(priority)
         # correlation ID (the server's request id): carried from the
         # HTTP thread into the engine thread, so slot-side flight
         # records join the request's server-side records and span
@@ -835,11 +839,13 @@ class ContinuousBatchingEngine:
 
     # -- client API --------------------------------------------------------
 
-    def submit(self, prompt, new: int, corr=None) -> EngineRequest:
+    def submit(self, prompt, new: int, corr=None, priority: int = 0) -> EngineRequest:
         """Queue one decode stream; -> its handle (stream()/result()).
         prompt: one row of token ids. corr: correlation ID tying the
         slot's flight records to the submitting request (defaults to the
-        context's correlate() binding, the server's request id)."""
+        context's correlate() binding, the server's request id).
+        priority: QoS class; a higher one overtakes lower ones while both
+        wait in the scheduler stage (never the staged head)."""
         if self._stop.is_set() or (self.thread is not None and not self.thread.is_alive()):
             raise RuntimeError("engine is stopped")
         row = [int(t) for t in prompt]
@@ -866,6 +872,7 @@ class ContinuousBatchingEngine:
         ctx = current_trace()
         req = EngineRequest(
             row, new, corr=corr, trace=ctx.trace_id if ctx is not None else None,
+            priority=priority,
         )
         if self._tracer is not None:
             span_args = {"prompt_tokens": len(row), "max_new_tokens": new}
@@ -882,7 +889,7 @@ class ContinuousBatchingEngine:
             self._queue.put(req)
         return req
 
-    def generate(self, prompt, lens, new: int, timeout: float = 600.0):
+    def generate(self, prompt, lens, new: int, timeout: float = 600.0, priority: int = 0):
         """Batcher-compatible fan-out: prompt [rows, width] right-padded
         with per-row lens -> list of full chains (each row's prompt + new
         tokens). Rows are independent engine streams."""
@@ -892,7 +899,8 @@ class ContinuousBatchingEngine:
         # a row rejected mid-batch cancels the rows already in flight
         try:
             for i in range(prompt.shape[0]):
-                reqs.append(self.submit(prompt[i, :int(lens[i])].tolist(), new))
+                reqs.append(self.submit(prompt[i, :int(lens[i])].tolist(), new,
+                                        priority=priority))
             return [req.result(max(deadline - time.monotonic(), 1e-3)) for req in reqs]
         except BaseException:
             for req in reqs:
@@ -1156,13 +1164,29 @@ class ContinuousBatchingEngine:
             raise box["error"]
         return box.get("result")
 
+    def _stage(self, req: EngineRequest) -> None:
+        """Insert a drained request into the scheduler stage. Equal
+        priorities stay strictly FIFO; a higher priority overtakes every
+        staged lower-priority request EXCEPT the current head: once a
+        request reaches the front it keeps it (the paged head may be
+        waiting for blocks, and displacing it would let it starve)."""
+        if req.priority and self._pending:
+            for i in range(len(self._pending) - 1, 0, -1):
+                if self._pending[i].priority >= req.priority:
+                    self._pending.insert(i + 1, req)
+                    return
+            self._pending.insert(1, req)
+            return
+        self._pending.append(req)
+
     def _admit(self) -> None:
         started = time.monotonic()
-        # drain the client queue into the scheduler-owned stage first,
-        # in arrival order
+        # drain the client queue into the scheduler-owned stage first:
+        # arrival order holds within a priority class; classes reorder
+        # at the stage hop only
         while True:
             try:
-                self._pending.append(self._queue.get_nowait())
+                self._stage(self._queue.get_nowait())
             except queue.Empty:
                 break
         while self._pending and self._free:

@@ -9,6 +9,9 @@ and models/moe.py `moe_generate` for the moe presets.
     python -m tf_operator_tpu_torch.serve --preset moe-base --checkpoint-dir /ckpt/moe
     python -m tf_operator_tpu_torch.serve --preset small --kv-int8 --weights-int8 \
         --batching continuous --speculate ngram --spec-depth 4
+    python -m tf_operator_tpu_torch.serve --preset small --batching window \
+        --batch-window-ms 5 --enable-debug-endpoints \
+        --tenant-quotas '{"noisy": {"rate": 100, "burst": 200, "priority": "batch"}}'
 
     POST /generate   {"input_ids": [[1,2,3], [7,8], ...],   # ragged OK
                       "max_new_tokens": 32, "temperature": 0.0,
@@ -26,17 +29,34 @@ and models/moe.py `moe_generate` for the moe presets.
     GET  /metrics -> Prometheus text (the registry plus the engine's
                   counters)
     GET  /debug/trace -> Chrome/Perfetto trace-event JSON of request spans
+    GET  /debug/clockz -> this process's monotonic, perf_counter and wall
+                  clocks read back to back, and the tracer's epoch
+    GET  /debug/flightz?request=&kind=&limit= -> flight records, JSONL
+    GET  /debug/historyz?series=&window=&q=&points=1 -> the metric history
+    GET  /debug/alertz?firing=1 -> the alert rules' states
+    GET  /debug/profilez?action=start|stop|snapshot -> the sampling
+                  profiler (only with --enable-debug-endpoints)
 
 Ragged batches are first-class: rows are right-padded server-side and
 each row's answer is its own prompt plus max_new_tokens.
 
 --batching none (the default) decodes each request inline, serialized by
-a lock; --batching continuous hands greedy requests to the engine, one
+a lock; --batching window (serve/batching.py) holds a greedy request for
+--batch-window-ms and decodes it with its compatible peers as one padded
+batch; --batching continuous hands greedy requests to the engine, one
 stream per row, admitted and evicted between single-token steps, tokens
 streamed per request. Sampled requests keep the inline path, seeded
-through a torch.Generator. Everything runs on `--device` (cuda unless
-named; without a card the server refuses to start rather than carry on
-on the CPU).
+through a torch.Generator.
+
+Telemetry, as the reference's: a metric history over the registry and
+the engine's counters (--history-interval, --history-capacity), the
+serve alert rules evaluated against it (--alerts, --ttft-slo-ms), and
+per-tenant QoS at admission (--tenant-quotas: token-bucket quotas and
+priority classes keyed by the X-Tenant header; a 429 always carries
+Retry-After; the priority orders the engine's queue).
+
+Everything runs on `--device` (cuda unless named; without a card the
+server refuses to start rather than carry on on the CPU).
 
 Decode modes, as the reference's: --kv-int8 (an int8 KV cache) and
 --weights-int8 (the model quantized once at load; its f32 kernels are
@@ -58,10 +78,8 @@ training CLIs wrote (train/trainer.py Checkpointer; train/gpt.py's for
 the gpt presets, train/moe.py's for the moe ones); without one the
 server starts with random weights from a seed and says so.
 
-Not ported, each refused naming its ROADMAP item: window batching,
-sharded decode (mesh, --tp), the disaggregated routes (/prefill,
-/kv/*), the debug routes other than /debug/trace, tenant QoS, metric
-history and alerts.
+Not ported, each refused naming its ROADMAP item: sharded decode (mesh,
+--tp), the disaggregated routes (/prefill, /kv/*) and --smoke.
 """
 
 from __future__ import annotations
@@ -70,12 +88,16 @@ import argparse
 import itertools
 import json
 import logging
+import math
+import os
 import sys
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
-from ..telemetry.flight import correlate, default_flight
+from ..telemetry.flight import correlate, default_flight, render_flightz
+from ..telemetry.profiler import default_profiler, render_profilez
 from ..telemetry.tracecontext import TRACEPARENT_HEADER, parse_traceparent, trace_scope
 from ..utils import locks
 
@@ -95,13 +117,14 @@ MAX_BEAMS = 8
 
 # what the reference serves that the port does not, and where ROADMAP
 # places it
-_WINDOW = "window batching is not ported (ROADMAP queue 1 item 5)"
 _SHARDED = "sharded decode (mesh, mesh_shape, --tp) is not ported (ROADMAP queue 1 item 6)"
 _DISAGGREGATED = (
     "disaggregated serving (roles, /prefill, /kv/*) is not ported (ROADMAP queue 1 item 6)"
 )
-_DEBUG = "this debug route is not ported; /debug/trace is (ROADMAP queue 1 item 5)"
-_QOS = "tenant QoS, metric history and alerts are not ported (ROADMAP queue 1 item 5)"
+_SMOKE = (
+    "the telemetry smoke round-trips its flight dump through the telemetry CLI, which is "
+    "not ported (ROADMAP queue 1, what waits from items 3 and 5)"
+)
 # the moe family's refusals: the reference's texts
 _MOE_STARTUP = (
     "the moe family serves plain decode only: kv_quant_int8, weights_int8, speculative, "
@@ -110,11 +133,7 @@ _MOE_STARTUP = (
 _MOE_FLAGS = "are gpt-family features; the moe presets serve plain greedy/sampled decode only"
 
 # routes the reference serves, answered 501 with the item that ports them
-_UNPORTED_GET = {
-    "/kv/digest": _DISAGGREGATED, "/kv/statz": _DISAGGREGATED,
-    "/debug/clockz": _DEBUG, "/debug/flightz": _DEBUG, "/debug/historyz": _DEBUG,
-    "/debug/alertz": _DEBUG, "/debug/profilez": _DEBUG,
-}
+_UNPORTED_GET = {"/kv/digest": _DISAGGREGATED, "/kv/statz": _DISAGGREGATED}
 _UNPORTED_POST = {"/prefill": _DISAGGREGATED, "/kv/export": _DISAGGREGATED,
                   "/kv/import": _DISAGGREGATED}
 
@@ -155,6 +174,14 @@ class _State:
         self.phase = "warming"
         self.lock = locks.make_lock("_State.lock")
         self.engine = None  # set by make_server (batching="continuous")
+        self.batcher = None  # set by make_server (batching="window")
+        # per-tenant admission (TenantQoS), the metric history and the
+        # alert manager over it, wired by make_server
+        self.qos = None
+        self.history = None
+        self.alerts = None
+        # /debug/profilez rides --enable-debug-endpoints
+        self.enable_debug = False
         # the metric names are the reference's, so one scrape config
         # covers both servers
         self.registry = MetricRegistry("tf_operator_tpu_serve")
@@ -200,6 +227,146 @@ class _State:
                 rows.append(f"{full} {format_value(value)}")
             out += "\n".join(rows) + "\n"
         return out
+
+
+# the tenant header the admission layer reads; absent -> DEFAULT_TENANT
+TENANT_HEADER = "X-Tenant"
+DEFAULT_TENANT = "default"
+
+# priority classes: name -> (engine priority, SLO-reject multiple). The
+# engine priority orders the scheduler stage (higher overtakes lower while
+# queued); the multiple scales the SLO-aware early-reject threshold, so
+# batch work is shed first under queue pressure and high holds longest
+PRIORITY_CLASSES = {
+    "high": (2, 4.0),
+    "standard": (1, 2.0),
+    "batch": (0, 1.0),
+}
+
+
+class TenantQoS:
+    """Per-tenant token-bucket quotas, priority classes and an SLO-aware
+    early reject, enforced at POST admission.
+
+    quotas: {tenant: {"rate": tokens/s, "burst": tokens, "priority":
+    "high"|"standard"|"batch"}}; the "*" entry is the default for tenants
+    not named (no "*": unnamed tenants are unmetered at standard
+    priority). A request costs its worst-case generated tokens
+    (max_new_tokens x rows), the unit the engine spends.
+
+    Two reject paths, both HTTP 429 with a Retry-After the caller can
+    trust:
+    - bucket empty: Retry-After is the time for the bucket to refill to
+      the request's cost;
+    - queue pressure: the queue-wait p95 over the last minute
+      (history.quantile_over_window) past the class's multiple of the
+      TTFT SLO; Retry-After is that projected wait.
+    Both are capped at RETRY_AFTER_CAP."""
+
+    def __init__(
+        self,
+        quotas,
+        ttft_slo_s: float = 0.25,
+        history=None,
+        registry=None,
+        queue_wait_series: str = "tf_operator_tpu_serve_queue_wait_seconds",
+        queue_window_s: float = 60.0,
+        clock=None,
+    ) -> None:
+        self.clock = clock if clock is not None else time
+        self.ttft_slo_s = float(ttft_slo_s)
+        self.history = history
+        self.queue_wait_series = queue_wait_series
+        self.queue_window_s = float(queue_window_s)
+        self.quotas = {}
+        for tenant, quota in (quotas or {}).items():
+            cls = quota.get("priority", "standard")
+            if cls not in PRIORITY_CLASSES:
+                raise ValueError(
+                    f"tenant {tenant!r}: priority must be one of "
+                    f"{sorted(PRIORITY_CLASSES)}, got {cls!r}"
+                )
+            rate = quota.get("rate")
+            if rate is not None and float(rate) <= 0:
+                raise ValueError(f"tenant {tenant!r}: rate must be > 0, got {rate}")
+            self.quotas[str(tenant)] = {
+                "rate": float(rate) if rate is not None else None,
+                "burst": float(quota.get("burst", (rate or 0) * 2 or 1)),
+                "priority": cls,
+            }
+        self._lock = locks.make_lock("TenantQoS._lock")
+        # tenant -> (bucket level, last refill monotonic)
+        self._buckets = {}
+        self._c_requests = None
+        self._c_rejected = None
+        if registry is not None:
+            self._c_requests = registry.counter(
+                "tenant_requests_total", "Decode requests seen at admission, by tenant",
+                labelnames=("tenant",),
+            )
+            self._c_rejected = registry.counter(
+                "tenant_rejected_total", "Requests early-rejected with 429, by tenant",
+                labelnames=("tenant",),
+            )
+
+    def _quota(self, tenant: str):
+        return self.quotas.get(tenant) or self.quotas.get("*")
+
+    def priority(self, tenant: str) -> int:
+        quota = self._quota(tenant)
+        return PRIORITY_CLASSES[quota["priority"] if quota else "standard"][0]
+
+    def admit(self, tenant: str, cost: float) -> dict:
+        """-> {"ok": True, "priority": n} or {"ok": False, "retry_after":
+        s, "reason": ...}. Counts the request either way; the caller
+        turns a reject into the 429 reply."""
+        from ..runtime.retry import RETRY_AFTER_CAP
+
+        if self._c_requests is not None:
+            self._c_requests.labels(tenant=tenant).inc()
+        quota = self._quota(tenant)
+        cls = quota["priority"] if quota else "standard"
+        priority, slo_multiple = PRIORITY_CLASSES[cls]
+
+        # SLO-aware early reject: when the queue already makes requests
+        # wait past this class's budget, say so now, with a projection
+        if self.history is not None:
+            projected = self.history.quantile_over_window(
+                self.queue_wait_series, 0.95, self.queue_window_s
+            )
+            if projected is not None and projected > slo_multiple * self.ttft_slo_s:
+                if self._c_rejected is not None:
+                    self._c_rejected.labels(tenant=tenant).inc()
+                return {
+                    "ok": False,
+                    "reason": (
+                        f"queue wait p95 {projected:.3f}s exceeds {slo_multiple:g}x the "
+                        f"{self.ttft_slo_s:g}s TTFT SLO for priority {cls!r}"
+                    ),
+                    "retry_after": min(RETRY_AFTER_CAP, max(1.0, projected)),
+                }
+
+        if quota is None or quota["rate"] is None:
+            return {"ok": True, "priority": priority}
+        now = self.clock.monotonic()
+        with self._lock:
+            level, last = self._buckets.get(tenant, (quota["burst"], now))
+            level = min(quota["burst"], level + quota["rate"] * (now - last))
+            if level >= cost:
+                self._buckets[tenant] = (level - cost, now)
+                return {"ok": True, "priority": priority}
+            self._buckets[tenant] = (level, now)
+            wait = (cost - level) / quota["rate"]
+        if self._c_rejected is not None:
+            self._c_rejected.labels(tenant=tenant).inc()
+        return {
+            "ok": False,
+            "reason": (
+                f"tenant {tenant!r} over its token budget "
+                f"({quota['rate']:g} tokens/s, burst {quota['burst']:g})"
+            ),
+            "retry_after": min(RETRY_AFTER_CAP, max(1.0, wait)),
+        }
 
 
 def _bad(payload) -> tuple:
@@ -365,17 +532,19 @@ def DecodeHandlerFactory(state: _State):
         _request_corr = None
         _request_trace = None
 
-        def _reply(self, code: int, payload: dict) -> None:
+        def _reply(self, code: int, payload: dict, headers=None) -> None:
             if self._request_corr is not None:
                 payload.setdefault("request_id", self._request_corr)
             if self._request_trace is not None:
                 payload.setdefault("trace_id", self._request_trace)
-            self._send(code, "application/json", json.dumps(payload).encode())
+            self._send(code, "application/json", json.dumps(payload).encode(), headers)
 
-        def _send(self, code: int, ctype: str, body: bytes) -> None:
+        def _send(self, code: int, ctype: str, body: bytes, headers=None) -> None:
             self.send_response(code)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(body)))
+            for name, value in (headers or {}).items():
+                self.send_header(name, value)
             self.end_headers()
             self.wfile.write(body)
 
@@ -386,7 +555,7 @@ def DecodeHandlerFactory(state: _State):
         def do_GET(self) -> None:  # noqa: N802
             self._request_corr = None
             self._request_trace = None
-            route = self.path.partition("?")[0]
+            route, _, query = self.path.partition("?")
             if route == "/healthz":
                 # liveness stays 200 through warmup and drain; the status
                 # says the truth ("ok" only while admitting), and a failed
@@ -417,6 +586,34 @@ def DecodeHandlerFactory(state: _State):
                 # -> finished); load in ui.perfetto.dev as-is
                 self._send(200, "application/json",
                            json.dumps(state.tracer.export_chrome()).encode())
+            elif route == "/debug/clockz":
+                # this process's clocks read back to back, and the span
+                # tracer's perf_counter epoch, so that span timestamps map
+                # onto the flight records' monotonic axis
+                self._reply(200, {
+                    "mono": time.monotonic(), "perf": time.perf_counter(),
+                    "wall": time.time(), "tracer_epoch_perf": state.tracer._epoch,
+                    "pid": os.getpid(),
+                })
+            elif route == "/debug/flightz":
+                # request shapes, not payloads: ungated. Resolved per
+                # request, so a recorder swapped in later is the one served
+                self._send(200, "application/x-ndjson", render_flightz(default_flight(), query))
+            elif route == "/debug/historyz":
+                if state.history is None:
+                    return self._reply(404, {"error": "history not enabled"})
+                from ..telemetry import render_historyz
+
+                self._send(200, "application/json", render_historyz(state.history, query))
+            elif route == "/debug/alertz":
+                if state.alerts is None:
+                    return self._reply(404, {"error": "alerts not enabled"})
+                from ..telemetry import render_alertz
+
+                self._send(200, "application/json", render_alertz(state.alerts, query))
+            elif route == "/debug/profilez" and state.enable_debug:
+                # live thread stacks: behind --enable-debug-endpoints
+                self._send(200, *render_profilez(default_profiler(), query))
             elif route in _UNPORTED_GET:
                 self._reply(501, {"error": _UNPORTED_GET[route]})
             else:
@@ -479,10 +676,30 @@ def DecodeHandlerFactory(state: _State):
             if isinstance(result[0], int):  # (status, payload)
                 return self._error(result[0], result[1]["error"])
             prompt, lens, new, temperature, seed, top_k, top_p, num_beams = result
+            # per-tenant QoS admission before any engine or batcher work is
+            # queued; a 429 always carries Retry-After
+            tenant = (self.headers.get(TENANT_HEADER) or DEFAULT_TENANT).strip() or DEFAULT_TENANT
+            priority = 0
+            if state.qos is not None:
+                verdict = state.qos.admit(tenant, new * len(lens))
+                if not verdict["ok"]:
+                    state.request_errors.inc()
+                    retry_after = verdict["retry_after"]
+                    default_flight().record(
+                        "serve", op="early-reject", tenant=tenant,
+                        retry_after=round(retry_after, 3), reason=verdict["reason"][:120],
+                    )
+                    return self._reply(
+                        429, {"error": verdict["reason"], "tenant": tenant,
+                              "retry_after": round(retry_after, 3)},
+                        headers={"Retry-After": str(int(math.ceil(retry_after)))},
+                    )
+                priority = verdict["priority"]
             if self.path == "/generate_stream":
                 if num_beams > 1 and len(lens) == 1:
                     return self._error(400, "/generate_stream does not support beams")
-                return self._do_stream(prompt, lens, new, temperature, seed, top_k, top_p)
+                return self._do_stream(prompt, lens, new, temperature, seed, top_k, top_p,
+                                       priority)
             if num_beams > 1:
                 # through the shared inline block, never the engine: beams
                 # already multiply the device batch num_beams-fold
@@ -505,7 +722,7 @@ def DecodeHandlerFactory(state: _State):
                 # continuous batching: each row becomes its own engine
                 # stream, admitted into a free slot between steps
                 try:
-                    chains = state.engine.generate(prompt, lens, new)
+                    chains = state.engine.generate(prompt, lens, new, priority=priority)
                 except ValueError as err:
                     # the engine judged the request invalid (oversized
                     # prompt, over-budget KV reservation): client error
@@ -519,6 +736,20 @@ def DecodeHandlerFactory(state: _State):
                 state.decodes.inc()
                 state.tokens_generated.inc(new * len(lens))
                 return self._reply(200, {"tokens": chains, "prompt_lens": lens})
+            if state.batcher is not None and greedy:
+                # window batching: greedy requests coalesce into one
+                # decode (serve/batching.py); sampled ones keep the inline
+                # path, so that their generator streams stay per request
+                try:
+                    tokens = state.batcher.submit(prompt, lens, new)
+                except TimeoutError as err:
+                    return self._error(503, str(err))
+                except Exception as err:  # noqa: BLE001 — fans out to every
+                    # coalesced client as JSON
+                    return self._error(500, f"decode failed: {type(err).__name__}: {err}"[:300])
+                state.decodes.inc()
+                state.tokens_generated.inc(new * len(lens))
+                return self._reply(200, {"tokens": tokens, "prompt_lens": lens})
             try:
                 chains = _device_decode(state, prompt, lens, new, temperature=temperature,
                                         seed=seed, top_k=top_k, top_p=top_p)
@@ -530,7 +761,8 @@ def DecodeHandlerFactory(state: _State):
             tokens = [chains[i, :lens[i] + new].tolist() for i in range(len(lens))]
             self._reply(200, {"tokens": tokens, "prompt_lens": lens})
 
-        def _do_stream(self, prompt, lens, new, temperature, seed, top_k, top_p) -> None:
+        def _do_stream(self, prompt, lens, new, temperature, seed, top_k, top_p,
+                       priority=0) -> None:
             """/generate_stream: chunked ndjson, one event per generated
             token. With the engine, events leave as the engine produces
             them; on the inline path the decode is whole, so the tokens
@@ -542,7 +774,8 @@ def DecodeHandlerFactory(state: _State):
             greedy = temperature == 0.0 and top_k == 0 and top_p == 1.0
             if state.engine is not None and greedy:
                 try:
-                    req = state.engine.submit(prompt[0, :lens[0]].tolist(), new)
+                    req = state.engine.submit(prompt[0, :lens[0]].tolist(), new,
+                                              priority=priority)
                 except ValueError as err:
                     # invalid request: reject before the 200 is on the wire
                     return self._error(400, str(err))
@@ -582,9 +815,14 @@ def DecodeHandlerFactory(state: _State):
                 state.tokens_generated.inc(new)
                 return
             try:
-                chains = _device_decode(state, prompt, lens, new, temperature=temperature,
-                                        seed=seed, top_k=top_k, top_p=top_p)
-                chain = chains[0, :lens[0] + new].tolist()
+                if state.batcher is not None and greedy:
+                    chain = state.batcher.submit(prompt, lens, new)[0]
+                else:
+                    chains = _device_decode(state, prompt, lens, new, temperature=temperature,
+                                            seed=seed, top_k=top_k, top_p=top_p)
+                    chain = chains[0, :lens[0] + new].tolist()
+            except TimeoutError as err:
+                return self._error(503, str(err))
             except Exception as err:  # noqa: BLE001 — same contract
                 return self._error(500, f"decode failed: {type(err).__name__}: {err}"[:300])
             state.decodes.inc()
@@ -617,6 +855,16 @@ class DecodeHTTPServer(ThreadingHTTPServer):
         super().__init__(*args, **kwargs)
         self._conn_lock = locks.make_lock("DecodeHTTPServer._conn_lock")
         self._conns: set = set()
+
+    def server_close(self):
+        # the history and alert tick threads and the batcher end with the
+        # listener, so a shutdown leaves no thread behind
+        state = getattr(self, "state", None)
+        if state is not None:
+            for owner in (state.alerts, state.history, state.batcher):
+                if owner is not None:
+                    owner.stop()
+        super().server_close()
 
     def process_request(self, request, client_address):
         with self._conn_lock:
@@ -683,14 +931,26 @@ def make_server(
     role: str = "",
     tenant_quotas=None,
     enable_debug_endpoints: bool = False,
+    history_capacity: int = 512,
+    history_interval_s: float = 0.0,
+    alerts: bool = True,
+    alert_rules=None,
+    ttft_slo_s: float = 0.25,
 ) -> DecodeHTTPServer:
     """In-process server over the port's GPT or MoE LM module (tests and
     embedders); the caller owns serve_forever/shutdown (and, with an
     engine, `server.state.engine.stop()`). The CLI binds 0.0.0.0; the
     in-process default stays loopback. batching: "none" (inline,
-    lock-serialized; the default "" means none) or "continuous"
-    (serve/engine.py: the slot grid, built here, its programs captured
-    before the server answers; gpt only). device: `cuda` unless named;
+    lock-serialized), "window" (serve/batching.py DynamicBatcher; needs
+    batch_window_ms > 0) or "continuous" (serve/engine.py: the slot grid,
+    built here, its programs captured before the server answers); the
+    default "" means window iff batch_window_ms > 0, else none; window
+    and continuous are gpt only. The metric history always samples the
+    registry and the engine's counters (a tick thread every
+    history_interval_s when > 0); alerts evaluates alert_rules (default
+    serve_replica_rules at ttft_slo_s) against it; tenant_quotas turns on
+    TenantQoS admission; enable_debug_endpoints serves /debug/profilez.
+    A server_close() stops their threads. device: `cuda` unless named;
     the model is moved there. kv_quant_int8, weights_int8 (the model
     quantized once here unless it already is the int8 twin, which turns
     the flag on by itself), speculative, speculate/spec_depth/draft_preset
@@ -708,20 +968,35 @@ def make_server(
     ):
         raise ValueError(_MOE_STARTUP)
     for refused, why in (
-        (batching == "window" or batch_window_ms > 0, _WINDOW),
         (mesh is not None or mesh_shape is not None, _SHARDED),
         (bool(role), _DISAGGREGATED),
-        (tenant_quotas is not None, _QOS), (enable_debug_endpoints, _DEBUG),
     ):
         if refused:
             raise NotImplementedError(why)
-    batching = batching or "none"
-    if batching not in ("none", "continuous"):
+    if not batching:
+        batching = "window" if batch_window_ms > 0 else "none"
+    if batching not in ("none", "window", "continuous"):
         raise ValueError(f"batching must be none/window/continuous, got {batching!r}")
+    if batching == "window" and batch_window_ms <= 0:
+        raise ValueError(
+            "batching='window' needs batch_window_ms > 0 (the coalesce window IS the "
+            "policy knob)"
+        )
+    if batching == "continuous" and batch_window_ms > 0:
+        raise ValueError(
+            "batching='continuous' and batch_window_ms are mutually exclusive: the engine "
+            "admits per step, there is no coalesce window"
+        )
     if batching == "continuous" and speculative:
         raise ValueError(
             "batching='continuous' and speculative are mutually exclusive: the engine owns "
             "the greedy path and its quantum is one token, not a drafted run"
+        )
+    if speculative and batch_window_ms > 0:
+        raise ValueError(
+            "speculative and batch_window_ms are mutually exclusive: the dynamic batcher's "
+            "shape bucketing (padded widths, dummy rows) defeats the uniform-length "
+            "speculative gate; pick the one that fits the traffic"
         )
     if speculate not in ("off", "ngram", "draft"):
         raise ValueError(f"speculate must be 'off', 'ngram' or 'draft', got {speculate!r}")
@@ -754,7 +1029,39 @@ def make_server(
             model = quantize_model(model)
     state = _State(model, model_name, max_new_cap, device, kv_quant_int8=kv_quant_int8,
                    weights_int8=weights_int8, speculative=speculative)
-    if batching == "continuous":
+    state.enable_debug = bool(enable_debug_endpoints)
+    # the metric history: every registry family plus the engine's flat
+    # counters, read at each tick (the provider reads state.engine then)
+    from ..telemetry import AlertManager, MetricHistory, serve_replica_rules
+
+    state.history = MetricHistory(capacity=history_capacity)
+    state.history.track_registry(state.registry)
+    state.history.track_flat(lambda: state.engine.metrics() if state.engine is not None else {})
+    if alerts:
+        state.alerts = AlertManager(
+            state.history,
+            alert_rules if alert_rules is not None else serve_replica_rules(
+                prefix="tf_operator_tpu_serve", ttft_slo_s=ttft_slo_s),
+            registry=state.registry, flight=default_flight(),
+        )
+    if tenant_quotas is not None:
+        # the queue-wait projection reads the same history the alert
+        # rules read
+        state.qos = TenantQoS(tenant_quotas, ttft_slo_s=ttft_slo_s, history=state.history,
+                              registry=state.registry)
+    if batching == "window":
+        from .batching import DynamicBatcher
+
+        def decode_fn(prompt, lens, new):
+            # the columns past the longest row are padding that no row
+            # reads: without them a group whose rows share one length (a
+            # lone request) takes generate's prefill path, not the ragged
+            # path's one step a prompt position
+            return _device_decode(state, prompt[:, :max(lens)], lens, new)
+
+        state.batcher = DynamicBatcher(state, decode_fn, window_ms=batch_window_ms,
+                                       max_batch=MAX_BATCH, max_seq_len=_max_seq(model.cfg))
+    elif batching == "continuous":
         import torch
 
         from ..models import gpt as gpt_lib
@@ -774,6 +1081,9 @@ def make_server(
         )
     server = DecodeHTTPServer((host, port), DecodeHandlerFactory(state))
     server.state = state
+    if history_interval_s > 0:
+        # the alert manager ticks the history before each evaluation
+        (state.alerts or state.history).start(history_interval_s)
     state.phase = "ready"
     return server
 
@@ -788,14 +1098,10 @@ def _draft_presets():
 
 # CLI flags of the reference's server that the port refuses, with why
 _REFUSED_FLAGS = (
-    ("--batch-window-ms", True, _WINDOW), ("--tp", True, _SHARDED),
-    ("--mesh-shape", True, _SHARDED), ("--role", True, _DISAGGREGATED),
-    ("--enable-debug-endpoints", False, _DEBUG), ("--tenant-quotas", True, _QOS),
-    ("--history-interval", True, _QOS), ("--history-capacity", True, _QOS),
-    ("--alerts", True, _QOS), ("--ttft-slo-ms", True, _QOS),
+    ("--tp", True, _SHARDED), ("--mesh-shape", True, _SHARDED),
+    ("--role", True, _DISAGGREGATED),
     ("--warm", True, "--warm pre-compiles jit shapes; the port has none to compile"),
-    ("--smoke", False, "the telemetry smoke (/debug/flightz) is not ported "
-                       "(ROADMAP queue 1 item 5)"),
+    ("--smoke", False, _SMOKE),
 )
 
 
@@ -818,10 +1124,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--max-new-cap", type=int, default=1024,
                         help="upper bound a single request may ask for")
     parser.add_argument(
-        "--batching", choices=["none", "window", "continuous"], default="none",
-        help="greedy scheduling: none (inline, serialized) or continuous (the slot "
-        "engine: per-step admit/evict, token streaming, one capture per program); "
-        "window is refused",
+        "--batch-window-ms", type=float, default=0.0,
+        help="window batching: hold a greedy request this long to coalesce concurrent "
+        "peers into one decode (0 = off; implies --batching window)",
+    )
+    parser.add_argument(
+        "--batching", choices=["none", "window", "continuous"], default="",
+        help="greedy scheduling: none (inline, serialized), window (serve/batching.py; "
+        "needs --batch-window-ms) or continuous (the slot engine: per-step admit/evict, "
+        "token streaming, one capture per program). Default: window iff "
+        "--batch-window-ms > 0, else none",
     )
     parser.add_argument("--slots", type=int, default=8,
                         help="slot-grid rows for --batching continuous")
@@ -861,6 +1173,41 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--spec-depth", type=int, default=4,
         help="most tokens drafted per speculative round; the verify scores K+1",
     )
+    parser.add_argument(
+        "--enable-debug-endpoints", action="store_true",
+        help="serve GET /debug/profilez (the sampling profiler: start/stop/snapshot, "
+        "folded or speedscope output). Off by default: live thread stacks are sensitive",
+    )
+    parser.add_argument(
+        "--history-interval", type=float, default=5.0,
+        help="seconds between metric-history samples: every registry family and engine "
+        "counter is ring-buffered for /debug/historyz and the alert rules (0 disables the "
+        "background cadence)",
+    )
+    parser.add_argument(
+        "--history-capacity", type=int, default=512,
+        help="samples kept per history series (512 at the default 5 s cadence is ~42 "
+        "minutes)",
+    )
+    parser.add_argument(
+        "--alerts", choices=["on", "off"], default="on",
+        help="evaluate the serve alert rules (TTFT burn rate, queue depth, KV occupancy, "
+        "pool-audit failures) against the history each sample; states at /debug/alertz, "
+        "transitions flight-recorded kind=alert",
+    )
+    parser.add_argument(
+        "--ttft-slo-ms", type=float, default=250.0,
+        help="the TTFT objective the burn-rate rule guards (95%% of first tokens under "
+        "this; it must sit on a TTFT bucket edge)",
+    )
+    parser.add_argument(
+        "--tenant-quotas", default="", metavar="JSON",
+        help="per-tenant QoS admission, e.g. '{\"noisy\": {\"rate\": 100, \"burst\": "
+        "200, \"priority\": \"batch\"}, \"*\": {\"priority\": \"standard\"}}': "
+        "token-bucket rate/burst in generated tokens, priority class high/standard/batch "
+        "('*' = the default for unnamed tenants), the tenant from the X-Tenant header; "
+        "over-budget or queue-pressured requests get 429 + Retry-After. Empty = QoS off",
+    )
     for flag, takes_value, _ in _REFUSED_FLAGS:
         if takes_value:
             parser.add_argument(flag, default=None, help=argparse.SUPPRESS)
@@ -873,15 +1220,26 @@ def parse_args(argv=None) -> argparse.Namespace:
                 ("--kv-int8", args.kv_int8), ("--weights-int8", args.weights_int8),
                 ("--speculative", args.speculative),
                 ("--speculate", args.speculate not in (None, "off")),
-                ("--batch-window-ms", _number(args.batch_window_ms) > 0),
-                ("--batching", args.batching != "none"),
+                ("--batch-window-ms", args.batch_window_ms > 0),
+                ("--batching", args.batching not in ("", "none")),
                 ("--tp", _number(args.tp) > 1),
             ) if on
         ]
         if offending:
             parser.error(f"{', '.join(offending)} {_MOE_FLAGS}")
-    if args.batching == "continuous" and args.speculative:
-        parser.error("--batching continuous is mutually exclusive with --speculative")
+    if not args.batching:
+        args.batching = "window" if args.batch_window_ms > 0 else "none"
+    if args.batching == "window" and args.batch_window_ms <= 0:
+        parser.error("--batching window needs --batch-window-ms > 0")
+    if args.batching == "continuous":
+        offending = [flag for flag, on in (("--batch-window-ms", args.batch_window_ms > 0),
+                                           ("--speculative", args.speculative)) if on]
+        if offending:
+            parser.error(
+                f"--batching continuous is mutually exclusive with {', '.join(offending)}"
+            )
+    if args.speculative and args.batch_window_ms > 0:
+        parser.error("--speculative is mutually exclusive with --batch-window-ms")
     if args.speculate != "off":
         if args.batching != "continuous":
             parser.error("--speculate requires --batching continuous")
@@ -896,8 +1254,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     for flag, _, why in _REFUSED_FLAGS:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             parser.error(f"{flag}: {why}")
-    if args.batching == "window":
-        parser.error(f"--batching window: {_WINDOW}")
+    args.tenant_quotas_parsed = None
+    if args.tenant_quotas:
+        try:
+            quotas = json.loads(args.tenant_quotas)
+            if not isinstance(quotas, dict):
+                raise ValueError("must be a JSON object")
+            TenantQoS(quotas)  # field validation before any device work
+        except ValueError as exc:
+            parser.error(f"--tenant-quotas: {exc}")
+        args.tenant_quotas_parsed = quotas
     if args.slots < 1:
         parser.error("--slots must be >= 1")
     if args.batching == "continuous" and args.kv_layout == "paged":
@@ -978,7 +1344,12 @@ def main(argv=None) -> int:
             prefill_chunk=args.prefill_chunk, device=device, kv_quant_int8=args.kv_int8,
             weights_int8=args.weights_int8, speculative=args.speculative,
             speculate=args.speculate, spec_depth=args.spec_depth,
-            draft_preset=args.draft_preset,
+            draft_preset=args.draft_preset, batch_window_ms=args.batch_window_ms,
+            tenant_quotas=args.tenant_quotas_parsed,
+            enable_debug_endpoints=args.enable_debug_endpoints,
+            history_capacity=max(2, args.history_capacity),
+            history_interval_s=max(0.0, args.history_interval),
+            alerts=args.alerts == "on", ttft_slo_s=args.ttft_slo_ms / 1000.0,
         )
     except ValueError as err:
         # a combination only the model can judge (a draft whose vocabulary

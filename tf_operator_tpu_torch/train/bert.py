@@ -20,7 +20,8 @@ through InputPipeline under a PreemptionGuard (SIGTERM: checkpoint, exit
 splits each batch into microbatches, re-weighted by their mlm weight
 mass; --profile-dir traces the first timed steps (torch.profiler).
 Logs tokens/sec (of the global batch), then a held-out eval.
---monitoring-bind-addr is not ported yet (ROADMAP queue 1).
+--monitoring-bind-addr serves the worker's telemetry (train/observe.py
+TrainTelemetry) while it trains.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from typing import Dict, List, Optional
 import torch
 
 from ..parallel.mesh import add_mesh_flags, mesh_config
+from .observe import add_monitoring_flag
 
 logger = logging.getLogger("tf_operator_tpu_torch.train.bert")
 
@@ -78,6 +80,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         "--profile-dir", default=None,
         help="write a torch.profiler Chrome trace of the first timed steps here",
     )
+    add_monitoring_flag(parser)
     add_mesh_flags(parser)
     args = parser.parse_args(argv)
     args.mesh = mesh_config(parser, args)
@@ -91,6 +94,7 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
     from .._device import resolve_device
     from ..models import bert as bert_lib
     from ..parallel.mesh import build_mesh, mesh_summary
+    from .observe import telemetry_server
     from .trainer import Trainer, mlm_task, restore_if_any, timed_run, warmup_cosine_lr
 
     device = resolve_device(args.device)
@@ -118,11 +122,12 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
     def make_batch(gen: torch.Generator):
         return bert_lib.synthetic_batch(gen, args.batch_size, args.seq_len, cfg)
 
-    state = restore_if_any(trainer, trainer.init())
-    state, summary, _ = timed_run(
-        trainer, state, make_batch, generator, args.steps, args.log_every, SEED,
-        profile_dir=args.profile_dir,
-    )
+    with telemetry_server(trainer, args.monitoring_bind_addr):
+        state = restore_if_any(trainer, trainer.init())
+        state, summary, _ = timed_run(
+            trainer, state, make_batch, generator, args.steps, args.log_every, SEED,
+            profile_dir=args.profile_dir,
+        )
     if args.checkpoint_dir and not summary["exit_code"]:
         trainer.save(state)
     return summary

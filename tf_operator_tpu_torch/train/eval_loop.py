@@ -15,6 +15,8 @@ found nothing new to evaluate. Runs on CUDA unless --device names
 another. It joins the world from the operator-injected env as the train
 CLIs do; the operator injects that env into TPU replicas only, so an
 Evaluator replica runs as one process, its model unwrapped.
+--monitoring-bind-addr serves its telemetry (train/observe.py
+TrainTelemetry, worker "evaluator") while it polls.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import logging
 import sys
 import time
 from typing import List, Optional
+
+from .observe import add_monitoring_flag
 
 logger = logging.getLogger("tf_operator_tpu_torch.train.eval_loop")
 
@@ -56,6 +60,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         help="give up (exit 1) after this many polls in a row with nothing new",
     )
     parser.add_argument("--device", default=None, help="default: cuda")
+    add_monitoring_flag(parser, plane="evaluator")
     return parser.parse_args(argv)
 
 
@@ -113,12 +118,22 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 
 def evaluate_checkpoints(args: argparse.Namespace) -> int:
-    """The poll loop; returns the exit code."""
+    """The poll loop, with the telemetry server up when
+    --monitoring-bind-addr names one; returns the exit code."""
+    from .observe import telemetry_server
+
+    trainer, make_batch = build(args)
+    with telemetry_server(trainer, args.monitoring_bind_addr, worker="evaluator"):
+        return poll(args, trainer, make_batch)
+
+
+def poll(args: argparse.Namespace, trainer, make_batch) -> int:
+    """Evaluate each new checkpoint until --until-step or --max-polls;
+    returns the exit code."""
     from ..telemetry.flight import flight_record
     from ..telemetry.tracecontext import trace_scope
     from ..train.trainer import held_out_eval
 
-    trainer, make_batch = build(args)
     state = trainer.init()  # the restore target
     last_evaluated = -1
     empty_polls = 0

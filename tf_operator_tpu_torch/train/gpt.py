@@ -27,9 +27,9 @@ then decodes N tokens greedily (models/gpt.py generate) from the first 8
 tokens of each row of the warm-up batch, in a single process only (as
 the reference, which skips it on several hosts); --weights-int8 and
 --kv-int8 decode with int8 kernels (ops/quant.py, quantized once) and an
-int8 KV cache. Not ported: --tp, --sp and --sp-strategy (refused, naming
-their ROADMAP items) and --monitoring-bind-addr (ROADMAP queue 1;
-argparse refuses it).
+int8 KV cache. --monitoring-bind-addr serves the worker's telemetry
+(train/observe.py TrainTelemetry) while it trains. Not ported: --tp, --sp
+and --sp-strategy (refused, naming their ROADMAP items).
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..parallel.mesh import add_mesh_flags, mesh_config
+from .observe import add_monitoring_flag
 
 logger = logging.getLogger("tf_operator_tpu_torch.train.gpt")
 
@@ -95,6 +96,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         help="int8 KV cache for --generate (per-(position, head) scales)",
     )
     parser.add_argument("--device", default=None, help="default: cuda")
+    add_monitoring_flag(parser)
     add_mesh_flags(parser)
     args = parser.parse_args(argv)
     args.mesh = mesh_config(parser, args)
@@ -118,6 +120,7 @@ def train(
     from ..models import gpt as gpt_lib
     from ..parallel import distributed
     from ..parallel.mesh import build_mesh, mesh_summary
+    from .observe import telemetry_server
     from .trainer import (
         Trainer, causal_lm_task, restore_if_any, timed_run, warmup_cosine_lr,
     )
@@ -137,12 +140,13 @@ def train(
         weight_decay=WEIGHT_DECAY, device=device,
         checkpoint_dir=args.checkpoint_dir, accum_steps=args.accum_steps, mesh=mesh,
     )
-    state = restore_if_any(trainer, trainer.init())
-    state, summary, first_batch = timed_run(
-        trainer, state,
-        lambda gen: gpt_lib.synthetic_batch(gen, args.batch_size, args.seq_len, cfg),
-        generator, args.steps, args.log_every, SEED, on_step=on_step,
-    )
+    with telemetry_server(trainer, args.monitoring_bind_addr):
+        state = restore_if_any(trainer, trainer.init())
+        state, summary, first_batch = timed_run(
+            trainer, state,
+            lambda gen: gpt_lib.synthetic_batch(gen, args.batch_size, args.seq_len, cfg),
+            generator, args.steps, args.log_every, SEED, on_step=on_step,
+        )
     if summary["exit_code"]:
         return summary, state
     if args.checkpoint_dir:

@@ -18,8 +18,8 @@ and exits 143, --summary-dir writes scalar summaries, --profile-dir
 traces a few steady-state steps. Then a held-out eval on 4096 fresh
 samples, over every rank's rows (every rank logs the same accuracy);
 --target-accuracy fails the run (exit 1) below it, and --acc-json (rank
-0) writes the accuracy artifact. --monitoring-bind-addr is not
-ported yet (ROADMAP queue 1).
+0) writes the accuracy artifact. --monitoring-bind-addr serves the
+worker's telemetry (train/observe.py TrainTelemetry) while it trains.
 """
 
 from __future__ import annotations
@@ -32,6 +32,8 @@ import time
 from typing import List, Optional
 
 import torch
+
+from .observe import add_monitoring_flag
 
 logger = logging.getLogger("tf_operator_tpu_torch.train.mnist")
 
@@ -66,6 +68,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     )
     parser.add_argument("--log-every", type=int, default=50)
     parser.add_argument("--device", default=None, help="default: cuda")
+    add_monitoring_flag(parser)
     return parser.parse_args(argv)
 
 
@@ -85,9 +88,8 @@ def train(args: argparse.Namespace, device: torch.device, proc) -> int:
     from ..models import mnist as mnist_lib
     from ..parallel.mesh import build_mesh, mesh_summary
     from ..parallel.sharding import REPLICATED_RULES
-    from .preemption import PREEMPTED_EXIT_CODE
-    from .summaries import maybe_writer
-    from .trainer import Trainer, classification_task, restore_if_any
+    from .observe import telemetry_server
+    from .trainer import Trainer, classification_task
 
     mesh = build_mesh(device=device)
     logger.info("mesh: %s", mesh_summary(mesh))
@@ -97,6 +99,18 @@ def train(args: argparse.Namespace, device: torch.device, proc) -> int:
         weight_decay=0.0, device=device, checkpoint_dir=args.checkpoint_dir,
         mesh=mesh, rules=REPLICATED_RULES,
     )
+    with telemetry_server(trainer, args.monitoring_bind_addr):
+        return fit_and_evaluate(args, device, proc, trainer)
+
+
+def fit_and_evaluate(args: argparse.Namespace, device: torch.device, proc, trainer) -> int:
+    """train()'s run on its trainer: fit, save, the held-out eval and the
+    accuracy gate; returns the exit code."""
+    from ..models import mnist as mnist_lib
+    from .preemption import PREEMPTED_EXIT_CODE
+    from .summaries import maybe_writer
+    from .trainer import restore_if_any
+
     state = restore_if_any(trainer, trainer.init())
 
     def batches():

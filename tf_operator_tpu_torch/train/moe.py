@@ -19,8 +19,9 @@ checkpoint. Logs loss and router_aux (and router_z) per --log-every
 steps, then tokens/sec, then a held-out eval with perplexity and
 router_aux. --seq-len above the preset's max_position_embeddings raises
 it (the position table would otherwise be indexed past its end).
-Refused, naming their ROADMAP items: --ep and --tp (parallel/mesh.py)
-and --monitoring-bind-addr.
+--monitoring-bind-addr serves the worker's telemetry (train/observe.py
+TrainTelemetry) while it trains. Refused, naming their ROADMAP items:
+--ep and --tp (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ WEIGHT_DECAY = 0.01
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     from ..parallel.mesh import NOT_PORTED, mesh_config
-    from .trainer import MONITORING_NOT_PORTED
+    from .observe import add_monitoring_flag
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--preset", choices=["tiny", "base"], default="tiny")
@@ -71,11 +72,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     )
     parser.add_argument("--log-every", type=int, default=20)
     parser.add_argument("--device", default=None, help="default: cuda")
-    parser.add_argument("--monitoring-bind-addr", default=None,
-                        help=f"not ported: {MONITORING_NOT_PORTED}")
+    add_monitoring_flag(parser)
     args = parser.parse_args(argv)
-    if args.monitoring_bind_addr is not None:
-        parser.error(f"--monitoring-bind-addr: {MONITORING_NOT_PORTED}")
     args.mesh = mesh_config(parser, args)
     return args
 
@@ -98,6 +96,7 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Any]:
     from ..models import moe as moe_lib
     from ..parallel.mesh import build_mesh, mesh_summary
     from ..parallel.sharding import MOE_RULES
+    from .observe import telemetry_server
     from .trainer import Trainer, moe_task, restore_if_any, timed_run, warmup_cosine_lr
 
     device = resolve_device(args.device)
@@ -112,12 +111,13 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Any]:
         weight_decay=WEIGHT_DECAY, device=device, checkpoint_dir=args.checkpoint_dir,
         accum_steps=args.accum_steps, mesh=mesh, rules=MOE_RULES,
     )
-    state = restore_if_any(trainer, trainer.init())
-    state, summary, _ = timed_run(
-        trainer, state,
-        lambda gen: moe_lib.synthetic_batch(gen, args.batch_size, args.seq_len, cfg),
-        generator, args.steps, args.log_every, SEED,
-    )
+    with telemetry_server(trainer, args.monitoring_bind_addr):
+        state = restore_if_any(trainer, trainer.init())
+        state, summary, _ = timed_run(
+            trainer, state,
+            lambda gen: moe_lib.synthetic_batch(gen, args.batch_size, args.seq_len, cfg),
+            generator, args.steps, args.log_every, SEED,
+        )
     if args.checkpoint_dir and not summary["exit_code"]:
         trainer.save(state)
     return summary, state

@@ -29,7 +29,9 @@ outside the timed window, then the rest of the --steps budget (restored
 steps count) under a PreemptionGuard (SIGTERM: checkpoint, exit 143)
 and a final checkpoint. --accum-steps splits the batch into
 microbatches (BatchNorm statistics update once per microbatch);
---profile-dir traces the first timed steps. Logs images/sec.
+--profile-dir traces the first timed steps; --monitoring-bind-addr
+serves the worker's telemetry (train/observe.py TrainTelemetry) while it
+trains. Logs images/sec.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ import sys
 from typing import Dict, List, Optional
 
 import torch
+
+from .observe import add_monitoring_flag
 
 logger = logging.getLogger("tf_operator_tpu_torch.train.resnet")
 
@@ -76,6 +80,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         "--profile-dir", default=None,
         help="write a torch.profiler Chrome trace of the first timed steps here",
     )
+    add_monitoring_flag(parser)
     return parser.parse_args(argv)
 
 
@@ -102,6 +107,7 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
     from ..parallel import distributed
     from ..parallel.mesh import MeshConfig, build_mesh, mesh_summary
     from ..parallel.sharding import CONV_RULES
+    from .observe import telemetry_server
     from .trainer import Trainer, classification_task, restore_if_any, timed_run, warmup_cosine_lr
 
     device = resolve_device(args.device)
@@ -123,11 +129,12 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
     def make_batch(gen: torch.Generator):
         return resnet_lib.synthetic_batch(gen, global_batch, args.image_size, classes)
 
-    state = restore_if_any(trainer, trainer.init())
-    state, summary, _ = timed_run(
-        trainer, state, make_batch, generator, args.steps, args.log_every, SEED,
-        profile_dir=args.profile_dir, reuse_batch=True,
-    )
+    with telemetry_server(trainer, args.monitoring_bind_addr):
+        state = restore_if_any(trainer, trainer.init())
+        state, summary, _ = timed_run(
+            trainer, state, make_batch, generator, args.steps, args.log_every, SEED,
+            profile_dir=args.profile_dir, reuse_batch=True,
+        )
     if args.checkpoint_dir and not summary["exit_code"]:
         trainer.save(state)
     return summary

@@ -188,10 +188,6 @@ def moe_task() -> Task:
 
 
 HELD_OUT_FOLD = 2**31 - 1
-# what the train CLIs say of --monitoring-bind-addr until it is ported
-MONITORING_NOT_PORTED = (
-    "the trainer telemetry server (TrainTelemetry) is not ported (ROADMAP queue 1, item 3)"
-)
 OPTIMIZERS = ("adamw", "sgd")
 SGD_MOMENTUM = 0.9
 # aux keys that are bookkeeping, not metrics
@@ -412,13 +408,16 @@ class Trainer:
         accum_steps: int = 1,
         metrics_registry=None,
         clock=None,
+        phase_flight_every: int = 50,
         mesh=None,
         rules: sharding_lib.WrapPlan = sharding_lib.TRANSFORMER_RULES,
     ) -> None:
         """mesh: parallel/mesh.py build_mesh's (dp, fsdp) DeviceMesh over
         the world, or None for one process (the model runs unwrapped);
         rules: the wrap plan (parallel/sharding.py), TRANSFORMER_RULES by
-        default as in the reference."""
+        default as in the reference; phase_flight_every: the step phase
+        timer writes one kind="trainstep" flight record every that many
+        steps."""
         if optimizer not in OPTIMIZERS:
             raise ValueError(f"optimizer {optimizer!r} not in {OPTIMIZERS}")
         if accum_steps < 1:
@@ -466,7 +465,8 @@ class Trainer:
             "train_steps_total", "Optimizer steps executed by this process",
         )
         self.clock = clock if clock is not None else Clock()
-        self.phase_timer = StepPhaseTimer(registry, clock=self.clock)
+        self.phase_timer = StepPhaseTimer(registry, clock=self.clock,
+                                          flight_every=phase_flight_every)
         self.goodput = GoodputLedger(registry)
         self.health = HealthPhase()
         # step of the newest durable checkpoint (what a restart resumes

@@ -18,8 +18,9 @@ the rest of the --steps budget under a PreemptionGuard (SIGTERM:
 checkpoint, exit 143), a final checkpoint. --remat recomputes each
 block in the backward; --accum-steps splits the batch into
 microbatches; --profile-dir traces the first timed steps. Logs
-images/sec. Refused, naming their ROADMAP items: --tp above 1 and
---monitoring-bind-addr.
+images/sec. --monitoring-bind-addr serves the worker's telemetry
+(train/observe.py TrainTelemetry) while it trains. Refused, naming its
+ROADMAP item: --tp above 1.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ WEIGHT_DECAY = 0.05
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     from ..parallel.mesh import NOT_PORTED, mesh_config
-    from .trainer import MONITORING_NOT_PORTED
+    from .observe import add_monitoring_flag
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--preset", choices=["tiny", "b16"], default="b16")
@@ -70,11 +71,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     )
     parser.add_argument("--log-every", type=int, default=20)
     parser.add_argument("--device", default=None, help="default: cuda")
-    parser.add_argument("--monitoring-bind-addr", default=None,
-                        help=f"not ported: {MONITORING_NOT_PORTED}")
+    add_monitoring_flag(parser)
     args = parser.parse_args(argv)
-    if args.monitoring_bind_addr is not None:
-        parser.error(f"--monitoring-bind-addr: {MONITORING_NOT_PORTED}")
     args.mesh = mesh_config(parser, args)
     return args
 
@@ -95,6 +93,7 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     from ..parallel import distributed
     from ..parallel.mesh import build_mesh, mesh_summary
     from ..parallel.sharding import TRANSFORMER_RULES
+    from .observe import telemetry_server
     from .trainer import (
         Trainer, classification_task, restore_if_any, timed_run, warmup_cosine_lr,
     )
@@ -112,12 +111,13 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
         weight_decay=WEIGHT_DECAY, device=device, checkpoint_dir=args.checkpoint_dir,
         accum_steps=args.accum_steps, mesh=mesh, rules=TRANSFORMER_RULES,
     )
-    state = restore_if_any(trainer, trainer.init())
-    state, summary, _ = timed_run(
-        trainer, state, lambda gen: vit_lib.synthetic_batch(gen, global_batch, cfg),
-        generator, args.steps, args.log_every, SEED,
-        profile_dir=args.profile_dir, reuse_batch=True,
-    )
+    with telemetry_server(trainer, args.monitoring_bind_addr):
+        state = restore_if_any(trainer, trainer.init())
+        state, summary, _ = timed_run(
+            trainer, state, lambda gen: vit_lib.synthetic_batch(gen, global_batch, cfg),
+            generator, args.steps, args.log_every, SEED,
+            profile_dir=args.profile_dir, reuse_batch=True,
+        )
     if args.checkpoint_dir and not summary["exit_code"]:
         trainer.save(state)
     return summary
