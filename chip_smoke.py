@@ -132,7 +132,29 @@ non-zero, printing no result:
    statistic), and two f32 controls, BN not synced and sums all-reduced
    without a gradient, that must fail those bounds; K4 26 and K5 13
    launches per step per rank.
-26. serve - GPT-small (12 x 768, 6 heads of 128, vocab 32000, max_seq_len
+26. tp_gpt - GPT-small (2 x 4096, causal flash) under TRANSFORMER_RULES'
+   Megatron plan at tp = 2: a world of 2 over gloo on the card (3 heads
+   of 128, 16000 vocab rows a rank) against the one-process step on the
+   same weights and batch: the loss, and each rank's gradient shard by
+   plain_parity's ratio to the f32 step (DIST_TOLERANCE_WHY); the same
+   step in f32 (TF32 off, plain attention, remat) against the one
+   process's f32 step (MP_F32_GRAD_RTOL); K1-K3 12 launches per pass
+   per rank, ms per step labelled as ranks sharing one card. In the same
+   world: ViT-B/16 (batch 32) at tp = 2, its loss against one process's,
+   and generate(mesh=) of 16 greedy tokens at f32, the chain equal to
+   the one process's.
+27. sp_gpt - the same GPT-small step at sp = 2 (2048 positions a rank),
+   ring attention and then Ulysses (flash inside), each against the
+   one-process step (loss; every gradient by plain_parity's ratio);
+   K1-K3 0 launches under the ring, 12 per pass per rank under Ulysses
+   (3 heads at the full 4096).
+28. tp_sp_cli - a world of 4 over gloo on the card running the
+   reference's usage lines through the CLIs' run(): train/gpt.py
+   --preset small --tp 2 --sp 2 (ring, 2 x 4096, 4 steps) and
+   train/bert.py --preset base --tp 2 --sp 2 --sp-strategy ulysses
+   --flash --packed (32 x 512, 6 steps): finite losses that fall, K1-K3
+   0 launches for GPT and 12 per pass per rank for BERT.
+29. serve - GPT-small (12 x 768, 6 heads of 128, vocab 32000, max_seq_len
    2048, bf16, random weights from a seed) behind
    serve.make_server(batching="continuous") at the server's defaults (8
    slots, paged KV in 64-token blocks, the dense-equivalent pool, 64-token
@@ -156,7 +178,7 @@ non-zero, printing no result:
    bounds; the same requests through a kv_layout="dense" engine (the
    margin rule); one capture of the step and of the prefill chunk; no
    launch of K1-K5; the server shut down and the engine threads joined.
-27. int8_decode - GPT-small generate, 8 rows, a 128-token prompt, 256 new
+30. int8_decode - GPT-small generate, 8 rows, a 128-token prompt, 256 new
    tokens, bf16, in four modes (plain, weights_int8, kv_int8, both): ms per
    new token, the steady state's device ms per token, kernels per token and
    busy share, weight and KV bytes counted from the tensors; the plain chain
@@ -164,31 +186,31 @@ non-zero, printing no result:
    range, greedy agreement); f32 on the card (TF32 off) against f32 on the
    CPU: quantized kernels and the KV quantizer bit-equal, caches within one
    int8 step, step logits on the same cache bytes within 1e-4 of the range.
-28. int8_serve - the paged engine over the int8 twin with both int8 flags at
+31. int8_serve - the paged engine over the int8 twin with both int8 flags at
    8 slots: tokens/s, inter-token p50/p95, pool bytes against bf16's, the
    step as its CUDA graph and eagerly (and the int8 kernels' casts); every
    served chain replayed through the captured int8 step and chunk; the dense
    int8 cache against the paged int8 pool byte for byte.
-29. beam_search - GPT-small, 2 rows x 4 beams, prompt 64, 64 new: beam 1
+32. beam_search - GPT-small, 2 rows x 4 beams, prompt 64, 64 new: beam 1
    equal to greedy generate, ms per step and the parent gather's share,
    scores sorted and, at f32, equal to a teacher-forced recompute.
-30. spec_generate - GPT-small generate_speculative, 1 row, 256 new, draft_k
+33. spec_generate - GPT-small generate_speculative, 1 row, 256 new, draft_k
    4, ngram 2, on a repeated-span and a random prompt: f32 chains equal to
    generate's; bf16 tokens per round and ms per token beside generate's, the
    share of bf16 chains that differ and the margin at each divergence.
-31. spec_serve - the paged engine at GPT-small, 8 slots, spec_depth 4, one
+34. spec_serve - the paged engine at GPT-small, 8 slots, spec_depth 4, one
    request set with speculate off and ngram: tokens/s, inter-token p50/p95,
    accept rate, rounds, final depths, the verify program's graph ms; f32
    chains equal off against ngram; draft mode at GPT_TINY + GPT_DRAFT equal
    to off; near max_total a planted clamping verify must overwrite committed
    keys and values that the sentinel rule keeps.
-32. decode_modes_serve - the serve CLI at --preset small --kv-int8
+35. decode_modes_serve - the serve CLI at --preset small --kv-int8
    --weights-int8 as a subprocess with --speculate ngram (engine) and with
    --speculative (inline): chains against in-process decode on the same
    weights, a 4-beam request sorted, the reference's 400s, SIGTERM -> 0; the
    draft preset at GPT-small and --batching continuous --speculative refused
    at startup (exit 2, the reference's text).
-33. moe_train - MoE-base (12 x 768, 12 heads, every other block top-2 of
+36. moe_train - MoE-base (12 x 768, 12 heads, every other block top-2 of
    8 experts with bf16 expert kernels, capacity factor 1.25, vocab 32000)
    at batch 8 x seq 1024 (moe_bench.py:81-86), AdamW 3e-4 wd 0.01,
    through train/moe.py's train(): tokens/s over 5 timed steps, the
@@ -197,11 +219,11 @@ non-zero, printing no result:
    balance and routed fraction (moe_bench.py:109-143); K1-K5 launch 0
    times (the reference gives the MoE LM plain attention); the LM loss
    must fall.
-34. moe_profile - device ms per MoE-base step by region of the model
+37. moe_profile - device ms per MoE-base step by region of the model
    (router, dispatch/combine, expert FFN, dense MLP, projections,
    attention, LM head, loss, layer norm, optimizer; GEMMs apart; copies
    and casts apart) and the busy share (profile_regions).
-35. moe_parity - one moe_task step of MoE-base at batch 2 x 256: f32 on
+38. moe_parity - one moe_task step of MoE-base at batch 2 x 256: f32 on
    the card (TF32 off) against f32 on the CPU (logits, loss, router_aux,
    router_z, gradients; routing decisions equal but at near-ties), bf16
    against f32 (the loss; the share of decisions that differ per MoE
@@ -209,34 +231,34 @@ non-zero, printing no result:
    miss the CPU's; at capacity factor 0.5 the router's dispatch on the
    card equals the CPU's, and a planted per-token claim order moves
    slots (the reference's loop claims in whole rounds).
-36. moe_run_steps - run_steps(n=5) of MoE-base at 8 x 1024 as a CUDA
+39. moe_run_steps - run_steps(n=5) of MoE-base at 8 x 1024 as a CUDA
    graph against 5 eager steps (run_steps' criterion; no kernel inside).
-37. moe_generate - MoE-base, 8 rows, a 128-token prompt, 512 new tokens
+40. moe_generate - MoE-base, 8 rows, a 128-token prompt, 512 new tokens
    (moe_bench.py:184): tokens/s as the reference counts them, ms per
    token, busy share; in f32 at capacity factor 2.0, teacher-forced
    MoEDecodeStep against the training forward and the prefill chain
    against the all-stepwise chain.
-38. moe_serve - train/moe.py --preset base --steps 2 --checkpoint-dir,
+41. moe_serve - train/moe.py --preset base --steps 2 --checkpoint-dir,
    then the serve CLI --preset moe-base on that checkpoint as a
    subprocess: 8 requests from the port's DecodeClient, greedy chains
    equal to in-process moe_generate on the restored weights; a ragged,
    a top_k and a num_beams request each a 400; SIGTERM -> exit 0.
-39. vit_train, vit_profile - ViT-B/16 through train/vit.py at 224^2,
+42. vit_train, vit_profile - ViT-B/16 through train/vit.py at 224^2,
    batch 128, AdamW 1e-3 wd 0.05, bf16: images/s over 5 timed steps, MFU
    by the bench's transformer_step_flops (seq 196, not causal), device
    ms by region, peak memory; the loss must fall.
-40. vit_parity - ViT-B/16 at batch 8, gap and cls pooling, f32 and uint8
+43. vit_parity - ViT-B/16 at batch 8, gap and cls pooling, f32 and uint8
    images: f32 on the card against the CPU, bf16 against f32, a remat
    step against a plain one; a planted column-major patch order must
    fail.
-41. train_observe - gpt_train's run (GPT-small, 4 x 4096, causal flash)
+44. train_observe - gpt_train's run (GPT-small, 4 x 4096, causal flash)
    with --monitoring-bind-addr 127.0.0.1:<port>: a scraper thread reads
    every route of the worker's telemetry server while the card trains,
    and each step's hook reads /metrics. Held: train_steps_total moves by
    the steps run, /metrics validates, /healthz reaches "training", every
    route answers 200, and K1-K3 launch 12 times a step each. Tokens/s
    beside gpt_train's.
-42. train_observe_smoke - train/observe.py run_train_observe_smoke on
+45. train_observe_smoke - train/observe.py run_train_observe_smoke on
    the card: two MNIST workers in threads, a latency fault on worker-1's
    input fires train-straggler, the fault clears and the alert
    resolves; phase coverage >= 0.95, attribution overhead and the
@@ -245,7 +267,7 @@ non-zero, printing no result:
    fired stays within OBSERVE_RATE_KEEP of its steady rate (the larger of
    the baseline's and the one after the resolve: the slowed worker's
    sleep is on the host, so the shared card does not couple them).
-43. serve_observe - GPT-small behind make_server with tenant quotas
+46. serve_observe - GPT-small behind make_server with tenant quotas
    (OBSERVE_QUOTAS), alerts on, a 0.5 s history cadence and the debug
    endpoints, serve's 32-request mix from 8 client threads over
    /generate_stream (request i from tenant i % 3: vip, a default tenant,
@@ -259,13 +281,17 @@ non-zero, printing no result:
 Then the kernel summary line (with each kernel's launches per run_steps
 replay and per step per rank at world 2), the nvidia-smi line, and the
 result line. `chip_smoke.py --world2-rank <dir>` is one rank of phases
-23-25's world of 2, which phase 23 launches.
+23-25's world of 2, which phase 23 launches; `chip_smoke.py --world-rank
+mp <dir>` one rank of phases 26-27's world of 2 and `--world-rank cli
+<dir>` one of phase 28's world of 4.
 Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -2084,7 +2110,7 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def rank_env(rank: int, port: int) -> dict:
+def rank_env(rank: int, port: int, world: int = WORLD2) -> dict:
     """This process's env plus the identity the operator injects into a
     TPU replica's pods (controller/cluster_spec.py set_tpu_env), with the
     coordinator mapped to 127.0.0.1 as the hermetic E2Es map it."""
@@ -2093,19 +2119,22 @@ def rank_env(rank: int, port: int) -> dict:
     env = dict(os.environ)
     env.update({
         "TPU_WORKER_ID": str(rank),
-        "TPU_WORKER_HOSTNAMES": ",".join(f"worker-{i}.default.svc" for i in range(WORLD2)),
-        "JAX_NUM_PROCESSES": str(WORLD2),
+        "TPU_WORKER_HOSTNAMES": ",".join(f"worker-{i}.default.svc" for i in range(world)),
+        "JAX_NUM_PROCESSES": str(world),
         "JAX_PROCESS_ID": str(rank),
         "TFJOB_COORDINATOR_OVERRIDE": f"127.0.0.1:{port}",
     })
     return env
 
 
-def run_world(argv: list, logs_dir: str, timeout: float) -> list:
-    """WORLD2 processes of `argv` with rank_env; each one's output. A launch
+def run_world(argv: list, logs_dir: str, timeout: float, world: int = WORLD2) -> list:
+    """`world` processes of `argv` with rank_env; each one's output. A launch
     in which a rank fails is tried once more on a fresh port (another
     process may take the picked port before the coordinator binds it); a
-    fault of the program fails both attempts. Every process is ended."""
+    fault of the program fails both attempts, and the error names each
+    rank's exit code ("timeout" for one that outlived `timeout`, as a rank
+    in a hung collective does) beside its output's tail. Every process is
+    ended."""
     import os
 
     tails = []
@@ -2113,12 +2142,12 @@ def run_world(argv: list, logs_dir: str, timeout: float) -> list:
         port = free_port()
         procs = []
         try:
-            for rank in range(WORLD2):
+            for rank in range(world):
                 log = open(os.path.join(logs_dir, f"a{attempt}-rank{rank}.log"), "w")
                 procs.append((subprocess.Popen(
                     # a crash in native code prints the Python stack of each thread
-                    [sys.executable, "-X", "faulthandler"] + argv, env=rank_env(rank, port),
-                    stdout=log, stderr=subprocess.STDOUT,
+                    [sys.executable, "-X", "faulthandler"] + argv,
+                    env=rank_env(rank, port, world), stdout=log, stderr=subprocess.STDOUT,
                 ), log))
             deadline = time.monotonic() + timeout
             codes = []
@@ -2134,10 +2163,12 @@ def run_world(argv: list, logs_dir: str, timeout: float) -> list:
                     proc.wait()
                 log.close()
         texts = [open(log.name).read() for _, log in procs]
-        if codes == [0] * WORLD2:
+        if codes == [0] * world:
             return texts
-        tails.append({"codes": codes, "tails": [text[-3000:] for text in texts]})
-    raise AssertionError(f"world of {WORLD2} running {argv}: {json.dumps(tails)}")
+        tails.append({"codes": codes, "tails": {
+            f"rank {rank} ({code})": text[-3000:]
+            for rank, (code, text) in enumerate(zip(codes, texts))}})
+    raise AssertionError(f"world of {world} running {argv}: {json.dumps(tails)}")
 
 
 def run_rendezvous(smi: str, logs_dir: str) -> dict:
@@ -2786,6 +2817,429 @@ def check_syncbn_resnet(one: dict, ranks: list, smi: str, label: str) -> dict:
 def f32_within(readings: dict) -> bool:
     return (readings["worst_conv_grad_rel"][1] <= SYNCBN_F32_GRAD_RTOL
             and readings["worst_stat_rel"][1] <= SYNCBN_F32_STAT_RTOL)
+
+
+# -- model parallel: tensor and sequence parallelism ----------------------------
+#
+# tp_gpt and sp_gpt run in one world of 2 ranks on cuda:0 over gloo, tp_sp_cli
+# in a world of 4 (`chip_smoke.py --world-rank <phase> <dir>`): ranks sharing
+# one card, their collectives through host memory, so no ms per step from
+# them is a scaling number. Each rank's kernels run for real on its shard:
+# under tp K1-K3 on its 3 of GPT-small's 6 heads, under Ulysses on 6 / 2 = 3
+# heads at the full sequence after the all-to-all; the ring is plain torch
+# (the reference's ring is a jnp fold with no kernel) and launches none.
+MP_SHAPE = (2, 4096)  # GPT-small rows x seq for tp_gpt and sp_gpt
+MP_TIMED_STEPS = 2
+MP_TIMEOUT_S = 600
+MP_VIT_BATCH = 32
+MP_PROMPT_LEN = 8
+MP_NEW_TOKENS = 16
+MP_STRATEGIES = ("ring", "ulysses")
+# tp_gpt's f32 step (TF32 off, plain attention, remat) against the one
+# process's f32 step, each rank on its shards: the row-parallel all-reduce
+# and the vocab-parallel loss re-associate sums, f32 roundings apart; a
+# bias counted twice or a shard misplaced reads O(1)
+MP_F32_GRAD_RTOL = 1e-3
+CLI_WORLD = 4
+CLI_STEPS = {"gpt": 4, "bert": 6}
+MP_LABEL = ("ranks sharing one card, collectives over gloo through host memory: "
+            "not a scaling number")
+
+
+@functools.lru_cache(maxsize=2)
+def seeded_gpt(f32: bool):
+    """GPT-small at seq MP_SHAPE[1] drawn from DIST_SEED on the CPU, once
+    a process for each dtype (a draw takes seconds on the host); f32:
+    its f32 twin with per-block remat (plain causal attention:
+    flash_attention routes an f32 CUDA tensor there)."""
+    from tf_operator_tpu_torch.models import gpt as gpt_lib
+
+    cfg = dataclasses.replace(gpt_lib.GPT_SMALL, max_seq_len=MP_SHAPE[1])
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype=torch.float32, remat=True)
+    return gpt_lib.GPT(cfg, generator=torch.Generator().manual_seed(DIST_SEED))
+
+
+def mp_gpt_model(attention_fn=None, f32: bool = False):
+    """A copy of seeded_gpt(f32), its blocks attending with attention_fn
+    where given (else the causal flash route)."""
+    model = copy.deepcopy(seeded_gpt(f32))
+    if attention_fn is not None:
+        for block in model.blocks():
+            block.attention.attention_fn = attention_fn
+    return model
+
+
+def mp_gpt(model, mesh=None, shard_sequence=False):
+    """A GPT trainer (AdamW 3e-4 wd 0.01) and its global batch."""
+    from tf_operator_tpu_torch.models import gpt as gpt_lib
+    from tf_operator_tpu_torch.train import trainer as trainer_lib
+
+    trainer = trainer_lib.Trainer(model, trainer_lib.causal_lm_task(), learning_rate=3e-4,
+                                  weight_decay=0.01, device="cuda", mesh=mesh,
+                                  shard_sequence=shard_sequence)
+    batch = gpt_lib.synthetic_batch(torch.Generator().manual_seed(DIST_BATCH_SEED),
+                                    MP_SHAPE[0], MP_SHAPE[1], model.cfg)
+    return trainer, batch
+
+
+def mp_vit(mesh=None):
+    """ViT-B/16 (AdamW 1e-3 wd 0.05) and a batch of MP_VIT_BATCH."""
+    from tf_operator_tpu_torch.models import vit as vit_lib
+    from tf_operator_tpu_torch.train import trainer as trainer_lib
+
+    model = vit_lib.ViT(vit_lib.VIT_B16, generator=torch.Generator().manual_seed(DIST_SEED))
+    trainer = trainer_lib.Trainer(model, trainer_lib.classification_task(), learning_rate=1e-3,
+                                  weight_decay=0.05, device="cuda", mesh=mesh)
+    batch = vit_lib.synthetic_batch(torch.Generator().manual_seed(DIST_BATCH_SEED),
+                                    MP_VIT_BATCH, vit_lib.VIT_B16)
+    return trainer, batch
+
+
+def collective_ms(fn) -> dict:
+    """fn()'s wall ms and the host ms it spent inside the plans'
+    collectives (parallel/distributed.py all_reduce, all_gather,
+    all_to_all, ring_exchange), the card synchronized before each call so
+    that the time is the exchange's own: gloo stages a CUDA tensor through
+    host memory. DDP's gradient all-reduces run in its reducer, outside
+    these."""
+    from tf_operator_tpu_torch.parallel import distributed
+
+    names = ("all_reduce", "all_gather", "all_to_all", "ring_exchange")
+    originals = {name: getattr(distributed, name) for name in names}
+    spent = dict.fromkeys(names, 0.0)
+    calls = dict.fromkeys(names, 0)
+
+    def timed(name, original):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.monotonic()
+            try:
+                return original(*args, **kwargs)
+            finally:
+                spent[name] += time.monotonic() - start
+                calls[name] += 1
+        return call
+
+    for name in names:
+        setattr(distributed, name, timed(name, originals[name]))
+    try:
+        wall = timed_ms(fn, 1)
+    finally:
+        for name, original in originals.items():
+            setattr(distributed, name, original)
+    return {"wall_ms": wall, "collective_ms": sum(spent.values()) * 1e3,
+            "by_op_ms": {name: s * 1e3 for name, s in spent.items()}, "calls": calls}
+
+
+def mp_reference(work: str, kernels) -> dict:
+    """The one-process sides of tp_gpt and sp_gpt, TF32 off throughout:
+    GPT-small's bf16 step, the same step in f32, the f32 greedy chain, and
+    ViT-B/16's bf16 step, saved for the ranks."""
+    import os
+
+    from tf_operator_tpu_torch.models import gpt as gpt_lib
+
+    full_f32()
+    trainer, batch = mp_gpt(mp_gpt_model())
+    state = trainer.init()
+    kernels.reset_launches()
+    placed = trainer.place_batch(batch)
+    state, metrics = trainer.step(state, placed)
+    one = {"loss": float(metrics["loss"]), "launches": dict(kernels.LAUNCHES)}
+    grads = {n: p.grad.float().cpu() for n, p in state.model.named_parameters()}
+    one["ms_per_step"] = timed_ms(
+        lambda: [trainer.step(state, placed) for _ in range(MP_TIMED_STEPS)], MP_TIMED_STEPS)
+    del trainer, state
+    free_device_memory()
+    trainer, _ = mp_gpt(mp_gpt_model(f32=True))
+    state, metrics = trainer.step(trainer.init(), trainer.place_batch(batch))
+    one["loss_f32"] = float(metrics["loss"])
+    f32_grads = {n: p.grad.cpu() for n, p in state.model.named_parameters()}
+    del trainer, state
+    free_device_memory()
+    model = mp_gpt_model(f32=True).to("cuda")
+    prompt = batch["input_ids"][:, :MP_PROMPT_LEN]
+    chain = gpt_lib.generate(model, prompt, MP_NEW_TOKENS).tolist()
+    del model
+    free_device_memory()
+    trainer, vbatch = mp_vit()
+    _, vmetrics = trainer.step(trainer.init(), trainer.place_batch(vbatch))
+    one["vit_loss"] = float(vmetrics["loss"])
+    del trainer
+    free_device_memory()
+    torch.save({"grads": grads, "f32_grads": f32_grads, "chain": chain, "prompt": prompt,
+                **one}, os.path.join(work, "mp_ref.pt"))
+    return one
+
+
+def shard_of(name: str, full: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's slice of a full tensor by the tp plan."""
+    from tf_operator_tpu_torch.parallel import sharding
+
+    rule = sharding.tp_rule(name, sharding.TRANSFORMER_RULES.tp)
+    if rule is None or mesh.shape["tp"] == 1:
+        return full
+    return full.chunk(mesh.shape["tp"], rule[0])[mesh.coordinate["tp"]]
+
+
+def shard_readings(grads: dict, ref: dict, mesh, f32: bool = False) -> dict:
+    """This rank's gradient shards against the one process's: the worst
+    relative L2 against its bf16 (or, f32, its f32) gradient, and for
+    bf16 plain_parity's ratio (each shard's distance from the f32 shard
+    over the one-process bf16 shard's, floor GRAD_FLOOR); the attention
+    key bias, zero in exact arithmetic, left out."""
+    mine, one, f32_ref = {}, {}, {}
+    for name, grad in grads.items():
+        if name.endswith("attention.key.bias"):
+            continue
+        got = grad.float().cpu()
+        want32 = shard_of(name, ref["f32_grads"][name], mesh)
+        mine[name] = rel(got, want32)
+        if f32:
+            continue
+        one[name] = rel(shard_of(name, ref["grads"][name], mesh), want32)
+        f32_ref[name] = rel(got, shard_of(name, ref["grads"][name], mesh))
+    if f32:
+        return {"worst_f32_rel": list(max(mine.items(), key=lambda kv: kv[1]))}
+    return {"worst_ratio": worst_ratio(mine, one),
+            "worst_rel_vs_one_bf16": list(max(f32_ref.items(), key=lambda kv: kv[1]))}
+
+
+def mp_step(kernels, trainer, batch, timed: bool = True) -> tuple:
+    """Step 1 with its K1-K3 launches (one forward and one backward pass),
+    then MP_TIMED_STEPS timed steps and one step with its collectives
+    timed (collective_ms); the state and the readings."""
+    state = trainer.init()
+    placed = trainer.place_batch(batch)
+    kernels.reset_launches()
+    state, metrics = trainer.step(state, placed)
+    out = {"loss": float(metrics["loss"]),
+           "launches_per_pass": {k: kernels.LAUNCHES[k] for k in FLASH_KERNELS}}
+    if "input_ids" in placed:
+        out["rows"], out["positions"] = placed["input_ids"].shape
+    if timed:
+        grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+        out["ms_per_step"] = timed_ms(
+            lambda: [trainer.step(state, placed) for _ in range(MP_TIMED_STEPS)], MP_TIMED_STEPS)
+        out["collectives"] = collective_ms(lambda: trainer.step(state, placed))
+        return state, out, grads
+    return state, out, {n: p.grad for n, p in state.model.named_parameters()}
+
+
+def rank_tp_gpt(work: str, kernels) -> dict:
+    """tp_gpt's world-2 rank: GPT-small at tp = 2 (3 heads of 128 a rank)
+    in bf16 and in f32, ViT-B/16 at tp = 2, and generate(mesh=) at f32."""
+    import os
+
+    from tf_operator_tpu_torch.models import gpt as gpt_lib
+    from tf_operator_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    mesh = build_mesh(MeshConfig(tp=WORLD2), "cuda")
+    ref = torch.load(os.path.join(work, "mp_ref.pt"), weights_only=False)
+    full_f32()  # as the one process ran every step (its head and ViT's hold f32 products)
+    trainer, batch = mp_gpt(mp_gpt_model(), mesh)
+    state, out, grads = mp_step(kernels, trainer, batch)
+    out["heads_per_rank"] = state.model.layer_0.attention.query.out_shape[0]
+    out["vocab_per_rank"] = state.model.lm_head.weight.shape[0]
+    out.update(shard_readings(grads, ref, mesh))
+    del trainer, state, grads
+    free_device_memory()
+    trainer, _ = mp_gpt(mp_gpt_model(f32=True), mesh)
+    state, f32, grads = mp_step(kernels, trainer, batch, timed=False)
+    out["f32"] = {"loss": f32["loss"], **shard_readings(grads, ref, mesh, f32=True)}
+    del trainer, state, grads
+    free_device_memory()
+    model = mp_gpt_model(f32=True).to("cuda")
+    out["chain"] = gpt_lib.generate(model, ref["prompt"], MP_NEW_TOKENS, mesh=mesh).tolist()
+    del model
+    free_device_memory()
+    trainer, vbatch = mp_vit(mesh)
+    _, vit, _ = mp_step(kernels, trainer, vbatch, timed=False)
+    out["vit"] = {"loss": vit["loss"], "launches_per_pass": vit["launches_per_pass"],
+                  "heads_per_rank": trainer.model.layer_0.attention.query.out_shape[0]}
+    del trainer
+    free_device_memory()
+    return out
+
+
+def rank_sp_gpt(work: str, kernels) -> dict:
+    """sp_gpt's world-2 rank: GPT-small at sp = 2 (2048 positions a rank),
+    ring then Ulysses, each step 1 against the one process's."""
+    import os
+
+    from tf_operator_tpu_torch.parallel.mesh import MeshConfig, build_mesh, sequence_attention
+
+    mesh = build_mesh(MeshConfig(sp=WORLD2), "cuda")
+    ref = torch.load(os.path.join(work, "mp_ref.pt"), weights_only=False)
+    full_f32()
+    out = {}
+    for strategy in MP_STRATEGIES:
+        attention = sequence_attention(mesh, strategy, causal=True, flash=True)
+        trainer, batch = mp_gpt(mp_gpt_model(attention), mesh, shard_sequence=True)
+        state, got, grads = mp_step(kernels, trainer, batch)
+        got["wrapper"] = type(trainer.module).__name__
+        got.update(shard_readings(grads, ref, mesh))
+        out[strategy] = got
+        del trainer, state, grads
+        free_device_memory()
+    return out
+
+
+def rank_tp_sp_cli(kernels) -> dict:
+    """tp_sp_cli's world-4 rank: the reference's usage lines through the
+    CLIs' run(), GPT-small --tp 2 --sp 2 (ring), then BERT-base --tp 2
+    --sp 2 --sp-strategy ulysses --flash --packed."""
+    from tf_operator_tpu_torch.train import bert as bert_cli
+    from tf_operator_tpu_torch.train import gpt as gpt_cli
+
+    runs = {
+        "gpt": (gpt_cli, ["--preset", "small", "--tp", "2", "--sp", "2", "--batch-size",
+                          str(MP_SHAPE[0]), "--seq-len", str(MP_SHAPE[1])]),
+        "bert": (bert_cli, ["--preset", "base", "--tp", "2", "--sp", "2", "--sp-strategy",
+                            "ulysses", "--flash", "--packed"]),
+    }
+    out = {}
+    for name, (cli, argv) in runs.items():
+        args = cli.parse_args(argv + ["--steps", str(CLI_STEPS[name]), "--log-every", "1"])
+        kernels.reset_launches()
+        summary = cli.run(args)
+        passes = {"flash_fwd": summary["forward_passes"],
+                  "flash_bwd_dkv": summary["backward_passes"],
+                  "flash_bwd_dq": summary["backward_passes"]}
+        out[name] = {"argv": argv, "first_loss": summary["first_loss"], "loss": summary["loss"],
+                     "eval_loss": summary["eval_loss"], "steps": summary["step"],
+                     "tokens_per_sec": summary["tokens_per_sec"],
+                     "launches_per_pass": {k: kernels.LAUNCHES[k] / passes[k]
+                                           for k in FLASH_KERNELS},
+                     "forward_passes": summary["forward_passes"],
+                     "backward_passes": summary["backward_passes"]}
+        free_device_memory()
+    return out
+
+
+def world_rank(phase: str, work: str) -> int:
+    """One rank of a model-parallel world (run_model_parallel_phases),
+    launched as `chip_smoke.py --world-rank <phase> <dir>`: over gloo on
+    cuda:0, rank<r>.json written to <dir>. "mp" runs tp_gpt then sp_gpt,
+    "cli" tp_sp_cli."""
+    import os
+
+    from tf_operator_tpu_torch.ops import kernels
+    from tf_operator_tpu_torch.parallel import distributed
+
+    distributed.initialize("cuda", backend="gloo")
+    try:
+        out = {"rank": distributed.rank(), "world": distributed.world_size()}
+        if phase == "mp":
+            out["tp_gpt"] = rank_tp_gpt(work, kernels)
+            out["sp_gpt"] = rank_sp_gpt(work, kernels)
+        else:
+            out["tp_sp_cli"] = rank_tp_sp_cli(kernels)
+        with open(os.path.join(work, f"rank{out['rank']}.json"), "w") as fh:
+            json.dump(out, fh)
+        distributed.barrier()
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def run_model_parallel_phases(kernels, smi: str) -> dict:
+    """tp_gpt, sp_gpt and tp_sp_cli: the one-process references in this
+    process, then the world of 2 (tp_gpt, sp_gpt) and the world of 4
+    (tp_sp_cli), each held to its bounds. Returns K1-K3's launches per
+    pass per rank under tp = 2, ring sp = 2 and Ulysses sp = 2."""
+    import os
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="mp-")
+    try:
+        one = mp_reference(work, kernels)
+        start = time.monotonic()
+        run_world([__file__, "--world-rank", "mp", work], work, MP_TIMEOUT_S)
+        world_s = time.monotonic() - start
+        ranks = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(WORLD2)]
+        ref = torch.load(os.path.join(work, "mp_ref.pt"), weights_only=False)
+        tp = check_tp_gpt(one, ref["chain"], [r["tp_gpt"] for r in ranks], smi, world_s)
+        sp = check_sp_gpt(one, [r["sp_gpt"] for r in ranks], smi)
+        del ref
+        cli_work = os.path.join(work, "cli")
+        os.makedirs(cli_work)
+        start = time.monotonic()
+        run_world([__file__, "--world-rank", "cli", cli_work], cli_work, MP_TIMEOUT_S,
+                  world=CLI_WORLD)
+        cli_s = time.monotonic() - start
+        cli = [json.load(open(os.path.join(cli_work, f"rank{r}.json")))["tp_sp_cli"]
+               for r in range(CLI_WORLD)]
+        check_tp_sp_cli(cli, smi, cli_s)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        seeded_gpt.cache_clear()
+    return {"tp2": tp, "ring_sp2": sp["ring"], "ulysses_sp2": sp["ulysses"]}
+
+
+def check_tp_gpt(one: dict, chain: list, ranks: list, smi: str, world_s: float) -> dict:
+    flash_want = {k: LAYERS for k in FLASH_KERNELS}
+    emit({"phase": "tp_gpt", "card": smi, "model": "GPT-small causal flash, TRANSFORMER_RULES tp",
+          "shape": list(MP_SHAPE), "mesh": "dp=1xfsdp=1xsp=1xtp=2", "label": MP_LABEL,
+          "one_process": one, "ranks": ranks, "chain_one_process_f32": chain,
+          "world_seconds": world_s,
+          "tolerances": {"loss_atol": LOSS_ATOL, "grad_ratio": GRAD_RATIO,
+                         "grad_floor": GRAD_FLOOR, "f32_grad_rtol": MP_F32_GRAD_RTOL,
+                         "why": DIST_TOLERANCE_WHY}})
+    for r in ranks:
+        if r["launches_per_pass"] != flash_want or r["heads_per_rank"] != 3:
+            raise AssertionError(f"tp_gpt launches or heads: {r['launches_per_pass']}, "
+                                 f"{r['heads_per_rank']} heads")
+        if abs(r["loss"] - one["loss"]) > LOSS_ATOL or r["worst_ratio"][1] > GRAD_RATIO:
+            raise AssertionError(f"tp_gpt bf16 against the one process: {r['loss']} vs "
+                                 f"{one['loss']}, {r['worst_ratio']}")
+        f32 = r["f32"]
+        if (abs(f32["loss"] - one["loss_f32"]) > LOSS_ATOL
+                or f32["worst_f32_rel"][1] > MP_F32_GRAD_RTOL):
+            raise AssertionError(f"tp_gpt f32 against the one process: {f32}")
+        if r["chain"] != chain:
+            raise AssertionError(f"tp_gpt generate(mesh=) chain {r['chain']} != {chain}")
+        vit = r["vit"]
+        if abs(vit["loss"] - one["vit_loss"]) > LOSS_ATOL or vit["heads_per_rank"] != 6:
+            raise AssertionError(f"tp_gpt ViT-B/16 at tp 2: {vit} vs {one['vit_loss']}")
+    return {k: ranks[0]["launches_per_pass"][k] for k in FLASH_KERNELS}
+
+
+def check_sp_gpt(one: dict, ranks: list, smi: str) -> dict:
+    emit({"phase": "sp_gpt", "card": smi, "model": "GPT-small causal, sequence parallel",
+          "shape": list(MP_SHAPE), "mesh": "dp=1xfsdp=1xsp=2xtp=1", "label": MP_LABEL,
+          "one_process": one, "ranks": ranks,
+          "tolerances": {"loss_atol": LOSS_ATOL, "grad_ratio": GRAD_RATIO,
+                         "grad_floor": GRAD_FLOOR, "why": DIST_TOLERANCE_WHY}})
+    out = {}
+    for strategy in MP_STRATEGIES:
+        want = {k: 0 if strategy == "ring" else LAYERS for k in FLASH_KERNELS}
+        for r in ranks:
+            got = r[strategy]
+            if got["launches_per_pass"] != want or got["positions"] != MP_SHAPE[1] // WORLD2:
+                raise AssertionError(f"sp_gpt {strategy} launches {got['launches_per_pass']} "
+                                     f"!= {want}, positions {got['positions']}")
+            if abs(got["loss"] - one["loss"]) > LOSS_ATOL or got["worst_ratio"][1] > GRAD_RATIO:
+                raise AssertionError(f"sp_gpt {strategy} against the one process: {got['loss']} "
+                                     f"vs {one['loss']}, {got['worst_ratio']}")
+        out[strategy] = {k: ranks[0][strategy]["launches_per_pass"][k] for k in FLASH_KERNELS}
+    return out
+
+
+def check_tp_sp_cli(ranks: list, smi: str, world_s: float) -> None:
+    emit({"phase": "tp_sp_cli", "card": smi, "world": CLI_WORLD,
+          "mesh": "dp=1xfsdp=1xsp=2xtp=2", "label": MP_LABEL, "ranks": ranks,
+          "world_seconds": world_s})
+    for r in ranks:
+        for name, got in r.items():
+            want = 0 if name == "gpt" else LAYERS
+            if any(got["launches_per_pass"][k] != want for k in FLASH_KERNELS):
+                raise AssertionError(f"tp_sp_cli {name} launches {got['launches_per_pass']}")
+            losses = (got["first_loss"], got["loss"], got["eval_loss"])
+            if not all(math.isfinite(x) for x in losses) or not got["loss"] < got["first_loss"]:
+                raise AssertionError(f"tp_sp_cli {name} losses {losses}")
 
 
 # the serve phase: GPT-small behind make_server(batching="continuous") at the
@@ -5718,6 +6172,8 @@ def main() -> int:
     free_device_memory()
     world2 = run_distributed_phases(kernels, smi)
     free_device_memory()
+    mp = run_model_parallel_phases(kernels, smi)
+    free_device_memory()
     run_serve(kernels, gpt_lib, smi)
     free_device_memory()
     run_decode_modes_phases(kernels, smi)
@@ -5740,6 +6196,12 @@ def main() -> int:
             "replay_basis": "run_steps' CUDA graph of one BERT-base step (32 x 512)",
             "launches_per_step_per_rank_world2": world2["ddp_bert"][name],
             "world2_basis": "ddp_bert: BERT-base under DDP, 2 ranks over gloo, 16 rows a rank",
+            "launches_per_pass_per_rank_tp2": mp["tp2"][name],
+            "launches_per_pass_per_rank_ulysses_sp2": mp["ulysses_sp2"][name],
+            "launches_per_pass_per_rank_ring_sp2": mp["ring_sp2"][name],
+            "model_parallel_basis": "tp_gpt and sp_gpt: GPT-small 2 x 4096 causal, 2 ranks "
+                                    "over gloo on one card; tp 3 heads of 128 a rank, Ulysses "
+                                    "3 heads at the full 4096, the ring (plain torch) none",
             "gpt": {
                 "shape": list(GPT_SHAPE), "causal": True,
                 "launches": gpt["launches"][name],
@@ -5791,4 +6253,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--world2-rank":
         sys.exit(world2_rank(sys.argv[2]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--world-rank":
+        sys.exit(world_rank(sys.argv[2], sys.argv[3]))
     sys.exit(main())

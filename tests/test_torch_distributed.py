@@ -36,7 +36,9 @@ TpuBatchNorm), held against the JAX reference on the CPU over gloo, f32.
     world 2.
 - A SIGTERM to one rank of train/gpt.py at world 2: both ranks exit 143
   at the same step, with one checkpoint at that step.
-- --tp, --sp and --sp-strategy are refused, naming ROADMAP.
+- --tp, --sp and --sp-strategy parse to their MeshConfig; together with
+  --fsdp > 1 (2-D) they are refused, naming ROADMAP. Their worlds run in
+  tests/test_torch_tensor_parallel.py and test_torch_sequence_parallel.py.
 
 The worlds rendezvous over 127.0.0.1 on a free port; a port taken between
 the pick and the bind fails the launch, which is retried once with a
@@ -585,9 +587,15 @@ def test_one_process_has_no_mesh_and_refuses_what_is_not_ported():
     assert torch_mesh.local_rows(None, 8) == slice(0, 8)
     with pytest.raises(ValueError, match="1 devices"):
         torch_mesh.build_mesh(torch_mesh.MeshConfig(fsdp=2), "cpu")
-    for axis in ("pp", "ep", "sp", "tp"):
+    for axis in ("pp", "ep"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             torch_mesh.build_mesh(torch_mesh.MeshConfig(**{axis: 2}), "cpu")
+    # sp and tp are ported: in one process they do not fit, as fsdp=2 does not
+    for axis in ("sp", "tp"):
+        with pytest.raises(ValueError, match="1 devices"):
+            torch_mesh.build_mesh(torch_mesh.MeshConfig(**{axis: 2}), "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
+        torch_mesh.build_mesh(torch_mesh.MeshConfig(fsdp=2, tp=2), "cpu")
     assert distributed.initialize("cpu", environ={}).num_processes == 1
     assert not distributed.is_initialized()
 
@@ -599,10 +607,19 @@ def test_cli_refuses_unported_parallelism_naming_roadmap(cli, flags, capsys):
     from tf_operator_tpu_torch.train import gpt as gpt_cli
 
     module = {"bert": bert_cli, "gpt": gpt_cli}[cli]
-    with pytest.raises(SystemExit) as exit_info:
-        module.parse_args(["--preset", "tiny", "--device", "cpu"] + flags)
-    assert exit_info.value.code == 2
-    assert "ROADMAP queue 1, item" in capsys.readouterr().err
+    base = ["--preset", "tiny", "--device", "cpu"]
+    args = module.parse_args(base + flags)
+    # the flags are ported: each parses to its MeshConfig
+    want = {"--tp": torch_mesh.MeshConfig(tp=2), "--sp": torch_mesh.MeshConfig(sp=2),
+            "--sp-strategy": torch_mesh.MeshConfig()}[flags[0]]
+    assert args.mesh == want
+    assert args.sp_strategy == ("ulysses" if flags[0] == "--sp-strategy" else "ring")
+    if flags[0] != "--sp-strategy":
+        # with --fsdp > 1 (FSDP2 composed with tp/sp) they are refused
+        with pytest.raises(SystemExit) as exit_info:
+            module.parse_args(base + flags + ["--fsdp", "2"])
+        assert exit_info.value.code == 2
+        assert "ROADMAP queue 1, item 4" in capsys.readouterr().err
     assert module.parse_args(["--preset", "tiny", "--fsdp", "2"]).mesh == torch_mesh.MeshConfig(
         fsdp=2)
 

@@ -463,8 +463,10 @@ def test_sampled_decode_respects_filters_and_seed():
     # both int8 flags are ported: they compose with the same checks
     (dict(kv_quant_int8=True, max_new_tokens=0), ValueError, "max_new_tokens"),
     (dict(weights_int8=True, top_p=0.0), ValueError, "top_p"),
-    (dict(mesh=object()), NotImplementedError, "item 4"),
-    (dict(rules=object()), NotImplementedError, "item 4"),
+    # a mesh is ported (tests/test_torch_tensor_parallel.py decodes on one):
+    # the same checks come first, and int8 weights on a mesh are refused
+    (dict(mesh=object(), max_new_tokens=0), ValueError, "max_new_tokens"),
+    (dict(mesh=object(), weights_int8=True), NotImplementedError, "item 6"),
 ])
 def test_generate_validation(kwargs, error, match):
     model = torch_gpt.GPT(torch_gpt.GPT_TINY)
@@ -525,8 +527,10 @@ def test_cli_wants_cuda_and_refuses_unported_flags():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             torch_gpt_cli.main(CLI_ARGS)
+    # --tp is ported; --fsdp together with it is not (2-D, ROADMAP item 4)
+    assert torch_gpt_cli.parse_args(CLI_ARGS + ["--tp", "2"]).mesh.tp == 2
     with pytest.raises(SystemExit):
-        torch_gpt_cli.parse_args(CLI_ARGS + ["--tp", "2"])
+        torch_gpt_cli.parse_args(CLI_ARGS + ["--tp", "2", "--fsdp", "2"])
     # the telemetry server is ported (tests/test_torch_train_observe.py runs it)
     args = torch_gpt_cli.parse_args(CLI_ARGS + ["--monitoring-bind-addr", "127.0.0.1:0"])
     assert args.monitoring_bind_addr == "127.0.0.1:0"

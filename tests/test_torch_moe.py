@@ -341,7 +341,7 @@ def test_cli_runs_three_steps_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--ep", "2"], "item 7"), (["--tp", "2"], "item 4"),
+    (["--ep", "2"], "item 7"), (["--tp", "2"], "item 7"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, item, capsys):
     with pytest.raises(SystemExit) as err:

@@ -167,9 +167,12 @@ def test_cli_runs_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--tp", "2"], "item 4"),
+    # --tp is ported (tests/test_torch_tensor_parallel.py trains at tp 2);
+    # --fsdp together with it is not
+    (["--tp", "2", "--fsdp", "2"], "item 4"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, item, capsys):
+    assert torch_vit_cli.parse_args(["--tp", "2"]).mesh.tp == 2
     with pytest.raises(SystemExit) as err:
         torch_vit_cli.parse_args(argv)
     assert err.value.code == 2

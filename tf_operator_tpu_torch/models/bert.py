@@ -9,6 +9,12 @@ dtype. Module and parameter names follow the reference's param paths
 (models/convert.py) load by name. Parameters are drawn from the flax
 initializers' distributions with a `torch.Generator`; they are not
 bit-equal to flax's.
+
+Under the tensor-parallel plan (parallel/sharding.py) each
+TransformerBlock copies its halves' inputs to the tp group and its
+row-parallel layers all-reduce before their biases; the MLM head is
+vocab-parallel. Under sp the encoder's positions start at the rank's
+offset (`seq_index`).
 """
 
 from __future__ import annotations
@@ -69,11 +75,20 @@ class LayerNorm(nn.LayerNorm):
 
 def dense(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax nn.Dense(dtype=dtype): input, kernel and bias cast to dtype,
-    the bias added after the product. An int8 twin (ops/quant.py, a
+    the bias added after the product (after the all-reduce of a
+    row-parallel layer's partial products). An int8 twin (ops/quant.py, a
     model through quantize_model) runs its own product in `dtype`."""
     if isinstance(layer, QuantDenseGeneral):
         return layer(x, dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    group = getattr(layer, "reduce_group", None)
+    if group is not None:
+        # row-parallel (parallel/sharding.py): the partial products meet
+        # before the bias, which is added once
+        from ..parallel.distributed import reduce_from_group
+
+        y = reduce_from_group(y, group)
+    return y + layer.bias.to(dtype)
 
 
 def transformer_mlp(
@@ -123,6 +138,18 @@ class TransformerBlock(nn.Module):
         self.ln_mlp = LayerNorm(cfg.hidden_size)
         self.mlp_in = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.mlp_out = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        # set by parallel/sharding.py apply_tensor_parallel: the tp group
+        # the halves' inputs are copied to
+        self.tp_group = None
+
+    def _to_tp(self, y: torch.Tensor) -> torch.Tensor:
+        """A half's input, copied to the tp group (identity forward,
+        all-reduce backward) under the tensor-parallel plan."""
+        if self.tp_group is None:
+            return y
+        from ..parallel.distributed import copy_to_group
+
+        return copy_to_group(y, self.tp_group)
 
     def attention_half(
         self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -130,7 +157,7 @@ class TransformerBlock(nn.Module):
     ) -> torch.Tensor:
         """x plus the attention of its layer norm: the block up to its
         MLP, which the MoE blocks (models/moe.py) share."""
-        y = self.ln_attn(x)
+        y = self._to_tp(self.ln_attn(x))
         return x + self.attention(y.to(self.cfg.dtype), mask, attention_fn)
 
     def forward(
@@ -139,7 +166,8 @@ class TransformerBlock(nn.Module):
     ) -> torch.Tensor:
         """attention_fn: as MultiHeadAttention.forward's, for this call."""
         x = self.attention_half(x, mask, attention_fn)
-        return x + transformer_mlp(self.cfg, self.ln_mlp(x), self.mlp_in, self.mlp_out)
+        return x + transformer_mlp(self.cfg, self._to_tp(self.ln_mlp(x)), self.mlp_in,
+                                   self.mlp_out)
 
 
 class BertEncoder(nn.Module):
@@ -155,10 +183,12 @@ class BertEncoder(nn.Module):
         self.ln_final = LayerNorm(cfg.hidden_size)
 
     def forward(
-        self, input_ids: torch.Tensor, mask: Optional[torch.Tensor] = None
+        self, input_ids: torch.Tensor, mask: Optional[torch.Tensor] = None,
+        offset: int = 0,
     ) -> torch.Tensor:
+        """offset: the first position's index (a sequence shard's under sp)."""
         cfg = self.cfg
-        positions = torch.arange(input_ids.shape[-1], device=input_ids.device)
+        positions = offset + torch.arange(input_ids.shape[-1], device=input_ids.device)
         # gather in f32 then cast: the same values as flax's cast-then-take
         x = (
             self.token_embed(input_ids).to(cfg.dtype)
@@ -194,6 +224,10 @@ class BertForMLM(nn.Module):
         self.cfg = cfg
         self.encoder = BertEncoder(cfg, attention_fn)
         self.mlm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size)
+        # set by parallel/sharding.py: the sequence shard under sp, and
+        # the head's vocab split under tp
+        self.seq_index = 0
+        self.vocab_shard = None
         self.reset_parameters(generator)
         if device is not None:
             self.to(device)
@@ -204,17 +238,23 @@ class BertForMLM(nn.Module):
     def forward(
         self, input_ids: torch.Tensor, mask: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
-        hidden = self.encoder(input_ids, mask)
+        """Under tp the logits are this rank's vocab columns (vocab_shard)."""
+        hidden = self.encoder(input_ids, mask, self.seq_index * input_ids.shape[-1])
+        if self.vocab_shard is not None:
+            from ..parallel.distributed import copy_to_group
+
+            hidden = copy_to_group(hidden, self.vocab_shard.group)
         return dense(self.mlm_head, hidden, self.cfg.dtype)
 
 
 def mlm_loss(
-    logits: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor
+    logits: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor, vocab=None,
 ) -> torch.Tensor:
-    """Masked cross-entropy; `weights` marks the masked positions."""
+    """Masked cross-entropy; `weights` marks the masked positions. vocab:
+    the logits' vocab split under tp (parallel/sharding.py VocabShard)."""
     from ..ops.losses import weighted_mean_xent
 
-    return weighted_mean_xent(logits, labels, weights)
+    return weighted_mean_xent(logits, labels, weights, vocab)
 
 
 def synthetic_batch(

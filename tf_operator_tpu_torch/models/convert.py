@@ -4,6 +4,12 @@ ResNet, the MNIST CNN, the MoE LM and ViT.
 The input is the tree as nested dicts of numpy arrays (a caller holding
 a JAX tree maps `np.asarray` over it first), so this module never sees
 JAX. Keys are the reference's param paths.
+
+Under a mesh with tp > 1 the BERT, GPT and ViT converters take `mesh`
+(and `rules`, TRANSFORMER_RULES by default): the full state dict, then
+this rank's slice by the rules' tp plan (parallel/sharding.py
+shard_state_dict), which a model laid out by the same plan loads. So
+both packages start from the same weights at any mesh.
 """
 
 from __future__ import annotations
@@ -71,17 +77,31 @@ def _port_name(path: str, rules):
     raise KeyError(f"no mapping for flax param {path!r}")
 
 
-def bert_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def _for_mesh(state: Dict[str, torch.Tensor], mesh, rules) -> Dict[str, torch.Tensor]:
+    """The full state dict, or this rank's slice of it under `mesh`."""
+    if mesh is None:
+        return state
+    from ..parallel import sharding
+
+    return sharding.shard_state_dict(state, mesh, rules or sharding.TRANSFORMER_RULES)
+
+
+def bert_state_dict_from_flax(
+    params: Mapping[str, Any], mesh=None, rules=None,
+) -> Dict[str, torch.Tensor]:
     """flax BertForMLM params (nested dicts of numpy arrays) -> a
-    state_dict for models.bert.BertForMLM. Raises KeyError on a path it
-    does not map."""
-    return _state_dict(params, _BERT_RULES)
+    state_dict for models.bert.BertForMLM (this rank's slice under
+    `mesh`). Raises KeyError on a path it does not map."""
+    return _for_mesh(_state_dict(params, _BERT_RULES), mesh, rules)
 
 
-def gpt_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def gpt_state_dict_from_flax(
+    params: Mapping[str, Any], mesh=None, rules=None,
+) -> Dict[str, torch.Tensor]:
     """flax GPT params (nested dicts of numpy arrays) -> a state_dict for
-    models.gpt.GPT. Raises KeyError on a path it does not map."""
-    return _state_dict(params, _GPT_RULES)
+    models.gpt.GPT (this rank's slice under `mesh`). Raises KeyError on a
+    path it does not map."""
+    return _for_mesh(_state_dict(params, _GPT_RULES), mesh, rules)
 
 
 def gpt_int8_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -192,8 +212,11 @@ def moe_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
     return _state_dict(params, _MOE_PARAMS)
 
 
-def vit_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def vit_state_dict_from_flax(
+    params: Mapping[str, Any], mesh=None, rules=None,
+) -> Dict[str, torch.Tensor]:
     """flax ViT params (nested dicts of numpy arrays) -> a state_dict for
     models.vit.ViT: the patch kernel HWIO -> OIHW, Dense kernels [in,
-    out] -> [out, in]. Raises KeyError on a path it does not map."""
-    return _state_dict(params, _VIT_PARAMS)
+    out] -> [out, in] (this rank's slice under `mesh`). Raises KeyError
+    on a path it does not map."""
+    return _for_mesh(_state_dict(params, _VIT_PARAMS), mesh, rules)

@@ -32,8 +32,15 @@ through per-slot block tables (with its prefill chunk, block copy and,
 for speculation, its verify program). Each program holds its inputs in
 static buffers and, on a CUDA device, runs as one CUDA graph captured at
 its first call, where the reference compiles its step once with jax.jit.
-Left out: mesh-sharded decode (generate and the slot steps raise
-NotImplementedError; ROADMAP queue 1, items 4 and 6).
+
+Under a mesh (parallel/sharding.py): the tensor-parallel plan splits the
+heads, the MLP, the embeddings and the LM head over tp, and the logits
+are this rank's vocab columns (`vocab_shard`); under sp a rank's forward
+sees a sequence shard whose positions start at `seq_index` x its length.
+`generate(mesh=, rules=)` decodes with the tp-sharded weights: the KV
+cache holds the rank's heads, and each step's logits are gathered over
+tp before the sampler. Left out: the slot steps under a mesh (they
+raise NotImplementedError; ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -128,6 +135,10 @@ class GPT(nn.Module):
             )
         self.ln_final = LayerNorm(cfg.hidden_size)
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size)
+        # set by parallel/sharding.py: the sequence shard under sp, and
+        # the head's vocab split under tp
+        self.seq_index = 0
+        self.vocab_shard = None
         init_like_flax_(self, generator)
         if device is not None:
             self.to(device)
@@ -142,11 +153,20 @@ class GPT(nn.Module):
         return self.token_embed(input_ids).to(dtype) + self.position_embed(positions).to(dtype)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
-        """Final f32 LayerNorm, then the head in the compute dtype."""
-        return dense(self.lm_head, self.ln_final(x), self.cfg.dtype)
+        """Final f32 LayerNorm, then the head in the compute dtype (this
+        rank's vocab columns under tp)."""
+        x = self.ln_final(x)
+        if self.vocab_shard is not None:
+            from ..parallel.distributed import copy_to_group
+
+            x = copy_to_group(x, self.vocab_shard.group)
+        return dense(self.lm_head, x, self.cfg.dtype)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        positions = torch.arange(input_ids.shape[-1], device=input_ids.device)
+        """Under sp, input_ids are the rank's sequence shard, whose
+        positions start at seq_index x its length."""
+        offset = self.seq_index * input_ids.shape[-1]
+        positions = offset + torch.arange(input_ids.shape[-1], device=input_ids.device)
         x = self.embed(input_ids, positions[None])
         for block in self.blocks():
             if self.cfg.remat and torch.is_grad_enabled():
@@ -158,15 +178,33 @@ class GPT(nn.Module):
 
 def causal_lm_loss(
     logits: torch.Tensor, input_ids: torch.Tensor,
-    weights: Optional[torch.Tensor] = None,
+    weights: Optional[torch.Tensor] = None, vocab=None,
 ) -> torch.Tensor:
     """Next-token cross-entropy: position t predicts token t+1, through
-    the fused loss (ops/losses.py)."""
+    the fused loss (ops/losses.py); vocab: the logits' split under tp
+    (parallel/sharding.py VocabShard)."""
     from ..ops.losses import weighted_mean_xent
 
     if weights is not None:
         weights = weights[:, 1:]
-    return weighted_mean_xent(logits[:, :-1], input_ids[:, 1:], weights)
+    return weighted_mean_xent(logits[:, :-1], input_ids[:, 1:], weights, vocab)
+
+
+def sharded_lm_loss(
+    logits: torch.Tensor, next_ids: torch.Tensor, vocab=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """causal_lm_loss on a sequence shard under sp: next_ids are the ids
+    one past each local position, taken from the full row (positions
+    [offset + 1, offset + s_local + 1) clipped to the row, so the last
+    shard has one fewer and drops its last position). -> (the mean over
+    the shard's positions, their count): the trainer weights the shards
+    by their counts, so the loss is the global sum over the global count,
+    as the one-process [:, :-1] mean."""
+    from ..ops.losses import weighted_mean_xent
+
+    n = next_ids.shape[1]
+    count = torch.full((), float(next_ids.numel()), device=logits.device)
+    return weighted_mean_xent(logits[:, :n], next_ids, None, vocab), count
 
 
 SUCCESSOR_SEED = 7
@@ -217,8 +255,11 @@ class KVCache:
     def zeros(
         cls, cfg: GPTConfig, batch: int, cache_len: int,
         device: Optional[torch.device] = None, kv_quant_int8: bool = False,
+        heads: Optional[int] = None,
     ) -> "KVCache":
-        shape = (batch, cache_len, cfg.num_heads, cfg.head_dim)
+        """heads: the heads a rank holds (its share under tp); all of
+        cfg's by default."""
+        shape = (batch, cache_len, heads or cfg.num_heads, cfg.head_dim)
 
         def layers(shape, dtype):
             return [torch.zeros(shape, dtype=dtype, device=device)
@@ -345,6 +386,23 @@ def model_device(model: nn.Module) -> torch.device:
     return model.token_embed.weight.device
 
 
+def local_heads(model: nn.Module) -> int:
+    """The attention heads the model's projections hold: all of them, or
+    this rank's under tp."""
+    return model.blocks()[0].attention.query.out_shape[0]
+
+
+def full_logits(model: nn.Module, logits: torch.Tensor) -> torch.Tensor:
+    """Logits over the whole vocab: under tp, the ranks' vocab columns
+    gathered in rank order (a collective over the tp group)."""
+    shard = getattr(model, "vocab_shard", None)
+    if shard is None:
+        return logits
+    from ..parallel.distributed import all_gather
+
+    return all_gather(logits, shard.group, dim=-1)
+
+
 class GPTDecodeStep:
     """One-token forward over a GPT's own parameters: token [b] at
     `index` (an int for every row, or a [b] tensor of each row's
@@ -369,7 +427,7 @@ class GPTDecodeStep:
         valid = (positions[None, :] <= rows)[:, None, None, :]
         for block, kv in zip(model.blocks(), cache.layers()):
             x = block(x, valid, _cache_attention(kv, index))
-        return model.head(x)[:, 0]
+        return full_logits(model, model.head(x)[:, 0])
 
 
 class GPTPrefill:
@@ -389,7 +447,7 @@ class GPTPrefill:
         causal = (positions[:, None] >= positions[None, :])[None, None]
         for block, kv in zip(model.blocks(), cache.layers()):
             x = block(x, causal, _cache_attention(kv, None))
-        return model.head(x[:, -1:])[:, 0]
+        return full_logits(model, model.head(x[:, -1:])[:, 0])
 
 
 class GPTVerifyBlock:
@@ -466,7 +524,8 @@ def _decode(
     token forced to its own next prompt token while inside its prompt
     (lens), so shorter rows start generating at their own boundary."""
     batch, prompt_len = prompt.shape
-    cache = KVCache.zeros(model.cfg, batch, total, prompt.device, kv_quant_int8)
+    cache = KVCache.zeros(model.cfg, batch, total, prompt.device, kv_quant_int8,
+                          heads=local_heads(model))
     step = GPTDecodeStep(model)
 
     def steps(tok: torch.Tensor, indices) -> List[torch.Tensor]:
@@ -537,16 +596,27 @@ def generate(
     (ops/quant.py), quantized once per call unless `model` already is
     the int8 twin (serving quantizes once at load). The two compose.
 
-    mesh/rules (sharded decode) are not ported and raise
-    NotImplementedError."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(
-            "mesh-sharded decode is not ported (ROADMAP queue 1 item 4)"
-        )
+    mesh (parallel/mesh.py build_mesh's, every rank calling): decode
+    with the weights laid out by `rules` (TRANSFORMER_RULES by default):
+    under tp each rank holds its heads' KV cache and its vocab columns,
+    which are gathered before the sampler (a model already laid out by
+    the plan, such as a tp trainer's, is used as it is; a full one is
+    copied and laid out). The prompt's rows split over dp x fsdp and the
+    answers are gathered back, as the reference shards the prompt over
+    its batch axes. int8 weights on a mesh are not ported (ROADMAP queue
+    1, item 6)."""
     cfg = model.cfg
     batch, prompt_len = prompt.shape
     total = _check_lengths(cfg, prompt_len, max_new_tokens)
     _check_filters(top_k, top_p)
+    if mesh is not None:
+        if weights_int8:
+            raise NotImplementedError(
+                "int8 weights on a mesh are not ported (ROADMAP queue 1, item 6)")
+        return _generate_on_mesh(
+            model, prompt, mesh, rules, max_new_tokens=max_new_tokens,
+            temperature=temperature, generator=generator, kv_quant_int8=kv_quant_int8,
+            prompt_lens=prompt_lens, top_k=top_k, top_p=top_p)
     if top_k >= cfg.vocab_size:
         top_k = 0  # keeps everything
     if weights_int8:
@@ -572,6 +642,28 @@ def generate(
     sample = _sampler(float(temperature), int(top_k), float(top_p), generator)
     generated = _decode(model, prompt, lens, total, sample, ragged, kv_quant_int8)
     return torch.cat([prompt[:, :1], generated], dim=1)
+
+
+def _generate_on_mesh(model: GPT, prompt: torch.Tensor, mesh, rules, **kwargs) -> torch.Tensor:
+    """generate() on this rank's rows of the prompt with the model laid
+    out for the mesh, the ranks' answers gathered over the batch group."""
+    import copy
+
+    from ..parallel import mesh as mesh_lib
+    from ..parallel import sharding
+
+    if mesh.shape["tp"] > 1 and getattr(model, "tensor_parallel", None) is None:
+        model = sharding.apply_tensor_parallel(
+            copy.deepcopy(model), mesh, rules or sharding.TRANSFORMER_RULES)
+    rows = mesh_lib.local_rows(mesh, prompt.shape[0])
+    lens = kwargs.pop("prompt_lens")
+    out = generate(model, prompt[rows], prompt_lens=None if lens is None else lens[rows],
+                   **kwargs)
+    if mesh.batch_group is None:
+        return out
+    from ..parallel.distributed import all_gather
+
+    return all_gather(out, mesh.batch_group, dim=0)
 
 
 # -- speculative decoding (prompt-lookup drafting) ---------------------------

@@ -10,7 +10,13 @@
   parameter names (query/key/value/attn_out, kernel/bias) are the
   reference's, so converted weights load by path.
 - `MultiHeadAttention.attention_fn` is the seam where flash attention
-  (ops/flash_attention.py) plugs in.
+  (ops/flash_attention.py) and the sequence-parallel attentions
+  (parallel/ring_attention.py, parallel/ulysses.py) plug in.
+- Under a tensor-parallel plan (parallel/sharding.py) the projections
+  hold this rank's heads, and the head count is the local weights':
+  DenseGeneral reads its shapes from them. A row-parallel DenseGeneral
+  (`reduce_group` set) all-reduces its partial product before it adds
+  the bias, so the bias counts once.
 """
 
 from __future__ import annotations
@@ -72,6 +78,8 @@ class DenseGeneral(nn.Module):
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.zeros(*self.in_shape, *self.out_shape))
         self.bias = nn.Parameter(torch.zeros(*self.out_shape))
+        # set by parallel/sharding.py apply_tensor_parallel on a row-parallel layer
+        self.reduce_group = None
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         lecun_normal_(self.kernel, math.prod(self.in_shape), generator)
@@ -83,6 +91,10 @@ class DenseGeneral(nn.Module):
         lead = x.shape[: x.dim() - len(self.in_shape)]
         kernel = self.kernel.to(self.dtype).reshape(fan_in, fan_out)
         y = x.to(self.dtype).reshape(*lead, fan_in) @ kernel
+        if self.reduce_group is not None:
+            from ..parallel.distributed import reduce_from_group
+
+            y = reduce_from_group(y, self.reduce_group)
         y = y + self.bias.to(self.dtype).reshape(fan_out)
         return y.reshape(*lead, *self.out_shape)
 

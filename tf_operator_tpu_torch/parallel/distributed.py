@@ -174,3 +174,119 @@ def world(device: Union[str, torch.device], backend: Optional[str] = None) -> It
     finally:
         if owned:
             shutdown()
+
+
+# -- the collectives of the tensor- and sequence-parallel plans ----------------
+#
+# parallel/sharding.py (Megatron tp), ring_attention.py and ulysses.py call
+# these on plain local tensors; each differentiable one is an autograd
+# Function with its backward. `group` is a process group of the mesh
+# (parallel/mesh.py TrainMesh), never None: a plan inserts no collective on
+# an axis of one rank.
+
+
+def _host_staged(group, tensor: torch.Tensor) -> bool:
+    """Whether a point-to-point exchange of `tensor` goes through host
+    memory: over gloo, whose send/recv hand the transport the tensor's raw
+    data pointer, so a CUDA tensor cannot be sent as it is (two ranks on
+    one card run over gloo: NCCL refuses two ranks on one device). Gloo's
+    all-reduce, all-gather and all-to-all take CUDA tensors themselves."""
+    return tensor.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def all_reduce(tensor: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """A reduced copy of `tensor` over `group` ("sum" or "max")."""
+    out = tensor.clone()
+    dist.all_reduce(out, op=_REDUCE_OPS[op], group=group)
+    return out
+
+
+def all_gather(tensor: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The group's tensors concatenated along `dim`, in group-rank order."""
+    parts = [torch.empty_like(tensor) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, tensor.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def all_to_all(tensor: torch.Tensor, group, scatter_dim: int, gather_dim: int) -> torch.Tensor:
+    """The tiled all-to-all (lax.all_to_all(tiled=True)): `tensor` split
+    into n chunks along scatter_dim, chunk j sent to group rank j, and the
+    chunks received concatenated along gather_dim in group-rank order."""
+    n = dist.get_world_size(group)
+    send = torch.stack(tensor.chunk(n, dim=scatter_dim)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=gather_dim)
+
+
+def ring_exchange(tensors, group) -> list:
+    """Each tensor sent to the next rank of `group` ((i + 1) % n) and
+    replaced by the previous rank's ((i - 1) % n): the ring's neighbour
+    exchange, as lax.ppermute with perm [(i, i + 1 % n)]."""
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    to = dist.get_global_rank(group, (me + 1) % n)
+    frm = dist.get_global_rank(group, (me - 1) % n)
+    staged = _host_staged(group, tensors[0])
+    sends = [t.detach().cpu() if staged else t.detach().contiguous() for t in tensors]
+    recvs = [torch.empty_like(t) for t in sends]
+    ops = [dist.P2POp(dist.isend, t, to, group) for t in sends]
+    ops += [dist.P2POp(dist.irecv, t, frm, group) for t in recvs]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if staged:
+        return [r.to(t.device) for r, t in zip(recvs, tensors)]
+    return recvs
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; the backward all-reduces the gradient over the
+    group (Megatron's f: the input of a column-parallel layer)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.contiguous(), ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """All-reduce forward; identity backward (Megatron's g: the output of
+    a row-parallel layer, and the vocab-parallel embedding's)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """all_to_all, whose backward is the reverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, group, scatter_dim, gather_dim):
+        ctx.args = (group, gather_dim, scatter_dim)
+        return all_to_all(x, group, scatter_dim, gather_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_to_all(grad, *ctx.args), None, None, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _ReduceFromGroup.apply(x, group)
+
+
+def all_to_all_grad(x: torch.Tensor, group, scatter_dim: int, gather_dim: int) -> torch.Tensor:
+    """The differentiable all_to_all."""
+    return _AllToAll.apply(x, group, scatter_dim, gather_dim)

@@ -2,30 +2,44 @@
 
 The reference's mesh has six axes, outermost to innermost: data (dp),
 pipeline (pp), fully-sharded data (fsdp), expert (ep), sequence (sp)
-and tensor (tp). The port runs dp and fsdp: `build_mesh` gives a torch
-DeviceMesh of shape (dp, fsdp) over the world, one process per device,
-laid out in rank order, so rank r holds data shard r of a batch sharded
-over (dp, fsdp). The other axes raise NotImplementedError, naming the
-ROADMAP item that brings them.
+and tensor (tp). The port runs dp, fsdp, sp and tp: `build_mesh` lays
+the world out over (dp, fsdp, sp, tp) in rank order, tp innermost as in
+the reference's AXES, one process per device, and returns a `TrainMesh`
+holding the process groups each axis needs:
+
+- tp: the ranks that hold one layer's shards (the Megatron plan's
+  all-reduces, parallel/sharding.py);
+- sp: the ranks that hold one row's sequence shards (ring and Ulysses
+  attention, parallel/ring_attention.py, parallel/ulysses.py);
+- grad: dp x fsdp x sp, the ranks whose gradients of one parameter
+  (shard) are reduced together: each tp rank reduces its own shards;
+- batch: dp x fsdp, the ranks that split a batch's rows (sync
+  BatchNorm, the MoE router); tp and sp stay out of it.
+
+With sp = tp = 1 the mesh also holds the (dp, fsdp) DeviceMesh that
+FSDP2 shards over. pp and ep raise NotImplementedError, naming the
+ROADMAP item that brings them; so does fsdp > 1 together with tp or sp
+(FSDP2 composed with a tensor-parallel plan is DTensor, which this plan
+avoids: parallel/sharding.py says why).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
 from . import distributed
 
-MESH_AXES = ("dp", "fsdp")
+MESH_AXES = ("dp", "fsdp", "sp", "tp")
 # the axes the port does not run yet, and where ROADMAP places each
 NOT_PORTED = {
     "pp": "pipeline parallel (ROADMAP queue 1, item 7)",
     "ep": "expert parallel (ROADMAP queue 1, item 7)",
-    "sp": "sequence parallel, ring or Ulysses (ROADMAP queue 1, item 7)",
-    "tp": "tensor parallel (ROADMAP queue 1, item 4)",
 }
+TWO_D = "2-D: FSDP2 with tp/sp (ROADMAP queue 1, item 4)"
+SP_STRATEGIES = ("ring", "ulysses")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,10 +70,77 @@ class MeshConfig:
         return (dp, self.pp, self.fsdp, self.ep, self.sp, self.tp)
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainMesh:
+    """A built mesh: its shape over MESH_AXES, this rank's coordinate on
+    each axis, and the process groups of the axes that span more than
+    one rank (None where an axis has one rank: nothing to communicate).
+    `device_mesh` is the (dp, fsdp) DeviceMesh that FSDP2 shards over,
+    built where sp = tp = 1 and None otherwise."""
+
+    shape: Dict[str, int]
+    coordinate: Dict[str, int]
+    tp_group: object = None
+    sp_group: object = None
+    grad_group: object = None
+    batch_group: object = None
+    device_mesh: object = None
+
+    @property
+    def data_index(self) -> int:
+        """Which of the dp x fsdp row shards this rank holds."""
+        return self.coordinate["dp"] * self.shape["fsdp"] + self.coordinate["fsdp"]
+
+
+def _rank_of(shape: Dict[str, int], coord: Dict[str, int]) -> int:
+    rank = 0
+    for axis in MESH_AXES:
+        rank = rank * shape[axis] + coord[axis]
+    return rank
+
+
+def _groups_over(shape: Dict[str, int], axes: Tuple[str, ...]) -> List[List[int]]:
+    """The rank lists of the groups that vary `axes` and hold the others
+    fixed, each in rank order (so a group's rank i is index i along
+    the varied axes)."""
+    import itertools
+
+    fixed = [a for a in MESH_AXES if a not in axes]
+    groups = []
+    for held in itertools.product(*(range(shape[a]) for a in fixed)):
+        base = dict(zip(fixed, held))
+        ranks = []
+        for varied in itertools.product(*(range(shape[a]) for a in axes)):
+            ranks.append(_rank_of(shape, {**base, **dict(zip(axes, varied))}))
+        groups.append(sorted(ranks))
+    return groups
+
+
+def _my_group(shape: Dict[str, int], axes: Tuple[str, ...], own: bool = False):
+    """This rank's group over `axes` (every rank creates every group, in
+    one order, as new_group asks): WORLD where they span the world (a
+    world of one included: DDP then wraps its one rank), unless `own`;
+    None where they hold one rank of several; else a group of its own.
+    `own` keeps the plans' exchanges (the ring's sends, the all-to-alls)
+    off the process group of DDP's gradient all-reduces, which run
+    asynchronously during the same backward."""
+    import torch.distributed as dist
+
+    size = 1
+    for axis in axes:
+        size *= shape[axis]
+    if size == distributed.world_size() and not own:
+        return dist.group.WORLD
+    if size == 1:
+        return None
+    group, _ = dist.new_subgroups_by_enumeration(_groups_over(shape, axes))
+    return group
+
+
 def build_mesh(
     config: Optional[MeshConfig] = None, device: Union[str, torch.device] = "cuda",
-):
-    """The (dp, fsdp) DeviceMesh over the world, on `device`'s type.
+) -> Optional[TrainMesh]:
+    """The (dp, fsdp, sp, tp) mesh over the world, on `device`'s type.
 
     The config is resolved against the world size (one device per
     process), so a shape that does not fit raises as the reference's
@@ -71,33 +152,55 @@ def build_mesh(
         size = getattr(config, axis)
         if size != 1:
             raise NotImplementedError(f"{axis}={size}: {where} is not ported yet")
-    dp, _, fsdp, _, _, _ = config.resolve(distributed.world_size())
+    if config.fsdp != 1 and config.sp * config.tp != 1:
+        raise NotImplementedError(
+            f"fsdp={config.fsdp} with sp={config.sp}, tp={config.tp}: {TWO_D} is not ported yet")
+    dp, _, fsdp, _, sp, tp = config.resolve(distributed.world_size())
     if not distributed.is_initialized():
         return None
-    from torch.distributed.device_mesh import init_device_mesh
+    shape = {"dp": dp, "fsdp": fsdp, "sp": sp, "tp": tp}
+    rank = distributed.rank()
+    coordinate = {}
+    for axis in reversed(MESH_AXES):
+        coordinate[axis] = rank % shape[axis]
+        rank //= shape[axis]
+    device_mesh = None
+    if sp * tp == 1:
+        from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh(torch.device(device).type, (dp, fsdp), mesh_dim_names=MESH_AXES)
+        device_mesh = init_device_mesh(
+            torch.device(device).type, (dp, fsdp), mesh_dim_names=("dp", "fsdp"))
+    return TrainMesh(
+        shape=shape, coordinate=dict((a, coordinate[a]) for a in MESH_AXES),
+        tp_group=_my_group(shape, ("tp",), own=True),
+        sp_group=_my_group(shape, ("sp",), own=True),
+        grad_group=_my_group(shape, ("dp", "fsdp", "sp")),
+        batch_group=_my_group(shape, ("dp", "fsdp")),
+        device_mesh=device_mesh,
+    )
 
 
-def data_shards(mesh) -> int:
-    """How many ways a batch splits: dp * fsdp (1 without a mesh)."""
-    return 1 if mesh is None else mesh.size()
+def axis_size(mesh: Optional[TrainMesh], axis: str) -> int:
+    return 1 if mesh is None else mesh.shape[axis]
 
 
-def batch_group(mesh):
-    """The process group of the ranks that split a batch (dp x fsdp):
-    the group sync BatchNorm reduces over. build_mesh lays both axes over
-    the whole world and refuses the others, so today it is the default
-    group; a tensor-parallel axis (ROADMAP queue 1, item 4) is to stay
-    out of it."""
-    if tuple(mesh.mesh_dim_names) != MESH_AXES or mesh.size() != distributed.world_size():
-        raise NotImplementedError(
-            f"a batch group for mesh {mesh_summary(mesh)} over a world of "
-            f"{distributed.world_size()}: only build_mesh's (dp, fsdp) over the world"
-        )
-    import torch.distributed as dist
+def data_shards(mesh: Optional[TrainMesh]) -> int:
+    """How many ways a batch's rows split: dp * fsdp (1 without a mesh)."""
+    return 1 if mesh is None else mesh.shape["dp"] * mesh.shape["fsdp"]
 
-    return dist.group.WORLD
+
+def grad_shards(mesh: Optional[TrainMesh]) -> int:
+    """How many ranks reduce one parameter's gradient: dp * fsdp * sp,
+    each holding its own part of the global batch's tokens."""
+    return data_shards(mesh) * axis_size(mesh, "sp")
+
+
+def batch_group(mesh: TrainMesh):
+    """The process group of the ranks that split a batch's rows (dp x
+    fsdp): the group sync BatchNorm and the MoE router reduce over, None
+    where it holds one rank. The tp and sp axes stay out of it (their
+    ranks see the same rows)."""
+    return mesh.batch_group
 
 
 def local_batch_size(mesh, global_batch: int) -> int:
@@ -112,35 +215,70 @@ def local_batch_size(mesh, global_batch: int) -> int:
 def local_rows(mesh, global_batch: int) -> slice:
     """This rank's rows of a batch of `global_batch` rows."""
     size = local_batch_size(mesh, global_batch)
-    start = distributed.rank() * size if mesh is not None else 0
+    start = mesh.data_index * size if mesh is not None else 0
+    return slice(start, start + size)
+
+
+def local_positions(mesh, seq_len: int) -> slice:
+    """This rank's [start, stop) of a sequence of `seq_len` positions
+    under sp (the whole sequence without a mesh or with sp = 1)."""
+    sp = axis_size(mesh, "sp")
+    if seq_len % sp:
+        raise ValueError(f"sequence length {seq_len} not divisible by sp={sp}")
+    size = seq_len // sp
+    start = mesh.coordinate["sp"] * size if mesh is not None else 0
     return slice(start, start + size)
 
 
 def mesh_summary(mesh) -> str:
     if mesh is None:
         return "dp=1xfsdp=1 (one process, no process group)"
-    return "x".join(f"{axis}={mesh.size(i)}" for i, axis in enumerate(mesh.mesh_dim_names))
+    axes = MESH_AXES if mesh.shape["sp"] * mesh.shape["tp"] > 1 else ("dp", "fsdp")
+    return "x".join(f"{axis}={mesh.shape[axis]}" for axis in axes)
 
 
 def add_mesh_flags(parser) -> None:
     """The token CLIs' (train/bert.py, train/gpt.py) mesh flags, as the
-    reference's: --fsdp, and --tp, --sp and --sp-strategy, which
-    `mesh_config` refuses until their ROADMAP items land."""
+    reference's: --fsdp, --tp, --sp and --sp-strategy."""
     parser.add_argument("--fsdp", type=int, default=1, help="FSDP2 shards over this many ranks")
-    parser.add_argument("--tp", type=int, default=1, help=f"not ported: {NOT_PORTED['tp']}")
-    parser.add_argument("--sp", type=int, default=1, help=f"not ported: {NOT_PORTED['sp']}")
-    parser.add_argument("--sp-strategy", choices=["ring", "ulysses"], default=None,
-                        help=f"not ported: {NOT_PORTED['sp']}")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="Megatron tensor parallel over this many ranks")
+    parser.add_argument("--sp", type=int, default=1,
+                        help="sequence parallel over this many ranks")
+    parser.add_argument(
+        "--sp-strategy", choices=SP_STRATEGIES, default="ring",
+        help="sequence-parallel strategy when --sp > 1: ring (K/V blocks rotate around the "
+        "sp ranks, O(s/n) memory) or ulysses (all-to-all head re-sharding, the flash "
+        "kernels inside)",
+    )
 
 
-def mesh_config(parser, args) -> MeshConfig:
+def mesh_config(parser, args, refuse: Optional[Dict[str, str]] = None) -> MeshConfig:
     """The mesh the flags ask for; parser.error (exit 2) on a flag whose
-    axis is not ported (any of --ep, --tp and --sp that the CLI has),
-    naming its ROADMAP item."""
-    for axis in ("ep", "tp", "sp"):
+    axis is not ported (--ep, and whatever `refuse` maps, axis to its
+    ROADMAP item), and on --fsdp > 1 with --tp or --sp > 1."""
+    refused = dict(NOT_PORTED, **(refuse or {}))
+    for axis, where in refused.items():
         size = getattr(args, axis, 1)
         if size != 1:
-            parser.error(f"--{axis} {size}: {NOT_PORTED[axis]} is not ported yet")
-    if getattr(args, "sp_strategy", None) is not None:
-        parser.error(f"--sp-strategy {args.sp_strategy}: {NOT_PORTED['sp']} is not ported yet")
-    return MeshConfig(dp=-1, fsdp=args.fsdp)
+            parser.error(f"--{axis} {size}: {where} is not ported yet")
+    fsdp, sp, tp = args.fsdp, getattr(args, "sp", 1), getattr(args, "tp", 1)
+    if fsdp != 1 and sp * tp != 1:
+        parser.error(f"--fsdp {fsdp} with --sp {sp} --tp {tp}: {TWO_D} is not ported yet")
+    return MeshConfig(dp=-1, fsdp=fsdp, sp=sp, tp=tp)
+
+
+def sequence_attention(mesh, strategy: str = "ring", causal: bool = False,
+                       flash: bool = False):
+    """The attention_fn that --sp and --sp-strategy ask for (the
+    reference CLIs' train/gpt.py:103-118): ring attention, or Ulysses
+    with the flash route inside where `flash`; None where sp is 1."""
+    if axis_size(mesh, "sp") == 1:
+        return None
+    if strategy == "ulysses":
+        from .ulysses import make_ulysses_attention
+
+        return make_ulysses_attention(mesh, causal=causal, flash=flash)
+    from .ring_attention import make_ring_attention
+
+    return make_ring_attention(mesh, causal=causal)

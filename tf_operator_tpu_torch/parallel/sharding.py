@@ -13,8 +13,25 @@ become wrap plans, applied by `parallelize`:
 - TRANSFORMER_RULES: DDP where fsdp == 1; with fsdp > 1, FSDP2 on each
   TransformerBlock and then on the root, over the (dp, fsdp) mesh, so
   dp > 1 and fsdp > 1 together give HSDP (replicated over dp, sharded
-  over fsdp). The tensor-parallel half of the reference's rules (tp)
-  waits for ROADMAP item 4; the serve rule sets for theirs.
+  over fsdp). With tp > 1, the tensor-parallel half of the reference's
+  rules (sharding.py:25-37) as an explicit Megatron plan over plain
+  local tensors (`apply_tensor_parallel`): query/key/value are
+  column-parallel on heads, mlp_in column-parallel, attn_out and
+  mlp_out row-parallel (their partial products all-reduced over tp
+  before the bias, which is added once), the token and position
+  embeddings and the LM/MLM head vocab-parallel (rows on tp: a masked
+  lookup then an all-reduce; the head's logits stay split on the vocab
+  and ops/losses.py's vocab-parallel cross-entropy reads them). The
+  column-parallel biases are split with their outputs; every other
+  parameter is replicated. The plan uses no DTensor: on the card's
+  torch, DTensor's gathers over gloo with CUDA tensors crash, and a
+  tensor-parallel plan composed with FSDP2 is DTensor, so fsdp > 1
+  with tp or sp is refused (parallel/mesh.py TWO_D). With sp > 1 each
+  model's `seq_index` is set to the rank's sequence shard (its
+  positions' offset) and the attention is the caller's ring or Ulysses
+  attention_fn. The replicated parameters and each tp rank's shards
+  reduce their gradients over the mesh's grad group (dp x sp): DDP on
+  that group where it holds more than one rank.
 - MOE_RULES: the MoE LM's (models/moe.py) as TRANSFORMER_RULES lays it,
   FSDP2 on each dense and MoE block and the root with fsdp > 1. The
   reference's rules also shard the experts over its ep axis, which
@@ -35,38 +52,207 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Iterator, Tuple
+import re
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from . import distributed
+
+
+# The Megatron plan of TRANSFORMER_RULES over the port's parameter names:
+# (pattern, the dimension split over tp, role). "column": the output of a
+# layer fed the replicated activation; "row": the input of a layer whose
+# partial products are all-reduced; "embed": a table's rows (vocab or
+# positions); "head": the output vocabulary of the LM or MLM head.
+_TP_TRANSFORMER = (
+    (r"(?:.*\.)?attention\.(?:query|key|value)\.kernel", 1, "column"),
+    (r"(?:.*\.)?attention\.(?:query|key|value)\.bias", 0, "column"),
+    (r"(?:.*\.)?attention\.attn_out\.kernel", 0, "row"),
+    (r"(?:.*\.)?mlp_in\.(?:weight|bias)", 0, "column"),
+    (r"(?:.*\.)?mlp_out\.weight", 1, "row"),
+    (r"(?:.*\.)?(?:lm_head|mlm_head)\.(?:weight|bias)", 0, "head"),
+    (r"(?:.*\.)?(?:token_embed|position_embed)\.weight", 0, "embed"),
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class WrapPlan:
     """name: the reference rule set's. shard: parameters are sharded over
     the mesh's fsdp axis when it is > 1. blocks: the class names of the
-    submodules that each get their own FSDP2 unit before the root."""
+    submodules that each get their own FSDP2 unit before the root. tp:
+    the tensor-parallel plan, (pattern, dim, role) over parameter names;
+    empty where the rule set has none (a tp > 1 mesh then raises)."""
 
     name: str
     shard: bool = False
     blocks: Tuple[str, ...] = ()
+    tp: Tuple[Tuple[str, int, str], ...] = ()
 
 
 REPLICATED_RULES = WrapPlan("REPLICATED_RULES")
 CONV_RULES = WrapPlan("CONV_RULES", shard=True)
-TRANSFORMER_RULES = WrapPlan("TRANSFORMER_RULES", shard=True, blocks=("TransformerBlock",))
+TRANSFORMER_RULES = WrapPlan("TRANSFORMER_RULES", shard=True, blocks=("TransformerBlock",),
+                             tp=_TP_TRANSFORMER)
 MOE_RULES = WrapPlan("MOE_RULES", shard=True, blocks=("TransformerBlock", "MoEBlock"))
 
 
 def shards_parameters(mesh, rules: WrapPlan) -> bool:
-    return rules.shard and mesh["fsdp"].size() > 1
+    return rules.shard and mesh.shape["fsdp"] > 1
+
+
+@dataclasses.dataclass(frozen=True)
+class VocabShard:
+    """Logits split on their vocab over a tp group: this rank's columns
+    start at `start` (ops/losses.py vocab_parallel_cross_entropy)."""
+
+    start: int
+    group: object
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """A model laid out by a tp plan: this rank's index of `size` in
+    `group`, and the plan; set on the model as `tensor_parallel`."""
+
+    group: object
+    rank: int
+    size: int
+    plan: Tuple[Tuple[str, int, str], ...]
+
+    def rule(self, name: str) -> Optional[Tuple[int, str]]:
+        return tp_rule(name, self.plan)
+
+
+def tp_rule(name: str, plan) -> Optional[Tuple[int, str]]:
+    """(dim, role) of the plan's first pattern matching parameter `name`,
+    or None for a replicated parameter."""
+    for pattern, dim, role in plan:
+        if re.fullmatch(pattern, name):
+            return dim, role
+    return None
+
+
+def _shard(tensor: torch.Tensor, dim: int, rank: int, size: int) -> torch.Tensor:
+    if tensor.shape[dim] % size:
+        raise ValueError(
+            f"dimension {dim} of shape {tuple(tensor.shape)} does not split {size} ways")
+    return tensor.chunk(size, dim=dim)[rank]
+
+
+def shard_state_dict(
+    state: Dict[str, torch.Tensor], mesh, rules: WrapPlan,
+) -> Dict[str, torch.Tensor]:
+    """This rank's slice of a full state dict by the rules' tp plan (the
+    whole dict where the mesh's tp axis is 1)."""
+    size = 1 if mesh is None else mesh.shape["tp"]
+    if size == 1:
+        return dict(state)
+    rank = mesh.coordinate["tp"]
+    out = {}
+    for name, tensor in state.items():
+        rule = tp_rule(name, rules.tp)
+        out[name] = tensor if rule is None else _shard(tensor, rule[0], rank, size).clone()
+    return out
+
+
+def gather_state_dict(
+    state: Dict[str, torch.Tensor], tp: Optional[TensorParallel],
+) -> Dict[str, torch.Tensor]:
+    """The inverse of shard_state_dict on a model's own state dict: each
+    split tensor all-gathered over its tp group (a collective: every rank
+    of the group calls it)."""
+    if tp is None:
+        return dict(state)
+    out = {}
+    for name, tensor in state.items():
+        rule = tp.rule(name)
+        out[name] = tensor if rule is None else distributed.all_gather(tensor, tp.group, rule[0])
+    return out
+
+
+class VocabParallelEmbedding(nn.Embedding):
+    """An embedding table's rows [start, start + rows) on this tp rank: a
+    lookup of an id outside them gives zeros, and the ranks' lookups are
+    summed (all-reduce forward, identity backward)."""
+
+    def __init__(self, weight: nn.Parameter, start: int, group) -> None:
+        super().__init__(weight.shape[0], weight.shape[1], _weight=weight.data)
+        self.weight = weight
+        self.start = start
+        self.group = group
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        local = ids - self.start
+        inside = (local >= 0) & (local < self.num_embeddings)
+        out = F.embedding(torch.where(inside, local, torch.zeros_like(local)), self.weight)
+        out = out.masked_fill(~inside[..., None], 0.0)
+        return distributed.reduce_from_group(out, self.group)
+
+
+def apply_tensor_parallel(model: nn.Module, mesh, rules: WrapPlan) -> nn.Module:
+    """Lay `model` out by the rules' tp plan over the mesh's tp group, in
+    place: each planned parameter becomes this rank's slice (a new
+    Parameter), the row-parallel layers get `reduce_group` (their partial
+    products are all-reduced before the bias), the embeddings become
+    VocabParallelEmbedding, each TransformerBlock gets `tp_group` (its
+    halves' inputs are copied to the group: identity forward, all-reduce
+    backward), and a vocab-parallel head gives the root `vocab_shard`.
+    The root gets `tensor_parallel`. Build the optimizer after this."""
+    size, rank, group = mesh.shape["tp"], mesh.coordinate["tp"], mesh.tp_group
+    if not rules.tp:
+        raise NotImplementedError(
+            f"tp={size} with {rules.name}: its tensor-parallel plan is not ported "
+            "(ROADMAP queue 1, item 7)")
+    for name, param in list(model.named_parameters()):
+        rule = tp_rule(name, rules.tp)
+        if rule is None:
+            continue
+        dim, role = rule
+        owner_name, _, attr = name.rpartition(".")
+        owner = model.get_submodule(owner_name)
+        local = nn.Parameter(_shard(param.detach(), dim, rank, size).clone())
+        if role == "embed":
+            parent_name, _, child = owner_name.rpartition(".")
+            parent = model.get_submodule(parent_name)
+            setattr(parent, child, VocabParallelEmbedding(local, rank * local.shape[0], group))
+            continue
+        setattr(owner, attr, local)
+        if role == "row":
+            owner.reduce_group = group
+        if role == "head" and attr == "weight":
+            model.vocab_shard = VocabShard(rank * local.shape[0], group)
+        _fit_shapes(owner)
+    for module in model.modules():
+        if type(module).__name__ == "TransformerBlock":
+            module.tp_group = group
+    model.tensor_parallel = TensorParallel(group, rank, size, rules.tp)
+    return model
+
+
+def _fit_shapes(module: nn.Module) -> None:
+    """A layer's shape attributes to its (local) weights: Linear's
+    features, DenseGeneral's in/out shapes (whose head count then is the
+    rank's)."""
+    if isinstance(module, nn.Linear):
+        module.out_features, module.in_features = module.weight.shape
+    elif hasattr(module, "in_shape"):
+        n_in = len(module.in_shape)
+        module.in_shape = tuple(module.kernel.shape[:n_in])
+        module.out_shape = tuple(module.kernel.shape[n_in:])
+
+
 
 
 def parallelize(model: nn.Module, mesh, rules: WrapPlan, device: torch.device) -> nn.Module:
     """Wrap `model` (already on `device`) for the mesh; returns the module
     to call: the model itself under FSDP2 (`shard`, where the rules shard
     and the mesh's fsdp axis is > 1, or where the model was sharded
-    already), else its DDP wrapper, whose `.module` is the model. Its
+    already), else, after the tp plan (tp > 1) and the sequence shard (sp
+    > 1), its DDP wrapper over the mesh's grad group, whose `.module` is
+    the model, or the model itself where that group holds one rank. Its
     TpuBatchNorms and MoE routers sync over the mesh's batch group
     (sync_batch_norm)."""
     sync_batch_norm(model, mesh)
@@ -74,12 +260,21 @@ def parallelize(model: nn.Module, mesh, rules: WrapPlan, device: torch.device) -
         return model
     if shards_parameters(mesh, rules):
         return shard(model, mesh, rules)
+    if mesh.shape["tp"] > 1 and getattr(model, "tensor_parallel", None) is None:
+        apply_tensor_parallel(model, mesh, rules)
+    if mesh.shape["sp"] > 1:
+        # the rank's sequence shard: its positions start at seq_index x
+        # the local length (models/gpt.py, models/bert.py)
+        model.seq_index = mesh.coordinate["sp"]
+    if mesh.grad_group is None:
+        return model
     from torch.nn.parallel import DistributedDataParallel
 
     device_ids = None
     if device.type == "cuda":
         device_ids = [device.index if device.index is not None else torch.cuda.current_device()]
-    return DistributedDataParallel(model, device_ids=device_ids, broadcast_buffers=False)
+    return DistributedDataParallel(model, device_ids=device_ids, broadcast_buffers=False,
+                                   process_group=mesh.grad_group)
 
 
 def sync_batch_norm(model: nn.Module, mesh) -> None:
@@ -94,7 +289,7 @@ def sync_batch_norm(model: nn.Module, mesh) -> None:
     from .mesh import batch_group
 
     group = batch_group(mesh)
-    if dist.get_world_size(group) == 1:
+    if group is None or dist.get_world_size(group) == 1:
         return
     for module in model.modules():
         if isinstance(module, (TpuBatchNorm, TopKRouter)):
@@ -113,8 +308,8 @@ def shard(model: nn.Module, mesh, rules: WrapPlan) -> nn.Module:
     if rules.blocks:
         for module in list(model.modules()):
             if type(module).__name__ in rules.blocks:
-                fully_shard(module, mesh=mesh)
-    fully_shard(model, mesh=mesh)
+                fully_shard(module, mesh=mesh.device_mesh)
+    fully_shard(model, mesh=mesh.device_mesh)
     return model
 
 
@@ -142,6 +337,18 @@ def no_grad_sync(module: nn.Module) -> Iterator[None]:
             module.set_requires_gradient_sync(True)
     else:
         yield
+
+
+def unwrap(module: nn.Module) -> nn.Module:
+    """The model inside a DDP wrapper, else the module."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    return module.module if isinstance(module, DistributedDataParallel) else module
+
+
+def vocab_shard(module: nn.Module) -> Optional[VocabShard]:
+    """The vocab split of a model's logits (apply_tensor_parallel), or None."""
+    return getattr(unwrap(module), "vocab_shard", None)
 
 
 def local_tensor(tensor: torch.Tensor) -> torch.Tensor:

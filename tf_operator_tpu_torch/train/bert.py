@@ -4,15 +4,20 @@ tf_operator_tpu/train/bert.py.
     python -m tf_operator_tpu_torch.train.bert --preset tiny --steps 20 --device cpu
     python -m tf_operator_tpu_torch.train.bert --preset base --flash --packed \\
         --weight-decay 0.01
+    python -m tf_operator_tpu_torch.train.bert --preset base --tp 2 --sp 2 \\
+        --sp-strategy ulysses --flash --packed
 
 Joins the TFJob's world from the operator-injected env
-(parallel/distributed.py) and lays the model over a (dp, fsdp) mesh:
-DDP, or FSDP2 with --fsdp > 1 (TRANSFORMER_RULES). --batch-size is the
-global batch, each rank training on its rows. --tp, --sp and
---sp-strategy are refused until their ROADMAP items land. Runs on one
-CUDA device unless --device names another. --flash routes
-attention through the Hopper kernels (ops/flash_attention.py); --packed
-drops the all-ones attention mask (Trainer._prepare_batch). The loop is
+(parallel/distributed.py) and lays the model over a (dp, fsdp, sp, tp)
+mesh by TRANSFORMER_RULES: DDP, FSDP2 with --fsdp > 1, or the Megatron
+plan with --tp > 1. --sp > 1 shards each row's sequence: ring attention
+(--sp-strategy ring, the default; --flash then has no effect, as the
+reference warns) or Ulysses, with the flash route inside under --flash.
+--batch-size is the global batch, each rank training on its rows (and
+its sequence shard). Runs on one CUDA device unless --device names
+another. --flash routes attention through the Hopper kernels
+(ops/flash_attention.py); --packed drops the all-ones attention mask
+(Trainer._prepare_batch; so does --sp, whose attentions refuse one). The loop is
 trainer.timed_run, as in train/gpt.py: restore from --checkpoint-dir,
 one warm-up step outside the timed window, fresh synthetic batches
 through InputPipeline under a PreemptionGuard (SIGTERM: checkpoint, exit
@@ -93,7 +98,7 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
     a SIGTERM)."""
     from .._device import resolve_device
     from ..models import bert as bert_lib
-    from ..parallel.mesh import build_mesh, mesh_summary
+    from ..parallel.mesh import build_mesh, mesh_summary, sequence_attention
     from .observe import telemetry_server
     from .trainer import Trainer, mlm_task, restore_if_any, timed_run, warmup_cosine_lr
 
@@ -105,8 +110,14 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
         "base-wide": bert_lib.BERT_BASE_WIDE,
         "tiny": bert_lib.BERT_TINY,
     }[args.preset]
-    attention_fn = None
-    if args.flash:
+    attention_fn = sequence_attention(mesh, args.sp_strategy, flash=args.flash)
+    if attention_fn is not None:
+        if args.flash and args.sp_strategy == "ring":
+            logger.warning(
+                "--flash has no effect with --sp-strategy ring (the ring computes its own "
+                "blockwise fold); use --sp-strategy ulysses to pair sp with the kernel")
+        logger.info("%s attention over sp=%d", args.sp_strategy, args.sp)
+    elif args.flash:
         from ..ops.flash_attention import flash_attention
 
         attention_fn = flash_attention
@@ -117,6 +128,7 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
         learning_rate=warmup_cosine_lr(args.learning_rate, args.steps, args.warmup_steps),
         weight_decay=args.weight_decay, packed=args.packed, device=device,
         checkpoint_dir=args.checkpoint_dir, accum_steps=args.accum_steps, mesh=mesh,
+        shard_sequence=args.sp > 1,
     )
 
     def make_batch(gen: torch.Generator):

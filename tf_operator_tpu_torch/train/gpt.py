@@ -6,12 +6,16 @@ tf_operator_tpu/train/gpt.py.
         --seq-len 128 --accum-steps 2 --checkpoint-dir /tmp/gpt-ckpt --device cpu
     python -m tf_operator_tpu_torch.train.gpt --preset small --batch-size 4 \\
         --seq-len 4096 --generate 56
+    python -m tf_operator_tpu_torch.train.gpt --preset small --tp 2 --sp 2
 
 Joins the TFJob's world from the operator-injected env
-(parallel/distributed.py) and lays the model over a (dp, fsdp) mesh:
-DDP, or FSDP2 on each block and the root with --fsdp > 1
-(TRANSFORMER_RULES). --batch-size is the global batch, each rank
-training on its rows. Runs on one CUDA device unless --device names
+(parallel/distributed.py) and lays the model over a (dp, fsdp, sp, tp)
+mesh by TRANSFORMER_RULES: DDP, FSDP2 on each block and the root with
+--fsdp > 1, or the Megatron plan with --tp > 1 (parallel/sharding.py).
+--sp > 1 shards each row's sequence: causal ring attention
+(--sp-strategy ring, the default) or Ulysses with the flash route
+inside (--sp-strategy ulysses). --batch-size is the global batch, each
+rank training on its rows (and its sequence shard). Runs on one CUDA device unless --device names
 another. Attention is the
 causal flash route (the Hopper kernels), with no flag, as in the
 reference; the optimizer is AdamW with weight decay 0.01. The loop is
@@ -28,8 +32,7 @@ tokens of each row of the warm-up batch, in a single process only (as
 the reference, which skips it on several hosts); --weights-int8 and
 --kv-int8 decode with int8 kernels (ops/quant.py, quantized once) and an
 int8 KV cache. --monitoring-bind-addr serves the worker's telemetry
-(train/observe.py TrainTelemetry) while it trains. Not ported: --tp, --sp
-and --sp-strategy (refused, naming their ROADMAP items).
+(train/observe.py TrainTelemetry) while it trains.
 """
 
 from __future__ import annotations
@@ -109,8 +112,9 @@ def train(
 ) -> Tuple[Dict[str, Any], Any]:
     """Train (and decode) as the flags say; returns the run's summary and
     the final TrainState (its model is the trained GPT). attention_fn
-    replaces the causal flash route (the reference bench's
-    attention="xla" twin passes plain causal attention; it has no flag);
+    replaces the causal flash route and the --sp attentions (the
+    reference bench's attention="xla" twin passes plain causal attention;
+    it has no flag);
     on_step(state) runs after every optimizer step. The summary is
     trainer.timed_run's, with --generate the decoded tokens (prompt
     included) and the wall ms per new token (all rows together, prefill
@@ -119,7 +123,7 @@ def train(
     from .._device import resolve_device
     from ..models import gpt as gpt_lib
     from ..parallel import distributed
-    from ..parallel.mesh import build_mesh, mesh_summary
+    from ..parallel.mesh import build_mesh, mesh_summary, sequence_attention
     from .observe import telemetry_server
     from .trainer import (
         Trainer, causal_lm_task, restore_if_any, timed_run, warmup_cosine_lr,
@@ -128,6 +132,10 @@ def train(
     device = resolve_device(args.device)
     mesh = build_mesh(args.mesh, device)
     logger.info("mesh: %s", mesh_summary(mesh))
+    if attention_fn is None:
+        attention_fn = sequence_attention(mesh, args.sp_strategy, causal=True, flash=True)
+        if attention_fn is not None:
+            logger.info("causal %s attention over sp=%d", args.sp_strategy, args.sp)
     cfg = {"small": gpt_lib.GPT_SMALL, "tiny": gpt_lib.GPT_TINY}[args.preset]
     cfg = dataclasses.replace(
         cfg, max_seq_len=max(cfg.max_seq_len, args.seq_len), remat=args.remat
@@ -139,6 +147,7 @@ def train(
         learning_rate=warmup_cosine_lr(args.learning_rate, args.steps, args.warmup_steps),
         weight_decay=WEIGHT_DECAY, device=device,
         checkpoint_dir=args.checkpoint_dir, accum_steps=args.accum_steps, mesh=mesh,
+        shard_sequence=args.sp > 1,
     )
     with telemetry_server(trainer, args.monitoring_bind_addr):
         state = restore_if_any(trainer, trainer.init())

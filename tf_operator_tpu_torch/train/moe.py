@@ -45,6 +45,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     from ..parallel.mesh import NOT_PORTED, mesh_config
     from .observe import add_monitoring_flag
 
+    moe_tp = "tensor parallel for the MoE LM, with its expert parallel (ROADMAP queue 1, item 7)"
+
     parser = argparse.ArgumentParser()
     parser.add_argument("--preset", choices=["tiny", "base"], default="tiny")
     parser.add_argument("--steps", type=int, default=100)
@@ -56,7 +58,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--learning-rate", type=float, default=3e-4)
     parser.add_argument("--fsdp", type=int, default=1, help="FSDP2 shards over this many ranks")
     parser.add_argument("--ep", type=int, default=1, help=f"not ported: {NOT_PORTED['ep']}")
-    parser.add_argument("--tp", type=int, default=1, help=f"not ported: {NOT_PORTED['tp']}")
+    parser.add_argument("--tp", type=int, default=1, help=f"not ported: {moe_tp}")
     parser.add_argument(
         "--checkpoint-dir", default=None,
         help="resume from the newest checkpoint here; save on SIGTERM and at the end",
@@ -74,7 +76,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--device", default=None, help="default: cuda")
     add_monitoring_flag(parser)
     args = parser.parse_args(argv)
-    args.mesh = mesh_config(parser, args)
+    args.mesh = mesh_config(parser, args, refuse={"tp": moe_tp})
     return args
 
 

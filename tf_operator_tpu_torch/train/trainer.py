@@ -31,14 +31,17 @@ under accumulation, as the reference threads `batch_stats` through its
 scan), and `evaluate` in eval mode, which reads them.
 
 Several processes (`mesh`, the reference's :190-206): `init` lays the
-model over the mesh by the rule set (parallel/sharding.py: DDP, or FSDP2
-for TRANSFORMER_RULES with fsdp > 1). As in the reference, a batch is
-the GLOBAL batch, the same on every process: `place_batch` keeps this
-rank's rows, so one global batch gives the same step at any world size.
-A weighted loss (mlm) normalises by the weight mass of the global batch,
-the metrics are those of the global batch, checkpoints hold the full
-state in the port's format (rank 0 writes, every rank reads), and a
-SIGTERM on any rank stops every rank on the same step.
+model over the mesh by the rule set (parallel/sharding.py: DDP, FSDP2
+for TRANSFORMER_RULES with fsdp > 1, or the Megatron plan with tp > 1
+and DDP over the grad group). As in the reference, a batch is the
+GLOBAL batch, the same on every process: `place_batch` keeps this
+rank's rows, and with shard_sequence (sp > 1) its sequence shard, so
+one global batch gives the same step at any mesh. A weighted loss (mlm,
+and the causal LM under sp, weighted by its shard's positions)
+normalises by the weight mass of the global batch, the metrics are
+those of the global batch, checkpoints hold the full state in the
+port's format (gathered under FSDP2 and tp; rank 0 writes, every rank
+reads), and a SIGTERM on any rank stops every rank on the same step.
 """
 
 from __future__ import annotations
@@ -141,25 +144,35 @@ def classification_task() -> Task:
 
 def mlm_task() -> Task:
     """Masked-LM loss, reporting the batch's mlm weight mass as
-    "loss_weight" so that accumulation and ranks re-weight uneven
-    microbatches and shards to the exact global weighted mean (the
-    reference's :96-103)."""
+    "loss_weight" so that accumulation and ranks (dp and sp shards)
+    re-weight uneven microbatches and shards to the exact global weighted
+    mean (the reference's :96-103). Under tp the head's logits are
+    vocab-parallel (parallel/sharding.py vocab_shard)."""
     from ..models.bert import mlm_loss
 
     def loss_fn(model: nn.Module, batch: Batch, train: bool = True):
         logits = model(batch["input_ids"], batch.get("attention_mask"))
-        loss = mlm_loss(logits, batch["labels"], batch["mlm_weights"])
+        loss = mlm_loss(logits, batch["labels"], batch["mlm_weights"],
+                        sharding_lib.vocab_shard(model))
         return loss, {"loss_weight": batch["mlm_weights"].sum()}
 
     return Task(loss_fn=loss_fn)
 
 
 def causal_lm_task() -> Task:
-    """Next-token prediction on mask-free token batches (GPT)."""
-    from ..models.gpt import causal_lm_loss
+    """Next-token prediction on mask-free token batches (GPT). On a
+    sequence shard (the batch holds "next_ids", Trainer.place_batch under
+    sp) the loss is the shard's mean with its positions as "loss_weight",
+    so the ranks' weighting gives the global mean."""
+    from ..models.gpt import causal_lm_loss, sharded_lm_loss
 
     def loss_fn(model: nn.Module, batch: Batch, train: bool = True):
-        return causal_lm_loss(model(batch["input_ids"]), batch["input_ids"]), {}
+        vocab = sharding_lib.vocab_shard(model)
+        logits = model(batch["input_ids"])
+        if "next_ids" in batch:
+            loss, count = sharded_lm_loss(logits, batch["next_ids"], vocab)
+            return loss, {"loss_weight": count}
+        return causal_lm_loss(logits, batch["input_ids"], vocab=vocab), {}
 
     return Task(loss_fn=loss_fn)
 
@@ -335,7 +348,7 @@ def timed_run(
                 state, metrics = trainer.step(state, batch)
                 profiler.after_step(i, drain=lambda: float(metrics["loss"]))
                 steps_run += 1
-                items += count(batch) * trainer.data_shards
+                items += count(batch) * trainer.grad_shards
                 if on_step is not None:
                     on_step(state)
                 agree_on_preemption(guard)
@@ -411,11 +424,14 @@ class Trainer:
         phase_flight_every: int = 50,
         mesh=None,
         rules: sharding_lib.WrapPlan = sharding_lib.TRANSFORMER_RULES,
+        shard_sequence: bool = False,
     ) -> None:
-        """mesh: parallel/mesh.py build_mesh's (dp, fsdp) DeviceMesh over
-        the world, or None for one process (the model runs unwrapped);
-        rules: the wrap plan (parallel/sharding.py), TRANSFORMER_RULES by
-        default as in the reference; phase_flight_every: the step phase
+        """mesh: parallel/mesh.py build_mesh's TrainMesh over the world,
+        or None for one process (the model runs unwrapped); rules: the
+        wrap plan (parallel/sharding.py), TRANSFORMER_RULES by default as
+        in the reference; shard_sequence: each rank keeps its sp shard of
+        the sequence (the model's attention_fn is then ring or Ulysses
+        attention over the mesh); phase_flight_every: the step phase
         timer writes one kind="trainstep" flight record every that many
         steps."""
         if optimizer not in OPTIMIZERS:
@@ -428,7 +444,12 @@ class Trainer:
         self.module: nn.Module = model
         self.mesh = mesh
         self.rules = rules
+        self.shard_sequence = shard_sequence
         self.data_shards = mesh_lib.data_shards(mesh)
+        # the ranks that hold distinct tokens of a batch, whose gradients
+        # and metrics are reduced together (dp x fsdp x sp)
+        self.grad_shards = mesh_lib.grad_shards(mesh)
+        self._grad_group = None if mesh is None else mesh.grad_group
         self.task = task
         self.learning_rate = learning_rate
         self.weight_decay = weight_decay
@@ -475,10 +496,11 @@ class Trainer:
         self._last_save_mono: Optional[float] = None
 
     def _prepare_batch(self, batch: Batch) -> Batch:
-        """Packed (unpadded) training: the all-ones mask is pure
+        """Packed (unpadded) training, and sequence-parallel training
+        (whose attentions refuse a mask): the all-ones mask is pure
         overhead even for the in-kernel mask path, so it is dropped
         here, at the mechanism."""
-        if self.packed and "attention_mask" in batch:
+        if (self.packed or self.shard_sequence) and "attention_mask" in batch:
             batch = {k: v for k, v in batch.items() if k != "attention_mask"}
         return batch
 
@@ -520,12 +542,20 @@ class Trainer:
         """This rank's rows of the global `batch`, on the device. With a
         mesh, rank r of n keeps, of each of the accum_steps microbatches,
         its r-th of n row ranges, so that microbatch i over all ranks is
-        the reference's microbatch i (rows i*B/k to (i+1)*B/k)."""
-        batch = self._prepare_batch(batch)
-        return {
-            k: self._local_rows(torch.as_tensor(v)).to(self.device, non_blocking=True)
-            for k, v in batch.items()
-        }
+        the reference's microbatch i (rows i*B/k to (i+1)*B/k). With
+        shard_sequence it keeps its sp shard [start, stop) of every
+        [rows, seq] value, and "next_ids", the input ids at [start + 1,
+        stop + 1) of the full rows (one fewer on the last shard), for the
+        causal LM's labels."""
+        batch = {k: self._local_rows(torch.as_tensor(v))
+                 for k, v in self._prepare_batch(batch).items()}
+        if self.shard_sequence:
+            ids = batch.get("input_ids")
+            span = mesh_lib.local_positions(self.mesh, next(iter(batch.values())).shape[1])
+            batch = {k: v[:, span] for k, v in batch.items()}
+            if ids is not None:
+                batch["next_ids"] = ids[:, span.start + 1:span.stop + 1]
+        return {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
 
     def _local_rows(self, value: torch.Tensor) -> torch.Tensor:
         if self.mesh is None:
@@ -592,9 +622,9 @@ class Trainer:
             for name, value in aux.items():
                 if name not in _NOT_METRICS:
                     metric_sums[name] = metric_sums.get(name, 0) + value.detach()
-        if weighted_task and self.data_shards > 1:
+        if weighted_task and self.grad_shards > 1:
             # W / n: the ranks' average of sum(w * g) / (W / n) is sum(w * g) / W
-            weight_sum = self._all_reduce(weight_sum) / self.data_shards
+            weight_sum = self._all_reduce(weight_sum) / self.grad_shards
         for param in self.model.parameters():
             if param.grad is not None:
                 sharding_lib.local_tensor(param.grad).div_(weight_sum)
@@ -602,28 +632,29 @@ class Trainer:
         return self._global_metrics(loss_sum / weight_sum, metrics)
 
     def _all_reduce(self, tensor: torch.Tensor) -> torch.Tensor:
+        """A sum over the grad group (the ranks holding distinct tokens)."""
         tensor = tensor.clone()
-        dist.all_reduce(tensor)
+        dist.all_reduce(tensor, group=self._grad_group)
         return tensor
 
     def _weight_share(self, weight: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """w_r * n / W for this rank's weight mass w_r (one all-reduce), or
         None in a single process or for a task without weights."""
-        if weight is None or self.data_shards == 1:
+        if weight is None or self.grad_shards == 1:
             return None
         weight = weight.detach().float()
-        return weight * self.data_shards / self._all_reduce(weight)
+        return weight * self.grad_shards / self._all_reduce(weight)
 
     def _global_metrics(
         self, loss: torch.Tensor, metrics: Dict[str, torch.Tensor],
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The loss (already weighted by _weight_share where the task has
         weights) and metrics averaged over the ranks, in one all-reduce."""
-        if self.data_shards == 1:
+        if self.grad_shards == 1:
             return loss, metrics
         names = sorted(metrics)
         packed = torch.stack([loss.float()] + [metrics[n].float() for n in names])
-        packed = self._all_reduce(packed) / self.data_shards
+        packed = self._all_reduce(packed) / self.grad_shards
         return packed[0], dict(zip(names, packed[1:]))
 
     def step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -1028,8 +1059,12 @@ def state_payload(state: TrainState) -> Optional[Dict[str, Any]]:
     """What a checkpoint holds: {"step", "model": the model's state_dict,
     "optimizer": the optimizer's state_dict, parameters keyed by index},
     full tensors at any world size. Under FSDP2 they are gathered (a
-    collective: every rank calls this) onto rank 0's CPU, and the other
-    ranks get None; otherwise the tensors are the live ones."""
+    collective: every rank calls this) onto rank 0's CPU, and under the
+    tp plan over each tp group (_tp_payload); the other ranks get None.
+    Otherwise the tensors are the live ones."""
+    tp = getattr(state.model, "tensor_parallel", None)
+    if tp is not None:
+        return _tp_payload(state, tp)
     if not sharding_lib.is_fully_sharded(state.model):
         return {"step": int(state.step), "model": state.model.state_dict(),
                 "optimizer": state.optimizer.state_dict()}
@@ -1055,11 +1090,50 @@ def state_payload(state: TrainState) -> Optional[Dict[str, Any]]:
     return {"step": int(state.step), "model": model, "optimizer": optim}
 
 
+def _map_moments(state: TrainState, optim: Dict[str, Any], fn) -> Dict[str, Any]:
+    """An optimizer state_dict with fn(parameter name, tensor) applied to
+    each state tensor shaped as its parameter (AdamW's moments, SGD's
+    momentum), the 0-d step counts kept."""
+    names = _param_names(state)
+    out = {}
+    for index, entry in optim["state"].items():
+        out[index] = {key: fn(names[index], value)
+                      if isinstance(value, torch.Tensor) and value.dim() > 0 else value
+                      for key, value in entry.items()}
+    return {**optim, "state": out}
+
+
+def _tp_payload(state: TrainState, tp) -> Optional[Dict[str, Any]]:
+    """state_payload under the tp plan: each split parameter and its
+    optimizer moments all-gathered over the tp group (a collective: every
+    rank calls this); rank 0 gets the full payload."""
+    model = sharding_lib.gather_state_dict(state.model.state_dict(), tp)
+
+    def gather(name, value):
+        rule = tp.rule(name)
+        return value if rule is None else distributed.all_gather(value, tp.group, rule[0])
+
+    optim = _map_moments(state, state.optimizer.state_dict(), gather)
+    if not distributed.is_coordinator():
+        return None
+    return {"step": int(state.step), "model": model, "optimizer": optim}
+
+
 def _apply_payload(state: TrainState, payload: Dict[str, Any]) -> TrainState:
     """Load a checkpoint's payload into `state` in place. Under FSDP2
-    (a collective: every rank calls this with the full payload) each rank
-    keeps its shards."""
-    if not sharding_lib.is_fully_sharded(state.model):
+    (a collective: every rank calls this with the full payload) and under
+    the tp plan each rank keeps its shards."""
+    tp = getattr(state.model, "tensor_parallel", None)
+    if tp is not None:
+        def local(name, value):
+            rule = tp.rule(name)
+            return value if rule is None else value.chunk(tp.size, rule[0])[tp.rank].clone()
+
+        state.model.load_state_dict(
+            {name: local(name, value) for name, value in payload["model"].items()})
+        _load_optimizer(state.optimizer, lambda: state.optimizer.load_state_dict(
+            _map_moments(state, payload["optimizer"], local)))
+    elif not sharding_lib.is_fully_sharded(state.model):
         state.model.load_state_dict(payload["model"])
         _load_optimizer(state.optimizer,
                         lambda: state.optimizer.load_state_dict(payload["optimizer"]))

@@ -6,8 +6,10 @@
 
 Joins the TFJob's world from the operator-injected env
 (parallel/distributed.py) and lays models/vit.py's ViT over a (dp,
-fsdp) mesh by TRANSFORMER_RULES (its blocks are BERT's): DDP, or FSDP2
-on each block and the root with --fsdp > 1. The global batch is
+fsdp, tp) mesh by TRANSFORMER_RULES (its blocks are BERT's): DDP, FSDP2
+on each block and the root with --fsdp > 1, or the Megatron plan on its
+blocks with --tp > 1 (the patch embedding, position embedding and head
+stay replicated, as the reference's rules leave them). The global batch is
 --per-chip-batch x the world size. Runs on one CUDA device unless
 --device names another. AdamW with weight decay 0.05 at
 --learning-rate (optionally warmup then cosine decay), as the
@@ -19,8 +21,7 @@ checkpoint, exit 143), a final checkpoint. --remat recomputes each
 block in the backward; --accum-steps splits the batch into
 microbatches; --profile-dir traces the first timed steps. Logs
 images/sec. --monitoring-bind-addr serves the worker's telemetry
-(train/observe.py TrainTelemetry) while it trains. Refused, naming its
-ROADMAP item: --tp above 1.
+(train/observe.py TrainTelemetry) while it trains.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ WEIGHT_DECAY = 0.05
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
-    from ..parallel.mesh import NOT_PORTED, mesh_config
+    from ..parallel.mesh import mesh_config
     from .observe import add_monitoring_flag
 
     parser = argparse.ArgumentParser()
@@ -50,7 +51,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--per-chip-batch", type=int, default=128)
     parser.add_argument("--learning-rate", type=float, default=1e-3)
     parser.add_argument("--fsdp", type=int, default=1, help="FSDP2 shards over this many ranks")
-    parser.add_argument("--tp", type=int, default=1, help=f"not ported: {NOT_PORTED['tp']}")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="Megatron tensor parallel over this many ranks")
     parser.add_argument("--remat", action="store_true",
                         help="per-block rematerialization (torch.utils.checkpoint)")
     parser.add_argument(
