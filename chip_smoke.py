@@ -90,9 +90,9 @@ non-zero, printing no result:
    k = 1's (worst relative L2 within 1e-2), and tokens/s and ms per step
    through InputPipeline beside gpt_train's and PR 6's 85.60 ms.
 18. run_steps - BERT-base (--flash --packed, 32 x 512) and ResNet-50
-   (pallas, batch 256) with a warm-up-cosine schedule: run_steps(n=5)
-   (a CUDA graph of the step, replayed) against 5 eager steps from the
-   same seed on the same batch; per-step losses (5 run_steps(n=1) calls)
+   (pallas, batch 256) with a warm-up-cosine schedule: run_steps(n=3)
+   (a CUDA graph of the step, replayed) against 3 eager steps from the
+   same seed on the same batch; per-step losses (3 run_steps(n=1) calls)
    within 1e-3 relative, each parameter (and BN statistic) within 1e-4
    relative L2, bit-equality reported; kernel launches per replay K1-K3
    12/12/12 and K4/K5 26/13; ms per step, rate and device busy share,
@@ -150,15 +150,15 @@ non-zero, printing no result:
    (3 heads at the full 4096).
 28. tp_sp_cli - a world of 4 over gloo on the card running the
    reference's usage lines through the CLIs' run(): train/gpt.py
-   --preset small --tp 2 --sp 2 (ring, 2 x 4096, 4 steps) and
+   --preset small --tp 2 --sp 2 (ring, 2 x 4096, 3 steps) and
    train/bert.py --preset base --tp 2 --sp 2 --sp-strategy ulysses
-   --flash --packed (32 x 512, 6 steps): finite losses that fall, K1-K3
+   --flash --packed (32 x 512, 4 steps): finite losses that fall, K1-K3
    0 launches for GPT and 12 per pass per rank for BERT.
 29. serve - GPT-small (12 x 768, 6 heads of 128, vocab 32000, max_seq_len
    2048, bf16, random weights from a seed) behind
    serve.make_server(batching="continuous") at the server's defaults (8
    slots, paged KV in 64-token blocks, the dense-equivalent pool, 64-token
-   prefill chunks), on 127.0.0.1: 32 seeded requests (prompts of 16-1024
+   prefill chunks), on 127.0.0.1: 12 seeded requests (prompts of 16-1024
    tokens, half sharing a 512-token prefix, 32-128 new tokens, 4 over
    /generate_stream) from 8 threads of the port's DecodeClient. Reported:
    requests/s, tokens/s, TTFT and inter-token p50/p95 from the server's
@@ -178,7 +178,7 @@ non-zero, printing no result:
    bounds; the same requests through a kv_layout="dense" engine (the
    margin rule); one capture of the step and of the prefill chunk; no
    launch of K1-K5; the server shut down and the engine threads joined.
-30. int8_decode - GPT-small generate, 8 rows, a 128-token prompt, 256 new
+30. int8_decode - GPT-small generate, 8 rows, a 128-token prompt, 64 new
    tokens, bf16, in four modes (plain, weights_int8, kv_int8, both): ms per
    new token, the steady state's device ms per token, kernels per token and
    busy share, weight and KV bytes counted from the tensors; the plain chain
@@ -194,7 +194,7 @@ non-zero, printing no result:
 32. beam_search - GPT-small, 2 rows x 4 beams, prompt 64, 64 new: beam 1
    equal to greedy generate, ms per step and the parent gather's share,
    scores sorted and, at f32, equal to a teacher-forced recompute.
-33. spec_generate - GPT-small generate_speculative, 1 row, 256 new, draft_k
+33. spec_generate - GPT-small generate_speculative, 1 row, 128 new, draft_k
    4, ngram 2, on a repeated-span and a random prompt: f32 chains equal to
    generate's; bf16 tokens per round and ms per token beside generate's, the
    share of bf16 chains that differ and the margin at each divergence.
@@ -231,16 +231,16 @@ non-zero, printing no result:
    miss the CPU's; at capacity factor 0.5 the router's dispatch on the
    card equals the CPU's, and a planted per-token claim order moves
    slots (the reference's loop claims in whole rounds).
-39. moe_run_steps - run_steps(n=5) of MoE-base at 8 x 1024 as a CUDA
-   graph against 5 eager steps (run_steps' criterion; no kernel inside).
-40. moe_generate - MoE-base, 8 rows, a 128-token prompt, 512 new tokens
+39. moe_run_steps - run_steps(n=3) of MoE-base at 8 x 1024 as a CUDA
+   graph against 3 eager steps (run_steps' criterion; no kernel inside).
+40. moe_generate - MoE-base, 8 rows, a 128-token prompt, 128 new tokens
    (moe_bench.py:184): tokens/s as the reference counts them, ms per
    token, busy share; in f32 at capacity factor 2.0, teacher-forced
    MoEDecodeStep against the training forward and the prefill chain
    against the all-stepwise chain.
 41. moe_serve - train/moe.py --preset base --steps 2 --checkpoint-dir,
    then the serve CLI --preset moe-base on that checkpoint as a
-   subprocess: 8 requests from the port's DecodeClient, greedy chains
+   subprocess: 4 requests from the port's DecodeClient, greedy chains
    equal to in-process moe_generate on the restored weights; a ragged,
    a top_k and a num_beams request each a 400; SIGTERM -> exit 0.
 42. vit_train, vit_profile - ViT-B/16 through train/vit.py at 224^2,
@@ -269,7 +269,7 @@ non-zero, printing no result:
    sleep is on the host, so the shared card does not couple them).
 46. serve_observe - GPT-small behind make_server with tenant quotas
    (OBSERVE_QUOTAS), alerts on, a 0.5 s history cadence and the debug
-   endpoints, serve's 32-request mix from 8 client threads over
+   endpoints, serve's 12-request mix from 8 client threads over
    /generate_stream (request i from tenant i % 3: vip, a default tenant,
    noisy), once with batching="continuous" and once with
    batching="window", batch_window_ms=5. Held: every chain against the
@@ -278,9 +278,34 @@ non-zero, printing no result:
    concurrent noisy requests over its burst draw at least one 429, every
    debug route answers. Tokens/s, TTFT p50/p95 (first streamed token at
    the client) for both modes and by priority class.
-Then the kernel summary line (with each kernel's launches per run_steps
-replay and per step per rank at world 2), the nvidia-smi line, and the
-result line. `chip_smoke.py --world2-rank <dir>` is one rank of phases
+47. disagg_serve - GPT-small (bf16, random weights from a seed) as a
+   prefill server and a decode server (make_server, role="prefill" and
+   "decode", 8 slots each, the default pools) in this process behind the
+   port's LeastLoadedRouter: 24 seeded streams (16 of a 512-token shared
+   prefix plus 16-128 own tokens, 8 of 64-128 tokens alone, 32-64 new)
+   from 8 threads, every one picked by the decode pool and migrated
+   first, then the same streams on the decode replica alone. Held: the
+   chains equal the monolithic ones (the margin rule otherwise) and the
+   inline generate's under the margin rule, no prefill chunk on the
+   decode replica for migrated streams, the imported bytes equal to its
+   own prefill's, both pools audit clean with no block in use, the
+   import route alone gives the monolithic chain and two planted imports
+   on it (rebinding the pool tensors, one block off) each give another,
+   and 4 streams under kv_quant_int8 move the scale leaves.
+   Reported: migrations and picks, one migration's bytes and ms (export,
+   ship, import), TTFT p50/p95 migrated against monolithic.
+48. export_serve - serve/export.py on the lifecycle phase's checkpoint
+   (a copy whose position table is cut to the small preset's 2048 rows):
+   the artifact's bytes against the training checkpoint's, its int8
+   tensors against quantize_model on the card, and the serve CLI on the
+   artifact against --weights-int8 on the checkpoint: seconds from
+   process start to the first token, equal greedy chains, exit 0 on
+   SIGTERM.
+Each phase group prints its seconds (group_seconds), every phase line
+the seconds since the script started ("t"), and script_seconds the
+total. Then the kernel summary line (with each kernel's launches per
+run_steps replay and per step per rank at world 2), the nvidia-smi line,
+and the result line. `chip_smoke.py --world2-rank <dir>` is one rank of phases
 23-25's world of 2, which phase 23 launches; `chip_smoke.py --world-rank
 mp <dir>` one rank of phases 26-27's world of 2 and `--world-rank cli
 <dir>` one of phase 28's world of 4.
@@ -418,7 +443,7 @@ PR6_GPT_STEP_MS = 85.60
 # scalar), so bit-equal is expected (and reported); the checks hold
 # losses within 1e-3 relative at every step and each parameter within
 # 1e-4 relative L2
-RUN_STEPS = 5
+RUN_STEPS = 3
 RUN_STEPS_LOSS_RTOL = 1e-3
 RUN_STEPS_PARAM_RTOL = 1e-4
 # mnist: the reference's recorded run (MNIST_ACC.json)
@@ -427,7 +452,7 @@ MNIST_BATCH = 512
 EVALUATOR_TIMEOUT_S = 180
 # several processes (run_distributed_phases)
 WORLD2 = 2
-DIST_STEPS = 3
+DIST_STEPS = 2
 DIST_TIMEOUT_S = 420
 DIST_SEED = 3
 DIST_BATCH_SEED = 7
@@ -490,7 +515,14 @@ SYNCBN_WHY = (
     "an f32 bound")
 
 
+_START = time.monotonic()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries "t", the seconds since the
+    script started."""
+    if "phase" in obj:
+        obj = {**obj, "t": round(time.monotonic() - _START, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1245,8 +1277,7 @@ def gpt_generate(gpt_lib, model, summary) -> dict:
     prompt = chain[:, :total - GPT_NEW_TOKENS]
     lens = torch.full((b,), prompt.shape[1], device=device)
     greedy = gpt_lib._sampler(0.0, 0, 1.0, None)
-    model32 = gpt_lib.GPT(dataclasses.replace(model.cfg, dtype=torch.float32), device=device)
-    model32.load_state_dict(model.state_dict())
+    model32 = f32_twin(gpt_lib, model, device)
     report = {"batch": b, "prompt": prompt.shape[1], "new_tokens": GPT_NEW_TOKENS,
               "ms_per_token_bf16": summary["generate_ms_per_token"]}
     chains = {}
@@ -1689,7 +1720,8 @@ def check_lifecycle_launches(kernels, summary, phase: str) -> dict:
     return launches
 
 
-def run_lifecycle(kernels, gpt_lib, gpt_cli, trainer_lib, smi, gpt_summary) -> dict:
+def run_lifecycle(kernels, gpt_lib, gpt_cli, trainer_lib, smi, gpt_summary,
+                  workdir=None) -> dict:
     """lifecycle: GPT-small through train/gpt.py with --checkpoint-dir,
     --accum-steps 2 and --steps 6. A real SIGTERM after step 3 must give
     exit code 143 and a checkpoint at step 3; the restored tensors must be
@@ -1699,13 +1731,15 @@ def run_lifecycle(kernels, gpt_lib, gpt_cli, trainer_lib, smi, gpt_summary) -> d
     microbatch forward and K2/K3 12 per microbatch backward (24 each per
     step at k = 2). Also: save (blocking, async) and restore ms and bytes,
     peak memory of one step at k = 1 and k = 2, and the k = 2 gradient
-    against the k = 1 gradient from the same weights."""
+    against the k = 1 gradient from the same weights. With a workdir the
+    checkpoint stays there (workdir/ckpt) for export_serve; the caller
+    removes it."""
     import os
     import shutil
     import signal
     import tempfile
 
-    tmp = tempfile.mkdtemp(prefix="lifecycle-")
+    tmp = workdir or tempfile.mkdtemp(prefix="lifecycle-")
     try:
         ckpt = os.path.join(tmp, "ckpt")
 
@@ -1858,7 +1892,8 @@ def run_lifecycle(kernels, gpt_lib, gpt_cli, trainer_lib, smi, gpt_summary) -> d
         emit(report)
         return report
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if workdir is None:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 def free_device_memory() -> None:
@@ -2210,10 +2245,10 @@ def dist_bert(mesh=None, rules=None, f32=False):
     from tf_operator_tpu_torch.train import trainer as trainer_lib
 
     cfg = bert_lib.BERT_BASE
-    model = bert_lib.BertForMLM(
+    model = built_from(lambda: bert_lib.BertForMLM(
         dataclasses.replace(cfg, dtype=torch.float32) if f32 else cfg,
-        attention_fn=None if f32 else flash_attention,
-        generator=torch.Generator().manual_seed(DIST_SEED))
+        attention_fn=None if f32 else flash_attention),
+        seeded_weights(bert_lib.BertForMLM, cfg, DIST_SEED), "cpu")
     extra = {} if rules is None else {"rules": rules}
     trainer = trainer_lib.Trainer(model, trainer_lib.mlm_task(), learning_rate=1e-4,
                                   weight_decay=0.01, packed=True, device="cuda", mesh=mesh, **extra)
@@ -2226,7 +2261,7 @@ def dist_gpt_model():
     from tf_operator_tpu_torch.models import gpt as gpt_lib
 
     cfg = dataclasses.replace(gpt_lib.GPT_SMALL, max_seq_len=GPT_SHAPE[1])
-    return gpt_lib.GPT(cfg, generator=torch.Generator().manual_seed(DIST_SEED))
+    return seeded(gpt_lib.GPT, cfg, DIST_SEED)
 
 
 def dist_gpt(model, mesh=None, checkpoint_dir=None):
@@ -2829,7 +2864,7 @@ def f32_within(readings: dict) -> bool:
 # heads at the full sequence after the all-to-all; the ring is plain torch
 # (the reference's ring is a jnp fold with no kernel) and launches none.
 MP_SHAPE = (2, 4096)  # GPT-small rows x seq for tp_gpt and sp_gpt
-MP_TIMED_STEPS = 2
+MP_TIMED_STEPS = 1
 MP_TIMEOUT_S = 600
 MP_VIT_BATCH = 32
 MP_PROMPT_LEN = 8
@@ -2841,7 +2876,7 @@ MP_STRATEGIES = ("ring", "ulysses")
 # bias counted twice or a shard misplaced reads O(1)
 MP_F32_GRAD_RTOL = 1e-3
 CLI_WORLD = 4
-CLI_STEPS = {"gpt": 4, "bert": 6}
+CLI_STEPS = {"gpt": 3, "bert": 4}
 MP_LABEL = ("ranks sharing one card, collectives over gloo through host memory: "
             "not a scaling number")
 
@@ -3249,7 +3284,7 @@ SERVE_SEED = 9
 SERVE_SLOTS = 8
 SERVE_BLOCK = 64
 SERVE_CHUNK = 64
-SERVE_REQUESTS = 32
+SERVE_REQUESTS = 12
 SERVE_CLIENTS = 8
 SERVE_STREAMS = 4
 SERVE_PREFIX = 512
@@ -3315,13 +3350,47 @@ def serve_requests(cfg) -> list:
     return reqs
 
 
+def client_pool(work, n: int, clients: int, what: str) -> tuple:
+    """work(i) for every i < n from `clients` threads, each taking the next
+    i from one queue: -> (the results in order of i, the wall seconds).
+    Raises with the first errors when a call failed or a thread outlived
+    600 s."""
+    import queue as queue_mod
+    import threading
+
+    out = [None] * n
+    todo: queue_mod.Queue = queue_mod.Queue()
+    for i in range(n):
+        todo.put(i)
+    errors = []
+
+    def worker():
+        while True:
+            try:
+                i = todo.get_nowait()
+            except queue_mod.Empty:
+                return
+            try:
+                out[i] = work(i)
+            except Exception as err:  # noqa: BLE001 — raised below
+                errors.append((i, repr(err)))
+
+    threads = [threading.Thread(target=worker) for _ in range(clients)]
+    start = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.monotonic() - start
+    if errors or any(t.is_alive() for t in threads) or any(o is None for o in out):
+        raise AssertionError(f"{what} failed: {errors[:3]}")
+    return out, wall
+
+
 def serve_load(client, reqs) -> dict:
     """Request 0 alone, then the rest from SERVE_CLIENTS client threads (each
     takes the next request in a seeded order); -> each request's chain, and
     the wall seconds of the concurrent part."""
-    import queue as queue_mod
-    import threading
-
     def one(i):
         req = reqs[i]
         if req["stream"]:
@@ -3334,31 +3403,9 @@ def serve_load(client, reqs) -> dict:
         return client.generate([req["prompt"]], max_new_tokens=req["new"])[0]
 
     reqs[0]["chain"] = one(0)
-    todo: queue_mod.Queue = queue_mod.Queue()
-    for i in range(1, len(reqs)):
-        todo.put(i)
-    errors = []
-
-    def worker():
-        while True:
-            try:
-                i = todo.get_nowait()
-            except queue_mod.Empty:
-                return
-            try:
-                reqs[i]["chain"] = one(i)
-            except Exception as err:  # noqa: BLE001 — raised below
-                errors.append((i, err))
-
-    threads = [threading.Thread(target=worker) for _ in range(SERVE_CLIENTS)]
-    start = time.monotonic()
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=600)
-    wall = time.monotonic() - start
-    if errors or any(t.is_alive() for t in threads):
-        raise AssertionError(f"serve load failed: {errors[:3]}")
+    chains, wall = client_pool(lambda i: one(i + 1), len(reqs) - 1, SERVE_CLIENTS, "serve load")
+    for req, chain in zip(reqs[1:], chains):
+        req["chain"] = chain
     return {"wall_s": wall, "requests": len(reqs) - 1,
             "tokens": sum(r["new"] for r in reqs[1:])}
 
@@ -3845,7 +3892,7 @@ def run_serve(kernels, gpt_lib, smi) -> dict:
 # -- GPT-small's decode modes: int8, beams, speculation --------------------------
 
 MODES_SEED = 21
-INT8_DECODE = (8, 128, 256)  # rows, prompt, new tokens
+INT8_DECODE = (8, 128, 64)  # rows, prompt, new tokens
 INT8_F32_CHECK = (2, 32, 16)  # rows, prompt, new: f32 on the card against the CPU
 # f32 on the card (TF32 off) against f32 on the CPU, both with both int8
 # flags: each decode step's logits with both reading the same cache bytes
@@ -3853,7 +3900,7 @@ INT8_F32_CHECK = (2, 32, 16)  # rows, prompt, new: f32 on the card against the C
 # sum the same products in other orders (~1e-6 relative in f32); the bound
 # leaves two orders of magnitude of room.
 INT8_F32_LOGIT_RTOL = 1e-4
-INT8_SERVE_REQUESTS = 16
+INT8_SERVE_REQUESTS = 8
 INT8_SERVE_PROMPT = (16, 512)
 INT8_SERVE_NEW = (32, 96)
 # f32, card against CPU: the prefill's logits, each device attending over its
@@ -3874,14 +3921,14 @@ BEAM = (2, 4, 64, 64)  # rows, beams, prompt, new
 # beam's 64 generated log-probabilities through GPTDecodeStep, absolute (each
 # term within ~1e-5 of the other path's)
 BEAM_SCORE_ATOL = 1e-2
-SPEC_NEW = 256
+SPEC_NEW = 128
 SPEC_K = 4
 SPEC_NGRAM = 2
 SPEC_PROMPT = 128
 SPEC_SPAN = 32  # the repeated span of the repeated prompt
-SPEC_BF16_PROMPTS = 4  # more bf16 chains beside the two, for the divergence share
+SPEC_BF16_PROMPTS = 2  # more bf16 chains beside the two, for the divergence share
 SPEC_BF16_NEW = 128
-SPEC_SERVE_REQUESTS = 16
+SPEC_SERVE_REQUESTS = 8
 SPEC_SERVE_PROMPT = (64, 512)
 SPEC_SERVE_NEW = (64, 128)
 SPEC_DEPTH = 4
@@ -3891,19 +3938,15 @@ SPEC_DEPTH = 4
 # other widths (f32 noise, ~1e-6); a clamped overshoot writes another
 # token's vectors there (order 1).
 SPEC_COMMITTED_KV_RTOL = 1e-4
-MODES_SERVE_NEW = 32
+MODES_SERVE_NEW = 16
 MODES_SERVE_TIMEOUT_S = 300
 MODES_REFUSAL_TIMEOUT_S = 120
 
 
 def f32_twin(gpt_lib, model, device):
-    """An f32 GPT of `model`'s weights on `device` (built on the meta
-    device: no random initialisation to pay before the copy)."""
-    with torch.device("meta"):
-        twin = gpt_lib.GPT(dataclasses.replace(model.cfg, dtype=torch.float32))
-    twin = twin.to_empty(device=device)
-    twin.load_state_dict(model.state_dict())
-    return twin
+    """An f32 GPT of `model`'s weights on `device`."""
+    return built_from(lambda: gpt_lib.GPT(dataclasses.replace(model.cfg, dtype=torch.float32)),
+                      model.state_dict(), device)
 
 
 def forced_logits(gpt_lib, model, chain, kv_quant_int8: bool = False) -> torch.Tensor:
@@ -4809,13 +4852,13 @@ def run_decode_modes_phases(kernels, smi) -> dict:
 MOE_SHAPE = (8, 1024)  # MoE-base at the reference bench's batch x seq (moe_bench.py:81-86)
 MOE_TIMED_STEPS = 5
 MOE_PARITY_SHAPE = (2, 256)
-MOE_DECODE = (8, 128, 512)  # rows, prompt, new tokens (moe_bench.py:184)
+MOE_DECODE = (8, 128, 128)  # rows, prompt, new tokens (moe_bench.py:184 decodes 512)
 # the f32 decode checks' new tokens after the 128-token prompt
 MOE_CHECK_NEW = 64
 # a capacity factor at which training drops nothing on these shapes (the
 # reference's tests/test_moe_pipeline.py:389-394): decode equals training
 MOE_NO_DROP_CF = 2.0
-MOE_SERVE_REQUESTS = 8
+MOE_SERVE_REQUESTS = 4
 MOE_SERVE_PROMPT = 32
 MOE_SERVE_NEW = 32
 MOE_SERVE_TIMEOUT_S = 300
@@ -5110,7 +5153,7 @@ def run_moe_train(kernels, moe_lib, moe_cli, smi) -> dict:
 def run_moe_profile(moe_lib, bert_lib, attention_lib, losses_lib, trainer_lib, smi) -> dict:
     """moe_profile: device ms per MoE-base step at MOE_SHAPE by region."""
     cfg = moe_lib.MOE_BASE
-    model = moe_lib.MoELM(cfg, generator=torch.Generator().manual_seed(5))
+    model = seeded(moe_lib.MoELM, cfg, 5)
     trainer = trainer_lib.Trainer(model, trainer_lib.moe_task(), learning_rate=3e-4,
                                   weight_decay=0.01, device="cuda")
     batch = moe_lib.synthetic_batch(torch.Generator().manual_seed(6), *MOE_SHAPE, cfg)
@@ -5150,9 +5193,7 @@ def moe_step_readings(moe_lib, trainer_lib, cfg, weights, batch, device, planted
     """One moe_task forward and backward on `device` from `weights`: the
     logits, loss, router_aux, router_z and every gradient, on the CPU.
     planted: a router class to swap in (a control)."""
-    model = moe_lib.MoELM(cfg)
-    model.load_state_dict(weights)
-    model.to(device)
+    model = built_from(lambda: moe_lib.MoELM(cfg), weights, device)
     if planted is not None:
         for m in model.modules():
             if isinstance(m, moe_lib.TopKRouter):
@@ -5311,14 +5352,14 @@ def run_moe_parity(moe_lib, trainer_lib, smi) -> dict:
 
 
 def run_moe_run_steps(kernels, moe_lib, trainer_lib, smi) -> dict:
-    """moe_run_steps: MoE-base at MOE_SHAPE, run_steps(n=5) as a CUDA graph
-    against 5 eager steps from one seed (graph_vs_eager: losses 1e-3
+    """moe_run_steps: MoE-base at MOE_SHAPE, run_steps(n=RUN_STEPS) as a CUDA
+    graph against RUN_STEPS eager steps from one seed (graph_vs_eager: losses 1e-3
     relative, parameters 1e-4 relative L2, bit-equality reported, ms per
     step and busy share, eager and graph); no kernel of the port inside."""
     cfg = moe_lib.MOE_BASE
 
     def make():
-        model = moe_lib.MoELM(cfg, generator=torch.Generator().manual_seed(5))
+        model = seeded(moe_lib.MoELM, cfg, 5)
         return trainer_lib.Trainer(
             model, trainer_lib.moe_task(), weight_decay=0.01, device="cuda",
             learning_rate=trainer_lib.warmup_cosine_lr(3e-4, 2 * RUN_STEPS, 2))
@@ -5347,7 +5388,7 @@ def stepwise_chain(moe_lib, model, prompt, new: int) -> torch.Tensor:
 
 def run_moe_generate(moe_lib, smi) -> dict:
     """moe_generate: MoE-base (bf16, random weights from a seed), 8 rows,
-    a 128-token prompt, 512 new tokens: tokens/s counted as the reference
+    a 128-token prompt, 128 new tokens: tokens/s counted as the reference
     counts them, b (p - 1 + new) / s, ms per token, and a profile of decode
     steps (kernels per token, busy share). Then in f32 at capacity factor
     2.0 (TF32 off), along a greedy chain of MOE_CHECK_NEW new tokens:
@@ -5358,7 +5399,7 @@ def run_moe_generate(moe_lib, smi) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     rows, p, new = MOE_DECODE
     cfg = moe_lib.MOE_BASE
-    model = moe_lib.MoELM(cfg, generator=torch.Generator().manual_seed(11), device="cuda")
+    model = seeded(moe_lib.MoELM, cfg, 5).to("cuda")  # moe_profile's draw
     prompt = torch.randint(0, cfg.vocab_size, (rows, p),
                            generator=torch.Generator().manual_seed(12)).cuda()
     moe_lib.moe_generate(model, (prompt + 1) % cfg.vocab_size, 8)  # warm-up
@@ -5385,9 +5426,8 @@ def run_moe_generate(moe_lib, smi) -> dict:
     # holds the whole sequence (no drop is possible)
     routed_at = {}
     for factor in (MOE_NO_DROP_CF, cfg.num_experts / cfg.experts_per_token):
-        model32 = moe_lib.MoELM(dataclasses.replace(
-            cfg, dtype=torch.float32, capacity_factor=factor), device="cuda")
-        model32.load_state_dict(weights)
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32, capacity_factor=factor)
+        model32 = built_from(lambda: moe_lib.MoELM(cfg32), weights, "cuda")
         with torch.no_grad():
             chain = moe_lib.moe_generate(model32, prompt, MOE_CHECK_NEW)
             batch = {"input_ids": chain, "attention_mask": torch.ones_like(chain)}
@@ -5600,9 +5640,7 @@ def run_vit(vit_lib, vit_cli, bert_lib, attention_lib, trainer_lib, smi) -> dict
 
 
 def vit_step_readings(vit_lib, cfg, weights, batch, device) -> dict:
-    model = vit_lib.ViT(cfg)
-    model.load_state_dict(weights)
-    model.to(device)
+    model = built_from(lambda: vit_lib.ViT(cfg), weights, device)
     logits = model(batch["image"].to(device))
     loss = F.cross_entropy(logits.float(), batch["label"].to(device))
     loss.backward()
@@ -5624,16 +5662,18 @@ def run_vit_parity(vit_lib, smi) -> dict:
     report = {"phase": "vit_parity", "model": "ViT-B/16", "card": smi,
               "batch": VIT_PARITY_BATCH, "cases": {}}
     failures = []
+    cpu_readings = {}
     for pool in ("gap", "cls"):
         for wire in ("float", "uint8"):
             cfg32 = dataclasses.replace(vit_lib.VIT_B16, pool=pool, dtype=torch.float32)
-            weights = vit_lib.ViT(cfg32, generator=torch.Generator().manual_seed(21)).state_dict()
+            weights = seeded(vit_lib.ViT, cfg32, 21).state_dict()
             batch = vit_lib.synthetic_batch(torch.Generator().manual_seed(22), VIT_PARITY_BATCH,
                                             cfg32)
             if wire == "uint8":
                 batch["image"] = torch.randint(0, 256, batch["image"].shape, dtype=torch.uint8,
                                                generator=torch.Generator().manual_seed(23))
-            cpu = vit_step_readings(vit_lib, cfg32, weights, batch, "cpu")
+            cpu = cpu_readings[pool, wire] = vit_step_readings(vit_lib, cfg32, weights, batch,
+                                                               "cpu")
             card = vit_step_readings(vit_lib, cfg32, weights, batch, "cuda")
             cfg16 = dataclasses.replace(cfg32, dtype=torch.bfloat16)
             bf16 = vit_step_readings(vit_lib, cfg16, weights, batch, "cuda")
@@ -5656,11 +5696,13 @@ def run_vit_parity(vit_lib, smi) -> dict:
                 failures.append(f"{pool}-{wire} bf16 loss")
             if remat_worst[0] > REMAT_RTOL:
                 failures.append(f"{pool}-{wire} remat")
-    # the planted control: position_embed added to a column-major patch order
+    # the planted control: position_embed added to a column-major patch order,
+    # held against the gap pool's f32 CPU step (the default pool's weights and
+    # batch: the same computation)
     cfg32 = dataclasses.replace(vit_lib.VIT_B16, dtype=torch.float32)
-    weights = vit_lib.ViT(cfg32, generator=torch.Generator().manual_seed(21)).state_dict()
+    weights = seeded(vit_lib.ViT, cfg32, 21).state_dict()
     batch = vit_lib.synthetic_batch(torch.Generator().manual_seed(22), VIT_PARITY_BATCH, cfg32)
-    cpu = vit_step_readings(vit_lib, cfg32, weights, batch, "cpu")
+    cpu = cpu_readings[cfg32.pool, "float"]
     grid = cfg32.image_size // cfg32.patch_size
     transposed = dict(weights)
     pos = weights["position_embed"].reshape(1, grid, grid, -1).transpose(1, 2)
@@ -5891,7 +5933,6 @@ def stream_with_tenant(port: int, prompt: list, new: int, tenant: str) -> dict:
 def serve_observe_mode(gpt_lib, model, reqs, batching: str, smi) -> dict:
     """One mode of serve_observe: the server, the load over streams with
     tenants, the noisy burst and the debug routes."""
-    import queue as queue_mod
     import threading
 
     from tf_operator_tpu_torch.serve import make_server
@@ -5910,32 +5951,11 @@ def serve_observe_mode(gpt_lib, model, reqs, batching: str, smi) -> dict:
     port = server.server_address[1]
     listener = threading.Thread(target=server.serve_forever, daemon=True)
     listener.start()
-    results = [None] * len(reqs)
-    errors = []
     try:
-        todo: queue_mod.Queue = queue_mod.Queue()
-        for i in range(len(reqs)):
-            todo.put(i)
-
-        def worker():
-            while True:
-                try:
-                    i = todo.get_nowait()
-                except queue_mod.Empty:
-                    return
-                try:
-                    results[i] = stream_with_tenant(port, reqs[i]["prompt"], reqs[i]["new"],
-                                                    OBSERVE_TENANTS[i % 3])
-                except Exception as err:  # noqa: BLE001 — raised below
-                    errors.append((i, repr(err)))
-
-        threads = [threading.Thread(target=worker) for _ in range(SERVE_CLIENTS)]
-        start = time.monotonic()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        wall = time.monotonic() - start
+        results, wall = client_pool(
+            lambda i: stream_with_tenant(port, reqs[i]["prompt"], reqs[i]["new"],
+                                         OBSERVE_TENANTS[i % 3]),
+            len(reqs), SERVE_CLIENTS, f"serve_observe {batching}")
         # the noisy tenant's burst over its bucket, all at once
         burst = [None] * OBSERVE_NOISY_BURST
 
@@ -5956,8 +5976,6 @@ def serve_observe_mode(gpt_lib, model, reqs, batching: str, smi) -> dict:
         if server.state.engine is not None:
             server.state.engine.stop()
         listener.join(timeout=30)
-    if errors or any(r is None for r in results):
-        raise AssertionError(f"serve_observe {batching}: {errors[:3]}")
     flat = {}
     for line in metrics.splitlines():
         if line and not line.startswith("#"):
@@ -6077,9 +6095,618 @@ def run_observe_phases(kernels, gpt_cli, smi, gpt_summary) -> dict:
     return out
 
 
+# -- disaggregated serving and the serving artifact ------------------------------
+
+DISAGG_SEED = 31
+DISAGG_PREFIX = 512  # the shared prefix: 8 blocks of 64
+DISAGG_FAMILY = 16  # streams of the shared-prefix family
+DISAGG_OWN = (16, 128)  # each family stream's own tokens after the prefix
+DISAGG_SOLO = 8  # streams with no shared prefix
+DISAGG_SOLO_PROMPT = (64, 128)  # 1-2 blocks
+DISAGG_NEW = (32, 64)
+DISAGG_CLIENTS = 8
+DISAGG_INT8_STREAMS = 4
+DISAGG_TIMING_REPS = 3
+EXPORT_NEW = 16
+EXPORT_PROMPTS = 2
+EXPORT_SERVE_TIMEOUT_S = 300
+
+
+def disagg_requests(cfg, seed: int = DISAGG_SEED) -> list:
+    """DISAGG_FAMILY streams of a DISAGG_PREFIX-token shared prefix plus
+    their own DISAGG_OWN tokens, then DISAGG_SOLO streams of a
+    DISAGG_SOLO_PROMPT-token prompt of their own; DISAGG_NEW new tokens
+    each; all drawn from a seeded generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, cfg.vocab_size, DISAGG_PREFIX).tolist()
+    reqs = []
+    for i in range(DISAGG_FAMILY + DISAGG_SOLO):
+        new = int(rng.integers(DISAGG_NEW[0], DISAGG_NEW[1] + 1))
+        if i < DISAGG_FAMILY:
+            own = int(rng.integers(DISAGG_OWN[0], DISAGG_OWN[1] + 1))
+            prompt = prefix + rng.integers(0, cfg.vocab_size, own).tolist()
+        else:
+            p = int(rng.integers(DISAGG_SOLO_PROMPT[0], DISAGG_SOLO_PROMPT[1] + 1))
+            prompt = rng.integers(0, cfg.vocab_size, p).tolist()
+        reqs.append({"prompt": prompt, "new": new, "family": i < DISAGG_FAMILY})
+    return reqs
+
+
+def concurrent_streams(open_stream, reqs, clients: int) -> list:
+    """Each request through open_stream(prompt, new) (an iterator of
+    events ending with a done event) from `clients` threads (client_pool):
+    -> per request {"chain", "ttft_s", "replicas"} in request order; the
+    client side's seconds to the first token event."""
+    def one(i):
+        start = time.monotonic()
+        first, done, replicas = None, None, set()
+        for event in open_stream(reqs[i]["prompt"], reqs[i]["new"]):
+            if "token" in event:
+                if first is None:
+                    first = time.monotonic() - start
+                replicas.add(event.get("replica"))
+            if event.get("done"):
+                done = event
+        return {"chain": done["tokens"][0], "ttft_s": first, "replicas": replicas}
+
+    return client_pool(one, len(reqs), clients, "streams")[0]
+
+
+def leaf_bytes_differ(a: dict, b: dict) -> dict:
+    """Two block sets' leaves compared byte for byte: how many leaves
+    differ and the worst difference in ulps of the leaf's dtype (bf16 and
+    f32 through their integer bit patterns, int8 codes as numbers)."""
+    import base64
+
+    import numpy as np
+
+    bits = {"bfloat16": np.int16, "float32": np.int32, "int8": np.int8}
+    differ, worst = 0, 0
+    if (a["tokens"], a["blocks"], len(a["leaves"])) != (b["tokens"], b["blocks"],
+                                                        len(b["leaves"])):
+        return {"comparable": False}
+    for x, y in zip(a["leaves"], b["leaves"]):
+        if x["data"] == y["data"]:
+            continue
+        differ += 1
+        dt = bits[x["dtype"]]
+        u = np.frombuffer(base64.b64decode(x["data"]), dt).astype(np.int64)
+        v = np.frombuffer(base64.b64decode(y["data"]), dt).astype(np.int64)
+        worst = max(worst, int(np.abs(u - v).max()))
+    return {"comparable": True, "leaves": len(a["leaves"]), "leaves_differing": differ,
+            "worst_ulps": worst}
+
+
+def empty_pool(engine) -> None:
+    """Drop the prefix cache and zero the pool in place (the captured
+    programs keep their tensors): a block a later import forgets to write
+    then reads zeros, not the bytes an earlier prefill left there."""
+    def op():
+        engine.pool.flush()
+        engine.step.init_cache()
+        torch.cuda.synchronize()
+
+    engine._submit_op(op)  # on the engine's own thread, between its quanta
+
+
+def planted_imports(engine) -> dict:
+    """The two planted faults of an import on the card: a write that
+    rebinds the pool's tensors (the captured programs go on reading the
+    old ones) and a write one block off. -> name -> (install, restore)."""
+    cache = engine.step.cache
+    lists = [cache.keys, cache.values] + ([cache.key_scales, cache.value_scales]
+                                          if cache.quantized else [])
+    saved = [list(lst) for lst in lists]
+
+    def rebinding(leaves, idx, rows):
+        fresh = {}
+        for leaf, data in zip(leaves, rows):
+            new = leaf.clone()
+            new.index_copy_(0, idx, data.to(leaf.device))
+            fresh[id(leaf)] = new
+        for lst in lists:
+            for i, t in enumerate(lst):
+                lst[i] = fresh.get(id(t), t)
+
+    def one_off(leaves, idx, rows):
+        shifted = torch.where(idx + 1 < engine.pool.num_blocks, idx + 1, torch.ones_like(idx))
+        for leaf, data in zip(leaves, rows):
+            leaf.index_copy_(0, shifted, data.to(leaf.device))
+
+    def restore():
+        engine.__dict__.pop("_write_blocks", None)
+        for lst, old in zip(lists, saved):
+            lst[:] = old
+
+    return {name: (lambda fn=fn: setattr(engine, "_write_blocks", fn), restore)
+            for name, fn in (("rebinding_import", rebinding), ("one_block_off", one_off))}
+
+
+def migration_cost(client_pre, client_dec, engine_pre, engine_dec, prompt) -> dict:
+    """One migration of `prompt`'s block set, its parts timed apart
+    (median of DISAGG_TIMING_REPS): the export on the prefill replica's
+    engine, the POST /kv/import round trip to the decode replica, and the
+    import alone on the decode replica's engine (base64 decode, the host
+    to device copy, one index_copy_ a leaf); ship = round trip - import.
+    Bytes: raw (the leaves), base64 and the JSON body."""
+    import base64
+
+    export_ms, trip_ms, import_ms = [], [], []
+    payload = None
+    for _ in range(DISAGG_TIMING_REPS):
+        start = time.monotonic()
+        payload = engine_pre.export_prefix_blocks(prompt)
+        export_ms.append((time.monotonic() - start) * 1e3)
+        empty_pool(engine_dec)
+        start = time.monotonic()
+        client_dec.kv_import(payload)
+        trip_ms.append((time.monotonic() - start) * 1e3)
+        empty_pool(engine_dec)
+        start = time.monotonic()
+        engine_dec.import_prefix_blocks(payload)
+        engine_dec._submit_op(torch.cuda.synchronize)
+        import_ms.append((time.monotonic() - start) * 1e3)
+    empty_pool(engine_dec)
+    raw = sum(len(base64.b64decode(leaf["data"])) for leaf in payload["leaves"])
+    b64 = sum(len(leaf["data"]) for leaf in payload["leaves"])
+    med = statistics.median
+    return {
+        "blocks": payload["blocks"], "tokens": len(payload["tokens"]),
+        "leaves": len(payload["leaves"]), "raw_bytes": raw, "base64_bytes": b64,
+        "json_bytes": len(json.dumps(payload)),
+        "export_ms": med(export_ms), "kv_import_round_trip_ms": med(trip_ms),
+        "import_ms": med(import_ms), "ship_ms": med(trip_ms) - med(import_ms),
+        "reps": DISAGG_TIMING_REPS,
+    }
+
+
+def disagg_pair(model, smi, kv_quant_int8: bool = False):
+    """A prefill and a decode server (make_server, 8 slots, the default
+    pool, paged 64-token blocks, 64-token chunks) on 127.0.0.1 in this
+    process, and a LeastLoadedRouter in front: -> (servers by role,
+    clients by role, router)."""
+    import threading
+
+    from tf_operator_tpu_torch.serve import DecodeClient, LeastLoadedRouter, make_server
+
+    servers, clients = {}, {}
+    router = LeastLoadedRouter(retry_wait=0.01, stream_deadline=600.0)
+    for role in ("prefill", "decode"):
+        srv = make_server(model, batching="continuous", n_slots=SERVE_SLOTS, kv_layout="paged",
+                          block_size=SERVE_BLOCK, prefill_chunk=SERVE_CHUNK, device="cuda",
+                          max_new_cap=DISAGG_NEW[1], kv_quant_int8=kv_quant_int8, role=role)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        servers[role], clients[role] = srv, DecodeClient(url, timeout=600)
+        router.add_replica(role, url, role=role)
+    return servers, clients, router
+
+
+def close_pair(servers) -> None:
+    for srv in servers.values():
+        srv.shutdown()
+        srv.server_close()
+        srv.state.engine.stop()
+
+
+def pools_clean(servers) -> dict:
+    """Each engine's pool audit (on its thread) and its blocks in use."""
+    out = {}
+    for role, srv in servers.items():
+        engine = srv.state.engine
+        out[role] = {"audit_ok": bool(engine.audit_pool("disagg_serve")),
+                     "in_use": engine.pool.in_use(), "cached": engine.pool.cached_blocks()}
+    return out
+
+
+def run_disagg_serve(kernels, gpt_lib, smi) -> dict:
+    """disagg_serve: GPT-small (bf16, random weights from DISAGG_SEED) as a
+    prefill server and a decode server in this process behind the port's
+    LeastLoadedRouter (serve/router.py): DISAGG_FAMILY + DISAGG_SOLO
+    streams (disagg_requests) from DISAGG_CLIENTS threads through the
+    router, every one picked by the decode pool and migrated first (the
+    prefill replica prefills it and ships its block set to the decode
+    replica's /kv/import); then the same streams served monolithically by
+    the decode replica alone, its pool emptied first. Held: every chain
+    equal to the monolithic one (reported with the inline margin where
+    not), and to the inline generate under the margin rule; the decode
+    replica runs no prefill chunk during the migrated streams; the
+    imported bytes of one prompt against the decode replica's own prefill
+    of it, byte for byte; both pools audit clean and end with no block in
+    use; the import route alone (pool emptied, a block set imported,
+    /generate) gives the monolithic chain, and two planted imports on it
+    (rebinding the pool tensors, one block off) must each break it; a
+    short run of
+    DISAGG_INT8_STREAMS under kv_quant_int8 moves the scale leaves with
+    the same checks. Reported: migrations, failures and decode-pool
+    picks, one migration's bytes and ms by part, TTFT p50/p95 migrated
+    against monolithic. No kernel of K1-K5 runs on this path."""
+    import numpy as np
+
+    cfg = gpt_lib.GPT_SMALL
+    model = gpt_lib.GPT(cfg, generator=torch.Generator().manual_seed(DISAGG_SEED),
+                        device="cuda")
+    reqs = disagg_requests(cfg)
+    kernels.reset_launches()
+    start = time.monotonic()
+    servers, clients, router = disagg_pair(model, smi)
+    startup_s = time.monotonic() - start
+    pre, dec = servers["prefill"].state.engine, servers["decode"].state.engine
+    try:
+        chunks_before = dec.prefill_chunks
+        start = time.monotonic()
+        migrated = concurrent_streams(
+            lambda prompt, new: router.generate_stream(prompt, new), reqs, DISAGG_CLIENTS)
+        migrated_wall = time.monotonic() - start
+        dec_chunks_migrated = dec.prefill_chunks - chunks_before
+        stats = router.stats()
+        probe = reqs[0]["prompt"]
+        imported = dec.export_prefix_blocks(probe)
+        # the same streams, monolithic: the decode replica alone
+        empty_pool(dec)
+        start = time.monotonic()
+        mono = concurrent_streams(
+            lambda prompt, new: clients["decode"].generate_stream(prompt, new), reqs,
+            DISAGG_CLIENTS)
+        mono_wall = time.monotonic() - start
+        own = dec.export_prefix_blocks(probe)
+        bytes_check = leaf_bytes_differ(imported, own)
+        cost = migration_cost(clients["prefill"], clients["decode"], pre, dec, probe)
+        # the import route (pool emptied, the prefill replica's block set
+        # imported, /generate): unplanted it must give the monolithic
+        # chain; each planted import must break it
+        payload = pre.export_prefix_blocks(probe)
+
+        def via_import(install=None, restore=None):
+            empty_pool(dec)
+            if install is not None:
+                install()
+            try:
+                dec.import_prefix_blocks(payload)
+                got = clients["decode"].generate([probe], max_new_tokens=reqs[0]["new"])[0]
+            finally:
+                if restore is not None:
+                    restore()
+            empty_pool(dec)
+            return first_diff(got, mono[0]["chain"])
+
+        unplanted = via_import()
+        planted = {}
+        for name, (install, restore) in planted_imports(dec).items():
+            j = via_import(install, restore)
+            planted[name] = {"chain_differs": j is not None, "first_difference": j}
+        clean = pools_clean(servers)
+        health = {role: c.healthy()["role"] for role, c in clients.items()}
+    finally:
+        close_pair(servers)
+    launches = dict(kernels.LAUNCHES)
+    free_device_memory()
+
+    # held: the inline generate (one batched ragged call) under the margin rule
+    chains, logits = inline_chains(gpt_lib, model, reqs)
+    inline_differ = []
+    for i, r in enumerate(reqs):
+        p = len(r["prompt"])
+        j = first_diff(migrated[i]["chain"], chains[i, :p + r["new"]].tolist())
+        if j is not None:
+            _, m, bound = decisions(logits[j - 1, i]).tolist()
+            inline_differ.append({"request": i, "position": j, "inline_margin": m,
+                                  "bound": bound})
+    mono_differ = []
+    for i, r in enumerate(reqs):
+        j = first_diff(migrated[i]["chain"], mono[i]["chain"])
+        if j is not None:
+            _, m, bound = decisions(logits[j - 1, i]).tolist()
+            mono_differ.append({"request": i, "position": j, "inline_margin": m,
+                                "bound": bound})
+    del logits
+    free_device_memory()
+
+    # the short int8-KV run: the scale leaves cross too
+    int8_reqs = reqs[:DISAGG_INT8_STREAMS]
+    servers8, clients8, router8 = disagg_pair(model, smi, kv_quant_int8=True)
+    try:
+        dec8 = servers8["decode"].state.engine
+        migrated8 = concurrent_streams(
+            lambda prompt, new: router8.generate_stream(prompt, new), int8_reqs,
+            DISAGG_INT8_STREAMS)
+        chunks8 = dec8.prefill_chunks
+        payload8 = servers8["prefill"].state.engine.export_prefix_blocks(int8_reqs[0]["prompt"])
+        empty_pool(dec8)
+        mono8 = concurrent_streams(
+            lambda prompt, new: clients8["decode"].generate_stream(prompt, new), int8_reqs,
+            DISAGG_INT8_STREAMS)
+        stats8 = router8.stats()
+        clean8 = pools_clean(servers8)
+    finally:
+        close_pair(servers8)
+    free_device_memory()
+
+    def quantiles(values):
+        return {"p50": float(np.quantile(values, 0.5)), "p95": float(np.quantile(values, 0.95))}
+
+    decode_picks = [d["picked"] for d in stats["decisions"]]
+    report = {
+        "phase": "disagg_serve", "card": smi, "model": "GPT-small", "dtype": "bf16",
+        "slots": SERVE_SLOTS, "block_size": SERVE_BLOCK, "prefill_chunk": SERVE_CHUNK,
+        "streams": len(reqs), "family": DISAGG_FAMILY, "shared_prefix": DISAGG_PREFIX,
+        "solo": DISAGG_SOLO, "clients": DISAGG_CLIENTS, "startup_s": startup_s,
+        "migrations": stats["migrations"], "migrate_failures": stats["migrate_failures"],
+        "failovers": stats["failovers"],
+        "decode_pool_picks": decode_picks.count("decode"), "picks": len(decode_picks),
+        "decode_prefill_chunks_during_migrated": dec_chunks_migrated,
+        "migrated_wall_s": migrated_wall, "monolithic_wall_s": mono_wall,
+        "ttft_migrated_s": quantiles([m["ttft_s"] for m in migrated]),
+        "ttft_monolithic_s": quantiles([m["ttft_s"] for m in mono]),
+        "ttft_family_migrated_s": quantiles([m["ttft_s"] for m, r in zip(migrated, reqs)
+                                             if r["family"]]),
+        "ttft_family_monolithic_s": quantiles([m["ttft_s"] for m, r in zip(mono, reqs)
+                                               if r["family"]]),
+        "chains_differing_from_monolithic": len(mono_differ),
+        "monolithic_differences": mono_differ,
+        "chains_differing_from_inline": len(inline_differ),
+        "inline_differences": inline_differ, "margin_ulps": SERVE_MARGIN_ULPS,
+        "imported_vs_own_prefill": bytes_check, "migration": cost,
+        "unplanted_import_first_difference": unplanted, "planted": planted,
+        "pools": clean, "healthz_roles": health,
+        "int8_kv": {
+            "streams": len(int8_reqs), "migrations": stats8["migrations"],
+            "migrate_failures": stats8["migrate_failures"],
+            "leaves": len(payload8["leaves"]),
+            "leaf_dtypes": sorted({leaf["dtype"] for leaf in payload8["leaves"]}),
+            "decode_prefill_chunks_during_migrated": chunks8,
+            "chains_differing_from_monolithic": sum(
+                a["chain"] != b["chain"] for a, b in zip(migrated8, mono8)),
+            "pools": clean8,
+        },
+        "launches": launches,
+    }
+    emit(report)
+    problems = []
+    if report["migrations"] < 1:
+        problems.append("no migration happened")
+    if any(d["picked"] != "decode" for d in stats["decisions"]) or \
+            len(decode_picks) != len(reqs):
+        problems.append("a stream was not picked by the decode pool")
+    if any(d["inline_margin"] > d["bound"] for d in mono_differ):
+        problems.append("a migrated chain differs from the monolithic one above the margin")
+    if any(d["inline_margin"] > d["bound"] for d in inline_differ):
+        problems.append("a migrated chain differs from the inline one above the margin")
+    if dec_chunks_migrated != 0 and stats["migrate_failures"] == 0:
+        problems.append("the decode replica ran prefill chunks for migrated streams")
+    if not (bytes_check.get("comparable") and bytes_check["leaves_differing"] == 0):
+        problems.append(f"the imported blocks differ from the decode replica's own prefill: "
+                        f"{bytes_check}")
+    if unplanted is not None:
+        problems.append(f"the import route without a plant differs from the monolithic chain "
+                        f"at {unplanted}")
+    elif not all(p["chain_differs"] for p in planted.values()):
+        problems.append(f"a planted import went unnoticed: {planted}")
+    for pools in (clean, clean8):
+        if not all(v["audit_ok"] and v["in_use"] == 0 for v in pools.values()):
+            problems.append(f"a pool audit failed or a block stayed in use: {pools}")
+    if health != {"prefill": "prefill", "decode": "decode"}:
+        problems.append(f"/healthz roles {health}")
+    int8 = report["int8_kv"]
+    if int8["migrations"] < 1 or int8["leaf_dtypes"] != ["float32", "int8"] or \
+            int8["chains_differing_from_monolithic"]:
+        problems.append(f"the int8-KV run: {int8}")
+    if any(launches.values()):
+        problems.append(f"a kernel of K1-K5 launched on the serving path: {launches}")
+    if problems:
+        raise AssertionError(f"disagg_serve: {problems}")
+    return report
+
+
+def first_token_seconds(args: list, prompts: list, log_path: str) -> dict:
+    """The serve CLI with args as a subprocess: the seconds from its start
+    to the first streamed token of one request, then every prompt's greedy
+    chain of EXPORT_NEW tokens; SIGTERM -> its exit code."""
+    import urllib.request
+
+    start = time.monotonic()
+    proc, port, log = serve_cli(args, log_path)
+    try:
+        wait_for_health(port, proc, EXPORT_SERVE_TIMEOUT_S)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate_stream",
+            data=json.dumps({"input_ids": [prompts[0]], "max_new_tokens": 1}).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        first = None
+        with urllib.request.urlopen(req, timeout=EXPORT_SERVE_TIMEOUT_S) as resp:
+            for line in resp:
+                if first is None and "token" in json.loads(line):
+                    first = time.monotonic() - start
+        chains = []
+        for prompt in prompts:
+            status, body = post_json(port, "/generate", {"input_ids": [prompt],
+                                                         "max_new_tokens": EXPORT_NEW})
+            if status != 200:
+                raise AssertionError(f"serve {args}: {status} {body}")
+            chains.append(body["tokens"][0])
+    finally:
+        code = stop_cli(proc, log)
+    return {"first_token_s": first, "chains": chains, "exit_code": code}
+
+
+def serve_sized_checkpoint(ckpt: str, out: str, cfg) -> tuple:
+    """The newest step of a GPT training checkpoint written again at `out`
+    with its position table cut to cfg.max_seq_len rows (the lifecycle
+    phase trains GPT-small at seq 4096; the small preset serves 2048
+    positions, and the reference's restore under the preset would refuse
+    the longer table as the port's does). Only the model's weights are
+    written: the server and the export read nothing else. -> (rows
+    before, rows after)."""
+    from tf_operator_tpu_torch.train.trainer import Checkpointer
+
+    checkpointer = Checkpointer(ckpt)
+    step = checkpointer.latest_step()
+    payload = torch.load(checkpointer.path(step), map_location="cpu", weights_only=True)
+    table = payload["model"]["position_embed.weight"]
+    payload["model"]["position_embed.weight"] = table[:cfg.max_seq_len].clone()
+    Checkpointer(out).write(step, {"model": payload["model"], "step": step})
+    return table.shape[0], cfg.max_seq_len
+
+
+def run_export_serve(gpt_lib, smi, ckpt: str, workdir: str) -> dict:
+    """export_serve: serve/export.py on the GPT-small checkpoint the
+    lifecycle phase wrote (its newest step; its position table cut to the
+    small preset's 2048 rows by serve_sized_checkpoint): the params-only
+    int8 artifact. Reported: the manifest's bytes (params against the
+    training weights), the artifact's file against the training
+    checkpoint's, the export's seconds, and the seconds from process start
+    to the first served token of `serve --preset small --checkpoint-dir
+    <artifact>` against `--weights-int8` on the training checkpoint. Held:
+    the artifact's int8 tensors byte-equal to quantize_model of the
+    restored weights on the card; the two servers' greedy chains equal;
+    both exit 0 on SIGTERM."""
+    import os
+
+    import numpy as np
+
+    from tf_operator_tpu_torch.ops.quant import quantize_model
+    from tf_operator_tpu_torch.serve import export as export_mod
+    from tf_operator_tpu_torch.train.trainer import Checkpointer
+
+    trained_file = Checkpointer(ckpt).path(Checkpointer(ckpt).latest_step())
+    rows = serve_sized_checkpoint(ckpt, os.path.join(workdir, "ckpt"), gpt_lib.GPT_SMALL)
+    ckpt = os.path.join(workdir, "ckpt")
+    art = os.path.join(workdir, "serving-int8")
+    start = time.monotonic()
+    code = export_mod.main(["--preset", "small", "--checkpoint-dir", ckpt, "--out", art])
+    export_s = time.monotonic() - start
+    state, manifest = export_mod.load_exported(art)
+    checkpointer = Checkpointer(ckpt)
+    step = checkpointer.latest_step()
+    trained = torch.load(checkpointer.path(step), map_location="cpu", weights_only=True)
+    model = built_from(lambda: gpt_lib.GPT(gpt_lib.GPT_SMALL), trained["model"], "cuda")
+    twin = quantize_model(model).state_dict()
+    int8_names = [n for n, t in state.items() if t.dtype == torch.int8]
+    unequal = [n for n in state if not torch.equal(state[n], twin[n].cpu())]
+    del model, twin, trained
+    free_device_memory()
+    rng = np.random.default_rng(DISAGG_SEED)
+    prompts = [rng.integers(0, gpt_lib.GPT_SMALL.vocab_size, int(n)).tolist()
+               for n in rng.integers(16, 256, EXPORT_PROMPTS)]
+    # one process through the imports, the card's initialisation and a bf16
+    # product (the GEMM libraries' first load) first, so that the server
+    # timed first does not pay the cold file cache alone
+    subprocess.run([sys.executable, "-c", "import torch; "
+                    "x = torch.ones(256, 256, device='cuda', dtype=torch.bfloat16); "
+                    "(x @ x).float().sum().item(); import tf_operator_tpu_torch.serve.server"],
+                   check=True, timeout=300)
+    served = {}
+    for name, args in (
+        ("artifact", ["--preset", "small", "--checkpoint-dir", art, "--batching", "continuous"]),
+        ("weights_int8", ["--preset", "small", "--checkpoint-dir", ckpt, "--weights-int8",
+                          "--batching", "continuous"]),
+    ):
+        served[name] = first_token_seconds(args, prompts, os.path.join(workdir, f"{name}.log"))
+    report = {
+        "phase": "export_serve", "card": smi, "model": "GPT-small", "step": manifest["step"],
+        "position_rows": {"trained": rows[0], "served": rows[1]},
+        "export_exit_code": code, "export_s": export_s, "manifest": manifest,
+        "params_bytes_ratio": manifest["source_params_bytes"] / manifest["params_bytes"],
+        "artifact_file_bytes": os.path.getsize(os.path.join(art, export_mod.PARAMS_FILE)),
+        "checkpoint_file_bytes": os.path.getsize(trained_file),
+        "int8_tensors": len(int8_names), "tensors_unequal_to_quantize_model": unequal,
+        **{f"{name}_first_token_s": s["first_token_s"] for name, s in served.items()},
+        **{f"{name}_exit_code": s["exit_code"] for name, s in served.items()},
+        "chains_equal": served["artifact"]["chains"] == served["weights_int8"]["chains"],
+    }
+    report["file_bytes_ratio"] = report["checkpoint_file_bytes"] / report["artifact_file_bytes"]
+    emit(report)
+    problems = []
+    if code != 0 or manifest["step"] != step or not manifest["quantized"]:
+        problems.append("the export did not write the newest step's quantized artifact")
+    if unequal or not int8_names:
+        problems.append(f"artifact tensors differ from quantize_model's: {unequal[:5]}")
+    if not report["chains_equal"]:
+        problems.append("the artifact's chains differ from --weights-int8's")
+    if any(s["exit_code"] != 0 for s in served.values()):
+        problems.append("a server did not exit 0 on SIGTERM")
+    if problems:
+        raise AssertionError(f"export_serve: {problems}")
+    return report
+
+
+def run_disagg_phases(kernels, smi, ckpt=None) -> dict:
+    """disagg_serve, then export_serve on the lifecycle phase's checkpoint
+    (alone, with no checkpoint given: a GPT-small checkpoint of random
+    weights from a seed, written by the port's Checkpointer)."""
+    import os
+    import shutil
+    import tempfile
+
+    from tf_operator_tpu_torch.models import gpt as gpt_lib
+    from tf_operator_tpu_torch.train.trainer import Checkpointer
+
+    out = {"disagg_serve": run_disagg_serve(kernels, gpt_lib, smi)}
+    free_device_memory()
+    workdir = tempfile.mkdtemp(prefix="export-")
+    try:
+        if ckpt is None:
+            ckpt = os.path.join(workdir, "random")
+            model = gpt_lib.GPT(gpt_lib.GPT_SMALL,
+                                generator=torch.Generator().manual_seed(DISAGG_SEED))
+            Checkpointer(ckpt).write(1, {"model": model.state_dict(), "step": 1})
+            del model
+        out["export_serve"] = run_export_serve(gpt_lib, smi, ckpt, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    free_device_memory()
+    return out
+
+
+def built_from(make, weights: dict, device):
+    """make()'s model holding `weights` on `device`, built on the meta
+    device: no random initialisation to pay on the host before the copy
+    (the models here have no buffer outside their state dicts)."""
+    with torch.device("meta"):
+        model = make()
+    model = model.to_empty(device=device)
+    model.load_state_dict(weights)
+    return model
+
+
+_SEEDED: dict = {}
+
+
+def seeded_weights(ctor, cfg, seed: int, **kw) -> dict:
+    """The weights of ctor(cfg, generator=seed, **kw), drawn on the host
+    once a process and kept (a draw of a full-width model takes seconds)."""
+    key = (ctor.__qualname__, repr(cfg), seed)
+    if key not in _SEEDED:
+        model = ctor(cfg, generator=torch.Generator().manual_seed(seed), **kw)
+        _SEEDED[key] = {k: v.detach() for k, v in model.state_dict().items()}
+    return _SEEDED[key]
+
+
+def seeded(ctor, cfg, seed: int, **kw):
+    """A fresh ctor(cfg, **kw) on the host holding seeded_weights'
+    values."""
+    return built_from(lambda: ctor(cfg, **kw), seeded_weights(ctor, cfg, seed, **kw), "cpu")
+
+
+def timed_group(seconds: dict, name: str, fn, *args, **kw):
+    """fn(*args, **kw), its wall seconds kept under `name` and printed as
+    a group_seconds line."""
+    start = time.monotonic()
+    out = fn(*args, **kw)
+    seconds[name] = time.monotonic() - start
+    emit({"phase": "group_seconds", "group": name, "seconds": seconds[name]})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs one CUDA card")
+    import os
+    import shutil
+    import tempfile
+
     from tf_operator_tpu_torch.models import bert as bert_lib
     from tf_operator_tpu_torch.models import gpt as gpt_lib
     from tf_operator_tpu_torch.models import resnet as resnet_lib
@@ -6092,96 +6719,121 @@ def main() -> int:
     from tf_operator_tpu_torch.train import resnet as resnet_cli
     from tf_operator_tpu_torch.train import trainer as trainer_lib
 
+    script_start = time.monotonic()
+    seconds: dict = {}
     smi = nvidia_smi()
     card = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": card, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    start = time.monotonic()
-    kernels.library()
-    build_s = time.monotonic() - start
-    ptxas = ptxas_summary(str(kernels.build_info.get("ptxas", "")))
-    emit({"phase": "build", "seconds": build_s, "nvcc_seconds": kernels.build_info["seconds"],
-          "compile_seconds": kernels.build_info.get("compile_seconds"),
-          "sources": kernels.build_info.get("sources"),
-          "library": kernels.build_info["path"], "ptxas": ptxas})
+    def build_and_kernels():
+        start = time.monotonic()
+        kernels.library()
+        build_s = time.monotonic() - start
+        ptxas = ptxas_summary(str(kernels.build_info.get("ptxas", "")))
+        emit({"phase": "build", "seconds": build_s, "nvcc_seconds": kernels.build_info["seconds"],
+              "compile_seconds": kernels.build_info.get("compile_seconds"),
+              "sources": kernels.build_info.get("sources"),
+              "library": kernels.build_info["path"], "ptxas": ptxas})
+        worst = check_kernels(kernels, fa)
+        return worst, time_kernels(kernels, fa, worst)
 
-    worst = check_kernels(kernels, fa)
-    times = time_kernels(kernels, fa, worst)
+    worst, times = timed_group(seconds, "build_and_kernels", build_and_kernels)
 
-    args = bert_cli.parse_args([
-        "--preset", "base", "--steps", "6", "--batch-size", str(MAIN_SHAPE[0]),
-        "--seq-len", str(MAIN_SHAPE[1]), "--flash", "--packed",
-        "--weight-decay", "0.01", "--learning-rate", "1e-4", "--log-every", "1",
-    ])
-    kernels.reset_launches()
-    summary = bert_cli.run(args)
-    launches = dict(kernels.LAUNCHES)
-    want = {
-        "flash_fwd": LAYERS * summary["forward_passes"],
-        "flash_bwd_dkv": LAYERS * summary["backward_passes"],
-        "flash_bwd_dq": LAYERS * summary["backward_passes"],
-        "conv3x3_fwd": 0, "conv3x3_dw": 0,
-    }
-    flop_per_token = model_flop_per_token(bert_lib.BERT_BASE, MAIN_SHAPE[1])
-    emit({"phase": "train", "model": "BERT-base MLM", "batch": MAIN_SHAPE[0],
-          "seq": MAIN_SHAPE[1], "card": smi, **summary,
-          "model_flop_per_token": flop_per_token,
-          "mfu": summary["tokens_per_sec"] * flop_per_token / PEAK_BF16_FLOPS,
-          "launches": launches, "launches_expected": want})
-    if launches != want:
-        raise AssertionError(f"launches {launches} != expected {want}")
-    for key in ("loss", "eval_loss", "tokens_per_sec"):
-        if not math.isfinite(summary[key]) or summary[key] <= 0:
-            raise AssertionError(f"train {key} = {summary[key]}")
-    torch.cuda.empty_cache()
-
-    # the same run through the plain attention path, for comparison
-    plain = bert_cli.run(bert_cli.parse_args([
-        "--preset", "base", "--steps", "6", "--batch-size", str(MAIN_SHAPE[0]),
-        "--seq-len", str(MAIN_SHAPE[1]), "--packed", "--weight-decay", "0.01",
-        "--learning-rate", "1e-4", "--log-every", "1",
-    ]))
-    emit({"phase": "train_plain", "card": smi, **plain,
-          "mfu": plain["tokens_per_sec"] * flop_per_token / PEAK_BF16_FLOPS})
-    torch.cuda.empty_cache()
-
-    profile_step(bert_lib, trainer_lib, fa.flash_attention)
-    torch.cuda.empty_cache()
-
-    plain_parity(kernels, bert_lib, trainer_lib, fa.flash_attention)
-    torch.cuda.empty_cache()
-
-    gpt = run_gpt_phases(kernels, fa, gpt_lib, gpt_cli, trainer_lib, smi)
-    free_device_memory()
-    run_lifecycle(kernels, gpt_lib, gpt_cli, trainer_lib, smi, gpt["summary"])
-    free_device_memory()
-
-    conv_worst = check_conv_kernels(kernels, conv_bn)
-    conv_times = time_conv_kernels(kernels, conv_bn, conv_worst)
-    resnet_launches = run_resnet(kernels, resnet_lib, resnet_cli, smi)
-    for conv3_impl in ("pallas", "xla"):
-        profile_resnet(resnet_lib, trainer_lib, conv3_impl)
+    def bert():
+        args = bert_cli.parse_args([
+            "--preset", "base", "--steps", "6", "--batch-size", str(MAIN_SHAPE[0]),
+            "--seq-len", str(MAIN_SHAPE[1]), "--flash", "--packed",
+            "--weight-decay", "0.01", "--learning-rate", "1e-4", "--log-every", "1",
+        ])
+        kernels.reset_launches()
+        summary = bert_cli.run(args)
+        launches = dict(kernels.LAUNCHES)
+        want = {
+            "flash_fwd": LAYERS * summary["forward_passes"],
+            "flash_bwd_dkv": LAYERS * summary["backward_passes"],
+            "flash_bwd_dq": LAYERS * summary["backward_passes"],
+            "conv3x3_fwd": 0, "conv3x3_dw": 0,
+        }
+        flop_per_token = model_flop_per_token(bert_lib.BERT_BASE, MAIN_SHAPE[1])
+        emit({"phase": "train", "model": "BERT-base MLM", "batch": MAIN_SHAPE[0],
+              "seq": MAIN_SHAPE[1], "card": smi, **summary,
+              "model_flop_per_token": flop_per_token,
+              "mfu": summary["tokens_per_sec"] * flop_per_token / PEAK_BF16_FLOPS,
+              "launches": launches, "launches_expected": want})
+        if launches != want:
+            raise AssertionError(f"launches {launches} != expected {want}")
+        for key in ("loss", "eval_loss", "tokens_per_sec"):
+            if not math.isfinite(summary[key]) or summary[key] <= 0:
+                raise AssertionError(f"train {key} = {summary[key]}")
         torch.cuda.empty_cache()
-    resnet_parity(kernels, resnet_lib, trainer_lib)
+        # the same run through the plain attention path, for comparison
+        plain = bert_cli.run(bert_cli.parse_args([
+            "--preset", "base", "--steps", "6", "--batch-size", str(MAIN_SHAPE[0]),
+            "--seq-len", str(MAIN_SHAPE[1]), "--packed", "--weight-decay", "0.01",
+            "--learning-rate", "1e-4", "--log-every", "1",
+        ]))
+        emit({"phase": "train_plain", "card": smi, **plain,
+              "mfu": plain["tokens_per_sec"] * flop_per_token / PEAK_BF16_FLOPS})
+        torch.cuda.empty_cache()
+        profile_step(bert_lib, trainer_lib, fa.flash_attention)
+        torch.cuda.empty_cache()
+        plain_parity(kernels, bert_lib, trainer_lib, fa.flash_attention)
+        torch.cuda.empty_cache()
+        return launches
+
+    launches = timed_group(seconds, "bert", bert)
+    gpt = timed_group(seconds, "gpt", run_gpt_phases, kernels, fa, gpt_lib, gpt_cli, trainer_lib,
+                      smi)
     free_device_memory()
-    per_replay = run_steps_phases(kernels, bert_lib, resnet_lib, trainer_lib,
-                                  fa.flash_attention, smi)
-    run_mnist_and_evaluator(mnist_cli, smi)
-    run_profile_dir(bert_cli, smi)
-    free_device_memory()
-    world2 = run_distributed_phases(kernels, smi)
-    free_device_memory()
-    mp = run_model_parallel_phases(kernels, smi)
-    free_device_memory()
-    run_serve(kernels, gpt_lib, smi)
-    free_device_memory()
-    run_decode_modes_phases(kernels, smi)
-    free_device_memory()
-    run_moe_vit_phases(kernels, smi)
-    free_device_memory()
-    run_observe_phases(kernels, gpt_cli, smi, gpt["summary"])
-    free_device_memory()
+    # the lifecycle phase's GPT-small checkpoint stays here for export_serve
+    lifecycle_dir = tempfile.mkdtemp(prefix="lifecycle-")
+    try:
+        timed_group(seconds, "lifecycle", run_lifecycle, kernels, gpt_lib, gpt_cli, trainer_lib,
+                    smi, gpt["summary"], workdir=lifecycle_dir)
+        free_device_memory()
+
+        def conv_and_resnet():
+            conv_worst = check_conv_kernels(kernels, conv_bn)
+            conv_times = time_conv_kernels(kernels, conv_bn, conv_worst)
+            resnet_launches = run_resnet(kernels, resnet_lib, resnet_cli, smi)
+            for conv3_impl in ("pallas", "xla"):
+                profile_resnet(resnet_lib, trainer_lib, conv3_impl)
+                torch.cuda.empty_cache()
+            resnet_parity(kernels, resnet_lib, trainer_lib)
+            free_device_memory()
+            return conv_worst, conv_times, resnet_launches
+
+        conv_worst, conv_times, resnet_launches = timed_group(
+            seconds, "conv_and_resnet", conv_and_resnet)
+        per_replay = timed_group(seconds, "run_steps", run_steps_phases, kernels, bert_lib,
+                                 resnet_lib, trainer_lib, fa.flash_attention, smi)
+
+        def mnist_and_profile_dir():
+            run_mnist_and_evaluator(mnist_cli, smi)
+            run_profile_dir(bert_cli, smi)
+            free_device_memory()
+
+        timed_group(seconds, "mnist_and_profile_dir", mnist_and_profile_dir)
+        world2 = timed_group(seconds, "distributed", run_distributed_phases, kernels, smi)
+        free_device_memory()
+        mp = timed_group(seconds, "model_parallel", run_model_parallel_phases, kernels, smi)
+        free_device_memory()
+        timed_group(seconds, "serve", run_serve, kernels, gpt_lib, smi)
+        free_device_memory()
+        timed_group(seconds, "decode_modes", run_decode_modes_phases, kernels, smi)
+        free_device_memory()
+        timed_group(seconds, "moe_vit", run_moe_vit_phases, kernels, smi)
+        free_device_memory()
+        timed_group(seconds, "observe", run_observe_phases, kernels, gpt_cli, smi, gpt["summary"])
+        free_device_memory()
+        timed_group(seconds, "disagg", run_disagg_phases, kernels, smi,
+                    ckpt=os.path.join(lifecycle_dir, "ckpt"))
+        free_device_memory()
+    finally:
+        shutil.rmtree(lifecycle_dir, ignore_errors=True)
+    emit({"phase": "script_seconds", "card": smi, "groups": seconds,
+          "total": time.monotonic() - script_start})
 
     lines = [
         {

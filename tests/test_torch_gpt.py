@@ -44,6 +44,7 @@ from tf_operator_tpu_torch.ops import flash_attention as torch_fa
 from tf_operator_tpu_torch.ops import kernels
 from tf_operator_tpu_torch.train import gpt as torch_gpt_cli
 from tf_operator_tpu_torch.train import trainer as torch_trainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 OUT_ATOL = 1e-5
 GRAD_ATOL = 1e-4

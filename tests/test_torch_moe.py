@@ -44,6 +44,7 @@ from tf_operator_tpu_torch.models import moe as torch_moe
 from tf_operator_tpu_torch.models.convert import moe_state_dict_from_flax
 from tf_operator_tpu_torch.train import moe as torch_moe_cli
 from tf_operator_tpu_torch.train import trainer as torch_trainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT_ATOL = 1e-5

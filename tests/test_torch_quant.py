@@ -40,6 +40,7 @@ from tf_operator_tpu_torch.ops import quant as torch_quant
 from tf_operator_tpu_torch.ops.attention import DenseGeneral
 from tf_operator_tpu_torch.serve import engine as torch_engine
 from tf_operator_tpu_torch.train import gpt as torch_gpt_cli
+from torch_threads import one_torch_thread  # noqa: F401
 
 OUT_ATOL = 1e-5
 KV_Q_ATOL = 1

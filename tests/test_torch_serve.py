@@ -10,13 +10,18 @@ orders through 2 layers, as tests/test_torch_gpt.py's decode tests). The
 engine's chains against the reference engine's are in
 tests/test_torch_serve_engine.py. On the CPU each program of a step runs
 eagerly and its counter counts the first call; on a card it is a CUDA
-graph captured once, which chip_smoke.py's `serve` phase holds.
+graph captured once, which chip_smoke.py's `serve` phase holds. The
+serving artifact (serve/export.py) is held here too: its int8 bytes
+against quantize_model and the reference's quantize_params, and a server
+on it against --weights-int8 (tests/test_torch_disagg.py and
+tests/test_torch_router.py hold disaggregated serving).
 """
 
 import ast
 import dataclasses
 import json
 import os
+import re
 import signal
 import socket
 import subprocess
@@ -64,6 +69,7 @@ NEW_MODULES = (
     "tf_operator_tpu_torch.models.moe", "tf_operator_tpu_torch.ops.quant",
     "tf_operator_tpu_torch.serve.batching", "tf_operator_tpu_torch.telemetry.history",
     "tf_operator_tpu_torch.telemetry.alerts", "tf_operator_tpu_torch.telemetry.profiler",
+    "tf_operator_tpu_torch.serve.router", "tf_operator_tpu_torch.serve.export",
 )
 
 
@@ -299,21 +305,41 @@ def test_block_pool_matches_reference(seed):
 
 @pytest.mark.parametrize("option, item", [
     ({"mesh_shape": (1, 2)}, "item 6"),
-    ({"role": "prefill"}, "item 6"),
 ])
 def test_engine_refuses_unported_options(tiny, option, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         torch_engine.ContinuousBatchingEngine(tiny, start=False, device="cpu", **option)
 
 
-@pytest.mark.parametrize("method, args", [
-    ("export_prefix_blocks", ([1, 2],)), ("import_prefix_blocks", ({},)),
-    ("prefix_digest", ()), ("kv_statz", ()),
+@pytest.mark.parametrize("role", ["prefill", "decode"])
+def test_engine_takes_a_role(tiny, role):
+    """The role is advisory, as the reference's: it names the engine
+    thread (decode-engine-<role>) and the engine serves as any other."""
+    eng = torch_engine.ContinuousBatchingEngine(tiny, n_slots=2, block_size=8, prefill_chunk=8,
+                                                device="cpu", role=role)
+    try:
+        assert eng.thread.name == f"decode-engine-{role}"
+        assert eng.submit([5, 6, 7], 3).result(60) == _inline(tiny, [5, 6, 7], 3)
+    finally:
+        eng.stop()
+
+
+@pytest.mark.parametrize("method, args, want", [
+    ("export_prefix_blocks", ([1, 2],), "KV export requires kv_layout='paged'"),
+    ("import_prefix_blocks", ({},), "KV import requires kv_layout='paged'"),
+    ("prefix_digest", (), []), ("kv_statz", (), {"paged": False}),
 ])
-def test_engine_refuses_disaggregated_methods(tiny, method, args):
-    eng = torch_engine.ContinuousBatchingEngine(tiny, start=False, device="cpu", block_size=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        getattr(eng, method)(*args)
+def test_engine_disaggregated_methods_on_a_dense_engine(tiny, method, args, want):
+    """A dense engine has no block set: export and import raise the
+    reference's RuntimeError, the digest is empty and the residency page
+    says so (tests/test_torch_disagg.py holds the paged engine's)."""
+    eng = torch_engine.ContinuousBatchingEngine(tiny, start=False, device="cpu",
+                                                kv_layout="dense")
+    if isinstance(want, str):
+        with pytest.raises(RuntimeError, match=re.escape(want)):
+            getattr(eng, method)(*args)
+    else:
+        assert getattr(eng, method)(*args) == want
     eng.stop()
 
 
@@ -331,10 +357,20 @@ def test_engine_and_server_want_cuda(tiny):
 @pytest.mark.parametrize("option, item", [
     pytest.param({"mesh": object()}, "item 6", id="option2-item 6"),
     pytest.param({"mesh_shape": (1, 2)}, "item 6", id="option3-item 6"),
-    pytest.param({"role": "decode"}, "item 6", id="option4-item 6"),
 ])
 def test_make_server_refuses_unported_options(tiny, option, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
+        torch_server.make_server(tiny, device="cpu", **option)
+
+
+@pytest.mark.parametrize("option, text", [
+    ({"role": "mixed"}, "role must be '', 'prefill' or 'decode', got 'mixed'"),
+    ({"role": "prefill", "batching": "continuous", "speculate": "ngram"},
+     "speculate is decode-pool-only"),
+])
+def test_make_server_refuses_role_combinations(tiny, option, text):
+    """The reference's role checks, in its words."""
+    with pytest.raises(ValueError, match=re.escape(text)):
         torch_server.make_server(tiny, device="cpu", **option)
 
 
@@ -367,7 +403,6 @@ def test_make_server_takes_the_telemetry_options(tiny, option, wired):
 @pytest.mark.parametrize("argv, item", [
     pytest.param(["--tp", "2"], "item 6", id="argv2-item 6"),
     pytest.param(["--mesh-shape", "1x2"], "item 6", id="argv3-item 6"),
-    pytest.param(["--role", "prefill"], "item 6", id="argv4-item 6"),
     # the moe presets serve since the MoE slice (ROADMAP item 7); what they
     # refuse is the gpt family's options, in the reference's words
     pytest.param(["--preset", "moe-tiny", "--batching", "continuous"], "gpt-family features",
@@ -395,6 +430,24 @@ def test_cli_refuses_unported_flags(argv, item, capsys):
 def test_cli_takes_the_telemetry_flags(argv, want):
     args = torch_server.parse_args(argv)
     assert {name: getattr(args, name) for name in want} == want
+
+
+@pytest.mark.parametrize("argv, role, text", [
+    (["--role", "prefill", "--batching", "continuous"], "prefill", None),
+    (["--role", "decode", "--batching", "continuous", "--speculate", "ngram"], "decode", None),
+    (["--role", "prefill", "--batching", "continuous", "--speculate", "ngram"], None,
+     "--speculate is decode-pool-only (a prefill replica never decodes)"),
+    (["--role", "mixed"], None, "invalid choice: 'mixed'"),
+])
+def test_cli_role_flag(argv, role, text, capsys):
+    """--role parses to the server's role; the reference's parser refuses
+    speculation on a prefill replica and a role it does not know."""
+    if text is None:
+        assert torch_server.parse_args(argv).role == role
+        return
+    with pytest.raises(SystemExit) as err:
+        torch_server.parse_args(argv)
+    assert err.value.code == 2 and text in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv, text", [
@@ -623,17 +676,25 @@ def test_client_errors(servers):
 
 
 def test_unported_routes_name_their_items(servers):
+    """Every route of the reference is served now: the disaggregated
+    routes answer (a sub-block prompt has no block set to export; an empty
+    payload is the reference's 400), the debug routes are ported with
+    /debug/profilez behind --enable-debug-endpoints, as in the reference,
+    and an unknown route is a 404 (tests/test_torch_router.py holds the
+    migration routes' behaviour)."""
     port = servers["continuous"]
-    for path in ("/kv/digest", "/kv/statz"):
-        status, body = _get(port, path)
-        assert status == 501 and "ROADMAP queue 1 item 6" in json.loads(body)["error"]
-    # the debug routes are ported; /debug/profilez stays behind
-    # --enable-debug-endpoints, as in the reference
+    status, body = _get(port, "/kv/digest")
+    assert status == 200 and json.loads(body)["block_size"] == 8
+    status, body = _get(port, "/kv/statz")
+    assert status == 200 and json.loads(body)["paged"] is True
     assert _get(port, "/debug/flightz")[0] == 200
     assert _get(port, "/debug/profilez")[0] == 404
-    for path in ("/prefill", "/kv/export", "/kv/import"):
-        status, body = _post(port, path, {"input_ids": [[1, 2]]})
-        assert status == 501 and "ROADMAP queue 1 item 6" in body["error"]
+    status, body = _post(port, "/kv/export", {"input_ids": [[1, 2]]})
+    assert status == 200 and body["payload"] is None and body["blocks"] == 0
+    status, body = _post(port, "/kv/import", {"input_ids": [[1, 2]]})
+    assert status == 400 and body["error"] == "block_size mismatch: payload 0, pool 8"
+    status, body = _post(port, "/prefill", {"input_ids": [[1, 2]]})
+    assert status == 200 and body == {**body, "blocks": 0, "migrated": False, "imported": 0}
     assert _get(port, "/nope")[0] == 404
 
 
@@ -1180,3 +1241,102 @@ def test_cuda_graphs_replay_the_eager_step():
     assert (eng.step.compiles, eng.step.prefill_compiles, eng.step.copy_compiles) == (1, 1, 1)
     for row, chain in zip(rows, chains):
         assert chain[:len(row)] == row and len(chain) == len(row) + 5
+
+
+# -- the serving artifact (serve/export.py; tests/test_serve.py's
+# -- TestQuantizedExport) -------------------------------------------------------
+
+
+def _export_tiny(model, out, step=7):
+    from tf_operator_tpu_torch.serve import export as export_mod
+
+    state = {name: t.clone() for name, t in model.state_dict().items()}
+    return export_mod.export(lambda: (state, step), str(out), "tiny")
+
+
+def test_export_artifact_holds_the_quantized_bytes(weights, tmp_path):
+    """The artifact's int8 tensors are byte-equal to quantize_model of the
+    same weights and to gpt_int8_state_dict_from_flax of the reference's
+    quantize_params (its scales within one ulp of the reference's, as
+    tests/test_torch_quant.py holds them); the manifest has the
+    reference's keys, and dropping the optimizer's moments plus int8
+    kernels leaves well under half the f32 weights' bytes."""
+    from tf_operator_tpu.ops.quant import quantize_params as ref_quantize_params
+
+    from tf_operator_tpu_torch.models.convert import gpt_int8_state_dict_from_flax
+    from tf_operator_tpu_torch.serve import export as export_mod
+
+    _, params, model = weights
+    manifest = _export_tiny(model, tmp_path / "art")
+    assert set(manifest) == {"quantized", "preset", "step", "params_bytes",
+                             "source_params_bytes", "tool"}
+    assert (manifest["quantized"], manifest["preset"], manifest["step"]) == (True, "tiny", 7)
+    assert manifest["params_bytes"] < 0.6 * manifest["source_params_bytes"]
+    assert export_mod.is_exported_dir(str(tmp_path / "art"))
+    assert not export_mod.is_exported_dir(str(tmp_path))
+    state, loaded = export_mod.load_exported(str(tmp_path / "art"))
+    assert loaded == manifest and torch_quant.is_quantized(state)
+    own = torch_quant.quantize_model(model).state_dict()
+    ref = gpt_int8_state_dict_from_flax(
+        jax.tree_util.tree_map(np.asarray, ref_quantize_params(params)))
+    assert set(state) == set(own) == set(ref)
+    int8 = [name for name, t in state.items() if t.dtype == torch.int8]
+    # q, k, v, out, mlp_in and mlp_out a layer, and the LM head
+    assert len(int8) == 6 * torch_gpt.GPT_TINY.num_layers + 1
+    for name, tensor in state.items():
+        assert torch.equal(tensor, own[name]), name
+        if tensor.dtype == torch.int8:
+            assert torch.equal(tensor, ref[name]), name
+        elif name.endswith("kernel_scale"):
+            np.testing.assert_array_max_ulp(tensor.numpy(), ref[name].numpy(), maxulp=1)
+
+
+def test_server_on_the_artifact_serves_the_int8_chains(weights, tmp_path):
+    """load_model recognises the artifact and hands make_server the int8
+    twin, which switches weights_int8 on by itself; its greedy chains
+    equal a server's with --weights-int8 on the f32 weights. An artifact
+    of another preset is refused at load."""
+    _, _, model = weights
+    art = tmp_path / "art"
+    _export_tiny(model, art)
+    twin = torch_server.load_model("tiny", str(art), "cpu")
+    assert torch_quant.is_quantized(twin)
+    rows = [[5, 6, 7], list(range(30, 52))]
+    chains = []
+    for served, kw in ((twin, {}), (model, {"weights_int8": True})):
+        srv = _serve(served, batching="continuous", n_slots=2, block_size=8,
+                     prefill_chunk=8, **kw)
+        try:
+            assert srv.state.weights_int8
+            client = DecodeClient(f"http://127.0.0.1:{srv.server_address[1]}", timeout=60)
+            chains.append(client.generate(rows, max_new_tokens=6))
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            srv.state.engine.stop()
+    assert chains[0] == chains[1]
+    assert len(chains[0][1]) == len(rows[1]) + 6
+    with pytest.raises(SystemExit, match="built for --preset 'tiny' but the server was started "
+                                         "with --preset 'small'"):
+        torch_server.load_model("small", str(art), "cpu")
+
+
+def test_export_cli_restores_the_newest_step(tiny, tmp_path):
+    """`python -m tf_operator_tpu_torch.serve.export` reads the newest step
+    a training CLI's Checkpointer wrote; with none it exits naming the
+    directory."""
+    from tf_operator_tpu_torch.serve import export as export_mod
+    from tf_operator_tpu_torch.train.trainer import Checkpointer
+
+    ckpt, out = str(tmp_path / "ckpt"), str(tmp_path / "out")
+    with pytest.raises(SystemExit, match="no checkpoint found in"):
+        export_mod.main(["--preset", "tiny", "--checkpoint-dir", ckpt, "--out", out])
+    checkpointer = Checkpointer(ckpt)
+    for step in (2, 5):
+        checkpointer.write(step, {"model": tiny.state_dict(), "step": step})
+    assert export_mod.main(["--preset", "tiny", "--checkpoint-dir", ckpt, "--out", out]) == 0
+    state, manifest = export_mod.load_exported(out)
+    assert manifest["step"] == 5 and manifest["tool"] == "tf_operator_tpu_torch.serve.export"
+    twin = torch_quant.quantize_model(
+        torch_gpt.GPT(torch_gpt.GPT_TINY, generator=torch.Generator().manual_seed(0)))
+    assert all(torch.equal(t, twin.state_dict()[name]) for name, t in state.items())

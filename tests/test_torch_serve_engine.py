@@ -37,6 +37,7 @@ except ImportError:  # a card machine without JAX
 from tf_operator_tpu_torch.models import gpt as torch_gpt
 from tf_operator_tpu_torch.models.convert import gpt_state_dict_from_flax
 from tf_operator_tpu_torch.serve import engine as torch_engine
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the smallest top-2 logit gap a chain test accepts at a decision
 MIN_MARGIN = 1e-4

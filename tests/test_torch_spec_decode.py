@@ -33,11 +33,49 @@ except ImportError:  # a card machine without JAX
 from tf_operator_tpu_torch.models import gpt as torch_gpt
 from tf_operator_tpu_torch.models.convert import gpt_state_dict_from_flax
 from tf_operator_tpu_torch.serve import engine as torch_engine
+from torch_threads import one_torch_thread  # noqa: F401
 
 SCORE_ATOL = 1e-5
 TCFG = dataclasses.replace(torch_gpt.GPT_TINY, dtype=torch.float32)
 
 needs_jax = pytest.mark.skipif(jax is None, reason="JAX is not installed")
+
+
+class _Settled:
+    """A reference program whose every call waits for its outputs.
+
+    JAX on the CPU runs a jitted call asynchronously and takes a numpy
+    argument that lies on a 64-byte boundary without a copy
+    (test_reference_host_arguments_alias_calls_in_flight). The reference
+    engine rewrites its host arrays (_tok, _index, _prompt, _lens,
+    _tables, _d_tok, _d_index) at the next admission, while programs it
+    did not wait for may still read them; whether they do depends on
+    where the allocator put the arrays, so its counters moved from run to
+    run. Waiting here gives every call the arrays as they were when it
+    was made."""
+
+    PROGRAMS = ("prefill", "copy_block", "verify")
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def __getattr__(self, name):
+        attr = getattr(self._fn, name)
+        return _Settled(attr) if name in self.PROGRAMS else attr
+
+    def __call__(self, *args, **kwargs):
+        return jax.block_until_ready(self._fn(*args, **kwargs))
+
+
+def reference_engine(*args, **kwargs):
+    """The reference's ContinuousBatchingEngine, its warm-ups at
+    construction waited for and every later program call settled."""
+    eng = jax_engine.ContinuousBatchingEngine(*args, **kwargs)
+    jax.block_until_ready((eng._cache, getattr(eng, "_d_cache", None)))
+    eng.step = _Settled(eng.step)
+    if eng.draft is not None:
+        eng.draft = _Settled(eng.draft)
+    return eng
 
 
 def _flax(cfg, seed):
@@ -343,7 +381,7 @@ def test_ngram_engine_soak_matches_reference_and_inline(weights):
     jcfg, params, model = weights
     jobs = _soak_jobs()
     kw = dict(n_slots=3, block_size=8, prefill_chunk=8, speculate="ngram", spec_depth=4)
-    ref = jax_engine.ContinuousBatchingEngine(jcfg, params, start=False, **kw)
+    ref = reference_engine(jcfg, params, start=False, **kw)
     port = torch_engine.ContinuousBatchingEngine(model, start=False, device="cpu", **kw)
     outs = []
     for eng in (ref, port):
@@ -367,6 +405,39 @@ def test_ngram_engine_soak_matches_reference_and_inline(weights):
     assert flat["spec_rounds_total"] == port.spec_rounds
     assert flat["engine_verify_compiles_total"] == 1
     assert 0.0 <= flat["spec_accept_rate"] <= 1.0
+
+
+@needs_jax
+def test_reference_host_arguments_alias_calls_in_flight():
+    """Why reference_engine settles the reference's programs: on the CPU
+    a jitted call queued behind a slow one returns at once, and a numpy
+    argument that starts on a 64-byte boundary is taken without a copy,
+    so the call reads a host write made after it returned. An argument
+    off that boundary is copied when the call is made."""
+
+    @jax.jit
+    def slow(big):
+        y = big
+        for _ in range(8):
+            y = jnp.tanh(y @ big)
+        return y.sum()
+
+    @jax.jit
+    def add(gate, x):
+        return x + (0.0 * gate).astype(jnp.int32)
+
+    big = jnp.asarray(np.random.default_rng(0).random((800, 800), np.float32))
+    add(slow(big), np.ones(64, np.int32)).block_until_ready()  # both compiled
+    raw = np.zeros(64 + 2 * 256, np.uint8)
+    start = (-raw.ctypes.data) % 64
+    seen = {}
+    for offset in (0, 4):
+        x = raw[start + offset:start + offset + 256].view(np.int32)
+        x[:] = 1
+        out = add(slow(big), x)
+        x[:] = 5
+        seen[offset] = int(np.asarray(out)[0])
+    assert seen == {0: 5, 4: 1}
 
 
 def test_off_ngram_and_draft_engines_emit_identical_chains(weights, draft):
@@ -393,7 +464,7 @@ def test_off_ngram_and_draft_engines_emit_identical_chains(weights, draft):
             assert eng.draft.compiles == 1 and eng.spec_rounds > 0
             port_counts = (eng.spec_rounds, eng.spec_proposed, eng.spec_accepted)
     assert chains["ngram"] == chains["off"] == chains["draft"]
-    ref = jax_engine.ContinuousBatchingEngine(
+    ref = reference_engine(
         jcfg, params, n_slots=2, start=False, block_size=8, prefill_chunk=6,
         speculate="draft", spec_depth=3, draft_cfg=djcfg, draft_params=dparams)
     handles = [ref.submit(row, new) for row, new in jobs]
@@ -415,7 +486,7 @@ def test_draft_rows_past_max_total_stay_in_the_cache(weights, draft):
     fresh = [(i * 5 + 3) % 512 for i in range(16)]
     kw = dict(n_slots=2, start=False, block_size=8, prefill_chunk=16, speculate="draft",
               spec_depth=3)
-    ref = jax_engine.ContinuousBatchingEngine(jcfg, params, draft_cfg=djcfg,
+    ref = reference_engine(jcfg, params, draft_cfg=djcfg,
                                               draft_params=dparams, **kw)
     port = torch_engine.ContinuousBatchingEngine(model, device="cpu", draft_model=dmodel, **kw)
     step = port.draft
@@ -504,7 +575,7 @@ def test_depth_collapse_probe_and_recovery(weights):
     runs = []
     for make in ("port", "port", "ref"):
         if make == "ref":
-            eng = jax_engine.ContinuousBatchingEngine(
+            eng = reference_engine(
                 jcfg, params, n_slots=2, start=False, block_size=8, speculate="ngram",
                 spec_depth=4)
         else:

@@ -91,6 +91,8 @@ GPT_DRAFT = GPTConfig(
     vocab_size=512, hidden_size=64, num_layers=1, num_heads=2,
     intermediate_size=128, max_seq_len=128,
 )
+# the serving and training CLIs' --preset names
+GPT_PRESETS = {"tiny": GPT_TINY, "small": GPT_SMALL}
 
 
 def _causal_attention(query, key, value, mask=None):

@@ -1,12 +1,14 @@
 """Client for the decode server: the port's copy of
 tf_operator_tpu/serve/client.py (`DecodeClient`: generate,
-generate_stream, healthy, ready, metrics, metrics_text, trace; and
-`DecodeError`).
+generate_stream, the KV block-set migration calls prefill, kv_export,
+kv_import, kv_digest and kv_statz, healthy, ready, metrics, metrics_text,
+trace; and `DecodeError`).
 
     from tf_operator_tpu_torch.serve import DecodeClient
 
     client = DecodeClient("http://127.0.0.1:8600")
     chains = client.generate([[1, 2, 3], [7, 8]], max_new_tokens=16)
+    client.prefill(prompt, migrate_to="http://127.0.0.1:8601")
     client.healthy()      # -> dict from /healthz
     client.metrics()      # -> {"tf_operator_tpu_serve_decodes_total": ...}
 
@@ -16,8 +18,9 @@ decorrelated-jitter retry (runtime/retry.py), honoring a server
 Retry-After hint. Whole-request POSTs replay freely; for
 /generate_stream only the connect is retried: once the first byte of the
 body has arrived, a failure propagates (replaying a half-consumed stream
-would double tokens). The reference's beam, KV-migration and debug-page
-methods are not part of this copy (ROADMAP queue 1 items 5-6).
+would double tokens). A QoS 429 on /generate_stream is a typed terminal
+event, as the reference's. The reference's beam and debug-page methods
+are not part of this copy (ROADMAP queue 1, the fleet).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import urllib.error
 import urllib.request
 from typing import Dict, List, Optional
 
-from ..runtime.retry import RetryPolicy, call_with_retries, retry_after_hint
+from ..runtime.retry import RETRY_AFTER_CAP, RetryPolicy, call_with_retries, retry_after_hint
 from ..telemetry.tracecontext import trace_headers
 
 # 500/504 are deliberately absent (unlike the substrate's transport
@@ -35,6 +38,10 @@ from ..telemetry.tracecontext import trace_headers
 # a blind replay re-pays a full decode for — the caller or router
 # decides, not the transport.
 RETRYABLE_DECODE_STATUSES = frozenset({429, 502, 503})
+
+# request header naming the tenant for QoS admission; the server's
+# TENANT_HEADER (serve/server.py)
+TENANT_HEADER = "X-Tenant"
 
 
 def _is_retryable(err: BaseException) -> bool:
@@ -100,9 +107,12 @@ class DecodeClient:
         self,
         path: str,
         payload: Optional[dict] = None,
+        tenant: Optional[str] = None,
     ):
         data = json.dumps(payload).encode() if payload is not None else None
         headers = {"Content-Type": "application/json"}
+        if tenant:
+            headers[TENANT_HEADER] = tenant
         req = urllib.request.Request(
             self.base_url + path,
             data=data,
@@ -123,6 +133,7 @@ class DecodeClient:
         top_k: int = 0,
         top_p: float = 1.0,
         seed: int = 0,
+        tenant: Optional[str] = None,
     ) -> List[List[int]]:
         """Each row's full chain: its own prompt + max_new_tokens."""
         body = json.loads(self._request("/generate", {
@@ -132,7 +143,7 @@ class DecodeClient:
             "top_k": top_k,
             "top_p": top_p,
             "seed": seed,
-        }))
+        }, tenant=tenant))
         return body["tokens"]
 
     def generate_stream(
@@ -143,6 +154,7 @@ class DecodeClient:
         top_k: int = 0,
         top_p: float = 1.0,
         seed: int = 0,
+        tenant: Optional[str] = None,
     ):
         """Yield one event dict per line of the chunked ndjson
         /generate_stream response for ONE prompt row: {"token": t,
@@ -154,6 +166,13 @@ class DecodeClient:
         DecodeError here. Retries cover the connect only — past the
         first byte a failure propagates (a stream body is not
         idempotent; the router owns mid-stream failover).
+
+        A QoS early-reject (HTTP 429 from tenant admission, after the
+        connect retries give up) is not an error: it yields exactly one
+        terminal event {"rejected": true, "status": 429, "retry_after":
+        <the server's Retry-After, capped at RETRY_AFTER_CAP>, "error":
+        <server message>}, so callers can back off without matching a
+        stream exception's text.
 
         NOT a generator function: the request is built and connected
         HERE, so an ambient trace context (telemetry trace_scope) at
@@ -169,6 +188,8 @@ class DecodeClient:
             "seed": seed,
         }).encode()
         headers = {"Content-Type": "application/json"}
+        if tenant:
+            headers[TENANT_HEADER] = tenant
         req = urllib.request.Request(
             self.base_url + "/generate_stream",
             data=data,
@@ -178,6 +199,14 @@ class DecodeClient:
         try:
             resp = self._open(req, "decode/generate_stream")
         except urllib.error.HTTPError as err:
+            if err.code == 429:
+                hint = retry_after_hint(err)
+                return iter(({
+                    "rejected": True,
+                    "status": 429,
+                    "retry_after": min(RETRY_AFTER_CAP, hint if hint is not None else 1.0),
+                    "error": str(_to_decode_error(err)),
+                },))
             raise _to_decode_error(err) from None
 
         def events():
@@ -194,6 +223,41 @@ class DecodeClient:
                     yield event
 
         return events()
+
+    # -- disaggregated prefill/decode (KV block-set migration) ---------
+
+    def prefill(self, input_ids: List[int], migrate_to: Optional[str] = None) -> dict:
+        """Run chunked prefill for ONE prompt row on this (prefill)
+        replica and, when migrate_to names a decode replica's base URL,
+        ship the resulting KV block set there. Returns the server's
+        {"blocks": n, "migrated": bool, "imported": n} report (plus
+        "error" when the ship failed; the blocks stay cached on the
+        prefill replica either way)."""
+        body: dict = {"input_ids": [list(input_ids)], "max_new_tokens": 1}
+        if migrate_to:
+            body["migrate_to"] = migrate_to
+        return json.loads(self._request("/prefill", body))
+
+    def kv_export(self, input_ids: List[int]) -> dict:
+        """This prompt's cached full-block prefix K/V as a JSON-able
+        block set: {"payload": <block set>|None, "blocks": n}."""
+        return json.loads(self._request("/kv/export", {"input_ids": [list(input_ids)]}))
+
+    def kv_import(self, payload: dict) -> dict:
+        """Admit an exported block set into this replica's prefix cache;
+        -> {"imported": total cached prefix blocks}."""
+        return json.loads(self._request("/kv/import", payload))
+
+    def kv_digest(self) -> dict:
+        """The replica's rolling prefix digest: {"role", "block_size",
+        "digest": [hash, ...]}, hashes most recently used first
+        (serve/prefix.py's prefix_hash vocabulary)."""
+        return json.loads(self._request("/kv/digest"))
+
+    def kv_statz(self, top: int = 10) -> dict:
+        """The replica's KV residency page from /kv/statz (paged engines;
+        other replicas answer {"paged": False})."""
+        return json.loads(self._request(f"/kv/statz?top={int(top)}"))
 
     def healthy(self) -> dict:
         return json.loads(self._request("/healthz"))

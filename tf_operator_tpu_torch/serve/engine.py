@@ -50,13 +50,21 @@ by resetting the slot's cursor. Greedy acceptance keeps every chain the
 single-token engine's wherever the verify's rows compute what the
 one-token step computes (exact at f32).
 
-Not ported, each refused naming its ROADMAP item: the sharded (mesh)
-step, the disaggregated roles and KV block-set export/import, the prefix
-digest and /kv/statz.
+DISAGGREGATED prefill/decode (role="prefill" | "decode", paged only):
+`export_prefix_blocks` serializes a prompt's cached full-block prefix
+into the reference's JSON block set (base64 leaves in the reference's
+tree_flatten order, so a payload crosses between the two packages), and
+`import_prefix_blocks` writes one into this pool in place (one
+index_copy_ a leaf into the tensors the captured programs read) and
+publishes its keys. `prefix_digest` and `kv_statz` are the router's and
+the KV observatory's views of the pool.
+
+Not ported, refused naming its ROADMAP item: the sharded (mesh) step.
 """
 
 from __future__ import annotations
 
+import base64
 import collections
 import json
 import queue
@@ -535,12 +543,36 @@ class EngineRequest:
 
 
 
-# the options of the reference engine that the port leaves out
+# the option of the reference engine that the port leaves out
 _SHARDED = "the sharded decode step (mesh_shape) is not ported (ROADMAP queue 1 item 6)"
-_DISAGGREGATED = (
-    "disaggregated serving (roles, KV block-set export/import, the prefix "
-    "digest, /kv/statz) is not ported (ROADMAP queue 1 item 6)"
-)
+
+# a KV block set's leaf dtypes: the payload's dtype string (numpy's name,
+# ml_dtypes' "bfloat16" in the reference) -> (the numpy dtype its bytes
+# are carried as, the pool's torch dtype). bf16 has no numpy dtype here,
+# so its raw bytes travel through an int16 view.
+_LEAF_DTYPES = {
+    "float32": (np.float32, torch.float32),
+    "bfloat16": (np.int16, torch.bfloat16),
+    "int8": (np.int8, torch.int8),
+}
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).rpartition(".")[2]
+
+
+def cache_leaves(cache) -> list:
+    """The pool's tensors in the reference's tree_flatten order of its
+    paged cache ({"layer_<i>": {"attention": {"k", "k_scale", "v",
+    "v_scale"}}}): layers in string order of their names (layer_0,
+    layer_1, layer_10, layer_11, layer_2, ...), and within a layer k,
+    its scale, v, its scale (the scales under int8 KV only)."""
+    layers = cache.layers()
+    out = []
+    for i in sorted(range(len(layers)), key=lambda i: f"layer_{i}"):
+        k, v, k_scale, v_scale = layers[i]
+        out.extend([k, k_scale, v, v_scale] if cache.quantized else [k, v])
+    return out
 
 
 class ContinuousBatchingEngine:
@@ -628,8 +660,6 @@ class ContinuousBatchingEngine:
         self.spec_ngram = int(spec_ngram)
         if mesh_shape is not None:
             raise NotImplementedError(_SHARDED)
-        if role:
-            raise NotImplementedError(_DISAGGREGATED)
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # the engine thread sets the device itself: name it
@@ -744,6 +774,11 @@ class ContinuousBatchingEngine:
         self.pool_audit_failures = 0
         self.pool_audit_ok = True
         self.pool_audit_error = ""
+        # KV block-set migration (disaggregated prefill/decode)
+        self.kv_blocks_exported = 0
+        self.kv_blocks_imported = 0
+        self.migrations_out = 0
+        self.migrations_in = 0
         # speculation (engine-thread-owned): proposed / accepted drive the
         # accept-rate gauge; fallback_steps counts quanta that ran the
         # single-token step because every live slot's depth was zero
@@ -808,7 +843,12 @@ class ContinuousBatchingEngine:
             return
         self._warm_error = None
         self._warmed = threading.Event()
-        self.thread = threading.Thread(target=self._run, name="decode-engine", daemon=True)
+        # role ("prefill" / "decode") is advisory, as the reference's: it
+        # names the engine thread, which the sampling profiler's role
+        # table matches first, and nothing else
+        self.thread = threading.Thread(
+            target=self._run, name="decode-engine" + (f"-{role}" if role else ""), daemon=True,
+        )
         self.thread.start()
         self._warmed.wait()
         if self._warm_error is not None:
@@ -972,19 +1012,174 @@ class ContinuousBatchingEngine:
                 self.pool.flush()
         default_flight().record("serve", op="swap-params")
 
-    # -- not ported (disaggregated serving) --------------------------------
+    # -- KV block-set migration (disaggregated prefill/decode) -------------
 
     def export_prefix_blocks(self, prompt, corr=None):
-        raise NotImplementedError(_DISAGGREGATED)
+        """Serialize the prompt's cached full-block prefix K/V into a
+        JSON-able block set (the prefill half of a prefill->decode
+        migration): {"block_size", "blocks": m, "tokens": the m blocks'
+        tokens, "leaves": [{"dtype", "shape" [m, ...], "data": base64},
+        ...] in the reference's leaf order (cache_leaves)}. Walks the
+        prefix cache's longest unbroken chain from the front, exactly the
+        blocks a later _plan for the same prompt would share, and copies
+        each block's rows of every pool tensor to the host. Read-only on
+        the pool (refcounts untouched, the sentinel never included) and
+        run on the engine thread, so nothing reclaims a block mid-copy.
+        None when the prompt has no published full-block prefix yet."""
+        if not self._paged:
+            raise RuntimeError("KV export requires kv_layout='paged'")
+        row = [int(t) for t in prompt]
+        # the caller's trace, captured here: op() runs on the engine thread
+        ctx = current_trace()
+        trace = ctx.trace_id if ctx is not None else None
+
+        def op():
+            pool = self.pool
+            bs = pool.block_size
+            blocks: list = []
+            for j in range(len(row) // bs):
+                block = pool._cached.get(tuple(row[:(j + 1) * bs]))
+                if block is None:
+                    break
+                blocks.append(block)
+            if not blocks:
+                return None
+            idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
+            encoded = []
+            for leaf in cache_leaves(self.step.cache):
+                name = _dtype_name(leaf.dtype)
+                rows = leaf.index_select(0, idx).cpu()
+                if rows.dtype == torch.bfloat16:
+                    rows = rows.view(torch.int16)
+                encoded.append({
+                    "dtype": name,
+                    "shape": list(rows.shape),
+                    "data": base64.b64encode(rows.numpy().tobytes()).decode("ascii"),
+                })
+            self.kv_blocks_exported += len(blocks)
+            self.migrations_out += 1
+            default_flight().record(
+                "serve", corr=corr, trace=trace, op="kv-export", blocks=len(blocks),
+                tokens=len(blocks) * bs,
+            )
+            return {
+                "block_size": bs,
+                "blocks": len(blocks),
+                "tokens": row[:len(blocks) * bs],
+                "leaves": encoded,
+            }
+
+        return self._submit_op(op)
 
     def import_prefix_blocks(self, payload, corr=None):
-        raise NotImplementedError(_DISAGGREGATED)
+        """Admit a migrated block set into this engine's pool: for each
+        block-aligned prefix key, allocate a fresh block, publish it under
+        the key and drop the private reference, ending at refcount 1 (idle
+        cached), as a prefix this engine prefilled itself; then write the
+        payload's rows into every pool tensor in place, one index_copy_ a
+        leaf (the captured programs keep reading the same tensors).
+        Already-cached keys are kept (their K/V is authoritative); a short
+        pool stops the walk early rather than evicting live work. Returns
+        the number of leading prefix blocks now cached: the prefill a
+        follow-up request for these tokens skips. A payload whose block
+        size, leaf count, dtypes or shapes differ from this pool's raises
+        ValueError (the reference's texts) and leaves the pool untouched."""
+        if not self._paged:
+            raise RuntimeError("KV import requires kv_layout='paged'")
+        bs = int(payload.get("block_size", 0))
+        if bs != self.pool.block_size:
+            raise ValueError(f"block_size mismatch: payload {bs}, pool {self.pool.block_size}")
+        m = int(payload.get("blocks", 0))
+        tokens = [int(t) for t in payload.get("tokens", [])]
+        if m < 1 or len(tokens) < m * bs:
+            raise ValueError("malformed KV block-set payload")
+        ctx = current_trace()
+        trace = ctx.trace_id if ctx is not None else None
+
+        def op():
+            leaves = cache_leaves(self.step.cache)
+            encoded = payload.get("leaves", [])
+            if len(encoded) != len(leaves):
+                raise ValueError(
+                    f"cache structure mismatch: payload has {len(encoded)} leaves, "
+                    f"engine has {len(leaves)}"
+                )
+            arrays = []
+            for leaf, enc in zip(leaves, encoded):
+                name = str(enc["dtype"])
+                shape = [int(d) for d in enc["shape"]]
+                want = [m] + list(leaf.shape[1:])
+                if name != _dtype_name(leaf.dtype) or shape != want:
+                    raise ValueError(
+                        f"cache leaf mismatch: payload {name}{shape}, engine "
+                        f"{_dtype_name(leaf.dtype)}{want}"
+                    )
+                carrier, dtype = _LEAF_DTYPES[name]
+                arr = np.frombuffer(base64.b64decode(enc["data"]), dtype=carrier).reshape(shape)
+                arrays.append(torch.from_numpy(arr.copy()).view(dtype))
+            pool = self.pool
+            cached = 0
+            plan = []  # (payload row j, freshly allocated block)
+            for j in range(m):
+                key = tuple(tokens[:(j + 1) * bs])
+                if pool.lookup(key) is not None:
+                    cached += 1
+                    continue
+                if pool.available() < 1:
+                    break  # never evict live work for an import
+                block = pool.alloc()
+                pool.publish(key, block)
+                pool.release(block)  # the cache's own ref keeps it idle
+                plan.append((j, block))
+                cached += 1
+            written = len(plan)
+            if written:
+                # one write per pool tensor, not one per block: the import
+                # runs between scheduler quanta, so its launches are
+                # inter-token latency on the decode replica
+                rows = torch.tensor([j for j, _ in plan], dtype=torch.long)
+                idx = torch.tensor([b for _, b in plan], dtype=torch.long, device=self.device)
+                self._write_blocks(leaves, idx, [a.index_select(0, rows) for a in arrays])
+            self.kv_blocks_imported += written
+            self.migrations_in += 1
+            default_flight().record(
+                "serve", corr=corr, trace=trace, op="kv-import", blocks=m, written=written,
+                cached=cached,
+            )
+            return cached
+
+        return self._submit_op(op)
+
+    def _write_blocks(self, leaves, idx, rows) -> None:
+        """Write `rows[i]` ([n, ...] on the host) into pool blocks `idx` of
+        `leaves[i]`, in place."""
+        for leaf, data in zip(leaves, rows):
+            leaf.index_copy_(0, idx, data.to(leaf.device, non_blocking=False))
 
     def prefix_digest(self, limit: int = 128) -> list:
-        raise NotImplementedError(_DISAGGREGATED)
+        """Hashes of the prefix cache's keys, most recently used first
+        (capped): the rolling digest the router folds into placement."""
+        if not self._paged:
+            return []
+
+        def op():
+            items = sorted(self.pool._lru.items(), key=lambda kv: kv[1], reverse=True)
+            return [prefix_hash(key) for key, _ in items[:int(limit)]]
+
+        return self._submit_op(op)
 
     def kv_statz(self, top_n: int = 10) -> dict:
-        raise NotImplementedError(_DISAGGREGATED)
+        """The pool's residency page (BlockPool.residency) computed on the
+        engine thread. Non-paged engines answer {"paged": False}."""
+        if not self._paged:
+            return {"paged": False}
+
+        def op():
+            page = self.pool.residency(top_n=top_n)
+            page["paged"] = True
+            return page
+
+        return self._submit_op(op)
 
     def audit_pool(self, where: str = "audit") -> bool:
         """Run BlockPool.check() on the engine thread; a failed audit is
@@ -1102,6 +1297,10 @@ class ContinuousBatchingEngine:
                 ("engine_kv_pool_bytes", "gauge"): self.step.kv_bytes_total,
                 ("engine_kv_shard_bytes", "gauge"): self.step.kv_bytes_total,
                 ("engine_pool_audit_failures_total", "counter"): self.pool_audit_failures,
+                ("engine_kv_blocks_exported_total", "counter"): self.kv_blocks_exported,
+                ("engine_kv_blocks_imported_total", "counter"): self.kv_blocks_imported,
+                ("engine_migrations_out_total", "counter"): self.migrations_out,
+                ("engine_migrations_in_total", "counter"): self.migrations_in,
             })
         return out
 

@@ -1,6 +1,7 @@
 """Shared prefix-hash vocabulary for the prefix-aware router: the port's
-copy of `prefix_hash` from tf_operator_tpu/serve/prefix.py (the engine's
-BlockPool names its cached blocks with it).
+copy of tf_operator_tpu/serve/prefix.py (the engine's BlockPool names its
+cached blocks with `prefix_hash`; the router hashes a prompt's
+block-aligned prefixes with `block_prefix_hashes`).
 
 The engine's prefix cache keys blocks on exact block-aligned
 token tuples (``prompt[:block_size]``, ``prompt[:2*block_size]``,
@@ -24,3 +25,22 @@ def prefix_hash(tokens) -> str:
     for tok in tokens:
         h.update(int(tok).to_bytes(8, "little", signed=True))
     return h.hexdigest()
+
+
+def block_prefix_hashes(tokens, block_size: int, limit: int = 32) -> list:
+    """Digests of every block-aligned prefix of ``tokens`` (the same
+    keys the engine's prefix cache would index), longest-first capped
+    at ``limit`` — incremental, so hashing N prefixes costs one pass
+    over the tokens."""
+    block_size = int(block_size)
+    if block_size < 1:
+        return []
+    toks = [int(t) for t in tokens]
+    out = []
+    h = hashlib.blake2b(digest_size=8)
+    full = min(len(toks) // block_size, int(limit))
+    for j in range(full):
+        for tok in toks[j * block_size:(j + 1) * block_size]:
+            h.update(tok.to_bytes(8, "little", signed=True))
+        out.append(h.copy().hexdigest())
+    return out

@@ -12,6 +12,10 @@ and models/moe.py `moe_generate` for the moe presets.
     python -m tf_operator_tpu_torch.serve --preset small --batching window \
         --batch-window-ms 5 --enable-debug-endpoints \
         --tenant-quotas '{"noisy": {"rate": 100, "burst": 200, "priority": "batch"}}'
+    python -m tf_operator_tpu_torch.serve --preset small --batching continuous \
+        --role prefill --port 8601      # and --role decode --port 8602
+    python -m tf_operator_tpu_torch.serve --preset small \
+        --checkpoint-dir /ckpt/gpt-int8   # a serve/export.py artifact
 
     POST /generate   {"input_ids": [[1,2,3], [7,8], ...],   # ragged OK
                       "max_new_tokens": 32, "temperature": 0.0,
@@ -22,8 +26,15 @@ and models/moe.py `moe_generate` for the moe presets.
     POST /generate_stream  (single row) -> chunked ndjson: one
                   {"token": t, "index": i} event per generated token,
                   then {"done": true, "tokens": [[...]], "prompt_lens": [n]}
-    GET  /healthz -> {"status": "ok"|"warming"|"draining", ...} (200 while
-                  the process lives: liveness)
+    POST /prefill   {"input_ids": [[...]], "migrate_to": "http://decode:port"?}
+                  -> {"blocks": n, "migrated": bool, "imported": n}
+    POST /kv/export {"input_ids": [[...]]} -> {"payload": <block set>|null,
+                  "blocks": n}
+    POST /kv/import <block set> -> {"imported": cached prefix blocks}
+    GET  /kv/digest -> {"role", "block_size", "digest": [hash, ...]}
+    GET  /kv/statz?top=N -> the paged pool's residency page
+    GET  /healthz -> {"status": "ok"|"warming"|"draining", "role", ...} (200
+                  while the process lives: liveness)
     GET  /readyz  -> 200 {"status": "ready"} only while admitting; 503
                   while warming and draining (readiness)
     GET  /metrics -> Prometheus text (the registry plus the engine's
@@ -73,13 +84,24 @@ the reference, a ragged request, top_k/top_p and beams are 400s, and
 int8, speculation, window or continuous batching, a mesh and --tp are
 refused at startup.
 
+Disaggregated prefill/decode, as the reference's: --role prefill|decode
+is advertised on /healthz and /kv/digest (the router, serve/router.py,
+steers by it); every role serves every route. The migration routes need
+--batching continuous with --kv-layout paged (a 400 otherwise). /prefill
+ingests the prompt through the engine (one generated token publishes its
+full-block prefix), exports the block set and, with migrate_to, ships it
+to that replica's /kv/import; a failed ship is reported in the reply and
+the flight recorder, never as a 5xx.
+
 Checkpoints: --checkpoint-dir restores the newest step the port's
 training CLIs wrote (train/trainer.py Checkpointer; train/gpt.py's for
-the gpt presets, train/moe.py's for the moe ones); without one the
-server starts with random weights from a seed and says so.
+the gpt presets, train/moe.py's for the moe ones), or a serve/export.py
+artifact (int8 weights, served with weights_int8 on; its preset must be
+--preset's); without one the server starts with random weights from a
+seed and says so.
 
 Not ported, each refused naming its ROADMAP item: sharded decode (mesh,
---tp), the disaggregated routes (/prefill, /kv/*) and --smoke.
+--tp) and --smoke.
 """
 
 from __future__ import annotations
@@ -96,8 +118,11 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from urllib.parse import parse_qs
+
 from ..telemetry.flight import correlate, default_flight, render_flightz
 from ..telemetry.profiler import default_profiler, render_profilez
+from ..runtime.retry import RetryPolicy
 from ..telemetry.tracecontext import TRACEPARENT_HEADER, parse_traceparent, trace_scope
 from ..utils import locks
 
@@ -118,9 +143,6 @@ MAX_BEAMS = 8
 # what the reference serves that the port does not, and where ROADMAP
 # places it
 _SHARDED = "sharded decode (mesh, mesh_shape, --tp) is not ported (ROADMAP queue 1 item 6)"
-_DISAGGREGATED = (
-    "disaggregated serving (roles, /prefill, /kv/*) is not ported (ROADMAP queue 1 item 6)"
-)
 _SMOKE = (
     "the telemetry smoke round-trips its flight dump through the telemetry CLI, which is "
     "not ported (ROADMAP queue 1, what waits from items 3 and 5)"
@@ -132,10 +154,8 @@ _MOE_STARTUP = (
 )
 _MOE_FLAGS = "are gpt-family features; the moe presets serve plain greedy/sampled decode only"
 
-# routes the reference serves, answered 501 with the item that ports them
-_UNPORTED_GET = {"/kv/digest": _DISAGGREGATED, "/kv/statz": _DISAGGREGATED}
-_UNPORTED_POST = {"/prefill": _DISAGGREGATED, "/kv/export": _DISAGGREGATED,
-                  "/kv/import": _DISAGGREGATED}
+# the routes of the disaggregated prefill/decode split (_do_migration)
+_MIGRATION_ROUTES = ("/prefill", "/kv/export", "/kv/import")
 
 
 def _family(model) -> str:
@@ -157,7 +177,7 @@ class _State:
 
     def __init__(self, model, model_name: str, max_new_cap: int, device,
                  kv_quant_int8: bool = False, weights_int8: bool = False,
-                 speculative: bool = False) -> None:
+                 speculative: bool = False, role: str = "") -> None:
         from ..telemetry import MetricRegistry, SpanTracer
 
         self.model = model
@@ -169,6 +189,10 @@ class _State:
         self.model_name = model_name
         self.max_new_cap = max_new_cap
         self.device = device
+        # disaggregated prefill/decode: "" (monolithic), "prefill" or
+        # "decode". Advisory: every role serves every route; the router
+        # reads it from /healthz and /kv/digest
+        self.role = role
         # "warming" -> "ready" -> "draining": POSTs are admitted only
         # while "ready"; a plain str store (atomic in CPython)
         self.phase = "warming"
@@ -566,7 +590,8 @@ def DecodeHandlerFactory(state: _State):
                 if not audit_ok:
                     status = "degraded"
                 payload = {
-                    "status": status, "model": state.model_name, "device": str(state.device),
+                    "status": status, "model": state.model_name, "role": state.role,
+                    "device": str(state.device),
                     "decodes": int(state.decodes.value),
                     "pool_audit": "ok" if audit_ok else "failed",
                     "kv_int8": state.kv_quant_int8, "weights_int8": state.weights_int8,
@@ -579,6 +604,28 @@ def DecodeHandlerFactory(state: _State):
                 phase = state.phase
                 self._reply(200 if phase == "ready" else 503,
                             {"status": phase, "model": state.model_name})
+            elif route == "/kv/digest":
+                # the rolling prefix digest the router scores overlap
+                # with; a server without a paged engine answers an empty
+                # one (the same wire shape, nothing to share)
+                engine = state.engine
+                if engine is None or engine.pool is None:
+                    return self._reply(200, {"role": state.role, "block_size": 0, "digest": []})
+                self._reply(200, {"role": state.role, "block_size": int(engine.pool.block_size),
+                                  "digest": engine.prefix_digest()})
+            elif route == "/kv/statz":
+                # the pool's residency page; ?top=N widens its hot-prefix
+                # table
+                engine = state.engine
+                if engine is None or engine.pool is None:
+                    return self._reply(200, {"role": state.role, "paged": False})
+                try:
+                    top_n = int((parse_qs(query).get("top") or ["10"])[0])
+                except ValueError:
+                    return self._reply(400, {"error": "?top= must be an integer"})
+                page = engine.kv_statz(top_n=top_n)
+                page["role"] = state.role
+                self._reply(200, page)
             elif route == "/metrics":
                 self._send(200, "text/plain; version=0.0.4", state.render_metrics().encode())
             elif route == "/debug/trace":
@@ -614,8 +661,6 @@ def DecodeHandlerFactory(state: _State):
             elif route == "/debug/profilez" and state.enable_debug:
                 # live thread stacks: behind --enable-debug-endpoints
                 self._send(200, *render_profilez(default_profiler(), query))
-            elif route in _UNPORTED_GET:
-                self._reply(501, {"error": _UNPORTED_GET[route]})
             else:
                 self._reply(404, {"error": f"no route {self.path}"})
 
@@ -653,9 +698,7 @@ def DecodeHandlerFactory(state: _State):
                 self._request_trace = None
 
         def _handle_post(self) -> None:
-            if self.path in _UNPORTED_POST:
-                return self._reply(501, {"error": _UNPORTED_POST[self.path]})
-            if self.path not in ("/generate", "/generate_stream"):
+            if self.path not in ("/generate", "/generate_stream") + _MIGRATION_ROUTES:
                 return self._reply(404, {"error": f"no route {self.path}"})
             if state.phase != "ready":
                 # warming or draining: refuse new work loudly (503 is in
@@ -672,6 +715,8 @@ def DecodeHandlerFactory(state: _State):
                 body = json.loads(raw or b"{}")
             except (ValueError, json.JSONDecodeError) as err:
                 return self._error(400, f"bad JSON: {err}")
+            if self.path in _MIGRATION_ROUTES:
+                return self._do_migration(self.path, body)
             result = _validate(state, body)
             if isinstance(result[0], int):  # (status, payload)
                 return self._error(result[0], result[1]["error"])
@@ -760,6 +805,96 @@ def DecodeHandlerFactory(state: _State):
             # each row's answer is its own prompt plus max_new tokens
             tokens = [chains[i, :lens[i] + new].tolist() for i in range(len(lens))]
             self._reply(200, {"tokens": tokens, "prompt_lens": lens})
+
+        def _do_migration(self, route: str, body) -> None:
+            """The disaggregated prefill/decode routes, all on the paged
+            continuous engine (the paged layout is what makes KV a
+            serializable block set):
+
+                POST /kv/export {"input_ids": [[...]]}
+                    -> {"payload": <block set>|null, "blocks": n}
+                POST /kv/import <block set>
+                    -> {"imported": cached_prefix_blocks}
+                POST /prefill   {"input_ids": [[...]],
+                                 "migrate_to": "http://decode:port"?}
+                    -> {"blocks": n, "migrated": bool, "imported": n}
+
+            /prefill runs chunked prefill to completion (a 1-token decode
+            publishes the prompt's full-block prefix into the prefix
+            cache), exports the block set and, when migrate_to names a
+            decode replica, ships it there. A failed ship is reported in
+            the reply and flight-recorded, never a 5xx: the router
+            degrades to the monolithic path on it."""
+            engine = state.engine
+            if engine is None or engine.pool is None:
+                return self._error(
+                    400, f"{route} requires --batching continuous with --kv-layout paged")
+            if route == "/kv/import":
+                try:
+                    imported = engine.import_prefix_blocks(body, corr=self._request_corr)
+                except ValueError as err:
+                    return self._error(400, str(err))
+                except Exception as err:  # noqa: BLE001 — JSON, never a dropped socket
+                    return self._error(500, f"import failed: {type(err).__name__}: {err}"[:300])
+                return self._reply(200, {"imported": imported})
+            result = _validate(state, body)
+            if isinstance(result[0], int):
+                return self._error(result[0], result[1]["error"])
+            prompt, lens = result[0], result[1]
+            if len(lens) != 1:
+                return self._error(400, f"{route} takes exactly one prompt row")
+            row = prompt[0, :lens[0]].tolist()
+            if route == "/kv/export":
+                try:
+                    payload = engine.export_prefix_blocks(row, corr=self._request_corr)
+                except Exception as err:  # noqa: BLE001
+                    return self._error(500, f"export failed: {type(err).__name__}: {err}"[:300])
+                return self._reply(200, {
+                    "payload": payload, "blocks": 0 if payload is None else payload["blocks"],
+                })
+            # /prefill: the prompt through the engine's chunked prefill
+            # (1 generated token; its release publishes the full-block
+            # prefix into the prefix cache), then export and maybe ship
+            try:
+                req = engine.submit(row, 1, corr=self._request_corr)
+                for _ in req.stream():
+                    pass
+                payload = engine.export_prefix_blocks(row, corr=self._request_corr)
+            except ValueError as err:
+                return self._error(400, str(err))
+            except TimeoutError as err:
+                return self._error(503, str(err))
+            except Exception as err:  # noqa: BLE001
+                return self._error(500, f"prefill failed: {type(err).__name__}: {err}"[:300])
+            state.decodes.inc()
+            state.tokens_generated.inc(1)
+            out = {
+                "blocks": 0 if payload is None else payload["blocks"],
+                "migrated": False,
+                "imported": 0,
+            }
+            migrate_to = body.get("migrate_to")
+            if payload is not None and migrate_to:
+                from .client import DecodeClient
+
+                try:
+                    resp = DecodeClient(
+                        str(migrate_to), timeout=self.body_timeout,
+                        # fail fast: the router owns the degradation, and a
+                        # handler blocked on retry backoff holds the
+                        # caller's TTFT
+                        retry_policy=RetryPolicy(max_attempts=2, base_delay=0.05, max_delay=0.2),
+                    ).kv_import(payload)
+                    out["migrated"] = True
+                    out["imported"] = int(resp.get("imported", 0))
+                except Exception as err:  # noqa: BLE001 — the blocks stay
+                    # cached here; the caller decodes on any replica
+                    default_flight().record(
+                        "serve", op="migrate-failed", target=str(migrate_to),
+                        error=f"{type(err).__name__}: {err}"[:200],
+                    )
+                    out["error"] = f"migrate failed: {type(err).__name__}: {err}"[:300]
+            return self._reply(200, out)
 
         def _do_stream(self, prompt, lens, new, temperature, seed, top_k, top_p,
                        priority=0) -> None:
@@ -953,11 +1088,12 @@ def make_server(
     A server_close() stops their threads. device: `cuda` unless named;
     the model is moved there. kv_quant_int8, weights_int8 (the model
     quantized once here unless it already is the int8 twin, which turns
-    the flag on by itself), speculative, speculate/spec_depth/draft_preset
+    the flag on by itself), speculative, speculate/spec_depth/draft_preset,
+    role ("", "prefill" or "decode"; advertised on /healthz and /kv/digest)
     and their combinations are the reference's, refused in its words
     (ValueError). An MoE LM with any gpt-family option raises ValueError,
-    as the reference; the options the port leaves out raise
-    NotImplementedError naming their ROADMAP items."""
+    as the reference; a mesh (sharded decode, not ported) raises
+    NotImplementedError naming its ROADMAP item."""
     from .._device import resolve_device
     from ..ops.quant import is_quantized, quantize_model
 
@@ -967,12 +1103,10 @@ def make_server(
         or batching not in ("", "none")
     ):
         raise ValueError(_MOE_STARTUP)
-    for refused, why in (
-        (mesh is not None or mesh_shape is not None, _SHARDED),
-        (bool(role), _DISAGGREGATED),
-    ):
-        if refused:
-            raise NotImplementedError(why)
+    if mesh is not None or mesh_shape is not None:
+        raise NotImplementedError(_SHARDED)
+    if role and role not in ("prefill", "decode"):
+        raise ValueError(f"role must be '', 'prefill' or 'decode', got {role!r}")
     if not batching:
         batching = "window" if batch_window_ms > 0 else "none"
     if batching not in ("none", "window", "continuous"):
@@ -1011,6 +1145,11 @@ def make_server(
                 "speculate requires kv_layout='paged' (the verify program scores windows "
                 "against the block pool)"
             )
+        if role == "prefill":
+            raise ValueError(
+                "speculate is decode-pool-only: a prefill replica never decodes, so its "
+                "draft/verify programs would be dead compiles"
+            )
     draft_model = None
     if speculate == "draft":
         presets = _draft_presets()
@@ -1028,7 +1167,7 @@ def make_server(
             # twin (the caller drops the f32 model to free its kernels)
             model = quantize_model(model)
     state = _State(model, model_name, max_new_cap, device, kv_quant_int8=kv_quant_int8,
-                   weights_int8=weights_int8, speculative=speculative)
+                   weights_int8=weights_int8, speculative=speculative, role=role)
     state.enable_debug = bool(enable_debug_endpoints)
     # the metric history: every registry family plus the engine's flat
     # counters, read at each tick (the provider reads state.engine then)
@@ -1077,7 +1216,7 @@ def make_server(
             kv_layout=kv_layout, block_size=block_size, kv_blocks=kv_blocks,
             prefill_chunk=prefill_chunk, device=device, kv_quant_int8=kv_quant_int8,
             weights_int8=weights_int8, speculate=speculate, spec_depth=spec_depth,
-            draft_model=draft_model,
+            draft_model=draft_model, role=role,
         )
     server = DecodeHTTPServer((host, port), DecodeHandlerFactory(state))
     server.state = state
@@ -1099,7 +1238,6 @@ def _draft_presets():
 # CLI flags of the reference's server that the port refuses, with why
 _REFUSED_FLAGS = (
     ("--tp", True, _SHARDED), ("--mesh-shape", True, _SHARDED),
-    ("--role", True, _DISAGGREGATED),
     ("--warm", True, "--warm pre-compiles jit shapes; the port has none to compile"),
     ("--smoke", False, _SMOKE),
 )
@@ -1174,6 +1312,13 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="most tokens drafted per speculative round; the verify scores K+1",
     )
     parser.add_argument(
+        "--role", choices=["", "prefill", "decode"], default="",
+        help="disaggregated serving role advertised on /healthz and /kv/digest: prefill "
+        "replicas take the prefix-ingest half of the workload (POST /prefill + KV "
+        "block-set export), decode replicas admit migrated block sets (POST /kv/import) "
+        "and serve the token streams. Default '': monolithic, both halves in one engine",
+    )
+    parser.add_argument(
         "--enable-debug-endpoints", action="store_true",
         help="serve GET /debug/profilez (the sampling profiler: start/stop/snapshot, "
         "folded or speedscope output). Off by default: live thread stacks are sensitive",
@@ -1245,6 +1390,8 @@ def parse_args(argv=None) -> argparse.Namespace:
             parser.error("--speculate requires --batching continuous")
         if args.kv_layout != "paged":
             parser.error("--speculate requires --kv-layout paged")
+        if args.role == "prefill":
+            parser.error("--speculate is decode-pool-only (a prefill replica never decodes)")
         if args.spec_depth < 1:
             parser.error("--spec-depth must be >= 1")
     if args.draft_preset and args.speculate != "draft":
@@ -1292,20 +1439,32 @@ def _number(value) -> float:
 
 def load_model(preset: str, checkpoint_dir: Optional[str], device):
     """The preset's model on `device` (a GPT, or an MoELM for the moe
-    presets): the newest checkpoint in checkpoint_dir (the port's
+    presets): a serve/export.py artifact in checkpoint_dir (the int8 twin,
+    which make_server serves with weights_int8 on; an artifact of another
+    preset is refused), else the newest checkpoint there (the port's
     Checkpointer format, as train/gpt.py and train/moe.py write it), else
     random weights from seed 0, said loudly."""
     import torch
 
     from ..models import gpt as gpt_lib
     from ..models import moe as moe_lib
+    from . import export as export_mod
+
+    if checkpoint_dir and export_mod.is_exported_dir(checkpoint_dir):
+        model, manifest = export_mod.exported_model(checkpoint_dir, preset, device)
+        logger.info(
+            "serving exported step-%d artifact (%.1fMB params, quantized=%s)",
+            manifest.get("step", -1), manifest.get("params_bytes", 0) / 1e6,
+            manifest.get("quantized"),
+        )
+        return model
 
     generator = torch.Generator().manual_seed(0)
     if preset.startswith("moe"):
         cfg = {"moe-tiny": moe_lib.MOE_TINY, "moe-base": moe_lib.MOE_BASE}[preset]
         model = moe_lib.MoELM(cfg, generator=generator)
     else:
-        cfg = {"tiny": gpt_lib.GPT_TINY, "small": gpt_lib.GPT_SMALL}[preset]
+        cfg = gpt_lib.GPT_PRESETS[preset]
         model = gpt_lib.GPT(cfg, generator=generator)
     step = None
     if checkpoint_dir:
@@ -1345,7 +1504,7 @@ def main(argv=None) -> int:
             weights_int8=args.weights_int8, speculative=args.speculative,
             speculate=args.speculate, spec_depth=args.spec_depth,
             draft_preset=args.draft_preset, batch_window_ms=args.batch_window_ms,
-            tenant_quotas=args.tenant_quotas_parsed,
+            role=args.role, tenant_quotas=args.tenant_quotas_parsed,
             enable_debug_endpoints=args.enable_debug_endpoints,
             history_capacity=max(2, args.history_capacity),
             history_interval_s=max(0.0, args.history_interval),

@@ -136,7 +136,7 @@ def train(
         attention_fn = sequence_attention(mesh, args.sp_strategy, causal=True, flash=True)
         if attention_fn is not None:
             logger.info("causal %s attention over sp=%d", args.sp_strategy, args.sp)
-    cfg = {"small": gpt_lib.GPT_SMALL, "tiny": gpt_lib.GPT_TINY}[args.preset]
+    cfg = gpt_lib.GPT_PRESETS[args.preset]
     cfg = dataclasses.replace(
         cfg, max_seq_len=max(cfg.max_seq_len, args.seq_len), remat=args.remat
     )
