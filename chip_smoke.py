@@ -104,8 +104,9 @@ non-zero, printing no result:
    per step evaluated, the last at step 1000.
 21. profile_dir - train/bert.py --profile-dir writes a Chrome trace that
    names K1-K3.
-22. rendezvous - testing/rendezvous_worker.py, then train/smoke.py, as two
-   ranks on cuda:0 over gloo (NCCL refuses two ranks on one device), the
+22. rendezvous - testing/rendezvous_worker.py, then train/smoke.py (each
+   one's main(), in one launch of two processes), as two ranks on cuda:0
+   over gloo (NCCL refuses two ranks on one device), the
    operator's env names set by hand (TPU_WORKER_ID, TPU_WORKER_HOSTNAMES,
    JAX_NUM_PROCESSES, JAX_PROCESS_ID, TFJOB_COORDINATOR_OVERRIDE): ranks
    and world size as injected, an all-gather on the card gives [0, 1],
@@ -133,8 +134,9 @@ non-zero, printing no result:
    without a gradient, that must fail those bounds; K4 26 and K5 13
    launches per step per rank.
 26. tp_gpt - GPT-small (2 x 4096, causal flash) under TRANSFORMER_RULES'
-   Megatron plan at tp = 2: a world of 2 over gloo on the card (3 heads
-   of 128, 16000 vocab rows a rank) against the one-process step on the
+   Megatron plan at tp = 2: phases 23-25's world of 2 over gloo on the
+   card, after them (3 heads of 128, 16000 vocab rows a rank) against the
+   one-process step on the
    same weights and batch: the loss, and each rank's gradient shard by
    plain_parity's ratio to the f32 step (DIST_TOLERANCE_WHY); the same
    step in f32 (TF32 off, plain attention, remat) against the one
@@ -178,7 +180,7 @@ non-zero, printing no result:
    bounds; the same requests through a kv_layout="dense" engine (the
    margin rule); one capture of the step and of the prefill chunk; no
    launch of K1-K5; the server shut down and the engine threads joined.
-30. int8_decode - GPT-small generate, 8 rows, a 128-token prompt, 64 new
+30. int8_decode - GPT-small generate, 8 rows, a 128-token prompt, 32 new
    tokens, bf16, in four modes (plain, weights_int8, kv_int8, both): ms per
    new token, the steady state's device ms per token, kernels per token and
    busy share, weight and KV bytes counted from the tensors; the plain chain
@@ -209,7 +211,8 @@ non-zero, printing no result:
    --speculative (inline): chains against in-process decode on the same
    weights, a 4-beam request sorted, the reference's 400s, SIGTERM -> 0; the
    draft preset at GPT-small and --batching continuous --speculative refused
-   at startup (exit 2, the reference's text).
+   at startup (exit 2, the reference's text). The four processes start
+   together.
 36. moe_train - MoE-base (12 x 768, 12 heads, every other block top-2 of
    8 experts with bf16 expert kernels, capacity factor 1.25, vocab 32000)
    at batch 8 x seq 1024 (moe_bench.py:81-86), AdamW 3e-4 wd 0.01,
@@ -238,16 +241,16 @@ non-zero, printing no result:
    token, busy share; in f32 at capacity factor 2.0, teacher-forced
    MoEDecodeStep against the training forward and the prefill chain
    against the all-stepwise chain.
-41. moe_serve - train/moe.py --preset base --steps 2 --checkpoint-dir,
-   then the serve CLI --preset moe-base on that checkpoint as a
-   subprocess: 4 requests from the port's DecodeClient, greedy chains
+41. moe_serve - train/moe.py --preset base --steps 2 --checkpoint-dir
+   (its main(), in this process), then the serve CLI --preset moe-base on
+   that checkpoint as a subprocess: 4 requests from the port's DecodeClient, greedy chains
    equal to in-process moe_generate on the restored weights; a ragged,
    a top_k and a num_beams request each a 400; SIGTERM -> exit 0.
 42. vit_train, vit_profile - ViT-B/16 through train/vit.py at 224^2,
    batch 128, AdamW 1e-3 wd 0.05, bf16: images/s over 5 timed steps, MFU
    by the bench's transformer_step_flops (seq 196, not causal), device
    ms by region, peak memory; the loss must fall.
-43. vit_parity - ViT-B/16 at batch 8, gap and cls pooling, f32 and uint8
+43. vit_parity - ViT-B/16 at batch 4, gap and cls pooling, f32 and uint8
    images: f32 on the card against the CPU, bf16 against f32, a remat
    step against a plain one; a planted column-major patch order must
    fail.
@@ -301,14 +304,51 @@ non-zero, printing no result:
    artifact against --weights-int8 on the checkpoint: seconds from
    process start to the first token, equal greedy chains, exit 0 on
    SIGTERM.
+49. fleet_soak_bf16 - serve/fleet.py run_failover_soak at GPT-small (bf16,
+   random weights from FLEET_SEED): the port's ServeServiceController on
+   its InMemorySubstrate reconciles 3 replica pods, InProcessFleet boots a
+   make_server(warm_async=True) engine server of 4 slots (64-token blocks
+   and chunks) for each, behind LeastLoadedRouter; 8 client threads stream
+   prompts of 16-512 tokens, 32 new each, one replica is killed with exit
+   137 after it has streamed a token, 2 connection resets are injected,
+   and the clients keep streaming until the controller's replacement is
+   ready, so it is built and captures its programs while the survivors
+   serve. Held: 0 lost streams, every failover flight-recorded under its
+   stream's corr, every chain the inline generate's under the margin rule
+   (SERVE_MARGIN_ULPS), streams in flight while the replacement booted,
+   each engine's step and chunk captured once, the kill freeing at least
+   FLEET_MEMORY_FREED of a replica's share of the memory and the total
+   back within FLEET_MEMORY_SLACK of it once the replacement is ready.
+   Reported: boots with their seconds, failovers, captures, TTFT and
+   inter-token p50/p95 at the clients (host-bound), memory after the
+   boots, the kill and the replacement.
+50. fleet_soak_f32 - the same soak at f32 with TF32 off: every chain
+   bit-identical to inline generate (the reference's criterion).
+51. fleet_update - run_rolling_update at GPT-small bf16: v1 -> v2 (another
+   seed's weights) with maxUnavailable 1 under 8 client threads; each
+   stream's chain that of the version it was admitted under (its first
+   token against its replica's swap time; the margin rule against that
+   version's model), no stream lost, every replica's programs captured
+   once. A planted swap that rebinds the model's tensors
+   (load_state_dict(assign=True)) instead of copying into them must fail
+   that chain check. Reported: per-replica drain and swap seconds.
+52. fleet_autoscale, fleet_trace - run_autoscale_smoke at GPT-small bf16
+   (prompts of 64-192 tokens): a latency fault trips the burn-rate alert,
+   the autoscaler scales the decode group out (a boot under load), the
+   fault clears and the group drains back in; no oscillation, 0 lost
+   streams, the margin rule, kind=scale flight records trace-correlated;
+   the observatory scraped at the scaled-out point (fleet SLO, KV
+   directory, a merged trace). Then run_trace_smoke at GPT-small (a
+   prefill and a decode replica, 64-token blocks): a migrated request's
+   merged trace through the observatory with all 8 HOP_NAMES. No kernel
+   of K1-K5 runs in phases 49-52.
 Each phase group prints its seconds (group_seconds), every phase line
 the seconds since the script started ("t"), and script_seconds the
 total. Then the kernel summary line (with each kernel's launches per
 run_steps replay and per step per rank at world 2), the nvidia-smi line,
-and the result line. `chip_smoke.py --world2-rank <dir>` is one rank of phases
-23-25's world of 2, which phase 23 launches; `chip_smoke.py --world-rank
-mp <dir>` one rank of phases 26-27's world of 2 and `--world-rank cli
-<dir>` one of phase 28's world of 4.
+and the result line. `chip_smoke.py --world2-rank <dir>` is one rank of
+phases 23-27's world of 2, which phase 23 launches (the distributed group),
+and `--world-rank cli <dir>` one of phase 28's world of 4.
 Imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -2207,13 +2247,19 @@ def run_world(argv: list, logs_dir: str, timeout: float, world: int = WORLD2) ->
 
 
 def run_rendezvous(smi: str, logs_dir: str) -> dict:
-    """rendezvous: the port's rendezvous worker, then train/smoke.py, as
-    two ranks on cuda:0 over gloo with the operator's env names set by
-    hand: each rank's torch.distributed rank and world size equal the
-    injected identity, an all-gather of the ranks' ids on the card gives
-    [0, 1], and the all-reduce of (rank + 1) x a bf16-matmul unit is 3."""
-    texts = run_world(["-m", "tf_operator_tpu_torch.testing.rendezvous_worker",
-                       "--device", "cuda", "--backend", "gloo"], logs_dir, 180)
+    """rendezvous: the port's rendezvous worker, then train/smoke.py (each
+    entry point's main(), one after the other in the same two processes:
+    one launch), as two ranks on cuda:0 over gloo with the operator's env
+    names set by hand: each rank's torch.distributed rank and world size
+    equal the injected identity, an all-gather of the ranks' ids on the
+    card gives [0, 1], and the all-reduce of (rank + 1) x a bf16-matmul
+    unit is 3."""
+    code = ("import sys\n"
+            "from tf_operator_tpu_torch.testing import rendezvous_worker\n"
+            "from tf_operator_tpu_torch.train import smoke\n"
+            "args = ['--device', 'cuda', '--backend', 'gloo']\n"
+            "sys.exit(rendezvous_worker.main(args) or smoke.main(args))\n")
+    texts = run_world(["-c", code], logs_dir, 180)
     reports = []
     for rank, text in enumerate(texts):
         lines = [line for line in text.splitlines() if line.startswith("RENDEZVOUS ")]
@@ -2225,9 +2271,7 @@ def run_rendezvous(smi: str, logs_dir: str) -> dict:
                 and report["gathered_world"] == list(range(WORLD2))
                 and f"process {rank}/{WORLD2}" in text):
             raise AssertionError(f"rank {rank}: {report}")
-    smoke = run_world(["-m", "tf_operator_tpu_torch.train.smoke", "--device", "cuda",
-                       "--backend", "gloo"], logs_dir, 180)
-    sums = [line.split("collective ", 1)[1] for text in smoke for line in text.splitlines()
+    sums = [line.split("collective ", 1)[1] for text in texts for line in text.splitlines()
             if "collective sum=" in line]
     emit({"phase": "rendezvous", "card": smi, "world": WORLD2, "backend": "gloo",
           "device": "cuda:0 (both ranks)", "reports": reports, "smoke": sums})
@@ -2525,10 +2569,11 @@ def rank_resnet(work: str, kernels) -> dict:
 
 
 def world2_rank(work: str) -> int:
-    """One rank of the world-2 phases (ddp_bert, fsdp_gpt, syncbn_resnet),
-    launched by run_distributed_phases as `chip_smoke.py --world2-rank
-    <dir>` with the operator's env: the world over gloo on cuda:0, the
-    one-process references read from <dir>, rank<r>.json written there."""
+    """One rank of the world-2 phases (ddp_bert, fsdp_gpt, syncbn_resnet,
+    then tp_gpt and sp_gpt), launched by run_distributed_phases as
+    `chip_smoke.py --world2-rank <dir>` with the operator's env: the world
+    over gloo on cuda:0, the one-process references read from <dir>,
+    rank<r>.json written there."""
     import os
 
     from tf_operator_tpu_torch.ops import kernels
@@ -2542,6 +2587,9 @@ def world2_rank(work: str) -> int:
         out["fsdp_gpt"] = rank_gpt(work, kernels)
         free_device_memory()
         out["syncbn_resnet"] = rank_resnet(work, kernels)
+        free_device_memory()
+        out["tp_gpt"] = rank_tp_gpt(work, kernels)
+        out["sp_gpt"] = rank_sp_gpt(work, kernels)
         with open(os.path.join(work, f"rank{out['rank']}.json"), "w") as fh:
             json.dump(out, fh)
         distributed.barrier()
@@ -2705,13 +2753,17 @@ def resnet_reference(work: str, kernels) -> dict:
 
 
 def run_distributed_phases(kernels, smi: str) -> dict:
-    """rendezvous, then ddp_bert, fsdp_gpt and syncbn_resnet: each
-    model's one-process step, the one-rank NCCL world (DDP for BERT-base,
-    FSDP2 for GPT-small) in this process, then one world of 2 ranks over
-    gloo on cuda:0 (run_world, `--world2-rank`) that runs the three
-    models' world-2 sides in turn, each rank on its rows of the same
-    global batch. Returns each kernel's launches per step per rank at
-    world 2."""
+    """rendezvous, then ddp_bert, fsdp_gpt and syncbn_resnet, then tp_gpt
+    and sp_gpt: each model's one-process step, the one-rank NCCL world
+    (DDP for BERT-base, FSDP2 for GPT-small) in this process, the
+    model-parallel phases' one-process sides (mp_reference), then one
+    world of 2 ranks over gloo on cuda:0 (run_world, `--world2-rank`)
+    that runs the three models' world-2 sides in turn, each rank on its
+    rows of the same global batch, and then tp_gpt's and sp_gpt's. Returns
+    each kernel's launches per step per rank at world 2 ("ddp_bert",
+    "fsdp_gpt", "syncbn_resnet") and K1-K3's per pass per rank under
+    tp = 2, ring sp = 2 and Ulysses sp = 2 ("tp2", "ring_sp2",
+    "ulysses_sp2")."""
     import os
     import shutil
     import tempfile
@@ -2731,18 +2783,28 @@ def run_distributed_phases(kernels, smi: str) -> dict:
             dist.destroy_process_group()
         resnet1 = resnet_reference(work, kernels)
         free_device_memory()
-        run_world([__file__, "--world2-rank", work], work, DIST_TIMEOUT_S)
+        mp1 = mp_reference(work, kernels)
+        chain = torch.load(os.path.join(work, "mp_ref.pt"), weights_only=False)["chain"]
+        free_device_memory()
+        start = time.monotonic()
+        run_world([__file__, "--world2-rank", work], work, DIST_TIMEOUT_S + MP_TIMEOUT_S)
+        world_s = time.monotonic() - start
         ranks = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(WORLD2)]
     finally:
         shutil.rmtree(work, ignore_errors=True)
+        seeded_gpt.cache_clear()
     world2_label = ("two ranks sharing one card, collectives over gloo through host memory: "
                     "not a scaling number")
-    return {
+    out = {
         "ddp_bert": check_ddp_bert(bert1, [r["ddp_bert"] for r in ranks], smi, world2_label),
         "fsdp_gpt": check_fsdp_gpt(gpt1, [r["fsdp_gpt"] for r in ranks], smi, world2_label),
         "syncbn_resnet": check_syncbn_resnet(resnet1, [r["syncbn_resnet"] for r in ranks], smi,
                                              world2_label),
+        "tp2": check_tp_gpt(mp1, chain, [r["tp_gpt"] for r in ranks], smi, world_s),
     }
+    sp = check_sp_gpt(mp1, [r["sp_gpt"] for r in ranks], smi)
+    out["ring_sp2"], out["ulysses_sp2"] = sp["ring"], sp["ulysses"]
+    return out
 
 
 def check_ddp_bert(one: dict, ranks: list, smi: str, label: str) -> dict:
@@ -2856,8 +2918,9 @@ def f32_within(readings: dict) -> bool:
 
 # -- model parallel: tensor and sequence parallelism ----------------------------
 #
-# tp_gpt and sp_gpt run in one world of 2 ranks on cuda:0 over gloo, tp_sp_cli
-# in a world of 4 (`chip_smoke.py --world-rank <phase> <dir>`): ranks sharing
+# tp_gpt and sp_gpt run in the distributed phases' world of 2 ranks on cuda:0
+# over gloo (`--world2-rank`), tp_sp_cli in a world of 4 (`chip_smoke.py
+# --world-rank cli <dir>`): ranks sharing
 # one card, their collectives through host memory, so no ms per step from
 # them is a scaling number. Each rank's kernels run for real on its shard:
 # under tp K1-K3 on its 3 of GPT-small's 6 heads, under Ulysses on 6 / 2 = 3
@@ -2883,16 +2946,18 @@ MP_LABEL = ("ranks sharing one card, collectives over gloo through host memory: 
 
 @functools.lru_cache(maxsize=2)
 def seeded_gpt(f32: bool):
-    """GPT-small at seq MP_SHAPE[1] drawn from DIST_SEED on the CPU, once
-    a process for each dtype (a draw takes seconds on the host); f32:
-    its f32 twin with per-block remat (plain causal attention:
-    flash_attention routes an f32 CUDA tensor there)."""
+    """GPT-small at seq MP_SHAPE[1] on the CPU holding the weights drawn
+    from DIST_SEED (seeded_weights: one draw a process, shared with
+    dist_gpt_model); f32: its f32 twin with per-block remat (plain causal
+    attention: flash_attention routes an f32 CUDA tensor there), the same
+    weights (the compute dtype does not enter the draw)."""
     from tf_operator_tpu_torch.models import gpt as gpt_lib
 
     cfg = dataclasses.replace(gpt_lib.GPT_SMALL, max_seq_len=MP_SHAPE[1])
+    weights = seeded_weights(gpt_lib.GPT, cfg, DIST_SEED)
     if f32:
         cfg = dataclasses.replace(cfg, dtype=torch.float32, remat=True)
-    return gpt_lib.GPT(cfg, generator=torch.Generator().manual_seed(DIST_SEED))
+    return built_from(lambda: gpt_lib.GPT(cfg), weights, "cpu")
 
 
 def mp_gpt_model(attention_fn=None, f32: bool = False):
@@ -3154,10 +3219,9 @@ def rank_tp_sp_cli(kernels) -> dict:
 
 
 def world_rank(phase: str, work: str) -> int:
-    """One rank of a model-parallel world (run_model_parallel_phases),
-    launched as `chip_smoke.py --world-rank <phase> <dir>`: over gloo on
-    cuda:0, rank<r>.json written to <dir>. "mp" runs tp_gpt then sp_gpt,
-    "cli" tp_sp_cli."""
+    """One rank of tp_sp_cli's world of 4 (run_model_parallel_phases),
+    launched as `chip_smoke.py --world-rank cli <dir>`: over gloo on
+    cuda:0, rank<r>.json written to <dir>."""
     import os
 
     from tf_operator_tpu_torch.ops import kernels
@@ -3165,12 +3229,10 @@ def world_rank(phase: str, work: str) -> int:
 
     distributed.initialize("cuda", backend="gloo")
     try:
-        out = {"rank": distributed.rank(), "world": distributed.world_size()}
-        if phase == "mp":
-            out["tp_gpt"] = rank_tp_gpt(work, kernels)
-            out["sp_gpt"] = rank_sp_gpt(work, kernels)
-        else:
-            out["tp_sp_cli"] = rank_tp_sp_cli(kernels)
+        if phase != "cli":
+            raise SystemExit(f"unknown world phase {phase!r}")
+        out = {"rank": distributed.rank(), "world": distributed.world_size(),
+               "tp_sp_cli": rank_tp_sp_cli(kernels)}
         with open(os.path.join(work, f"rank{out['rank']}.json"), "w") as fh:
             json.dump(out, fh)
         distributed.barrier()
@@ -3179,28 +3241,16 @@ def world_rank(phase: str, work: str) -> int:
     return 0
 
 
-def run_model_parallel_phases(kernels, smi: str) -> dict:
-    """tp_gpt, sp_gpt and tp_sp_cli: the one-process references in this
-    process, then the world of 2 (tp_gpt, sp_gpt) and the world of 4
-    (tp_sp_cli), each held to its bounds. Returns K1-K3's launches per
-    pass per rank under tp = 2, ring sp = 2 and Ulysses sp = 2."""
+def run_model_parallel_phases(kernels, smi: str) -> None:
+    """tp_sp_cli: the world of 4 running the CLIs' usage lines, held to
+    its bounds (tp_gpt and sp_gpt run in run_distributed_phases' world of
+    2)."""
     import os
     import shutil
     import tempfile
 
-    work = tempfile.mkdtemp(prefix="mp-")
+    cli_work = tempfile.mkdtemp(prefix="mp-cli-")
     try:
-        one = mp_reference(work, kernels)
-        start = time.monotonic()
-        run_world([__file__, "--world-rank", "mp", work], work, MP_TIMEOUT_S)
-        world_s = time.monotonic() - start
-        ranks = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(WORLD2)]
-        ref = torch.load(os.path.join(work, "mp_ref.pt"), weights_only=False)
-        tp = check_tp_gpt(one, ref["chain"], [r["tp_gpt"] for r in ranks], smi, world_s)
-        sp = check_sp_gpt(one, [r["sp_gpt"] for r in ranks], smi)
-        del ref
-        cli_work = os.path.join(work, "cli")
-        os.makedirs(cli_work)
         start = time.monotonic()
         run_world([__file__, "--world-rank", "cli", cli_work], cli_work, MP_TIMEOUT_S,
                   world=CLI_WORLD)
@@ -3209,9 +3259,7 @@ def run_model_parallel_phases(kernels, smi: str) -> dict:
                for r in range(CLI_WORLD)]
         check_tp_sp_cli(cli, smi, cli_s)
     finally:
-        shutil.rmtree(work, ignore_errors=True)
-        seeded_gpt.cache_clear()
-    return {"tp2": tp, "ring_sp2": sp["ring"], "ulysses_sp2": sp["ulysses"]}
+        shutil.rmtree(cli_work, ignore_errors=True)
 
 
 def check_tp_gpt(one: dict, chain: list, ranks: list, smi: str, world_s: float) -> dict:
@@ -3219,7 +3267,8 @@ def check_tp_gpt(one: dict, chain: list, ranks: list, smi: str, world_s: float) 
     emit({"phase": "tp_gpt", "card": smi, "model": "GPT-small causal flash, TRANSFORMER_RULES tp",
           "shape": list(MP_SHAPE), "mesh": "dp=1xfsdp=1xsp=1xtp=2", "label": MP_LABEL,
           "one_process": one, "ranks": ranks, "chain_one_process_f32": chain,
-          "world_seconds": world_s,
+          "world_seconds": world_s, "world_runs": "ddp_bert, fsdp_gpt, syncbn_resnet, "
+                                                  "tp_gpt and sp_gpt",
           "tolerances": {"loss_atol": LOSS_ATOL, "grad_ratio": GRAD_RATIO,
                          "grad_floor": GRAD_FLOOR, "f32_grad_rtol": MP_F32_GRAD_RTOL,
                          "why": DIST_TOLERANCE_WHY}})
@@ -3892,7 +3941,7 @@ def run_serve(kernels, gpt_lib, smi) -> dict:
 # -- GPT-small's decode modes: int8, beams, speculation --------------------------
 
 MODES_SEED = 21
-INT8_DECODE = (8, 128, 64)  # rows, prompt, new tokens
+INT8_DECODE = (8, 128, 32)  # rows, prompt, new tokens
 INT8_F32_CHECK = (2, 32, 16)  # rows, prompt, new: f32 on the card against the CPU
 # f32 on the card (TF32 off) against f32 on the CPU, both with both int8
 # flags: each decode step's logits with both reading the same cache bytes
@@ -4683,7 +4732,8 @@ def run_decode_modes_serve(gpt_lib, quant, server_lib, smi) -> dict:
     words; SIGTERM ends the server with exit 0. Refused at startup, exit 2
     with the reference's text: --speculate draft at GPT-small (vocab 32000
     against the draft presets' 512), and --batching continuous with
-    --speculative."""
+    --speculative. The four processes start together (the two servers
+    boot side by side, boot_s each from that start)."""
     import os
     import tempfile
 
@@ -4695,12 +4745,24 @@ def run_decode_modes_serve(gpt_lib, quant, server_lib, smi) -> dict:
     reqs = modes_requests(cfg, MODES_SEED + 9, 4, (64, 256), (MODES_SERVE_NEW, MODES_SERVE_NEW))
     flags = ["--preset", "small", "--kv-int8", "--weights-int8"]
     beam_prompt = [reqs[1]["prompt"][:32]]
-    out = {}
-    for name, extra in (("engine", ["--batching", "continuous", "--speculate", "ngram"]),
-                        ("inline", ["--speculative"])):
-        proc, port, log = serve_cli(flags + extra, os.path.join(work, f"{name}.log"))
-        try:
-            start = time.monotonic()
+    refusal_cases = (
+        ("draft_at_small", ["--batching", "continuous", "--speculate", "draft"],
+         "draft vocab 512 != target vocab 32000 (the draft must share the tokenizer)"),
+        ("continuous_and_speculative", ["--batching", "continuous", "--speculative"],
+         "--batching continuous is mutually exclusive with --speculative"),
+    )
+    start = time.monotonic()
+    servers, refusing, out, refused = {}, {}, {}, {}
+    try:
+        for name, extra in (("engine", ["--batching", "continuous", "--speculate", "ngram"]),
+                            ("inline", ["--speculative"])):
+            servers[name] = serve_cli(flags + extra, os.path.join(work, f"{name}.log"))
+        for name, extra, _ in refusal_cases:
+            refusing[name] = subprocess.Popen(
+                [sys.executable, "-m", "tf_operator_tpu_torch.serve", *flags, *extra],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in ("engine", "inline"):
+            proc, port, log = servers[name]
             wait_for_health(port, proc, MODES_SERVE_TIMEOUT_S)
             boot_s = time.monotonic() - start
             client = DecodeClient(f"http://127.0.0.1:{port}", timeout=600)
@@ -4717,15 +4779,26 @@ def run_decode_modes_serve(gpt_lib, quant, server_lib, smi) -> dict:
                 "stream_beams": post_json(port, "/generate_stream", {
                     "input_ids": [[1, 2, 3]], "num_beams": 2}),
             }
-        finally:
             code = stop_cli(proc, log)
-        out[name] = {"boot_s": boot_s, "health": {k: health.get(k) for k in (
-                         "status", "kv_int8", "weights_int8")},
-                     "multi_row": multi, "beam": beam, "refusals": refusals,
-                     "sigterm_exit_code": code,
-                     "spec_rounds": flat.get("tf_operator_tpu_serve_spec_rounds_total"),
-                     "speculative_decodes": flat.get(
-                         "tf_operator_tpu_serve_speculative_decodes_total")}
+            out[name] = {"boot_s": boot_s, "health": {k: health.get(k) for k in (
+                             "status", "kv_int8", "weights_int8")},
+                         "multi_row": multi, "beam": beam, "refusals": refusals,
+                         "sigterm_exit_code": code,
+                         "spec_rounds": flat.get("tf_operator_tpu_serve_spec_rounds_total"),
+                         "speculative_decodes": flat.get(
+                             "tf_operator_tpu_serve_speculative_decodes_total")}
+        for name, _, text in refusal_cases:
+            output, _ = refusing[name].communicate(timeout=MODES_REFUSAL_TIMEOUT_S)
+            refused[name] = {"exit_code": refusing[name].returncode,
+                             "text_found": text in output}
+    finally:
+        for proc, _, log in servers.values():
+            if proc.poll() is None:
+                stop_cli(proc, log)
+        for proc in refusing.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     # in process, on the same weights
     chains, logits = inline_chains(gpt_lib, twin, reqs, kv_quant_int8=True)
     engine_differ, inline_equal = [], []
@@ -4746,17 +4819,7 @@ def run_decode_modes_serve(gpt_lib, quant, server_lib, smi) -> dict:
                                                          ).cuda(), 8, kv_quant_int8=True).tolist()
         seqs, _ = gpt_lib.beam_search(twin, torch.tensor(beam_prompt).cuda(), 8, num_beams=4,
                                       kv_quant_int8=True)
-    refused = {}
-    for name, extra, text in (
-        ("draft_at_small", ["--batching", "continuous", "--speculate", "draft"],
-         "draft vocab 512 != target vocab 32000 (the draft must share the tokenizer)"),
-        ("continuous_and_speculative", ["--batching", "continuous", "--speculative"],
-         "--batching continuous is mutually exclusive with --speculative"),
-    ):
-        run = subprocess.run([sys.executable, "-m", "tf_operator_tpu_torch.serve", *flags, *extra],
-                             capture_output=True, text=True, timeout=MODES_REFUSAL_TIMEOUT_S)
-        refused[name] = {"exit_code": run.returncode,
-                         "text_found": text in run.stdout + run.stderr}
+
     def summary(o):
         status, body = o["beam"]
         return {**{k: v for k, v in o.items() if k not in ("beam", "multi_row")},
@@ -4854,7 +4917,7 @@ MOE_TIMED_STEPS = 5
 MOE_PARITY_SHAPE = (2, 256)
 MOE_DECODE = (8, 128, 128)  # rows, prompt, new tokens (moe_bench.py:184 decodes 512)
 # the f32 decode checks' new tokens after the 128-token prompt
-MOE_CHECK_NEW = 64
+MOE_CHECK_NEW = 32
 # a capacity factor at which training drops nothing on these shapes (the
 # reference's tests/test_moe_pipeline.py:389-394): decode equals training
 MOE_NO_DROP_CF = 2.0
@@ -4875,7 +4938,7 @@ MOE_TIE = 1e-5
 MOE_BF16_LOSS_ATOL = 2e-2
 VIT_BATCH = 128  # the reference bench's per-chip batch (model_benches.py:405-406)
 VIT_TIMED_STEPS = 5
-VIT_PARITY_BATCH = 8
+VIT_PARITY_BATCH = 4
 VIT_SEQ = 196  # the bench's seq for its MFU: the patch count
 VIT_F32_LOGIT_ATOL = 1e-3
 VIT_F32_GRAD_RTOL = 1e-3
@@ -5501,9 +5564,9 @@ def wait_for_health(port: int, proc, timeout: float) -> None:
 
 
 def run_moe_serve(moe_lib, server_lib, smi) -> dict:
-    """moe_serve: train/moe.py --preset base --steps 2 --checkpoint-dir D,
-    then `python -m tf_operator_tpu_torch.serve --preset moe-base
-    --checkpoint-dir D` as a subprocess: MOE_SERVE_REQUESTS uniform-length
+    """moe_serve: train/moe.py --preset base --steps 2 --checkpoint-dir D
+    (its main(), in this process), then `python -m tf_operator_tpu_torch.serve
+    --preset moe-base --checkpoint-dir D` as a subprocess: MOE_SERVE_REQUESTS uniform-length
     requests from the port's DecodeClient, half greedy (each chain equal
     to in-process moe_generate on the restored weights) and half sampled
     (reported against in-process moe_generate from the same seed); a
@@ -5514,17 +5577,17 @@ def run_moe_serve(moe_lib, server_lib, smi) -> dict:
     import tempfile
 
     from tf_operator_tpu_torch.serve.client import DecodeClient
+    from tf_operator_tpu_torch.train import moe as moe_cli
 
     work = tempfile.mkdtemp(prefix="moe-serve-")
     ckpt = os.path.join(work, "ckpt")
     start = time.monotonic()
-    train = subprocess.run(
-        [sys.executable, "-m", "tf_operator_tpu_torch.train.moe", "--preset", "base",
-         "--steps", "2", "--checkpoint-dir", ckpt, "--log-every", "1"],
-        capture_output=True, text=True, timeout=MOE_SERVE_TIMEOUT_S)
+    code = moe_cli.main(["--preset", "base", "--steps", "2", "--checkpoint-dir", ckpt,
+                         "--log-every", "1"])
     train_s = time.monotonic() - start
-    if train.returncode != 0:
-        raise AssertionError(f"train/moe.py exited {train.returncode}: {train.stderr[-2000:]}")
+    if code != 0:
+        raise AssertionError(f"train/moe.py's main returned {code}")
+    free_device_memory()
     port = free_port()
     log = open(os.path.join(work, "server.log"), "w")
     proc = subprocess.Popen(
@@ -6660,6 +6723,215 @@ def run_disagg_phases(kernels, smi, ckpt=None) -> dict:
     return out
 
 
+# -- the serving fleet -------------------------------------------------------------
+
+FLEET_SEED = 41
+FLEET_REPLICAS = 3
+FLEET_SLOTS = 4
+FLEET_STREAMS = 8  # concurrent client streams
+FLEET_PROMPT = (16, 512)  # prompt tokens, inclusive
+FLEET_NEW = 32
+FLEET_CONN_FAULTS = 2
+FLEET_BLOCK = 64  # the serving defaults' block size (and prefill chunk)
+FLEET_CONTROL = (2, 2, 16)  # the planted control's replicas, clients, new tokens
+FLEET_AUTOSCALE_PROMPT = (64, 192)  # a full block or more: the KV directory has entries
+# After the boots, a kill frees about one replica's share of the memory the
+# replicas hold, and once the replacement is ready the total is back within
+# FLEET_MEMORY_SLACK of one replica's share of where it was: a kill/replace
+# cycle leaks no replica (its weights, pool and graphs).
+FLEET_MEMORY_FREED = 0.8
+FLEET_MEMORY_SLACK = 0.25
+FLEET_LABEL = ("host-bound: 3-4 engines, their HTTP handlers, the router, the controller "
+               "and the client threads share one Python process")
+
+
+def fleet_margin_check(gpt_lib, model):
+    """A chain_check for serve/fleet.py's smokes under the margin rule: a
+    served chain that differs from the inline one stands if its first
+    difference falls on a decision whose top-2 margin (the model's logits
+    teacher-forced along the inline chain) is at most SERVE_MARGIN_ULPS
+    bf16 ulps of the top logit."""
+    def check(prompt, got, want):
+        j = first_diff(got, want)
+        if j is None and len(got) == len(want):
+            return None
+        if j is None or len(got) != len(want):
+            return f"lengths {len(got)} and {len(want)}"
+        chain = torch.tensor([want[:j + 1]], device="cuda")
+        with torch.no_grad():
+            logits = forced_logits(gpt_lib, model, chain)[0, j - 1]
+        _, margin, bound = decisions(logits[None])[0].tolist()
+        if margin <= bound:
+            return None
+        return (f"first differs at new token {j - len(prompt)}, top-2 margin {margin:.6g} "
+                f"> {bound:.6g}")
+    return check
+
+
+def fleet_soak(gpt_lib, fleet_lib, cfg, weights, check, smi, label: str) -> dict:
+    """One run_failover_soak at GPT-small (FLEET_* sizes, sustained load)
+    and its checks beyond the soak's own: one kill, a failover recorded for
+    each, the replacement booted (and captured) while streams were in
+    flight, each engine's programs captured once, and the memory across
+    the kill and the replacement (FLEET_MEMORY_FREED, FLEET_MEMORY_SLACK)."""
+    free_device_memory()
+    base = torch.cuda.memory_allocated()
+    summary = fleet_lib.run_failover_soak(
+        seed=FLEET_SEED, replicas=FLEET_REPLICAS, streams=FLEET_STREAMS, kills=1,
+        max_new=FLEET_NEW, conn_faults=FLEET_CONN_FAULTS, namespace=f"soak-{label}", cfg=cfg,
+        device="cuda", params=weights, slots=FLEET_SLOTS, prompt_len=FLEET_PROMPT,
+        chain_check=check, sustain=True,
+    )
+    memory = [m["bytes"] for m in summary["memory_allocated"]]
+    share = (memory[0] - base) / FLEET_REPLICAS
+    problems = []
+    if summary["kills"] != 1 or summary["failovers"] < 1:
+        problems.append(f"kills {summary['kills']}, failovers {summary['failovers']}")
+    if summary["boots"] != FLEET_REPLICAS + 1:
+        problems.append(f"boots {summary['boots']}")
+    replacement = summary["boot_log"][-1]
+    if replacement["streams_in_flight"] < 1:
+        problems.append(f"the replacement booted with no stream in flight: {replacement}")
+    if any(c["step"] != 1 or c["prefill"] != 1 for c in summary["captures"]):
+        problems.append(f"captures {summary['captures']}")
+    if memory[0] - memory[1] < FLEET_MEMORY_FREED * share:
+        problems.append(f"the kill freed {memory[0] - memory[1]} of a {share} share")
+    if memory[2] - memory[0] > FLEET_MEMORY_SLACK * share:
+        problems.append(f"after the replacement {memory[2]} against {memory[0]} (share {share})")
+    report = {
+        "phase": f"fleet_soak_{label}", "card": smi, "label": FLEET_LABEL,
+        "model": f"GPT-small {label}", "replicas": FLEET_REPLICAS, "slots": FLEET_SLOTS,
+        "clients": FLEET_STREAMS, "prompt": list(FLEET_PROMPT), "new": FLEET_NEW,
+        **{k: summary[k] for k in (
+            "streams", "kills", "conn_faults_injected", "failovers", "recorded_failovers",
+            "boots", "near_ties", "seconds", "captures", "boot_log", "ttft_s", "itl_s")},
+        "memory_allocated": summary["memory_allocated"], "memory_base": base,
+        "replica_share_bytes": share, "problems": problems,
+    }
+    emit(report)
+    if problems:
+        raise AssertionError(f"fleet_soak_{label}: {problems}")
+    return report
+
+
+def rebinding_swap(self, params) -> None:
+    """A planted ContinuousBatchingEngine.swap_params that loads the new
+    weights by rebinding the module's tensors (load_state_dict(assign=True))
+    instead of copying into them. The old tensors are kept alive, so the
+    captured graphs go on reading the old weights."""
+    state = {k: v.to(self.device, copy=True) for k, v in params.items()}
+    self._rebound_from = dict(self.model.state_dict())
+    self.model.load_state_dict(state, assign=True)
+    if self._paged:
+        self.pool.flush()
+
+
+def run_fleet_update(gpt_lib, fleet_lib, engine_lib, v1, v2, smi) -> dict:
+    """fleet_update: run_rolling_update at GPT-small bf16, v1 -> v2 with
+    maxUnavailable 1 under FLEET_STREAMS client threads: each stream's
+    chain the inline chain of the version it was admitted under (the
+    margin rule against that version's model), no stream lost, each
+    replica's programs captured once. Then the planted control: the same
+    update with rebinding_swap in place of swap_params, which must fail
+    the chain check (post-swap streams on the old weights)."""
+    cfg = gpt_lib.GPT_SMALL
+    models = {name: built_from(lambda: gpt_lib.GPT(cfg), w, "cuda")
+              for name, w in (("v1", v1), ("v2", v2))}
+    checks = {name: fleet_margin_check(gpt_lib, m) for name, m in models.items()}
+    sizes = dict(cfg=cfg, device="cuda", params=v1, params2=v2, slots=FLEET_SLOTS,
+                 prompt_len=FLEET_PROMPT, chain_check=checks)
+    summary = fleet_lib.run_rolling_update(
+        seed=FLEET_SEED, replicas=FLEET_REPLICAS, streams_per_wave=FLEET_STREAMS,
+        max_new=FLEET_NEW, namespace="roll", **sizes)
+    replicas, clients, new = FLEET_CONTROL
+    swap = engine_lib.ContinuousBatchingEngine.swap_params
+    engine_lib.ContinuousBatchingEngine.swap_params = rebinding_swap
+    try:
+        fleet_lib.run_rolling_update(seed=FLEET_SEED, replicas=replicas,
+                                     streams_per_wave=clients, max_new=new,
+                                     namespace="roll-control", **sizes)
+        control = None
+    except AssertionError as err:
+        control = str(err)
+    finally:
+        engine_lib.ContinuousBatchingEngine.swap_params = swap
+    del models
+    report = {"phase": "fleet_update", "card": smi, "label": FLEET_LABEL,
+              "model": "GPT-small bf16", "replicas": FLEET_REPLICAS, "slots": FLEET_SLOTS,
+              "clients": FLEET_STREAMS, "new": FLEET_NEW, **summary,
+              "rebinding_control": None if control is None else control[:600]}
+    emit(report)
+    if control is None or "admitted under v2" not in control:
+        raise AssertionError(f"fleet_update: the rebinding swap passed the chain check: "
+                             f"{control}")
+    return report
+
+
+def run_fleet_autoscale(gpt_lib, fleet_lib, weights, smi) -> dict:
+    """fleet_autoscale: run_autoscale_smoke at GPT-small bf16 with the
+    observatory scraped at the scaled-out point, the margin rule on every
+    chain; then run_trace_smoke at GPT-small (one prefill and one decode
+    replica, 64-token blocks): one migrated request's merged trace, fetched
+    through the observatory, with all of HOP_NAMES."""
+    from tf_operator_tpu_torch.telemetry.collector import HOP_NAMES
+
+    cfg = gpt_lib.GPT_SMALL
+    model = built_from(lambda: gpt_lib.GPT(cfg), weights, "cuda")
+    summary = fleet_lib.run_autoscale_smoke(
+        seed=FLEET_SEED, cfg=cfg, device="cuda", params=weights,
+        chain_check=fleet_margin_check(gpt_lib, model), observe=True,
+        prompt_len=FLEET_AUTOSCALE_PROMPT)
+    del model
+    emit({"phase": "fleet_autoscale", "card": smi, "label": FLEET_LABEL,
+          "model": "GPT-small bf16", **summary})
+    trace = fleet_lib.run_trace_smoke(seed=FLEET_SEED, cfg=cfg, device="cuda", params=weights,
+                                      block_size=FLEET_BLOCK)
+    hops = {tid: [h["name"] for h in trace["breakdowns"][tid]["hops"]]
+            for tid in trace["migrated_traces"]}
+    emit({"phase": "fleet_trace", "card": smi, "label": FLEET_LABEL, "model": "GPT-small bf16",
+          **trace})
+    if not hops or any(names != list(HOP_NAMES) for names in hops.values()):
+        raise AssertionError(f"fleet_trace: hops {hops}")
+    return {"autoscale": summary, "trace": trace}
+
+
+def run_fleet_phases(kernels, smi) -> dict:
+    """fleet_soak_bf16, fleet_soak_f32 (TF32 off, every chain bit-identical
+    to inline generate), fleet_update and fleet_autoscale (with
+    fleet_trace): serve/fleet.py's InProcessFleet under the port's
+    ServeServiceController on its InMemorySubstrate, GPT-small replicas on
+    cuda:0. No kernel of K1-K5 runs on this path: their counts stay 0."""
+    from tf_operator_tpu_torch.models import gpt as gpt_lib
+    from tf_operator_tpu_torch.serve import engine as engine_lib
+    from tf_operator_tpu_torch.serve import fleet as fleet_lib
+
+    kernels.reset_launches()
+    cfg = gpt_lib.GPT_SMALL
+    v1 = seeded_weights(gpt_lib.GPT, cfg, FLEET_SEED)
+    v2 = seeded_weights(gpt_lib.GPT, cfg, FLEET_SEED + 1)
+    model = built_from(lambda: gpt_lib.GPT(cfg), v1, "cuda")
+    out = {"bf16": fleet_soak(gpt_lib, fleet_lib, cfg, v1, fleet_margin_check(gpt_lib, model),
+                              smi, "bf16")}
+    del model
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        out["f32"] = fleet_soak(gpt_lib, fleet_lib, dataclasses.replace(cfg, dtype=torch.float32),
+                                v1, None, smi, "f32")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
+    if out["f32"]["near_ties"]:
+        raise AssertionError(f"fleet_soak_f32: chains differ at {out['f32']['near_ties']}")
+    free_device_memory()
+    out["update"] = run_fleet_update(gpt_lib, fleet_lib, engine_lib, v1, v2, smi)
+    free_device_memory()
+    out["autoscale"] = run_fleet_autoscale(gpt_lib, fleet_lib, v1, smi)
+    free_device_memory()
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError(f"the fleet launched a kernel of K1-K5: {kernels.LAUNCHES}")
+    return out
+
+
 def built_from(make, weights: dict, device):
     """make()'s model holding `weights` on `device`, built on the meta
     device: no random initialisation to pay on the host before the copy
@@ -6816,8 +7088,9 @@ def main() -> int:
 
         timed_group(seconds, "mnist_and_profile_dir", mnist_and_profile_dir)
         world2 = timed_group(seconds, "distributed", run_distributed_phases, kernels, smi)
+        mp = world2
         free_device_memory()
-        mp = timed_group(seconds, "model_parallel", run_model_parallel_phases, kernels, smi)
+        timed_group(seconds, "model_parallel", run_model_parallel_phases, kernels, smi)
         free_device_memory()
         timed_group(seconds, "serve", run_serve, kernels, gpt_lib, smi)
         free_device_memory()
@@ -6829,6 +7102,8 @@ def main() -> int:
         free_device_memory()
         timed_group(seconds, "disagg", run_disagg_phases, kernels, smi,
                     ckpt=os.path.join(lifecycle_dir, "ckpt"))
+        free_device_memory()
+        timed_group(seconds, "fleet", run_fleet_phases, kernels, smi)
         free_device_memory()
     finally:
         shutil.rmtree(lifecycle_dir, ignore_errors=True)

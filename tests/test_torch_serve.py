@@ -70,6 +70,14 @@ NEW_MODULES = (
     "tf_operator_tpu_torch.serve.batching", "tf_operator_tpu_torch.telemetry.history",
     "tf_operator_tpu_torch.telemetry.alerts", "tf_operator_tpu_torch.telemetry.profiler",
     "tf_operator_tpu_torch.serve.router", "tf_operator_tpu_torch.serve.export",
+    "tf_operator_tpu_torch.serve.fleet", "tf_operator_tpu_torch.serve.autoscaler",
+    "tf_operator_tpu_torch.serve.observatory", "tf_operator_tpu_torch.telemetry.collector",
+    "tf_operator_tpu_torch.controller.serve", "tf_operator_tpu_torch.controller.status",
+    "tf_operator_tpu_torch.runtime.substrate", "tf_operator_tpu_torch.runtime.control",
+    "tf_operator_tpu_torch.runtime.events", "tf_operator_tpu_torch.runtime.expectations",
+    "tf_operator_tpu_torch.runtime.workqueue", "tf_operator_tpu_torch.api.k8s",
+    "tf_operator_tpu_torch.api.serde", "tf_operator_tpu_torch.api.validation",
+    "tf_operator_tpu_torch.api.defaults",
 )
 
 

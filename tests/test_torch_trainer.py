@@ -357,7 +357,11 @@ def test_port_imports_with_jax_blocked():
     assert "tf_operator_tpu_torch.ops.conv_bn" in modules
     assert "tf_operator_tpu_torch.models.resnet" in modules
     for name in ("api.types", "parallel.distributed", "parallel.mesh", "parallel.sharding",
-                 "testing.rendezvous_worker", "train.smoke"):
+                 "testing.rendezvous_worker", "train.smoke", "api.k8s", "api.serde",
+                 "api.validation", "api.defaults", "runtime.substrate", "runtime.control",
+                 "runtime.events", "runtime.expectations", "runtime.workqueue",
+                 "controller.status", "controller.serve", "serve.fleet", "serve.autoscaler",
+                 "serve.observatory", "telemetry.collector"):
         assert f"tf_operator_tpu_torch.{name}" in modules
     code = (
         "import sys\n"

@@ -1,7 +1,8 @@
 """Fault records: the port's copy of the part of
 tf_operator_tpu/chaos/faults.py that the training observe smoke
-(train/observe.py run_train_observe_smoke) uses. The chaos substrate and
-its other fault kinds are not part of this copy.
+(train/observe.py run_train_observe_smoke) and the serve fleet's fault
+injection (serve/fleet.py) use. The chaos substrate and its other fault
+kinds are not part of this copy.
 """
 
 from __future__ import annotations
@@ -13,6 +14,10 @@ from ..telemetry.flight import FlightRecorder, default_flight
 from ..utils import locks
 
 FAULT_LATENCY = "latency"  # added latency (the smoke's slowed input pipeline)
+FAULT_POD_DEATH = "pod_death"  # container exits 137 (the fleet's kill)
+# a decode connection reset before connect or mid-stream (the fleet's
+# FaultyClientFactory)
+FAULT_CONN_RESET = "conn_reset"
 
 
 @dataclasses.dataclass

@@ -2,8 +2,9 @@
 
 Two faces, deliberately separate:
 
-- ``now()`` is WALL time, for values that leave the process (the metric
-  history stamps each sample with it).
+- ``now()``/``now_iso()`` is WALL time, for values that leave the
+  process (the metric history stamps each sample with it; the serve
+  controller's condition and event timestamps).
 - ``monotonic()`` is INTERVAL time, for durations measured locally (the
   trainer's step phases, the goodput ledger, the alert state machine).
 
@@ -24,6 +25,9 @@ def parse_iso(ts: str) -> datetime.datetime:
 class Clock:
     def now(self) -> datetime.datetime:
         return datetime.datetime.now(datetime.timezone.utc)
+
+    def now_iso(self) -> str:
+        return self.now().strftime("%Y-%m-%dT%H:%M:%SZ")
 
     def monotonic(self) -> float:
         return time.monotonic()

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -918,6 +919,13 @@ def _forced(
     return torch.where(index + 1 < lens, forced, nxt)
 
 
+# One CUDA graph capture at a time in the process: torch.cuda.graph shares
+# one side stream between captures and CUDA allows one capture per stream.
+# The serving fleet builds engines (and captures their programs) on
+# warm-up threads while other engines in the process replay theirs.
+_CAPTURE_LOCK = threading.Lock()
+
+
 class _Program:
     """One decode program over static input buffers: the port's
     counterpart of a program the reference compiles once with jax.jit.
@@ -930,7 +938,14 @@ class _Program:
     graph's own output tensors, overwritten by the next replay. Elsewhere every call runs the body.
     `captures` counts the captures on CUDA and the first call elsewhere:
     the one-compile count. `run_eager` runs the body outside the graph,
-    the same work launched op by op."""
+    the same work launched op by op.
+
+    The warm-up and capture hold `_CAPTURE_LOCK`, and the capture runs in
+    "thread_local" mode: an unsafe call (an allocation, a synchronizing
+    copy) from another thread, such as another engine replaying its
+    graphs and reading its tokens back, neither fails nor invalidates it.
+    The body itself makes no such call, so the capture still raises on one
+    of its own."""
 
     def __init__(self, body: Callable[[], Any], inputs: Dict[str, torch.Tensor]) -> None:
         self.body = body
@@ -950,17 +965,18 @@ class _Program:
             self.captures = 1
             return self.body()
         if self.graph is None:
-            current = torch.cuda.current_stream(device)
-            side = torch.cuda.Stream(device)
-            side.wait_stream(current)
-            with torch.cuda.stream(side):
-                self.body()
-            current.wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self.output = self.body()
-            self.graph = graph
-            self.captures += 1
+            with _CAPTURE_LOCK:
+                current = torch.cuda.current_stream(device)
+                side = torch.cuda.Stream(device)
+                side.wait_stream(current)
+                with torch.cuda.stream(side):
+                    self.body()
+                current.wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    self.output = self.body()
+                self.graph = graph
+                self.captures += 1
         self.graph.replay()
         return self.output
 

@@ -1,8 +1,10 @@
 """Client for the decode server: the port's copy of
 tf_operator_tpu/serve/client.py (`DecodeClient`: generate,
-generate_stream, the KV block-set migration calls prefill, kv_export,
-kv_import, kv_digest and kv_statz, healthy, ready, metrics, metrics_text,
-trace; and `DecodeError`).
+generate_stream, beam_search, the KV block-set migration calls prefill,
+kv_export, kv_import, kv_digest and kv_statz, healthy, ready, metrics,
+metrics_text, trace, and the debug pages the fleet's observatory and
+collector read: clockz, flightz, profilez, historyz and alertz; and
+`DecodeError`).
 
     from tf_operator_tpu_torch.serve import DecodeClient
 
@@ -19,8 +21,7 @@ Retry-After hint. Whole-request POSTs replay freely; for
 /generate_stream only the connect is retried: once the first byte of the
 body has arrived, a failure propagates (replaying a half-consumed stream
 would double tokens). A QoS 429 on /generate_stream is a typed terminal
-event, as the reference's. The reference's beam and debug-page methods
-are not part of this copy (ROADMAP queue 1, the fleet).
+event, as the reference's.
 """
 
 from __future__ import annotations
@@ -224,6 +225,21 @@ class DecodeClient:
 
         return events()
 
+    def beam_search(
+        self,
+        input_ids: List[List[int]],
+        max_new_tokens: int = 16,
+        num_beams: int = 4,
+    ):
+        """(beams, beam_scores) per row, best-first — uniform-length
+        prompts only (the server enforces it)."""
+        body = json.loads(self._request("/generate", {
+            "input_ids": input_ids,
+            "max_new_tokens": max_new_tokens,
+            "num_beams": num_beams,
+        }))
+        return body["beams"], body["beam_scores"]
+
     # -- disaggregated prefill/decode (KV block-set migration) ---------
 
     def prefill(self, input_ids: List[int], migrate_to: Optional[str] = None) -> dict:
@@ -300,3 +316,101 @@ class DecodeClient:
         request spans (queued -> admitted -> first-token -> finished);
         load it in ui.perfetto.dev as-is."""
         return json.loads(self._request("/debug/trace"))
+
+    def clockz(self) -> dict:
+        """The replica's clock handshake from /debug/clockz:
+        {"mono", "perf", "wall", "tracer_epoch_perf", "pid"} — the
+        collector (telemetry/collector.py) samples it a few times,
+        keeps the min-RTT sample, and maps each replica's monotonic
+        timestamps onto its own clock."""
+        return json.loads(self._request("/debug/clockz"))
+
+    def flightz(
+        self,
+        request: Optional[str] = None,
+        kind: Optional[str] = None,
+        limit: Optional[int] = None,
+        since: Optional[float] = None,
+        trace: Optional[str] = None,
+    ) -> List[dict]:
+        """Parsed flight-recorder records from /debug/flightz, newest
+        last. request filters on the correlation ID the server echoes
+        as "request_id" (so a client can pull exactly its own
+        admit/evict/step records); kind/limit/since/trace filter
+        server-side (since = unix timestamp, records at or after it —
+        pass a profile payload's wall_start to fetch the overlapping
+        flight window; trace = fleet trace id, the collector's key)."""
+        from urllib.parse import urlencode
+
+        params = {}
+        if request is not None:
+            params["request"] = request
+        if kind is not None:
+            params["kind"] = kind
+        if limit is not None:
+            params["limit"] = str(limit)
+        if since is not None:
+            params["since"] = repr(float(since))
+        if trace is not None:
+            params["trace"] = trace
+        path = "/debug/flightz"
+        if params:
+            path += "?" + urlencode(params)
+        raw = self._request(path).decode()
+        return [json.loads(line) for line in raw.splitlines() if line]
+
+    def profilez(
+        self,
+        seconds: Optional[float] = None,
+        hz: Optional[int] = None,
+        format: str = "json",
+    ):
+        """Sampling-profiler snapshot from /debug/profilez (requires
+        the server's --enable-debug-endpoints). format="json" returns
+        the parsed to_json() payload; "folded"/"speedscope" return the
+        raw bytes. seconds triggers a blocking capture window when the
+        remote profiler isn't already running."""
+        from urllib.parse import urlencode
+
+        params = {"action": "snapshot", "format": format}
+        if seconds is not None:
+            params["seconds"] = repr(float(seconds))
+        if hz is not None:
+            params["hz"] = str(int(hz))
+        raw = self._request("/debug/profilez?" + urlencode(params))
+        return json.loads(raw) if format == "json" else raw
+
+    def historyz(
+        self,
+        series: Optional[str] = None,
+        window: Optional[float] = None,
+        q: Optional[float] = None,
+        points: bool = False,
+    ) -> dict:
+        """The replica's metric-history page from /debug/historyz
+        (telemetry/history.py): per-series windowed summaries, plus
+        raw sample points when points=True and a series filter is
+        given."""
+        from urllib.parse import urlencode
+
+        params = {}
+        if series is not None:
+            params["series"] = series
+        if window is not None:
+            params["window"] = repr(float(window))
+        if q is not None:
+            params["q"] = repr(float(q))
+        if points:
+            params["points"] = "1"
+        path = "/debug/historyz"
+        if params:
+            path += "?" + urlencode(params)
+        return json.loads(self._request(path))
+
+    def alertz(self, firing: bool = False) -> dict:
+        """The replica's alert states from /debug/alertz
+        (telemetry/alerts.py): rules, instances, firing list."""
+        path = "/debug/alertz"
+        if firing:
+            path += "?firing=1"
+        return json.loads(self._request(path))

@@ -198,6 +198,11 @@ class _State:
         self.phase = "warming"
         self.lock = locks.make_lock("_State.lock")
         self.engine = None  # set by make_server (batching="continuous")
+        # make_server(warm_async=True): the thread building the engine
+        # (and capturing its programs) while the listener already answers
+        self.warmup_thread = None
+        # time.monotonic() when the phase first turned "ready"
+        self.ready_at = None
         self.batcher = None  # set by make_server (batching="window")
         # per-tenant admission (TenantQoS), the metric history and the
         # alert manager over it, wired by make_server
@@ -990,12 +995,20 @@ class DecodeHTTPServer(ThreadingHTTPServer):
         super().__init__(*args, **kwargs)
         self._conn_lock = locks.make_lock("DecodeHTTPServer._conn_lock")
         self._conns: set = set()
+        # the handler threads still running (daemon threads, which
+        # server_close does not join): join_handlers waits for them
+        self._handlers: set = set()
 
     def server_close(self):
         # the history and alert tick threads and the batcher end with the
         # listener, so a shutdown leaves no thread behind
         state = getattr(self, "state", None)
         if state is not None:
+            # an engine still being built under warm_async is waited
+            # for, so the caller's engine.stop() finds it
+            warmup = state.warmup_thread
+            if warmup is not None and warmup.is_alive():
+                warmup.join(timeout=120.0)
             for owner in (state.alerts, state.history, state.batcher):
                 if owner is not None:
                     owner.stop()
@@ -1005,6 +1018,27 @@ class DecodeHTTPServer(ThreadingHTTPServer):
         with self._conn_lock:
             self._conns.add(request)
         super().process_request(request, client_address)
+
+    def process_request_thread(self, request, client_address):
+        me = threading.current_thread()
+        with self._conn_lock:
+            self._handlers.add(me)
+        try:
+            super().process_request_thread(request, client_address)
+        finally:
+            with self._conn_lock:
+                self._handlers.discard(me)
+
+    def join_handlers(self, timeout: float = 10.0) -> int:
+        """Wait (up to `timeout` in all) for the handler threads still
+        running, whose frames hold the server's state and engine; -> how
+        many are still alive after."""
+        deadline = time.monotonic() + timeout
+        with self._conn_lock:
+            threads = list(self._handlers)
+        for thread in threads:
+            thread.join(max(0.0, deadline - time.monotonic()))
+        return sum(1 for thread in threads if thread.is_alive())
 
     def shutdown_request(self, request):
         with self._conn_lock:
@@ -1049,6 +1083,7 @@ def make_server(
     host: str = "127.0.0.1",
     batching: str = "",
     n_slots: int = 8,
+    warm_async: bool = False,
     kv_layout: str = "paged",
     block_size: int = 64,
     kv_blocks: int = 0,
@@ -1078,7 +1113,11 @@ def make_server(
     in-process default stays loopback. batching: "none" (inline,
     lock-serialized), "window" (serve/batching.py DynamicBatcher; needs
     batch_window_ms > 0) or "continuous" (serve/engine.py: the slot grid,
-    built here, its programs captured before the server answers); the
+    built here, its programs captured before the server answers, or
+    with warm_async on a warm-up thread started once the listener is
+    bound: /readyz answers 503 "warming" until the engine is built and
+    its programs captured, then 200, or "failed" if the build raised;
+    server_close() joins that thread); the
     default "" means window iff batch_window_ms > 0, else none; window
     and continuous are gpt only. The metric history always samples the
     registry and the engine's counters (a tick thread every
@@ -1120,6 +1159,11 @@ def make_server(
         raise ValueError(
             "batching='continuous' and batch_window_ms are mutually exclusive: the engine "
             "admits per step, there is no coalesce window"
+        )
+    if warm_async and batching != "continuous":
+        raise ValueError(
+            "warm_async requires batching='continuous': only the engine has a "
+            "construction-time compile worth overlapping with the listener boot"
         )
     if batching == "continuous" and speculative:
         raise ValueError(
@@ -1209,21 +1253,45 @@ def make_server(
         if speculate == "draft":
             # random weights from seed 0: every replica drafts alike
             draft_model = gpt_lib.GPT(draft_cfg, generator=torch.Generator().manual_seed(0))
-        # the programs are captured here, on the engine's own thread,
-        # before the listener exists
-        state.engine = ContinuousBatchingEngine(
-            model, n_slots=n_slots, registry=state.registry, tracer=state.tracer,
-            kv_layout=kv_layout, block_size=block_size, kv_blocks=kv_blocks,
-            prefill_chunk=prefill_chunk, device=device, kv_quant_int8=kv_quant_int8,
-            weights_int8=weights_int8, speculate=speculate, spec_depth=spec_depth,
-            draft_model=draft_model, role=role,
-        )
+        def build_engine():
+            # the programs are captured on the engine's own thread, which
+            # the constructor starts and waits for
+            state.engine = ContinuousBatchingEngine(
+                model, n_slots=n_slots, registry=state.registry, tracer=state.tracer,
+                kv_layout=kv_layout, block_size=block_size, kv_blocks=kv_blocks,
+                prefill_chunk=prefill_chunk, device=device, kv_quant_int8=kv_quant_int8,
+                weights_int8=weights_int8, speculate=speculate, spec_depth=spec_depth,
+                draft_model=draft_model, role=role,
+            )
+
+        if warm_async:
+            def warm():
+                try:
+                    build_engine()
+                except Exception:  # noqa: BLE001 — a dead warm-up must show
+                    # on /readyz, not leave pollers at "warming" for ever
+                    logger.exception("async engine warm-up failed")
+                    state.phase = "failed"
+                    return
+                state.ready_at = time.monotonic()
+                state.phase = "ready"
+
+            state.warmup_thread = threading.Thread(target=warm, name="engine-warmup",
+                                                   daemon=True)
+        else:
+            build_engine()
     server = DecodeHTTPServer((host, port), DecodeHandlerFactory(state))
     server.state = state
     if history_interval_s > 0:
         # the alert manager ticks the history before each evaluation
         (state.alerts or state.history).start(history_interval_s)
-    state.phase = "ready"
+    if state.warmup_thread is not None:
+        # the listener exists: /readyz answers "warming" while the engine
+        # builds; the phase flips inside the thread
+        state.warmup_thread.start()
+    else:
+        state.ready_at = time.monotonic()
+        state.phase = "ready"
     return server
 
 

@@ -36,6 +36,7 @@ from .alerts import (
     AlertManager,
     BurnRateRule,
     ThresholdRule,
+    fleet_rules,
     render_alertz,
     serve_replica_rules,
     train_rules,
@@ -65,7 +66,7 @@ __all__ = [
     "validate_text", "FAST_BUCKETS", "LATENCY_BUCKETS", "SIZE_BUCKETS",
     "STEP_BUCKETS", "TTFT_BUCKETS", "MetricRegistry", "format_value",
     "histogram_quantile", "Span", "SpanTracer", "default_registry",
-    "AlertManager", "BurnRateRule", "ThresholdRule", "render_alertz",
+    "AlertManager", "BurnRateRule", "ThresholdRule", "fleet_rules", "render_alertz",
     "serve_replica_rules", "train_rules", "FlightRecord", "FlightRecorder",
     "correlate", "current_correlation", "default_flight", "flight_record",
     "render_flightz", "set_default_flight", "MetricHistory", "render_historyz",

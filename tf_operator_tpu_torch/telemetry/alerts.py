@@ -17,9 +17,10 @@ trace ids, sets an `alerts_firing{rule}` gauge, and shows at
 /debug/alertz (`render_alertz`). A partial evaluation (a worker scrape
 failed) holds firing states: missing data never clears an alert.
 
-Rule packs: `serve_replica_rules` (the decode server) and `train_rules`
-(the training fleet view). The operator's and the serve fleet's packs
-are not part of this copy. Stdlib only.
+Rule packs: `serve_replica_rules` (the decode server), `fleet_rules`
+(the serve fleet's observatory, serve/observatory.py) and `train_rules`
+(the training fleet view). The operator's pack is not part of this copy.
+Stdlib only.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ __all__ = [
     "ThresholdRule",
     "AlertManager",
     "render_alertz",
+    "fleet_rules",
     "serve_replica_rules",
     "train_rules",
 ]
@@ -475,6 +477,50 @@ def serve_replica_rules(
             mode="rate", window_s=300.0, fire_above=0.0,
             description="block pool accounting violations (leak or "
             "double free)",
+        ),
+    ]
+
+
+def fleet_rules(
+    ttft_slo_s: float = 0.25,
+    ttft_objective: float = 0.95,
+    windows: Sequence[Tuple[float, float]] = (
+        (60.0, 14.4), (300.0, 6.0),
+    ),
+) -> List:
+    """The observatory's fleet-level rule set, over the series the
+    observatory ingests from replica scrapes (fleet-summed cumulative
+    buckets — the never-average rule's composable form)."""
+    return [
+        BurnRateRule(
+            "fleet-ttft-slo", "fleet_ttft_seconds",
+            threshold_s=ttft_slo_s, objective=ttft_objective,
+            windows=windows,
+            description=(
+                f"fleet-wide: {ttft_objective:.0%} of first tokens "
+                f"under {ttft_slo_s * 1000:g}ms"
+            ),
+        ),
+        ThresholdRule(
+            "fleet-kv-occupancy", "fleet_kv_blocks_in_use",
+            denominator="fleet_kv_blocks_total", mode="ratio",
+            fire_above=0.9, resolve_below=0.75, for_s=10.0,
+            description="fleet paged KV pools nearly exhausted",
+        ),
+        ThresholdRule(
+            "fleet-scrape-errors", "fleet_scrape_errors",
+            fire_above=0.5, resolve_below=0.5, for_s=30.0,
+            description="replica scrapes failing (fleet sample "
+            "partial)",
+        ),
+        ThresholdRule(
+            "fleet-kv-cached-idle-pressure",
+            "fleet_kv_cached_idle_blocks",
+            denominator="fleet_kv_blocks_total", mode="ratio",
+            fire_above=0.5, resolve_below=0.35, for_s=10.0,
+            description="over half the fleet's KV blocks sit as idle "
+            "cached prefixes (duplication pressure: reclaim churn "
+            "ahead; fleet peer fetch would convert these to hits)",
         ),
     ]
 

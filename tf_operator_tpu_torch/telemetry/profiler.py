@@ -6,8 +6,13 @@
   ring. Each sample carries a role derived from the thread's name (the
   decode engine, HTTP handlers, the trainer's step and input threads),
   so a profile attributes time to planes without symbolizing anything.
-  The sampler measures its own duty cycle (`stats()["sample_seconds"]`)
-  so that the <2% overhead budget is asserted, not assumed.
+  The sampler measures its own duty cycle (`stats()["sample_seconds"]`
+  over `elapsed_seconds`) so that the <2% overhead budget is asserted,
+  not assumed. A tick is charged the sampler thread's CPU time
+  (`time.thread_time`): its wall time (`sample_wall_seconds`) also holds
+  the stretches it waits for the GIL or for a core, which are other
+  threads' time (PERF.md §7 has both, measured beside training threads
+  on an H100).
   `render_profilez` is the /debug/profilez page (`?action=start&hz=99`,
   `?action=stop`, and the default `?action=snapshot&seconds=5&format=
   folded|speedscope|json`; a snapshot with `seconds=` against a stopped
@@ -125,8 +130,13 @@ class SamplingProfiler:
         self._started_at: Optional[float] = None
         # sampler self-accounting: duty cycle = sample_seconds /
         # elapsed is THE overhead bound (the sampler only contends for
-        # the GIL while inside _sample_once)
+        # the GIL while inside _sample_once). sample_seconds is the
+        # sampler thread's CPU time in its ticks; the same ticks on the
+        # wall clock, and the longest of them, show what else a tick
+        # waited for
         self._sample_seconds = 0.0
+        self._sample_wall_seconds = 0.0
+        self._max_tick_seconds = 0.0
         self._ticks = 0
 
     # -- roles ---------------------------------------------------------------
@@ -202,13 +212,17 @@ class SamplingProfiler:
         next_t = time.monotonic()
         while not stop.is_set():
             t0 = time.monotonic()
+            c0 = time.thread_time()
             try:
                 self._sample_once()
             except Exception:  # noqa: BLE001 — the sampler observes a
                 # process; it must never take one down (a thread dying
                 # mid-walk can surface RuntimeError from frame access)
                 pass
-            self._sample_seconds += time.monotonic() - t0
+            tick = time.monotonic() - t0
+            self._sample_seconds += time.thread_time() - c0
+            self._sample_wall_seconds += tick
+            self._max_tick_seconds = max(self._max_tick_seconds, tick)
             self._ticks += 1
             next_t += period
             delay = next_t - time.monotonic()
@@ -305,6 +319,8 @@ class SamplingProfiler:
             "samples_in_ring": len(self),
             "ticks": self._ticks,
             "sample_seconds": round(self._sample_seconds, 6),
+            "sample_wall_seconds": round(self._sample_wall_seconds, 6),
+            "max_tick_seconds": round(self._max_tick_seconds, 6),
             "elapsed_seconds": (
                 round(elapsed, 6) if elapsed is not None else None
             ),

@@ -979,6 +979,9 @@ def run_train_observe_smoke(
         "attribution_overhead": {n: round(o, 6) for n, o in overhead.items()},
         "profiler_duty_cycle": round(duty, 6),
         "profiler_samples": stats.get("samples_total", 0),
+        "profiler_stats": {k: stats.get(k) for k in (
+            "ticks", "sample_seconds", "sample_wall_seconds", "max_tick_seconds",
+            "elapsed_seconds")},
         "goodput": {n: w["trainer"].goodput.snapshot() for n, w in workers.items()},
         "fleet": report,
         # each worker's steps/s at the end of the baseline, when the

@@ -17,3 +17,17 @@ def make_lock(name: str):
     """A mutex named for the lock-order graph; a plain threading.Lock."""
     del name
     return threading.Lock()
+
+
+def make_rlock(name: str):
+    """A reentrant lock named for the lock-order graph; a plain
+    threading.RLock."""
+    del name
+    return threading.RLock()
+
+
+def make_condition(name: str, lock=None):
+    """A condition variable named for the lock-order graph; a plain
+    threading.Condition over `lock` (a fresh RLock when None)."""
+    del name
+    return threading.Condition(lock)
