@@ -260,7 +260,9 @@ non-zero, printing no result:
    and each step's hook reads /metrics. Held: train_steps_total moves by
    the steps run, /metrics validates, /healthz reaches "training", every
    route answers 200, and K1-K3 launch 12 times a step each. Tokens/s
-   beside gpt_train's.
+   beside gpt_train's. After the warm-up step (outside the timed steps)
+   `python -m tf_operator_tpu_torch.telemetry trainz <the worker's URL>`
+   must exit 0 with the worker's goodput and phase split.
 45. train_observe_smoke - train/observe.py run_train_observe_smoke on
    the card: two MNIST workers in threads, a latency fault on worker-1's
    input fires train-straggler, the fault clears and the alert
@@ -280,7 +282,11 @@ non-zero, printing no result:
    with Retry-After (a client retries after it), OBSERVE_NOISY_BURST
    concurrent noisy requests over its burst draw at least one 429, every
    debug route answers. Tokens/s, TTFT p50/p95 (first streamed token at
-   the client) for both modes and by priority class.
+   the client) for both modes and by priority class. In the continuous
+   mode, once the load is done, the telemetry CLI's `profile --url` on
+   the live server (1 s at 99 Hz: the engine's role in its tables) and
+   the bare CLI on the server's /debug/flightz page (the timeline and a
+   Perfetto file) must each exit 0.
 47. disagg_serve - GPT-small (bf16, random weights from a seed) as a
    prefill server and a decode server (make_server, role="prefill" and
    "decode", 8 slots each, the default pools) in this process behind the
@@ -340,15 +346,43 @@ non-zero, printing no result:
    the observatory scraped at the scaled-out point (fleet SLO, KV
    directory, a merged trace). Then run_trace_smoke at GPT-small (a
    prefill and a decode replica, 64-token blocks): a migrated request's
-   merged trace through the observatory with all 8 HOP_NAMES. No kernel
-   of K1-K5 runs in phases 49-52.
+   merged trace through the observatory with all 8 HOP_NAMES. The
+   telemetry CLI against the live observatory: `alertz --observatory`
+   exits 3 at the scaled-out point (the burn-rate rule fires) and 0 once
+   the group is back in; `kvz` and `historyz --observatory` print their
+   pages; `tracez --observatory` prints the same 8 hops, in order, as the
+   page the phase checks. No kernel of K1-K5 runs in phases 49-54.
+53. telemetry_smoke - `python -m tf_operator_tpu_torch.serve --smoke` as
+   a subprocess on the card (GPT_TINY, the smoke's own size): exit 0 and
+   ok true, its report printed (the /metrics exposition with a TTFT
+   histogram, a complete serve-request span with its queued, admitted and
+   first-token marks, the streamed request's correlated flight records,
+   the dump round-tripped through the telemetry CLI).
+54. crash_dumps - a child process (`chip_smoke.py --crash-child <dir>`)
+   serves GPT-small bf16 at full width through make_server (continuous,
+   paged, SERVE_SLOTS slots) and calls install_crash_handlers(directory=
+   <dir>). The parent streams CRASH_STREAMS of serve's requests
+   (CRASH_NEW new tokens each) and sends SIGUSR2 once every stream has
+   its first token. Held: flight-usr2-<pid>.jsonl parses and holds every
+   stream's submit and admit records under its request id,
+   flight-stacks-<pid>.txt shows the engine thread's frames
+   (serve/engine.py), profile-usr2-<pid>.json lands after its 5 s window
+   with samples of the decode engine's role, and every chain is the
+   inline generate's under the margin rule. Then a planted unhandled
+   exception in the child writes flight-crash-<pid>.jsonl and the child
+   exits non-zero; the CLI merges the two dumps (timeline and
+   --perfetto) and `profile --input profile-usr2-<pid>.json --top 10`
+   reads the profile. Reported: the dumps' sizes, the seconds from the
+   signal to each file, the streams' inter-token p95 before the signal
+   and in the second after it.
 Each phase group prints its seconds (group_seconds), every phase line
 the seconds since the script started ("t"), and script_seconds the
 total. Then the kernel summary line (with each kernel's launches per
 run_steps replay and per step per rank at world 2), the nvidia-smi line,
 and the result line. `chip_smoke.py --world2-rank <dir>` is one rank of
 phases 23-27's world of 2, which phase 23 launches (the distributed group),
-and `--world-rank cli <dir>` one of phase 28's world of 4.
+`--world-rank cli <dir>` one of phase 28's world of 4, and
+`--crash-child <dir>` phase 54's serving child.
 Imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -5847,6 +5881,26 @@ def http_get(port: int, path: str, timeout: float = 30.0) -> tuple:
         return err.code, err.read()
 
 
+def telemetry_cli(args: list, timeout: float = 120.0) -> dict:
+    """`python -m tf_operator_tpu_torch.telemetry` with args as a user runs
+    it: -> its exit code, stdout, stderr and wall seconds."""
+    import os
+
+    start = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "tf_operator_tpu_torch.telemetry", *args],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=timeout)
+    return {"args": list(args), "rc": proc.returncode, "stdout": proc.stdout,
+            "stderr": proc.stderr[-2000:], "seconds": time.monotonic() - start}
+
+
+def cli_brief(run: dict, lines: int = 4) -> dict:
+    """A telemetry_cli() result for a phase line: its first lines only."""
+    out = run["stdout"].splitlines()
+    return {"args": run["args"], "rc": run["rc"], "seconds": run["seconds"],
+            "stdout_lines": len(out), "head": out[:lines]}
+
+
 def run_train_observe(kernels, gpt_cli, smi, gpt_summary) -> dict:
     """train_observe: gpt_train's run with the worker telemetry server up
     (see the module docstring, phase 41)."""
@@ -5860,6 +5914,7 @@ def run_train_observe(kernels, gpt_cli, smi, gpt_summary) -> dict:
     stop = threading.Event()
     scraped = {path: [] for path in OBSERVE_ROUTES}
     phases, per_step, errors = set(), [], []
+    trainz = {}
 
     def scraper():
         while not stop.is_set():
@@ -5883,6 +5938,9 @@ def run_train_observe(kernels, gpt_cli, smi, gpt_summary) -> dict:
         value = next(float(line.split()[1]) for line in text.splitlines()
                      if line.startswith("tf_operator_tpu_train_steps_total "))
         per_step.append({"step": state.step, "status": status, "steps_total": value - base})
+        if not trainz:
+            # after the warm-up step, before the timed ones start
+            trainz.update(telemetry_cli(["trainz", f"http://127.0.0.1:{port}"]))
 
     thread = threading.Thread(target=scraper, name="observe-scraper", daemon=True)
     thread.start()
@@ -5914,9 +5972,14 @@ def run_train_observe(kernels, gpt_cli, smi, gpt_summary) -> dict:
             "flash_bwd_dkv": launches["flash_bwd_dkv"] / summary["backward_passes"],
             "flash_bwd_dq": launches["flash_bwd_dq"] / summary["backward_passes"]},
         "loss": summary["loss"], "first_loss": summary["first_loss"],
+        "trainz": cli_brief(trainz, lines=8) if trainz else None,
     }
     emit(report)
     problems = list(errors)
+    if not trainz or trainz["rc"] != 0 or \
+            f"# http://127.0.0.1:{port}: phase=" not in trainz["stdout"] or \
+            "goodput=" not in trainz["stdout"]:
+        problems.append(f"trainz: {trainz and {k: trainz[k] for k in ('rc', 'stdout', 'stderr')}}")
     if launches != want:
         problems.append(f"launches {launches} != expected {want}")
     if not per_step or per_step[-1]["steps_total"] != steps_run:
@@ -6033,6 +6096,7 @@ def serve_observe_mode(gpt_lib, model, reqs, batching: str, smi) -> dict:
         time.sleep(2 * OBSERVE_HISTORY_S)  # at least one history tick after the load
         pages = {path: http_get(port, path) for path in OBSERVE_DEBUG_ROUTES}
         metrics = http_get(port, "/metrics")[1].decode()
+        cli = serve_observe_cli(port) if batching == "continuous" else None
     finally:
         server.shutdown()
         server.server_close()
@@ -6069,8 +6133,42 @@ def serve_observe_mode(gpt_lib, model, reqs, batching: str, smi) -> dict:
         "debug_routes": {path: status for path, (status, _) in pages.items()},
         "alerts_firing": alertz["firing"], "alert_evaluations": alertz["evaluations"],
         "history_ticks": json.loads(pages["/debug/historyz"][1])["ticks"],
+        "cli": cli,
         "chains": [r["chain"] for r in results],
     }
+
+
+def serve_observe_cli(port: int) -> dict:
+    """The telemetry CLI against a live server: `profile --url` (1 s at
+    99 Hz) and the bare CLI over the server's /debug/flightz page (the
+    newest 20 records' timeline and a Perfetto file of the whole page).
+    -> their brief results and the problems found ("problems")."""
+    import os
+    import tempfile
+
+    problems = []
+    profile = telemetry_cli(["profile", "--url", f"http://127.0.0.1:{port}", "--seconds", "1",
+                             "--top", "10"])
+    if profile["rc"] != 0 or "# roles" not in profile["stdout"] or \
+            "engine" not in profile["stdout"]:
+        problems.append(f"profile --url: rc {profile['rc']} {profile['stdout'][:400]!r} "
+                        f"{profile['stderr']!r}")
+    status, page = http_get(port, "/debug/flightz")
+    with tempfile.TemporaryDirectory(prefix="flightz-") as tmp:
+        dump = os.path.join(tmp, "flightz.jsonl")
+        with open(dump, "wb") as f:
+            f.write(page)
+        perfetto = os.path.join(tmp, "flightz.perfetto.json")
+        timeline = telemetry_cli([dump, "--limit", "20", "--perfetto", perfetto])
+        events = (len(json.load(open(perfetto))["traceEvents"])
+                  if os.path.exists(perfetto) else None)
+    if status != 200 or timeline["rc"] != 0 or "# 20 records" not in timeline["stdout"] or \
+            not events:
+        problems.append(f"flightz through the CLI: status {status} rc {timeline['rc']} "
+                        f"{timeline['stdout'][:400]!r} {timeline['stderr']!r}")
+    return {"profile": cli_brief(profile, lines=12), "flightz_bytes": len(page),
+            "flightz_timeline": cli_brief(timeline), "flightz_perfetto_events": events,
+            "problems": problems}
 
 
 def post_with_tenant(port: int, prompt: list, new: int, tenant: str) -> tuple:
@@ -6121,6 +6219,8 @@ def run_serve_observe(kernels, gpt_lib, smi) -> dict:
                     problems.append(f"{batching}: request {i} left the inline chain at {j} "
                                     f"on a margin of {m} > {bound}")
         mode["differ"] = differ
+        if mode["cli"] is not None:
+            problems += [f"{batching}: {why}" for why in mode["cli"].pop("problems")]
         modes[batching] = mode
         emit({"phase": "serve_observe", "card": smi, "model": "GPT-small", **mode})
         if 429 not in mode["burst"]:
@@ -6872,26 +6972,60 @@ def run_fleet_autoscale(gpt_lib, fleet_lib, weights, smi) -> dict:
     observatory scraped at the scaled-out point, the margin rule on every
     chain; then run_trace_smoke at GPT-small (one prefill and one decode
     replica, 64-token blocks): one migrated request's merged trace, fetched
-    through the observatory, with all of HOP_NAMES."""
+    through the observatory, with all of HOP_NAMES. The telemetry CLI runs
+    against each live observatory (phase 52 of the module docstring)."""
     from tf_operator_tpu_torch.telemetry.collector import HOP_NAMES
 
     cfg = gpt_lib.GPT_SMALL
     model = built_from(lambda: gpt_lib.GPT(cfg), weights, "cuda")
+    cli = {}
+
+    def observatory_cli(url, stage):
+        forms = [["alertz", "--observatory", url]]
+        if stage == "fired":
+            forms += [["kvz", "--observatory", url],
+                      ["historyz", "--observatory", url, "--window", "60"]]
+        cli[stage] = [telemetry_cli(form) for form in forms]
+
     summary = fleet_lib.run_autoscale_smoke(
         seed=FLEET_SEED, cfg=cfg, device="cuda", params=weights,
         chain_check=fleet_margin_check(gpt_lib, model), observe=True,
-        prompt_len=FLEET_AUTOSCALE_PROMPT)
+        prompt_len=FLEET_AUTOSCALE_PROMPT, on_observatory=observatory_cli)
     del model
     emit({"phase": "fleet_autoscale", "card": smi, "label": FLEET_LABEL,
-          "model": "GPT-small bf16", **summary})
+          "model": "GPT-small bf16", **summary,
+          "cli": {stage: [cli_brief(run) for run in runs] for stage, runs in cli.items()}})
+    problems = []
+    want = {"fired": [3, 0, 0], "resolved": [0]}
+    got = {stage: [run["rc"] for run in cli.get(stage, [])] for stage in want}
+    if got != want:
+        problems.append(f"CLI exit codes {got} != {want}")
+    elif "ttft-slo" not in cli["fired"][0]["stdout"] or \
+            "(none)" not in cli["resolved"][0]["stdout"] or \
+            "# fleet kv: duplication_factor=" not in cli["fired"][1]["stdout"] or \
+            not cli["fired"][2]["stdout"].startswith("# observatory: "):
+        problems.append(f"CLI pages: {[(r['args'], r['stdout'][:300]) for r in cli['fired']]}")
+
+    tracez = {}
+
+    def trace_cli(url, traces):
+        for tid in traces:
+            tracez[tid] = telemetry_cli(["tracez", "--trace", tid, "--observatory", url])
+
     trace = fleet_lib.run_trace_smoke(seed=FLEET_SEED, cfg=cfg, device="cuda", params=weights,
-                                      block_size=FLEET_BLOCK)
+                                      block_size=FLEET_BLOCK, on_observatory=trace_cli)
     hops = {tid: [h["name"] for h in trace["breakdowns"][tid]["hops"]]
             for tid in trace["migrated_traces"]}
+    printed = {tid: [line.split()[0] for line in tracez[tid]["stdout"].splitlines()
+                     if not line.startswith("#")] for tid in hops if tid in tracez}
     emit({"phase": "fleet_trace", "card": smi, "label": FLEET_LABEL, "model": "GPT-small bf16",
-          **trace})
+          **trace, "tracez_cli": {tid: cli_brief(run, lines=12) for tid, run in tracez.items()}})
     if not hops or any(names != list(HOP_NAMES) for names in hops.values()):
-        raise AssertionError(f"fleet_trace: hops {hops}")
+        problems.append(f"fleet_trace: hops {hops}")
+    if printed != hops or any(tracez[tid]["rc"] != 0 for tid in printed):
+        problems.append(f"tracez --observatory printed {printed} for the page's {hops}")
+    if problems:
+        raise AssertionError(f"fleet_autoscale/fleet_trace: {problems}")
     return {"autoscale": summary, "trace": trace}
 
 
@@ -6929,6 +7063,283 @@ def run_fleet_phases(kernels, smi) -> dict:
     free_device_memory()
     if any(kernels.LAUNCHES.values()):
         raise AssertionError(f"the fleet launched a kernel of K1-K5: {kernels.LAUNCHES}")
+    return out
+
+
+# -- the telemetry CLI, the server's smoke and the crash dumps ---------------
+
+CRASH_STREAMS = 8  # streams in flight when SIGUSR2 lands (one a slot)
+CRASH_NEW = 192  # new tokens a stream: the streams outlast the signal
+CRASH_BOOT_TIMEOUT_S = 300
+CRASH_FILE_TIMEOUT_S = 30  # the profile's 5 s window plus slack
+
+
+def run_telemetry_smoke(smi) -> dict:
+    """telemetry_smoke: `python -m tf_operator_tpu_torch.serve --smoke` on
+    the card (phase 53 of the module docstring)."""
+    import os
+
+    start = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "tf_operator_tpu_torch.serve", "--smoke"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=300)
+    wall = time.monotonic() - start
+    out = proc.stdout
+    report = json.loads(out[out.index("{"):]) if "{" in out else {}
+    emit({"phase": "telemetry_smoke", "card": smi, "model": "GPT_TINY", "exit_code":
+          proc.returncode, "wall_seconds": wall, "report": report})
+    if proc.returncode != 0 or report.get("ok") is not True:
+        raise AssertionError(f"telemetry_smoke: exit {proc.returncode}, {out[-2000:]!r} "
+                             f"{proc.stderr[-3000:]!r}")
+    return report
+
+
+def crash_child(work: str) -> int:
+    """`chip_smoke.py --crash-child <dir>`: phase 54's serving child.
+    GPT-small bf16 (SERVE_SEED's weights) behind make_server on the card
+    with install_crash_handlers(directory=<dir>); writes its port to
+    <dir>/port, then waits on the main thread (where the SIGUSR2 handler
+    runs) until <dir>/crash exists and raises a planted exception, which
+    the excepthook dumps before the process exits non-zero."""
+    import os
+    import threading
+
+    from tf_operator_tpu_torch.models import gpt as gpt_lib
+    from tf_operator_tpu_torch.serve import make_server
+    from tf_operator_tpu_torch.telemetry import install_crash_handlers
+
+    cfg = gpt_lib.GPT_SMALL
+    model = gpt_lib.GPT(cfg, generator=torch.Generator().manual_seed(SERVE_SEED), device="cuda")
+    server = make_server(model, device="cuda", batching="continuous", n_slots=SERVE_SLOTS,
+                         kv_layout="paged", block_size=SERVE_BLOCK, prefill_chunk=SERVE_CHUNK)
+    del model
+    install_crash_handlers(directory=work)
+    threading.Thread(target=server.serve_forever, name="crash-child-listener",
+                     daemon=True).start()
+    with open(os.path.join(work, "port.tmp"), "w") as f:
+        f.write(str(server.server_address[1]))
+    os.replace(os.path.join(work, "port.tmp"), os.path.join(work, "port"))
+    trigger = os.path.join(work, "crash")
+    while not os.path.exists(trigger):
+        time.sleep(0.02)
+    raise RuntimeError("planted crash: crash_dumps checks the excepthook's dump")
+
+
+def timed_stream(port: int, prompt: list, new: int) -> dict:
+    """One /generate_stream: -> the chain, the request id, and the
+    monotonic arrival time of every token."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate_stream",
+        data=json.dumps({"input_ids": [prompt], "max_new_tokens": new}).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    arrivals, done = [], None
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for line in resp:
+            event = json.loads(line)
+            if "error" in event:
+                raise AssertionError(f"stream error: {event['error']}")
+            if "token" in event:
+                arrivals.append(time.monotonic())
+            if event.get("done"):
+                done = event
+    return {"chain": done["tokens"][0], "request_id": done["request_id"], "arrivals": arrivals}
+
+
+def run_crash_dumps(gpt_lib, smi) -> dict:
+    """crash_dumps: phase 54 of the module docstring."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    problems = []
+    work = tempfile.mkdtemp(prefix="crash-dumps-")
+    log = open(os.path.join(work, "child.log"), "w")
+    start = time.monotonic()
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--crash-child", work],
+                             cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+                             stderr=subprocess.STDOUT)
+    try:
+        # the inline ground truth while the child boots
+        cfg = gpt_lib.GPT_SMALL
+        model = gpt_lib.GPT(cfg, generator=torch.Generator().manual_seed(SERVE_SEED),
+                            device="cuda")
+        reqs = [dict(r, new=CRASH_NEW) for r in serve_requests(cfg)[:CRASH_STREAMS]]
+        chains, logits = inline_chains(gpt_lib, model, reqs)
+        inline = []
+        for i, r in enumerate(reqs):
+            p = len(r["prompt"])
+            inline.append((chains[i, :p + r["new"]].tolist(),
+                           decisions(logits[p - 1:p + r["new"] - 1, i]).cpu()))
+        del model, chains, logits
+        free_device_memory()
+        port_path = os.path.join(work, "port")
+        deadline = time.monotonic() + CRASH_BOOT_TIMEOUT_S
+        while not os.path.exists(port_path):
+            if child.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"crash child did not come up (exit {child.poll()})")
+            time.sleep(0.05)
+        boot_s = time.monotonic() - start
+        port = int(open(port_path).read())
+        results = [None] * len(reqs)
+        errors = []
+
+        def client(i):
+            try:
+                results[i] = timed_stream(port, reqs[i]["prompt"], reqs[i]["new"])
+            except Exception as err:  # noqa: BLE001 — raised below
+                errors.append(f"stream {i}: {type(err).__name__}: {err}")
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        # the first token of every stream: each is admitted, mid-decode
+        deadline = time.monotonic() + 300
+        while not all(r is not None for r in results) and time.monotonic() < deadline:
+            status, body = http_get(port, "/metrics")
+            firsts = next((float(line.split()[1]) for line in body.decode().splitlines()
+                           if line.startswith("tf_operator_tpu_serve_ttft_seconds_count")), 0.0)
+            if status == 200 and firsts >= len(reqs):
+                break
+            time.sleep(0.02)
+        signalled = time.monotonic()
+        os.kill(child.pid, signal.SIGUSR2)
+        pid = child.pid
+        files = {"usr2": f"flight-usr2-{pid}.jsonl", "stacks": f"flight-stacks-{pid}.txt",
+                 "profile": f"profile-usr2-{pid}.json"}
+        landed = {}
+        deadline = signalled + CRASH_FILE_TIMEOUT_S
+        while len(landed) < len(files) and time.monotonic() < deadline:
+            for key, name in files.items():
+                path = os.path.join(work, name)
+                if key not in landed and os.path.exists(path):
+                    if key == "profile":
+                        try:  # written whole once the window ends
+                            json.load(open(path))
+                        except ValueError:
+                            continue
+                    landed[key] = time.monotonic() - signalled
+            time.sleep(0.01)
+        for t in threads:
+            t.join(timeout=600)
+        if errors or any(r is None for r in results):
+            problems.append(f"streams: {errors or 'a stream did not finish'}")
+        # the planted crash
+        open(os.path.join(work, "crash"), "w").close()
+        crashed = time.monotonic()
+        try:
+            exit_code = child.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            exit_code = None
+        exit_s = time.monotonic() - crashed
+        crash_path = os.path.join(work, f"flight-crash-{pid}.jsonl")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        log.close()
+    child_log = open(os.path.join(work, "child.log")).read()
+    if exit_code in (None, 0):
+        problems.append(f"the crash child exited {exit_code}")
+    if "RuntimeError: planted crash" not in child_log or \
+            f"flight recorder dump: {crash_path}" not in child_log:
+        problems.append(f"the child's traceback or dump notice is missing: {child_log[-1500:]!r}")
+    missing = [key for key in files if key not in landed]
+    if missing or not os.path.exists(crash_path):
+        problems.append(f"dumps missing: {missing}, crash dump {os.path.exists(crash_path)}")
+    sizes = {name: os.path.getsize(os.path.join(work, name))
+             for name in sorted(os.listdir(work)) if name.startswith(("flight-", "profile-"))}
+    report = {"phase": "crash_dumps", "card": smi, "model": "GPT-small bf16",
+              "streams": len(reqs), "new_tokens": CRASH_NEW, "boot_s": boot_s,
+              "signal_to_file_s": landed, "trigger_to_exit_s": exit_s,
+              "child_exit_code": exit_code, "dump_bytes": sizes}
+    if not problems:
+        usr2 = [json.loads(line) for line in open(os.path.join(work, files["usr2"]))]
+        crash = [json.loads(line) for line in open(crash_path)]
+        stacks = open(os.path.join(work, files["stacks"])).read()
+        profile = json.load(open(os.path.join(work, files["profile"])))
+        ops = {}
+        for rec in usr2:
+            ops.setdefault(rec.get("corr"), set()).add(rec["fields"].get("op"))
+        ids = [r["request_id"] for r in results]
+        short = [rid for rid in ids if not {"submit", "admit"} <= ops.get(rid, set())]
+        if short:
+            problems.append(f"usr2 dump lacks submit/admit of {short}")
+        if "serve/engine.py" not in stacks:
+            problems.append("the stacks dump shows no engine frame")
+        engine_samples = sum(n for stack, n in profile["folded"].items()
+                             if stack.startswith("engine;"))
+        if not engine_samples:
+            problems.append(f"the profile has no engine samples: {list(profile['folded'])[:5]}")
+        if not crash or crash[-1]["seq"] < usr2[-1]["seq"]:
+            problems.append("the crash dump is not newer than the usr2 dump")
+        differ = []
+        for i, (r, served) in enumerate(zip(reqs, results)):
+            want, decided = inline[i]
+            j = first_diff(served["chain"], want)
+            if j is not None:
+                _, m, bound = decided[j - len(r["prompt"])].tolist()
+                differ.append({"request": i, "position": j, "inline_margin": m, "bound": bound})
+                if m > bound:
+                    problems.append(f"request {i} left the inline chain at {j} on a margin "
+                                    f"of {m} > {bound}")
+        gaps_before, gaps_after = [], []
+        for r in results:
+            for a, b in zip(r["arrivals"], r["arrivals"][1:]):
+                if b <= signalled:
+                    gaps_before.append(b - a)
+                elif a < signalled + 1.0:
+                    gaps_after.append(b - a)
+
+        def p95(values):
+            return float(torch.tensor(values).quantile(0.95)) if values else None
+
+        merged = os.path.join(work, "merged.perfetto.json")
+        dumps = [os.path.join(work, files["usr2"]), crash_path]
+        timeline = telemetry_cli(dumps)
+        exported = telemetry_cli([*dumps, "--quiet", "--perfetto", merged])
+        tables = telemetry_cli(["profile", "--input", os.path.join(work, files["profile"]),
+                                "--top", "10"])
+        for run in (timeline, exported, tables):
+            if run["rc"] != 0:
+                problems.append(f"CLI {run['args']}: rc {run['rc']} {run['stderr']!r}")
+        records = len(usr2) + len(crash)
+        if f"# {records} records" not in timeline["stdout"] or "engine" not in tables["stdout"]:
+            problems.append(f"CLI output: {timeline['stdout'][:200]!r} {tables['stdout'][:400]!r}")
+        report.update({
+            "usr2_records": len(usr2), "crash_records": len(crash),
+            "stream_request_ids": ids, "profile_samples": profile["samples"],
+            "profile_engine_samples": engine_samples, "differ": differ,
+            "itl_p95_before_signal_s": p95(gaps_before),
+            "itl_p95_second_after_signal_s": p95(gaps_after),
+            "itl_max_second_after_signal_s": max(gaps_after) if gaps_after else None,
+            "cli": {"timeline": cli_brief(timeline), "perfetto": cli_brief(exported),
+                    "perfetto_events": len(json.load(open(merged))["traceEvents"])
+                    if os.path.exists(merged) else None,
+                    "profile": cli_brief(tables, lines=14)},
+        })
+    emit(report)
+    shutil.rmtree(work, ignore_errors=True)
+    if problems:
+        raise AssertionError(f"crash_dumps: {problems}")
+    return report
+
+
+def run_telemetry_phases(kernels, smi) -> dict:
+    """telemetry_smoke and crash_dumps (phases 53-54); no kernel of K1-K5
+    runs on these paths: their counts stay 0."""
+    from tf_operator_tpu_torch.models import gpt as gpt_lib
+
+    kernels.reset_launches()
+    out = {"telemetry_smoke": run_telemetry_smoke(smi)}
+    out["crash_dumps"] = run_crash_dumps(gpt_lib, smi)
+    free_device_memory()
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError(f"the telemetry phases launched a kernel of K1-K5: "
+                             f"{kernels.LAUNCHES}")
     return out
 
 
@@ -7105,6 +7516,8 @@ def main() -> int:
         free_device_memory()
         timed_group(seconds, "fleet", run_fleet_phases, kernels, smi)
         free_device_memory()
+        timed_group(seconds, "telemetry", run_telemetry_phases, kernels, smi)
+        free_device_memory()
     finally:
         shutil.rmtree(lifecycle_dir, ignore_errors=True)
     emit({"phase": "script_seconds", "card": smi, "groups": seconds,
@@ -7182,4 +7595,6 @@ if __name__ == "__main__":
         sys.exit(world2_rank(sys.argv[2]))
     if len(sys.argv) == 4 and sys.argv[1] == "--world-rank":
         sys.exit(world_rank(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--crash-child":
+        sys.exit(crash_child(sys.argv[2]))
     sys.exit(main())

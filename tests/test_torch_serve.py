@@ -77,7 +77,9 @@ NEW_MODULES = (
     "tf_operator_tpu_torch.runtime.events", "tf_operator_tpu_torch.runtime.expectations",
     "tf_operator_tpu_torch.runtime.workqueue", "tf_operator_tpu_torch.api.k8s",
     "tf_operator_tpu_torch.api.serde", "tf_operator_tpu_torch.api.validation",
-    "tf_operator_tpu_torch.api.defaults",
+    "tf_operator_tpu_torch.api.defaults", "tf_operator_tpu_torch.telemetry",
+    "tf_operator_tpu_torch.telemetry.__main__", "tf_operator_tpu_torch.telemetry.flight",
+    "tf_operator_tpu_torch.telemetry.registry",
 )
 
 
@@ -415,7 +417,6 @@ def test_make_server_takes_the_telemetry_options(tiny, option, wired):
     # refuse is the gpt family's options, in the reference's words
     pytest.param(["--preset", "moe-tiny", "--batching", "continuous"], "gpt-family features",
                  id="argv9-item 7"),
-    pytest.param(["--smoke"], "ROADMAP queue 1, what waits from items 3 and 5", id="smoke"),
 ])
 def test_cli_refuses_unported_flags(argv, item, capsys):
     with pytest.raises(SystemExit) as err:

@@ -457,10 +457,11 @@ class EngineRequest:
     __slots__ = (
         "prompt", "new", "tokens", "error", "done", "cancelled",
         "created", "first_token_at", "admitted_at", "last_token_at",
-        "span", "corr", "trace", "priority", "_stream",
+        "span", "corr", "trace", "priority", "wire", "first_slot", "_stream",
     )
 
-    def __init__(self, prompt, new: int, corr=None, trace=None, priority: int = 0):
+    def __init__(self, prompt, new: int, corr=None, trace=None, priority: int = 0,
+                 wire: bool = False):
         self.prompt = [int(t) for t in prompt]
         self.new = int(new)
         # QoS class: higher admits ahead of lower while both are staged
@@ -478,6 +479,13 @@ class EngineRequest:
         # lookup would silently yield nothing (the same PEP 567 edge
         # the router's docstring documents for generators)
         self.trace = trace
+        # wire: the consumer relays the tokens over a connection (the
+        # server's /generate_stream), so the first-token hop boundary is
+        # recorded when the first token is on the wire (on_wire()), not
+        # when the engine thread emits it: the hand-off to the consumer
+        # thread is part of the time to first token its client measures
+        self.wire = bool(wire)
+        self.first_slot = None
         self.tokens: list = []  # generated tokens, appended live
         self.error = None
         self.done = threading.Event()
@@ -505,6 +513,15 @@ class EngineRequest:
         self._stream.put(_DONE if error is None else error)
 
     # -- client side -------------------------------------------------------
+
+    def on_wire(self) -> None:
+        """The first token of a wire request has left on its connection:
+        record the first-token hop boundary (telemetry/collector.py)."""
+        default_flight().record(
+            "serve", corr=self.corr, trace=self.trace,
+            op="first-token", slot=self.first_slot,
+            ttft=round(time.monotonic() - self.created, 6),
+        )
 
     def cancel(self) -> None:
         """Stop decoding for this request; the engine frees its slot
@@ -879,13 +896,16 @@ class ContinuousBatchingEngine:
 
     # -- client API --------------------------------------------------------
 
-    def submit(self, prompt, new: int, corr=None, priority: int = 0) -> EngineRequest:
+    def submit(self, prompt, new: int, corr=None, priority: int = 0,
+               wire: bool = False) -> EngineRequest:
         """Queue one decode stream; -> its handle (stream()/result()).
         prompt: one row of token ids. corr: correlation ID tying the
         slot's flight records to the submitting request (defaults to the
         context's correlate() binding, the server's request id).
         priority: QoS class; a higher one overtakes lower ones while both
-        wait in the scheduler stage (never the staged head)."""
+        wait in the scheduler stage (never the staged head). wire: the
+        caller relays the stream over a connection and calls the
+        handle's on_wire() once the first token is sent."""
         if self._stop.is_set() or (self.thread is not None and not self.thread.is_alive()):
             raise RuntimeError("engine is stopped")
         row = [int(t) for t in prompt]
@@ -912,7 +932,7 @@ class ContinuousBatchingEngine:
         ctx = current_trace()
         req = EngineRequest(
             row, new, corr=corr, trace=ctx.trace_id if ctx is not None else None,
-            priority=priority,
+            priority=priority, wire=wire,
         )
         if self._tracer is not None:
             span_args = {"prompt_tokens": len(row), "max_new_tokens": new}
@@ -1766,12 +1786,16 @@ class ContinuousBatchingEngine:
             if req.span is not None:
                 req.span.annotate("first-token")
             # the TTFT endpoint is a hop boundary the trace
-            # collector decomposes on (telemetry/collector.py)
-            default_flight().record(
-                "serve", corr=req.corr, trace=req.trace,
-                op="first-token", slot=slot,
-                ttft=round(now - req.created, 6),
-            )
+            # collector decomposes on (telemetry/collector.py); a wire
+            # request records it when its consumer has sent the token
+            if req.wire:
+                req.first_slot = slot
+            else:
+                default_flight().record(
+                    "serve", corr=req.corr, trace=req.trace,
+                    op="first-token", slot=slot,
+                    ttft=round(now - req.created, 6),
+                )
             if self._paged and self._slot_keys[slot]:
                 # the prompt's full blocks now hold final K/V:
                 # publish them so later prompts sharing the

@@ -1406,6 +1406,7 @@ def run_trace_smoke(
     device=None,
     params=None,
     block_size: int = 8,
+    on_observatory: Optional[Callable[[str, List[str]], None]] = None,
 ) -> dict:
     """End-to-end proof of fleet-wide distributed tracing: a 1-prefill
     + 1-decode disaggregated fleet serves shared-prefix requests; at
@@ -1417,7 +1418,9 @@ def run_trace_smoke(
     TTFT. Also sanity-checks /debug/routez (decisions carry trace ids)
     and /debug/slozz (fleet quantiles present). Raises AssertionError on
     any violation. block_size: the replicas' KV block and prefill chunk
-    (the shared prefix is two blocks)."""
+    (the shared prefix is two blocks). on_observatory(base_url, trace
+    ids): called while the observatory serves, after its pages are read
+    (the telemetry CLI's `tracez --observatory` reads the same pages)."""
     import urllib.request
 
     from ..controller.serve import ServeServiceController
@@ -1512,6 +1515,8 @@ def run_trace_smoke(
         routez = get("/debug/routez")
         slozz = get("/debug/slozz")
         stats = router.stats()
+        if on_observatory is not None:
+            on_observatory(base, [m["trace"] for m in measured if m and m["trace"]])
     finally:
         if obs is not None:
             obs.shutdown()
@@ -2006,6 +2011,7 @@ def run_autoscale_smoke(
     chain_check: Optional[Callable] = None,
     observe: bool = False,
     prompt_len=(2, 5),
+    on_observatory: Optional[Callable[[str, str], None]] = None,
 ) -> dict:
     """End-to-end proof of the closed scaling loop: a 1-replica decode
     group with a [1, 3] band and an enabled autoscale policy serves
@@ -2027,7 +2033,12 @@ def run_autoscale_smoke(
     served before the fault (a slowed one carries the fault's own chaos
     record, which the collector counts as an orphan) — with the pages' key
     figures in the summary ("observatory"). prompt_len: the prompts'
-    lengths (inclusive); the KV directory lists full blocks only."""
+    lengths (inclusive); the KV directory lists full blocks only. The
+    observatory carries this smoke's history and alert manager (the
+    ttft-slo rule that drives the autoscaler), as a deployment's does.
+    on_observatory(base_url, stage), with observe: called at the
+    scaled-out point while the rule fires ("fired") and once the group is
+    back in with nothing firing ("resolved")."""
     from ..api.types import ServeAutoscalePolicy
     from ..controller.serve import ServeServiceController
     from ..runtime import InMemorySubstrate
@@ -2169,7 +2180,7 @@ def run_autoscale_smoke(
         if observe:
             from .observatory import make_observatory
 
-            obs = make_observatory(router)
+            obs = make_observatory(router, history=history, alerts=manager)
             threading.Thread(target=obs.serve_forever, daemon=True,
                              name="observatory").start()
         load_t.start()
@@ -2197,6 +2208,8 @@ def run_autoscale_smoke(
             time.sleep(0.05)
         if obs is not None and scaled_out:
             observed = _scrape_observatory(obs, outcomes, out_lock)
+            if on_observatory is not None:
+                on_observatory(_base_url(obs), "fired")
 
         # phase 3 — clear: fault off; the slow window resolves, the
         # cooldown passes, the autoscaler steps the group back to
@@ -2214,6 +2227,8 @@ def run_autoscale_smoke(
                 scaled_in_s = time.monotonic() - clear
                 break
             time.sleep(0.05)
+        if obs is not None and scaled_in and on_observatory is not None:
+            on_observatory(_base_url(obs), "resolved")
     finally:
         stop_evt.set()
         load_t.join(timeout=120.0)
@@ -2345,6 +2360,11 @@ def run_autoscale_smoke(
             f"autoscale smoke failed: {json.dumps(summary, default=str)}"
         )
     return summary
+
+
+def _base_url(server) -> str:
+    host, port = server.server_address[:2]
+    return f"http://{host}:{port}"
 
 
 def _scrape_observatory(obs, outcomes: List[dict], out_lock) -> dict:

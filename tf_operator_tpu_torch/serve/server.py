@@ -100,8 +100,13 @@ artifact (int8 weights, served with weights_int8 on; its preset must be
 --preset's); without one the server starts with random weights from a
 seed and says so.
 
-Not ported, each refused naming its ROADMAP item: sharded decode (mesh,
---tp) and --smoke.
+--smoke is the reference's telemetry smoke: GPT_TINY behind a continuous
+server on --device, one streaming and one batch request, the /metrics,
+/debug/trace and /debug/flightz contract, and the flight dump round-tripped
+through `python -m tf_operator_tpu_torch.telemetry`; a JSON report, exit
+0 or 1.
+
+Not ported, refused naming its ROADMAP item: sharded decode (mesh, --tp).
 """
 
 from __future__ import annotations
@@ -143,10 +148,6 @@ MAX_BEAMS = 8
 # what the reference serves that the port does not, and where ROADMAP
 # places it
 _SHARDED = "sharded decode (mesh, mesh_shape, --tp) is not ported (ROADMAP queue 1 item 6)"
-_SMOKE = (
-    "the telemetry smoke round-trips its flight dump through the telemetry CLI, which is "
-    "not ported (ROADMAP queue 1, what waits from items 3 and 5)"
-)
 # the moe family's refusals: the reference's texts
 _MOE_STARTUP = (
     "the moe family serves plain decode only: kv_quant_int8, weights_int8, speculative, "
@@ -915,7 +916,7 @@ def DecodeHandlerFactory(state: _State):
             if state.engine is not None and greedy:
                 try:
                     req = state.engine.submit(prompt[0, :lens[0]].tolist(), new,
-                                              priority=priority)
+                                              priority=priority, wire=True)
                 except ValueError as err:
                     # invalid request: reject before the 200 is on the wire
                     return self._error(400, str(err))
@@ -926,6 +927,8 @@ def DecodeHandlerFactory(state: _State):
                     index = lens[0]
                     for token in req.stream():
                         self._stream_event({"token": token, "index": index})
+                        if index == lens[0]:
+                            req.on_wire()
                         index += 1
                     self._stream_event({
                         "done": True, "tokens": [req.prompt + req.tokens], "prompt_lens": lens,
@@ -1307,7 +1310,6 @@ def _draft_presets():
 _REFUSED_FLAGS = (
     ("--tp", True, _SHARDED), ("--mesh-shape", True, _SHARDED),
     ("--warm", True, "--warm pre-compiles jit shapes; the port has none to compile"),
-    ("--smoke", False, _SMOKE),
 )
 
 
@@ -1420,6 +1422,13 @@ def parse_args(argv=None) -> argparse.Namespace:
         "token-bucket rate/burst in generated tokens, priority class high/standard/batch "
         "('*' = the default for unnamed tenants), the tenant from the X-Tenant header; "
         "over-budget or queue-pressured requests get 429 + Retry-After. Empty = QoS off",
+    )
+    parser.add_argument(
+        "--smoke", action="store_true",
+        help="self-contained telemetry smoke: boot GPT_TINY behind a continuous-batching "
+        "server on --device, drive two requests, validate the /metrics exposition, a "
+        "complete /debug/trace span and the /debug/flightz records, print a JSON report, "
+        "exit 0/1; all other flags but --device are ignored",
     )
     for flag, takes_value, _ in _REFUSED_FLAGS:
         if takes_value:
@@ -1551,14 +1560,122 @@ def load_model(preset: str, checkpoint_dir: Optional[str], device):
     return model.to(device)
 
 
+def _smoke(device=None) -> int:
+    """Telemetry smoke: boot GPT_TINY (random weights from seed 0) behind
+    a continuous-batching server on `device` (cuda unless named), drive
+    one streaming and one batch request, then assert the telemetry
+    contract end to end: /metrics parses as exposition text with a
+    nonzero TTFT histogram, /debug/trace holds >= 1 complete
+    serve-request span carrying its queued/admitted/first-token marks,
+    and /debug/flightz serves JSONL whose ?request= filter returns the
+    streamed request's correlated submit/admit/evict records (the
+    request_id echoed on its done event). The dump is round-tripped
+    through `python -m tf_operator_tpu_torch.telemetry`. Prints a JSON
+    report; -> 1 on any violated assertion."""
+    import tempfile
+
+    import torch
+
+    from .._device import resolve_device
+    from ..models import gpt as gpt_lib
+    from ..telemetry import ExpositionError, validate_text
+    from ..telemetry.__main__ import main as flight_cli
+    from .client import DecodeClient
+
+    device = resolve_device(device)
+    model = gpt_lib.GPT(gpt_lib.GPT_TINY, generator=torch.Generator().manual_seed(0))
+    server = make_server(
+        model.to(device), port=0, model_name="gpt-tiny", batching="continuous", n_slots=4,
+        device=device,
+    )
+    del model
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        client = DecodeClient(f"http://127.0.0.1:{server.server_address[1]}", timeout=120.0)
+        streamed = 0
+        stream_request_id = None
+        for event in client.generate_stream([1, 2, 3], max_new_tokens=8):
+            if "token" in event:
+                streamed += 1
+            if event.get("done"):
+                stream_request_id = event.get("request_id")
+        chains = client.generate([[5, 6], [7, 8, 9]], max_new_tokens=4)
+        text = client.metrics_text()
+        try:
+            validate_text(text)
+            exposition_error = None
+        except ExpositionError as err:
+            exposition_error = str(err)
+        flat = client.metrics()
+        ttft_count = int(flat.get("tf_operator_tpu_serve_ttft_seconds_count", 0))
+        trace = client.trace()
+        spans = [
+            event for event in trace.get("traceEvents", [])
+            if event.get("ph") == "X" and event.get("name") == "serve-request"
+        ]
+        marks = {
+            event.get("name") for event in trace.get("traceEvents", [])
+            if event.get("ph") == "i"
+        }
+        # the full dump parses, and the streamed request's id pulls its
+        # own correlated slot records
+        flight_all = client.flightz()
+        flight_req = client.flightz(request=stream_request_id) if stream_request_id else []
+        flight_ops = {r["fields"].get("op") for r in flight_req}
+        span_corrs = {
+            e.get("args", {}).get("corr") for e in trace["traceEvents"] if e.get("ph") == "X"
+        }
+        with tempfile.TemporaryDirectory() as tmp:
+            dump_path = os.path.join(tmp, "flight.jsonl")
+            with open(dump_path, "w") as f:
+                f.write("\n".join(json.dumps(r) for r in flight_all) + "\n")
+            cli_rc = flight_cli([dump_path, "--quiet", "--perfetto", dump_path + ".trace.json"])
+    finally:
+        server.shutdown()
+        server.server_close()
+        if server.state.engine is not None:
+            server.state.engine.stop()
+    report = {
+        "streamed_tokens": streamed,
+        "batch_chains": len(chains),
+        "exposition_error": exposition_error,
+        "ttft_count": ttft_count,
+        "complete_spans": len(spans),
+        "span_marks": sorted(m for m in marks if m),
+        "stream_request_id": stream_request_id,
+        "flight_records": len(flight_all),
+        "flight_request_ops": sorted(o for o in flight_ops if o),
+        "flight_cli_rc": cli_rc,
+        "ok": (
+            streamed == 8
+            and len(chains) == 2
+            and exposition_error is None
+            and ttft_count >= 3  # 1 streamed + 2 batch rows
+            and len(spans) >= 1
+            and {"queued", "admitted", "first-token"} <= marks
+            and stream_request_id is not None
+            and len(flight_all) > 0
+            # the streamed request's lifecycle, correlated end to end
+            and {"request", "submit", "admit", "evict"} <= flight_ops
+            # the trace's span args share the flight correlation id
+            and stream_request_id in span_corrs
+            and cli_rc == 0
+        ),
+    }
+    print(json.dumps(report, indent=1))
+    return 0 if report["ok"] else 1
+
+
 def main(argv=None) -> int:
-    import os
     import signal
 
     from .._device import resolve_device
 
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    if args.smoke:
+        return _smoke(args.device)
     device = resolve_device(args.device)
     model = load_model(args.preset, args.checkpoint_dir, device)
     port = args.port if args.port is not None else int(os.environ.get("PORT", "8600"))

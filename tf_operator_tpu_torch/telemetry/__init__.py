@@ -2,7 +2,9 @@
 server feed (tf_operator_tpu/telemetry/): the labeled metric registry and
 its text exposition, the span tracer, the flight recorder, trace context,
 the metric history and the alert rules over it, the sampling profiler and
-the step-window device profiler.
+the step-window device profiler, and the crash and SIGUSR2 dumps.
+`python -m tf_operator_tpu_torch.telemetry` is the CLI over their pages
+and dumps (telemetry/__main__.py).
 
 `default_registry()` is the process-wide registry for components without
 an obvious owner (the Trainer), prefixed "tf_operator_tpu" as the
@@ -28,6 +30,7 @@ from .registry import (
     SIZE_BUCKETS,
     STEP_BUCKETS,
     TTFT_BUCKETS,
+    WORKQUEUE_BUCKETS,
     MetricRegistry,
     format_value,
     histogram_quantile,
@@ -37,6 +40,7 @@ from .alerts import (
     BurnRateRule,
     ThresholdRule,
     fleet_rules,
+    operator_rules,
     render_alertz,
     serve_replica_rules,
     train_rules,
@@ -48,6 +52,7 @@ from .flight import (
     current_correlation,
     default_flight,
     flight_record,
+    install_crash_handlers,
     render_flightz,
     set_default_flight,
 )
@@ -58,8 +63,19 @@ from .profiler import (
     default_profiler,
     render_profilez,
     set_default_profiler,
+    write_signal_snapshot,
 )
-from .tracing import Span, SpanTracer
+from .tracecontext import (
+    TraceContext,
+    current_trace,
+    format_traceparent,
+    new_span_id,
+    new_trace_id,
+    parse_traceparent,
+    trace_headers,
+    trace_scope,
+)
+from .tracing import Span, SpanTracer, current_span
 
 __all__ = [
     "ExpositionError", "bucket_pairs", "parse_text", "quantile_from_flat",
@@ -71,7 +87,10 @@ __all__ = [
     "correlate", "current_correlation", "default_flight", "flight_record",
     "render_flightz", "set_default_flight", "MetricHistory", "render_historyz",
     "ProfileSample", "SamplingProfiler", "default_profiler", "render_profilez",
-    "set_default_profiler",
+    "set_default_profiler", "write_signal_snapshot", "WORKQUEUE_BUCKETS",
+    "operator_rules", "install_crash_handlers", "TraceContext", "current_trace",
+    "trace_scope", "trace_headers", "new_trace_id", "new_span_id",
+    "format_traceparent", "parse_traceparent", "current_span",
 ]
 
 _default_lock = threading.Lock()

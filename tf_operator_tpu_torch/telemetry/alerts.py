@@ -17,10 +17,10 @@ trace ids, sets an `alerts_firing{rule}` gauge, and shows at
 /debug/alertz (`render_alertz`). A partial evaluation (a worker scrape
 failed) holds firing states: missing data never clears an alert.
 
-Rule packs: `serve_replica_rules` (the decode server), `fleet_rules`
-(the serve fleet's observatory, serve/observatory.py) and `train_rules`
-(the training fleet view). The operator's pack is not part of this copy.
-Stdlib only.
+Rule packs: `serve_replica_rules` (the decode server), `operator_rules`
+(the operator's control plane), `fleet_rules` (the serve fleet's
+observatory, serve/observatory.py) and `train_rules` (the training fleet
+view). Stdlib only.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ __all__ = [
     "AlertManager",
     "render_alertz",
     "fleet_rules",
+    "operator_rules",
     "serve_replica_rules",
     "train_rules",
 ]
@@ -477,6 +478,40 @@ def serve_replica_rules(
             mode="rate", window_s=300.0, fire_above=0.0,
             description="block pool accounting violations (leak or "
             "double free)",
+        ),
+    ]
+
+
+def operator_rules(prefix: str = "tf_operator_tpu") -> List:
+    """The operator rule set: control-plane churn and correctness
+    counters. fence_rejections_total is a history provider the
+    monitoring server wires (the substrate keeps rejections as a list,
+    not a metric); without it the rule holds ok. The prefix is the
+    default registry's."""
+    return [
+        ThresholdRule(
+            "leader-churn", f"{prefix}_leader_transitions_total",
+            mode="rate", window_s=300.0,
+            fire_above=1.0 / 60.0, resolve_below=0.5 / 60.0,
+            description="leadership flapping (> 1 transition/min "
+            "sustained over 5m)",
+        ),
+        ThresholdRule(
+            "fence-rejections", "fence_rejections_total",
+            mode="rate", window_s=300.0, fire_above=0.0,
+            description="stale-epoch writes hitting the substrate "
+            "(a zombie leader is still writing)",
+        ),
+        ThresholdRule(
+            "degraded-latch", f"{prefix}_degraded",
+            fire_above=0.5, resolve_below=0.5, for_s=30.0,
+            description="degraded-mode latch held (pod churn paused)",
+        ),
+        ThresholdRule(
+            "workqueue-depth",
+            f'{prefix}_workqueue_depth{{name="tfjob"}}',
+            fire_above=100, resolve_below=50, for_s=30.0,
+            description="reconcile queue backing up",
         ),
     ]
 

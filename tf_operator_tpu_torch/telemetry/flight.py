@@ -8,23 +8,35 @@ touching the lock. Each record carries the correlation id bound by
 `correlate()` (the server's request id), and a bound trace context
 (tracecontext.trace_scope) lands in its fields as "trace"/"span".
 `render_flightz` is the /debug/flightz page the decode server and the
-trainer telemetry server serve. The reference's crash and SIGUSR2 dumps
-are not part of this copy.
+trainer telemetry server serve.
+
+The crash surfaces: `install_crash_handlers()` dumps the ring as JSONL
+from `sys.excepthook` (the postmortem survives the crash) and on SIGUSR2
+(a live snapshot, `faulthandler`'s all-thread stacks and a 5 s sampled
+profile: what a wedged process is doing right now), into
+$TF_OPERATOR_FLIGHT_DIR or the temp dir. `flight_chrome_events` exports
+records as Perfetto instants, one track per correlation id, for
+`python -m tf_operator_tpu_torch.telemetry`.
 """
 
 from __future__ import annotations
 
 import contextvars
+import faulthandler
 import json
+import os
+import sys
+import tempfile
 import time
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, Iterable, List, NamedTuple, Optional
 
 from ..utils import locks
 from .tracecontext import current_trace
 
 __all__ = [
     "FlightRecord", "FlightRecorder", "correlate", "current_correlation",
-    "default_flight", "set_default_flight", "flight_record", "render_flightz",
+    "default_flight", "set_default_flight", "flight_record",
+    "install_crash_handlers", "render_flightz", "flight_chrome_events",
 ]
 
 _correlation: contextvars.ContextVar = contextvars.ContextVar(
@@ -132,6 +144,10 @@ class FlightRecorder:
             self._buf[seq % self.capacity] = record
         return record
 
+    def __len__(self) -> int:
+        with self._lock:
+            return min(self._seq, self.capacity)
+
     def snapshot(
         self, kind: Optional[str] = None, corr: Optional[str] = None,
         limit: Optional[int] = None,
@@ -154,6 +170,38 @@ class FlightRecorder:
             records = records[-limit:]
         return records
 
+    def to_jsonl(self, **filters) -> str:
+        records = self.snapshot(**filters)
+        if not records:
+            return ""
+        return "\n".join(json.dumps(r.to_dict()) for r in records) + "\n"
+
+    def crash_dump(self, path: str) -> str:
+        """Crash- and signal-safe dump: never blocks for long on the
+        ring lock. A signal handler runs on the main thread between
+        bytecodes; if the signal lands while that thread is inside
+        record() holding the lock (a plain, non-reentrant Lock), a
+        blocking acquire would deadlock the process. So the lock is
+        taken with a short timeout and, failing that, the ring is
+        copied without it: slots are replaced whole, never mutated in
+        place, so the worst case is one torn (missing or duplicate)
+        record in the dump."""
+        acquired = self._lock.acquire(timeout=0.25)
+        try:
+            seq = self._seq
+            buf = list(self._buf)
+        finally:
+            if acquired:
+                self._lock.release()
+        start = max(0, seq - self.capacity)
+        records = [
+            r for i in range(start, seq) if (r := buf[i % self.capacity]) is not None
+        ]
+        with open(path, "w") as f:
+            for r in records:
+                f.write(json.dumps(r.to_dict()) + "\n")
+        return path
+
 
 _default = FlightRecorder()
 
@@ -173,6 +221,127 @@ def set_default_flight(recorder: FlightRecorder) -> FlightRecorder:
 def flight_record(kind: str, corr: Optional[str] = None, **fields) -> Optional[FlightRecord]:
     """record() on the process-wide default recorder."""
     return _default.record(kind, corr=corr, **fields)
+
+
+# -- crash / signal dumps ----------------------------------------------------
+
+def _dump_dir() -> str:
+    return os.environ.get("TF_OPERATOR_FLIGHT_DIR") or tempfile.gettempdir()
+
+
+class CrashHandles:
+    """What install_crash_handlers() armed; uninstall() restores the
+    hooks that were there before, and `dumps` lists the files written."""
+
+    def __init__(self) -> None:
+        self.dumps: List[str] = []
+        self._restores: List = []
+
+    def _add_restore(self, fn) -> None:
+        self._restores.append(fn)
+
+    def uninstall(self) -> None:
+        while self._restores:
+            self._restores.pop()()
+
+
+def install_crash_handlers(
+    recorder: Optional[FlightRecorder] = None,
+    directory: Optional[str] = None,
+    signum: Optional[int] = None,
+    install_excepthook: bool = True,
+    install_signal: bool = True,
+) -> CrashHandles:
+    """Arm the two dump surfaces:
+
+    - `sys.excepthook`: an unhandled exception writes the ring to
+      ``<dir>/flight-crash-<pid>.jsonl`` before the normal traceback;
+    - SIGUSR2 (default; signum overrides): a live snapshot to
+      ``<dir>/flight-usr2-<pid>.jsonl``, `faulthandler`'s all-thread
+      stacks to ``<dir>/flight-stacks-<pid>.txt`` and a 5 s profile to
+      ``<dir>/profile-usr2-<pid>.json`` (profiler.write_signal_snapshot).
+
+    dir defaults to $TF_OPERATOR_FLIGHT_DIR or the temp dir. -> a
+    CrashHandles whose uninstall() restores the previous hooks. Signal
+    installation needs the main thread; callers off it pass
+    install_signal=False."""
+    rec = recorder if recorder is not None else _default
+    directory = directory or _dump_dir()
+    handles = CrashHandles()
+
+    def write_dump(tag: str) -> Optional[str]:
+        path = os.path.join(directory, f"flight-{tag}-{os.getpid()}.jsonl")
+        try:
+            # crash_dump, not dump: both callers can fire while THIS
+            # thread holds the ring lock
+            rec.crash_dump(path)
+        except OSError:
+            return None
+        handles.dumps.append(path)
+        return path
+
+    if install_excepthook:
+        prev_hook = sys.excepthook
+
+        def hook(exc_type, exc, tb):
+            path = write_dump("crash")
+            if path is not None:
+                try:
+                    sys.stderr.write(f"flight recorder dump: {path}\n")
+                except OSError:
+                    pass
+            prev_hook(exc_type, exc, tb)
+
+        sys.excepthook = hook
+
+        def restore_hook(prev=prev_hook):
+            sys.excepthook = prev
+
+        handles._add_restore(restore_hook)
+
+    if install_signal:
+        import signal as signal_mod
+
+        if signum is None:
+            signum = getattr(signal_mod, "SIGUSR2", None)
+        if signum is not None:
+            def on_signal(sig, frame):
+                stacks = os.path.join(directory, f"flight-stacks-{os.getpid()}.txt")
+                try:
+                    with open(stacks, "w") as f:
+                        faulthandler.dump_traceback(file=f, all_threads=True)
+                    handles.dumps.append(stacks)
+                except OSError:
+                    pass
+                write_dump("usr2")
+                # one signal answers both "what happened" (the dump) and
+                # "what is it doing" (a 5 s profile): the snapshot only
+                # starts a daemon capture thread, so nothing here blocks
+                # or takes a lock the interrupted thread could hold
+                from .profiler import write_signal_snapshot
+
+                try:
+                    handles.dumps.append(write_signal_snapshot(directory))
+                except Exception:  # noqa: BLE001 — diagnostics must never
+                    # crash the process they observe
+                    pass
+
+            prev_handler = signal_mod.signal(signum, on_signal)
+
+            def restore_signal(sig=signum, prev=prev_handler):
+                signal_mod.signal(sig, prev)
+
+            handles._add_restore(restore_signal)
+
+    return handles
+
+
+def all_thread_stacks() -> str:
+    """faulthandler's all-thread dump as a string."""
+    with tempfile.TemporaryFile(mode="w+") as f:
+        faulthandler.dump_traceback(file=f, all_threads=True)
+        f.seek(0)
+        return f.read()
 
 
 def render_flightz(recorder: FlightRecorder, query: str = "") -> bytes:
@@ -219,3 +388,46 @@ def render_flightz(recorder: FlightRecorder, query: str = "") -> bytes:
     if not records:
         return b""
     return ("\n".join(json.dumps(r.to_dict()) for r in records) + "\n").encode()
+
+
+# -- Perfetto export ---------------------------------------------------------
+
+def flight_chrome_events(
+    records: Iterable, pid: int = 0, tid_base: int = 10_000
+) -> List[dict]:
+    """Flight records as Chrome/Perfetto instant events: one track per
+    correlation id (uncorrelated records share track tid_base), so a
+    request's records line up next to its span from the tracer's export.
+    Takes FlightRecords or to_dict() dicts (the CLI feeds parsed JSONL)."""
+    tracks: Dict[str, int] = {}
+    events: List[dict] = []
+    for r in records:
+        if isinstance(r, FlightRecord):
+            r = r.to_dict()
+        corr = r.get("corr")
+        if corr is None:
+            tid = tid_base
+        else:
+            tid = tracks.setdefault(str(corr), tid_base + 1 + len(tracks))
+        fields = dict(r.get("fields") or {})
+        if corr is not None:
+            fields["corr"] = corr
+        name = r.get("kind", "record")
+        op = fields.get("op")
+        if op:
+            name = f"{name}:{op}"
+        events.append({
+            "name": name,
+            "cat": "flight",
+            "ph": "i",
+            "ts": round(float(r.get("t", 0.0)) * 1e6, 3),
+            "pid": pid,
+            "tid": tid,
+            "s": "t",
+            "args": fields,
+        })
+    meta = [{
+        "name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+        "args": {"name": f"flight:{corr}"},
+    } for corr, tid in tracks.items()]
+    return meta + events

@@ -16,8 +16,10 @@
   `render_profilez` is the /debug/profilez page (`?action=start&hz=99`,
   `?action=stop`, and the default `?action=snapshot&seconds=5&format=
   folded|speedscope|json`; a snapshot with `seconds=` against a stopped
-  profiler captures that window first). The reference's SIGUSR2
-  snapshot is not part of this copy.
+  profiler captures that window first). `write_signal_snapshot` is the
+  SIGUSR2 capture (flight.install_crash_handlers): a daemon thread samples
+  5 s and writes `profile-usr2-<pid>.json`. `profile_chrome_events`
+  turns a payload into Perfetto tracks for the telemetry CLI.
 - `StepProfiler`: the step-window device profiler (the reference's
   :667-724, where `jax.profiler` captures an XLA trace). Here
   `torch.profiler` records the host's operators and, where a CUDA card
@@ -42,6 +44,7 @@ _logger = logging.getLogger("tf_operator_tpu_torch.telemetry.profiler")
 __all__ = [
     "ProfileSample", "SamplingProfiler", "StepProfiler", "default_profiler",
     "set_default_profiler", "render_profilez", "top_table", "speedscope_from_folded",
+    "profile_chrome_events", "write_signal_snapshot",
 ]
 
 DEFAULT_HZ = 99
@@ -452,6 +455,39 @@ def top_table(
     }
 
 
+def profile_chrome_events(
+    payload: Dict[str, object], pid: int = 1, tid_base: int = 20_000
+) -> List[dict]:
+    """A to_json() payload as Chrome/Perfetto events: one track per role
+    of instant events, one per distinct folded stack, weighted through
+    args (counts): enough to see which code ran during a span or flight
+    window when the CLI merges them into one file."""
+    folded = payload.get("folded") or {}
+    wall_start = payload.get("wall_start") or 0.0
+    tracks: Dict[str, int] = {}
+    events: List[dict] = []
+    for stack, count in sorted(folded.items()):
+        parts = stack.split(";")
+        role, frames = parts[0], parts[1:]
+        tid = tracks.setdefault(role, tid_base + len(tracks))
+        leaf = frames[-1] if frames else role
+        events.append({
+            "name": leaf,
+            "cat": "profile",
+            "ph": "i",
+            "ts": round(float(wall_start) * 1e6, 3),
+            "pid": pid,
+            "tid": tid,
+            "s": "t",
+            "args": {"stack": stack, "count": count, "role": role},
+        })
+    meta = [{
+        "name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+        "args": {"name": f"profile:{role}"},
+    } for role, tid in tracks.items()]
+    return meta + events
+
+
 def speedscope_from_folded(payload: Dict[str, object]) -> Dict[str, object]:
     """A to_json() payload -> speedscope file-format JSON. The folded
     counts already aggregate identical stacks, so each becomes one
@@ -567,6 +603,35 @@ def render_profilez(
         ("\n".join(lines) + "\n") if lines else ""
     ).encode()
 
+
+# -- SIGUSR2 -----------------------------------------------------------------
+
+def write_signal_snapshot(
+    directory: str,
+    seconds: float = 5.0,
+    hz: int = DEFAULT_HZ,
+    profiler: Optional[SamplingProfiler] = None,
+) -> str:
+    """Capture a `seconds` profile without blocking the caller (a signal
+    handler): a daemon thread samples the window through the sampler
+    (which charges a tick its CPU time) and writes
+    ``profile-usr2-<pid>.json`` (a to_json() payload) to `directory`;
+    -> the path that will be written. If the process-wide profiler is
+    already running, the window elapses on it."""
+    prof = profiler if profiler is not None else default_profiler()
+    path = os.path.join(directory, f"profile-usr2-{os.getpid()}.json")
+
+    def _capture() -> None:
+        try:
+            prof.capture(seconds, hz=hz)
+            with open(path, "w") as f:
+                json.dump(prof.to_json(seconds=seconds), f)
+        except Exception:  # noqa: BLE001 — a diagnostics thread must never
+            # surface as a crash in the process it observes
+            pass
+
+    threading.Thread(target=_capture, name="profiler-usr2", daemon=True).start()
+    return path
 
 
 # -- the step-window device profiler -------------------------------------

@@ -35,6 +35,11 @@ TTFT_BUCKETS: Tuple[float, ...] = (
     0.0005, 0.001, 0.0025, 0.005, 0.0075, 0.01, 0.015, 0.02, 0.03,
     0.05, 0.075, 0.1, 0.15, 0.25, 0.5, 1.0, 2.5, 5.0,
 )
+# client-go workqueue convention (queue and work durations):
+# microseconds up to ~10 s
+WORKQUEUE_BUCKETS: Tuple[float, ...] = (
+    1e-06, 1e-05, 0.0001, 0.001, 0.01, 0.1, 1.0, 10.0,
+)
 # batch and slot occupancy
 SIZE_BUCKETS: Tuple[float, ...] = (1, 2, 4, 8, 16, 32, 64, 128)
 # optimizer steps: from a tiny model on the CPU to a large one on a card
