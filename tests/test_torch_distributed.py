@@ -587,11 +587,8 @@ def test_one_process_has_no_mesh_and_refuses_what_is_not_ported():
     assert torch_mesh.local_rows(None, 8) == slice(0, 8)
     with pytest.raises(ValueError, match="1 devices"):
         torch_mesh.build_mesh(torch_mesh.MeshConfig(fsdp=2), "cpu")
-    for axis in ("pp", "ep"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            torch_mesh.build_mesh(torch_mesh.MeshConfig(**{axis: 2}), "cpu")
-    # sp and tp are ported: in one process they do not fit, as fsdp=2 does not
-    for axis in ("sp", "tp"):
+    # pp, ep, sp and tp are ported: in one process they do not fit, as fsdp=2 does not
+    for axis in ("pp", "ep", "sp", "tp"):
         with pytest.raises(ValueError, match="1 devices"):
             torch_mesh.build_mesh(torch_mesh.MeshConfig(**{axis: 2}), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
@@ -629,7 +626,8 @@ def test_cli_refuses_unported_parallelism_naming_roadmap(cli, flags, capsys):
 def test_world_ranks_and_meshes(world):
     for rank, out in enumerate(world["ranks"]):
         assert (out["rank"], out["world"]) == (rank, WORLD)
-        assert out["dp"] == "dp=2xfsdp=1" and out["fsdp"] == "dp=1xfsdp=2"
+        assert out["dp"] == "dp=2xpp=1xfsdp=1xep=1xsp=1xtp=1"
+        assert out["fsdp"] == "dp=1xpp=1xfsdp=2xep=1xsp=1xtp=1"
 
 
 def test_every_rank_draws_the_same_initial_weights(world):

@@ -85,7 +85,7 @@ class TestPortDistributedTraining:
         accuracies = set()
         for index, text in logs.items():
             assert f"process {index}/2" in text, text
-            assert "mesh: dp=2xfsdp=1" in text, text
+            assert "mesh: dp=2xpp=1xfsdp=1xep=1xsp=1xtp=1" in text, text
             assert "step 4 loss=" in text, text
             lines = [line for line in text.splitlines() if "held-out eval accuracy" in line]
             assert lines, text

@@ -201,7 +201,7 @@ def test_sp2_steps_match_the_reference(worlds, reference, strategy, kind):
     BERT's weight mass summed over the shards): the reference's loss,
     gradients and parameters after 2 AdamW steps at sp = 2."""
     for rank, out in enumerate(worlds[2]):
-        assert out["coordinate"] == {"dp": 0, "fsdp": 0, "sp": rank, "tp": 0}
+        assert out["coordinate"] == {"dp": 0, "pp": 0, "fsdp": 0, "ep": 0, "sp": rank, "tp": 0}
         tpt.check_against_reference(out[strategy][kind], reference["sp2"][kind], tp_rank=0,
                                     tp_size=1)
 
@@ -212,8 +212,9 @@ def test_tp2_sp2_steps_match_the_reference(worlds, reference, kind):
     BERT with Ulysses (one head each after the all-to-all); each rank's
     gradient and parameter shards against the reference's slices."""
     for rank, out in enumerate(worlds[4]):
-        assert out["coordinate"] == {"dp": 0, "fsdp": 0, "sp": rank // 2, "tp": rank % 2}
-        assert out["summary"] == "dp=1xfsdp=1xsp=2xtp=2"
+        assert out["coordinate"] == {"dp": 0, "pp": 0, "fsdp": 0, "ep": 0, "sp": rank // 2,
+                                     "tp": rank % 2}
+        assert out["summary"] == "dp=1xpp=1xfsdp=1xep=1xsp=2xtp=2"
         tpt.check_against_reference(out["tp_sp"][kind], reference["tp_sp"][kind],
                                     tp_rank=rank % 2)
 

@@ -406,8 +406,8 @@ def world(reference, tmp_path_factory):
 def test_world_lays_out_a_tp_mesh(world):
     for rank, out in enumerate(world["ranks"]):
         assert out["rank"] == rank
-        assert out["coordinate"] == {"dp": 0, "fsdp": 0, "sp": 0, "tp": rank}
-        assert out["summary"] == "dp=1xfsdp=1xsp=1xtp=2"
+        assert out["coordinate"] == {"dp": 0, "pp": 0, "fsdp": 0, "ep": 0, "sp": 0, "tp": rank}
+        assert out["summary"] == "dp=1xpp=1xfsdp=1xep=1xsp=1xtp=2"
 
 
 @pytest.mark.parametrize("kind", ["gpt", "bert", "vit"])

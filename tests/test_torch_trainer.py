@@ -361,7 +361,8 @@ def test_port_imports_with_jax_blocked():
                  "api.validation", "api.defaults", "runtime.substrate", "runtime.control",
                  "runtime.events", "runtime.expectations", "runtime.workqueue",
                  "controller.status", "controller.serve", "serve.fleet", "serve.autoscaler",
-                 "serve.observatory", "telemetry.collector", "telemetry.__main__"):
+                 "serve.observatory", "telemetry.collector", "telemetry.__main__",
+                 "parallel.pipeline", "models.moe_pipeline", "testing.dryrun"):
         assert f"tf_operator_tpu_torch.{name}" in modules
     code = (
         "import sys\n"

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -17,3 +17,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def seeded_model(make: Callable[[torch.Generator], torch.nn.Module], device: torch.device,
+                 seed: int) -> torch.nn.Module:
+    """make(g), the model built on `device` and drawn from a generator there
+    seeded `seed`: every rank draws the same weights (FSDP2 broadcasts
+    none), and on a CUDA device a full-width draw takes milliseconds where
+    a host draw takes seconds."""
+    with torch.device(device):
+        return make(torch.Generator(device).manual_seed(seed))

@@ -5,11 +5,13 @@ The input is the tree as nested dicts of numpy arrays (a caller holding
 a JAX tree maps `np.asarray` over it first), so this module never sees
 JAX. Keys are the reference's param paths.
 
-Under a mesh with tp > 1 the BERT, GPT and ViT converters take `mesh`
-(and `rules`, TRANSFORMER_RULES by default): the full state dict, then
-this rank's slice by the rules' tp plan (parallel/sharding.py
-shard_state_dict), which a model laid out by the same plan loads. So
-both packages start from the same weights at any mesh.
+Under a mesh the BERT, GPT, ViT and MoE converters take `mesh` (and
+`rules`, TRANSFORMER_RULES by default, MOE_RULES for the MoE LM): the
+full state dict, then this rank's slice by the rules' tp plan and ep
+layout (parallel/sharding.py shard_state_dict), which a model laid out
+by the same rules loads. The pipelined MoE LM's converter unstacks the
+reference's [S, L/S, ...] blocks and keeps this rank's stage and
+experts. So both packages start from the same weights at any mesh.
 """
 
 from __future__ import annotations
@@ -205,11 +207,45 @@ _VIT_PARAMS = _transformer_rules("", "head") + _compile((
 ))
 
 
-def moe_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def moe_state_dict_from_flax(
+    params: Mapping[str, Any], mesh=None, rules=None,
+) -> Dict[str, torch.Tensor]:
     """flax MoELM params (nested dicts of numpy arrays) -> a state_dict
-    for models.moe.MoELM. The expert kernels keep their dtype. Raises
-    KeyError on a path it does not map."""
-    return _state_dict(params, _MOE_PARAMS)
+    for models.moe.MoELM (this rank's slice by MOE_RULES, or `rules`,
+    under `mesh`). The expert kernels keep their dtype. Raises KeyError on
+    a path it does not map."""
+    state = _state_dict(params, _MOE_PARAMS)
+    if mesh is None:
+        return state
+    from ..parallel import sharding
+
+    return _for_mesh(state, mesh, rules or sharding.MOE_RULES)
+
+
+def _unstack(tree: Mapping[str, Any], s: int, layer: int) -> Dict[str, Any]:
+    return {k: _unstack(v, s, layer) if isinstance(v, Mapping) else np.asarray(v)[s, layer]
+            for k, v in tree.items()}
+
+
+def moe_pipeline_state_dict_from_flax(
+    params: Mapping[str, Any], mesh=None,
+) -> Dict[str, torch.Tensor]:
+    """The reference's PipelinedMoELM params ({embed, blocks, head}, the
+    blocks' leaves [S, L/S, ...] from its stack_layers) -> the full
+    MoELM-named state_dict, block (s, l) as layer_{s * L/S + l}; under
+    `mesh`, this rank's part of it for models.moe_pipeline.PipelinedMoELM
+    (its stage's layers, its ep rank's experts)."""
+    stages, per = next(iter(_flatten(params["blocks"]).values())).shape[:2]
+    tree = {"embed": params["embed"], "head": params["head"]}
+    for s in range(stages):
+        for layer in range(per):
+            tree[f"layer_{s * per + layer}"] = _unstack(params["blocks"], s, layer)
+    state = _state_dict(tree, _MOE_PARAMS)
+    if mesh is None:
+        return state
+    from .moe_pipeline import local_state_dict
+
+    return local_state_dict(state, mesh)
 
 
 def vit_state_dict_from_flax(

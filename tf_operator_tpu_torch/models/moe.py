@@ -32,10 +32,25 @@ Decoding:  tokens = moe_generate(model, prompt, max_new_tokens)
   to one already-weighted scalar per MoE layer. `total_aux_loss` and
   `sum_sown` sum them.
 - Under a mesh (parallel/sharding.py parallelize sets `sync_group`) the
-  router all-reduces its two per-expert means over the batch group,
-  differentiably, so that the load-balancing loss is the global batch's,
-  as GSPMD gives the reference; the z-loss is a plain mean, which the
-  averaged gradients already make global.
+  router all-reduces its two per-expert means, and the z-loss's mean,
+  over the batch group, differentiably, so that both losses are the
+  global batch's, as GSPMD gives the reference, whatever weight the
+  trainer gives each rank's loss (a padded batch's ranks carry unequal
+  token masses). Inside the pipeline
+  (models/moe_pipeline.py) no sync_group is set: each microbatch's means
+  are its own, the reference's manual mode under shard_map.
+- Expert parallel (the reference's :160-225; parallel/sharding.py
+  apply_expert_parallel, and its tp plan for the experts' f): an MoEMlp
+  holds experts [start, start + e_local) of f / tp, routes over every
+  expert with its replicated router, slices dispatch and combine to its
+  experts (capacity from the global count, as the reference's n_exp
+  comment says), and sums its partial output over its expert group.
+  Every rank sees the same rows and computes the replicated parameters'
+  full gradients: the token activations fed to the local experts, and
+  the gates that weight their outputs, are copied to the group
+  (identity forward, all-reduce backward), so the other ranks' combine
+  paths reach the router and dx, while the router's own losses, which
+  every rank computes whole, are counted once.
 
 The blocks are BERT's TransformerBlock (the same pre-LN order, names and
 tanh GELU): dense layers are that block, MoE layers (`layer_is_moe`: the
@@ -129,6 +144,10 @@ class TopKRouter(nn.Module):
         # set by parallel/sharding.py parallelize under a mesh: the group
         # the per-expert means are averaged over
         self.sync_group = None
+        # set under expert parallel (MoEMlp.expert_parallel): the group
+        # whose ranks each combine a slice of the experts; the gates are
+        # copied to it, so their gradient sums every rank's slice
+        self.combine_group = None
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
@@ -145,6 +164,10 @@ class TopKRouter(nn.Module):
             expert_masks.append(onehot)
             gate_probs.append((probs * onehot).sum(-1))
             remaining = remaining * (1.0 - onehot)
+        if self.combine_group is not None:
+            from ..parallel.distributed import copy_to_group
+
+            gate_probs = list(copy_to_group(torch.stack(gate_probs), self.combine_group))
 
         # each claim's slot: earlier claims on its expert, whole rounds first
         positions = []
@@ -164,27 +187,27 @@ class TopKRouter(nn.Module):
             combine = combine + mask * gate[..., None, None]
 
         # load balancing: num_experts * E[router prob] . E[top-1 share]
-        top1_frac = expert_masks[0].mean(dim=(0, 1))
-        prob_frac = probs.mean(dim=(0, 1))
+        means = [expert_masks[0].mean(dim=(0, 1)), probs.mean(dim=(0, 1))]
+        if cfg.router_z_weight > 0:
+            means.append(torch.mean(torch.logsumexp(logits, dim=-1) ** 2)[None])
         if self.sync_group is not None:
-            top1_frac, prob_frac = _global_means(top1_frac, prob_frac, self.sync_group)
+            means = _global_means(means, self.sync_group)
+        top1_frac, prob_frac = means[:2]
         aux = cfg.num_experts * torch.sum(top1_frac * prob_frac)
         losses = {"router_aux": cfg.router_aux_weight * aux}
         if cfg.router_z_weight > 0:
-            z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-            losses["router_z"] = cfg.router_z_weight * z
+            losses["router_z"] = cfg.router_z_weight * means[2][0]
         return dispatch, combine, losses
 
 
-def _global_means(top1: torch.Tensor, prob: torch.Tensor, group) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The two per-expert means over `group` (its ranks hold equal
-    shares of the batch), in one differentiable all-reduce."""
+def _global_means(means: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """Each 1-d mean averaged over `group` (its ranks hold equal shares
+    of the batch), in one differentiable all-reduce."""
     import torch.distributed as dist
     from torch.distributed.nn.functional import all_reduce
 
-    n = top1.shape[0]
-    summed = all_reduce(torch.cat([top1, prob]), group=group) / dist.get_world_size(group)
-    return summed[:n], summed[n:]
+    summed = all_reduce(torch.cat(means), group=group) / dist.get_world_size(group)
+    return list(summed.split([m.shape[0] for m in means]))
 
 
 def dispatch_tokens(dispatch: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -206,7 +229,9 @@ def combine_tokens(combine: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 
 class MoEMlp(nn.Module):
     """dispatch -> per-expert GELU MLP -> combine. The expert kernels
-    [e, h, f] and [e, f, h] are parameters in cfg.dtype."""
+    [e, h, f] and [e, f, h] are parameters in cfg.dtype; under expert
+    parallel (`expert_parallel`) this rank's [e_local, h, f_local] and
+    [e_local, f_local, h]."""
 
     def __init__(self, cfg: MoEConfig) -> None:
         super().__init__()
@@ -215,6 +240,18 @@ class MoEMlp(nn.Module):
         e, h, f = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
         self.expert_in = nn.Parameter(torch.zeros(e, h, f, dtype=cfg.dtype))
         self.expert_out = nn.Parameter(torch.zeros(e, f, h, dtype=cfg.dtype))
+        # expert parallel: the group the partial outputs are summed over
+        # and the global index of this rank's first expert
+        self.expert_group = None
+        self.expert_start = 0
+
+    def expert_parallel(self, group, start: int) -> None:
+        """Hold experts [start, start + local count) of f's local slice
+        (the kernels already laid out, parallel/sharding.py) and sum the
+        partial outputs over `group`."""
+        self.expert_group = group
+        self.expert_start = start
+        self.router_gate.combine_group = group
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """flax's lecun_normal with the expert axis as a batch axis (fan_in
@@ -227,9 +264,24 @@ class MoEMlp(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         dtype = self.cfg.dtype
         dispatch, combine, losses = self.router_gate(x)
-        h = dispatch_tokens(dispatch.to(dtype), x.to(dtype))
+        xd = x.to(dtype)
+        group = self.expert_group
+        if group is not None:
+            from ..parallel.distributed import copy_to_group
+
+            mine = slice(self.expert_start, self.expert_start + self.expert_in.shape[0])
+            dispatch, combine = dispatch[:, :, mine], combine[:, :, mine]
+            xd = copy_to_group(xd, group)
+        h = dispatch_tokens(dispatch.to(dtype), xd)
         h = expert_ffn(h, self.expert_in, self.expert_out)
-        return combine_tokens(combine.to(dtype), h), losses
+        if group is None:
+            return combine_tokens(combine.to(dtype), h), losses
+        from ..parallel.distributed import reduce_from_group
+
+        # the ranks' partial outputs summed in f32 and rounded once, as the
+        # one process's combine product accumulates every expert's
+        y = combine_tokens(combine.to(dtype).float(), h.float())
+        return reduce_from_group(y, group).to(dtype), losses
 
 
 class MoEBlock(TransformerBlock):
@@ -285,6 +337,8 @@ class MoELM(nn.Module):
             self.add_module(f"layer_{i}", block)
         self.ln_final = LayerNorm(cfg.hidden_size)
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
+        # set by parallel/sharding.py under tp: the head's vocab split
+        self.vocab_shard = None
         init_like_flax_(self, generator)
         for module in self.modules():
             if isinstance(module, MoEMlp):
@@ -300,9 +354,15 @@ class MoELM(nn.Module):
         return self.token_embed(input_ids).to(dtype) + self.position_embed(positions).to(dtype)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
-        """ln_final in f32, then the bias-free head in the compute dtype."""
+        """ln_final in f32, then the bias-free head in the compute dtype
+        (this rank's vocab columns under tp)."""
         dtype = self.cfg.dtype
-        return F.linear(self.ln_final(x).to(dtype), self.lm_head.weight.to(dtype))
+        x = self.ln_final(x)
+        if self.vocab_shard is not None:
+            from ..parallel.distributed import copy_to_group
+
+            x = copy_to_group(x, self.vocab_shard.group)
+        return F.linear(x.to(dtype), self.lm_head.weight.to(dtype))
 
     def run_blocks(
         self, x: torch.Tensor, mask: Optional[torch.Tensor],
@@ -333,15 +393,17 @@ class MoELM(nn.Module):
 
 
 def lm_loss(
-    logits: torch.Tensor, labels: torch.Tensor, weights: Optional[torch.Tensor] = None
+    logits: torch.Tensor, labels: torch.Tensor, weights: Optional[torch.Tensor] = None,
+    vocab=None,
 ) -> torch.Tensor:
     """Next-token cross-entropy (the shift happens here), through the
-    fused loss (ops/losses.py)."""
+    fused loss (ops/losses.py); vocab: the logits' split under tp
+    (parallel/sharding.py VocabShard)."""
     from ..ops.losses import weighted_mean_xent
 
     if weights is not None:
         weights = weights[:, 1:]
-    return weighted_mean_xent(logits[:, :-1], labels[:, 1:], weights)
+    return weighted_mean_xent(logits[:, :-1], labels[:, 1:], weights, vocab)
 
 
 def sum_sown(losses: Losses, name: str) -> torch.Tensor:

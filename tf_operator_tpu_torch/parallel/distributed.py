@@ -290,3 +290,107 @@ def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
 def all_to_all_grad(x: torch.Tensor, group, scatter_dim: int, gather_dim: int) -> torch.Tensor:
     """The differentiable all_to_all."""
     return _AllToAll.apply(x, group, scatter_dim, gather_dim)
+
+
+# -- the pipeline's point-to-point transfers (parallel/pipeline.py) -----------
+#
+# A stage's activations go to the next stage of the pp group and its
+# gradients come back. Each tick's transfers are one autograd node that
+# posts its send and its receive together (batch_isend_irecv, as
+# ring_exchange), so no order of blocking sends deadlocks; a 0-d token
+# threads the ticks' nodes into one chain, so that every rank runs their
+# backward passes in reverse tick order, each exactly once, whether or
+# not its own outputs were used.
+
+
+def _exchange(send: Optional[torch.Tensor], to: Optional[int], like: Optional[torch.Tensor],
+              frm: Optional[int], group) -> Optional[torch.Tensor]:
+    """Send `send` to group rank `to` and receive a tensor shaped as `like`
+    from group rank `frm`, posted together; either may be None. Returns
+    what was received (None where nothing was). Through host memory where
+    _host_staged says so."""
+    staged = _host_staged(group, send if send is not None else like)
+    ops, recv = [], None
+    if send is not None:
+        payload = send.detach().cpu() if staged else send.detach().contiguous()
+        ops.append(dist.P2POp(dist.isend, payload, dist.get_global_rank(group, to), group))
+    if like is not None:
+        recv = torch.empty(like.shape, dtype=like.dtype, device="cpu" if staged else like.device)
+        ops.append(dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, frm), group))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if recv is not None and staged:
+        recv = recv.to(like.device)
+    return recv
+
+
+class _StageShift(torch.autograd.Function):
+    """One tick of the pipeline: `y` (where `send`) to the next stage, and
+    (where `like` is given) the previous stage's output received, shaped
+    as `like`. Backward: the received tensor's gradient back to the
+    previous stage, y's from the next. forward -> (received or an empty
+    tensor, the next token)."""
+
+    @staticmethod
+    def forward(ctx, token, y, like, group, send, recv):
+        me = dist.get_rank(group)
+        ctx.group, ctx.me, ctx.send, ctx.recv = group, me, send, recv
+        ctx.y_like = y.detach() if send else None
+        ctx.recv_like = like if recv else None
+        got = _exchange(y if send else None, me + 1, like if recv else None, me - 1, group)
+        return (got if recv else token.new_zeros(0)), token.clone()
+
+    @staticmethod
+    def backward(ctx, grad_got, grad_token):
+        grad_y = _exchange(grad_got if ctx.recv else None, ctx.me - 1,
+                           ctx.y_like, ctx.me + 1, ctx.group)
+        return grad_token, grad_y, None, None, None, None
+
+
+class _PipelineStart(torch.autograd.Function):
+    """The chain's first link: x as it is, and the token. Backward: x's
+    gradient summed over the pp group (only the first stage consumes x),
+    so every stage holds the first stage's gradient; it runs after every
+    tick's, since the whole chain hangs from it."""
+
+    @staticmethod
+    def forward(ctx, x, token, group):
+        ctx.group = group
+        return x.view_as(x), token.clone()
+
+    @staticmethod
+    def backward(ctx, grad_x, grad_token):
+        return all_reduce(grad_x.contiguous(), ctx.group), None, None
+
+
+class _PipelineEnd(torch.autograd.Function):
+    """The last stage's outputs on every stage: an all-reduce of the
+    outputs (zeros on the other stages), the chain's token tied in.
+    Backward: the gradient to the last stage's outputs once (every stage
+    holds the same loss), the token's chain started."""
+
+    @staticmethod
+    def forward(ctx, outputs, token, group):
+        return all_reduce(outputs.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, grad.new_zeros(()), None
+
+
+def pipeline_start(x: torch.Tensor, group):
+    """(x, token): the chain's start over the pp group. Where autograd
+    records, the token requires a gradient whether or not x does, so that
+    every stage's transfers are in the graph and run their backward."""
+    token = torch.zeros((), device=x.device, requires_grad=torch.is_grad_enabled())
+    return _PipelineStart.apply(x, token, group)
+
+
+def stage_shift(token: torch.Tensor, y: Optional[torch.Tensor], like: Optional[torch.Tensor],
+                group, send: bool, recv: bool):
+    """(received, token): one tick's transfer; see _StageShift."""
+    return _StageShift.apply(token, y, like, group, send, recv)
+
+
+def pipeline_end(outputs: torch.Tensor, token: torch.Tensor, group) -> torch.Tensor:
+    return _PipelineEnd.apply(outputs, token, group)

@@ -2,25 +2,29 @@
 
 The reference's mesh has six axes, outermost to innermost: data (dp),
 pipeline (pp), fully-sharded data (fsdp), expert (ep), sequence (sp)
-and tensor (tp). The port runs dp, fsdp, sp and tp: `build_mesh` lays
-the world out over (dp, fsdp, sp, tp) in rank order, tp innermost as in
-the reference's AXES, one process per device, and returns a `TrainMesh`
-holding the process groups each axis needs:
+and tensor (tp). `build_mesh` lays the world out over the six in rank
+order, tp innermost as in the reference's AXES, one process per device,
+and returns a `TrainMesh` holding the process groups each axis needs:
 
 - tp: the ranks that hold one layer's shards (the Megatron plan's
   all-reduces, parallel/sharding.py);
 - sp: the ranks that hold one row's sequence shards (ring and Ulysses
   attention, parallel/ring_attention.py, parallel/ulysses.py);
+- pp: the ranks that hold one pipeline's stages (the activations'
+  point-to-point sends, parallel/pipeline.py);
+- ep: the ranks that hold one MoE layer's experts; expert: ep x tp, the
+  ranks whose partial expert outputs are summed (models/moe.py MoEMlp);
 - grad: dp x fsdp x sp, the ranks whose gradients of one parameter
-  (shard) are reduced together: each tp rank reduces its own shards;
+  (shard) are reduced together: each pp, ep and tp rank reduces its own;
 - batch: dp x fsdp, the ranks that split a batch's rows (sync
-  BatchNorm, the MoE router); tp and sp stay out of it.
+  BatchNorm, the MoE router, the pipeline's aux mean); pp, ep, tp and
+  sp stay out of it, as the reference's batch_sharding (:116-128).
 
-With sp = tp = 1 the mesh also holds the (dp, fsdp) DeviceMesh that
-FSDP2 shards over. pp and ep raise NotImplementedError, naming the
-ROADMAP item that brings them; so does fsdp > 1 together with tp or sp
-(FSDP2 composed with a tensor-parallel plan is DTensor, which this plan
-avoids: parallel/sharding.py says why).
+With pp = ep = sp = tp = 1 the mesh also holds the (dp, fsdp)
+DeviceMesh that FSDP2 shards over. fsdp > 1 together with tp, sp or ep
+raises NotImplementedError naming ROADMAP item 4 (FSDP2 composed with a
+tensor-parallel or expert layout is DTensor, which this plan avoids:
+parallel/sharding.py says why).
 """
 
 from __future__ import annotations
@@ -32,13 +36,10 @@ import torch
 
 from . import distributed
 
-MESH_AXES = ("dp", "fsdp", "sp", "tp")
-# the axes the port does not run yet, and where ROADMAP places each
-NOT_PORTED = {
-    "pp": "pipeline parallel (ROADMAP queue 1, item 7)",
-    "ep": "expert parallel (ROADMAP queue 1, item 7)",
-}
+MESH_AXES = ("dp", "pp", "fsdp", "ep", "sp", "tp")
 TWO_D = "2-D: FSDP2 with tp/sp (ROADMAP queue 1, item 4)"
+# FSDP2 over the expert layout is the same DTensor composition as TWO_D
+FSDP_EP = "FSDP2 with the expert layout (ROADMAP queue 1, item 4's 2-D line)"
 SP_STRATEGIES = ("ring", "ulysses")
 
 
@@ -85,11 +86,22 @@ class TrainMesh:
     grad_group: object = None
     batch_group: object = None
     device_mesh: object = None
+    pp_group: object = None
+    ep_group: object = None
+    expert_group: object = None
 
     @property
     def data_index(self) -> int:
         """Which of the dp x fsdp row shards this rank holds."""
         return self.coordinate["dp"] * self.shape["fsdp"] + self.coordinate["fsdp"]
+
+    def size(self, axis: str) -> int:
+        """The axis' size (1 for an axis the mesh was built without)."""
+        return self.shape.get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate on the axis (0 where it has one rank)."""
+        return self.coordinate.get(axis, 0)
 
 
 def _rank_of(shape: Dict[str, int], coord: Dict[str, int]) -> int:
@@ -140,7 +152,7 @@ def _my_group(shape: Dict[str, int], axes: Tuple[str, ...], own: bool = False):
 def build_mesh(
     config: Optional[MeshConfig] = None, device: Union[str, torch.device] = "cuda",
 ) -> Optional[TrainMesh]:
-    """The (dp, fsdp, sp, tp) mesh over the world, on `device`'s type.
+    """The six-axis mesh over the world, on `device`'s type.
 
     The config is resolved against the world size (one device per
     process), so a shape that does not fit raises as the reference's
@@ -148,40 +160,54 @@ def build_mesh(
     runs the model unwrapped (distributed.initialize skips a
     single-process job)."""
     config = config or MeshConfig()
-    for axis, where in NOT_PORTED.items():
-        size = getattr(config, axis)
-        if size != 1:
-            raise NotImplementedError(f"{axis}={size}: {where} is not ported yet")
-    if config.fsdp != 1 and config.sp * config.tp != 1:
-        raise NotImplementedError(
-            f"fsdp={config.fsdp} with sp={config.sp}, tp={config.tp}: {TWO_D} is not ported yet")
-    dp, _, fsdp, _, sp, tp = config.resolve(distributed.world_size())
+    refusal = fsdp_refusal(config.fsdp, config.sp, config.tp, config.ep)
+    if refusal:
+        raise NotImplementedError(refusal)
+    dp, pp, fsdp, ep, sp, tp = config.resolve(distributed.world_size())
     if not distributed.is_initialized():
         return None
-    shape = {"dp": dp, "fsdp": fsdp, "sp": sp, "tp": tp}
+    shape = {"dp": dp, "pp": pp, "fsdp": fsdp, "ep": ep, "sp": sp, "tp": tp}
     rank = distributed.rank()
     coordinate = {}
     for axis in reversed(MESH_AXES):
         coordinate[axis] = rank % shape[axis]
         rank //= shape[axis]
     device_mesh = None
-    if sp * tp == 1:
+    if pp * ep * sp * tp == 1:
         from torch.distributed.device_mesh import init_device_mesh
 
         device_mesh = init_device_mesh(
             torch.device(device).type, (dp, fsdp), mesh_dim_names=("dp", "fsdp"))
+    tp_group = _my_group(shape, ("tp",), own=True)
+    sp_group = _my_group(shape, ("sp",), own=True)
+    grad_group = _my_group(shape, ("dp", "fsdp", "sp"))
+    batch_group = _my_group(shape, ("dp", "fsdp"))
+    ep_group = _my_group(shape, ("ep",), own=True)
+    # ep x tp is the tp group at ep 1 and the ep group at tp 1
+    expert_group = (_my_group(shape, ("ep", "tp"), own=True) if ep > 1 and tp > 1
+                    else ep_group or tp_group)
     return TrainMesh(
         shape=shape, coordinate=dict((a, coordinate[a]) for a in MESH_AXES),
-        tp_group=_my_group(shape, ("tp",), own=True),
-        sp_group=_my_group(shape, ("sp",), own=True),
-        grad_group=_my_group(shape, ("dp", "fsdp", "sp")),
-        batch_group=_my_group(shape, ("dp", "fsdp")),
-        device_mesh=device_mesh,
+        tp_group=tp_group, sp_group=sp_group, grad_group=grad_group,
+        batch_group=batch_group, device_mesh=device_mesh,
+        pp_group=_my_group(shape, ("pp",), own=True), ep_group=ep_group,
+        expert_group=expert_group,
     )
 
 
+def fsdp_refusal(fsdp: int, sp: int, tp: int, ep: int) -> Optional[str]:
+    """Why fsdp > 1 together with tp or sp (TWO_D) or ep (FSDP_EP) is
+    refused, naming its ROADMAP item (each is FSDP2 composed with a
+    layout of plain local shards, which is DTensor); None otherwise."""
+    if fsdp != 1 and sp * tp != 1:
+        return f"fsdp={fsdp} with sp={sp}, tp={tp}: {TWO_D} is not ported yet"
+    if fsdp != 1 and ep != 1:
+        return f"fsdp={fsdp} with ep={ep}: {FSDP_EP} is not ported yet"
+    return None
+
+
 def axis_size(mesh: Optional[TrainMesh], axis: str) -> int:
-    return 1 if mesh is None else mesh.shape[axis]
+    return 1 if mesh is None else mesh.shape.get(axis, 1)
 
 
 def data_shards(mesh: Optional[TrainMesh]) -> int:
@@ -231,10 +257,9 @@ def local_positions(mesh, seq_len: int) -> slice:
 
 
 def mesh_summary(mesh) -> str:
-    if mesh is None:
-        return "dp=1xfsdp=1 (one process, no process group)"
-    axes = MESH_AXES if mesh.shape["sp"] * mesh.shape["tp"] > 1 else ("dp", "fsdp")
-    return "x".join(f"{axis}={mesh.shape[axis]}" for axis in axes)
+    """The mesh's size on each of MESH_AXES, as dp=2xpp=1x...xtp=1."""
+    sizes = "x".join(f"{axis}={1 if mesh is None else mesh.size(axis)}" for axis in MESH_AXES)
+    return sizes + (" (one process, no process group)" if mesh is None else "")
 
 
 def add_mesh_flags(parser) -> None:
@@ -253,19 +278,16 @@ def add_mesh_flags(parser) -> None:
     )
 
 
-def mesh_config(parser, args, refuse: Optional[Dict[str, str]] = None) -> MeshConfig:
-    """The mesh the flags ask for; parser.error (exit 2) on a flag whose
-    axis is not ported (--ep, and whatever `refuse` maps, axis to its
-    ROADMAP item), and on --fsdp > 1 with --tp or --sp > 1."""
-    refused = dict(NOT_PORTED, **(refuse or {}))
-    for axis, where in refused.items():
-        size = getattr(args, axis, 1)
-        if size != 1:
-            parser.error(f"--{axis} {size}: {where} is not ported yet")
-    fsdp, sp, tp = args.fsdp, getattr(args, "sp", 1), getattr(args, "tp", 1)
-    if fsdp != 1 and sp * tp != 1:
-        parser.error(f"--fsdp {fsdp} with --sp {sp} --tp {tp}: {TWO_D} is not ported yet")
-    return MeshConfig(dp=-1, fsdp=fsdp, sp=sp, tp=tp)
+def mesh_config(parser, args) -> MeshConfig:
+    """The mesh the flags ask for (--fsdp, and --ep, --sp, --tp where the
+    CLI has them); parser.error (exit 2) on --fsdp > 1 with --tp, --sp or
+    --ep > 1, naming its ROADMAP item."""
+    fsdp, sp, tp, ep = (args.fsdp, getattr(args, "sp", 1), getattr(args, "tp", 1),
+                        getattr(args, "ep", 1))
+    refusal = fsdp_refusal(fsdp, sp, tp, ep)
+    if refusal:
+        parser.error(f"--{refusal}")
+    return MeshConfig(dp=-1, fsdp=fsdp, ep=ep, sp=sp, tp=tp)
 
 
 def sequence_attention(mesh, strategy: str = "ring", causal: bool = False,

@@ -32,11 +32,18 @@ become wrap plans, applied by `parallelize`:
   attention_fn. The replicated parameters and each tp rank's shards
   reduce their gradients over the mesh's grad group (dp x sp): DDP on
   that group where it holds more than one rank.
-- MOE_RULES: the MoE LM's (models/moe.py) as TRANSFORMER_RULES lays it,
-  FSDP2 on each dense and MoE block and the root with fsdp > 1. The
-  reference's rules also shard the experts over its ep axis, which
-  build_mesh refuses until expert parallelism lands (ROADMAP queue 1,
-  item 7).
+- MOE_RULES: the MoE LM's (models/moe.py), FSDP2 on each dense and MoE
+  block and the root with fsdp > 1. Its tp plan is TRANSFORMER_RULES'
+  plus the expert kernels' intermediate dimension (expert_in
+  column-parallel, expert_out row-parallel: the reference's
+  sharding.py:43-47); its ep layout (`apply_expert_parallel`) gives each
+  ep rank its e / ep experts. The router is replicated: it routes over
+  every expert, and each MoEMlp combines its rank's experts and sums the
+  partial outputs over the mesh's expert group (ep x tp). A batch's rows
+  split over dp x fsdp only, so every ep and tp rank sees the same rows
+  and computes the replicated parameters' full gradients (models/moe.py
+  says how the expert path keeps them whole); every parameter then
+  reduces over the grad group, as under tp.
 
 DDP broadcasts rank 0's parameters when it wraps; FSDP2 does not, so the
 models draw their weights from a seeded CPU generator, the same on every
@@ -53,7 +60,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import re
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -76,6 +83,15 @@ _TP_TRANSFORMER = (
     (r"(?:.*\.)?(?:lm_head|mlm_head)\.(?:weight|bias)", 0, "head"),
     (r"(?:.*\.)?(?:token_embed|position_embed)\.weight", 0, "embed"),
 )
+# MOE_RULES' tp plan: the expert kernels' intermediate dimension ([e, h, f]
+# and [e, f, h]: MoEMlp sums the partial outputs over its expert group),
+# then TRANSFORMER_RULES'; the router matches none and is replicated
+_TP_MOE = (
+    (r"(?:.*\.)?moe_mlp\.expert_in", 2, "expert"),
+    (r"(?:.*\.)?moe_mlp\.expert_out", 1, "expert"),
+) + _TP_TRANSFORMER
+# MOE_RULES' ep layout: the expert dimension of both expert kernels
+_EP_MOE = ((r"(?:.*\.)?moe_mlp\.expert_(?:in|out)", 0, "expert"),)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,19 +100,24 @@ class WrapPlan:
     the mesh's fsdp axis when it is > 1. blocks: the class names of the
     submodules that each get their own FSDP2 unit before the root. tp:
     the tensor-parallel plan, (pattern, dim, role) over parameter names;
-    empty where the rule set has none (a tp > 1 mesh then raises)."""
+    ep: the expert layout, the same form over the ep axis. Either is
+    empty where the rule set has none: a mesh whose axis is > 1 then
+    replicates every parameter over it (its ranks compute the same step),
+    as the reference's rules without a spec on that axis do."""
 
     name: str
     shard: bool = False
     blocks: Tuple[str, ...] = ()
     tp: Tuple[Tuple[str, int, str], ...] = ()
+    ep: Tuple[Tuple[str, int, str], ...] = ()
 
 
 REPLICATED_RULES = WrapPlan("REPLICATED_RULES")
 CONV_RULES = WrapPlan("CONV_RULES", shard=True)
 TRANSFORMER_RULES = WrapPlan("TRANSFORMER_RULES", shard=True, blocks=("TransformerBlock",),
                              tp=_TP_TRANSFORMER)
-MOE_RULES = WrapPlan("MOE_RULES", shard=True, blocks=("TransformerBlock", "MoEBlock"))
+MOE_RULES = WrapPlan("MOE_RULES", shard=True, blocks=("TransformerBlock", "MoEBlock"),
+                     tp=_TP_MOE, ep=_EP_MOE)
 
 
 def shards_parameters(mesh, rules: WrapPlan) -> bool:
@@ -114,8 +135,10 @@ class VocabShard:
 
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
-    """A model laid out by a tp plan: this rank's index of `size` in
-    `group`, and the plan; set on the model as `tensor_parallel`."""
+    """A model laid out by a plan over one mesh axis: this rank's index
+    of `size` in `group`, and the plan; set on the model as
+    `tensor_parallel` (the tp plan) or `expert_parallel` (the ep
+    layout)."""
 
     group: object
     rank: int
@@ -145,32 +168,57 @@ def _shard(tensor: torch.Tensor, dim: int, rank: int, size: int) -> torch.Tensor
 def shard_state_dict(
     state: Dict[str, torch.Tensor], mesh, rules: WrapPlan,
 ) -> Dict[str, torch.Tensor]:
-    """This rank's slice of a full state dict by the rules' tp plan (the
-    whole dict where the mesh's tp axis is 1)."""
-    size = 1 if mesh is None else mesh.shape["tp"]
-    if size == 1:
-        return dict(state)
-    rank = mesh.coordinate["tp"]
-    out = {}
-    for name, tensor in state.items():
-        rule = tp_rule(name, rules.tp)
-        out[name] = tensor if rule is None else _shard(tensor, rule[0], rank, size).clone()
+    """This rank's slice of a full state dict by the rules' tp plan and ep
+    layout (the whole dict where the mesh's tp and ep axes are 1)."""
+    out = dict(state)
+    if mesh is None:
+        return out
+    for axis, plan in (("ep", rules.ep), ("tp", rules.tp)):
+        size = mesh.size(axis)
+        if size == 1:
+            continue
+        for name, tensor in out.items():
+            rule = tp_rule(name, plan)
+            if rule is not None:
+                out[name] = _shard(tensor, rule[0], mesh.index(axis), size).clone()
     return out
+
+
+def layouts(model: nn.Module) -> List[TensorParallel]:
+    """The plans a model was laid out by: its tp plan, then its ep
+    layout, where each was applied."""
+    return [lay for lay in (getattr(model, "tensor_parallel", None),
+                            getattr(model, "expert_parallel", None)) if lay is not None]
+
+
+def gather_tensor(name: str, tensor: torch.Tensor, plans) -> torch.Tensor:
+    """A tensor split by `plans` (TensorParallel), all-gathered over each
+    plan's group that splits it, in order (a collective: every rank of
+    the groups calls it)."""
+    for lay in plans:
+        rule = lay.rule(name)
+        if rule is not None:
+            tensor = distributed.all_gather(tensor, lay.group, rule[0])
+    return tensor
+
+
+def local_slice(name: str, tensor: torch.Tensor, plans) -> torch.Tensor:
+    """The inverse of gather_tensor: this rank's slice of a full tensor."""
+    for lay in plans:
+        rule = lay.rule(name)
+        if rule is not None:
+            tensor = tensor.chunk(lay.size, rule[0])[lay.rank]
+    return tensor
 
 
 def gather_state_dict(
-    state: Dict[str, torch.Tensor], tp: Optional[TensorParallel],
+    state: Dict[str, torch.Tensor], plans: Optional[List[TensorParallel]],
 ) -> Dict[str, torch.Tensor]:
     """The inverse of shard_state_dict on a model's own state dict: each
-    split tensor all-gathered over its tp group (a collective: every rank
-    of the group calls it)."""
-    if tp is None:
-        return dict(state)
-    out = {}
-    for name, tensor in state.items():
-        rule = tp.rule(name)
-        out[name] = tensor if rule is None else distributed.all_gather(tensor, tp.group, rule[0])
-    return out
+    split tensor all-gathered over the groups of the plans it was laid
+    out by (`layouts`; a collective: every rank of the groups calls it).
+    The dict as it is for plans None."""
+    return {name: gather_tensor(name, tensor, plans or []) for name, tensor in state.items()}
 
 
 class VocabParallelEmbedding(nn.Embedding):
@@ -202,10 +250,11 @@ def apply_tensor_parallel(model: nn.Module, mesh, rules: WrapPlan) -> nn.Module:
     backward), and a vocab-parallel head gives the root `vocab_shard`.
     The root gets `tensor_parallel`. Build the optimizer after this."""
     size, rank, group = mesh.shape["tp"], mesh.coordinate["tp"], mesh.tp_group
+    # parallelize asks only for a plan the rules have; this guards the one
+    # direct caller, models/gpt.py generate(mesh=, rules=)
     if not rules.tp:
-        raise NotImplementedError(
-            f"tp={size} with {rules.name}: its tensor-parallel plan is not ported "
-            "(ROADMAP queue 1, item 7)")
+        raise NotImplementedError(f"tp={size} with {rules.name}: the rule set has no "
+                                  "tensor-parallel plan")
     for name, param in list(model.named_parameters()):
         rule = tp_rule(name, rules.tp)
         if rule is None:
@@ -226,10 +275,49 @@ def apply_tensor_parallel(model: nn.Module, mesh, rules: WrapPlan) -> nn.Module:
             model.vocab_shard = VocabShard(rank * local.shape[0], group)
         _fit_shapes(owner)
     for module in model.modules():
-        if type(module).__name__ == "TransformerBlock":
+        if type(module).__name__ in ("TransformerBlock", "MoEBlock"):
             module.tp_group = group
     model.tensor_parallel = TensorParallel(group, rank, size, rules.tp)
+    _set_expert_groups(model, mesh)
     return model
+
+
+def apply_expert_parallel(model: nn.Module, mesh, rules: WrapPlan) -> nn.Module:
+    """Lay `model`'s experts out by the rules' ep layout, in place: each
+    MoEMlp keeps this ep rank's e / ep experts (new Parameters) and sums
+    its partial output over the ep group, or over ep x tp once the tp
+    plan splits the experts too (_set_expert_groups). The root gets
+    `expert_parallel`. Build the optimizer after this."""
+    size, rank = mesh.shape["ep"], mesh.coordinate["ep"]
+    for name, param in list(model.named_parameters()):
+        rule = tp_rule(name, rules.ep)
+        if rule is None:
+            continue
+        owner_name, _, attr = name.rpartition(".")
+        setattr(model.get_submodule(owner_name), attr,
+                nn.Parameter(_shard(param.detach(), rule[0], rank, size).clone()))
+    model.expert_parallel = TensorParallel(mesh.ep_group, rank, size, rules.ep)
+    _set_expert_groups(model, mesh)
+    return model
+
+
+def _set_expert_groups(model: nn.Module, mesh) -> None:
+    """Each MoEMlp's expert group and the index of its first local expert
+    (models/moe.py MoEMlp.expert_parallel), by what the layouts split:
+    the experts over ep, f over tp, or both (the mesh's ep x tp group)."""
+    from ..models.moe import MoEMlp
+
+    ep = getattr(model, "expert_parallel", None)
+    tp = getattr(model, "tensor_parallel", None)
+    if tp is not None and not any(role == "expert" for _, _, role in tp.plan):
+        tp = None
+    if ep is None and tp is None:
+        return
+    group = mesh.expert_group if ep is not None and tp is not None else (ep or tp).group
+    for module in model.modules():
+        if isinstance(module, MoEMlp):
+            start = 0 if ep is None else ep.rank * module.expert_in.shape[0]
+            module.expert_parallel(group, start)
 
 
 def _fit_shapes(module: nn.Module) -> None:
@@ -250,17 +338,23 @@ def parallelize(model: nn.Module, mesh, rules: WrapPlan, device: torch.device) -
     """Wrap `model` (already on `device`) for the mesh; returns the module
     to call: the model itself under FSDP2 (`shard`, where the rules shard
     and the mesh's fsdp axis is > 1, or where the model was sharded
-    already), else, after the tp plan (tp > 1) and the sequence shard (sp
-    > 1), its DDP wrapper over the mesh's grad group, whose `.module` is
-    the model, or the model itself where that group holds one rank. Its
-    TpuBatchNorms and MoE routers sync over the mesh's batch group
-    (sync_batch_norm)."""
+    already), else, after the ep layout (ep > 1) and the tp plan (tp >
+    1), where the rules have them, and the sequence shard (sp > 1), its DDP
+    wrapper over the mesh's grad group, whose `.module` is the model, or
+    the model itself where that group holds one rank. Its TpuBatchNorms
+    and MoE routers sync over the mesh's batch group (sync_batch_norm). A
+    mesh with pp > 1 raises: the pipeline is its own model."""
     sync_batch_norm(model, mesh)
     if is_fully_sharded(model):
         return model
     if shards_parameters(mesh, rules):
         return shard(model, mesh, rules)
-    if mesh.shape["tp"] > 1 and getattr(model, "tensor_parallel", None) is None:
+    if mesh.size("pp") > 1:
+        raise ValueError(f"pp={mesh.size('pp')}: a pipeline runs models/moe_pipeline.py's "
+                         "PipelinedMoELM, not a model wrapped for the mesh")
+    if rules.ep and mesh.size("ep") > 1 and getattr(model, "expert_parallel", None) is None:
+        apply_expert_parallel(model, mesh, rules)
+    if rules.tp and mesh.shape["tp"] > 1 and getattr(model, "tensor_parallel", None) is None:
         apply_tensor_parallel(model, mesh, rules)
     if mesh.shape["sp"] > 1:
         # the rank's sequence shard: its positions start at seq_index x

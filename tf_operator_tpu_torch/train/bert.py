@@ -96,7 +96,7 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
     """Train as the flags say, in the world as it stands (main joins it);
     returns the run's summary (trainer.timed_run's; "exit_code" 143 after
     a SIGTERM)."""
-    from .._device import resolve_device
+    from .._device import resolve_device, seeded_model
     from ..models import bert as bert_lib
     from ..parallel.mesh import build_mesh, mesh_summary, sequence_attention
     from .observe import telemetry_server
@@ -122,7 +122,9 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
 
         attention_fn = flash_attention
     generator = torch.Generator().manual_seed(SEED)
-    model = bert_lib.BertForMLM(cfg, attention_fn=attention_fn, generator=generator)
+    model = seeded_model(
+        lambda g: bert_lib.BertForMLM(cfg, attention_fn=attention_fn, generator=g),
+        device, SEED)
     trainer = Trainer(
         model, mlm_task(),
         learning_rate=warmup_cosine_lr(args.learning_rate, args.steps, args.warmup_steps),

@@ -120,7 +120,7 @@ def train(
     included) and the wall ms per new token (all rows together, prefill
     included). A preempted run (summary["exit_code"] 143) decodes
     nothing. Runs in the world as it stands (main joins it)."""
-    from .._device import resolve_device
+    from .._device import resolve_device, seeded_model
     from ..models import gpt as gpt_lib
     from ..parallel import distributed
     from ..parallel.mesh import build_mesh, mesh_summary, sequence_attention
@@ -141,7 +141,8 @@ def train(
         cfg, max_seq_len=max(cfg.max_seq_len, args.seq_len), remat=args.remat
     )
     generator = torch.Generator().manual_seed(SEED)
-    model = gpt_lib.GPT(cfg, attention_fn=attention_fn, generator=generator)
+    model = seeded_model(lambda g: gpt_lib.GPT(cfg, attention_fn=attention_fn, generator=g),
+                         device, SEED)
     trainer = Trainer(
         model, causal_lm_task(),
         learning_rate=warmup_cosine_lr(args.learning_rate, args.steps, args.warmup_steps),

@@ -4,11 +4,17 @@ tf_operator_tpu/train/moe.py.
     python -m tf_operator_tpu_torch.train.moe --preset tiny --steps 20 --device cpu
     python -m tf_operator_tpu_torch.train.moe --preset base --batch-size 8 --seq-len 1024
 
+    python -m tf_operator_tpu_torch.train.moe --preset base --ep 2 --tp 2
+
 Joins the TFJob's world from the operator-injected env
 (parallel/distributed.py) and lays models/moe.py's MoELM over a (dp,
-fsdp) mesh by MOE_RULES: DDP, or FSDP2 on each block and the root with
---fsdp > 1; each router's load-balancing means are then the global
-batch's. --batch-size is the global batch. Runs on one CUDA device
+fsdp, ep, tp) mesh by MOE_RULES: DDP, or FSDP2 on each block and the
+root with --fsdp > 1; --ep gives each rank e / ep experts, --tp splits
+the attention, the dense MLPs, the embeddings, the head's vocabulary and
+the experts' intermediate dimension (parallel/sharding.py), over plain
+local shards (no DTensor), DDP over the dp ranks; --fsdp with --ep or
+--tp exits 2 naming ROADMAP item 4. Each router's load-balancing means
+are the global batch's. --batch-size is the global batch. Runs on one CUDA device
 unless --device names another. AdamW with weight decay 0.01 (the expert
 kernels, bf16 in the base preset, keep bf16 moments). The loop is
 trainer.timed_run, as train/gpt.py's: restore from --checkpoint-dir,
@@ -20,8 +26,10 @@ steps, then tokens/sec, then a held-out eval with perplexity and
 router_aux. --seq-len above the preset's max_position_embeddings raises
 it (the position table would otherwise be indexed past its end).
 --monitoring-bind-addr serves the worker's telemetry (train/observe.py
-TrainTelemetry) while it trains. Refused, naming their ROADMAP items:
---ep and --tp (parallel/mesh.py).
+TrainTelemetry) while it trains. The weights are drawn on the device,
+from a generator there seeded SEED (`_device.seeded_model`). A
+checkpoint holds the full state at any mesh (gathered over ep and tp),
+so it restores at any other.
 """
 
 from __future__ import annotations
@@ -42,10 +50,8 @@ WEIGHT_DECAY = 0.01
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
-    from ..parallel.mesh import NOT_PORTED, mesh_config
+    from ..parallel.mesh import mesh_config
     from .observe import add_monitoring_flag
-
-    moe_tp = "tensor parallel for the MoE LM, with its expert parallel (ROADMAP queue 1, item 7)"
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--preset", choices=["tiny", "base"], default="tiny")
@@ -57,8 +63,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     )
     parser.add_argument("--learning-rate", type=float, default=3e-4)
     parser.add_argument("--fsdp", type=int, default=1, help="FSDP2 shards over this many ranks")
-    parser.add_argument("--ep", type=int, default=1, help=f"not ported: {NOT_PORTED['ep']}")
-    parser.add_argument("--tp", type=int, default=1, help=f"not ported: {moe_tp}")
+    parser.add_argument("--ep", type=int, default=1,
+                        help="expert parallel: each rank holds num_experts / ep experts")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="Megatron tensor parallel, the experts' intermediate dimension too")
     parser.add_argument(
         "--checkpoint-dir", default=None,
         help="resume from the newest checkpoint here; save on SIGTERM and at the end",
@@ -76,7 +84,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--device", default=None, help="default: cuda")
     add_monitoring_flag(parser)
     args = parser.parse_args(argv)
-    args.mesh = mesh_config(parser, args, refuse={"tp": moe_tp})
+    args.mesh = mesh_config(parser, args)
     return args
 
 
@@ -94,7 +102,7 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Any]:
     """Train as the flags say, in the world as it stands (main joins it);
     returns trainer.timed_run's summary (with router_aux, router_z and
     eval_router_aux) and the final TrainState."""
-    from .._device import resolve_device
+    from .._device import resolve_device, seeded_model
     from ..models import moe as moe_lib
     from ..parallel.mesh import build_mesh, mesh_summary
     from ..parallel.sharding import MOE_RULES
@@ -106,7 +114,7 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Any]:
     logger.info("mesh: %s", mesh_summary(mesh))
     cfg = config(args)
     generator = torch.Generator().manual_seed(SEED)
-    model = moe_lib.MoELM(cfg, generator=generator)
+    model = seeded_model(lambda g: moe_lib.MoELM(cfg, generator=g), device, SEED)
     trainer = Trainer(
         model, moe_task(),
         learning_rate=warmup_cosine_lr(args.learning_rate, args.steps, args.warmup_steps),

@@ -180,8 +180,9 @@ def causal_lm_task() -> Task:
 def moe_task() -> Task:
     """Causal LM with the router's losses (models/moe.py): the training
     loss is lm + every router loss, the eval loss lm alone (perplexity
-    reads it). "router_aux" (load balancing) and "router_z" are reported
-    apart; "loss_weight" is the mask's weight mass past position 0, so
+    reads it); under tp the head's logits are vocab-parallel.
+    "router_aux" (load balancing) and "router_z" are reported apart;
+    "loss_weight" is the mask's weight mass past position 0, so
     accumulation and ranks weight the LM loss exactly (the router terms
     ride the same per-microbatch weighting, as in the reference)."""
     from ..models.moe import lm_loss, sum_sown, total_aux_loss
@@ -189,7 +190,8 @@ def moe_task() -> Task:
     def loss_fn(model: nn.Module, batch: Batch, train: bool = True):
         mask = batch.get("attention_mask")
         logits, losses = model(batch["input_ids"], mask)
-        lm = lm_loss(logits, batch["labels"], weights=mask)
+        lm = lm_loss(logits, batch["labels"], weights=mask,
+                     vocab=sharding_lib.vocab_shard(model))
         loss = lm + total_aux_loss(losses) if train else lm
         extras = {"router_aux": sum_sown(losses, "router_aux"),
                   "router_z": sum_sown(losses, "router_z")}
@@ -1060,11 +1062,11 @@ def state_payload(state: TrainState) -> Optional[Dict[str, Any]]:
     "optimizer": the optimizer's state_dict, parameters keyed by index},
     full tensors at any world size. Under FSDP2 they are gathered (a
     collective: every rank calls this) onto rank 0's CPU, and under the
-    tp plan over each tp group (_tp_payload); the other ranks get None.
-    Otherwise the tensors are the live ones."""
-    tp = getattr(state.model, "tensor_parallel", None)
-    if tp is not None:
-        return _tp_payload(state, tp)
+    tp plan and the ep layout over their groups (_tp_payload); the other
+    ranks get None. Otherwise the tensors are the live ones."""
+    plans = sharding_lib.layouts(state.model)
+    if plans:
+        return _tp_payload(state, plans)
     if not sharding_lib.is_fully_sharded(state.model):
         return {"step": int(state.step), "model": state.model.state_dict(),
                 "optimizer": state.optimizer.state_dict()}
@@ -1103,15 +1105,15 @@ def _map_moments(state: TrainState, optim: Dict[str, Any], fn) -> Dict[str, Any]
     return {**optim, "state": out}
 
 
-def _tp_payload(state: TrainState, tp) -> Optional[Dict[str, Any]]:
-    """state_payload under the tp plan: each split parameter and its
-    optimizer moments all-gathered over the tp group (a collective: every
-    rank calls this); rank 0 gets the full payload."""
-    model = sharding_lib.gather_state_dict(state.model.state_dict(), tp)
+def _tp_payload(state: TrainState, plans) -> Optional[Dict[str, Any]]:
+    """state_payload under the tp plan and the ep layout (`plans`): each
+    split parameter and its optimizer moments all-gathered over the tp
+    group, then the ep group (a collective: every rank calls this); rank
+    0 gets the full payload."""
+    model = sharding_lib.gather_state_dict(state.model.state_dict(), plans)
 
     def gather(name, value):
-        rule = tp.rule(name)
-        return value if rule is None else distributed.all_gather(value, tp.group, rule[0])
+        return sharding_lib.gather_tensor(name, value, plans)
 
     optim = _map_moments(state, state.optimizer.state_dict(), gather)
     if not distributed.is_coordinator():
@@ -1122,12 +1124,11 @@ def _tp_payload(state: TrainState, tp) -> Optional[Dict[str, Any]]:
 def _apply_payload(state: TrainState, payload: Dict[str, Any]) -> TrainState:
     """Load a checkpoint's payload into `state` in place. Under FSDP2
     (a collective: every rank calls this with the full payload) and under
-    the tp plan each rank keeps its shards."""
-    tp = getattr(state.model, "tensor_parallel", None)
-    if tp is not None:
+    the tp plan and the ep layout each rank keeps its shards."""
+    plans = sharding_lib.layouts(state.model)
+    if plans:
         def local(name, value):
-            rule = tp.rule(name)
-            return value if rule is None else value.chunk(tp.size, rule[0])[tp.rank].clone()
+            return sharding_lib.local_slice(name, value, plans).clone()
 
         state.model.load_state_dict(
             {name: local(name, value) for name, value in payload["model"].items()})

@@ -90,7 +90,7 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     """Train as the flags say, in the world as it stands (main joins it);
     returns trainer.timed_run's summary (in images, with the final
     step's accuracy; "exit_code" 143 after a SIGTERM)."""
-    from .._device import resolve_device
+    from .._device import resolve_device, seeded_model
     from ..models import vit as vit_lib
     from ..parallel import distributed
     from ..parallel.mesh import build_mesh, mesh_summary
@@ -106,7 +106,7 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     cfg = config(args)
     global_batch = args.per_chip_batch * distributed.world_size()
     generator = torch.Generator().manual_seed(SEED)
-    model = vit_lib.ViT(cfg, generator=generator)
+    model = seeded_model(lambda g: vit_lib.ViT(cfg, generator=g), device, SEED)
     trainer = Trainer(
         model, classification_task(),
         learning_rate=warmup_cosine_lr(args.learning_rate, args.steps, args.warmup_steps),
