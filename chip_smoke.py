@@ -105,7 +105,8 @@ non-zero, printing no result:
 21. profile_dir - train/bert.py --profile-dir writes a Chrome trace that
    names K1-K3.
 22. rendezvous - testing/rendezvous_worker.py, then train/smoke.py (each
-   one's main(), in one launch of two processes), as two ranks on cuda:0
+   one's main(), first in the world-2 launch of ddp_bert's two
+   processes), as two ranks on cuda:0
    over gloo (NCCL refuses two ranks on one device), the
    operator's env names set by hand (TPU_WORKER_ID, TPU_WORKER_HOSTNAMES,
    JAX_NUM_PROCESSES, JAX_PROCESS_ID, TFJOB_COORDINATOR_OVERRIDE): ranks
@@ -175,7 +176,15 @@ non-zero, printing no result:
    the replicated embedding and head equal on every rank after the step.
    Reported: ms a step a rank, the share of the ep/tp all-reduces, the
    point-to-point sends' bytes and ms and each stage's idle share beside
-   the GPipe bubble (S - 1) / (M + S - 1); K1-K5 0 launches.
+   the GPipe bubble (S - 1) / (M + S - 1); K1-K5 0 launches. Last in
+   the world, tp_serve: make_server(mesh=build_mesh(dp=-1, tp=2)) on
+   every rank (dp 2 x tp 2), rank 0 serving 4 GPT-small bf16 requests
+   (16-128 prompt tokens, 16 new) over HTTP and broadcasting each
+   decode, the others following it (MeshFollower) until rank 0's
+   server_close(); then generate(mesh=, weights_int8=True) on every
+   rank (2 x 64, 16 new). Held against the one process's inline and int8
+   generate under the margin rule; every follower made every call; K1-K5
+   0 launches.
 29. serve - GPT-small (12 x 768, 6 heads of 128, vocab 32000, max_seq_len
    2048, bf16, random weights from a seed) behind
    serve.make_server(batching="continuous") at the server's defaults (8
@@ -200,6 +209,20 @@ non-zero, printing no result:
    bounds; the same requests through a kv_layout="dense" engine (the
    margin rule); one capture of the step and of the prefill chunk; no
    launch of K1-K5; the server shut down and the engine threads joined.
+   sharded_serve - the same GPT-small and requests through
+   ContinuousBatchingEngine(mesh_shape=) on meshes 1x2 and 2x2 whose
+   shards all sit on cuda:0 (a device list that repeats it; 3 heads a
+   model shard): the step's ms as a CUDA graph beside the single-device
+   engine's, device ms by kind with the shards' joins apart; one capture
+   of each program; a shard's pool x model shards = the pool;
+   engine_mesh_devices = the shape's product; prefix hits and a
+   copy-on-write; a clean pool; chains against the single-device
+   engine's under the margin rule. At 1x2 on 3 of the requests (32 new
+   tokens at most): f32 with
+   TF32 off (chains equal), int8 KV, speculate="ngram" (one verify
+   capture), a block set each way between the sharded and an unsharded
+   engine (equal bytes), make_server(mesh_shape=) over HTTP. One process;
+   K1-K5 0 launches.
 30. int8_decode - GPT-small generate, 8 rows, a 128-token prompt, 32 new
    tokens, bf16, in four modes (plain, weights_int8, kv_int8, both): ms per
    new token, the steady state's device ms per token, kernels per token and
@@ -231,8 +254,8 @@ non-zero, printing no result:
    --speculative (inline): chains against in-process decode on the same
    weights, a 4-beam request sorted, the reference's 400s, SIGTERM -> 0; the
    draft preset at GPT-small and --batching continuous --speculative refused
-   at startup (exit 2, the reference's text). The four processes start
-   together.
+   at startup (exit 2, the reference's text; the CLI's main() in this
+   process). The two servers start together.
 36. moe_train - MoE-base (12 x 768, 12 heads, every other block top-2 of
    8 experts with bf16 expert kernels, capacity factor 1.25, vocab 32000)
    at batch 8 x seq 1024 (moe_bench.py:81-86), AdamW 3e-4 wd 0.01,
@@ -263,7 +286,8 @@ non-zero, printing no result:
    against the all-stepwise chain.
 41. moe_serve - train/moe.py --preset base --steps 2 --checkpoint-dir
    (its main(), in this process), then the serve CLI --preset moe-base on
-   that checkpoint as a subprocess: 4 requests from the port's DecodeClient, greedy chains
+   that checkpoint (its main() in this process, SIGTERM to this process
+   ending it): 4 requests from the port's DecodeClient, greedy chains
    equal to in-process moe_generate on the restored weights; a ragged,
    a top_k and a num_beams request each a 400; SIGTERM -> exit 0.
 42. vit_train, vit_profile - ViT-B/16 through train/vit.py at 224^2,
@@ -292,6 +316,8 @@ non-zero, printing no result:
    fired stays within OBSERVE_RATE_KEEP of its steady rate (the larger of
    the baseline's and the one after the resolve: the slowed worker's
    sleep is on the host, so the shared card does not couple them).
+   Reported beside it: the live threads when it starts and one sampler
+   tick's cost then, and the mean tick over the smoke.
 46. serve_observe - GPT-small behind make_server with tenant quotas
    (OBSERVE_QUOTAS), alerts on, a 0.5 s history cadence and the debug
    endpoints, serve's 12-request mix from 8 client threads over
@@ -372,8 +398,8 @@ non-zero, printing no result:
    the group is back in; `kvz` and `historyz --observatory` print their
    pages; `tracez --observatory` prints the same 8 hops, in order, as the
    page the phase checks. No kernel of K1-K5 runs in phases 49-54.
-53. telemetry_smoke - `python -m tf_operator_tpu_torch.serve --smoke` as
-   a subprocess on the card (GPT_TINY, the smoke's own size): exit 0 and
+53. telemetry_smoke - `python -m tf_operator_tpu_torch.serve --smoke`,
+   its main() in this process, on the card (GPT_TINY, the smoke's own size): exit 0 and
    ok true, its report printed (the /metrics exposition with a TTFT
    histogram, a complete serve-request span with its queued, admitted and
    first-token marks, the streamed request's correlated flight records,
@@ -2300,20 +2326,18 @@ def run_world(argv: list, logs_dir: str, timeout: float, world: int = WORLD2) ->
     raise AssertionError(f"world of {world} running {argv}: {json.dumps(tails)}")
 
 
-def run_rendezvous(smi: str, logs_dir: str) -> dict:
+RENDEZVOUS_ARGS = ["--device", "cuda", "--backend", "gloo"]
+
+
+def check_rendezvous(smi: str, texts: list) -> dict:
     """rendezvous: the port's rendezvous worker, then train/smoke.py (each
-    entry point's main(), one after the other in the same two processes:
-    one launch), as two ranks on cuda:0 over gloo with the operator's env
-    names set by hand: each rank's torch.distributed rank and world size
-    equal the injected identity, an all-gather of the ranks' ids on the
-    card gives [0, 1], and the all-reduce of (rank + 1) x a bf16-matmul
-    unit is 3."""
-    code = ("import sys\n"
-            "from tf_operator_tpu_torch.testing import rendezvous_worker\n"
-            "from tf_operator_tpu_torch.train import smoke\n"
-            "args = ['--device', 'cuda', '--backend', 'gloo']\n"
-            "sys.exit(rendezvous_worker.main(args) or smoke.main(args))\n")
-    texts = run_world(["-c", code], logs_dir, 180)
+    entry point's main(), one after the other, each forming and ending its
+    world), run first by each rank of the world-2 launch (world2_rank) as
+    two ranks on cuda:0 over gloo with the operator's env names set by
+    hand: each rank's torch.distributed rank and world size equal the
+    injected identity, an all-gather of the ranks' ids on the card gives
+    [0, 1], and the all-reduce of (rank + 1) x a bf16-matmul unit is 3.
+    texts: each rank's output."""
     reports = []
     for rank, text in enumerate(texts):
         lines = [line for line in text.splitlines() if line.startswith("RENDEZVOUS ")]
@@ -2623,8 +2647,8 @@ def rank_resnet(work: str, kernels) -> dict:
 
 
 def world2_rank(work: str) -> int:
-    """One rank of the world-2 phases (ddp_bert, fsdp_gpt, syncbn_resnet,
-    then tp_gpt, sp_gpt and dryrun), launched by run_distributed_phases as
+    """One rank of the world-2 phases (rendezvous, ddp_bert, fsdp_gpt,
+    syncbn_resnet, then tp_gpt, sp_gpt and dryrun), launched by run_distributed_phases as
     `chip_smoke.py --world2-rank <dir>` with the operator's env: the world
     over gloo on cuda:0, the one-process references read from <dir>,
     rank<r>.json written there."""
@@ -2633,6 +2657,12 @@ def world2_rank(work: str) -> int:
     from tf_operator_tpu_torch.ops import kernels
     from tf_operator_tpu_torch.parallel import distributed
 
+    from tf_operator_tpu_torch.testing import rendezvous_worker
+    from tf_operator_tpu_torch.train import smoke
+
+    # the rendezvous phase's two entry points first, in these processes
+    if rendezvous_worker.main(RENDEZVOUS_ARGS) or smoke.main(RENDEZVOUS_ARGS):
+        return 1
     distributed.initialize("cuda", backend="gloo")
     try:
         out = {"rank": distributed.rank(), "world": distributed.world_size(),
@@ -2813,7 +2843,8 @@ def run_distributed_phases(kernels, smi: str) -> dict:
     (DDP for BERT-base, FSDP2 for GPT-small) in this process, the
     model-parallel phases' one-process sides (mp_reference), then one
     world of 2 ranks over gloo on cuda:0 (run_world, `--world2-rank`)
-    that runs the three models' world-2 sides in turn, each rank on its
+    that runs the rendezvous checks, then the three models' world-2 sides
+    in turn, each rank on its
     rows of the same global batch, then tp_gpt's and sp_gpt's, then the
     port's dryrun_multichip(2) (dryrun). Returns
     each kernel's launches per step per rank at world 2 ("ddp_bert",
@@ -2828,7 +2859,6 @@ def run_distributed_phases(kernels, smi: str) -> dict:
 
     work = tempfile.mkdtemp(prefix="dist-")
     try:
-        run_rendezvous(smi, work)
         nccl_world_of_one()
         try:
             bert1 = bert_world1(work, kernels)
@@ -2843,8 +2873,10 @@ def run_distributed_phases(kernels, smi: str) -> dict:
         chain = torch.load(os.path.join(work, "mp_ref.pt"), weights_only=False)["chain"]
         free_device_memory()
         start = time.monotonic()
-        run_world([__file__, "--world2-rank", work], work, DIST_TIMEOUT_S + MP_TIMEOUT_S)
+        texts = run_world([__file__, "--world2-rank", work], work,
+                          DIST_TIMEOUT_S + MP_TIMEOUT_S)
         world_s = time.monotonic() - start
+        check_rendezvous(smi, texts)
         ranks = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(WORLD2)]
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3652,6 +3684,8 @@ def world_rank(phase: str, work: str) -> int:
                "tp_sp_cli": rank_tp_sp_cli(kernels)}
         out["ep_tp_moe"] = timed_seconds(rank_ep_tp_moe, work, kernels)
         out["pp_moe"] = timed_seconds(rank_pp_moe, work, kernels)
+        free_device_memory()
+        out["tp_serve"] = timed_seconds(rank_tp_serve, kernels)
         with open(os.path.join(work, f"rank{out['rank']}.json"), "w") as fh:
             json.dump(out, fh)
         distributed.barrier()
@@ -3669,9 +3703,10 @@ def timed_seconds(fn, *args) -> dict:
 
 
 def run_model_parallel_phases(kernels, smi: str) -> None:
-    """tp_sp_cli, ep_tp_moe and pp_moe: the world of 4 running the CLIs'
-    usage lines and the MoE LM's expert, tensor and pipeline parallelism
-    after the one process's steps, each held to its bounds (tp_gpt and
+    """tp_sp_cli, ep_tp_moe, pp_moe and tp_serve: the world of 4 running
+    the CLIs' usage lines, the MoE LM's expert, tensor and pipeline
+    parallelism and the server's tensor-parallel inline decode after the
+    one process's steps and decodes, each held to its bounds (tp_gpt and
     sp_gpt run in run_distributed_phases' world of 2)."""
     import os
     import shutil
@@ -3682,6 +3717,8 @@ def run_model_parallel_phases(kernels, smi: str) -> None:
         start = time.monotonic()
         one = moe_mp_reference(cli_work)
         one["seconds"] = time.monotonic() - start
+        free_device_memory()
+        serve_one = tp_serve_reference()
         start = time.monotonic()
         run_world([__file__, "--world-rank", "cli", cli_work], cli_work, MP_TIMEOUT_S,
                   world=CLI_WORLD)
@@ -3691,8 +3728,129 @@ def run_model_parallel_phases(kernels, smi: str) -> None:
         check_tp_sp_cli([r["tp_sp_cli"] for r in ranks], smi, cli_s)
         check_ep_tp_moe(one, [r["ep_tp_moe"] for r in ranks], smi)
         check_pp_moe(one, [r["pp_moe"] for r in ranks], smi)
+        check_tp_serve(serve_one, [r["tp_serve"] for r in ranks], smi)
     finally:
         shutil.rmtree(cli_work, ignore_errors=True)
+
+
+# tp_serve: make_server(mesh=) in tp_sp_cli's world of 4 (dp 2 x tp 2), rank 0
+# serving HTTP and broadcasting each decode to the other ranks (MeshFollower)
+TP_SERVE_SEED = 43
+TP_SERVE_REQUESTS = 4
+TP_SERVE_PROMPT = (16, 128)
+TP_SERVE_NEW = 16
+TP_SERVE_INT8 = (2, 64, 16)  # rows, prompt, new tokens of generate(mesh=, weights_int8=True)
+
+
+def tp_serve_inputs(gpt_lib) -> tuple:
+    """GPT-small (bf16) drawn on the card from TP_SERVE_SEED (the same
+    weights in every process), the requests' prompts and the int8
+    generate's prompt rows."""
+    import numpy as np
+
+    from tf_operator_tpu_torch._device import seeded_model
+
+    cfg = gpt_lib.GPT_SMALL
+    model = seeded_model(lambda g: gpt_lib.GPT(cfg, generator=g), torch.device("cuda"),
+                         TP_SERVE_SEED)
+    rng = np.random.default_rng(TP_SERVE_SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(TP_SERVE_PROMPT[0], TP_SERVE_PROMPT[1] + 1,
+                                     TP_SERVE_REQUESTS)]
+    rows, length, _ = TP_SERVE_INT8
+    return model, prompts, rng.integers(0, cfg.vocab_size, (rows, length)).tolist()
+
+
+def tp_serve_reference() -> dict:
+    """The one process's side of tp_serve: each request's inline greedy
+    chain and the int8 generate's chain, on tp_serve_inputs."""
+    from tf_operator_tpu_torch.models import gpt as gpt_lib
+
+    model, prompts, int8_prompt = tp_serve_inputs(gpt_lib)
+    with torch.no_grad():
+        chains = [gpt_lib.generate(model, torch.tensor([p], device="cuda"), TP_SERVE_NEW)[0]
+                  .tolist() for p in prompts]
+        int8 = gpt_lib.generate(model, torch.tensor(int8_prompt, device="cuda"),
+                                TP_SERVE_INT8[2], weights_int8=True).tolist()
+    return {"model": model, "chains": chains, "int8": int8}
+
+
+def rank_tp_serve(kernels) -> dict:
+    """tp_serve's world-4 rank: make_server(mesh=build_mesh(dp=-1, tp=2))
+    on every rank; rank 0 serves the requests over HTTP to its own client
+    and closes (which stops the others), the others follow
+    (MeshFollower.serve_forever); then every rank's
+    generate(mesh=, weights_int8=True)."""
+    import threading
+
+    from tf_operator_tpu_torch.models import gpt as gpt_lib
+    from tf_operator_tpu_torch.parallel import distributed
+    from tf_operator_tpu_torch.parallel.mesh import MeshConfig, build_mesh, mesh_summary
+    from tf_operator_tpu_torch.serve import DecodeClient, make_server
+
+    model, prompts, int8_prompt = tp_serve_inputs(gpt_lib)
+    mesh = build_mesh(MeshConfig(dp=-1, tp=2), "cuda")
+    kernels.reset_launches()
+    start = time.monotonic()
+    server = make_server(model, device="cuda", mesh=mesh, max_new_cap=TP_SERVE_NEW)
+    out = {"mesh": mesh_summary(mesh), "boot_s": time.monotonic() - start}
+    start = time.monotonic()
+    if distributed.rank() == 0:
+        listener = threading.Thread(target=server.serve_forever, daemon=True)
+        listener.start()
+        try:
+            client = DecodeClient(f"http://127.0.0.1:{server.server_address[1]}", timeout=600)
+            out["chains"] = [client.generate([p], max_new_tokens=TP_SERVE_NEW)[0]
+                             for p in prompts]
+        finally:
+            server.shutdown()
+            server.server_close()
+            listener.join(timeout=30)
+    else:
+        server.serve_forever()
+        out["calls_followed"] = server.calls
+    out["serve_s"] = time.monotonic() - start
+    start = time.monotonic()
+    with torch.no_grad():
+        out["int8"] = gpt_lib.generate(model, torch.tensor(int8_prompt, device="cuda"),
+                                       TP_SERVE_INT8[2], mesh=mesh, weights_int8=True).tolist()
+    out["int8_s"] = time.monotonic() - start
+    out["launches"] = dict(kernels.LAUNCHES)
+    return out
+
+
+def check_tp_serve(one: dict, ranks: list, smi: str) -> None:
+    """Rank 0's served chains and every rank's int8 chain against the one
+    process's, under the margin rule (bf16: tp sums each row-parallel
+    layer's partial products); every other rank followed every call."""
+    from tf_operator_tpu_torch.models import gpt as gpt_lib
+
+    model = one["model"]
+    lead = ranks[0]
+    served = margin_differences(gpt_lib, model, lead["chains"], one["chains"])
+    int8 = [margin_differences(gpt_lib, model, r["int8"], one["int8"]) for r in ranks]
+    emit({"phase": "tp_serve", "card": smi, "model": "GPT-small bf16", "world": CLI_WORLD,
+          "label": MP_LABEL, "mesh": lead["mesh"], "requests": len(one["chains"]),
+          "new_tokens": TP_SERVE_NEW, "boot_s": [r["boot_s"] for r in ranks],
+          "serve_s": lead["serve_s"],
+          "calls_followed": [r.get("calls_followed") for r in ranks[1:]],
+          "served_differences": served, "int8_differences": int8,
+          "int8_s": [r["int8_s"] for r in ranks],
+          "int8_equal_one_process": [r["int8"] == one["int8"] for r in ranks],
+          "seconds": [r["seconds"] for r in ranks],
+          "launches": [r["launches"] for r in ranks]})
+    problems = []
+    if any(d["margin"] > d["bound"] for d in served):
+        problems.append(f"a served chain differs above the margin: {served}")
+    if any(d["margin"] > d["bound"] for diffs in int8 for d in diffs):
+        problems.append(f"an int8 chain differs above the margin: {int8}")
+    if any(r.get("calls_followed") != TP_SERVE_REQUESTS for r in ranks[1:]):
+        problems.append("a follower missed a call")
+    if any(any(r["launches"].values()) for r in ranks):
+        problems.append("K1-K5 launched")
+    if problems:
+        raise AssertionError(f"tp_serve: {problems}")
+    del one["model"]
 
 
 def check_tp_gpt(one: dict, chain: list, ranks: list, smi: str, world_s: float) -> dict:
@@ -3976,7 +4134,8 @@ def by_category(kernels, steps: int, categories) -> dict:
     return out
 
 
-def serve_step_timings(engine) -> dict:
+def serve_step_timings(engine, runs=("graph", "eager"), categories=None,
+                       casts: bool = True) -> dict:
     """The paged step at SERVE_SLOTS active slots (each at position 1023 of its
     own 32 blocks, the pool's 256 usable blocks), called from this thread once
     the engine is stopped: median wall ms a step (inputs copied, step, next
@@ -3984,7 +4143,8 @@ def serve_step_timings(engine) -> dict:
     launched eagerly; then a torch.profiler window of SERVE_PROFILE_STEPS of
     each: device ms a step by kind and the busy share; and the device ms of
     the weight casts alone (every dense weight to bf16, as each step casts
-    them), from a profiler window of SERVE_PROFILE_STEPS sets of casts."""
+    them), from a profiler window of SERVE_PROFILE_STEPS sets of casts.
+    runs, categories (SERVE_CATEGORIES by default) and casts narrow it."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -3994,7 +4154,10 @@ def serve_step_timings(engine) -> dict:
     args = (rng.integers(0, engine.cfg.vocab_size, n).astype(np.int32),
             np.full(n, 1023, np.int32), np.zeros((n, engine.max_total), np.int32),
             np.ones(n, np.int32), (1 + np.arange(n * mb, dtype=np.int32)).reshape(n, mb))
-    runs = {"graph": lambda: step(*args).cpu(), "eager": lambda: step.run_eager(*args).cpu()}
+    runs = {name: fn for name, fn in (("graph", lambda: step(*args).cpu()),
+                                      ("eager", lambda: step.run_eager(*args).cpu()))
+            if name in runs}
+    categories = categories or SERVE_CATEGORIES
     out = {"active_slots": n, "index": 1023}
     def window(fn, steps):
         """Device kernels, wall ms and device ms of `steps` calls of fn."""
@@ -4024,11 +4187,14 @@ def serve_step_timings(engine) -> dict:
             "device_ms_per_step": device_ms / SERVE_PROFILE_STEPS if device_ms else None,
             "device_busy_share": device_ms / wall if device_ms else None,
             "kernels_per_step": sum(e.count for e in kernels) / SERVE_PROFILE_STEPS,
-            "ms_per_step_by_kind": by_category(kernels, SERVE_PROFILE_STEPS, SERVE_CATEGORIES),
+            "ms_per_step_by_kind": by_category(kernels, SERVE_PROFILE_STEPS, categories),
             "top": [{"kernel": e.key[:200], "calls_per_step": e.count / SERVE_PROFILE_STEPS,
                      "ms_per_step": e.self_device_time_total / 1e3 / SERVE_PROFILE_STEPS}
                     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]],
         }
+    if not casts:
+        engine.pool.flush()
+        return out
     weights = [p for name, p in engine.model.named_parameters()
                if "embed" not in name and ".ln_" not in name and not name.startswith("ln_")]
     # the int8 twin's kernels are buffers, cast to bf16 by every product
@@ -4447,6 +4613,238 @@ def run_serve(kernels, gpt_lib, smi) -> dict:
     return report
 
 
+# -- sharded decode on one card (models/gpt.py ShardedPagedSlotDecodeStep) ---------
+# The serving mesh's shards share cuda:0 (a device list that repeats it):
+# one process drives every shard, each program one CUDA graph.
+SHARDED_MESHES = ((1, 2), (2, 2))
+SHARDED_EXTRA = 3  # requests of serve_requests' mix for the 1x2 extras
+SHARDED_EXTRA_NEW = 32  # their new tokens at most
+SHARDED_CATEGORIES = (("shard gathers (torch.cat)", ("catarraybatchedcopy",)),) + SERVE_CATEGORIES
+
+
+def sharded_engine(model, mesh_shape=None, **kw):
+    """GPT-small's engine at the server's defaults (SERVE_SLOTS slots,
+    SERVE_BLOCK-token blocks, SERVE_CHUNK-token chunks) on cuda:0, over a
+    mesh of mesh_shape's shards all on cuda:0 when given."""
+    from tf_operator_tpu_torch.serve.engine import ContinuousBatchingEngine
+
+    if mesh_shape is not None:
+        kw.update(mesh_shape=mesh_shape,
+                  mesh_devices=[torch.device("cuda", 0)] * (mesh_shape[0] * mesh_shape[1]))
+    return ContinuousBatchingEngine(model, n_slots=SERVE_SLOTS, kv_layout="paged",
+                                    block_size=SERVE_BLOCK, prefill_chunk=SERVE_CHUNK,
+                                    device="cuda", **kw)
+
+
+def engine_chains(engine, reqs) -> list:
+    """Each request's chain through a started engine: request 0 (the
+    shared prefix alone) first, so the prefix is cached, then the rest
+    together."""
+    first = engine.submit(reqs[0]["prompt"], reqs[0]["new"])
+    chains = [first.result(600)]
+    handles = [engine.submit(r["prompt"], r["new"]) for r in reqs[1:]]
+    return chains + [h.result(600) for h in handles]
+
+
+def margin_differences(gpt_lib, model, got: list, want: list) -> list:
+    """Where each chain of `got` first leaves `want`'s: the top-2 margin
+    of the teacher-forced logits along `want` there and its
+    SERVE_MARGIN_ULPS bound (decisions)."""
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        j = first_diff(g, w)
+        if j is None:
+            continue
+        logits = forced_logits(gpt_lib, model, torch.tensor([w[:j]], device="cuda"))[0, -1]
+        _, margin, bound = decisions(logits).tolist()
+        out.append({"request": i, "position": j, "margin": margin, "bound": bound})
+    return out
+
+
+def finished_clean(engine) -> dict:
+    """Stop the engine; its pool audited, nothing left in use."""
+    engine.stop()
+    engine.pool.check()
+    return {"pool_check": True, "in_use_after": engine.pool.in_use()}
+
+
+def run_sharded_serve(kernels, gpt_lib, smi) -> dict:
+    """sharded_serve: GPT-small (bf16, random weights from SERVE_SEED) at the
+    server's defaults through ContinuousBatchingEngine(mesh_shape=) on
+    meshes 1x2 and 2x2 whose shards all sit on cuda:0 (6 heads: 3 a model
+    shard), serve_requests' 12 requests, half on the 512-token prefix.
+    For each mesh: the step's ms as a graph beside the single-device
+    paged step's, device ms by kind with the shards' joins (torch.cat) in
+    their own line; one capture of each program; kv_bytes_per_shard x
+    model shards == kv_bytes_total; engine_mesh_devices == the shape's
+    product; prefix hits and a copy-on-write; a clean pool afterwards;
+    chains against the single-device engine's under the margin rule. At
+    1x2 also, on SHARDED_EXTRA requests of at most SHARDED_EXTRA_NEW new
+    tokens: an f32 twin with TF32 off (chains
+    equal), int8 KV (the margin rule against the single-device int8
+    engine), speculate="ngram" at spec_depth 4 (one verify capture, chains
+    against the single-device plain engine's), one block set exported by
+    the sharded engine with the unsharded engine's bytes and imported
+    back into the other engine, and make_server(mesh_shape=) over HTTP
+    through DecodeClient. One process, no process started; K1-K5 at 0."""
+    import threading
+
+    from tf_operator_tpu_torch.serve import DecodeClient, make_server
+
+    cfg = gpt_lib.GPT_SMALL
+    model = gpt_lib.GPT(cfg, generator=torch.Generator().manual_seed(SERVE_SEED), device="cuda")
+    reqs = serve_requests(cfg)
+    # the extras' chains are prefixes of the full requests' chains
+    extra = [dict(r, new=min(r["new"], SHARDED_EXTRA_NEW)) for r in reqs[:SHARDED_EXTRA]]
+    kernels.reset_launches()
+    report = {"phase": "sharded_serve", "card": smi, "model": "GPT-small", "slots": SERVE_SLOTS,
+              "block_size": SERVE_BLOCK, "prefill_chunk": SERVE_CHUNK,
+              "requests": len(reqs), "meshes": {}, "devices": "every shard on cuda:0"}
+    problems = []
+    single = sharded_engine(model)
+    want = engine_chains(single, reqs)
+    clean = finished_clean(single)  # the timings then run on this thread
+    report["single"] = {"kv_bytes_total": single.step.kv_bytes_total, **clean,
+                        "step": serve_step_timings(single, runs=("graph",),
+                                                   categories=SHARDED_CATEGORIES, casts=False)}
+    for shape in SHARDED_MESHES:
+        start = time.monotonic()
+        engine = sharded_engine(model, shape)
+        boot_s = time.monotonic() - start
+        got = engine_chains(engine, reqs)
+        flat = {name: value for (name, _), value in engine.metrics().items()}
+        step = engine.step
+        clean = finished_clean(engine)
+        line = {
+            "mesh": list(shape), "boot_s": boot_s,
+            "captures": {"step": step.compiles, "prefill": step.prefill_compiles,
+                         "copy": step.copy_compiles},
+            "kv_bytes_total": step.kv_bytes_total, "kv_bytes_per_shard": step.kv_bytes_per_shard,
+            "model_shards": step.model_shards,
+            "engine_mesh_devices": flat["engine_mesh_devices"],
+            "engine_kv_shard_bytes": flat["engine_kv_shard_bytes"],
+            "prefix_hits": engine.pool.hits, "cow_copies": engine.pool.cow_copies,
+            "differences": margin_differences(gpt_lib, model, got, want), **clean,
+            "step": serve_step_timings(engine, runs=("graph",), categories=SHARDED_CATEGORIES,
+                                       casts=False),
+        }
+        report["meshes"]["x".join(map(str, shape))] = line
+        if line["captures"] != {"step": 1, "prefill": 1, "copy": 1}:
+            problems.append(f"{shape}: captures {line['captures']}")
+        if step.kv_bytes_per_shard * step.model_shards != step.kv_bytes_total or \
+                step.kv_bytes_total != single.step.kv_bytes_total:
+            problems.append(f"{shape}: pool bytes {step.kv_bytes_per_shard} x "
+                            f"{step.model_shards} != {step.kv_bytes_total}")
+        if line["engine_mesh_devices"] != shape[0] * shape[1]:
+            problems.append(f"{shape}: the mesh formed with {line['engine_mesh_devices']} devices")
+        if not (line["prefix_hits"] > 0 and line["cow_copies"] >= 1):
+            problems.append(f"{shape}: prefix hits {line['prefix_hits']}, CoW {line['cow_copies']}")
+        if line["in_use_after"]:
+            problems.append(f"{shape}: {line['in_use_after']} blocks in use after")
+        if any(d["margin"] > d["bound"] for d in line["differences"]):
+            problems.append(f"{shape}: a chain differs above the margin: {line['differences']}")
+        del engine
+        free_device_memory()
+
+    # 1x2 extras on the first SHARDED_EXTRA requests
+    shape = SHARDED_MESHES[0]
+    extras = {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model32 = f32_twin(gpt_lib, model, "cuda")
+    f32 = {}
+    for name, mesh in (("single", None), ("sharded", shape)):
+        engine = sharded_engine(model32, mesh)
+        f32[name] = engine_chains(engine, extra)
+        engine.stop()
+        del engine
+    extras["f32_chains_equal"] = f32["sharded"] == f32["single"]
+    del model32
+    free_device_memory()
+    int8 = {}
+    for name, mesh in (("single", None), ("sharded", shape)):
+        engine = sharded_engine(model, mesh, kv_quant_int8=True)
+        int8[name] = engine_chains(engine, extra)
+        if mesh is not None:
+            extras["int8_kv_bytes"] = [engine.step.kv_bytes_per_shard, engine.step.kv_bytes_total]
+        engine.stop()
+    extras["int8_kv_differences"] = margin_differences(gpt_lib, model, int8["sharded"],
+                                                       int8["single"])
+    engine = sharded_engine(model, shape, speculate="ngram", spec_depth=4)
+    spec = engine_chains(engine, extra)
+    extras["ngram"] = {"verify_captures": engine.step.verify_compiles,
+                       "rounds": engine.spec_rounds, "accepted": engine.spec_accepted,
+                       "differences": margin_differences(gpt_lib, model, spec,
+                                                         want[:SHARDED_EXTRA]),
+                       **finished_clean(engine)}
+    # one block set each way between a sharded and an unsharded engine
+    prompt = reqs[0]["prompt"]
+    pair = {"sharded": sharded_engine(model, shape), "single": sharded_engine(model)}
+    payloads = {}
+    for name, engine in pair.items():
+        engine.submit(prompt, 1).result(600)
+        payloads[name] = engine.export_prefix_blocks(prompt)
+    extras["export_bytes_equal"] = payloads["sharded"] == payloads["single"]
+    extras["export_blocks"] = payloads["sharded"]["blocks"] if payloads["sharded"] else None
+    for source, target in (("single", "sharded"), ("sharded", "single")):
+        engine = pair[target]
+        engine._submit_op(engine.pool.flush)  # its own cached prefix goes
+        hits = engine.pool.hits
+        cached = engine.import_prefix_blocks(payloads[source])
+        chain = engine.submit(prompt, reqs[0]["new"]).result(600)
+        extras[f"import_into_{target}"] = {
+            "cached": cached, "hits": engine.pool.hits - hits,
+            "differences": margin_differences(gpt_lib, model, [chain], want[:1])}
+    for engine in pair.values():
+        engine.stop()
+    # make_server(mesh_shape=) over HTTP
+    server = make_server(model, batching="continuous", n_slots=SERVE_SLOTS, kv_layout="paged",
+                         block_size=SERVE_BLOCK, prefill_chunk=SERVE_CHUNK, device="cuda",
+                         max_new_cap=SERVE_NEW[1], mesh_shape=shape,
+                         mesh_devices=[torch.device("cuda", 0)] * 2)
+    listener = threading.Thread(target=server.serve_forever, daemon=True)
+    listener.start()
+    try:
+        client = DecodeClient(f"http://127.0.0.1:{server.server_address[1]}", timeout=600)
+        served = [client.generate([r["prompt"]], max_new_tokens=r["new"])[0] for r in extra]
+        flat = {name: value for (name, _), value in server.state.engine.metrics().items()}
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.state.engine.stop()
+        listener.join(timeout=30)
+    extras["http"] = {"differences": margin_differences(gpt_lib, model, served,
+                                                        want[:SHARDED_EXTRA]),
+                      "engine_mesh_devices": flat["engine_mesh_devices"]}
+    report["mesh_1x2_extras"] = extras
+    report["launches"] = dict(kernels.LAUNCHES)
+    emit(report)
+    if not extras["f32_chains_equal"]:
+        problems.append("the f32 sharded chains differ from the single-device engine's")
+    for name, diffs in (("int8 KV", extras["int8_kv_differences"]),
+                        ("ngram", extras["ngram"]["differences"]),
+                        ("HTTP", extras["http"]["differences"])):
+        if any(d["margin"] > d["bound"] for d in diffs):
+            problems.append(f"{name}: a chain differs above the margin: {diffs}")
+    if extras["ngram"]["verify_captures"] != 1 or not extras["ngram"]["rounds"]:
+        problems.append(f"ngram: {extras['ngram']}")
+    if not extras["export_bytes_equal"] or not extras["export_blocks"]:
+        problems.append("the sharded engine's block set is not the unsharded engine's")
+    for target in ("sharded", "single"):
+        imp = extras[f"import_into_{target}"]
+        if imp["cached"] != extras["export_blocks"] or not imp["hits"] or \
+                any(d["margin"] > d["bound"] for d in imp["differences"]):
+            problems.append(f"import into the {target} engine: {imp}")
+    if extras["http"]["engine_mesh_devices"] != 2:
+        problems.append(f"HTTP: the server's mesh {extras['http']}")
+    if any(report["launches"].values()):
+        problems.append(f"K1-K5 launched: {report['launches']}")
+    if problems:
+        raise AssertionError(f"sharded_serve: {problems}")
+    del model
+    free_device_memory()
+    return report
+
+
 # -- GPT-small's decode modes: int8, beams, speculation --------------------------
 
 MODES_SEED = 21
@@ -4498,7 +4896,6 @@ SPEC_DEPTH = 4
 SPEC_COMMITTED_KV_RTOL = 1e-4
 MODES_SERVE_NEW = 16
 MODES_SERVE_TIMEOUT_S = 300
-MODES_REFUSAL_TIMEOUT_S = 120
 
 
 def f32_twin(gpt_lib, model, device):
@@ -5228,7 +5625,7 @@ def stop_cli(proc, log) -> int:
 
 def run_decode_modes_serve(gpt_lib, quant, server_lib, smi) -> dict:
     """decode_modes_serve: `python -m tf_operator_tpu_torch.serve --preset small
-    --kv-int8 --weights-int8` as a subprocess, once with --batching continuous
+    --kv-int8 --weights-int8`, once with --batching continuous
     --speculate ngram (paged) and once with --speculative (inline), each on
     the seed-0 random weights; in process the same weights quantized once.
     Engine: DecodeClient greedy chains against in-process generate of the
@@ -5241,14 +5638,10 @@ def run_decode_modes_serve(gpt_lib, quant, server_lib, smi) -> dict:
     words; SIGTERM ends the server with exit 0. Refused at startup, exit 2
     with the reference's text: --speculate draft at GPT-small (vocab 32000
     against the draft presets' 512), and --batching continuous with
-    --speculative. The four processes start together (the two servers
-    boot side by side, boot_s each from that start)."""
-    import os
-    import tempfile
-
+    --speculative. Every run is the CLI's main() in this process
+    (cli_in_process, serve_in_process), one after the other."""
     from tf_operator_tpu_torch.serve.client import DecodeClient
 
-    work = tempfile.mkdtemp(prefix="modes-serve-")
     twin = quant.quantize_model(server_lib.load_model("small", None, torch.device("cuda")))
     cfg = twin.cfg
     reqs = modes_requests(cfg, MODES_SEED + 9, 4, (64, 256), (MODES_SERVE_NEW, MODES_SERVE_NEW))
@@ -5260,20 +5653,14 @@ def run_decode_modes_serve(gpt_lib, quant, server_lib, smi) -> dict:
         ("continuous_and_speculative", ["--batching", "continuous", "--speculative"],
          "--batching continuous is mutually exclusive with --speculative"),
     )
-    start = time.monotonic()
-    servers, refusing, out, refused = {}, {}, {}, {}
-    try:
-        for name, extra in (("engine", ["--batching", "continuous", "--speculate", "ngram"]),
-                            ("inline", ["--speculative"])):
-            servers[name] = serve_cli(flags + extra, os.path.join(work, f"{name}.log"))
-        for name, extra, _ in refusal_cases:
-            refusing[name] = subprocess.Popen(
-                [sys.executable, "-m", "tf_operator_tpu_torch.serve", *flags, *extra],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name in ("engine", "inline"):
-            proc, port, log = servers[name]
-            wait_for_health(port, proc, MODES_SERVE_TIMEOUT_S)
-            boot_s = time.monotonic() - start
+    out, refused = {}, {}
+    for name, extra, text in refusal_cases:
+        code, output, errors = cli_in_process(server_lib.main, [*flags, *extra])
+        refused[name] = {"exit_code": code, "text_found": text in output + errors}
+    free_device_memory()
+
+    def drive(name):
+        def requests(port):
             client = DecodeClient(f"http://127.0.0.1:{port}", timeout=600)
             for r in reqs:
                 r[name] = client.generate([r["prompt"]], max_new_tokens=r["new"])[0]
@@ -5288,26 +5675,19 @@ def run_decode_modes_serve(gpt_lib, quant, server_lib, smi) -> dict:
                 "stream_beams": post_json(port, "/generate_stream", {
                     "input_ids": [[1, 2, 3]], "num_beams": 2}),
             }
-            code = stop_cli(proc, log)
-            out[name] = {"boot_s": boot_s, "health": {k: health.get(k) for k in (
-                             "status", "kv_int8", "weights_int8")},
-                         "multi_row": multi, "beam": beam, "refusals": refusals,
-                         "sigterm_exit_code": code,
-                         "spec_rounds": flat.get("tf_operator_tpu_serve_spec_rounds_total"),
-                         "speculative_decodes": flat.get(
-                             "tf_operator_tpu_serve_speculative_decodes_total")}
-        for name, _, text in refusal_cases:
-            output, _ = refusing[name].communicate(timeout=MODES_REFUSAL_TIMEOUT_S)
-            refused[name] = {"exit_code": refusing[name].returncode,
-                             "text_found": text in output}
-    finally:
-        for proc, _, log in servers.values():
-            if proc.poll() is None:
-                stop_cli(proc, log)
-        for proc in refusing.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            return {"health": {k: health.get(k) for k in ("status", "kv_int8", "weights_int8")},
+                    "multi_row": multi, "beam": beam, "refusals": refusals,
+                    "spec_rounds": flat.get("tf_operator_tpu_serve_spec_rounds_total"),
+                    "speculative_decodes": flat.get(
+                        "tf_operator_tpu_serve_speculative_decodes_total")}
+        return requests
+
+    for name, extra in (("engine", ["--batching", "continuous", "--speculate", "ngram"]),
+                        ("inline", ["--speculative"])):
+        served = serve_in_process(server_lib, flags + extra, drive(name), MODES_SERVE_TIMEOUT_S)
+        out[name] = {"boot_s": served["boot_s"], **served["result"],
+                     "sigterm_exit_code": served["exit_code"]}
+        free_device_memory()
     # in process, on the same weights
     chains, logits = inline_chains(gpt_lib, twin, reqs, kv_quant_int8=True)
     engine_differ, inline_equal = [], []
@@ -5347,9 +5727,6 @@ def run_decode_modes_serve(gpt_lib, quant, server_lib, smi) -> dict:
         "refused_at_startup": refused,
     }
     emit(report)
-    import shutil
-
-    shutil.rmtree(work, ignore_errors=True)
     problems = []
     if any(d["margin"] > d["bound"] for d in engine_differ):
         problems.append("an engine chain differs from inline generate above the margin")
@@ -6072,17 +6449,95 @@ def wait_for_health(port: int, proc, timeout: float) -> None:
         time.sleep(0.5)
 
 
+def cli_in_process(main, argv: list) -> tuple:
+    """A CLI's main(argv) in this process, as `python -m` runs it but
+    without a process to boot: -> (its exit code, what it printed to
+    stdout, what it printed to stderr or logged). Call it from the main
+    thread only (it swaps sys.stdout and sys.stderr)."""
+    import contextlib
+    import io
+    import logging
+
+    out, err = io.StringIO(), io.StringIO()
+    handler = logging.StreamHandler(err)
+    root = logging.getLogger()
+    root.addHandler(handler)
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            try:
+                code = main(argv)
+            except SystemExit as exc:  # argparse's refusals
+                code = exc.code
+    finally:
+        root.removeHandler(handler)
+    return code, out.getvalue(), err.getvalue()
+
+
+def serve_in_process(server_lib, argv: list, drive, timeout: float) -> dict:
+    """`python -m tf_operator_tpu_torch.serve` with argv in this process:
+    its main() on this (main) thread, `drive(port)` on a client thread
+    once /healthz answers, then a SIGTERM to this process, which main()'s
+    handler turns into its drain -> {"exit_code", "boot_s", "result"}.
+    SIGTERM is held by a handler that does nothing around main(), so a
+    signal that lands before main() installs its own or after it returns
+    ends nothing."""
+    import os
+    import signal
+    import threading
+    import urllib.error
+    import urllib.request
+
+    port = free_port()
+    box: dict = {}
+    running = threading.Event()
+    running.set()
+
+    def client():
+        start = time.monotonic()
+        try:
+            while True:
+                try:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                                timeout=5) as resp:
+                        if resp.status == 200:
+                            break
+                except (urllib.error.URLError, ConnectionError, OSError):
+                    pass
+                if not running.is_set() or time.monotonic() - start > timeout:
+                    raise AssertionError("the in-process server did not come up")
+                time.sleep(0.2)
+            box["boot_s"] = time.monotonic() - start
+            box["result"] = drive(port)
+        except BaseException as err:  # noqa: BLE001 — raised in the main thread
+            box["error"] = err
+        finally:
+            if running.is_set():
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    previous = signal.signal(signal.SIGTERM, lambda signum, frame: None)
+    thread = threading.Thread(target=client, name="serve-in-process-client", daemon=True)
+    thread.start()
+    try:
+        box["exit_code"] = server_lib.main(argv + ["--host", "127.0.0.1", "--port", str(port)])
+    finally:
+        running.clear()
+        thread.join(timeout + 60)
+        signal.signal(signal.SIGTERM, previous)
+    if "error" in box:
+        raise box["error"]
+    return box
+
+
 def run_moe_serve(moe_lib, server_lib, smi) -> dict:
     """moe_serve: train/moe.py --preset base --steps 2 --checkpoint-dir D
     (its main(), in this process), then `python -m tf_operator_tpu_torch.serve
-    --preset moe-base --checkpoint-dir D` as a subprocess: MOE_SERVE_REQUESTS uniform-length
-    requests from the port's DecodeClient, half greedy (each chain equal
-    to in-process moe_generate on the restored weights) and half sampled
-    (reported against in-process moe_generate from the same seed); a
-    ragged, a top_k and a num_beams request each a 400; SIGTERM -> exit 0.
-    Every process started here is stopped."""
+    --preset moe-base --checkpoint-dir D`, its main() in this process too
+    (serve_in_process): MOE_SERVE_REQUESTS uniform-length requests from
+    the port's DecodeClient, half greedy (each chain equal to in-process
+    moe_generate on the restored weights) and half sampled (reported
+    against in-process moe_generate from the same seed); a ragged, a top_k
+    and a num_beams request each a 400; SIGTERM -> exit 0."""
     import os
-    import signal
     import tempfile
 
     from tf_operator_tpu_torch.serve.client import DecodeClient
@@ -6097,24 +6552,16 @@ def run_moe_serve(moe_lib, server_lib, smi) -> dict:
     if code != 0:
         raise AssertionError(f"train/moe.py's main returned {code}")
     free_device_memory()
-    port = free_port()
-    log = open(os.path.join(work, "server.log"), "w")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "tf_operator_tpu_torch.serve", "--preset", "moe-base",
-         "--checkpoint-dir", ckpt, "--host", "127.0.0.1", "--port", str(port)],
-        stdout=log, stderr=subprocess.STDOUT)
-    try:
-        start = time.monotonic()
-        wait_for_health(port, proc, MOE_SERVE_TIMEOUT_S)
-        boot_s = time.monotonic() - start
+    gen = torch.Generator().manual_seed(13)
+    reqs = []
+    for i in range(MOE_SERVE_REQUESTS):
+        prompt = torch.randint(0, moe_lib.MOE_BASE.vocab_size, (1, MOE_SERVE_PROMPT),
+                               generator=gen).tolist()
+        reqs.append({"prompt": prompt, "temperature": 0.0 if i % 2 == 0 else 0.8,
+                     "seed": 100 + i})
+
+    def drive(port):
         client = DecodeClient(f"http://127.0.0.1:{port}")
-        gen = torch.Generator().manual_seed(13)
-        reqs = []
-        for i in range(MOE_SERVE_REQUESTS):
-            prompt = torch.randint(0, moe_lib.MOE_BASE.vocab_size, (1, MOE_SERVE_PROMPT),
-                                   generator=gen).tolist()
-            reqs.append({"prompt": prompt, "temperature": 0.0 if i % 2 == 0 else 0.8,
-                         "seed": 100 + i})
         start = time.monotonic()
         for req in reqs:
             req["chain"] = client.generate(req["prompt"], max_new_tokens=MOE_SERVE_NEW,
@@ -6128,13 +6575,12 @@ def run_moe_serve(moe_lib, server_lib, smi) -> dict:
                 ("num_beams", {"input_ids": [[1, 2, 3]], "num_beams": 2}),
             )
         }
-        proc.send_signal(signal.SIGTERM)
-        code = proc.wait(timeout=120)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-        log.close()
+        return serve_s, refusals
+
+    served = serve_in_process(server_lib, ["--preset", "moe-base", "--checkpoint-dir", ckpt],
+                              drive, MOE_SERVE_TIMEOUT_S)
+    (serve_s, refusals), boot_s, code = served["result"], served["boot_s"], served["exit_code"]
+    free_device_memory()
     model = server_lib.load_model("moe-base", ckpt, torch.device("cuda"))
     greedy_equal, sampled_equal = [], []
     for req in reqs:
@@ -6356,17 +6802,16 @@ def http_get(port: int, path: str, timeout: float = 30.0) -> tuple:
         return err.code, err.read()
 
 
-def telemetry_cli(args: list, timeout: float = 120.0) -> dict:
-    """`python -m tf_operator_tpu_torch.telemetry` with args as a user runs
-    it: -> its exit code, stdout, stderr and wall seconds."""
-    import os
+def telemetry_cli(args: list) -> dict:
+    """`python -m tf_operator_tpu_torch.telemetry` with args, its main() in
+    this process (cli_in_process): -> its exit code, stdout, stderr and
+    wall seconds."""
+    from tf_operator_tpu_torch.telemetry.__main__ import main as telemetry_main
 
     start = time.monotonic()
-    proc = subprocess.run([sys.executable, "-m", "tf_operator_tpu_torch.telemetry", *args],
-                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-                          text=True, timeout=timeout)
-    return {"args": list(args), "rc": proc.returncode, "stdout": proc.stdout,
-            "stderr": proc.stderr[-2000:], "seconds": time.monotonic() - start}
+    code, out, err = cli_in_process(telemetry_main, list(args))
+    return {"args": list(args), "rc": code, "stdout": out, "stderr": err[-2000:],
+            "seconds": time.monotonic() - start}
 
 
 def cli_brief(run: dict, lines: int = 4) -> dict:
@@ -6473,17 +6918,45 @@ def run_train_observe(kernels, gpt_cli, smi, gpt_summary) -> dict:
     return report
 
 
+def live_threads() -> dict:
+    """This process's live Python threads: how many, and their names."""
+    import collections
+    import threading
+
+    names = collections.Counter(t.name.split("-")[0] if t.name.startswith("Thread-") else t.name
+                                for t in threading.enumerate())
+    return {"count": threading.active_count(), "names": dict(sorted(names.items()))}
+
+
+def sampler_tick_us(calls: int = 200) -> dict:
+    """One sampling-profiler tick (_sample_once) timed on this thread with
+    the threads alive now: wall microseconds a tick, as the sampler
+    charges its ticks, over `calls` back-to-back ticks."""
+    from tf_operator_tpu_torch.telemetry.profiler import SamplingProfiler
+
+    profiler = SamplingProfiler()
+    wall = time.perf_counter()
+    for _ in range(calls):
+        profiler._sample_once()
+    return {"wall_us": (time.perf_counter() - wall) * 1e6 / calls}
+
+
 def run_train_observe_smoke(smi) -> dict:
-    """train_observe_smoke: train/observe.py's smoke on the card (phase 42)."""
+    """train_observe_smoke: train/observe.py's smoke on the card (phase
+    42), with the threads alive at its start and a sampler tick's cost
+    then (the duty cycle's inputs from the phases before)."""
     from tf_operator_tpu_torch.train import observe
 
+    before = {"threads": live_threads(), "tick": sampler_tick_us()}
     summary = observe.run_train_observe_smoke(device="cuda")  # raises on any problem
     rates = summary["rates"]
     healthy = {stage: rates.get(stage, {}).get("worker-0")
                for stage in ("baseline", "fired", "resolved")}
+    stats = summary["profiler_stats"]
     emit({"phase": "train_observe_smoke", "card": smi,
           **{k: v for k, v in summary.items() if k not in ("slow_traces", "fleet")},
-          "healthy_worker_rate": healthy})
+          "healthy_worker_rate": healthy, "at_start": before,
+          "mean_tick_us": stats["sample_seconds"] * 1e6 / max(stats["ticks"], 1)})
     # the baseline's window holds the warm-up step; the rate after the
     # resolve is the healthy worker's steady one
     steady = max(healthy["baseline"] or 0.0, healthy["resolved"] or 0.0)
@@ -6838,11 +7311,14 @@ def planted_imports(engine) -> dict:
                                           if cache.quantized else [])
     saved = [list(lst) for lst in lists]
 
+    # the engine's _write_blocks takes each leaf as [shards][copies]: one
+    # of each on an unsharded engine
     def rebinding(leaves, idx, rows):
         fresh = {}
-        for leaf, data in zip(leaves, rows):
+        for shards, data in zip(leaves, rows):
+            leaf = shards[0][0]
             new = leaf.clone()
-            new.index_copy_(0, idx, data.to(leaf.device))
+            new.index_copy_(0, idx.to(leaf.device), data.to(leaf.device))
             fresh[id(leaf)] = new
         for lst in lists:
             for i, t in enumerate(lst):
@@ -6850,8 +7326,9 @@ def planted_imports(engine) -> dict:
 
     def one_off(leaves, idx, rows):
         shifted = torch.where(idx + 1 < engine.pool.num_blocks, idx + 1, torch.ones_like(idx))
-        for leaf, data in zip(leaves, rows):
-            leaf.index_copy_(0, shifted, data.to(leaf.device))
+        for shards, data in zip(leaves, rows):
+            leaf = shards[0][0]
+            leaf.index_copy_(0, shifted.to(leaf.device), data.to(leaf.device))
 
     def restore():
         engine.__dict__.pop("_write_blocks", None)
@@ -7551,21 +8028,18 @@ CRASH_FILE_TIMEOUT_S = 30  # the profile's 5 s window plus slack
 
 def run_telemetry_smoke(smi) -> dict:
     """telemetry_smoke: `python -m tf_operator_tpu_torch.serve --smoke` on
-    the card (phase 53 of the module docstring)."""
-    import os
+    the card (phase 53 of the module docstring), its main() in this
+    process (cli_in_process)."""
+    from tf_operator_tpu_torch.serve import server as server_lib
 
     start = time.monotonic()
-    proc = subprocess.run([sys.executable, "-m", "tf_operator_tpu_torch.serve", "--smoke"],
-                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-                          text=True, timeout=300)
+    code, out, err = cli_in_process(server_lib.main, ["--smoke"])
     wall = time.monotonic() - start
-    out = proc.stdout
     report = json.loads(out[out.index("{"):]) if "{" in out else {}
-    emit({"phase": "telemetry_smoke", "card": smi, "model": "GPT_TINY", "exit_code":
-          proc.returncode, "wall_seconds": wall, "report": report})
-    if proc.returncode != 0 or report.get("ok") is not True:
-        raise AssertionError(f"telemetry_smoke: exit {proc.returncode}, {out[-2000:]!r} "
-                             f"{proc.stderr[-3000:]!r}")
+    emit({"phase": "telemetry_smoke", "card": smi, "model": "GPT_TINY", "exit_code": code,
+          "wall_seconds": wall, "report": report})
+    if code != 0 or report.get("ok") is not True:
+        raise AssertionError(f"telemetry_smoke: exit {code}, {out[-2000:]!r} {err[-3000:]!r}")
     return report
 
 
@@ -7979,6 +8453,8 @@ def main() -> int:
         timed_group(seconds, "model_parallel", run_model_parallel_phases, kernels, smi)
         free_device_memory()
         timed_group(seconds, "serve", run_serve, kernels, gpt_lib, smi)
+        free_device_memory()
+        timed_group(seconds, "sharded_serve", run_sharded_serve, kernels, gpt_lib, smi)
         free_device_memory()
         timed_group(seconds, "decode_modes", run_decode_modes_phases, kernels, smi)
         free_device_memory()

@@ -231,8 +231,10 @@ def test_replicas_hold_their_own_weights(v1):
 
 
 def test_fleet_passes_the_mesh_refusal_on():
-    """A ServeService with a meshShape: the port's server refuses a mesh
-    (sharded decode, ROADMAP queue 1 item 6), and sync() raises it."""
+    """A ServeService whose meshShape the model cannot take (GPT_TINY's 2
+    heads over 4 'model' shards): the replica's engine refuses it in the
+    reference's words while it warms, and the replica is failed, never
+    ready (the sharded replica serving is tests/test_torch_sharded_serve.py's)."""
     from tf_operator_tpu_torch.api.types import ServeService, ServeServiceSpec
     from tf_operator_tpu_torch.controller import ServeServiceController
     from tf_operator_tpu_torch.runtime import InMemorySubstrate
@@ -242,17 +244,22 @@ def test_fleet_passes_the_mesh_refusal_on():
     router = LeastLoadedRouter()
     fleet = torch_fleet.InProcessFleet(
         substrate, router, TCFG, {"v1": torch_fleet.seeded_params(TCFG)}, namespace="mesh",
-        mesh_shape="1x2", device="cpu",
+        mesh_shape="1x4", device="cpu", mesh_devices=["cpu"] * 4,
     )
     controller = ServeServiceController(substrate, namespace="mesh")
-    svc = ServeService(spec=ServeServiceSpec(replicas=1, weights_version="v1", mesh_shape="1x2"))
+    svc = ServeService(spec=ServeServiceSpec(replicas=1, weights_version="v1", mesh_shape="1x4"))
     svc.metadata.name = "mesh"
     svc.metadata.namespace = "mesh"
     try:
         substrate.create_serve_service(svc)
         controller.run_until_quiet()
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-            fleet.sync()
+        fleet.sync()
+        server = fleet._replicas[fleet.replica_names()[0]].server
+        server.state.warmup_thread.join(timeout=60)
+        assert server.state.phase == "failed"
+        assert server.state.engine is None
+        with pytest.raises(RuntimeError, match="replica warm-up failed"):
+            fleet.wait_ready(1, timeout=30)
     finally:
         fleet.stop()
         controller.stop()

@@ -464,10 +464,10 @@ def test_sampled_decode_respects_filters_and_seed():
     # both int8 flags are ported: they compose with the same checks
     (dict(kv_quant_int8=True, max_new_tokens=0), ValueError, "max_new_tokens"),
     (dict(weights_int8=True, top_p=0.0), ValueError, "top_p"),
-    # a mesh is ported (tests/test_torch_tensor_parallel.py decodes on one):
-    # the same checks come first, and int8 weights on a mesh are refused
+    # a mesh is ported, int8 weights on it too (tests/test_torch_tensor_parallel.py
+    # and tests/test_torch_tp_serve.py decode on one): the same checks come first
     (dict(mesh=object(), max_new_tokens=0), ValueError, "max_new_tokens"),
-    (dict(mesh=object(), weights_int8=True), NotImplementedError, "item 6"),
+    (dict(mesh=object(), weights_int8=True, top_k=-1), ValueError, "top_k"),
 ])
 def test_generate_validation(kwargs, error, match):
     model = torch_gpt.GPT(torch_gpt.GPT_TINY)

@@ -227,14 +227,20 @@ def test_step_logits_are_gpt_decode_steps(weights, layout):
 
 
 @pytest.mark.parametrize("option, error, match", [
-    ({"mesh": object()}, NotImplementedError, "ROADMAP queue 1 item 6"),
-    # the reference's own refusal of int8 kernels on the sharded step
-    ({"mesh": object(), "weights_int8": True}, ValueError,
+    # a mesh is ported (tests/test_torch_sharded_serve.py); what stays
+    # refused are the reference's own checks of the sharded step
+    ({"mesh": (1, 4)}, ValueError, "num_heads 2 must divide over 4 'model' shards"),
+    ({"mesh": (1, 2), "weights_int8": True}, ValueError,
      "weights_int8 is not supported on the sharded decode step"),
 ])
 def test_paged_step_refuses_unported_options(tiny, option, error, match):
-    """The mesh stays refused; int8 and the verify program are ported
+    """The sharded step's refusals, in the reference's words, over a mesh
+    of shards sharing the CPU; int8 KV and the verify program are ported
     (tests/test_torch_quant.py, tests/test_torch_spec_decode.py)."""
+    from tf_operator_tpu_torch.parallel.mesh import make_device_mesh
+
+    shape = option["mesh"]
+    option = dict(option, mesh=make_device_mesh(shape, devices=["cpu"] * (shape[0] * shape[1])))
     with pytest.raises(error, match=match):
         torch_gpt.PagedSlotDecodeStep(tiny, 2, 32, 8, 9, **option)
 
@@ -313,11 +319,13 @@ def test_block_pool_matches_reference(seed):
     assert any(t[0] == "lookup" and t[1] is not None for t in got if isinstance(t, tuple))
 
 
-@pytest.mark.parametrize("option, item", [
-    ({"mesh_shape": (1, 2)}, "item 6"),
+@pytest.mark.parametrize("option, match", [
+    # mesh_shape is ported (tests/test_torch_sharded_serve.py): the
+    # reference's refusal of it on the dense grid stays
+    ({"mesh_shape": (1, 2), "kv_layout": "dense"}, "mesh_shape requires kv_layout='paged'"),
 ])
-def test_engine_refuses_unported_options(tiny, option, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
+def test_engine_refuses_unported_options(tiny, option, match):
+    with pytest.raises(ValueError, match=re.escape(match)):
         torch_engine.ContinuousBatchingEngine(tiny, start=False, device="cpu", **option)
 
 
@@ -364,12 +372,21 @@ def test_engine_and_server_want_cuda(tiny):
         torch_server.make_server(tiny, batching="continuous")
 
 
-@pytest.mark.parametrize("option, item", [
-    pytest.param({"mesh": object()}, "item 6", id="option2-item 6"),
-    pytest.param({"mesh_shape": (1, 2)}, "item 6", id="option3-item 6"),
+@pytest.mark.parametrize("option, text", [
+    # mesh and mesh_shape are ported (tests/test_torch_sharded_serve.py,
+    # tests/test_torch_tp_serve.py); the reference's refusals of their
+    # combinations stay, in its words
+    pytest.param({"mesh": object(), "batching": "continuous"},
+                 "batching='continuous' and mesh are mutually exclusive", id="mesh-continuous"),
+    pytest.param({"mesh": object(), "speculative": True},
+                 "speculative and mesh are mutually exclusive", id="mesh-speculative"),
+    pytest.param({"mesh_shape": (1, 2)}, "mesh_shape requires batching='continuous'",
+                 id="mesh_shape-inline"),
+    pytest.param({"mesh_shape": (1, 2), "batching": "continuous", "kv_layout": "dense"},
+                 "mesh_shape requires kv_layout='paged'", id="mesh_shape-dense"),
 ])
-def test_make_server_refuses_unported_options(tiny, option, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
+def test_make_server_refuses_unported_options(tiny, option, text):
+    with pytest.raises(ValueError, match=re.escape(text)):
         torch_server.make_server(tiny, device="cpu", **option)
 
 
@@ -411,19 +428,27 @@ def test_make_server_takes_the_telemetry_options(tiny, option, wired):
 
 
 @pytest.mark.parametrize("argv, item", [
-    pytest.param(["--tp", "2"], "item 6", id="argv2-item 6"),
-    pytest.param(["--mesh-shape", "1x2"], "item 6", id="argv3-item 6"),
+    # --tp and --mesh-shape are ported: the reference's refusals of their
+    # combinations stay
+    pytest.param(["--tp", "2", "--speculative"], "--tp is mutually exclusive with --speculative",
+                 id="tp-speculative"),
+    pytest.param(["--mesh-shape", "1x2"], "--mesh-shape requires --batching continuous",
+                 id="mesh-shape-inline"),
+    pytest.param(["--batching", "continuous", "--mesh-shape", "1x2", "--weights-int8"],
+                 "--mesh-shape and --weights-int8 are mutually exclusive", id="mesh-shape-int8"),
+    pytest.param(["--batching", "continuous", "--mesh-shape", "2"], "mesh_shape must be",
+                 id="mesh-shape-malformed"),
     # the moe presets serve since the MoE slice (ROADMAP item 7); what they
     # refuse is the gpt family's options, in the reference's words
     pytest.param(["--preset", "moe-tiny", "--batching", "continuous"], "gpt-family features",
                  id="argv9-item 7"),
+    pytest.param(["--preset", "moe-tiny", "--tp", "2"], "gpt-family features", id="moe-tp"),
 ])
 def test_cli_refuses_unported_flags(argv, item, capsys):
     with pytest.raises(SystemExit) as err:
         torch_server.parse_args(argv)
     assert err.value.code == 2
-    want = f"ROADMAP queue 1 {item}" if item.startswith("item") else item
-    assert want in capsys.readouterr().err
+    assert item in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv, want", [

@@ -380,6 +380,69 @@ def test_sampler_folds_the_sampled_threads_stacks():
         port_profiler.SamplingProfiler(hz=0)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sampler_walk_folds_as_a_fresh_fold(seed):
+    """A tick looks each stack's fold up by its code objects (_walk):
+    along a random walk of one thread's stack, deeper than
+    MAX_STACK_DEPTH at times, each tick's fold equals a fresh _fold of
+    the same frame, a stack seen before is formatted once, and the cache
+    holds code objects, no frame."""
+    import random
+    import sys
+    import types
+
+    rng = random.Random(seed)
+    folds = {}
+    seen = {"checked": 0, "stacks": set()}
+
+    def tick():
+        frame = sys._getframe(1)
+        fold = port_profiler._walk(frame, folds)
+        assert fold == port_profiler._fold(frame)
+        assert port_profiler._walk(frame, folds) is fold  # the cached string
+        seen["stacks"].add(fold)
+        seen["checked"] += 1
+
+    def down(n):
+        if rng.random() < 0.3:
+            tick()
+        if n:
+            down(n - 1) if rng.random() < 0.7 else side(max(0, n - 2))
+        tick()
+        if rng.random() < 0.2:
+            tick()  # the same leaf frame again
+
+    def side(n):
+        down(n)
+
+    for _ in range(60):
+        down(rng.randint(0, 2 * port_profiler.MAX_STACK_DEPTH))
+    assert seen["checked"] > 500
+    assert len(folds) == len(seen["stacks"]) < seen["checked"]
+    assert all(isinstance(code, types.CodeType)
+               for _, codes in folds.values() for code in codes)
+
+
+def test_sampler_defers_the_garbage_collector_during_a_tick(monkeypatch):
+    """The cyclic collector is off inside every tick of the sampling loop
+    (a collection a tick would trigger runs on the next thread to
+    allocate, not charged to the sampler) and on again after it."""
+    import gc
+    import time
+
+    inside = []
+    prof = port_profiler.SamplingProfiler(hz=200)
+    monkeypatch.setattr(prof, "_sample_once", lambda: inside.append(gc.isenabled()) or 0)
+    assert gc.isenabled()
+    prof.start()
+    deadline = time.monotonic() + 5
+    while len(inside) < 5 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    prof.stop()
+    assert len(inside) >= 5 and not any(inside)
+    assert gc.isenabled()
+
+
 def test_sampler_start_stop_and_profilez_actions():
     prof = port_profiler.SamplingProfiler(hz=200)
     try:

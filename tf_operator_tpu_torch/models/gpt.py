@@ -37,10 +37,16 @@ Under a mesh (parallel/sharding.py): the tensor-parallel plan splits the
 heads, the MLP, the embeddings and the LM head over tp, and the logits
 are this rank's vocab columns (`vocab_shard`); under sp a rank's forward
 sees a sequence shard whose positions start at `seq_index` x its length.
-`generate(mesh=, rules=)` decodes with the tp-sharded weights: the KV
-cache holds the rank's heads, and each step's logits are gathered over
-tp before the sampler. Left out: the slot steps under a mesh (they
-raise NotImplementedError; ROADMAP queue 1, item 6).
+`generate(mesh=, rules=)` decodes with the tp-sharded weights (int8
+ones quantized whole, then laid out): the KV cache holds the rank's
+heads, and each step's logits are gathered over tp before the sampler.
+
+Sharded serving (one process driving a ('batch','model') serving mesh,
+parallel/mesh.py make_device_mesh): `ShardedPagedSlotDecodeStep` lays the
+paged programs out by SERVE_DECODE_RULES and SERVE_CACHE_RULES, each
+model shard's heads and pool on its device, the shards' outputs joined
+before every full-width contraction (_sharded_block);
+`SlotDecodeStep(mesh=)` is the replicated draft step.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -606,18 +613,20 @@ def generate(
     the plan, such as a tp trainer's, is used as it is; a full one is
     copied and laid out). The prompt's rows split over dp x fsdp and the
     answers are gathered back, as the reference shards the prompt over
-    its batch axes. int8 weights on a mesh are not ported (ROADMAP queue
-    1, item 6)."""
+    its batch axes (a batch that does not divide them is decoded whole by
+    every rank, as the reference replicates it). With weights_int8 the
+    whole model is quantized before it is laid out (a laid-out one is
+    gathered first), as the reference quantizes after placement: a
+    row-parallel kernel's scales (attn_out, mlp_out split their
+    contracted axis) are the whole kernel's, and its partial products
+    are summed before the scale."""
     cfg = model.cfg
     batch, prompt_len = prompt.shape
     total = _check_lengths(cfg, prompt_len, max_new_tokens)
     _check_filters(top_k, top_p)
     if mesh is not None:
-        if weights_int8:
-            raise NotImplementedError(
-                "int8 weights on a mesh are not ported (ROADMAP queue 1, item 6)")
         return _generate_on_mesh(
-            model, prompt, mesh, rules, max_new_tokens=max_new_tokens,
+            model, prompt, mesh, rules, weights_int8, max_new_tokens=max_new_tokens,
             temperature=temperature, generator=generator, kv_quant_int8=kv_quant_int8,
             prompt_lens=prompt_lens, top_k=top_k, top_p=top_p)
     if top_k >= cfg.vocab_size:
@@ -647,26 +656,50 @@ def generate(
     return torch.cat([prompt[:, :1], generated], dim=1)
 
 
-def _generate_on_mesh(model: GPT, prompt: torch.Tensor, mesh, rules, **kwargs) -> torch.Tensor:
+def _generate_on_mesh(model: GPT, prompt: torch.Tensor, mesh, rules, weights_int8: bool,
+                      **kwargs) -> torch.Tensor:
     """generate() on this rank's rows of the prompt with the model laid
     out for the mesh, the ranks' answers gathered over the batch group."""
     import copy
 
+    from ..ops.quant import is_quantized
     from ..parallel import mesh as mesh_lib
     from ..parallel import sharding
 
-    if mesh.shape["tp"] > 1 and getattr(model, "tensor_parallel", None) is None:
-        model = sharding.apply_tensor_parallel(
-            copy.deepcopy(model), mesh, rules or sharding.TRANSFORMER_RULES)
-    rows = mesh_lib.local_rows(mesh, prompt.shape[0])
+    rules = rules or sharding.TRANSFORMER_RULES
+    tp = mesh.shape["tp"] > 1
+    if weights_int8 and not is_quantized(model):
+        if getattr(model, "tensor_parallel", None) is not None:
+            model = _gathered(model)
+        else:
+            model = copy.deepcopy(model)
+        # quantized whole, then laid out: the scales are the whole kernels'
+        model = quantize_model(model)
+        if tp:
+            model = sharding.apply_tensor_parallel(model, mesh, rules)
+    elif tp and getattr(model, "tensor_parallel", None) is None:
+        model = sharding.apply_tensor_parallel(copy.deepcopy(model), mesh, rules)
     lens = kwargs.pop("prompt_lens")
+    if mesh.batch_group is None or prompt.shape[0] % mesh_lib.data_shards(mesh):
+        # a batch that does not divide the data axes is replicated, as the
+        # reference's: every rank decodes every row
+        return generate(model, prompt, prompt_lens=lens, **kwargs)
+    rows = mesh_lib.local_rows(mesh, prompt.shape[0])
     out = generate(model, prompt[rows], prompt_lens=None if lens is None else lens[rows],
                    **kwargs)
-    if mesh.batch_group is None:
-        return out
     from ..parallel.distributed import all_gather
 
     return all_gather(out, mesh.batch_group, dim=0)
+
+
+def _gathered(model: GPT) -> GPT:
+    """A whole GPT from a tensor-parallel one: its shards all-gathered over
+    the plan's group (a collective: every rank of it calls this)."""
+    from ..parallel import sharding
+
+    full = GPT(model.cfg, device=model_device(model))
+    full.load_state_dict(sharding.gather_state_dict(model.state_dict(), sharding.layouts(model)))
+    return full
 
 
 # -- speculative decoding (prompt-lookup drafting) ---------------------------
@@ -850,7 +883,7 @@ def beam_search(
     beams = int(num_beams)
     device = model_device(model)
     prompt = prompt.to(device=device, dtype=torch.long)
-    cache = KVCache.zeros(cfg, batch, total, device, kv_quant_int8)
+    cache = KVCache.zeros(cfg, batch, total, device, kv_quant_int8, heads=local_heads(model))
     logits = GPTPrefill(model)(prompt, cache)
     cache = cache.map(lambda t: t.repeat_interleave(beams, dim=0))
     scores, last = _top_k(torch.log_softmax(logits.float(), dim=-1), beams)
@@ -877,17 +910,26 @@ def beam_search(
 # -- the slot grid of the continuous-batching engine (serve/engine.py) ------
 
 
-def _refuse_unported(weights_int8: bool = False, mesh=None) -> None:
-    """The decode option the slot steps do not port: the mesh, refused
-    naming its ROADMAP item (weights_int8 on a mesh first, in the
-    reference's words)."""
-    if mesh is not None:
-        if weights_int8:
-            raise ValueError(
-                "weights_int8 is not supported on the sharded decode step (the int8 "
-                "kernel/scale layout has no 'model'-axis rules yet)"
-            )
-        raise NotImplementedError("sharded decode is not ported (ROADMAP queue 1 item 6)")
+def _mesh_shards(cfg: GPTConfig, mesh, n_slots: int, weights_int8: bool) -> Tuple[int, int]:
+    """The sharded decode step's checks of its mesh, in the reference's
+    words (gpt.py:1545-1567) -> (batch shards, model shards)."""
+    if "batch" not in mesh.shape or "model" not in mesh.shape:
+        raise ValueError(
+            f"the sharded decode step needs a ('batch','model') mesh, got axes "
+            f"{tuple(mesh.shape)}")
+    if weights_int8:
+        raise ValueError(
+            "weights_int8 is not supported on the sharded decode step (the int8 "
+            "kernel/scale layout has no 'model'-axis rules yet)"
+        )
+    batch, model = int(mesh.shape["batch"]), int(mesh.shape["model"])
+    if cfg.num_heads % model:
+        raise ValueError(
+            f"num_heads {cfg.num_heads} must divide over {model} 'model' shards (the KV pool "
+            "and qkv projections split on heads)")
+    if n_slots % batch:
+        raise ValueError(f"n_slots {n_slots} must divide over {batch} 'batch' shards")
+    return batch, model
 
 
 def _kv_bytes(cache: KVCache) -> int:
@@ -1011,6 +1053,12 @@ class SlotDecodeStep:
     step runs the model's int8 twin (quantized here unless `model`
     already is one; `self.model` is what the step reads).
 
+    mesh (a serving mesh, parallel/mesh.py ServeMesh): the step is
+    replicated over it, as the reference's (gpt.py:921-935), the draft
+    model's step when a sharded engine speculates with a draft. One
+    process computes a replicated step once: on the mesh's first device,
+    where the model must live.
+
     The cache is allocated once, at construction, and the step is one
     `_Program`: on a CUDA device one CUDA graph, captured at the first
     call. `compiles` counts captures (first calls off CUDA). `logits`
@@ -1022,7 +1070,6 @@ class SlotDecodeStep:
         self, model: GPT, n_slots: int, max_total: int,
         kv_quant_int8: bool = False, weights_int8: bool = False, mesh=None,
     ) -> None:
-        _refuse_unported(weights_int8, mesh)
         cfg = model.cfg
         if max_total > cfg.max_seq_len:
             raise ValueError(f"max_total {max_total} exceeds max_seq_len {cfg.max_seq_len}")
@@ -1030,7 +1077,11 @@ class SlotDecodeStep:
         self.cfg = cfg
         self.n_slots = int(n_slots)
         self.max_total = int(max_total)
+        self.mesh = mesh
         device = model_device(self.model)
+        if mesh is not None and device != mesh.devices[0][0]:
+            raise ValueError(f"the replicated step runs on the mesh's first device "
+                             f"{mesh.devices[0][0]}; the model is on {device}")
         self.cache = KVCache.zeros(cfg, self.n_slots, self.max_total, device, kv_quant_int8)
         self.kv_bytes_total = _kv_bytes(self.cache)
         decode = GPTDecodeStep(self.model)
@@ -1089,12 +1140,19 @@ def _gather_blocks(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     return out.reshape(*tables.shape[:-1], -1, *pool.shape[2:])
 
 
-def _paged_kv(kv: Tuple, key, value, phys, off, query, tables, mask) -> torch.Tensor:
+def _paged_kv(kv: Tuple, key, value, phys, off, query, tables, mask,
+              replicas: Tuple = ()) -> torch.Tensor:
     """Write key/value [n, h, d] at (phys, off), then attend `query` over
-    the pool gathered through `tables` ([rows, max_blocks])."""
+    the pool gathered through `tables` ([rows, max_blocks]). replicas:
+    other pools of the same layer and heads (a sharded step's copies of
+    one 'model' shard on other devices), written alike."""
+    for target in (kv, *replicas):
+        keys, values, key_scale, value_scale = target
+        dev = keys.device
+        phys_at, off_at = phys.to(dev), off.to(dev)
+        _paged_store_kv(keys, key.to(dev), phys_at, off_at, key_scale)
+        _paged_store_kv(values, value.to(dev), phys_at, off_at, value_scale)
     keys, values, key_scale, value_scale = kv
-    _paged_store_kv(keys, key, phys, off, key_scale)
-    _paged_store_kv(values, value, phys, off, value_scale)
 
     def gather(t):
         return None if t is None else _gather_blocks(t, tables)
@@ -1103,7 +1161,8 @@ def _paged_kv(kv: Tuple, key, value, phys, off, query, tables, mask) -> torch.Te
                          gather(value_scale), mask)
 
 
-def _paged_attention(kv: Tuple, index: torch.Tensor, tables: torch.Tensor) -> Callable:
+def _paged_attention(kv: Tuple, index: torch.Tensor, tables: torch.Tensor,
+                     replicas: Tuple = ()) -> Callable:
     """PagedSelfAttention (the reference's gpt.py:1032), as the
     attention_fn of a decoder block: each slot's one token [s, 1, h, d]
     written at logical position index[s] through its block table, then
@@ -1114,12 +1173,14 @@ def _paged_attention(kv: Tuple, index: torch.Tensor, tables: torch.Tensor) -> Ca
     def attend(query, key, value, mask):
         bs = kv[0].shape[1]
         phys = tables.gather(1, (index // bs)[:, None])[:, 0]
-        return _paged_kv(kv, key[:, 0], value[:, 0], phys, index % bs, query, tables, mask)
+        return _paged_kv(kv, key[:, 0], value[:, 0], phys, index % bs, query, tables, mask,
+                         replicas)
 
     return attend
 
 
-def _paged_prefill_attention(kv: Tuple, positions: torch.Tensor, table: torch.Tensor) -> Callable:
+def _paged_prefill_attention(kv: Tuple, positions: torch.Tensor, table: torch.Tensor,
+                             replicas: Tuple = ()) -> Callable:
     """PagedPrefillSelfAttention (the reference's gpt.py:1108), as an
     attention_fn: one slot's chunk [1, c, h, d] at logical `positions`
     [c] written through its table [max_blocks] first, then attention over
@@ -1129,12 +1190,13 @@ def _paged_prefill_attention(kv: Tuple, positions: torch.Tensor, table: torch.Te
     def attend(query, key, value, mask):
         bs = kv[0].shape[1]
         return _paged_kv(kv, key[0], value[0], table[positions // bs], positions % bs,
-                         query, table[None], mask)
+                         query, table[None], mask, replicas)
 
     return attend
 
 
-def _paged_verify_attention(kv: Tuple, index: torch.Tensor, tables: torch.Tensor) -> Callable:
+def _paged_verify_attention(kv: Tuple, index: torch.Tensor, tables: torch.Tensor,
+                            replicas: Tuple = ()) -> Callable:
     """PagedVerifySelfAttention (the reference's gpt.py:1178), as an
     attention_fn: every slot's window [s, k1, h, d] at logical positions
     index[s] + j, written through its table first, then attention over
@@ -1154,31 +1216,222 @@ def _paged_verify_attention(kv: Tuple, index: torch.Tensor, tables: torch.Tensor
         flat = slots * k1
         return _paged_kv(kv, key.reshape(flat, *key.shape[2:]),
                          value.reshape(flat, *value.shape[2:]), phys.reshape(flat),
-                         (pos % bs).reshape(flat), query, tables, mask)
+                         (pos % bs).reshape(flat), query, tables, mask, replicas)
 
     return attend
+
+
+class _MeshLayout:
+    """A GPT laid out over a serving mesh (parallel/mesh.py ServeMesh) by
+    SERVE_DECODE_RULES and SERVE_CACHE_RULES (parallel/sharding.py), for
+    the one process that drives every shard. On device devices[b][m]:
+    model shard m's query/key/value kernels and biases (its heads) and
+    mlp_in rows; on each row's first device devices[b][0], the whole
+    model for what stays whole (embeddings, layer norms, attn_out,
+    mlp_out, LM head). Each model shard's KV pool [num_blocks,
+    block_size, heads / m, head_dim] (and its scale pools) lives once on
+    every distinct device of its column: a write reaches each copy, a
+    read takes the local one.
+
+    Where a shard's device is the model's own, its tensors are views of
+    the model's parameters (a weight swap copied into the model in place
+    reaches them); elsewhere they are copies, which `refresh` rewrites.
+    With several shards on one device nothing is copied at all."""
+
+    def __init__(self, model: GPT, mesh, num_blocks: int, block_size: int,
+                 kv_quant_int8: bool) -> None:
+        from ..parallel import sharding
+
+        cfg = model.cfg
+        self.mesh = mesh
+        self.batch, self.model_shards = mesh.shape["batch"], mesh.shape["model"]
+        self.devices = mesh.devices
+        self.model = model
+        self._whole: Dict[torch.device, GPT] = {}
+        self._params: Dict[Tuple, Dict[str, torch.Tensor]] = {}
+        self.pools: Dict[Tuple, KVCache] = {}
+        params = dict(model.named_parameters())
+        planned = [name for name in params
+                   if sharding.tp_rule(name, sharding.SERVE_DECODE_RULES.tp) is not None]
+        heads = cfg.num_heads // self.model_shards
+        for row in self.devices:
+            if row[0] not in self._whole:
+                self._whole[row[0]] = (model if row[0] == model_device(model)
+                                       else _copy_to(model, row[0]))
+            for m, dev in enumerate(row):
+                if (dev, m) in self._params:
+                    continue
+                shard = sharding.model_shard({n: params[n] for n in planned},
+                                             sharding.SERVE_DECODE_RULES, m, self.model_shards)
+                self._params[(dev, m)] = {n: t.detach().to(dev) for n, t in shard.items()}
+                self.pools[(dev, m)] = KVCache.zeros(cfg, num_blocks, block_size, dev,
+                                                     kv_quant_int8, heads=heads)
+        self.device = self.devices[0][0]
+
+    def whole(self, b: int) -> GPT:
+        return self._whole[self.devices[b][0]]
+
+    def column(self, m: int) -> List[KVCache]:
+        """Model shard m's pools, one a distinct device of its column."""
+        return [pool for (dev, shard), pool in self.pools.items() if shard == m]
+
+    def shards(self, b: int, i: int) -> List[Tuple[torch.device, Dict[str, torch.Tensor]]]:
+        """Layer i's (device, tensors) of every model shard of row b: the
+        tensors named as in the layer (attention.query.kernel, ...)."""
+        prefix = f"layer_{i}."
+        out = []
+        for m, dev in enumerate(self.devices[b]):
+            params = self._params[(dev, m)]
+            out.append((dev, {n[len(prefix):]: t for n, t in params.items()
+                              if n.startswith(prefix)}))
+        return out
+
+    def layer_pools(self, b: int, m: int, i: int) -> Tuple[Tuple, Tuple]:
+        """Layer i's pool tensors of model shard m as row b reads them,
+        and the column's other copies, which its writes also reach."""
+        local = self.pools[(self.devices[b][m], m)]
+        others = tuple(pool.layers()[i] for pool in self.column(m) if pool is not local)
+        return local.layers()[i], others
+
+    def caches(self) -> List[KVCache]:
+        return list(self.pools.values())
+
+    @torch.no_grad()
+    def refresh(self) -> None:
+        """Copy the model's current weights into the copies on other
+        devices (a weight swap lays the new version out again)."""
+        state = self.model.state_dict()
+        for whole in self._whole.values():
+            if whole is not self.model:
+                for name, t in whole.state_dict().items():
+                    t.copy_(state[name])
+        params = dict(self.model.named_parameters())
+        from ..parallel import sharding
+
+        for (dev, m), tensors in self._params.items():
+            full = sharding.model_shard({n: params[n] for n in tensors},
+                                        sharding.SERVE_DECODE_RULES, m, self.model_shards)
+            for name, t in tensors.items():
+                if t.data_ptr() != full[name].data_ptr():
+                    t.copy_(full[name])
+
+
+def _copy_to(model: GPT, device: torch.device) -> GPT:
+    import copy
+
+    return copy.deepcopy(model).to(device)
+
+
+def _shard_projection(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """One model shard's query, key or value: DenseGeneral's product over
+    the shard's heads ([..., hidden] -> [..., heads / m, head_dim])."""
+    kernel, bias = params[f"attention.{name}.kernel"], params[f"attention.{name}.bias"]
+    hidden, heads, head_dim = kernel.shape
+    lead = x.shape[:-1]
+    y = x.to(dtype).reshape(*lead, hidden) @ kernel.to(dtype).reshape(hidden, heads * head_dim)
+    y = y + bias.to(dtype).reshape(heads * head_dim)
+    return y.reshape(*lead, heads, head_dim)
+
+
+def _sharded_block(block, shards, x: torch.Tensor, attend: Callable) -> torch.Tensor:
+    """A TransformerBlock over 'model' shards (the reference's _PagedBlock
+    under a mesh): each shard's heads project and attend on its device
+    (attend(m, query, key, value) -> [..., heads / m, head_dim]), and each
+    shard's mlp_in outputs pass the gelu there. The shards' outputs are
+    then joined in shard order on x's device, the explicit all-gather of
+    the reference's _gather_model_axis, before attn_out and mlp_out run at
+    full width: never a partial contraction summed afterwards, which
+    would reorder the floating-point reduction."""
+    dtype = block.cfg.dtype
+    y = block.ln_attn(x).to(dtype)
+    heads = []
+    for m, (dev, params) in enumerate(shards):
+        part = y.to(dev)
+        query, key, value = (_shard_projection(params, name, part, dtype)
+                             for name in ("query", "key", "value"))
+        heads.append(attend(m, query, key, value).to(x.device))
+    x = x + block.attention.attn_out(torch.cat(heads, dim=-2))
+    y = block.ln_mlp(x)
+    hidden = []
+    for dev, params in shards:
+        h = F.linear(y.to(dev).to(dtype), params["mlp_in.weight"].to(dtype))
+        h = F.gelu(h + params["mlp_in.bias"].to(dtype), approximate="tanh")
+        hidden.append(h.to(x.device))
+    return x + dense(block.mlp_out, torch.cat(hidden, dim=-1), dtype)
+
+
+def _run_blocks(model: GPT, x: torch.Tensor, mask: torch.Tensor, pool: Optional[KVCache],
+                attention: Callable, layout: Optional[_MeshLayout] = None,
+                b: int = 0) -> torch.Tensor:
+    """x through every decoder block of a paged program. attention(kv[,
+    replicas]) is the attention_fn over one layer's pool tensors `kv`
+    (writing `replicas` too). Without a layout: the model's own blocks
+    over `pool`. With one: row shard b's sharded blocks, each model
+    shard attending over its own pool on its device."""
+    if layout is None:
+        for block, kv in zip(model.blocks(), pool.layers()):
+            x = block(x, mask, attention(kv))
+        return x
+    for i, block in enumerate(model.blocks()):
+        def attend(m, query, key, value, i=i):
+            kv, replicas = layout.layer_pools(b, m, i)
+            return attention(kv, replicas)(query, key, value, mask.to(query.device))
+
+        x = _sharded_block(block, layout.shards(b, i), x, attend)
+    return x
+
+
+def _over_row_shards(layout: _MeshLayout, fn: Callable, *rows: torch.Tensor) -> torch.Tensor:
+    """fn(model, *its rows, b=b) for each batch shard b of the slot rows,
+    on the row's first device with its whole model; the outputs joined
+    in row order on the mesh's first device."""
+    per = rows[0].shape[0] // layout.batch
+    out = []
+    for b in range(layout.batch):
+        model = layout.whole(b)
+        dev = model_device(model)
+        part = [t[b * per:(b + 1) * per].to(dev) for t in rows]
+        out.append(fn(model, *part, b=b).to(layout.device))
+    return torch.cat(out)
 
 
 class PagedDecodeStep:
     """One-token forward over the paged pool with a GPT's own parameters
     (the reference's PagedDecodeStep, gpt.py:1325): token [s] at
-    index [s] through tables [s, max_blocks] -> logits [s, vocab]."""
+    index [s] through tables [s, max_blocks] -> logits [s, vocab].
+    With a layout (_MeshLayout) the slot rows split over its batch
+    shards and each block over its model shards; `pool` is then unused."""
 
-    def __init__(self, model: GPT) -> None:
+    def __init__(self, model: GPT, layout: Optional[_MeshLayout] = None) -> None:
         self.model = model
+        self.layout = layout
 
     @torch.no_grad()
     def __call__(
-        self, token: torch.Tensor, index: torch.Tensor, tables: torch.Tensor, pool: KVCache,
+        self, token: torch.Tensor, index: torch.Tensor, tables: torch.Tensor,
+        pool: Optional[KVCache],
     ) -> torch.Tensor:
-        model = self.model
+        if self.layout is None:
+            return self._rows(self.model, token, index, tables, pool=pool)
+        return _over_row_shards(self.layout, self._rows, token, index, tables)
+
+    def _rows(self, model, token, index, tables, pool=None, b=0) -> torch.Tensor:
         x = model.embed(token[:, None], index[:, None])
-        length = tables.shape[1] * pool.keys[0].shape[1]
+        length = tables.shape[1] * _block_size(pool, self.layout)
         positions = torch.arange(length, device=token.device)
         valid = (positions[None, :] <= index[:, None])[:, None, None, :]
-        for block, kv in zip(model.blocks(), pool.layers()):
-            x = block(x, valid, _paged_attention(kv, index, tables))
+        x = _run_blocks(model, x, valid, pool,
+                        lambda kv, *reps: _paged_attention(kv, index.to(kv[0].device),
+                                                           tables.to(kv[0].device), *reps),
+                        self.layout, b)
         return model.head(x)[:, 0]
+
+
+def _block_size(pool: Optional[KVCache], layout: Optional[_MeshLayout]) -> int:
+    if pool is not None:
+        return pool.keys[0].shape[1]
+    return next(iter(layout.pools.values())).keys[0].shape[1]
 
 
 class PagedPrefillChunk:
@@ -1186,24 +1439,31 @@ class PagedPrefillChunk:
     gpt.py:1363): tokens [1, c] at logical positions [start, start + c)
     through table [max_blocks], writing every layer's keys and values.
     No ln_final or lm_head: a chunk never emits a token (the prompt's
-    last token rides a decode step). -> the last block's output."""
+    last token rides a decode step). -> the last block's output. With a
+    layout the chunk runs once, on its first batch row (a chunk is one
+    slot, replicated over 'batch' in the reference), over every model
+    shard, writing each shard's pool copies."""
 
-    def __init__(self, model: GPT) -> None:
+    def __init__(self, model: GPT, layout: Optional[_MeshLayout] = None) -> None:
         self.model = model
+        self.layout = layout
 
     @torch.no_grad()
     def __call__(
-        self, tokens: torch.Tensor, start: torch.Tensor, table: torch.Tensor, pool: KVCache,
+        self, tokens: torch.Tensor, start: torch.Tensor, table: torch.Tensor,
+        pool: Optional[KVCache],
     ) -> torch.Tensor:
-        model = self.model
+        model = self.model if self.layout is None else self.layout.whole(0)
         positions = start + torch.arange(tokens.shape[1], device=tokens.device)
         x = model.embed(tokens, positions[None])
-        length = table.shape[0] * pool.keys[0].shape[1]
+        length = table.shape[0] * _block_size(pool, self.layout)
         keys_at = torch.arange(length, device=tokens.device)
         mask = (keys_at[None, :] <= positions[:, None])[None, None]
-        for block, kv in zip(model.blocks(), pool.layers()):
-            x = block(x, mask, _paged_prefill_attention(kv, positions, table))
-        return x
+        return _run_blocks(
+            model, x, mask, pool,
+            lambda kv, *reps: _paged_prefill_attention(kv, positions.to(kv[0].device),
+                                                       table.to(kv[0].device), *reps),
+            self.layout)
 
 
 class PagedVerifyStep:
@@ -1215,21 +1475,30 @@ class PagedVerifyStep:
     the embeddings of positions past the model's table clamp to its last
     entry (those rows sit past the slot's commit limit)."""
 
-    def __init__(self, model: GPT) -> None:
+    def __init__(self, model: GPT, layout: Optional[_MeshLayout] = None) -> None:
         self.model = model
+        self.layout = layout
 
     @torch.no_grad()
     def __call__(
-        self, tokens: torch.Tensor, index: torch.Tensor, tables: torch.Tensor, pool: KVCache,
+        self, tokens: torch.Tensor, index: torch.Tensor, tables: torch.Tensor,
+        pool: Optional[KVCache],
     ) -> torch.Tensor:
-        model = self.model
+        if self.layout is None:
+            return self._rows(self.model, tokens, index, tables, pool=pool)
+        return _over_row_shards(self.layout, self._rows, tokens, index, tables)
+
+    def _rows(self, model, tokens, index, tables, pool=None, b=0) -> torch.Tensor:
         pos = index[:, None] + torch.arange(tokens.shape[1], device=tokens.device)[None, :]
         x = model.embed(tokens, pos.clamp(max=model.cfg.max_seq_len - 1))
-        length = tables.shape[1] * pool.keys[0].shape[1]
+        length = tables.shape[1] * _block_size(pool, self.layout)
         keys_at = torch.arange(length, device=tokens.device)
         valid = (keys_at[None, None, :] <= pos[:, :, None])[:, None]
-        for block, kv in zip(model.blocks(), pool.layers()):
-            x = block(x, valid, _paged_verify_attention(kv, index, tables))
+        # looked up at each call: a test plants its own verify attention
+        x = _run_blocks(model, x, valid, pool,
+                        lambda kv, *reps: _paged_verify_attention(
+                            kv, index.to(kv[0].device), tables.to(kv[0].device), *reps),
+                        self.layout, b)
         return model.head(x)
 
 
@@ -1238,10 +1507,24 @@ class PagedSlotDecodeStep:
     and values live in a shared pool of fixed-size blocks, [num_blocks,
     block_size, heads, head_dim] per layer and per k/v (with the
     [num_blocks, block_size, heads] scale pools under int8), the
-    reference's PagedSlotDecodeStep (gpt.py:1449) without the mesh
-    branch: the device half of the engine's kv_layout="paged". Block 0
-    is the sentinel: idle rows and unused table entries point at it.
-    kv_quant_int8 and weights_int8 as SlotDecodeStep's.
+    reference's PagedSlotDecodeStep (gpt.py:1449): the device half of
+    the engine's kv_layout="paged". Block 0 is the sentinel: idle rows
+    and unused table entries point at it. kv_quant_int8 and weights_int8
+    as SlotDecodeStep's.
+
+    mesh (a ('batch','model') serving mesh, parallel/mesh.py
+    make_device_mesh; ShardedPagedSlotDecodeStep requires one): every
+    program runs over it, laid out by SERVE_DECODE_RULES and
+    SERVE_CACHE_RULES (_MeshLayout): slot rows split on 'batch', heads
+    and the MLP's hidden units on 'model', each model shard holding its
+    heads' pool (`kv_bytes_per_shard` = `kv_bytes_total` / model
+    shards); the shards' outputs are joined before every full-width
+    contraction (_sharded_block). The checks and their messages are the
+    reference's: the axes, weights_int8 (refused), heads % model, n_slots
+    % batch. One process drives every shard, so each program stays one
+    `_Program` (one CUDA graph on a card) whatever the mesh; the prefill
+    chunk, the block copy and the verify run over the same layout, so
+    the pool never moves between programs.
 
     Up to four programs, each a `_Program` (on a CUDA device one CUDA
     graph, captured at its first call) with its own counter:
@@ -1265,7 +1548,6 @@ class PagedSlotDecodeStep:
         kv_quant_int8: bool = False, weights_int8: bool = False, mesh=None,
         spec_depth: int = 0,
     ) -> None:
-        _refuse_unported(weights_int8, mesh)
         cfg = model.cfg
         if max_total > cfg.max_seq_len:
             raise ValueError(f"max_total {max_total} exceeds max_seq_len {cfg.max_seq_len}")
@@ -1278,6 +1560,9 @@ class PagedSlotDecodeStep:
             )
         if num_blocks < 2:
             raise ValueError(f"num_blocks must be >= 2 (sentinel + 1), got {num_blocks}")
+        if mesh is not None:
+            self.batch_shards, self.model_shards = _mesh_shards(cfg, mesh, n_slots,
+                                                                weights_int8)
         self.model = quantize_model(model) if weights_int8 else model
         self.cfg = cfg
         self.n_slots = int(n_slots)
@@ -1287,11 +1572,27 @@ class PagedSlotDecodeStep:
         self.max_blocks = self.max_total // self.block_size
         self.spec_depth = int(spec_depth)
         self.device = model_device(self.model)
-        # the pool has a dense cache's layout with blocks for rows
-        self.cache = KVCache.zeros(cfg, self.num_blocks, self.block_size, self.device,
-                                   kv_quant_int8)
-        self.kv_bytes_total = _kv_bytes(self.cache)
-        decode = PagedDecodeStep(self.model)
+        self.mesh = mesh
+        self.layout: Optional[_MeshLayout] = None
+        if mesh is None:
+            self.batch_shards = self.model_shards = 1
+            # the pool has a dense cache's layout with blocks for rows
+            self.cache: Optional[KVCache] = KVCache.zeros(
+                cfg, self.num_blocks, self.block_size, self.device, kv_quant_int8)
+            # each model shard's pool copies (one shard, one copy here)
+            self.shard_pools: List[List[KVCache]] = [[self.cache]]
+            decode = PagedDecodeStep(self.model)
+        else:
+            if self.device != mesh.devices[0][0]:
+                raise ValueError(f"the model must be on the mesh's first device "
+                                 f"{mesh.devices[0][0]}, not {self.device}")
+            self.layout = _MeshLayout(self.model, mesh, self.num_blocks, self.block_size,
+                                      kv_quant_int8)
+            self.cache = None
+            self.shard_pools = [self.layout.column(m) for m in range(self.model_shards)]
+            decode = PagedDecodeStep(self.model, self.layout)
+        self.kv_bytes_per_shard = _kv_bytes(self.shard_pools[0][0])
+        self.kv_bytes_total = sum(_kv_bytes(copies[0]) for copies in self.shard_pools)
         inputs = _slot_inputs(self.n_slots, self.max_total, self.device)
         inputs["tables"] = torch.zeros(
             (self.n_slots, self.max_blocks), dtype=torch.long, device=self.device
@@ -1309,14 +1610,16 @@ class PagedSlotDecodeStep:
                 for name in ("src", "dst")}
 
         def copy() -> None:
-            for pool in self.cache.tensors():
-                pool.index_copy_(0, ends["dst"], pool.index_select(0, ends["src"]))
+            for pool in self.pool_tensors():
+                src, dst = ends["src"].to(pool.device), ends["dst"].to(pool.device)
+                pool.index_copy_(0, dst, pool.index_select(0, src))
 
         self._copy = _Program(copy, ends)
         self._verify: Optional[_Program] = None
         self.verify_logits: Optional[torch.Tensor] = None
         if self.spec_depth > 0:
-            scorer = PagedVerifyStep(self.model)
+            scorer = (PagedVerifyStep(self.model) if self.layout is None
+                      else PagedVerifyStep(self.model, self.layout))
             window = _slot_inputs(self.n_slots, self.max_total, self.device)
             window["toks"] = window.pop("tok").new_zeros((self.n_slots, self.spec_depth + 1))
             window["tables"] = torch.zeros_like(inputs["tables"])
@@ -1347,10 +1650,15 @@ class PagedSlotDecodeStep:
     def verify_compiles(self) -> int:
         return 0 if self._verify is None else self._verify.captures
 
-    def init_cache(self) -> KVCache:
+    def pool_tensors(self) -> List[torch.Tensor]:
+        """Every tensor of every pool copy, the scales included."""
+        return [t for copies in self.shard_pools for pool in copies for t in pool.tensors()]
+
+    def init_cache(self) -> Optional[KVCache]:
         """The pool, zeroed in place (captured programs keep reading and
-        writing the same tensors)."""
-        for t in self.cache.tensors():
+        writing the same tensors); None on a mesh (the shards' pools are
+        `shard_pools`)."""
+        for t in self.pool_tensors():
             t.zero_()
         return self.cache
 
@@ -1390,7 +1698,8 @@ class PagedSlotDecodeStep:
         [max_blocks]."""
         width = int(np.shape(tokens)[1])
         if self._prefill is None:
-            chunk = PagedPrefillChunk(self.model)
+            chunk = (PagedPrefillChunk(self.model) if self.layout is None
+                     else PagedPrefillChunk(self.model, self.layout))
             inputs = {
                 "tokens": torch.zeros((1, width), dtype=torch.long, device=self.device),
                 "start": torch.zeros((), dtype=torch.long, device=self.device),
@@ -1413,3 +1722,36 @@ class PagedSlotDecodeStep:
         and their scales (the copy-on-write of a tail block admitted from
         the prefix cache)."""
         self._copy(src=[int(src)], dst=[int(dst)])
+
+    def relayout(self) -> None:
+        """Lay the model's current weights out on the mesh again (after a
+        weight swap): the shard copies on other devices are rewritten;
+        views of the model's own tensors already hold them."""
+        if self.layout is not None:
+            self.layout.refresh()
+
+
+class ShardedPagedSlotDecodeStep(PagedSlotDecodeStep):
+    """The tensor-parallel PagedSlotDecodeStep (the reference's,
+    gpt.py:1771-1809): the same programs (step, prefill, copy_block and,
+    with spec_depth > 0, verify), each with its counter, over a required
+    ('batch','model') mesh (parallel/mesh.py make_device_mesh, whose
+    device list may repeat a device: several shards on one device, as
+    the reference's virtual CPU devices). Slot rows shard on 'batch';
+    heads and the MLP's hidden units on 'model', the paged pool on its
+    heads (`kv_bytes_per_shard` = `kv_bytes_total` / model_shards);
+    block tables and scalars are shared. Only output dimensions split,
+    and each activation split on 'model' is joined before its
+    full-width contraction, so the chains are the single-device step's
+    up to the rounding of a narrower product."""
+
+    def __init__(
+        self, model: GPT, n_slots: int, max_total: int, block_size: int, num_blocks: int,
+        mesh, kv_quant_int8: bool = False, weights_int8: bool = False, spec_depth: int = 0,
+    ) -> None:
+        if mesh is None:
+            raise ValueError(
+                "ShardedPagedSlotDecodeStep requires a mesh (parallel/mesh.py make_device_mesh)")
+        super().__init__(model, n_slots, max_total, block_size, num_blocks,
+                         kv_quant_int8=kv_quant_int8, weights_int8=weights_int8, mesh=mesh,
+                         spec_depth=spec_depth)

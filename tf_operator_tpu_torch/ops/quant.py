@@ -120,6 +120,9 @@ class QuantDenseGeneral(nn.Module):
                                                    dtype=torch.int8))
         self.register_buffer("kernel_scale", torch.ones(*self.out_shape))
         self.register_buffer("bias", torch.zeros(*self.out_shape))
+        # set by parallel/sharding.py apply_tensor_parallel on a
+        # row-parallel layer: the partial products meet before the scale
+        self.reduce_group = None
 
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         dtype = dtype or self.dtype
@@ -127,6 +130,10 @@ class QuantDenseGeneral(nn.Module):
         lead = x.shape[: x.dim() - len(self.in_shape)]
         kernel = self.kernel.to(dtype).reshape(fan_in, fan_out)
         y = x.to(dtype).reshape(*lead, fan_in) @ kernel
+        if self.reduce_group is not None:
+            from ..parallel.distributed import reduce_from_group
+
+            y = reduce_from_group(y, self.reduce_group)
         y = (y.float() * self.kernel_scale.reshape(fan_out)).to(dtype)
         y = y + self.bias.to(dtype).reshape(fan_out)
         return y.reshape(*lead, *self.out_shape)

@@ -20,6 +20,13 @@ and returns a `TrainMesh` holding the process groups each axis needs:
   BatchNorm, the MoE router, the pipeline's aux mean); pp, ep, tp and
   sp stay out of it, as the reference's batch_sharding (:116-128).
 
+The serving mesh is another kind: `make_device_mesh` lays a
+('batch', 'model') grid over devices of this process, which one engine
+drives (serve/engine.py mesh_shape, models/gpt.py
+ShardedPagedSlotDecodeStep). A caller may list the devices itself, and a
+device may repeat: several shards then share one device, the port's
+counterpart of the reference's virtual CPU devices.
+
 With pp = ep = sp = tp = 1 the mesh also holds the (dp, fsdp)
 DeviceMesh that FSDP2 shards over. fsdp > 1 together with tp, sp or ep
 raises NotImplementedError naming ROADMAP item 4 (FSDP2 composed with a
@@ -193,6 +200,80 @@ def build_mesh(
         pp_group=_my_group(shape, ("pp",), own=True), ep_group=ep_group,
         expert_group=expert_group,
     )
+
+
+SERVE_AXES = ("batch", "model")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeMesh:
+    """A ('batch', 'model') grid of devices driven by one process:
+    devices[b][m] holds the b-th batch shard's slot rows and the m-th
+    model shard's heads (parallel/sharding.py SERVE_DECODE_RULES)."""
+
+    devices: Tuple[Tuple[torch.device, ...], ...]
+    axis_names: Tuple[str, ...] = SERVE_AXES
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {self.axis_names[0]: len(self.devices), self.axis_names[1]: len(self.devices[0])}
+
+    @property
+    def size(self) -> int:
+        return len(self.devices) * len(self.devices[0])
+
+
+def local_devices(device: Union[str, torch.device, None] = None) -> List[torch.device]:
+    """Every device of `device`'s type in this process: each CUDA card
+    (cuda unless named), or the one CPU."""
+    from .._device import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [torch.device(dev.type)]
+
+
+def short_host_devices(device, want: int) -> List[torch.device]:
+    """The devices the serving CLIs lay a mesh of `want` shards over:
+    every device of `device`'s type, or, on a host with fewer, `device`
+    itself `want` times (several shards on one device), as the
+    reference's CLIs give a short host virtual CPU devices."""
+    devs = local_devices(device)
+    if len(devs) >= want:
+        return devs
+    from .._device import resolve_device
+
+    return [resolve_device(device)] * want
+
+
+def make_device_mesh(
+    shape, axis_names: Tuple[str, ...] = SERVE_AXES, devices=None, device=None,
+) -> ServeMesh:
+    """The serving mesh (the reference's make_device_mesh, mesh.py:58-95):
+    `shape` over `axis_names`, laid over `devices` in order (row-major),
+    or by default over every device of `device`'s type (local_devices).
+    A device may repeat in `devices`: several shards on one device.
+
+    Device-count fallback, as the reference's: with FEWER devices than
+    the shape asks for, the mesh collapses onto its first axis,
+    (len(devices), 1); with more, only the first prod(shape) join it.
+    The engine's engine_mesh_devices gauge shows the mesh that formed."""
+    shape = tuple(int(dim) for dim in shape)
+    if len(shape) != len(axis_names):
+        raise ValueError(
+            f"mesh shape {shape} has {len(shape)} axes for axis names {tuple(axis_names)}")
+    if any(dim < 1 for dim in shape):
+        raise ValueError(f"mesh axes must be >= 1, got {shape}")
+    if len(shape) != 2:
+        raise ValueError(f"the serving mesh has two axes, got {tuple(axis_names)}")
+    devs = [torch.device(d) for d in devices] if devices is not None else local_devices(device)
+    want = shape[0] * shape[1]
+    if want > len(devs):
+        shape = (len(devs), 1)
+        want = len(devs)
+    grid = tuple(tuple(devs[b * shape[1]:(b + 1) * shape[1]]) for b in range(shape[0]))
+    return ServeMesh(devices=grid, axis_names=tuple(axis_names))
 
 
 def fsdp_refusal(fsdp: int, sp: int, tp: int, ep: int) -> Optional[str]:

@@ -83,6 +83,24 @@ _TP_TRANSFORMER = (
     (r"(?:.*\.)?(?:lm_head|mlm_head)\.(?:weight|bias)", 0, "head"),
     (r"(?:.*\.)?(?:token_embed|position_embed)\.weight", 0, "embed"),
 )
+# The same plan over the int8 twin's buffers (ops/quant.py
+# QuantDenseGeneral: DenseGeneral's [in..., out...] kernel layout, for
+# nn.Linear too, and a kernel_scale over the output features). The twin
+# is quantized from the whole model before it is laid out, so a
+# row-parallel kernel's scales (attn_out, mlp_out: the split axis is the
+# contracted one) are the whole kernel's, replicated; a column-parallel
+# layer's scales split with its outputs.
+_TP_TRANSFORMER_INT8 = (
+    (r"(?:.*\.)?attention\.(?:query|key|value)\.kernel", 1, "column"),
+    (r"(?:.*\.)?attention\.(?:query|key|value)\.(?:kernel_scale|bias)", 0, "column"),
+    (r"(?:.*\.)?attention\.attn_out\.kernel", 0, "row"),
+    (r"(?:.*\.)?mlp_in\.kernel", 1, "column"),
+    (r"(?:.*\.)?mlp_in\.(?:kernel_scale|bias)", 0, "column"),
+    (r"(?:.*\.)?mlp_out\.kernel", 0, "row"),
+    (r"(?:.*\.)?lm_head\.kernel", 1, "head"),
+    (r"(?:.*\.)?lm_head\.(?:kernel_scale|bias)", 0, "head"),
+    (r"(?:.*\.)?(?:token_embed|position_embed)\.weight", 0, "embed"),
+)
 # MOE_RULES' tp plan: the expert kernels' intermediate dimension ([e, h, f]
 # and [e, f, h]: MoEMlp sums the partial outputs over its expert group),
 # then TRANSFORMER_RULES'; the router matches none and is replicated
@@ -110,14 +128,51 @@ class WrapPlan:
     blocks: Tuple[str, ...] = ()
     tp: Tuple[Tuple[str, int, str], ...] = ()
     ep: Tuple[Tuple[str, int, str], ...] = ()
+    # the tp plan over the model's int8 twin (ops/quant.py), where the
+    # rule set has one
+    tp_int8: Tuple[Tuple[str, int, str], ...] = ()
 
 
 REPLICATED_RULES = WrapPlan("REPLICATED_RULES")
 CONV_RULES = WrapPlan("CONV_RULES", shard=True)
 TRANSFORMER_RULES = WrapPlan("TRANSFORMER_RULES", shard=True, blocks=("TransformerBlock",),
-                             tp=_TP_TRANSFORMER)
+                             tp=_TP_TRANSFORMER, tp_int8=_TP_TRANSFORMER_INT8)
 MOE_RULES = WrapPlan("MOE_RULES", shard=True, blocks=("TransformerBlock", "MoEBlock"),
                      tp=_TP_MOE, ep=_EP_MOE)
+
+
+# The sharded decode step's layout over a serving mesh's 'model' axis (the
+# reference's SERVE_DECODE_RULES and SERVE_CACHE_RULES, sharding.py:60-89,
+# over the port's names; `tp` is the plan over that axis). Only output
+# dimensions split: the query/key/value kernels and biases on their heads,
+# mlp_in on its outputs. attn_out, mlp_out, the embeddings, the layer
+# norms and the LM head stay whole on every shard, and the decode programs
+# (models/gpt.py ShardedPagedSlotDecodeStep) join the shards' attention
+# outputs and MLP activations before those full-width contractions: a
+# partial contraction summed afterwards would reorder the floating-point
+# reduction, and the sharded engine owes the single-device step's chains.
+SERVE_DECODE_RULES = WrapPlan("SERVE_DECODE_RULES", tp=(
+    (r"(?:.*\.)?attention\.(?:query|key|value)\.kernel", 1, "column"),
+    (r"(?:.*\.)?attention\.(?:query|key|value)\.bias", 0, "column"),
+    (r"(?:.*\.)?mlp_in\.(?:weight|bias)", 0, "column"),
+))
+# The paged KV pool, [num_blocks, block_size, heads, head_dim] per layer
+# and per k/v (and the int8 scale pools, [num_blocks, block_size, heads]):
+# the heads dimension splits on 'model', with the qkv heads, so a write
+# and a read never cross shards; a shard's pool is total / model shards.
+SERVE_CACHE_RULES = WrapPlan("SERVE_CACHE_RULES", tp=((r".*", 2, "heads"),))
+
+
+def model_shard(state: Dict[str, torch.Tensor], rules: WrapPlan, index: int,
+                size: int) -> Dict[str, torch.Tensor]:
+    """Shard `index` of `size` of a state dict over one axis by the rules'
+    tp plan: each planned tensor its slice (a view), every other tensor
+    itself (SERVE_DECODE_RULES over a serving mesh's 'model' axis)."""
+    out = {}
+    for name, tensor in state.items():
+        rule = tp_rule(name, rules.tp)
+        out[name] = tensor if rule is None else _shard(tensor, rule[0], index, size)
+    return out
 
 
 def shards_parameters(mesh, rules: WrapPlan) -> bool:
@@ -249,20 +304,29 @@ def apply_tensor_parallel(model: nn.Module, mesh, rules: WrapPlan) -> nn.Module:
     halves' inputs are copied to the group: identity forward, all-reduce
     backward), and a vocab-parallel head gives the root `vocab_shard`.
     The root gets `tensor_parallel`. Build the optimizer after this."""
+    from ..ops.quant import QuantDenseGeneral, is_quantized
+
     size, rank, group = mesh.shape["tp"], mesh.coordinate["tp"], mesh.tp_group
+    plan = rules.tp_int8 if is_quantized(model) else rules.tp
     # parallelize asks only for a plan the rules have; this guards the one
     # direct caller, models/gpt.py generate(mesh=, rules=)
-    if not rules.tp:
+    if not plan:
         raise NotImplementedError(f"tp={size} with {rules.name}: the rule set has no "
-                                  "tensor-parallel plan")
-    for name, param in list(model.named_parameters()):
-        rule = tp_rule(name, rules.tp)
+                                  "tensor-parallel plan" + (" for int8 weights" if rules.tp else ""))
+    # the int8 twin's kernels, scales and biases are buffers
+    tensors = list(model.named_parameters()) + [
+        (f"{owner}.{attr}", buf) for owner, module in model.named_modules()
+        if isinstance(module, QuantDenseGeneral) for attr, buf in module.named_buffers()]
+    for name, tensor in tensors:
+        rule = tp_rule(name, plan)
         if rule is None:
             continue
         dim, role = rule
         owner_name, _, attr = name.rpartition(".")
         owner = model.get_submodule(owner_name)
-        local = nn.Parameter(_shard(param.detach(), dim, rank, size).clone())
+        local = _shard(tensor.detach(), dim, rank, size).clone()
+        if isinstance(tensor, nn.Parameter):
+            local = nn.Parameter(local)
         if role == "embed":
             parent_name, _, child = owner_name.rpartition(".")
             parent = model.get_submodule(parent_name)
@@ -271,13 +335,13 @@ def apply_tensor_parallel(model: nn.Module, mesh, rules: WrapPlan) -> nn.Module:
         setattr(owner, attr, local)
         if role == "row":
             owner.reduce_group = group
-        if role == "head" and attr == "weight":
-            model.vocab_shard = VocabShard(rank * local.shape[0], group)
+        if role == "head" and attr in ("weight", "kernel"):
+            model.vocab_shard = VocabShard(rank * local.shape[dim], group)
         _fit_shapes(owner)
     for module in model.modules():
         if type(module).__name__ in ("TransformerBlock", "MoEBlock"):
             module.tp_group = group
-    model.tensor_parallel = TensorParallel(group, rank, size, rules.tp)
+    model.tensor_parallel = TensorParallel(group, rank, size, plan)
     _set_expert_groups(model, mesh)
     return model
 

@@ -59,7 +59,15 @@ index_copy_ a leaf into the tensors the captured programs read) and
 publishes its keys. `prefix_digest` and `kv_statz` are the router's and
 the KV observatory's views of the pool.
 
-Not ported, refused naming its ROADMAP item: the sharded (mesh) step.
+SHARDED decode (mesh_shape, paged only): the same engine, pool, scheduler
+and prefix cache drive models/gpt.py ShardedPagedSlotDecodeStep over a
+('batch','model') mesh (parallel/mesh.py make_device_mesh over
+`mesh_devices`, by default every device of the engine's type, collapsing
+onto fewer as the reference's does): one process drives every shard, so
+each program is still one CUDA graph. The gauges engine_mesh_devices,
+engine_mesh_model_shards and engine_kv_shard_bytes show the mesh that
+formed; a block set is exported and imported with the shards' heads
+joined in shard order, the bytes an unsharded engine's pool holds.
 """
 
 from __future__ import annotations
@@ -559,9 +567,22 @@ class EngineRequest:
 
 
 
+def _parse_mesh_shape(mesh_shape):
+    """('batch','model') mesh shape from a (rows, cols) tuple or an 'RxC'
+    string ('1x2', '2x2': the --mesh-shape flag's wire form)."""
+    if isinstance(mesh_shape, str):
+        try:
+            parts = tuple(int(dim) for dim in mesh_shape.lower().split("x"))
+        except ValueError:
+            parts = ()
+    else:
+        parts = tuple(int(dim) for dim in mesh_shape)
+    if len(parts) != 2 or any(dim < 1 for dim in parts):
+        raise ValueError(
+            f"mesh_shape must be 'BATCHxMODEL' or (batch, model) with axes >= 1, "
+            f"got {mesh_shape!r}")
+    return parts
 
-# the option of the reference engine that the port leaves out
-_SHARDED = "the sharded decode step (mesh_shape) is not ported (ROADMAP queue 1 item 6)"
 
 # a KV block set's leaf dtypes: the payload's dtype string (numpy's name,
 # ml_dtypes' "bfloat16" in the reference) -> (the numpy dtype its bytes
@@ -611,7 +632,10 @@ class ContinuousBatchingEngine:
     (chunked-prefill width; 0 disables chunking), prefix_cache.
 
     device: where the engine runs (`cuda` unless named; raises without a
-    card); the model is moved there. The programs are captured at
+    card); the model is moved there. mesh_shape ((batch, model) or
+    "BxM", paged only): the sharded step over a mesh of `mesh_devices`
+    (default: every device of `device`'s type; a device may repeat),
+    whose first device the engine then runs on. The programs are captured at
     construction: on the engine thread with start=True (the constructor
     waits for it), in the caller's thread with start=False, where tests
     drive _admit / _evict_cancelled / _work_once by hand.
@@ -643,6 +667,7 @@ class ContinuousBatchingEngine:
         draft_model=None,
         spec_ngram: int = 3,
         device=None,
+        mesh_devices=None,
     ):
         from ..models import gpt as gpt_lib
 
@@ -675,12 +700,21 @@ class ContinuousBatchingEngine:
                     )
         self.spec_depth = int(spec_depth) if self._spec else 0
         self.spec_ngram = int(spec_ngram)
-        if mesh_shape is not None:
-            raise NotImplementedError(_SHARDED)
+        if mesh_shape is not None and kv_layout != "paged":
+            raise ValueError(
+                "mesh_shape requires kv_layout='paged' (only the paged step compiles a "
+                "sharded variant)")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # the engine thread sets the device itself: name it
             self.device = torch.device("cuda", torch.cuda.current_device())
+        self.mesh = None
+        if mesh_shape is not None:
+            from ..parallel import mesh as mesh_lib
+
+            self.mesh = mesh_lib.make_device_mesh(
+                _parse_mesh_shape(mesh_shape), devices=mesh_devices, device=self.device)
+            self.device = self.mesh.devices[0][0]
         model.to(self.device)
         if weights_int8:
             # quantize once: the steps read the twin, not the f32 model
@@ -705,11 +739,18 @@ class ContinuousBatchingEngine:
             usable = int(kv_blocks) or s * self.max_blocks
             if usable < 1:
                 raise ValueError(f"kv_blocks must be >= 1, got {usable}")
-            self.step = gpt_lib.PagedSlotDecodeStep(
-                model, s, max_total, block_size, usable + 1,
-                kv_quant_int8=kv_quant_int8, weights_int8=weights_int8,
-                spec_depth=self.spec_depth,
-            )
+            if self.mesh is not None:
+                self.step = gpt_lib.ShardedPagedSlotDecodeStep(
+                    model, s, max_total, block_size, usable + 1, self.mesh,
+                    kv_quant_int8=kv_quant_int8, weights_int8=weights_int8,
+                    spec_depth=self.spec_depth,
+                )
+            else:
+                self.step = gpt_lib.PagedSlotDecodeStep(
+                    model, s, max_total, block_size, usable + 1,
+                    kv_quant_int8=kv_quant_int8, weights_int8=weights_int8,
+                    spec_depth=self.spec_depth,
+                )
             self.pool = BlockPool(usable + 1, block_size)
             self.prefill_chunk = int(prefill_chunk)
             self._prefix_cache = bool(prefix_cache)
@@ -739,7 +780,8 @@ class ContinuousBatchingEngine:
                     f"{max_total} (the draft must cover every position it proposes at)"
                 )
             draft_model.to(self.device)
-            self.draft = gpt_lib.SlotDecodeStep(draft_model, s, max_total)
+            # on a mesh the draft's step is replicated (the reference's)
+            self.draft = gpt_lib.SlotDecodeStep(draft_model, s, max_total, mesh=self.mesh)
             self._d_tok = np.zeros((s,), np.int32)
             self._d_index = np.zeros((s,), np.int32)
         if self._spec:
@@ -1028,6 +1070,8 @@ class ContinuousBatchingEngine:
                     for name, tensor in own.items():
                         tensor.copy_(state[name])
             if self._paged:
+                # a sharded step lays the new version out on its mesh again
+                self.step.relayout()
                 # cached prompt K/V was computed under the OLD weights
                 self.pool.flush()
         default_flight().record("serve", op="swap-params")
@@ -1064,11 +1108,13 @@ class ContinuousBatchingEngine:
                 blocks.append(block)
             if not blocks:
                 return None
-            idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
+            idx = torch.tensor(blocks, dtype=torch.long)
             encoded = []
-            for leaf in cache_leaves(self.step.cache):
-                name = _dtype_name(leaf.dtype)
-                rows = leaf.index_select(0, idx).cpu()
+            for shards in self._leaves():
+                # a sharded pool's heads joined in shard order
+                name = _dtype_name(shards[0][0].dtype)
+                rows = torch.cat([copies[0].index_select(0, idx.to(copies[0].device)).cpu()
+                                  for copies in shards], dim=2)
                 if rows.dtype == torch.bfloat16:
                     rows = rows.view(torch.int16)
                 encoded.append({
@@ -1117,7 +1163,7 @@ class ContinuousBatchingEngine:
         trace = ctx.trace_id if ctx is not None else None
 
         def op():
-            leaves = cache_leaves(self.step.cache)
+            leaves = self._leaves()
             encoded = payload.get("leaves", [])
             if len(encoded) != len(leaves):
                 raise ValueError(
@@ -1125,10 +1171,12 @@ class ContinuousBatchingEngine:
                     f"engine has {len(leaves)}"
                 )
             arrays = []
-            for leaf, enc in zip(leaves, encoded):
+            for shards, enc in zip(leaves, encoded):
+                leaf = shards[0][0]
                 name = str(enc["dtype"])
                 shape = [int(d) for d in enc["shape"]]
                 want = [m] + list(leaf.shape[1:])
+                want[2] *= len(shards)  # the heads of every shard
                 if name != _dtype_name(leaf.dtype) or shape != want:
                     raise ValueError(
                         f"cache leaf mismatch: payload {name}{shape}, engine "
@@ -1158,7 +1206,7 @@ class ContinuousBatchingEngine:
                 # runs between scheduler quanta, so its launches are
                 # inter-token latency on the decode replica
                 rows = torch.tensor([j for j, _ in plan], dtype=torch.long)
-                idx = torch.tensor([b for _, b in plan], dtype=torch.long, device=self.device)
+                idx = torch.tensor([b for _, b in plan], dtype=torch.long)
                 self._write_blocks(leaves, idx, [a.index_select(0, rows) for a in arrays])
             self.kv_blocks_imported += written
             self.migrations_in += 1
@@ -1170,11 +1218,23 @@ class ContinuousBatchingEngine:
 
         return self._submit_op(op)
 
+    def _leaves(self) -> list:
+        """The pool's tensors in the reference's leaf order (cache_leaves):
+        for each leaf, for each model shard, that leaf in each of the
+        shard's pool copies (one shard with one copy unsharded)."""
+        per_shard = [[cache_leaves(pool) for pool in copies] for copies in self.step.shard_pools]
+        return [[[leaves[j] for leaves in copies] for copies in per_shard]
+                for j in range(len(per_shard[0][0]))]
+
     def _write_blocks(self, leaves, idx, rows) -> None:
-        """Write `rows[i]` ([n, ...] on the host) into pool blocks `idx` of
-        `leaves[i]`, in place."""
-        for leaf, data in zip(leaves, rows):
-            leaf.index_copy_(0, idx, data.to(leaf.device, non_blocking=False))
+        """Write `rows[i]` ([n, ...] on the host, every shard's heads) into
+        pool blocks `idx` of leaf i (`_leaves`), in place: each model
+        shard's heads into each of its copies."""
+        for shards, data in zip(leaves, rows):
+            for copies, part in zip(shards, data.chunk(len(shards), dim=2)):
+                for leaf in copies:
+                    leaf.index_copy_(0, idx.to(leaf.device),
+                                     part.to(leaf.device, non_blocking=False))
 
     def prefix_digest(self, limit: int = 128) -> list:
         """Hashes of the prefix cache's keys, most recently used first
@@ -1283,8 +1343,9 @@ class ContinuousBatchingEngine:
             ("engine_active_slots", "gauge"): self.active_slots,
             ("engine_queue_depth", "gauge"): self.queue_depth,
             ("engine_peak_active_slots", "gauge"): self.peak_active,
-            ("engine_mesh_devices", "gauge"): 1,
-            ("engine_mesh_model_shards", "gauge"): 1,
+            ("engine_mesh_devices", "gauge"): 1 if self.mesh is None else self.mesh.size,
+            ("engine_mesh_model_shards", "gauge"): (
+                1 if self.mesh is None else self.mesh.shape["model"]),
         }
         if self._spec:
             out.update({
@@ -1315,7 +1376,7 @@ class ContinuousBatchingEngine:
                 ("engine_prefill_chunks_total", "counter"): self.prefill_chunks,
                 ("engine_prefill_seconds_total", "counter"): self.prefill_seconds,
                 ("engine_kv_pool_bytes", "gauge"): self.step.kv_bytes_total,
-                ("engine_kv_shard_bytes", "gauge"): self.step.kv_bytes_total,
+                ("engine_kv_shard_bytes", "gauge"): self.step.kv_bytes_per_shard,
                 ("engine_pool_audit_failures_total", "counter"): self.pool_audit_failures,
                 ("engine_kv_blocks_exported_total", "counter"): self.kv_blocks_exported,
                 ("engine_kv_blocks_imported_total", "counter"): self.kv_blocks_imported,
@@ -1986,6 +2047,10 @@ def main(argv=None) -> int:
     each program; printed as JSON, exit 1 on any mismatch.
 
         python -m tf_operator_tpu_torch.serve.engine --smoke --layout paged --device cpu
+
+    --mesh 1x2 (paged): the sharded step, whose mesh must form as asked
+    (engine_mesh_devices) with a pool of 1/model shards a shard; a host
+    with fewer devices puts several shards on one device.
     """
     import argparse
 
@@ -1998,6 +2063,11 @@ def main(argv=None) -> int:
     parser.add_argument("--prefill-chunk", type=int, default=64)
     parser.add_argument("--device", default=None, help="default cuda; cpu runs the plain ops")
     parser.add_argument(
+        "--mesh", default="",
+        help="('batch','model') mesh shape for the sharded paged step, e.g. 1x2; a host "
+        "with fewer devices puts several shards on one device",
+    )
+    parser.add_argument(
         "--speculate", choices=("off", "ngram", "draft"), default="off",
         help="speculative decoding: 'ngram' drafts from a host-side prompt lookup, "
         "'draft' from GPT_DRAFT (random weights from a seed)",
@@ -2008,8 +2078,14 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.speculate != "off" and args.layout != "paged":
         parser.error("--speculate requires --layout paged")
+    mesh_shape = None
+    if args.mesh:
+        if args.layout != "paged":
+            parser.error("--mesh requires --layout paged")
+        mesh_shape = _parse_mesh_shape(args.mesh)
 
     from ..models import gpt as gpt_lib
+    from ..parallel.mesh import short_host_devices
 
     device = resolve_device(args.device)
     cfg = gpt_lib.GPT_TINY
@@ -2024,6 +2100,9 @@ def main(argv=None) -> int:
         model, n_slots=args.slots, kv_layout=args.layout, block_size=args.block_size,
         kv_blocks=args.kv_blocks, prefill_chunk=args.prefill_chunk, device=device,
         speculate=args.speculate, spec_depth=args.spec_depth, draft_model=draft_model,
+        mesh_shape=mesh_shape,
+        mesh_devices=(short_host_devices(device, mesh_shape[0] * mesh_shape[1])
+                      if mesh_shape else None),
     )
     paged = args.layout == "paged"
     rng = np.random.default_rng(0)
@@ -2076,6 +2155,18 @@ def main(argv=None) -> int:
             if engine.draft is not None:
                 report["draft_compiles"] = engine.draft.compiles
                 ok = ok and engine.draft.compiles == 1
+        if mesh_shape is not None:
+            # the mesh formed as asked (no silent collapse) and a shard's
+            # pool is exactly 1/N of the pool, read off the gauges
+            gauges = engine.metrics()
+            devices = gauges[("engine_mesh_devices", "gauge")]
+            shards = gauges[("engine_mesh_model_shards", "gauge")]
+            pool_bytes = gauges[("engine_kv_pool_bytes", "gauge")]
+            shard_bytes = gauges[("engine_kv_shard_bytes", "gauge")]
+            report.update(mesh_devices=devices, model_shards=shards, kv_pool_bytes=pool_bytes,
+                          kv_shard_bytes=shard_bytes)
+            ok = ok and devices == mesh_shape[0] * mesh_shape[1] and shards == mesh_shape[1]
+            ok = ok and shard_bytes * shards == pool_bytes
         engine.stop()
         engine.pool.check()
         ok = ok and engine.pool.in_use() == 0

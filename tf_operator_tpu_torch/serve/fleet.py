@@ -145,6 +145,7 @@ class InProcessFleet:
         prefill_chunk: int = 64,
         tenant_quotas: Optional[Dict[str, Dict]] = None,
         device=None,
+        mesh_devices=None,
     ) -> None:
         from .._device import resolve_device
 
@@ -161,10 +162,11 @@ class InProcessFleet:
         self.block_size = block_size
         self.prefill_chunk = prefill_chunk
         # ServeServiceSpec.mesh_shape ("1x2"); every replica this fleet
-        # boots shares the one decode mesh shape. The port's server
-        # refuses a mesh (sharded decode is not ported), and that
-        # refusal reaches the caller of sync() unchanged
+        # boots shares the one decode mesh shape, its engine sharded over
+        # mesh_devices (default: every device of the fleet's type; a
+        # device may repeat, several shards on one device)
         self.mesh_shape = mesh_shape
+        self.mesh_devices = mesh_devices
         self.namespace = namespace
         # per-tenant QoS quotas every replica boots with (the
         # in-process analog of --tenant-quotas on the pod command)
@@ -266,6 +268,7 @@ class InProcessFleet:
                 model, port=0, model_name=name,
                 batching="continuous", n_slots=n_slots,
                 mesh_shape=self.mesh_shape or None,
+                mesh_devices=self.mesh_devices,
                 warm_async=True,
                 block_size=self.block_size,
                 prefill_chunk=prefill_chunk,

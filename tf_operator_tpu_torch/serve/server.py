@@ -106,7 +106,23 @@ server on --device, one streaming and one batch request, the /metrics,
 through `python -m tf_operator_tpu_torch.telemetry`; a JSON report, exit
 0 or 1.
 
-Not ported, refused naming its ROADMAP item: sharded decode (mesh, --tp).
+Sharded decode, as the reference's two ways:
+- mesh_shape / --mesh-shape BxM (continuous batching, paged layout): the
+  engine runs models/gpt.py ShardedPagedSlotDecodeStep over a
+  ('batch','model') mesh of this process's devices (the CLI, on a host
+  with fewer devices than the shape, puts several shards on one device,
+  as the reference's CLI gives a short host virtual CPU devices).
+  --mesh-shape and --weights-int8 are mutually exclusive.
+- mesh / --tp N (inline decode): generate(mesh=) over a tensor-parallel
+  world, one process a rank (parallel/mesh.py build_mesh), the world
+  formed from the operator's environment as the training CLIs' --tp.
+  make_server(mesh=) runs on every rank: on rank 0 it is the HTTP
+  server, which broadcasts each decode call to the other ranks before
+  it decodes; on the others a MeshFollower, whose serve_forever() makes
+  the same generate(mesh=) calls until rank 0's server_close() tells it
+  to stop. SIGTERM to rank 0 drains it and stops every rank, each
+  exiting 0. mesh is exclusive with continuous batching and with
+  speculative, in the reference's words.
 """
 
 from __future__ import annotations
@@ -145,9 +161,6 @@ _SPEC_NGRAM = 2
 # beams multiply the decode batch (and the KV cache) num_beams-fold
 MAX_BEAMS = 8
 
-# what the reference serves that the port does not, and where ROADMAP
-# places it
-_SHARDED = "sharded decode (mesh, mesh_shape, --tp) is not ported (ROADMAP queue 1 item 6)"
 # the moe family's refusals: the reference's texts
 _MOE_STARTUP = (
     "the moe family serves plain decode only: kv_quant_int8, weights_int8, speculative, "
@@ -199,6 +212,9 @@ class _State:
         self.phase = "warming"
         self.lock = locks.make_lock("_State.lock")
         self.engine = None  # set by make_server (batching="continuous")
+        # make_server(mesh=): the tensor-parallel world's mesh; rank 0
+        # broadcasts each inline decode call to the other ranks
+        self.mesh = None
         # make_server(warm_async=True): the thread building the engine
         # (and capturing its programs) while the listener already answers
         self.warmup_thread = None
@@ -508,42 +524,97 @@ def _device_decode(state: _State, prompt, lens, new, temperature=0.0, seed=0,
 
 def _locked_decode(state, prompt, lens, new, temperature, seed, top_k, top_p,
                    num_beams=1, use_spec=False):
-    import time
+    call = {"prompt": prompt, "lens": [int(n) for n in lens], "new": int(new),
+            "temperature": float(temperature), "seed": int(seed), "top_k": int(top_k),
+            "top_p": float(top_p), "num_beams": int(num_beams), "use_spec": bool(use_spec)}
+    with state.lock:  # decode saturates the card; serialize
+        start = time.monotonic()
+        if state.mesh is not None:
+            # every rank of the mesh makes the same call
+            _broadcast_call(call)
+        out = _run_decode(state, call)
+        state.decode_seconds.inc(time.monotonic() - start)
+        state.decode_batches.inc()
+        if use_spec:
+            state.speculative_decodes.inc()
+    return out
 
+
+def _run_decode(state, call: dict):
+    """One inline decode call (_locked_decode's, or one rank 0 broadcast
+    to a MeshFollower) -> host chains, or beam_search's host (sequences,
+    scores)."""
     import torch
 
     from ..models import gpt as gpt_lib
     from ..models import moe as moe_lib
 
-    with state.lock:  # decode saturates the card; serialize
-        start = time.monotonic()
-        generator = torch.Generator(device=state.device).manual_seed(int(seed))
-        tokens = torch.as_tensor(prompt, device=state.device)
-        flags = dict(kv_quant_int8=state.kv_quant_int8, weights_int8=state.weights_int8)
-        if state.family == "moe":
-            out = moe_lib.moe_generate(
-                state.model, tokens, new, temperature=temperature, generator=generator,
-            )
-        elif num_beams > 1:
-            seqs, scores = gpt_lib.beam_search(state.model, tokens, new, num_beams=num_beams,
-                                               **flags)
-            out = (seqs.cpu().numpy(), scores.cpu().numpy())
-        elif use_spec:
-            out = gpt_lib.generate_speculative(
-                state.model, tokens, new, ngram=_SPEC_NGRAM, temperature=temperature,
-                generator=generator, top_k=top_k, top_p=top_p, **flags,
-            )
-            state.speculative_decodes.inc()
-        else:
-            out = gpt_lib.generate(
-                state.model, tokens, new, temperature=temperature, generator=generator,
-                prompt_lens=torch.tensor(lens), top_k=top_k, top_p=top_p, **flags,
-            )
-        if not isinstance(out, tuple):
-            out = out.cpu().numpy()  # waits for the device
-        state.decode_seconds.inc(time.monotonic() - start)
-        state.decode_batches.inc()
-    return out
+    new, temperature = call["new"], call["temperature"]
+    top_k, top_p = call["top_k"], call["top_p"]
+    generator = torch.Generator(device=state.device).manual_seed(call["seed"])
+    tokens = torch.as_tensor(call["prompt"], device=state.device)
+    flags = dict(kv_quant_int8=state.kv_quant_int8, weights_int8=state.weights_int8)
+    if state.family == "moe":
+        out = moe_lib.moe_generate(
+            state.model, tokens, new, temperature=temperature, generator=generator,
+        )
+    elif call["num_beams"] > 1:
+        seqs, scores = gpt_lib.beam_search(state.model, tokens, new,
+                                           num_beams=call["num_beams"], **flags)
+        return seqs.cpu().numpy(), scores.cpu().numpy()
+    elif call["use_spec"]:
+        out = gpt_lib.generate_speculative(
+            state.model, tokens, new, ngram=_SPEC_NGRAM, temperature=temperature,
+            generator=generator, top_k=top_k, top_p=top_p, **flags,
+        )
+    else:
+        out = gpt_lib.generate(
+            state.model, tokens, new, temperature=temperature, generator=generator,
+            prompt_lens=torch.tensor(call["lens"]), top_k=top_k, top_p=top_p,
+            mesh=state.mesh, **flags,
+        )
+    return out.cpu().numpy()  # waits for the device
+
+
+def _broadcast_call(call) -> Optional[dict]:
+    """Rank 0's decode call (None: stop) to every rank of the world, over
+    its host side; -> the call, on every rank."""
+    import torch
+    import torch.distributed as dist
+
+    box = [call]
+    dist.broadcast_object_list(box, src=0, device=torch.device("cpu"))
+    return box[0]
+
+
+class MeshFollower:
+    """make_server(mesh=) on a rank other than 0: no listener; its
+    serve_forever() makes each decode call rank 0 broadcasts, with the
+    same arguments (generate(mesh=)'s collectives need every rank), until
+    rank 0's server_close() broadcasts the stop. A call that raises on
+    rank 0 raises here too, before any collective, and is skipped."""
+
+    def __init__(self, state: _State) -> None:
+        self.state = state
+        self.calls = 0
+
+    def serve_forever(self, poll_interval: float = 0.5) -> None:
+        self.state.phase = "ready"
+        while True:
+            call = _broadcast_call(None)
+            if call is None:
+                return
+            self.calls += 1
+            try:
+                _run_decode(self.state, call)
+            except ValueError as err:
+                logger.info("follower: the call was refused: %s", err)
+
+    def shutdown(self) -> None:
+        """Nothing to stop: rank 0's server_close() ends serve_forever."""
+
+    def server_close(self) -> None:
+        self.state.phase = "draining"
 
 
 def DecodeHandlerFactory(state: _State):
@@ -1015,6 +1086,11 @@ class DecodeHTTPServer(ThreadingHTTPServer):
             for owner in (state.alerts, state.history, state.batcher):
                 if owner is not None:
                     owner.stop()
+            if state.mesh is not None:
+                # the mesh's other ranks (MeshFollower) stop with rank 0
+                with state.lock:
+                    _broadcast_call(None)
+                state.mesh = None
         super().server_close()
 
     def process_request(self, request, client_address):
@@ -1101,6 +1177,7 @@ def make_server(
     draft_preset: str = "",
     mesh=None,
     mesh_shape=None,
+    mesh_devices=None,
     role: str = "",
     tenant_quotas=None,
     enable_debug_endpoints: bool = False,
@@ -1134,8 +1211,15 @@ def make_server(
     role ("", "prefill" or "decode"; advertised on /healthz and /kv/digest)
     and their combinations are the reference's, refused in its words
     (ValueError). An MoE LM with any gpt-family option raises ValueError,
-    as the reference; a mesh (sharded decode, not ported) raises
-    NotImplementedError naming its ROADMAP item."""
+    as the reference.
+
+    mesh_shape ((batch, model) or "BxM"; continuous batching, paged
+    layout): the engine's sharded step over a mesh of `mesh_devices`
+    (serve/engine.py). mesh (parallel/mesh.py build_mesh's, called on
+    every rank of a tensor-parallel world): inline decode through
+    generate(mesh=), the model laid out by TRANSFORMER_RULES once here
+    (int8 weights quantized whole first); rank 0 gets the server, every
+    other rank a MeshFollower (see the module docstring)."""
     from .._device import resolve_device
     from ..ops.quant import is_quantized, quantize_model
 
@@ -1145,8 +1229,6 @@ def make_server(
         or batching not in ("", "none")
     ):
         raise ValueError(_MOE_STARTUP)
-    if mesh is not None or mesh_shape is not None:
-        raise NotImplementedError(_SHARDED)
     if role and role not in ("prefill", "decode"):
         raise ValueError(f"role must be '', 'prefill' or 'decode', got {role!r}")
     if not batching:
@@ -1172,6 +1254,28 @@ def make_server(
         raise ValueError(
             "batching='continuous' and speculative are mutually exclusive: the engine owns "
             "the greedy path and its quantum is one token, not a drafted run"
+        )
+    if batching == "continuous" and mesh is not None:
+        raise ValueError(
+            "batching='continuous' and mesh are mutually exclusive: the generate(mesh=) "
+            "path belongs to inline decode; the engine shards through mesh_shape instead "
+            "(ShardedPagedSlotDecodeStep)"
+        )
+    if mesh_shape is not None:
+        if batching != "continuous":
+            raise ValueError(
+                "mesh_shape requires batching='continuous': only the slot engine compiles "
+                "the sharded decode step"
+            )
+        if kv_layout != "paged":
+            raise ValueError(
+                "mesh_shape requires kv_layout='paged': the sharded step partitions the "
+                "paged block pool"
+            )
+    if speculative and mesh is not None:
+        raise ValueError(
+            "speculative and mesh are mutually exclusive: the speculative verify loop is a "
+            "single-device program; sharded serving uses the plain generate(mesh=) path"
         )
     if speculative and batch_window_ms > 0:
         raise ValueError(
@@ -1211,10 +1315,27 @@ def make_server(
             weights_int8 = True
         if weights_int8:
             # one quantization at load; every decode then reads the int8
-            # twin (the caller drops the f32 model to free its kernels)
+            # twin (the caller drops the f32 model to free its kernels).
+            # Under a mesh the whole model is quantized before it is laid
+            # out, so a row-parallel kernel's scales are the whole kernel's
             model = quantize_model(model)
+        if mesh is not None and mesh.shape["tp"] > 1 and \
+                getattr(model, "tensor_parallel", None) is None:
+            # laid out once here, not inside every request's decode
+            import copy
+
+            from ..parallel import sharding
+
+            model = sharding.apply_tensor_parallel(copy.deepcopy(model), mesh,
+                                                   sharding.TRANSFORMER_RULES)
     state = _State(model, model_name, max_new_cap, device, kv_quant_int8=kv_quant_int8,
                    weights_int8=weights_int8, speculative=speculative, role=role)
+    if mesh is not None:
+        from ..parallel import distributed
+
+        if distributed.is_initialized() and distributed.rank() != 0:
+            return MeshFollower(state)
+        state.mesh = mesh
     state.enable_debug = bool(enable_debug_endpoints)
     # the metric history: every registry family plus the engine's flat
     # counters, read at each tick (the provider reads state.engine then)
@@ -1264,7 +1385,8 @@ def make_server(
                 kv_layout=kv_layout, block_size=block_size, kv_blocks=kv_blocks,
                 prefill_chunk=prefill_chunk, device=device, kv_quant_int8=kv_quant_int8,
                 weights_int8=weights_int8, speculate=speculate, spec_depth=spec_depth,
-                draft_model=draft_model, role=role,
+                draft_model=draft_model, role=role, mesh_shape=mesh_shape,
+                mesh_devices=mesh_devices,
             )
 
         if warm_async:
@@ -1308,7 +1430,6 @@ def _draft_presets():
 
 # CLI flags of the reference's server that the port refuses, with why
 _REFUSED_FLAGS = (
-    ("--tp", True, _SHARDED), ("--mesh-shape", True, _SHARDED),
     ("--warm", True, "--warm pre-compiles jit shapes; the port has none to compile"),
 )
 
@@ -1382,6 +1503,22 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="most tokens drafted per speculative round; the verify scores K+1",
     )
     parser.add_argument(
+        "--mesh-shape", default="", metavar="BATCHxMODEL",
+        help="('batch','model') mesh for the sharded continuous-batching decode step, "
+        "e.g. 1x2: attention heads and the paged KV pool split on the model axis, slot "
+        "rows on the batch axis (models/gpt.py ShardedPagedSlotDecodeStep). Requires "
+        "--batching continuous and --kv-layout paged; a host with fewer devices than the "
+        "shape puts several shards on one device",
+    )
+    parser.add_argument(
+        "--tp", type=int, default=1,
+        help="tensor-parallel degree for inline decode: a world of one process a rank "
+        "(formed from the operator's environment, as the training CLIs' --tp), the "
+        "weights laid out by TRANSFORMER_RULES and each decode made by every rank "
+        "(generate(mesh=)); rank 0 serves HTTP. Mutually exclusive with --speculative "
+        "and --batching continuous",
+    )
+    parser.add_argument(
         "--role", choices=["", "prefill", "decode"], default="",
         help="disaggregated serving role advertised on /healthz and /kv/digest: prefill "
         "replicas take the prefix-ingest half of the workload (POST /prefill + KV "
@@ -1444,7 +1581,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                 ("--speculate", args.speculate not in (None, "off")),
                 ("--batch-window-ms", args.batch_window_ms > 0),
                 ("--batching", args.batching not in ("", "none")),
-                ("--tp", _number(args.tp) > 1),
+                ("--tp", args.tp > 1), ("--mesh-shape", bool(args.mesh_shape)),
             ) if on
         ]
         if offending:
@@ -1462,6 +1599,30 @@ def parse_args(argv=None) -> argparse.Namespace:
             )
     if args.speculative and args.batch_window_ms > 0:
         parser.error("--speculative is mutually exclusive with --batch-window-ms")
+    args.mesh_shape_parsed = None
+    if args.mesh_shape:
+        if args.batching != "continuous":
+            parser.error("--mesh-shape requires --batching continuous")
+        if args.kv_layout != "paged":
+            parser.error("--mesh-shape requires --kv-layout paged")
+        if args.weights_int8:
+            parser.error(
+                "--mesh-shape and --weights-int8 are mutually exclusive: the sharded step "
+                "has no int8-kernel partition rules yet")
+        from .engine import _parse_mesh_shape
+
+        try:
+            args.mesh_shape_parsed = _parse_mesh_shape(args.mesh_shape)
+        except ValueError as exc:
+            parser.error(str(exc))
+    if args.tp < 1:
+        parser.error("--tp must be >= 1")
+    if args.tp > 1:
+        offending = [flag for flag, on in (("--speculative", args.speculative),
+                                           ("--batching continuous",
+                                            args.batching == "continuous")) if on]
+        if offending:
+            parser.error(f"--tp is mutually exclusive with {', '.join(offending)}")
     if args.speculate != "off":
         if args.batching != "continuous":
             parser.error("--speculate requires --batching continuous")
@@ -1504,14 +1665,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         if args.prefill_chunk < 0:
             parser.error("--prefill-chunk must be >= 0 (0 = off)")
     return args
-
-
-def _number(value) -> float:
-    """A refused flag's value as a number (absent: 0)."""
-    try:
-        return float(value) if value is not None else 0.0
-    except ValueError:
-        return 0.0
 
 
 def load_model(preset: str, checkpoint_dir: Optional[str], device):
@@ -1668,8 +1821,6 @@ def _smoke(device=None) -> int:
 
 
 def main(argv=None) -> int:
-    import signal
-
     from .._device import resolve_device
 
     args = parse_args(argv)
@@ -1677,6 +1828,28 @@ def main(argv=None) -> int:
     if args.smoke:
         return _smoke(args.device)
     device = resolve_device(args.device)
+    if args.tp > 1:
+        from ..parallel import distributed
+
+        with distributed.world(device):
+            return _serve(args, device)
+    return _serve(args, device)
+
+
+def _serve(args, device) -> int:
+    import signal
+
+    mesh = mesh_devices = None
+    if args.tp > 1:
+        from ..parallel.mesh import MeshConfig, build_mesh, mesh_summary
+
+        mesh = build_mesh(MeshConfig(dp=-1, tp=args.tp), device)
+        logger.info("sharded decode over mesh %s", mesh_summary(mesh))
+    if args.mesh_shape_parsed is not None:
+        from ..parallel.mesh import short_host_devices
+
+        batch, model_axis = args.mesh_shape_parsed
+        mesh_devices = short_host_devices(device, batch * model_axis)
     model = load_model(args.preset, args.checkpoint_dir, device)
     port = args.port if args.port is not None else int(os.environ.get("PORT", "8600"))
     try:
@@ -1694,6 +1867,7 @@ def main(argv=None) -> int:
             history_capacity=max(2, args.history_capacity),
             history_interval_s=max(0.0, args.history_interval),
             alerts=args.alerts == "on", ttft_slo_s=args.ttft_slo_ms / 1000.0,
+            mesh=mesh, mesh_shape=args.mesh_shape_parsed, mesh_devices=mesh_devices,
         )
     except ValueError as err:
         # a combination only the model can judge (a draft whose vocabulary
@@ -1701,6 +1875,11 @@ def main(argv=None) -> int:
         logger.error("refused: %s", err)
         return 2
     del model
+    if isinstance(server, MeshFollower):
+        logger.info("mesh follower of rank 0's server (%s)", device)
+        server.serve_forever()
+        logger.info("rank 0 stopped; exiting 0")
+        return 0
     logger.info("decode server on :%d (%s)", server.server_address[1], device)
     # graceful drain: SIGTERM stops accepting, lets in-flight requests
     # finish and exits 0. Non-daemon handler threads + block_on_close

@@ -8,11 +8,12 @@
   so a profile attributes time to planes without symbolizing anything.
   The sampler measures its own duty cycle (`stats()["sample_seconds"]`
   over `elapsed_seconds`) so that the <2% overhead budget is asserted,
-  not assumed. A tick is charged the sampler thread's CPU time
-  (`time.thread_time`): its wall time (`sample_wall_seconds`) also holds
-  the stretches it waits for the GIL or for a core, which are other
-  threads' time (PERF.md §7 has both, measured beside training threads
-  on an H100).
+  not assumed. A tick is charged its wall time on the monotonic clock,
+  as in the reference: it bounds the tick's CPU time from above. The
+  thread CPU clock is no meter for it where it is a system call (a
+  sandboxed kernel's, which charges the call's own wait to the tick it
+  brackets and steps in 10 ms; PERF.md §6 measured both on an H100's
+  host).
   `render_profilez` is the /debug/profilez page (`?action=start&hz=99`,
   `?action=stop`, and the default `?action=snapshot&seconds=5&format=
   folded|speedscope|json`; a snapshot with `seconds=` against a stopped
@@ -29,6 +30,7 @@
 
 from __future__ import annotations
 
+import gc
 import json
 import logging
 import os
@@ -94,13 +96,59 @@ def _fold(frame, limit: int = MAX_STACK_DEPTH) -> str:
     flamegraph convention: self time lives at the end)."""
     parts: List[str] = []
     while frame is not None and len(parts) < limit:
-        code = frame.f_code
-        parts.append(
-            f"{code.co_filename.rsplit(os.sep, 1)[-1]}:{code.co_name}"
-        )
+        parts.append(_frame_name(frame.f_code))
         frame = frame.f_back
     parts.reverse()
     return ";".join(parts)
+
+
+# each code object's "file.py:func", formatted once, keyed by the code
+# object's id (a code object's own hash reads its whole bytecode); the
+# entry holds the code object, so its id is not reused while cached
+# (bounded: cleared when it outgrows _FRAME_NAMES_MAX)
+_FRAME_NAMES: Dict[int, Tuple[object, str]] = {}
+_FRAME_NAMES_MAX = 65536
+
+
+def _frame_name(code) -> str:
+    entry = _FRAME_NAMES.get(id(code))
+    if entry is None or entry[0] is not code:
+        if len(_FRAME_NAMES) >= _FRAME_NAMES_MAX:
+            _FRAME_NAMES.clear()
+        entry = _FRAME_NAMES[id(code)] = (
+            code, f"{code.co_filename.rsplit(os.sep, 1)[-1]}:{code.co_name}")
+    return entry[1]
+
+
+# a stack's fold, keyed by the ids of its code objects leaf first; the
+# entry holds those code objects, so no id in a cached key is reused
+# while the entry lives (bounded: cleared when it outgrows _FOLDS_MAX)
+_FOLDS_MAX = 65536
+
+
+def _walk(frame, folds: Dict[tuple, Tuple[str, list]], limit: int = MAX_STACK_DEPTH) -> str:
+    """The _fold of `frame` (its `limit` frames nearest the leaf),
+    formatted once a distinct stack: the walk reads each frame's code
+    object only and holds no frame past the tick. A frame held to the
+    next tick would, once its thread had left it, own its locals, and the
+    sampler would free them (tensors, autograd graphs: a stepping
+    thread's work; on an H100's host, in a long-lived process, that made
+    a tick 2.4x as long: PERF.md §6)."""
+    codes = []
+    append = codes.append
+    for _ in range(limit):
+        if frame is None:
+            break
+        append(frame.f_code)
+        frame = frame.f_back
+    key = tuple(map(id, codes))
+    entry = folds.get(key)
+    if entry is None:
+        if len(folds) >= _FOLDS_MAX:
+            folds.clear()
+        codes.reverse()
+        entry = folds[key] = (";".join([_frame_name(code) for code in codes]), codes)
+    return entry[0]
 
 
 class SamplingProfiler:
@@ -133,14 +181,14 @@ class SamplingProfiler:
         self._started_at: Optional[float] = None
         # sampler self-accounting: duty cycle = sample_seconds /
         # elapsed is THE overhead bound (the sampler only contends for
-        # the GIL while inside _sample_once). sample_seconds is the
-        # sampler thread's CPU time in its ticks; the same ticks on the
-        # wall clock, and the longest of them, show what else a tick
-        # waited for
+        # the GIL while inside _sample_once); the longest tick shows
+        # what else a tick can wait for
         self._sample_seconds = 0.0
-        self._sample_wall_seconds = 0.0
         self._max_tick_seconds = 0.0
         self._ticks = 0
+        # each distinct stack's fold (_walk) and each thread's (name, role)
+        self._folds: Dict[tuple, Tuple[str, list]] = {}
+        self._threads: Dict[int, Tuple[str, str]] = {}
 
     # -- roles ---------------------------------------------------------------
 
@@ -215,16 +263,25 @@ class SamplingProfiler:
         next_t = time.monotonic()
         while not stop.is_set():
             t0 = time.monotonic()
-            c0 = time.thread_time()
+            # the cyclic collector waits while a tick holds the GIL: a
+            # collection that the tick's allocations would trigger (a pass
+            # over the whole process's heap, the work of every thread's
+            # garbage) then runs on the next thread to allocate, and is
+            # not charged to the sampler
+            collect = gc.isenabled()
+            if collect:
+                gc.disable()
             try:
                 self._sample_once()
             except Exception:  # noqa: BLE001 — the sampler observes a
                 # process; it must never take one down (a thread dying
                 # mid-walk can surface RuntimeError from frame access)
                 pass
+            finally:
+                if collect:
+                    gc.enable()
             tick = time.monotonic() - t0
-            self._sample_seconds += time.thread_time() - c0
-            self._sample_wall_seconds += tick
+            self._sample_seconds += tick
             self._max_tick_seconds = max(self._max_tick_seconds, tick)
             self._ticks += 1
             next_t += period
@@ -240,25 +297,30 @@ class SamplingProfiler:
     def _sample_once(self) -> int:
         """Walk every thread's current stack once; -> threads sampled.
         Public enough for tests to drive the ring deterministically."""
-        me = threading.get_ident()
-        names = {t.ident: t.name for t in threading.enumerate()}
         frames = sys._current_frames()
+        del frames[threading.get_ident()]  # the sampler never profiles itself
         t = time.monotonic()
         wall = time.time()  # noqa — deliberate calendar stamp on the sample
-        folded: List[Tuple[str, str]] = []
-        for ident, frame in frames.items():
-            if ident == me:
-                continue  # the sampler never profiles itself
-            name = names.get(ident) or f"thread-{ident}"
-            folded.append((self._role_of(name), _fold(frame)))
+        threads = self._threads
+        if not frames.keys() <= threads.keys():
+            # a thread started since the last tick: name every thread anew
+            names = {th.ident: th.name for th in threading.enumerate()}
+            threads = {ident: (name, self._role_of(name)) for ident in frames
+                       for name in (names.get(ident) or f"thread-{ident}",)}
+            self._threads = threads
+        # every stack walked whole: no other thread runs Python while the
+        # tick holds the GIL, so no frame read here is left before the
+        # tick lets go of it
+        folds, buf, capacity = self._folds, self._buf, self.capacity
+        new = tuple.__new__  # a ProfileSample without its Python-level constructor
         with self._lock:
-            for role, stack in folded:
-                seq = self._seq
-                self._seq = seq + 1
-                self._buf[seq % self.capacity] = ProfileSample(
-                    seq, t, wall, role, stack
-                )
-        return len(folded)
+            seq = self._seq
+            for ident, frame in frames.items():
+                buf[seq % capacity] = new(ProfileSample, (
+                    seq, t, wall, threads[ident][1], _walk(frame, folds)))
+                seq += 1
+            self._seq = seq
+        return len(frames)
 
     # -- reads ---------------------------------------------------------------
 
@@ -322,7 +384,6 @@ class SamplingProfiler:
             "samples_in_ring": len(self),
             "ticks": self._ticks,
             "sample_seconds": round(self._sample_seconds, 6),
-            "sample_wall_seconds": round(self._sample_wall_seconds, 6),
             "max_tick_seconds": round(self._max_tick_seconds, 6),
             "elapsed_seconds": (
                 round(elapsed, 6) if elapsed is not None else None

@@ -980,7 +980,7 @@ def run_train_observe_smoke(
         "profiler_duty_cycle": round(duty, 6),
         "profiler_samples": stats.get("samples_total", 0),
         "profiler_stats": {k: stats.get(k) for k in (
-            "ticks", "sample_seconds", "sample_wall_seconds", "max_tick_seconds",
+            "ticks", "sample_seconds", "max_tick_seconds",
             "elapsed_seconds")},
         "goodput": {n: w["trainer"].goodput.snapshot() for n, w in workers.items()},
         "fleet": report,
