@@ -71,7 +71,11 @@ non-zero, printing no result:
    --conv3-impl pallas) through the CLI's run(); launch counters must
    equal 13 K4 launches per forward and per backward pass and 13 K5
    launches per backward pass. resnet_train_xla: the same run with
-   --conv3-impl xla (cuDNN for every conv).
+   --conv3-impl xla (cuDNN for every conv). resnet_flax_norm: the
+   pallas run with norm_impl="flax" (flax.linen.BatchNorm's math,
+   models/norm.py FlaxBatchNorm; the reference's benchmarks/extras.py
+   flax_ab), its images/s beside resnet_train's TpuBatchNorm figure, the
+   same K4/K5 launch counts.
 15. resnet_profile - device time of two ResNet-50 steps by kernel and by
    kind of kernel, pallas and xla.
 16. resnet_parity - one Trainer.step from the same weights and batch
@@ -184,7 +188,23 @@ non-zero, printing no result:
    server_close(); then generate(mesh=, weights_int8=True) on every
    rank (2 x 64, 16 new). Held against the one process's inline and int8
    generate under the margin rule; every follower made every call; K1-K5
-   0 launches.
+   0 launches. Before tp_serve the same world runs the 2-D mesh:
+   fsdp_tp_gpt, GPT-small 2 x 4096 at fsdp 2 x tp 2 (FSDP2 over each tp
+   rank's shards, 3 heads of 128 a rank, one row a rank), bf16 then f32
+   (TF32 off), step 1's loss and each rank's FSDP2 gradient shards held
+   against mp_reference's one-process step as tp_gpt holds its own
+   (bf16 ratio, f32 direct), K1-K3 12 launches per pass per rank; ms a
+   step a rank and the host ms inside FSDP2's collectives and inside
+   tp's all-reduces; a checkpoint of the bf16 run (gathered over fsdp,
+   then tp, by the port's own all-gather) whose slices are each rank's
+   shards and which the parent restores bit-equal into one process.
+   fsdp_cli: the reference's usage lines through the CLIs' run(), 2
+   steps each: train/bert.py --preset base --fsdp 2 --tp 2 --flash
+   --packed (K1-K3 12 per pass per rank), train/gpt.py --preset small
+   --fsdp 2 --sp 2 (ring, 2 x 4096; none) and train/moe.py --preset base
+   --fsdp 2 --ep 2 (none); finite losses. dryrun4: dryrun_multichip(4)
+   in this world (BERT at fsdp 2 x tp 2), every `ok` line checked as
+   dryrun's.
 29. serve - GPT-small (12 x 768, 6 heads of 128, vocab 32000, max_seq_len
    2048, bf16, random weights from a seed) behind
    serve.make_server(batching="continuous") at the server's defaults (8
@@ -1765,7 +1785,8 @@ def resnet_parity(kernels, resnet_lib, trainer_lib) -> dict:
 
 
 def run_resnet(kernels, resnet_lib, resnet_cli, smi) -> dict:
-    """resnet_train (pallas, launch counts checked) and resnet_train_xla."""
+    """resnet_train (pallas, launch counts checked), resnet_train_xla and
+    resnet_flax_norm."""
     flop_per_image = resnet_flop_per_image(resnet_lib)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1798,7 +1819,42 @@ def run_resnet(kernels, resnet_lib, resnet_cli, smi) -> dict:
     if not math.isfinite(xla["loss"]):
         raise AssertionError(f"resnet_train_xla loss {xla['loss']}")
     torch.cuda.empty_cache()
+    resnet_flax_norm(kernels, resnet_lib, resnet_cli, smi, summary, want)
     return launches
+
+
+def resnet_flax_norm(kernels, resnet_lib, resnet_cli, smi, tpu: dict, want: dict) -> None:
+    """resnet_flax_norm: resnet_train's run (the CLI's run(), pallas) on
+    ResNet-50 with norm_impl="flax", the counterpart of the reference's
+    benchmarks/extras.py flax_ab; the CLI has no flag for it (nor has the
+    reference's), so its build_model is swapped for the run. Its images/s
+    beside resnet_train's (TpuBatchNorm), the same K4/K5 launches."""
+    build = resnet_cli.build_model
+
+    def flax_norm_model(args, generator):
+        return resnet_lib.ResNet50(conv3_impl=args.conv3_impl, norm_impl="flax",
+                                   generator=generator), 1000
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    resnet_cli.build_model = flax_norm_model
+    try:
+        summary = resnet_cli.run(resnet_args(resnet_cli, "pallas"))
+    finally:
+        resnet_cli.build_model = build
+    launches = dict(kernels.LAUNCHES)
+    emit({"phase": "resnet_flax_norm", "model": "ResNet-50", "norm_impl": "flax",
+          "conv3_impl": "pallas", "batch": RESNET_BATCH, "image": RESNET_IMAGE, "card": smi,
+          **summary, "tpu_batchnorm_images_per_sec": tpu["images_per_sec"],
+          "flax_over_tpu": summary["images_per_sec"] / tpu["images_per_sec"],
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches, "launches_expected": want})
+    if launches != want:
+        raise AssertionError(f"resnet_flax_norm launches {launches} != expected {want}")
+    for key in ("loss", "images_per_sec"):
+        if not math.isfinite(summary[key]) or summary[key] <= 0:
+            raise AssertionError(f"resnet_flax_norm {key} = {summary[key]}")
+    torch.cuda.empty_cache()
 
 
 def rel_l2_worst(got: dict, want: dict) -> tuple:
@@ -2663,6 +2719,7 @@ def world2_rank(work: str) -> int:
     # the rendezvous phase's two entry points first, in these processes
     if rendezvous_worker.main(RENDEZVOUS_ARGS) or smoke.main(RENDEZVOUS_ARGS):
         return 1
+    load_seeded(work)
     distributed.initialize("cuda", backend="gloo")
     try:
         out = {"rank": distributed.rank(), "world": distributed.world_size(),
@@ -2837,7 +2894,7 @@ def resnet_reference(work: str, kernels) -> dict:
             "launches": launches}
 
 
-def run_distributed_phases(kernels, smi: str) -> dict:
+def run_distributed_phases(kernels, smi: str, keep_mp_ref: str = None) -> dict:
     """rendezvous, then ddp_bert, fsdp_gpt and syncbn_resnet, then tp_gpt
     and sp_gpt: each model's one-process step, the one-rank NCCL world
     (DDP for BERT-base, FSDP2 for GPT-small) in this process, the
@@ -2850,7 +2907,8 @@ def run_distributed_phases(kernels, smi: str) -> dict:
     each kernel's launches per step per rank at world 2 ("ddp_bert",
     "fsdp_gpt", "syncbn_resnet") and K1-K3's per pass per rank under
     tp = 2, ring sp = 2 and Ulysses sp = 2 ("tp2", "ring_sp2",
-    "ulysses_sp2")."""
+    "ulysses_sp2"). keep_mp_ref: a path that mp_reference's saved
+    readings are moved to after the world, for run_model_parallel_phases."""
     import os
     import shutil
     import tempfile
@@ -2873,11 +2931,14 @@ def run_distributed_phases(kernels, smi: str) -> dict:
         chain = torch.load(os.path.join(work, "mp_ref.pt"), weights_only=False)["chain"]
         free_device_memory()
         start = time.monotonic()
+        share_seeded(work)
         texts = run_world([__file__, "--world2-rank", work], work,
                           DIST_TIMEOUT_S + MP_TIMEOUT_S)
         world_s = time.monotonic() - start
         check_rendezvous(smi, texts)
         ranks = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(WORLD2)]
+        if keep_mp_ref is not None:
+            shutil.move(os.path.join(work, "mp_ref.pt"), keep_mp_ref)
     finally:
         shutil.rmtree(work, ignore_errors=True)
         seeded_gpt.cache_clear()
@@ -3059,14 +3120,14 @@ def mp_gpt_model(attention_fn=None, f32: bool = False):
     return model
 
 
-def mp_gpt(model, mesh=None, shard_sequence=False):
+def mp_gpt(model, mesh=None, shard_sequence=False, checkpoint_dir=None):
     """A GPT trainer (AdamW 3e-4 wd 0.01) and its global batch."""
     from tf_operator_tpu_torch.models import gpt as gpt_lib
     from tf_operator_tpu_torch.train import trainer as trainer_lib
 
     trainer = trainer_lib.Trainer(model, trainer_lib.causal_lm_task(), learning_rate=3e-4,
                                   weight_decay=0.01, device="cuda", mesh=mesh,
-                                  shard_sequence=shard_sequence)
+                                  shard_sequence=shard_sequence, checkpoint_dir=checkpoint_dir)
     batch = gpt_lib.synthetic_batch(torch.Generator().manual_seed(DIST_BATCH_SEED),
                                     MP_SHAPE[0], MP_SHAPE[1], model.cfg)
     return trainer, batch
@@ -3085,40 +3146,69 @@ def mp_vit(mesh=None):
     return trainer, batch
 
 
-def collective_ms(fn) -> dict:
+# torch.distributed's collectives that FSDP2 calls (all-gather and
+# reduce-scatter on their side streams, HSDP's all-reduce), by the names
+# either torch version has
+FSDP_COLLECTIVES = ("all_gather_into_tensor", "all_gather_single", "reduce_scatter_tensor",
+                    "reduce_scatter_single", "all_reduce")
+
+
+def collective_ms(fn, fsdp: bool = False) -> dict:
     """fn()'s wall ms and the host ms it spent inside the plans'
     collectives (parallel/distributed.py all_reduce, all_gather,
     all_to_all, ring_exchange), the card synchronized before each call so
     that the time is the exchange's own: gloo stages a CUDA tensor through
     host memory. DDP's gradient all-reduces run in its reducer, outside
-    these."""
+    these. fsdp: also the host ms inside torch.distributed's collectives
+    called from outside those (FSDP2's all-gathers, reduce-scatters and
+    all-reduces: with gloo each call returns once the exchange is done),
+    as "fsdp_ms"; a call inside another is counted once, by the outer."""
+    import threading
+
+    import torch.distributed as dist
+
     from tf_operator_tpu_torch.parallel import distributed
 
     names = ("all_reduce", "all_gather", "all_to_all", "ring_exchange")
-    originals = {name: getattr(distributed, name) for name in names}
-    spent = dict.fromkeys(names, 0.0)
-    calls = dict.fromkeys(names, 0)
+    patched = [(distributed, name, f"plan.{name}") for name in names]
+    if fsdp:
+        patched += [(dist, name, f"fsdp.{name}") for name in FSDP_COLLECTIVES
+                    if hasattr(dist, name)]
+    originals = [(owner, name, getattr(owner, name)) for owner, name, _ in patched]
+    spent = {key: 0.0 for _, _, key in patched}
+    calls = {key: 0 for _, _, key in patched}
+    depth = threading.local()
 
-    def timed(name, original):
+    def timed(key, original):
         def call(*args, **kwargs):
-            torch.cuda.synchronize()
+            outer = getattr(depth, "n", 0) == 0
+            if outer:
+                torch.cuda.synchronize()
+            depth.n = getattr(depth, "n", 0) + 1
             start = time.monotonic()
             try:
                 return original(*args, **kwargs)
             finally:
-                spent[name] += time.monotonic() - start
-                calls[name] += 1
+                depth.n -= 1
+                if outer:
+                    spent[key] += time.monotonic() - start
+                    calls[key] += 1
         return call
 
-    for name in names:
-        setattr(distributed, name, timed(name, originals[name]))
+    for (owner, name, key), (_, _, original) in zip(patched, originals):
+        setattr(owner, name, timed(key, original))
     try:
         wall = timed_ms(fn, 1)
     finally:
-        for name, original in originals.items():
-            setattr(distributed, name, original)
-    return {"wall_ms": wall, "collective_ms": sum(spent.values()) * 1e3,
-            "by_op_ms": {name: s * 1e3 for name, s in spent.items()}, "calls": calls}
+        for owner, name, original in originals:
+            setattr(owner, name, original)
+    plan = sum(v for k, v in spent.items() if k.startswith("plan."))
+    out = {"wall_ms": wall, "collective_ms": plan * 1e3,
+           "by_op_ms": {k: v * 1e3 for k, v in spent.items() if v or calls[k]},
+           "calls": {k: n for k, n in calls.items() if n}}
+    if fsdp:
+        out["fsdp_ms"] = sum(v for k, v in spent.items() if k.startswith("fsdp.")) * 1e3
+    return out
 
 
 def mp_reference(work: str, kernels) -> dict:
@@ -3163,13 +3253,18 @@ def mp_reference(work: str, kernels) -> dict:
 
 
 def shard_of(name: str, full: torch.Tensor, mesh) -> torch.Tensor:
-    """This rank's slice of a full tensor by the tp plan."""
+    """This rank's slice of a full tensor by the tp plan, then (fsdp > 1)
+    FSDP2's dim-0 chunk of it for the rank's fsdp coordinate."""
     from tf_operator_tpu_torch.parallel import sharding
 
     rule = sharding.tp_rule(name, sharding.TRANSFORMER_RULES.tp)
-    if rule is None or mesh.shape["tp"] == 1:
-        return full
-    return full.chunk(mesh.shape["tp"], rule[0])[mesh.coordinate["tp"]]
+    if rule is not None and mesh.shape["tp"] > 1:
+        full = full.chunk(mesh.shape["tp"], rule[0])[mesh.coordinate["tp"]]
+    if mesh.shape["fsdp"] > 1:
+        start, stop = sharding.fsdp_chunk_span(full.shape[0], mesh.coordinate["fsdp"],
+                                           mesh.shape["fsdp"])
+        full = full[start:stop]
+    return full
 
 
 def shard_readings(grads: dict, ref: dict, mesh, f32: bool = False) -> dict:
@@ -3197,8 +3292,12 @@ def shard_readings(grads: dict, ref: dict, mesh, f32: bool = False) -> dict:
 
 def mp_step(kernels, trainer, batch, timed: bool = True) -> tuple:
     """Step 1 with its K1-K3 launches (one forward and one backward pass),
-    then MP_TIMED_STEPS timed steps and one step with its collectives
-    timed (collective_ms); the state and the readings."""
+    then MP_TIMED_STEPS timed steps with no instruments (the step's ms)
+    and one step with its collectives timed (collective_ms, FSDP2's too
+    where the model is sharded: its shares only); the state, the
+    readings and step 1's gradients (each rank's own shards)."""
+    from tf_operator_tpu_torch.parallel.sharding import is_fully_sharded, local_tensor
+
     state = trainer.init()
     placed = trainer.place_batch(batch)
     kernels.reset_launches()
@@ -3208,12 +3307,14 @@ def mp_step(kernels, trainer, batch, timed: bool = True) -> tuple:
     if "input_ids" in placed:
         out["rows"], out["positions"] = placed["input_ids"].shape
     if timed:
-        grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+        grads = {n: local_tensor(p.grad).detach().clone()
+                 for n, p in state.model.named_parameters()}
         out["ms_per_step"] = timed_ms(
             lambda: [trainer.step(state, placed) for _ in range(MP_TIMED_STEPS)], MP_TIMED_STEPS)
-        out["collectives"] = collective_ms(lambda: trainer.step(state, placed))
+        out["collectives"] = collective_ms(lambda: trainer.step(state, placed),
+                                           fsdp=is_fully_sharded(state.model))
         return state, out, grads
-    return state, out, {n: p.grad for n, p in state.model.named_parameters()}
+    return state, out, {n: local_tensor(p.grad) for n, p in state.model.named_parameters()}
 
 
 def rank_tp_gpt(work: str, kernels) -> dict:
@@ -3279,10 +3380,10 @@ DRYRUN_PHASES = ("dp", "bert", "gpt", "moe-pipeline")
 DRYRUN_FLASH_LAUNCHES = 2  # K1-K3 each: the gpt phase's GPT_TINY (2 layers), one step
 
 
-def rank_dryrun(kernels) -> dict:
-    """dryrun's world-2 rank: testing/dryrun.py's dryrun_multichip(2) with
-    no device named (so on cuda), inside this world (its in-world branch),
-    the lines it prints captured."""
+def rank_dryrun(kernels, world: int = WORLD2) -> dict:
+    """dryrun's (dryrun4's) rank: testing/dryrun.py's
+    dryrun_multichip(world) with no device named (so on cuda), inside this
+    world (its in-world branch), the lines it prints captured."""
     import contextlib
     import io
 
@@ -3292,28 +3393,33 @@ def rank_dryrun(kernels) -> dict:
     kernels.reset_launches()
     start = time.monotonic()
     with contextlib.redirect_stdout(printed):
-        dryrun.dryrun_multichip(WORLD2)
+        dryrun.dryrun_multichip(world)
     return {"lines": printed.getvalue().splitlines(), "launches": dict(kernels.LAUNCHES),
             "seconds": time.monotonic() - start}
 
 
-def check_dryrun(ranks: list, smi: str) -> None:
-    emit({"phase": "dryrun", "card": smi, "world": WORLD2, "label": MP_LABEL,
-          "entry": "testing/dryrun.py dryrun_multichip(2), device default (cuda)",
+def check_dryrun(ranks: list, smi: str, world: int = WORLD2) -> None:
+    phase = "dryrun" if world == WORLD2 else f"dryrun{world}"
+    emit({"phase": phase, "card": smi, "world": world, "label": MP_LABEL,
+          "entry": f"testing/dryrun.py dryrun_multichip({world}), device default (cuda)",
           "ranks": ranks})
     lines = ranks[0]["lines"]
-    for phase in DRYRUN_PHASES:
-        if not any(line.startswith(f"dryrun {phase} ok:") for line in lines):
-            raise AssertionError(f"dryrun: no `dryrun {phase} ok` line in {lines}")
+    for name in DRYRUN_PHASES:
+        if not any(line.startswith(f"dryrun {name} ok:") for line in lines):
+            raise AssertionError(f"{phase}: no `dryrun {name} ok` line in {lines}")
     if not lines or lines[-1] != "dryrun_multichip ok" or any(r["lines"] for r in ranks[1:]):
-        raise AssertionError(f"dryrun: rank 0 printed {lines}, the others {ranks[1:]}")
+        raise AssertionError(f"{phase}: rank 0 printed {lines}, the others {ranks[1:]}")
+    if world == CLI_WORLD and "'fsdp': 2, 'ep': 1, 'sp': 1, 'tp': 2" not in next(
+            line for line in lines if line.startswith("dryrun bert ok:")):
+        raise AssertionError(f"{phase}: BERT did not run at fsdp 2 x tp 2: {lines}")
     # GPT_TINY's blocks take the causal flash route (models/gpt.py) on the
-    # card: one forward and one backward pass of its 2 layers; no conv kernel
+    # card: one forward and one backward pass of its 2 layers (1 of its 2
+    # heads a rank at tp 2); no conv kernel
     want = dict.fromkeys(FLASH_KERNELS, DRYRUN_FLASH_LAUNCHES)
     want.update(dict.fromkeys(CONV_KERNELS, 0))
     for r in ranks:
         if r["launches"] != want:
-            raise AssertionError(f"dryrun launches {r['launches']} != expected {want}")
+            raise AssertionError(f"{phase} launches {r['launches']} != expected {want}")
 
 
 def rank_tp_sp_cli(kernels) -> dict:
@@ -3346,6 +3452,185 @@ def rank_tp_sp_cli(kernels) -> dict:
                      "backward_passes": summary["backward_passes"]}
         free_device_memory()
     return out
+
+
+# fsdp_tp_gpt, fsdp_cli and dryrun4: the 2-D mesh (FSDP2 over each tp, sp
+# or ep rank's local tensors) in tp_sp_cli's world of 4, ranks sharing one
+# card over gloo (not scaling numbers). fsdp_tp_gpt holds its steps against
+# mp_reference's one-process readings on the same global batch (MP_SHAPE:
+# one row a rank at fsdp 2).
+FSDP_TP_MESH = {"fsdp": 2, "tp": 2}
+FSDP_CLI_STEPS = 2
+MOE_FSDP_SHAPE = (8, 1024)  # moe_train's batch
+FSDP_CKPT = "fsdp_tp_ckpt"
+# a rank's device memory above what it held, during the 2-D save: half
+# the full payload (1.65 GB), so a gather that piles up the full state
+# on a card fails it
+SAVE_PEAK_BOUND_GB = 0.8
+
+
+def rank_fsdp_tp_gpt(work: str, kernels) -> dict:
+    """fsdp_tp_gpt's world-4 rank: GPT-small at fsdp 2 x tp 2 (3 heads of
+    128 a rank, each rank's tp shards sharded by FSDP2 over fsdp), bf16
+    with a checkpoint after its steps, then f32, each step 1 against the
+    one process's."""
+    import os
+
+    from tf_operator_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from tf_operator_tpu_torch.parallel.sharding import is_fully_sharded, local_tensor
+
+    start = time.monotonic()
+    marks = {}
+    mesh = build_mesh(MeshConfig(**FSDP_TP_MESH), "cuda")
+    ref = torch.load(os.path.join(work, "mp_ref.pt"), weights_only=False, mmap=True)
+    full_f32()
+    ckpt = os.path.join(work, FSDP_CKPT)
+    trainer, batch = mp_gpt(mp_gpt_model(), mesh, checkpoint_dir=ckpt)
+    marks["built"] = time.monotonic() - start
+    state, out, grads = mp_step(kernels, trainer, batch)
+    marks["bf16_steps"] = time.monotonic() - start
+    out["marks_s"] = marks
+    out["sharded"] = is_fully_sharded(state.model)
+    out["heads_per_rank"] = state.model.layer_0.attention.query.out_shape[0]
+    out.update(shard_readings(grads, ref, mesh))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    saving = time.monotonic()
+    trainer.save(state)
+    out["save_seconds"] = time.monotonic() - saving
+    # the gather's device memory above what the rank held: one full
+    # tensor at a time, moved to rank 0's CPU or dropped
+    out["save_peak_extra_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+    out["step"] = state.step
+    saved = torch.load(trainer._checkpointer().path(state.step), weights_only=True,
+                       mmap=True)["model"]
+    mismatched = [n for n, p in state.model.named_parameters()
+                  if not torch.equal(local_tensor(p).detach().cpu(), shard_of(n, saved[n], mesh))]
+    out["shards_not_in_checkpoint"] = mismatched
+    marks["saved_and_checked"] = time.monotonic() - start
+    del trainer, state, grads, saved
+    free_device_memory()
+    trainer, _ = mp_gpt(mp_gpt_model(f32=True), mesh)
+    state, f32, grads = mp_step(kernels, trainer, batch, timed=False)
+    out["f32"] = {"loss": f32["loss"], **shard_readings(grads, ref, mesh, f32=True)}
+    marks["f32_step"] = time.monotonic() - start
+    del trainer, state, grads
+    free_device_memory()
+    return out
+
+
+def rank_fsdp_cli(kernels) -> dict:
+    """fsdp_cli's world-4 rank: the reference's 2-D usage lines through the
+    CLIs' run(), FSDP_CLI_STEPS steps each."""
+    from tf_operator_tpu_torch.train import bert as bert_cli
+    from tf_operator_tpu_torch.train import gpt as gpt_cli
+    from tf_operator_tpu_torch.train import moe as moe_cli
+
+    runs = {
+        "bert": (bert_cli, ["--preset", "base", "--fsdp", "2", "--tp", "2", "--flash",
+                            "--packed"]),
+        "gpt": (gpt_cli, ["--preset", "small", "--fsdp", "2", "--sp", "2", "--batch-size",
+                          str(MP_SHAPE[0]), "--seq-len", str(MP_SHAPE[1])]),
+        "moe": (moe_cli, ["--preset", "base", "--fsdp", "2", "--ep", "2", "--batch-size",
+                          str(MOE_FSDP_SHAPE[0]), "--seq-len", str(MOE_FSDP_SHAPE[1])]),
+    }
+    out = {}
+    for name, (cli, argv) in runs.items():
+        args = cli.parse_args(argv + ["--steps", str(FSDP_CLI_STEPS), "--log-every", "1"])
+        kernels.reset_launches()
+        start = time.monotonic()
+        summary = cli.run(args)
+        out[name] = {"argv": argv, "mesh": vars(args.mesh), "first_loss": summary["first_loss"],
+                     "loss": summary["loss"], "eval_loss": summary["eval_loss"],
+                     "steps": summary["step"], "tokens_per_sec": summary["tokens_per_sec"],
+                     "forward_passes": summary["forward_passes"],
+                     "backward_passes": summary["backward_passes"],
+                     "launches": dict(kernels.LAUNCHES), "seconds": time.monotonic() - start}
+        free_device_memory()
+    return out
+
+
+def fsdp_tp_restore(work: str) -> dict:
+    """fsdp_tp_gpt's checkpoint restored into one process's GPT-small
+    trainer: its state gathered (here, the live tensors) against the
+    checkpoint's, every tensor bit for bit."""
+    import os
+
+    from tf_operator_tpu_torch.train import trainer as trainer_lib
+
+    ckpt = os.path.join(work, FSDP_CKPT)
+    trainer, _ = mp_gpt(mp_gpt_model(), checkpoint_dir=ckpt)
+    start = time.monotonic()
+    state = trainer.restore(trainer.init())
+    restore_s = time.monotonic() - start
+    saved = torch.load(trainer._checkpointer().path(state.step), weights_only=True, mmap=True)
+    payload = trainer_lib.state_payload(state)
+    pairs = [(f"model.{n}", t, saved["model"][n]) for n, t in payload["model"].items()]
+    for index, entry in payload["optimizer"]["state"].items():
+        for key, value in entry.items():
+            if isinstance(value, torch.Tensor):
+                want = saved["optimizer"]["state"][index][key]
+                pairs.append((f"opt.{index}.{key}", value, want))
+    differ = [name for name, got, want in pairs if not torch.equal(got.detach().cpu(), want)]
+    out = {"step": state.step, "saved_step": saved["step"], "tensors": len(pairs),
+           "differ": differ, "restore_seconds": restore_s,
+           "bytes": os.path.getsize(trainer._checkpointer().path(state.step))}
+    del trainer, state, payload, saved
+    free_device_memory()
+    return out
+
+
+def check_fsdp_tp_gpt(one: dict, ranks: list, restored: dict, smi: str) -> dict:
+    flash_want = {k: LAYERS for k in FLASH_KERNELS}
+    emit({"phase": "fsdp_tp_gpt", "card": smi,
+          "model": "GPT-small causal flash, TRANSFORMER_RULES tp with FSDP2 over each tp rank",
+          "shape": list(MP_SHAPE), "mesh": "dp=1xpp=1xfsdp=2xep=1xsp=1xtp=2",
+          "label": MP_LABEL, "one_process": {k: one[k] for k in (
+              "loss", "loss_f32", "launches", "ms_per_step")},
+          "ranks": ranks, "restored_one_process": restored,
+          "tolerances": {"loss_atol": LOSS_ATOL, "grad_ratio": GRAD_RATIO,
+                         "grad_floor": GRAD_FLOOR, "f32_grad_rtol": MP_F32_GRAD_RTOL,
+                         "why": DIST_TOLERANCE_WHY}})
+    for r in ranks:
+        if r["launches_per_pass"] != flash_want or r["heads_per_rank"] != 3 or not r["sharded"]:
+            raise AssertionError(f"fsdp_tp_gpt launches, heads or sharding: "
+                                 f"{r['launches_per_pass']}, {r['heads_per_rank']}, "
+                                 f"{r['sharded']}")
+        if abs(r["loss"] - one["loss"]) > LOSS_ATOL or r["worst_ratio"][1] > GRAD_RATIO:
+            raise AssertionError(f"fsdp_tp_gpt bf16 against the one process: {r['loss']} vs "
+                                 f"{one['loss']}, {r['worst_ratio']}")
+        f32 = r["f32"]
+        if (abs(f32["loss"] - one["loss_f32"]) > LOSS_ATOL
+                or f32["worst_f32_rel"][1] > MP_F32_GRAD_RTOL):
+            raise AssertionError(f"fsdp_tp_gpt f32 against the one process: {f32}")
+        if r["save_peak_extra_gb"] > SAVE_PEAK_BOUND_GB:
+            raise AssertionError(f"fsdp_tp_gpt save held {r['save_peak_extra_gb']} GB more on "
+                                 f"the card (bound {SAVE_PEAK_BOUND_GB})")
+        if r["shards_not_in_checkpoint"]:
+            raise AssertionError(f"fsdp_tp_gpt checkpoint lacks the shards of "
+                                 f"{r['shards_not_in_checkpoint']}")
+    if restored["differ"] or restored["step"] != ranks[0]["step"] or not restored["tensors"]:
+        raise AssertionError(f"fsdp_tp_gpt checkpoint restored in one process: {restored}")
+    return {k: ranks[0]["launches_per_pass"][k] for k in FLASH_KERNELS}
+
+
+def check_fsdp_cli(ranks: list, smi: str) -> None:
+    emit({"phase": "fsdp_cli", "card": smi, "world": CLI_WORLD, "label": MP_LABEL,
+          "ranks": ranks})
+    for r in ranks:
+        for name in ("bert", "gpt", "moe"):
+            got = r[name]
+            passes = {"flash_fwd": got["forward_passes"], "flash_bwd_dkv": got["backward_passes"],
+                      "flash_bwd_dq": got["backward_passes"]}
+            per_pass = LAYERS if name == "bert" else 0
+            want = {k: per_pass * passes[k] for k in FLASH_KERNELS}
+            want.update(dict.fromkeys(CONV_KERNELS, 0))
+            if got["launches"] != want:
+                raise AssertionError(f"fsdp_cli {name} launches {got['launches']} != {want}")
+            losses = (got["first_loss"], got["loss"], got["eval_loss"])
+            if not all(math.isfinite(x) for x in losses) or got["steps"] != FSDP_CLI_STEPS:
+                raise AssertionError(f"fsdp_cli {name}: losses {losses}, steps {got['steps']}")
 
 
 # ep_tp_moe and pp_moe: the MoE LM's expert, tensor and pipeline parallelism
@@ -3676,6 +3961,7 @@ def world_rank(phase: str, work: str) -> int:
     from tf_operator_tpu_torch.ops import kernels
     from tf_operator_tpu_torch.parallel import distributed
 
+    load_seeded(work)
     distributed.initialize("cuda", backend="gloo")
     try:
         if phase != "cli":
@@ -3684,6 +3970,10 @@ def world_rank(phase: str, work: str) -> int:
                "tp_sp_cli": rank_tp_sp_cli(kernels)}
         out["ep_tp_moe"] = timed_seconds(rank_ep_tp_moe, work, kernels)
         out["pp_moe"] = timed_seconds(rank_pp_moe, work, kernels)
+        free_device_memory()
+        out["fsdp_tp_gpt"] = timed_seconds(rank_fsdp_tp_gpt, work, kernels)
+        out["fsdp_cli"] = timed_seconds(rank_fsdp_cli, kernels)
+        out["dryrun4"] = rank_dryrun(kernels, CLI_WORLD)
         free_device_memory()
         out["tp_serve"] = timed_seconds(rank_tp_serve, kernels)
         with open(os.path.join(work, f"rank{out['rank']}.json"), "w") as fh:
@@ -3702,24 +3992,31 @@ def timed_seconds(fn, *args) -> dict:
     return out
 
 
-def run_model_parallel_phases(kernels, smi: str) -> None:
-    """tp_sp_cli, ep_tp_moe, pp_moe and tp_serve: the world of 4 running
-    the CLIs' usage lines, the MoE LM's expert, tensor and pipeline
-    parallelism and the server's tensor-parallel inline decode after the
-    one process's steps and decodes, each held to its bounds (tp_gpt and
-    sp_gpt run in run_distributed_phases' world of 2)."""
+def run_model_parallel_phases(kernels, smi: str, mp_ref: str) -> dict:
+    """tp_sp_cli, ep_tp_moe, pp_moe, fsdp_tp_gpt, fsdp_cli, dryrun4 and
+    tp_serve: the world of 4 running the CLIs' usage lines, the MoE LM's
+    expert, tensor and pipeline parallelism, the 2-D mesh and the server's
+    tensor-parallel inline decode after the one process's steps and
+    decodes, each held to its bounds (tp_gpt and sp_gpt run in
+    run_distributed_phases' world of 2). mp_ref: mp_reference's saved
+    readings from that world's work (moved here). Returns K1-K3's launches per pass per rank at fsdp 2 x tp 2
+    ("fsdp2_tp2")."""
     import os
     import shutil
     import tempfile
 
     cli_work = tempfile.mkdtemp(prefix="mp-cli-")
     try:
+        shutil.move(mp_ref, os.path.join(cli_work, "mp_ref.pt"))
+        mp1 = torch.load(os.path.join(cli_work, "mp_ref.pt"), weights_only=False, mmap=True)
+        mp1 = {k: mp1[k] for k in ("loss", "loss_f32", "launches", "ms_per_step")}
         start = time.monotonic()
         one = moe_mp_reference(cli_work)
         one["seconds"] = time.monotonic() - start
         free_device_memory()
         serve_one = tp_serve_reference()
         start = time.monotonic()
+        share_seeded(cli_work)
         run_world([__file__, "--world-rank", "cli", cli_work], cli_work, MP_TIMEOUT_S,
                   world=CLI_WORLD)
         cli_s = time.monotonic() - start
@@ -3728,9 +4025,16 @@ def run_model_parallel_phases(kernels, smi: str) -> None:
         check_tp_sp_cli([r["tp_sp_cli"] for r in ranks], smi, cli_s)
         check_ep_tp_moe(one, [r["ep_tp_moe"] for r in ranks], smi)
         check_pp_moe(one, [r["pp_moe"] for r in ranks], smi)
+        restored = fsdp_tp_restore(cli_work)
+        out = {"fsdp2_tp2": check_fsdp_tp_gpt(mp1, [r["fsdp_tp_gpt"] for r in ranks], restored,
+                                              smi)}
+        check_fsdp_cli([r["fsdp_cli"] for r in ranks], smi)
+        check_dryrun([r["dryrun4"] for r in ranks], smi, CLI_WORLD)
         check_tp_serve(serve_one, [r["tp_serve"] for r in ranks], smi)
     finally:
         shutil.rmtree(cli_work, ignore_errors=True)
+        seeded_gpt.cache_clear()
+    return out
 
 
 # tp_serve: make_server(mesh=) in tp_sp_cli's world of 4 (dp 2 x tp 2), rank 0
@@ -8316,6 +8620,29 @@ def seeded_weights(ctor, cfg, seed: int, **kw) -> dict:
     return _SEEDED[key]
 
 
+SEEDED_FILE = "seeded.pt"
+
+
+def share_seeded(work: str, seed: int = DIST_SEED) -> None:
+    """This process's host draws from `seed` (seeded_weights), written to
+    <work> for the ranks of a world it launches: a rank that loads them
+    (load_seeded) skips its own draw of seconds a full-width model."""
+    import os
+
+    torch.save({k: v for k, v in _SEEDED.items() if k[2] == seed},
+               os.path.join(work, SEEDED_FILE))
+
+
+def load_seeded(work: str) -> None:
+    """share_seeded's draws into this process's seeded_weights cache (mapped
+    from the file, not read), where the launcher wrote any."""
+    import os
+
+    path = os.path.join(work, SEEDED_FILE)
+    if os.path.exists(path):
+        _SEEDED.update(torch.load(path, weights_only=False, mmap=True))
+
+
 def seeded(ctor, cfg, seed: int, **kw):
     """A fresh ctor(cfg, **kw) on the host holding seeded_weights'
     values."""
@@ -8447,10 +8774,13 @@ def main() -> int:
             free_device_memory()
 
         timed_group(seconds, "mnist_and_profile_dir", mnist_and_profile_dir)
-        world2 = timed_group(seconds, "distributed", run_distributed_phases, kernels, smi)
+        mp_ref = os.path.join(lifecycle_dir, "mp_ref.pt")
+        world2 = timed_group(seconds, "distributed", run_distributed_phases, kernels, smi,
+                             keep_mp_ref=mp_ref)
         mp = world2
         free_device_memory()
-        timed_group(seconds, "model_parallel", run_model_parallel_phases, kernels, smi)
+        mp.update(timed_group(seconds, "model_parallel", run_model_parallel_phases, kernels, smi,
+                              mp_ref=mp_ref))
         free_device_memory()
         timed_group(seconds, "serve", run_serve, kernels, gpt_lib, smi)
         free_device_memory()
@@ -8490,9 +8820,12 @@ def main() -> int:
             "launches_per_pass_per_rank_tp2": mp["tp2"][name],
             "launches_per_pass_per_rank_ulysses_sp2": mp["ulysses_sp2"][name],
             "launches_per_pass_per_rank_ring_sp2": mp["ring_sp2"][name],
+            "launches_per_pass_per_rank_fsdp2_tp2": mp["fsdp2_tp2"][name],
             "model_parallel_basis": "tp_gpt and sp_gpt: GPT-small 2 x 4096 causal, 2 ranks "
                                     "over gloo on one card; tp 3 heads of 128 a rank, Ulysses "
-                                    "3 heads at the full 4096, the ring (plain torch) none",
+                                    "3 heads at the full 4096, the ring (plain torch) none; "
+                                    "fsdp_tp_gpt: the same model at fsdp 2 x tp 2, 4 ranks, "
+                                    "3 heads a rank",
             "gpt": {
                 "shape": list(GPT_SHAPE), "causal": True,
                 "launches": gpt["launches"][name],

@@ -591,8 +591,10 @@ def test_one_process_has_no_mesh_and_refuses_what_is_not_ported():
     for axis in ("pp", "ep", "sp", "tp"):
         with pytest.raises(ValueError, match="1 devices"):
             torch_mesh.build_mesh(torch_mesh.MeshConfig(**{axis: 2}), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
-        torch_mesh.build_mesh(torch_mesh.MeshConfig(fsdp=2, tp=2), "cpu")
+    # so is fsdp together with them (the 2-D mesh, tests/test_torch_two_d.py)
+    for axis in ("ep", "sp", "tp"):
+        with pytest.raises(ValueError, match=r"1 devices not divisible by .*=4"):
+            torch_mesh.build_mesh(torch_mesh.MeshConfig(fsdp=2, **{axis: 2}), "cpu")
     assert distributed.initialize("cpu", environ={}).num_processes == 1
     assert not distributed.is_initialized()
 
@@ -612,11 +614,11 @@ def test_cli_refuses_unported_parallelism_naming_roadmap(cli, flags, capsys):
     assert args.mesh == want
     assert args.sp_strategy == ("ulysses" if flags[0] == "--sp-strategy" else "ring")
     if flags[0] != "--sp-strategy":
-        # with --fsdp > 1 (FSDP2 composed with tp/sp) they are refused
-        with pytest.raises(SystemExit) as exit_info:
-            module.parse_args(base + flags + ["--fsdp", "2"])
-        assert exit_info.value.code == 2
-        assert "ROADMAP queue 1, item 4" in capsys.readouterr().err
+        # with --fsdp > 1 they parse to the 2-D mesh (FSDP2 over each tp
+        # rank's shards, or replicated over sp; tests/test_torch_two_d.py)
+        two_d = module.parse_args(base + flags + ["--fsdp", "2"]).mesh
+        assert two_d == dataclasses.replace(want, fsdp=2)
+        assert "ROADMAP" not in capsys.readouterr().err
     assert module.parse_args(["--preset", "tiny", "--fsdp", "2"]).mesh == torch_mesh.MeshConfig(
         fsdp=2)
 

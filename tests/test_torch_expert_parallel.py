@@ -20,8 +20,8 @@ CPU mesh at the same factorization, f32.
   and the same with the router's gradient summed over the group (the
   aux and z losses, which every rank computes whole, counted ep x tp
   times).
-- The MoE CLI's --ep 2 --tp 2 parses to its mesh; fsdp with ep is
-  refused naming ROADMAP item 4.
+- The MoE CLI's --ep 2 --tp 2 parses to its mesh, and so does --fsdp
+  with --ep (fsdp x ep trains in tests/test_torch_two_d.py).
 
 The world is this file run as a script (`_world_main`), spawned once per
 module with tests/test_torch_tensor_parallel.py's helpers.
@@ -319,15 +319,17 @@ def test_moe_rules_split_what_the_reference_splits():
 
 
 def test_cli_takes_ep_and_tp_and_refuses_fsdp_with_ep(capsys):
+    """--ep and --tp parse to their mesh; --fsdp with --ep, refused until
+    item 4's 2-D line was ported, now parses to fsdp x ep, which in one
+    process does not fit, as any mesh of 4 does not."""
     from tf_operator_tpu_torch.train import moe as moe_cli
 
     args = moe_cli.parse_args(["--preset", "base", "--ep", "2", "--tp", "2"])
     assert args.mesh == torch_mesh.MeshConfig(ep=2, tp=2)
-    with pytest.raises(SystemExit) as err:
-        moe_cli.parse_args(["--ep", "2", "--fsdp", "2"])
-    assert err.value.code == 2
-    assert "ROADMAP queue 1, item 4" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
+    assert moe_cli.parse_args(["--ep", "2", "--fsdp", "2"]).mesh == torch_mesh.MeshConfig(
+        fsdp=2, ep=2)
+    assert "ROADMAP" not in capsys.readouterr().err
+    with pytest.raises(ValueError, match="1 devices"):
         torch_mesh.build_mesh(torch_mesh.MeshConfig(fsdp=2, ep=2), "cpu")
 
 

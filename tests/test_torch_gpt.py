@@ -528,10 +528,12 @@ def test_cli_wants_cuda_and_refuses_unported_flags():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             torch_gpt_cli.main(CLI_ARGS)
-    # --tp is ported; --fsdp together with it is not (2-D, ROADMAP item 4)
+    # --tp is ported, and --fsdp together with it (the 2-D mesh)
     assert torch_gpt_cli.parse_args(CLI_ARGS + ["--tp", "2"]).mesh.tp == 2
-    with pytest.raises(SystemExit):
-        torch_gpt_cli.parse_args(CLI_ARGS + ["--tp", "2", "--fsdp", "2"])
+    from tf_operator_tpu_torch.parallel.mesh import MeshConfig
+
+    two_d = torch_gpt_cli.parse_args(CLI_ARGS + ["--tp", "2", "--fsdp", "2"]).mesh
+    assert two_d == MeshConfig(dp=-1, fsdp=2, tp=2)
     # the telemetry server is ported (tests/test_torch_train_observe.py runs it)
     args = torch_gpt_cli.parse_args(CLI_ARGS + ["--monitoring-bind-addr", "127.0.0.1:0"])
     assert args.monitoring_bind_addr == "127.0.0.1:0"

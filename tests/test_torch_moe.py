@@ -347,17 +347,17 @@ def test_cli_runs_three_steps_on_cpu(tmp_path):
 def test_cli_refuses_what_is_not_ported(argv, item, capsys):
     """--ep and --tp were refused naming ROADMAP item 7 until it was
     ported (tests/test_torch_expert_parallel.py trains at both): each now
-    parses to its mesh, and only --fsdp together with it is refused,
-    naming item 4 (FSDP2 over a layout of plain shards is DTensor)."""
+    parses to its mesh, and so does --fsdp together with it (item 4's 2-D
+    line: FSDP2 over each ep and tp rank's shards,
+    tests/test_torch_two_d.py)."""
     from tf_operator_tpu_torch.parallel.mesh import MeshConfig
 
     axis = argv[0][2:]
     assert torch_moe_cli.parse_args(argv).mesh == MeshConfig(**{axis: 2})
     assert item not in capsys.readouterr().err
-    with pytest.raises(SystemExit) as err:
-        torch_moe_cli.parse_args(argv + ["--fsdp", "2"])
-    assert err.value.code == 2
-    assert "ROADMAP queue 1, item 4" in capsys.readouterr().err
+    two_d = torch_moe_cli.parse_args(argv + ["--fsdp", "2"]).mesh
+    assert two_d == MeshConfig(dp=-1, fsdp=2, **{axis: 2})
+    assert "ROADMAP" not in capsys.readouterr().err
 
 
 def test_cli_serves_telemetry_with_monitoring_bind_addr(tmp_path, monkeypatch):

@@ -17,8 +17,8 @@ tolerances; and the port's dryrun_multichip.
   shards); the control, the same weights' aux over the global batch's
   means (MoELM on all rows at once), differs from it by far more.
 - The converter's slice of the reference's stacked tree for each rank.
-- dryrun_multichip(2) prints every one of the reference's ok lines, and
-  the world-4 BERT mesh (fsdp 2 x tp 2) is refused naming item 4.
+- dryrun_multichip(2) and dryrun_multichip(4) print every one of the
+  reference's ok lines (world 4: BERT at fsdp 2 x tp 2).
 
 The world is this file run as a script (`_world_main`), spawned once per
 module with tests/test_torch_tensor_parallel.py's helpers.
@@ -388,14 +388,22 @@ def test_dryrun_runs_on_the_card_unless_asked_otherwise(monkeypatch):
         dryrun.main(["--rank-of", "2"])
 
 
-def test_dryrun_world4_bert_mesh_is_refused_naming_item_4():
+def test_dryrun_world4_bert_mesh_is_refused_naming_item_4(capsys):
+    """World 4's BERT mesh is fsdp 2 x tp 2, refused until item 4's 2-D
+    line was ported: dryrun_multichip(4) now prints every phase's ok line,
+    BERT's at that mesh."""
     from tf_operator_tpu_torch.testing import dryrun
 
     config = dryrun._mesh_config(4)
     assert (config.fsdp, config.tp) == (2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
-        torch_mesh.build_mesh(config, "cpu")
     assert dryrun._moe_mesh_config(4) == torch_mesh.MeshConfig(dp=-1, pp=2, ep=2)
+    dryrun.dryrun_multichip(4, "cpu")
+    lines = capsys.readouterr().out.splitlines()
+    for phase in ("dp", "bert", "gpt", "moe-pipeline"):
+        assert any(line.startswith(f"dryrun {phase} ok:") for line in lines), (phase, lines)
+    assert lines[-1] == "dryrun_multichip ok"
+    bert = next(line for line in lines if line.startswith("dryrun bert ok:"))
+    assert "'fsdp': 2" in bert and "'tp': 2" in bert
 
 
 if __name__ == "__main__":

@@ -205,9 +205,11 @@ def test_synthetic_uint8_batch_matches_jax():
 
 
 def test_converter_raises_on_unknown_path():
+    # BatchNorm_0..2 are norm_impl="flax"'s names (tests/test_torch_resnet_norm.py
+    # loads them); a fourth is no path of the reference's
     params = {"stem": {"kernel": np.zeros((7, 7, 3, 8), np.float32)},
-              "BottleneckBlock_0": {"BatchNorm_0": {"scale": np.ones(8, np.float32)}}}
-    with pytest.raises(KeyError, match="BatchNorm_0"):
+              "BottleneckBlock_0": {"BatchNorm_3": {"scale": np.ones(8, np.float32)}}}
+    with pytest.raises(KeyError, match="BatchNorm_3"):
         resnet_state_dict_from_flax(params, {})
     with pytest.raises(KeyError, match="Conv_9"):
         resnet_state_dict_from_flax(

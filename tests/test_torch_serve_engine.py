@@ -412,6 +412,51 @@ def test_drain_swap_resume_copies_weights_in_place(weights):
         eng.stop()
 
 
+def test_pause_admission_closes_the_window_before_admit(weights):
+    """The engine thread is held after its loop has read the admission gate
+    (still open) and before _admit runs; meanwhile the caller pauses
+    admission and submits. The request must not be placed until
+    resume_admission: the drain finishes the first stream alone, and after
+    the swap the second decodes on the new weights."""
+    jcfg, params, model = weights
+    model = torch_gpt.GPT(model.cfg)
+    model.load_state_dict(gpt_state_dict_from_flax(params))
+    other = torch_gpt.GPT(model.cfg, generator=torch.Generator().manual_seed(3))
+    old_model = torch_gpt.GPT(model.cfg)
+    old_model.load_state_dict(model.state_dict())
+    eng = torch_engine.ContinuousBatchingEngine(model, n_slots=2, device="cpu", block_size=8)
+    armed, reached, release = threading.Event(), threading.Event(), threading.Event()
+    admit = eng._admit
+
+    def held_admit():
+        if armed.is_set():
+            armed.clear()
+            reached.set()
+            assert release.wait(120)
+        admit()
+
+    eng._admit = held_admit
+    try:
+        r1 = eng.submit([1, 2, 3], 6)
+        stream = r1.stream(timeout=120)
+        next(stream)
+        armed.set()
+        assert reached.wait(120)  # the loop read the open gate; _admit waits
+        eng.pause_admission()
+        r2 = eng.submit([4, 5], 3)
+        release.set()
+        assert eng.drain(timeout=120)
+        assert eng.admitted == 1 and eng.queue_depth == 1
+        assert r1.result(1) == inline(old_model, [1, 2, 3], 6)
+        eng.swap_params(other.state_dict())
+        eng.resume_admission()
+        assert r2.result(120) == inline(other, [4, 5], 3)
+        assert eng.admitted == 2
+    finally:
+        release.set()
+        eng.stop()
+
+
 def test_stop_mid_stream_fails_fast(weights):
     import time
 

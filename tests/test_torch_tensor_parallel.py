@@ -115,7 +115,7 @@ def torch_batch(batch):
 
 
 def port_trainer(kind, weights, mesh=None, attention_fn=None, shard_sequence=False,
-                 checkpoint_dir=None):
+                 checkpoint_dir=None, accum_steps=1):
     if kind == "gpt":
         model = torch_gpt.GPT(gpt_cfg(), attention_fn=attention_fn)
         task = torch_trainer.causal_lm_task()
@@ -127,7 +127,7 @@ def port_trainer(kind, weights, mesh=None, attention_fn=None, shard_sequence=Fal
     model.load_state_dict(weights)
     return torch_trainer.Trainer(
         model, task, learning_rate=ADAM_LR, weight_decay=ADAM_WD, device="cpu", mesh=mesh,
-        shard_sequence=shard_sequence, checkpoint_dir=checkpoint_dir)
+        shard_sequence=shard_sequence, checkpoint_dir=checkpoint_dir, accum_steps=accum_steps)
 
 
 def port_steps(kind, weights, batch, mesh, attention_fn=None, shard_sequence=False,
@@ -280,7 +280,7 @@ def jax_models(attention_fn=None):
     return {"gpt": gpt, "bert": bert, "vit": vit}
 
 
-def reference_steps(kind, model, batch, mesh, shard_sequence=False):
+def reference_steps(kind, model, batch, mesh, shard_sequence=False, accum_steps=1):
     """The reference Trainer's STEPS AdamW steps on the global batch over
     `mesh`: params before, step 1's gradient and loss, params after, as
     numpy trees."""
@@ -294,7 +294,7 @@ def reference_steps(kind, model, batch, mesh, shard_sequence=False):
             "vit": jax_trainer.classification_task}[kind](model)
     trainer = jax_trainer.Trainer(
         model, task, optax.chain(keeping_grads(), optax.adamw(ADAM_LR, weight_decay=ADAM_WD)),
-        mesh=mesh, shard_sequence=shard_sequence)
+        mesh=mesh, shard_sequence=shard_sequence, accum_steps=accum_steps)
     jbatch = trainer.place_batch({k: jnp.asarray(v) for k, v in batch.items()})
     state = trainer.init(jax.random.PRNGKey(0), jbatch)
     to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731

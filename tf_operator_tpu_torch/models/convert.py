@@ -142,9 +142,10 @@ def _state_dict(params: Mapping[str, Any], rules) -> Dict[str, torch.Tensor]:
 # HWIO in flax and OIHW for F.conv2d ("oihw"); PallasConv3x3 keeps its
 # HWIO kernel ("keep"); the Dense kernel is [in, out] in flax and
 # [out, in] in nn.Linear ("t"). BatchNorm scale/bias are parameters,
-# mean/var (from batch_stats) buffers of the same module.
+# mean/var (from batch_stats) buffers of the same module, named
+# TpuBatchNorm_i or, under norm_impl="flax", flax's BatchNorm_i.
 _BLOCK = r"BottleneckBlock_\d+"
-_BN = rf"(?:stem_bn|{_BLOCK}/(?:TpuBatchNorm_[012]|proj_bn))"
+_BN = rf"(?:stem_bn|{_BLOCK}/(?:TpuBatchNorm_[012]|BatchNorm_[012]|proj_bn))"
 _RESNET_PARAMS = (
     (r"(stem|stem_s2d)/kernel", r"\1.weight", "oihw"),
     (rf"({_BN})/(scale|bias)", r"\1.\2", "keep"),

@@ -606,19 +606,19 @@ def generate(
     (ops/quant.py), quantized once per call unless `model` already is
     the int8 twin (serving quantizes once at load). The two compose.
 
-    mesh (parallel/mesh.py build_mesh's, every rank calling): decode
-    with the weights laid out by `rules` (TRANSFORMER_RULES by default):
-    under tp each rank holds its heads' KV cache and its vocab columns,
-    which are gathered before the sampler (a model already laid out by
-    the plan, such as a tp trainer's, is used as it is; a full one is
-    copied and laid out). The prompt's rows split over dp x fsdp and the
-    answers are gathered back, as the reference shards the prompt over
-    its batch axes (a batch that does not divide them is decoded whole by
-    every rank, as the reference replicates it). With weights_int8 the
-    whole model is quantized before it is laid out (a laid-out one is
-    gathered first), as the reference quantizes after placement: a
-    row-parallel kernel's scales (attn_out, mlp_out split their
-    contracted axis) are the whole kernel's, and its partial products
+    mesh (parallel/mesh.py build_mesh's, every rank calling): decode with
+    the weights laid out by `rules` (TRANSFORMER_RULES by default): under
+    tp each rank holds its heads' KV cache and its vocab columns, which are
+    gathered before the sampler (a model already laid out by the plan, such
+    as a tp trainer's, is used as it is; a full one is copied and laid out;
+    an FSDP2 trainer's is gathered whole first). The prompt's rows split
+    over dp x fsdp and the answers are gathered back, as the reference
+    shards the prompt over its batch axes (a batch that does not divide
+    them is decoded whole by every rank, as the reference replicates it).
+    With weights_int8 the whole model is quantized before it is laid out (a
+    laid-out one is gathered first), as the reference quantizes after
+    placement: a row-parallel kernel's scales (attn_out, mlp_out split
+    their contracted axis) are the whole kernel's, and its partial products
     are summed before the scale."""
     cfg = model.cfg
     batch, prompt_len = prompt.shape
@@ -668,6 +668,9 @@ def _generate_on_mesh(model: GPT, prompt: torch.Tensor, mesh, rules, weights_int
 
     rules = rules or sharding.TRANSFORMER_RULES
     tp = mesh.shape["tp"] > 1
+    if sharding.is_fully_sharded(model):
+        # an FSDP2 trainer's model: gathered whole, then laid out below
+        model = _gathered(model)
     if weights_int8 and not is_quantized(model):
         if getattr(model, "tensor_parallel", None) is not None:
             model = _gathered(model)
@@ -693,8 +696,9 @@ def _generate_on_mesh(model: GPT, prompt: torch.Tensor, mesh, rules, weights_int
 
 
 def _gathered(model: GPT) -> GPT:
-    """A whole GPT from a tensor-parallel one: its shards all-gathered over
-    the plan's group (a collective: every rank of it calls this)."""
+    """A whole GPT from a tensor-parallel or FSDP2-sharded one: its shards
+    all-gathered over FSDP2's group and the plan's (a collective: every
+    rank of them calls this)."""
     from ..parallel import sharding
 
     full = GPT(model.cfg, device=model_device(model))

@@ -27,6 +27,19 @@ free. The all-reduce is torch.distributed.nn's, which is
 differentiable: its backward all-reduces the gradients of the sums,
 without which the gradients would be those of a per-rank BatchNorm.
 Unset (None), the statistics are this process's own.
+
+FlaxBatchNorm is flax.linen.BatchNorm as the reference's ResNet builds it
+under norm_impl="flax" (momentum 0.9, epsilon 1e-5, f32 parameters and
+statistics), kept there for an A/B against TpuBatchNorm. Its math is
+flax's, activation-shaped in f32:
+
+    mean, mean_sq = means of x and x^2 over N, H, W, x cast to f32
+    var   = max(mean_sq - mean^2, 0)
+    ra    = 0.9 * ra + 0.1 * stat                   # training only
+    y     = dtype(((f32(x) - mean) * (rsqrt(var + eps) * scale)) + bias)
+
+It syncs its sums over `sync_group` as TpuBatchNorm does (the reference's
+GSPMD mean over the sharded batch is the global batch's).
 """
 
 from __future__ import annotations
@@ -76,6 +89,33 @@ class TpuBatchNorm(nn.Module):
             fused_bias.to(self.dtype).view(shape), x.to(self.dtype),
             inv.to(self.dtype).view(shape),
         )
+
+
+class FlaxBatchNorm(TpuBatchNorm):
+    """flax.linen.BatchNorm's math (module docstring) with TpuBatchNorm's
+    parameters, statistics and sync_group; `dtype` is the output's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1, 1, 1)
+        xf = x.float()
+        if self.training:
+            dims = (0, 2, 3)
+            count = x.numel() // x.shape[1]
+            total = xf.sum(dim=dims)
+            total_sq = xf.square().sum(dim=dims)
+            if self.sync_group is not None:
+                total, total_sq, count = _global_sums(total, total_sq, count, self.sync_group)
+            mean = total / count
+            var = torch.clamp(total_sq / count - mean.square(), min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.mul_(m).add_((1.0 - m) * mean)
+                self.var.mul_(m).add_((1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(self.dtype)
 
 
 def _global_sums(total: torch.Tensor, total_sq: torch.Tensor, count: int, group):

@@ -4,11 +4,13 @@ tf_operator_tpu/models/resnet.py.
 The reference's dtype policy: convolutions and BatchNorm compute in
 the model dtype (bf16), BatchNorm parameters and statistics in f32
 (models/norm.py), the spatial mean in the model dtype, logits from an
-f32 Dense. The reference's `norm_dtype` (a BatchNorm compute dtype
-other than the model's) and `norm_impl="flax"` have no caller here and
-are not ported. Module and parameter names follow the reference's
-param paths (stem, stem_bn, BottleneckBlock_{i}/Conv_0..2,
-TpuBatchNorm_0..2, proj, proj_bn, Dense_0), so converted weights
+f32 Dense. `norm_dtype` sets BatchNorm's compute (and output) dtype apart
+from the model's, as the reference's; `norm_impl` picks TpuBatchNorm
+("tpu", the default) or flax.linen.BatchNorm's math ("flax",
+models/norm.py FlaxBatchNorm), which the reference keeps for an A/B.
+Module and parameter names follow the reference's param paths (stem,
+stem_bn, BottleneckBlock_{i}/Conv_0..2, TpuBatchNorm_0..2 or, under
+"flax", BatchNorm_0..2, proj, proj_bn, Dense_0), so converted weights
 (models/convert.py) load by name.
 
 Layout. The public input is the reference's NHWC image batch. Inside,
@@ -44,10 +46,13 @@ from torch import nn
 
 from ..ops.attention import lecun_normal_
 from ..ops.conv_bn import conv3x3_s1, supports
-from .norm import TpuBatchNorm
+from .norm import FlaxBatchNorm, TpuBatchNorm
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 CONV3_IMPLS = ("xla", "pallas")
+# norm_impl -> (the BatchNorm module, its name inside a block, as flax
+# names it in the reference's param tree)
+NORM_IMPLS = {"tpu": (TpuBatchNorm, "TpuBatchNorm"), "flax": (FlaxBatchNorm, "BatchNorm")}
 
 
 def same_padding(size: int, window: int, stride: int) -> Tuple[int, int]:
@@ -134,24 +139,27 @@ class BottleneckBlock(nn.Module):
     def __init__(
         self, in_features: int, filters: int, strides: Tuple[int, int],
         conv3_impl: str = "xla", dtype: torch.dtype = torch.bfloat16,
-        generator: Optional[torch.Generator] = None,
+        generator: Optional[torch.Generator] = None, norm_impl: str = "tpu",
+        norm_dtype: Optional[torch.dtype] = None,
     ) -> None:
         super().__init__()
         conv = partial(Conv, dtype=dtype, generator=generator)
-        norm = partial(TpuBatchNorm, dtype=dtype)
+        norm_cls, prefix = NORM_IMPLS[norm_impl]
+        norm = partial(norm_cls, dtype=norm_dtype or dtype)
+        self.norm_names = tuple(f"{prefix}_{i}" for i in range(3))
         out = filters * 4
         self.Conv_0 = conv(in_features, filters, (1, 1))
-        self.TpuBatchNorm_0 = norm(filters)
+        setattr(self, self.norm_names[0], norm(filters))
         if conv3_impl == "xla":
             self.Conv_1 = conv(filters, filters, (3, 3), strides)
         else:
             self.Conv_1 = PallasConv3x3(
                 filters, filters, strides, dtype=dtype, generator=generator
             )
-        self.TpuBatchNorm_1 = norm(filters)
+        setattr(self, self.norm_names[1], norm(filters))
         self.Conv_2 = conv(filters, out, (1, 1))
         # zero-init the last BN scale: residual branches start as identity
-        self.TpuBatchNorm_2 = norm(out, zero_scale=True)
+        setattr(self, self.norm_names[2], norm(out, zero_scale=True))
         self.proj = self.proj_bn = None
         if in_features != out or tuple(strides) != (1, 1):
             self.proj = conv(in_features, out, (1, 1), strides)
@@ -159,9 +167,10 @@ class BottleneckBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x
-        y = torch.relu(self.TpuBatchNorm_0(self.Conv_0(x)))
-        y = torch.relu(self.TpuBatchNorm_1(self.Conv_1(y)))
-        y = self.TpuBatchNorm_2(self.Conv_2(y))
+        norm_0, norm_1, norm_2 = (getattr(self, name) for name in self.norm_names)
+        y = torch.relu(norm_0(self.Conv_0(x)))
+        y = torch.relu(norm_1(self.Conv_1(y)))
+        y = norm_2(self.Conv_2(y))
         if self.proj is not None:
             residual = self.proj_bn(self.proj(residual))
         return torch.relu(residual + y)
@@ -178,11 +187,14 @@ class ResNet(nn.Module):
     def __init__(
         self, stage_sizes: Sequence[int], num_classes: int = 1000, width: int = 64,
         dtype: torch.dtype = torch.bfloat16, stem: str = "conv7", conv3_impl: str = "xla",
-        generator: Optional[torch.Generator] = None,
+        generator: Optional[torch.Generator] = None, norm_impl: str = "tpu",
+        norm_dtype: Optional[torch.dtype] = None,
     ) -> None:
         super().__init__()
         if conv3_impl not in CONV3_IMPLS:
             raise ValueError(f"conv3_impl {conv3_impl!r} not in {CONV3_IMPLS}")
+        if norm_impl not in NORM_IMPLS:
+            raise ValueError(f"norm_impl {norm_impl!r} not in {tuple(NORM_IMPLS)}")
         if stem not in ("conv7", "s2d"):
             raise ValueError(f"stem {stem!r} not in ('conv7', 's2d')")
         self.dtype = dtype
@@ -198,7 +210,7 @@ class ResNet(nn.Module):
                 3, width, (7, 7), (2, 2), padding=((3, 3), (3, 3)), dtype=dtype,
                 generator=generator,
             )
-        self.stem_bn = TpuBatchNorm(width, dtype=dtype)
+        self.stem_bn = NORM_IMPLS[norm_impl][0](width, dtype=norm_dtype or dtype)
         features, index = width, 0
         for stage, size in enumerate(stage_sizes):
             for block in range(size):
@@ -206,6 +218,7 @@ class ResNet(nn.Module):
                 filters = width * 2**stage
                 self.add_module(f"BottleneckBlock_{index}", BottleneckBlock(
                     features, filters, strides, conv3_impl, dtype, generator,
+                    norm_impl, norm_dtype,
                 ))
                 features, index = filters * 4, index + 1
         self.num_blocks = index

@@ -27,11 +27,14 @@ ShardedPagedSlotDecodeStep). A caller may list the devices itself, and a
 device may repeat: several shards then share one device, the port's
 counterpart of the reference's virtual CPU devices.
 
-With pp = ep = sp = tp = 1 the mesh also holds the (dp, fsdp)
-DeviceMesh that FSDP2 shards over. fsdp > 1 together with tp, sp or ep
-raises NotImplementedError naming ROADMAP item 4 (FSDP2 composed with a
-tensor-parallel or expert layout is DTensor, which this plan avoids:
-parallel/sharding.py says why).
+Where fsdp > 1 (or pp = ep = sp = tp = 1) the mesh also holds the
+DeviceMesh that FSDP2 shards over: this rank's (dp x sp, fsdp) slice of
+one DeviceMesh over the world, whose outer dimension holds the pp, ep and
+tp coordinates. FSDP2 shards each parameter over fsdp and replicates it
+over dp x sp (HSDP), so its reduce-scatter and all-reduce together
+average a gradient over the grad group; each pp, ep and tp coordinate
+shards its own plain local tensors (parallel/sharding.py says why no
+DTensor spans tp or ep).
 """
 
 from __future__ import annotations
@@ -44,9 +47,8 @@ import torch
 from . import distributed
 
 MESH_AXES = ("dp", "pp", "fsdp", "ep", "sp", "tp")
-TWO_D = "2-D: FSDP2 with tp/sp (ROADMAP queue 1, item 4)"
-# FSDP2 over the expert layout is the same DTensor composition as TWO_D
-FSDP_EP = "FSDP2 with the expert layout (ROADMAP queue 1, item 4's 2-D line)"
+# the dimensions of the DeviceMesh that FSDP2 shards over (_fsdp_mesh)
+FSDP_MESH_DIMS = ("pp_ep_tp", "dp_sp", "fsdp")
 SP_STRATEGIES = ("ring", "ulysses")
 
 
@@ -83,8 +85,8 @@ class TrainMesh:
     """A built mesh: its shape over MESH_AXES, this rank's coordinate on
     each axis, and the process groups of the axes that span more than
     one rank (None where an axis has one rank: nothing to communicate).
-    `device_mesh` is the (dp, fsdp) DeviceMesh that FSDP2 shards over,
-    built where sp = tp = 1 and None otherwise."""
+    `device_mesh` is the (dp x sp, fsdp) DeviceMesh that FSDP2 shards
+    over, built where fsdp > 1 or pp = ep = sp = tp = 1, None otherwise."""
 
     shape: Dict[str, int]
     coordinate: Dict[str, int]
@@ -167,9 +169,6 @@ def build_mesh(
     runs the model unwrapped (distributed.initialize skips a
     single-process job)."""
     config = config or MeshConfig()
-    refusal = fsdp_refusal(config.fsdp, config.sp, config.tp, config.ep)
-    if refusal:
-        raise NotImplementedError(refusal)
     dp, pp, fsdp, ep, sp, tp = config.resolve(distributed.world_size())
     if not distributed.is_initialized():
         return None
@@ -180,11 +179,8 @@ def build_mesh(
         coordinate[axis] = rank % shape[axis]
         rank //= shape[axis]
     device_mesh = None
-    if pp * ep * sp * tp == 1:
-        from torch.distributed.device_mesh import init_device_mesh
-
-        device_mesh = init_device_mesh(
-            torch.device(device).type, (dp, fsdp), mesh_dim_names=("dp", "fsdp"))
+    if fsdp > 1 or pp * ep * sp * tp == 1:
+        device_mesh = _fsdp_mesh(shape, torch.device(device).type)
     tp_group = _my_group(shape, ("tp",), own=True)
     sp_group = _my_group(shape, ("sp",), own=True)
     grad_group = _my_group(shape, ("dp", "fsdp", "sp"))
@@ -200,6 +196,21 @@ def build_mesh(
         pp_group=_my_group(shape, ("pp",), own=True), ep_group=ep_group,
         expert_group=expert_group,
     )
+
+
+def _fsdp_mesh(shape: Dict[str, int], device_type: str):
+    """This rank's (dp x sp, fsdp) slice of a DeviceMesh over the world laid
+    out as FSDP_MESH_DIMS: ranks that share pp, ep and tp coordinates form
+    one (dp x sp, fsdp) grid, so FSDP2 shards each of those coordinates'
+    local tensors over fsdp and replicates them over dp x sp. Every rank
+    builds the whole mesh (its groups, in one order)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    ranks = torch.arange(distributed.world_size()).reshape([shape[a] for a in MESH_AXES])
+    # (dp, pp, fsdp, ep, sp, tp) -> (pp, ep, tp, dp, sp, fsdp)
+    grid = ranks.permute(1, 3, 5, 0, 4, 2).reshape(
+        shape["pp"] * shape["ep"] * shape["tp"], shape["dp"] * shape["sp"], shape["fsdp"])
+    return DeviceMesh(device_type, grid, mesh_dim_names=FSDP_MESH_DIMS)[FSDP_MESH_DIMS[1:]]
 
 
 SERVE_AXES = ("batch", "model")
@@ -276,17 +287,6 @@ def make_device_mesh(
     return ServeMesh(devices=grid, axis_names=tuple(axis_names))
 
 
-def fsdp_refusal(fsdp: int, sp: int, tp: int, ep: int) -> Optional[str]:
-    """Why fsdp > 1 together with tp or sp (TWO_D) or ep (FSDP_EP) is
-    refused, naming its ROADMAP item (each is FSDP2 composed with a
-    layout of plain local shards, which is DTensor); None otherwise."""
-    if fsdp != 1 and sp * tp != 1:
-        return f"fsdp={fsdp} with sp={sp}, tp={tp}: {TWO_D} is not ported yet"
-    if fsdp != 1 and ep != 1:
-        return f"fsdp={fsdp} with ep={ep}: {FSDP_EP} is not ported yet"
-    return None
-
-
 def axis_size(mesh: Optional[TrainMesh], axis: str) -> int:
     return 1 if mesh is None else mesh.shape.get(axis, 1)
 
@@ -359,16 +359,12 @@ def add_mesh_flags(parser) -> None:
     )
 
 
-def mesh_config(parser, args) -> MeshConfig:
+def mesh_config(args) -> MeshConfig:
     """The mesh the flags ask for (--fsdp, and --ep, --sp, --tp where the
-    CLI has them); parser.error (exit 2) on --fsdp > 1 with --tp, --sp or
-    --ep > 1, naming its ROADMAP item."""
-    fsdp, sp, tp, ep = (args.fsdp, getattr(args, "sp", 1), getattr(args, "tp", 1),
-                        getattr(args, "ep", 1))
-    refusal = fsdp_refusal(fsdp, sp, tp, ep)
-    if refusal:
-        parser.error(f"--{refusal}")
-    return MeshConfig(dp=-1, fsdp=fsdp, ep=ep, sp=sp, tp=tp)
+    CLI has them), dp absorbing the rest of the world, as the reference's
+    CLIs build it."""
+    return MeshConfig(dp=-1, fsdp=args.fsdp, ep=getattr(args, "ep", 1),
+                      sp=getattr(args, "sp", 1), tp=getattr(args, "tp", 1))
 
 
 def sequence_attention(mesh, strategy: str = "ring", causal: bool = False,

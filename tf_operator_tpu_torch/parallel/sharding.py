@@ -11,11 +11,12 @@ become wrap plans, applied by `parallelize`:
 - CONV_RULES: DDP where fsdp == 1, the only way the ResNet CLI runs it;
   with fsdp > 1, FSDP2 (`fully_shard`) on the root alone.
 - TRANSFORMER_RULES: DDP where fsdp == 1; with fsdp > 1, FSDP2 on each
-  TransformerBlock and then on the root, over the (dp, fsdp) mesh, so
-  dp > 1 and fsdp > 1 together give HSDP (replicated over dp, sharded
-  over fsdp). With tp > 1, the tensor-parallel half of the reference's
-  rules (sharding.py:25-37) as an explicit Megatron plan over plain
-  local tensors (`apply_tensor_parallel`): query/key/value are
+  TransformerBlock and then on the root, over the mesh's (dp x sp, fsdp)
+  DeviceMesh, so dp or sp > 1 together with fsdp > 1 give HSDP
+  (replicated over dp x sp, sharded over fsdp). With tp > 1, the
+  tensor-parallel half of the reference's rules (sharding.py:25-37) as
+  an explicit Megatron plan over plain local tensors
+  (`apply_tensor_parallel`): query/key/value are
   column-parallel on heads, mlp_in column-parallel, attn_out and
   mlp_out row-parallel (their partial products all-reduced over tp
   before the bias, which is added once), the token and position
@@ -23,17 +24,22 @@ become wrap plans, applied by `parallelize`:
   lookup then an all-reduce; the head's logits stay split on the vocab
   and ops/losses.py's vocab-parallel cross-entropy reads them). The
   column-parallel biases are split with their outputs; every other
-  parameter is replicated. The plan uses no DTensor: on the card's
-  torch, DTensor's gathers over gloo with CUDA tensors crash, and a
-  tensor-parallel plan composed with FSDP2 is DTensor, so fsdp > 1
-  with tp or sp is refused (parallel/mesh.py TWO_D). With sp > 1 each
-  model's `seq_index` is set to the rank's sequence shard (its
-  positions' offset) and the attention is the caller's ring or Ulysses
-  attention_fn. The replicated parameters and each tp rank's shards
-  reduce their gradients over the mesh's grad group (dp x sp): DDP on
-  that group where it holds more than one rank.
+  parameter is replicated. The plan uses no DTensor: each tp rank holds
+  plain local tensors, and with fsdp > 1 FSDP2 then shards those over
+  its (dp x sp, fsdp) DeviceMesh, one per tp coordinate (2-D: fsdp x
+  tp). No DTensor spans tp, and no checkpoint calls DTensor's gathers
+  (on the card's torch they crash over gloo with CUDA tensors):
+  `gather_tensor` gathers FSDP2's dim-0 shards over the fsdp group
+  itself. With sp > 1 each model's `seq_index` is set to the rank's
+  sequence shard (its positions' offset) and the attention is the
+  caller's ring or Ulysses attention_fn. The replicated parameters and
+  each tp rank's shards reduce their gradients over the mesh's grad
+  group (dp x fsdp x sp): DDP on that group where it holds more than
+  one rank and fsdp == 1, else FSDP2's reduce-scatter over fsdp and
+  all-reduce over dp x sp.
 - MOE_RULES: the MoE LM's (models/moe.py), FSDP2 on each dense and MoE
-  block and the root with fsdp > 1. Its tp plan is TRANSFORMER_RULES'
+  block, each MoEMlp's experts and its router, and the root with fsdp >
+  1. Its tp plan is TRANSFORMER_RULES'
   plus the expert kernels' intermediate dimension (expert_in
   column-parallel, expert_out row-parallel: the reference's
   sharding.py:43-47); its ep layout (`apply_expert_parallel`) gives each
@@ -43,7 +49,9 @@ become wrap plans, applied by `parallelize`:
   split over dp x fsdp only, so every ep and tp rank sees the same rows
   and computes the replicated parameters' full gradients (models/moe.py
   says how the expert path keeps them whole); every parameter then
-  reduces over the grad group, as under tp.
+  reduces over the grad group, as under tp. With fsdp > 1 FSDP2 shards
+  each ep and tp coordinate's local tensors over fsdp (fsdp x ep, fsdp
+  x ep x tp).
 
 DDP broadcasts rank 0's parameters when it wraps; FSDP2 does not, so the
 models draw their weights from a seeded CPU generator, the same on every
@@ -116,7 +124,8 @@ _EP_MOE = ((r"(?:.*\.)?moe_mlp\.expert_(?:in|out)", 0, "expert"),)
 class WrapPlan:
     """name: the reference rule set's. shard: parameters are sharded over
     the mesh's fsdp axis when it is > 1. blocks: the class names of the
-    submodules that each get their own FSDP2 unit before the root. tp:
+    submodules that each get their own FSDP2 unit before the root (a
+    unit's own parameters must share one dtype). tp:
     the tensor-parallel plan, (pattern, dim, role) over parameter names;
     ep: the expert layout, the same form over the ep axis. Either is
     empty where the rule set has none: a mesh whose axis is > 1 then
@@ -137,7 +146,11 @@ REPLICATED_RULES = WrapPlan("REPLICATED_RULES")
 CONV_RULES = WrapPlan("CONV_RULES", shard=True)
 TRANSFORMER_RULES = WrapPlan("TRANSFORMER_RULES", shard=True, blocks=("TransformerBlock",),
                              tp=_TP_TRANSFORMER, tp_int8=_TP_TRANSFORMER_INT8)
-MOE_RULES = WrapPlan("MOE_RULES", shard=True, blocks=("TransformerBlock", "MoEBlock"),
+# FSDP2 shards a unit's parameters as one flat group of one dtype, and
+# MoE-base's expert kernels are bf16 beside f32 weights: each MoEMlp (its
+# experts) and its TopKRouter (f32) are units of their own
+MOE_RULES = WrapPlan("MOE_RULES", shard=True,
+                     blocks=("TransformerBlock", "MoEBlock", "MoEMlp", "TopKRouter"),
                      tp=_TP_MOE, ep=_EP_MOE)
 
 
@@ -246,10 +259,71 @@ def layouts(model: nn.Module) -> List[TensorParallel]:
                             getattr(model, "expert_parallel", None)) if lay is not None]
 
 
+def _fsdp_shard(tensor) -> Tuple[int, object, int, int]:
+    """Where FSDP2 splits a DTensor parameter (or moment): (its dimension,
+    the mesh dimension's process group, this rank's index there, its
+    size)."""
+    for mesh_dim, placement in enumerate(tensor.placements):
+        if placement.is_shard():
+            mesh = tensor.device_mesh
+            return (placement.dim, mesh.get_group(mesh_dim), mesh.get_local_rank(mesh_dim),
+                    mesh.size(mesh_dim))
+    raise ValueError(f"no sharded dimension in {tensor.placements}")
+
+
+def fsdp_chunk_span(length: int, index: int, size: int) -> Tuple[int, int]:
+    """[start, stop) of chunk `index` of `size` as torch.chunk and FSDP2
+    cut `length` rows: ceil(length / size) each, the last ones short or
+    empty."""
+    step = -(-length // size)
+    start = min(index * step, length)
+    return start, min(start + step, length)
+
+
+def fsdp_gather(tensor: torch.Tensor) -> torch.Tensor:
+    """The whole of an FSDP2 DTensor as a plain tensor: each rank's dim-0
+    chunk, padded to the longest, all-gathered over the fsdp group
+    (parallel/distributed.py all_gather) and cut back (a collective: every
+    rank of the group calls it). DTensor's own full_tensor() is not used:
+    on the card's torch it crashes over gloo with CUDA tensors. A plain
+    tensor is returned as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(tensor, DTensor):
+        return tensor
+    dim, group, _, size = _fsdp_shard(tensor)
+    length = tensor.shape[dim]
+    local = tensor.to_local()
+    _, step = fsdp_chunk_span(length, 0, size)
+    if local.shape[dim] < step:
+        pad = list(local.shape)
+        pad[dim] = step - local.shape[dim]
+        local = torch.cat([local, local.new_zeros(pad)], dim=dim)
+    return distributed.all_gather(local, group, dim).narrow(dim, 0, length)
+
+
+def fsdp_local(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The inverse of fsdp_gather, with no collective: a copy of this
+    rank's chunk of `full` as FSDP2 lays out the DTensor `like` (a DTensor
+    of like's mesh and placements, on its device); a copy of `full` where
+    `like` is plain."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(like, DTensor):
+        return full.clone()
+    dim, _, index, size = _fsdp_shard(like)
+    start, stop = fsdp_chunk_span(full.shape[dim], index, size)
+    local = full.narrow(dim, start, stop - start).to(like.device, copy=True)
+    return DTensor.from_local(local, like.device_mesh, like.placements, run_check=False,
+                              shape=like.shape, stride=like.stride())
+
+
 def gather_tensor(name: str, tensor: torch.Tensor, plans) -> torch.Tensor:
-    """A tensor split by `plans` (TensorParallel), all-gathered over each
+    """A tensor split by FSDP2 (fsdp_gather) and by `plans`
+    (TensorParallel), all-gathered over the fsdp group, then over each
     plan's group that splits it, in order (a collective: every rank of
     the groups calls it)."""
+    tensor = fsdp_gather(tensor)
     for lay in plans:
         rule = lay.rule(name)
         if rule is not None:
@@ -270,9 +344,10 @@ def gather_state_dict(
     state: Dict[str, torch.Tensor], plans: Optional[List[TensorParallel]],
 ) -> Dict[str, torch.Tensor]:
     """The inverse of shard_state_dict on a model's own state dict: each
-    split tensor all-gathered over the groups of the plans it was laid
-    out by (`layouts`; a collective: every rank of the groups calls it).
-    The dict as it is for plans None."""
+    FSDP2 shard gathered, then each split tensor all-gathered over the
+    groups of the plans it was laid out by (`layouts`; a collective: every
+    rank of the groups calls it). The dict as it is for plain tensors and
+    plans None."""
     return {name: gather_tensor(name, tensor, plans or []) for name, tensor in state.items()}
 
 
@@ -400,19 +475,19 @@ def _fit_shapes(module: nn.Module) -> None:
 
 def parallelize(model: nn.Module, mesh, rules: WrapPlan, device: torch.device) -> nn.Module:
     """Wrap `model` (already on `device`) for the mesh; returns the module
-    to call: the model itself under FSDP2 (`shard`, where the rules shard
-    and the mesh's fsdp axis is > 1, or where the model was sharded
-    already), else, after the ep layout (ep > 1) and the tp plan (tp >
-    1), where the rules have them, and the sequence shard (sp > 1), its DDP
-    wrapper over the mesh's grad group, whose `.module` is the model, or
-    the model itself where that group holds one rank. Its TpuBatchNorms
-    and MoE routers sync over the mesh's batch group (sync_batch_norm). A
-    mesh with pp > 1 raises: the pipeline is its own model."""
+    to call. First the ep layout (ep > 1) and the tp plan (tp > 1), where
+    the rules have them, and the sequence shard (sp > 1); then the model
+    itself under FSDP2 over those local tensors (`shard`, where the rules
+    shard and the mesh's fsdp axis is > 1), else its DDP wrapper over the
+    mesh's grad group, whose `.module` is the model, or the model itself
+    where that group holds one rank. A model sharded already is returned
+    as it is. Its TpuBatchNorms and MoE routers sync over the mesh's
+    batch group (sync_batch_norm). A mesh with pp > 1 raises: the pipeline
+    is its own model (models/moe_pipeline.py; as the reference's, it
+    replicates its stages over fsdp, which only splits the batch)."""
     sync_batch_norm(model, mesh)
     if is_fully_sharded(model):
         return model
-    if shards_parameters(mesh, rules):
-        return shard(model, mesh, rules)
     if mesh.size("pp") > 1:
         raise ValueError(f"pp={mesh.size('pp')}: a pipeline runs models/moe_pipeline.py's "
                          "PipelinedMoELM, not a model wrapped for the mesh")
@@ -424,6 +499,8 @@ def parallelize(model: nn.Module, mesh, rules: WrapPlan, device: torch.device) -
         # the rank's sequence shard: its positions start at seq_index x
         # the local length (models/gpt.py, models/bert.py)
         model.seq_index = mesh.coordinate["sp"]
+    if shards_parameters(mesh, rules):
+        return shard(model, mesh, rules)
     if mesh.grad_group is None:
         return model
     from torch.nn.parallel import DistributedDataParallel
@@ -456,17 +533,18 @@ def sync_batch_norm(model: nn.Module, mesh) -> None:
 
 def shard(model: nn.Module, mesh, rules: WrapPlan) -> nn.Module:
     """FSDP2 in place: `fully_shard` on each of the rules' blocks, then on
-    the root, over the mesh (its fsdp axis shards, its dp axis
-    replicates). The parameters become DTensor shards, so an optimizer is
-    built after this. Called by parallelize; a caller may also shard a
-    model over a mesh whose fsdp axis is 1 (one rank), where sharding
-    and replication compute the same step."""
+    the root, over the mesh's DeviceMesh (its fsdp axis shards, dp x sp
+    replicates; a model laid out by the tp plan or the ep layout is
+    sharded as its rank's local tensors). The parameters become DTensor
+    shards, so an optimizer is built after this. Called by parallelize; a
+    caller may also shard a model over a mesh whose fsdp axis is 1 (one
+    rank), where sharding and replication compute the same step."""
     from torch.distributed.fsdp import fully_shard
 
-    if rules.blocks:
-        for module in list(model.modules()):
-            if type(module).__name__ in rules.blocks:
-                fully_shard(module, mesh=mesh.device_mesh)
+    # innermost first: a unit excludes the parameters of the units inside it
+    for module in reversed(list(model.modules())):
+        if type(module).__name__ in rules.blocks:
+            fully_shard(module, mesh=mesh.device_mesh)
     fully_shard(model, mesh=mesh.device_mesh)
     return model
 

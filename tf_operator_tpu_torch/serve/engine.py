@@ -819,6 +819,11 @@ class ContinuousBatchingEngine:
         # sees the cleared gate with zero active slots
         self._admit_gate = threading.Event()
         self._admit_gate.set()
+        # serializes pause_admission's clear against _admit's check and
+        # placements: once pause_admission returns, no request is placed
+        # until resume_admission (the loop's own check of the gate may
+        # be stale by the time it calls _admit)
+        self._admit_lock = locks.make_lock("ContinuousBatchingEngine._admit_lock")
         self._drained = threading.Event()
         # counters (engine thread writes, observers read)
         self.steps = 0
@@ -1014,9 +1019,11 @@ class ContinuousBatchingEngine:
         decode to completion, queued requests wait for
         resume_admission()."""
         # clear the ack BEFORE the gate: while the gate is set the engine
-        # thread never touches _drained
-        self._drained.clear()
-        self._admit_gate.clear()
+        # thread never touches _drained. Under _admit_lock, so that an
+        # _admit already past its check finishes before this returns.
+        with self._admit_lock:
+            self._drained.clear()
+            self._admit_gate.clear()
 
     def resume_admission(self) -> None:
         self._admit_gate.set()
@@ -1469,18 +1476,20 @@ class ContinuousBatchingEngine:
                 self._stage(self._queue.get_nowait())
             except queue.Empty:
                 break
-        while self._pending and self._free:
-            req = self._pending[0]
-            plan = None
-            if not req.cancelled.is_set() and self._paged:
-                plan = self._plan(req)
-                if plan[4] > self.pool.available():
-                    # the HEAD waits for blocks (freed as running
-                    # slots finish) — strict FIFO, no overtaking, no
-                    # mid-stream eviction of anyone else
-                    break
-            self._pending.popleft()
-            self._place(req, plan)
+        with self._admit_lock:
+            # the gate as pause_admission leaves it, not as the loop read it
+            while self._admit_gate.is_set() and self._pending and self._free:
+                req = self._pending[0]
+                plan = None
+                if not req.cancelled.is_set() and self._paged:
+                    plan = self._plan(req)
+                    if plan[4] > self.pool.available():
+                        # the HEAD waits for blocks (freed as running
+                        # slots finish) — strict FIFO, no overtaking, no
+                        # mid-stream eviction of anyone else
+                        break
+                self._pending.popleft()
+                self._place(req, plan)
         self.admit_seconds += time.monotonic() - started
 
     def _plan(self, req: EngineRequest):

@@ -18,12 +18,11 @@ reference's factorizations and sizes, rank 0 printing the reference's
 - moe-pipeline: PipelinedMoELM (models/moe_pipeline.py) at
   _moe_mesh_config, one Adam step on the LM loss plus the router aux.
 
-At world 2 every phase fits (tp 2, dp 2, ep 2 with one stage). At world
-4 BERT's mesh is fsdp 2 x tp 2, FSDP2 composed with the tp plan (ROADMAP
-queue 1, item 4's 2-D line): build_mesh raises NotImplementedError
-naming item 4, every rank alike, and so does dryrun_multichip(4). There
-is no fallback to another factorization: the reference runs that mesh,
-the port does not yet.
+At world 2 the phases run at tp 2, dp 2 and ep 2 with one stage. At
+world 4 the dp phase runs at dp 2 x tp 2, BERT at fsdp 2 x tp 2 (FSDP2
+over the tp plan's local shards, parallel/sharding.py), GPT at dp 2 x tp
+2 and the pipeline at pp 2 x ep 2. A mesh that fails raises on every
+rank: there is no fallback to another factorization.
 """
 
 from __future__ import annotations
@@ -37,8 +36,6 @@ from typing import List, Optional
 import torch
 
 SEED = 0
-# a rank that ends on NotImplementedError (an unported mesh) exits with this
-UNPORTED_EXIT = 3
 LAUNCH_TIMEOUT_S = 600
 
 
@@ -249,10 +246,8 @@ def _free_port() -> int:
 def dryrun_multichip(n_devices: int, device: Optional[str] = None) -> None:
     """One training step per mesh factorization in a world of n_devices
     processes launched here (or, inside such a world already, in it) on
-    `device` (default cuda); rank 0's lines printed. Raises
-    NotImplementedError where every rank met an unported mesh (world 4:
-    BERT's fsdp 2 x tp 2), RuntimeError with the ranks' logs where a rank
-    failed otherwise."""
+    `device` (default cuda); rank 0's lines printed. Raises RuntimeError
+    with the ranks' logs where a rank failed."""
     from .._device import resolve_device
     from ..parallel import distributed
 
@@ -282,9 +277,6 @@ def dryrun_multichip(n_devices: int, device: Optional[str] = None) -> None:
     codes = [code for code, _, _ in results]
     if codes == [0] * n_devices:
         return
-    if codes == [UNPORTED_EXIT] * n_devices:
-        last = results[0][2].strip().splitlines()[-1]
-        raise NotImplementedError(last.removeprefix("NotImplementedError: "))
     raise RuntimeError(f"dryrun ranks exited {codes}: " + "\n".join(
         f"rank {r}: {err[-2000:]}" for r, (_, _, err) in enumerate(results)))
 
@@ -309,9 +301,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     try:
         run_phases(args.rank_of, device)
         distributed.barrier()
-    except NotImplementedError as err:
-        print(f"NotImplementedError: {err}", file=sys.stderr, flush=True)
-        return UNPORTED_EXIT
     finally:
         distributed.shutdown()
     return 0

@@ -6,11 +6,13 @@ tf_operator_tpu/train/bert.py.
         --weight-decay 0.01
     python -m tf_operator_tpu_torch.train.bert --preset base --tp 2 --sp 2 \\
         --sp-strategy ulysses --flash --packed
+    python -m tf_operator_tpu_torch.train.bert --preset base --fsdp 2 --tp 2 \\
+        --flash --packed
 
 Joins the TFJob's world from the operator-injected env
 (parallel/distributed.py) and lays the model over a (dp, fsdp, sp, tp)
-mesh by TRANSFORMER_RULES: DDP, FSDP2 with --fsdp > 1, or the Megatron
-plan with --tp > 1. --sp > 1 shards each row's sequence: ring attention
+mesh by TRANSFORMER_RULES: DDP, FSDP2 with --fsdp > 1, the Megatron
+plan with --tp > 1, or both (FSDP2 over each tp rank's shards). --sp > 1 shards each row's sequence: ring attention
 (--sp-strategy ring, the default; --flash then has no effect, as the
 reference warns) or Ulysses, with the flash route inside under --flash.
 --batch-size is the global batch, each rank training on its rows (and
@@ -88,7 +90,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     add_monitoring_flag(parser)
     add_mesh_flags(parser)
     args = parser.parse_args(argv)
-    args.mesh = mesh_config(parser, args)
+    args.mesh = mesh_config(args)
     return args
 
 

@@ -7,11 +7,14 @@ tf_operator_tpu/train/gpt.py.
     python -m tf_operator_tpu_torch.train.gpt --preset small --batch-size 4 \\
         --seq-len 4096 --generate 56
     python -m tf_operator_tpu_torch.train.gpt --preset small --tp 2 --sp 2
+    python -m tf_operator_tpu_torch.train.gpt --preset small --fsdp 2 --sp 2
 
 Joins the TFJob's world from the operator-injected env
 (parallel/distributed.py) and lays the model over a (dp, fsdp, sp, tp)
 mesh by TRANSFORMER_RULES: DDP, FSDP2 on each block and the root with
---fsdp > 1, or the Megatron plan with --tp > 1 (parallel/sharding.py).
+--fsdp > 1, the Megatron plan with --tp > 1, or both (FSDP2 over each tp
+rank's shards; parallel/sharding.py). With --fsdp and --sp, FSDP2
+replicates over dp x sp.
 --sp > 1 shards each row's sequence: causal ring attention
 (--sp-strategy ring, the default) or Ulysses with the flash route
 inside (--sp-strategy ulysses). --batch-size is the global batch, each
@@ -102,7 +105,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     add_monitoring_flag(parser)
     add_mesh_flags(parser)
     args = parser.parse_args(argv)
-    args.mesh = mesh_config(parser, args)
+    args.mesh = mesh_config(args)
     return args
 
 

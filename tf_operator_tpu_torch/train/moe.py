@@ -5,6 +5,7 @@ tf_operator_tpu/train/moe.py.
     python -m tf_operator_tpu_torch.train.moe --preset base --batch-size 8 --seq-len 1024
 
     python -m tf_operator_tpu_torch.train.moe --preset base --ep 2 --tp 2
+    python -m tf_operator_tpu_torch.train.moe --preset base --fsdp 2 --ep 2
 
 Joins the TFJob's world from the operator-injected env
 (parallel/distributed.py) and lays models/moe.py's MoELM over a (dp,
@@ -12,8 +13,8 @@ fsdp, ep, tp) mesh by MOE_RULES: DDP, or FSDP2 on each block and the
 root with --fsdp > 1; --ep gives each rank e / ep experts, --tp splits
 the attention, the dense MLPs, the embeddings, the head's vocabulary and
 the experts' intermediate dimension (parallel/sharding.py), over plain
-local shards (no DTensor), DDP over the dp ranks; --fsdp with --ep or
---tp exits 2 naming ROADMAP item 4. Each router's load-balancing means
+local shards (no DTensor), DDP over the dp ranks, or FSDP2 over each ep
+and tp rank's shards with --fsdp > 1. Each router's load-balancing means
 are the global batch's. --batch-size is the global batch. Runs on one CUDA device
 unless --device names another. AdamW with weight decay 0.01 (the expert
 kernels, bf16 in the base preset, keep bf16 moments). The loop is
@@ -84,7 +85,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--device", default=None, help="default: cuda")
     add_monitoring_flag(parser)
     args = parser.parse_args(argv)
-    args.mesh = mesh_config(parser, args)
+    args.mesh = mesh_config(args)
     return args
 
 

@@ -1060,36 +1060,15 @@ def _param_names(state: TrainState) -> List[str]:
 def state_payload(state: TrainState) -> Optional[Dict[str, Any]]:
     """What a checkpoint holds: {"step", "model": the model's state_dict,
     "optimizer": the optimizer's state_dict, parameters keyed by index},
-    full tensors at any world size. Under FSDP2 they are gathered (a
-    collective: every rank calls this) onto rank 0's CPU, and under the
-    tp plan and the ep layout over their groups (_tp_payload); the other
-    ranks get None. Otherwise the tensors are the live ones."""
+    full tensors at any world size and on any mesh. Under FSDP2, the tp
+    plan or the ep layout they are gathered (_gathered_payload; a
+    collective: every rank calls this) and rank 0 gets them, the other
+    ranks None. Otherwise the tensors are the live ones."""
     plans = sharding_lib.layouts(state.model)
-    if plans:
-        return _tp_payload(state, plans)
-    if not sharding_lib.is_fully_sharded(state.model):
-        return {"step": int(state.step), "model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict()}
-    from torch.distributed.checkpoint.state_dict import (
-        StateDictOptions,
-        get_model_state_dict,
-        get_optimizer_state_dict,
-    )
-
-    options = StateDictOptions(full_state_dict=True, cpu_offload=True)
-    model = get_model_state_dict(state.model, options=options)
-    optim = get_optimizer_state_dict(state.model, state.optimizer, options=options)
-    if not distributed.is_coordinator():
-        return None
-    index = {name: i for i, name in enumerate(_param_names(state))}
-    optim = {
-        "state": {index[name]: value for name, value in optim["state"].items()},
-        "param_groups": [
-            {**group, "params": [index[name] for name in group["params"]]}
-            for group in optim["param_groups"]
-        ],
-    }
-    return {"step": int(state.step), "model": model, "optimizer": optim}
+    if plans or sharding_lib.is_fully_sharded(state.model):
+        return _gathered_payload(state, plans)
+    return {"step": int(state.step), "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict()}
 
 
 def _map_moments(state: TrainState, optim: Dict[str, Any], fn) -> Dict[str, Any]:
@@ -1105,59 +1084,64 @@ def _map_moments(state: TrainState, optim: Dict[str, Any], fn) -> Dict[str, Any]
     return {**optim, "state": out}
 
 
-def _tp_payload(state: TrainState, plans) -> Optional[Dict[str, Any]]:
-    """state_payload under the tp plan and the ep layout (`plans`): each
-    split parameter and its optimizer moments all-gathered over the tp
-    group, then the ep group (a collective: every rank calls this); rank
-    0 gets the full payload."""
-    model = sharding_lib.gather_state_dict(state.model.state_dict(), plans)
+def _gathered_payload(state: TrainState, plans) -> Optional[Dict[str, Any]]:
+    """state_payload under FSDP2, the tp plan and the ep layout (`plans`):
+    each parameter, buffer and optimizer moment gathered whole in turn,
+    FSDP2's shards over the fsdp group first, then over the tp group and
+    the ep group (sharding.gather_tensor; a collective: every rank calls
+    this). Rank 0 moves each full tensor to its CPU as it arrives and the
+    other ranks drop it, so the full state never piles up on a device;
+    rank 0 gets the full payload."""
+    coordinator = distributed.is_coordinator()
 
     def gather(name, value):
-        return sharding_lib.gather_tensor(name, value, plans)
+        full = sharding_lib.gather_tensor(name, value, plans)
+        return full.cpu() if coordinator else None
 
+    model = {name: gather(name, value) for name, value in state.model.state_dict().items()}
     optim = _map_moments(state, state.optimizer.state_dict(), gather)
-    if not distributed.is_coordinator():
+    if not coordinator:
         return None
     return {"step": int(state.step), "model": model, "optimizer": optim}
 
 
 def _apply_payload(state: TrainState, payload: Dict[str, Any]) -> TrainState:
-    """Load a checkpoint's payload into `state` in place. Under FSDP2
-    (a collective: every rank calls this with the full payload) and under
-    the tp plan and the ep layout each rank keeps its shards."""
+    """Load a checkpoint's payload into `state` in place. Under the tp
+    plan and the ep layout each rank keeps its slices of the full tensors,
+    and under FSDP2 its chunk of those, all cut locally (no collective)."""
     plans = sharding_lib.layouts(state.model)
-    if plans:
-        def local(name, value):
-            return sharding_lib.local_slice(name, value, plans).clone()
+    if plans or sharding_lib.is_fully_sharded(state.model):
+        own = state.model.state_dict()
+        params = dict(state.model.named_parameters())
 
-        state.model.load_state_dict(
-            {name: local(name, value) for name, value in payload["model"].items()})
-        _load_optimizer(state.optimizer, lambda: state.optimizer.load_state_dict(
-            _map_moments(state, payload["optimizer"], local)))
-    elif not sharding_lib.is_fully_sharded(state.model):
+        def local(name, value, like):
+            # the full shape: like's (a DTensor's is its global one over
+            # fsdp) times each plan's split, checked on every rank alike
+            # before any cut (copy_ would broadcast a [1, n] into [m, n])
+            want = list(like.shape)
+            for lay in plans:
+                rule = lay.rule(name)
+                if rule is not None:
+                    want[rule[0]] *= lay.size
+            if list(value.shape) != want:
+                raise ValueError(f"checkpoint tensor {name}: shape {tuple(value.shape)}, "
+                                 f"the model's {tuple(want)}")
+            return sharding_lib.fsdp_local(sharding_lib.local_slice(name, value, plans), like)
+
+        saved = payload["model"]
+        if set(saved) != set(own):
+            raise KeyError(f"checkpoint names differ: missing {sorted(set(own) - set(saved))}, "
+                           f"unexpected {sorted(set(saved) - set(own))}")
+        with torch.no_grad():
+            for name, live in own.items():
+                value = sharding_lib.local_tensor(local(name, saved[name], live))
+                sharding_lib.local_tensor(live).copy_(value)
+        _load_optimizer(state.optimizer, lambda: state.optimizer.load_state_dict(_map_moments(
+            state, payload["optimizer"], lambda name, value: local(name, value, params[name]))))
+    else:
         state.model.load_state_dict(payload["model"])
         _load_optimizer(state.optimizer,
                         lambda: state.optimizer.load_state_dict(payload["optimizer"]))
-    else:
-        from torch.distributed.checkpoint.state_dict import (
-            StateDictOptions,
-            set_model_state_dict,
-            set_optimizer_state_dict,
-        )
-
-        options = StateDictOptions(full_state_dict=True)
-        set_model_state_dict(state.model, payload["model"], options=options)
-        names = _param_names(state)
-        saved = payload["optimizer"]
-        optim = {
-            "state": {names[i]: value for i, value in saved["state"].items()},
-            "param_groups": [
-                {**group, "params": [names[i] for i in group["params"]]}
-                for group in saved["param_groups"]
-            ],
-        }
-        _load_optimizer(state.optimizer, lambda: set_optimizer_state_dict(
-            state.model, state.optimizer, optim, options=options))
     state.step = int(payload["step"])
     return state
 

@@ -7,8 +7,8 @@
 Joins the TFJob's world from the operator-injected env
 (parallel/distributed.py) and lays models/vit.py's ViT over a (dp,
 fsdp, tp) mesh by TRANSFORMER_RULES (its blocks are BERT's): DDP, FSDP2
-on each block and the root with --fsdp > 1, or the Megatron plan on its
-blocks with --tp > 1 (the patch embedding, position embedding and head
+on each block and the root with --fsdp > 1, the Megatron plan on its
+blocks with --tp > 1, or both (the patch embedding, position embedding and head
 stay replicated, as the reference's rules leave them). The global batch is
 --per-chip-batch x the world size. Runs on one CUDA device unless
 --device names another. AdamW with weight decay 0.05 at
@@ -75,7 +75,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--device", default=None, help="default: cuda")
     add_monitoring_flag(parser)
     args = parser.parse_args(argv)
-    args.mesh = mesh_config(parser, args)
+    args.mesh = mesh_config(args)
     return args
 
 
